@@ -1,0 +1,239 @@
+"""Context — binds (System, Integrator, State) (counterpart of
+atomsmm_tpu/context.py).
+
+`step(n)` runs the step function n times in a Python loop of eager PyTorch
+operations (the JAX package runs one jitted device loop). The neighbor
+buckets are rebuilt after every outer step and their overflow flags stay on
+the device; step(n) reads them once, at its end, and on overflow restores
+the state from before the call, grows the cell capacities and runs the n
+steps again.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Optional
+
+import torch
+
+from .ops.neighbors import (
+    all_neighbor_extras,
+    coverage_deficient,
+    iter_specs,
+    make_aux,
+    overflow_flags,
+    retune_neighbor_specs,
+    update_all_neighbors,
+)
+from .potential import (
+    force_fn,
+    group_energies,
+    potential_energy,
+    split_potential_energy,
+)
+from .state import State, kinetic_energy, make_state, \
+    maxwell_boltzmann_velocities, remove_com_motion
+from .utils import count_degrees_of_freedom, replace
+
+
+def refresh_force_caches(system, state, globals):
+    """Recompute every force cache present in State.extra at the current
+    positions (run at the start of each step(n), so a change made between
+    calls can never leave a stale cache)."""
+    from .integrate.propagators import parse_force_cache_tag
+
+    aux = make_aux(system, state.extra)
+    updates = {}
+    for key in state.extra:
+        if key.startswith("fcache_"):
+            _, f = force_fn(system, parse_force_cache_tag(key))(
+                state.x, state.box, globals, aux)
+            updates[key] = f
+    return state.with_extra(**updates) if updates else state
+
+
+@dataclasses.dataclass
+class StateSnapshot:
+    """Positions, velocities, forces and energies, with the per-group and
+    per-force decomposition."""
+
+    positions: torch.Tensor = None
+    velocities: torch.Tensor = None
+    box: torch.Tensor = None
+    forces: torch.Tensor = None
+    potential_energy: torch.Tensor = None
+    kinetic_energy: torch.Tensor = None
+    group_energies: Dict[int, torch.Tensor] = None
+    energy_split: Dict[str, torch.Tensor] = None
+    step: int = None
+
+
+def _clone_state(state: State) -> State:
+    return replace(state, x=state.x.clone(), v=state.v.clone(),
+                   box=state.box.clone(),
+                   extra={k: v.clone() for k, v in state.extra.items()})
+
+
+class Context:
+    def __init__(self, system, integrator, state: Optional[State] = None,
+                 seed: int = 0):
+        self.system = system
+        self.integrator = integrator
+        #: how many times the last step(n) ran its n steps (2+ after an
+        #: overflow recovery)
+        self.last_step_passes = 0
+        if state is None:
+            x = torch.zeros((system.num_particles, 3),
+                            dtype=system.masses.dtype,
+                            device=system.masses.device)
+            state = make_state(x, box=system.default_box, seed=seed)
+        state = _clone_state(state)
+        from .ops.pbc import validate_cutoffs
+
+        validate_cutoffs(system, state.box)
+        for name, spec in iter_specs(system):
+            if coverage_deficient(spec, state.box):
+                raise RuntimeError(
+                    f"cell-list spec {name!r}: the stencil reach does not "
+                    "cover the cutoff at this box — pairs would be silently "
+                    "dropped; build the NeighborSpec for this box")
+        if system.neighbors is not None:
+            extras = all_neighbor_extras(system, state.x, state.box)
+            if any(bool(v) for k, v in extras.items() if k.endswith("overflow")):
+                # cold-start capacity estimate busted: retune every spec to
+                # the measured configuration instead of raising
+                self.system = system = retune_neighbor_specs(
+                    system, state.x, state.box)
+                extras = all_neighbor_extras(system, state.x, state.box)
+            state = state.with_extra(**extras)
+        self.state = integrator.initialize(system, state)
+        self._step_fn = integrator.make_step()
+        self.check_overflow = system.neighbors is not None
+
+    # -- stepping ----------------------------------------------------------
+
+    def _update_neighbors(self, s: State) -> State:
+        if self.system.neighbors is None:
+            return s
+        return s.with_extra(**update_all_neighbors(self.system, s.extra, s.x,
+                                                   s.box))
+
+    def _advance(self, n: int):
+        system = self.system
+        s = self._update_neighbors(self.state)
+        s = refresh_force_caches(system, s, {})
+        for _ in range(n):
+            s = self._update_neighbors(self._step_fn(system, s, {}))
+        self.state = s
+
+    def _flags(self):
+        """Host copy of the sticky overflow flags: one device sync."""
+        flags = overflow_flags(self.state.extra)
+        if not flags:
+            return {}
+        values = torch.stack([v.reshape(()) for v in flags.values()]).tolist()
+        return dict(zip(flags, values))
+
+    def step(self, n: int):
+        """Advance n outer steps.
+
+        Capacity overflow auto-recovers: the state from before the call is
+        restored, capacities grow to the measured occupancy, and the n steps
+        run again."""
+        self.last_step_passes = 0
+        for attempt in range(3):
+            backup = _clone_state(self.state) if self.check_overflow else None
+            self._advance(n)
+            self.last_step_passes += 1
+            if not self.check_overflow:
+                break
+            overflowed = [k for k, v in self._flags().items() if v]
+            if not overflowed:
+                break
+            if attempt == 2:
+                raise RuntimeError(
+                    f"cell-list capacity overflow persists after retuning "
+                    f"({overflowed}): increase the cell capacity")
+            warnings.warn(
+                f"cell-list overflow ({overflowed}): restoring the state from "
+                "before step(), retuning capacities and running again",
+                stacklevel=2)
+            self.state = backup
+            self.retune_neighbors(safety=1.15 * (1.2 ** attempt),
+                                  grow_only=True)
+        return self
+
+    # -- observation -------------------------------------------------------
+
+    def get_state(self, lite: bool = False) -> StateSnapshot:
+        """Snapshot with the per-force split, per-group energies and forces,
+        or with lite=True positions, velocities and energies only (one
+        total-energy pass)."""
+        system, globals = self.system, {}
+        s = self._update_neighbors(self.state)
+        aux = make_aux(system, s.extra)
+        ke = kinetic_energy(system.masses, s.v)
+        if lite:
+            return StateSnapshot(
+                positions=s.x, velocities=s.v, box=s.box,
+                potential_energy=potential_energy(system, s.x, s.box,
+                                                  globals, aux=aux),
+                kinetic_energy=ke, step=s.step)
+        e_split = split_potential_energy(system, s.x, s.box, globals, aux)
+        _, forces = force_fn(system)(s.x, s.box, globals, aux)
+        return StateSnapshot(
+            positions=s.x, velocities=s.v, box=s.box, forces=forces,
+            potential_energy=e_split["Total"], kinetic_energy=ke,
+            group_energies=group_energies(system, s.x, s.box, globals, aux),
+            energy_split=e_split, step=s.step)
+
+    # -- openmm.Context-like surface ---------------------------------------
+
+    def set_velocities(self, v):
+        v = torch.as_tensor(v).to(dtype=self.state.v.dtype,
+                                  device=self.state.v.device).clone()
+        self.state = replace(self.state, v=v)
+
+    def set_velocities_to_temperature(self, temperature, seed: int = 0):
+        rng = torch.Generator(device=self.state.x.device)
+        rng.manual_seed(seed)
+        v = maxwell_boltzmann_velocities(rng, self.system.masses, temperature,
+                                         self.state.x.dtype)
+        if self.system.remove_com_motion:
+            v = remove_com_motion(self.system.masses, v)
+        self.set_velocities(v)
+
+    def retune_neighbors(self, safety: float = 1.15, grow_only: bool = False):
+        """Resize every neighbor spec's cell capacity to the measured max
+        occupancy of the current configuration (ops.neighbors.retune_spec);
+        grow_only floors each capacity at its current value + 4."""
+        if self.system.neighbors is None:
+            return self
+        self.system = retune_neighbor_specs(
+            self.system, self.state.x, self.state.box, safety,
+            grow_only=grow_only)
+        kept = {k: v for k, v in self.state.extra.items()
+                if not k.startswith("nbr")}
+        state = replace(self.state, extra=kept)
+        self.state = state.with_extra(
+            **all_neighbor_extras(self.system, state.x, state.box))
+        return self
+
+    # -- convenience -------------------------------------------------------
+
+    @property
+    def degrees_of_freedom(self) -> int:
+        return count_degrees_of_freedom(self.system)
+
+    def temperature(self):
+        from .units import BOLTZMANN
+
+        ke = kinetic_energy(self.system.masses, self.state.v)
+        return 2.0 * ke / (self.degrees_of_freedom * BOLTZMANN)
+
+    def conserved_energy(self):
+        """Potential + kinetic + thermostat contributions — the quantity
+        whose drift validates an integrator."""
+        snap = self.get_state(lite=True)
+        return (snap.potential_energy + snap.kinetic_energy
+                + self.integrator.conserved_extra(self.state))

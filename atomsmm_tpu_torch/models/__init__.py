@@ -1,0 +1,3 @@
+"""Model systems (counterpart of atomsmm_tpu/models)."""
+from .argon import argon_system
+from .water import water_system

@@ -1,0 +1,525 @@
+"""Cell-list pair evaluation (counterpart of atomsmm_tpu/ops/neighbors.py),
+the production nonbonded path.
+
+  * rebuild: bin atoms into a static cell grid with one sort of packed int32
+    keys and scatter them into fixed-capacity buckets (ncells, cap) of atom
+    ids, padded with the sentinel id N;
+  * evaluation: each home cell meets its stencil cells. With Newton
+    half-stencil maps (every grid dimension >= 2*reach + 1) the sweep visits
+    each cell pair once and runs the hand-written CUDA kernel on the card
+    (ops/pair_kernel.py); its plain PyTorch twin runs on the CPU. Grids too
+    small for half maps take the full-stencil sweep, which is CPU-only until
+    its kernel is ported.
+
+Shapes are static (NeighborSpec). Bucket overflow is flagged, never
+silently dropped: the flag stays on the device and Context.step reads it
+once per call. The box is fixed (no barostat is ported), so the stencil's
+coverage of the cutoff is checked once, when a Context is built.
+
+Unlike the JAX package, which rebuilds only when an atom has moved half the
+skin, the port rebuilds at every outer step (JAX's ``force=True`` branch):
+a data-dependent branch in eager PyTorch would stop the host at every step,
+and the forces do not depend on which valid bucket is used.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from .pbc import minimum_image
+
+# State.extra keys (the default spec; named specs use nbr_<name>_bucket ...)
+NBR_BUCKET = "nbr_bucket"
+NBR_OVERFLOW = "nbr_overflow"
+
+EXC_OFF = 16     # exclusion bit for relative offset 0 (self)
+EXC_WINDOW = 14  # max |i - j| representable in the exclusion bitmask
+
+
+class KernelNotPortedError(NotImplementedError):
+    """A cell-list configuration whose TPU kernel has no CUDA port yet."""
+
+
+def _keys(name: str):
+    if name == "default":
+        return NBR_BUCKET, NBR_OVERFLOW
+    return f"nbr_{name}_bucket", f"nbr_{name}_overflow"
+
+
+def iter_specs(system):
+    """(name, spec) pairs for every neighbor spec attached to a system."""
+    if getattr(system, "neighbors", None) is not None:
+        yield "default", system.neighbors
+    for name, spec in (getattr(system, "extra_neighbor_specs", None) or {}).items():
+        yield name, spec
+
+
+@dataclasses.dataclass
+class NeighborSpec:
+    """Static-shape cell-list configuration, attached to a System. The device
+    of its tensors is the device the sweep runs on.
+
+    nbr_cells is the (ncells, S) map of neighboring cell ids, -1-padded after
+    deduplication. The half-stencil maps have column 0 = the cell itself and
+    then the lexicographically positive directions; inv[c, k] = c - d_k.
+    They are None when the grid is too small. excbits is the relative-offset
+    exclusion bitmask (bit j - i + 16 per atom, bit 16 = self), None when an
+    excluded pair spans more than +-14 atom indices.
+    """
+
+    nbr_cells: torch.Tensor = None         # (ncells, S) int32, -1 padded
+    exclusions: torch.Tensor = None        # (N, M) int32, -1 padded
+    r_build: float = 0.0                   # max cutoff + skin
+    skin: float = 0.0
+    nbr_cells_half: torch.Tensor = None    # (ncells, S_half) int32
+    inv_cells_half: torch.Tensor = None    # (ncells, S_half) int32
+    excbits: torch.Tensor = None           # (N + 1,) int32
+    grid: Tuple[int, int, int] = (1, 1, 1)
+    reach: Tuple[int, int, int] = (1, 1, 1)
+    cell_capacity: int = 64
+    cell_chunk: int = 4                    # home cells per plain-sweep chunk
+    half_stencil: bool = False
+
+    @property
+    def ncells(self) -> int:
+        return int(np.prod(self.grid))
+
+
+def _neighbor_cell_map(grid, reach=(1, 1, 1)) -> np.ndarray:
+    """Host-side: for each cell, the unique neighboring cell ids within
+    +-reach cells per dimension (periodic), -1 padded."""
+    nx, ny, nz = grid
+    rx, ry, rz = reach
+    ncells = nx * ny * nz
+    s_max = (2 * rx + 1) * (2 * ry + 1) * (2 * rz + 1)
+    out = np.full((ncells, s_max), -1, dtype=np.int32)
+    for cx in range(nx):
+        for cy in range(ny):
+            for cz in range(nz):
+                cid = (cx * ny + cy) * nz + cz
+                seen = set()
+                for dx in range(-rx, rx + 1):
+                    for dy in range(-ry, ry + 1):
+                        for dz in range(-rz, rz + 1):
+                            seen.add((((cx + dx) % nx) * ny + ((cy + dy) % ny))
+                                     * nz + ((cz + dz) % nz))
+                cells = sorted(seen)
+                out[cid, : len(cells)] = cells
+    used = int((out >= 0).sum(axis=1).max())
+    return out[:, :used]
+
+
+def _half_stencil_maps(grid, reach):
+    """(nbr_half, inv_half) or (None, None) when the periodic grid is too
+    small for collision-free direction maps (any dim < 2*reach + 1)."""
+    nx, ny, nz = grid
+    rx, ry, rz = reach
+    if nx < 2 * rx + 1 or ny < 2 * ry + 1 or nz < 2 * rz + 1:
+        return None, None
+    dirs = [(0, 0, 0)]
+    for dx in range(-rx, rx + 1):
+        for dy in range(-ry, ry + 1):
+            for dz in range(-rz, rz + 1):
+                if (dx, dy, dz) > (0, 0, 0):
+                    dirs.append((dx, dy, dz))
+    ncells = nx * ny * nz
+    nbr = np.zeros((ncells, len(dirs)), np.int32)
+    inv = np.zeros((ncells, len(dirs)), np.int32)
+    for cx in range(nx):
+        for cy in range(ny):
+            for cz in range(nz):
+                cid = (cx * ny + cy) * nz + cz
+                for k, (dx, dy, dz) in enumerate(dirs):
+                    nbr[cid, k] = (((cx + dx) % nx) * ny + ((cy + dy) % ny)) \
+                        * nz + ((cz + dz) % nz)
+                    inv[cid, k] = (((cx - dx) % nx) * ny + ((cy - dy) % ny)) \
+                        * nz + ((cz - dz) % nz)
+    return nbr, inv
+
+
+def make_exclusion_bits(n: int, exclusions) -> np.ndarray:
+    """(N+1,) int32: bit (j - i + EXC_OFF) set for every excluded pair and
+    for offset 0 (self); row N (the sentinel) carries the self bit only.
+    exclusions: (N, M) int32 j-lists padded with -1. Raises ValueError when
+    an excluded pair spans more than +-EXC_WINDOW atom indices."""
+    exc = np.asarray(exclusions)
+    bits = np.full(n + 1, np.int64(1) << EXC_OFF, dtype=np.int64)
+    if exc.size:
+        ii = np.repeat(np.arange(n), exc.shape[1])
+        jj = exc.reshape(-1)
+        ok = jj >= 0
+        ii, jj = ii[ok], jj[ok]
+        d = jj - ii
+        if d.size and np.abs(d).max() > EXC_WINDOW:
+            raise ValueError(
+                f"the exclusion bitmask holds excluded pairs within "
+                f"+-{EXC_WINDOW} atom indices (got {np.abs(d).max()})")
+        np.bitwise_or.at(bits, ii, np.int64(1) << (d + EXC_OFF))
+    return bits.astype(np.int32)
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _max_cell_occupancy(x, box, grid) -> int:
+    """Host-side: max atoms in any cell of `grid` for configuration x."""
+    x = _host(x)
+    box = np.asarray(_host(box), np.float64)
+    grid_a = np.asarray(grid)
+    if not np.isfinite(x).all():
+        bad = int((~np.isfinite(x).all(axis=-1)).sum())
+        raise FloatingPointError(
+            f"{bad}/{x.shape[0]} positions are non-finite — the trajectory "
+            "has diverged; refusing to retune neighbor capacities from it")
+    w = box / grid_a
+    xw = x - box * np.floor(x / box)
+    c3 = np.clip((xw / w).astype(np.int64), 0, grid_a - 1)
+    cid = (c3[:, 0] * grid[1] + c3[:, 1]) * grid[2] + c3[:, 2]
+    return int(np.bincount(cid, minlength=int(np.prod(grid_a))).max())
+
+
+def _chunk_for(ncells: int, cap: int, s: int) -> int:
+    per_cell = cap * s * cap * 4
+    return max(1, min(ncells, (48 << 20) // max(per_cell, 1)))
+
+
+def retune_spec(spec: NeighborSpec, x, box, safety: float = 1.15,
+                floor: int = 0) -> NeighborSpec:
+    """Resize a spec's cell capacity to the measured max occupancy of `x`
+    (same grid and stencil); `floor` sets a minimum capacity (overflow
+    recovery passes the current capacity + 4 so capacities only grow)."""
+    occ = _max_cell_occupancy(x, box, spec.grid)
+    cap = ((max(int(math.ceil(occ * safety)) + 1, floor) + 3) // 4) * 4
+    chunk = _chunk_for(spec.ncells, cap, spec.nbr_cells.shape[1])
+    return dataclasses.replace(spec, cell_capacity=cap, cell_chunk=chunk)
+
+
+def retune_neighbor_specs(system, x, box, safety: float = 1.15,
+                          grow_only: bool = False):
+    """Retune every neighbor spec attached to a system (see retune_spec).
+    grow_only floors each capacity at its current value + 4."""
+    from ..utils import replace
+
+    if getattr(system, "neighbors", None) is None:
+        return system
+
+    def one(spec):
+        floor = spec.cell_capacity + 4 if grow_only else 0
+        return retune_spec(spec, x, box, safety, floor=floor)
+
+    default = one(system.neighbors)
+    extra = {name: one(spec)
+             for name, spec in (system.extra_neighbor_specs or {}).items()}
+    return replace(system, neighbors=default, extra_neighbor_specs=extra or None)
+
+
+def make_neighbor_spec(
+    box,
+    n: int,
+    r_cut_max: float,
+    skin: float = 0.1,
+    min_skin: float = 0.04,
+    exclusions=None,
+    occupancy_floor_from=None,
+    device=None,
+) -> NeighborSpec:
+    """Host-side setup: pick the cell grid and capacity for n atoms in an
+    orthorhombic `box` with the largest relevant cutoff r_cut_max.
+
+    The grid is the finest one whose cell width still covers
+    r_cut_max + min_skin; the skin is whatever margin the width leaves,
+    capped at `skin`. Capacity is 1.7 x the mean occupancy, raised (never
+    lowered) to 1.15 x the measured max occupancy of `occupancy_floor_from`,
+    a setup configuration. There is no backend choice: the device of the
+    tensors decides where the sweep runs.
+    """
+    box = np.asarray(_host(box), np.float64)
+    if box.ndim != 1:
+        from ..utils import InputError
+
+        raise InputError("cell lists in atomsmm_tpu_torch take (3,) boxes")
+    target_w = float(r_cut_max) + float(min_skin)
+    grid = tuple(max(1, int(np.floor(b / target_w))) for b in box)
+    w = box / np.array(grid)
+    skin_eff = min(float(np.min(w)) - float(r_cut_max), float(skin))
+    skin_eff = max(skin_eff, float(min_skin))
+    r_build = float(r_cut_max) + skin_eff
+    reach = tuple(int(np.ceil(r_build / wi)) for wi in w)
+    vol = float(np.prod(box))
+    rho = n / vol
+    cell_vol = vol / float(np.prod(grid))
+    cap = int(math.ceil(rho * cell_vol * 1.7) + 4)
+    if occupancy_floor_from is not None:
+        occ_max = _max_cell_occupancy(occupancy_floor_from, box, grid)
+        cap = max(cap, int(math.ceil(occ_max * 1.15) + 2))
+    cap = ((cap + 7) // 8) * 8
+    exclusions = (np.full((n, 1), -1, np.int32) if exclusions is None
+                  else _host(exclusions).astype(np.int32))
+    ncells = int(np.prod(grid))
+    s = min((2 * reach[0] + 1) * (2 * reach[1] + 1) * (2 * reach[2] + 1),
+            ncells)
+    nbr_half, inv_half = _half_stencil_maps(grid, reach)
+    try:
+        excbits = torch.as_tensor(make_exclusion_bits(n, exclusions),
+                                  device=device)
+    except ValueError:  # excluded pair outside the +-14 index window
+        excbits = None
+
+    def dev(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    return NeighborSpec(
+        nbr_cells=dev(_neighbor_cell_map(grid, reach)),
+        exclusions=dev(exclusions),
+        r_build=r_build,
+        skin=skin_eff,
+        nbr_cells_half=dev(nbr_half),
+        inv_cells_half=dev(inv_half),
+        excbits=excbits,
+        grid=grid,
+        reach=reach,
+        cell_capacity=cap,
+        cell_chunk=_chunk_for(ncells, cap, s),
+        half_stencil=nbr_half is not None,
+    )
+
+
+def build_cell_buckets(spec: NeighborSpec, x, box):
+    """Bin atoms into (ncells, cap) id buckets (sentinel N) with one sort.
+
+    When cell id and atom index pack into 31 bits, a value sort of
+    ``cid << idx_bits | i`` replaces the argsort. Atoms past a cell's
+    capacity are routed to one extra dump slot that is cut off afterwards,
+    the counterpart of JAX's ``mode="drop"`` scatter, and raise the returned
+    overflow flag (a device bool: no host sync).
+    """
+    n = x.shape[0]
+    dev = x.device
+    grid = torch.as_tensor(spec.grid, dtype=torch.int32, device=dev)
+    ncells = spec.ncells
+    cap = spec.cell_capacity
+
+    w = box / grid.to(box.dtype)
+    xw = x - box * torch.floor(x / box)
+    c3 = torch.minimum(torch.clamp((xw / w).to(torch.int32), min=0), grid - 1)
+    cid = (c3[:, 0] * spec.grid[1] + c3[:, 1]) * spec.grid[2] + c3[:, 2]
+
+    iarr = torch.arange(n, dtype=torch.int32, device=dev)
+    idx_bits = max(n - 1, 1).bit_length()
+    if (ncells << idx_bits) < 2**31:
+        packed = torch.sort((cid << idx_bits) | iarr).values
+        order = packed & ((1 << idx_bits) - 1)
+        sorted_cid = packed >> idx_bits
+    else:  # > ~2B combined keys: fall back to a stable argsort
+        order = torch.argsort(cid, stable=True).to(torch.int32)
+        sorted_cid = cid[order]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sorted_cid[1:] != sorted_cid[:-1]
+    seg_start = torch.cummax(torch.where(first, iarr, torch.zeros_like(iarr)),
+                             dim=0).values
+    rank = iarr - seg_start
+    ok = rank < cap
+    slot = torch.where(ok, sorted_cid * cap + rank,
+                       torch.full_like(rank, ncells * cap))
+    bucket = torch.full((ncells * cap + 1,), n, dtype=torch.int32, device=dev)
+    bucket[slot.long()] = order
+    return bucket[:-1].reshape(ncells, cap), torch.any(~ok)
+
+
+def coverage_deficient(spec: NeighborSpec, box) -> bool:
+    """Host-side: the stencil reach does not cover the cutoff at `box`
+    (only dims where the stencil does not wrap the whole grid count)."""
+    box = np.asarray(_host(box), np.float64)
+    r_cut = spec.r_build - spec.skin
+    return any(2 * r + 1 < g and b / g * r < r_cut
+               for b, g, r in zip(box, spec.grid, spec.reach))
+
+
+def neighbor_list_extras(spec, x, box, name: str = "default") -> Dict[str, torch.Tensor]:
+    kb, kov = _keys(name)
+    bucket, overflow = build_cell_buckets(spec, x, box)
+    return {kb: bucket, kov: overflow}
+
+
+def all_neighbor_extras(system, x, box) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, spec in iter_specs(system):
+        out.update(neighbor_list_extras(spec, x, box, name))
+    return out
+
+
+def overflow_flags(extra) -> Dict[str, torch.Tensor]:
+    """The sticky bucket-overflow flags held in `extra`."""
+    return {k: v for k, v in extra.items()
+            if k.startswith("nbr") and k.endswith("overflow")}
+
+
+def make_aux(system, extra):
+    """The aux dict passed to force evaluations: for each attached neighbor
+    spec, its spec and current bucket. None when no neighbor path exists."""
+    aux = {}
+    for name, spec in iter_specs(system):
+        kb = _keys(name)[0]
+        if kb in extra:
+            aux[name] = {"spec": spec, "bucket": extra[kb]}
+    return aux or None
+
+
+def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default"):
+    """Re-bin unconditionally (JAX's ``force=True`` branch). The overflow
+    flag is sticky: it ORs across rebuilds."""
+    kb, kov = _keys(name)
+    bucket, overflow = build_cell_buckets(spec, x, box)
+    return {kb: bucket, kov: extra[kov] | overflow}
+
+
+def update_all_neighbors(system, extra, x, box):
+    out = {}
+    for name, spec in iter_specs(system):
+        if _keys(name)[0] in extra:
+            out.update(update_neighbors(spec, extra, x, box, name))
+    return out
+
+
+# --------------------------------------------------------------------------
+# Pair evaluation over cell buckets
+# --------------------------------------------------------------------------
+
+
+def _stage_buckets(x, per_particle, bucket):
+    """One coarse row gather staging positions + parameters into bucket
+    layout; sentinel slots gather a zero row and are masked by id."""
+    cols = [x] + [p[:, None].to(x.dtype) for p in per_particle.values()]
+    stacked = torch.cat(cols, dim=1)
+    stacked = torch.cat([stacked, stacked.new_zeros((1, stacked.shape[1]))])
+    g = stacked[bucket.long()]
+    bucket_pp = {k: g[..., 3 + i] for i, k in enumerate(per_particle)}
+    return g[..., :3], bucket_pp
+
+
+def _cell_pair_sums(spec, form, x, box, per_particle, bucket, r_cut,
+                    with_forces: bool):
+    """Full-stencil sweep (plain mirror of the JAX package's
+    ``_cell_pair_sums``): each home cell against all its stencil cells, both
+    orderings, energy weight 1/2, exclusions by id columns. Returns (energy,
+    bucket forces (ncells, cap, 3) or None)."""
+    from .pairfuncs import form_u_dudr2, lorentz_berthelot
+
+    n = x.shape[0]
+    ncells, cap = bucket.shape
+    s = spec.nbr_cells.shape[1]
+    chunk = min(spec.cell_chunk, ncells)
+    bucket_x, bucket_pp = _stage_buckets(x, per_particle, bucket)
+    bucket_l = bucket.long()
+    exc = spec.exclusions
+    exc_pad = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])
+    rc2 = torch.as_tensor(float(r_cut), dtype=x.dtype) ** 2
+    energy = torch.zeros((), dtype=x.dtype, device=x.device)
+    f_chunks = []
+    for lo in range(0, ncells, chunk):
+        cid = torch.arange(lo, min(lo + chunk, ncells), device=x.device)
+        b = cid.shape[0]
+        home_x = bucket_x[cid]
+        home_id = bucket_l[cid]
+        ncell_ids = spec.nbr_cells[cid].long()
+        nvalid = ncell_ids >= 0
+        ncid = torch.where(nvalid, ncell_ids, torch.zeros_like(ncell_ids))
+        cand_x = bucket_x[ncid].reshape(b, s * cap, 3)
+        cand_id = torch.where(nvalid[:, :, None], bucket_l[ncid],
+                              torch.full_like(bucket_l[ncid], n)
+                              ).reshape(b, s * cap)
+        dx = minimum_image(home_x[:, :, None, :] - cand_x[:, None, :, :], box)
+        r2 = torch.sum(dx * dx, dim=-1)
+        mask = ((home_id[:, :, None] < n) & (cand_id[:, None, :] < n)
+                & (home_id[:, :, None] != cand_id[:, None, :]) & (r2 < rc2))
+        home_exc = exc_pad[torch.clamp(home_id, 0, n)].long()
+        excluded = torch.any(
+            cand_id[:, None, None, :] == home_exc[:, :, :, None], dim=2)
+        mask &= ~excluded
+        r2m = torch.where(mask, r2, torch.ones_like(r2))
+        pi = {k: v[cid][:, :, None] for k, v in bucket_pp.items()}
+        pj = {k: v[ncid].reshape(b, s * cap)[:, None, :]
+              for k, v in bucket_pp.items()}
+        sig, eps = lorentz_berthelot(pi["sigma"], pj["sigma"],
+                                     pi["epsilon"], pj["epsilon"])
+        u, dudr2 = form_u_dudr2(form, r2m, pi["charge"] * pj["charge"],
+                                sig, eps)
+        energy = energy + 0.5 * torch.sum(torch.where(mask, u,
+                                                      torch.zeros_like(u)))
+        if with_forces:
+            fmag = torch.where(mask, 2.0 * dudr2, torch.zeros_like(dudr2))
+            f_chunks.append(-torch.sum(fmag[..., None] * dx, dim=2))
+    if not with_forces:
+        return energy, None
+    return energy, torch.cat(f_chunks)
+
+
+def _cell_pair_sums_half(spec, form, x, box, per_particle, bucket, r_cut,
+                         with_forces: bool):
+    """Newton half-stencil sweep (plain mirror of the JAX package's
+    ``_cell_pair_sums_half``): each cell pair once, reactions routed back
+    through the inverse direction map. It is the kernel's plain twin run
+    through the kernel wrapper's own staging and write-back. Returns
+    (energy, bucket forces (ncells, cap, 3) or None)."""
+    from .pair_kernel import half_pair_plain, half_writeback, stage
+
+    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
+    oh, oc = half_pair_plain(hf, hm, spec.nbr_cells_half, box, form, r_cut,
+                             x.shape[0], spec.cell_chunk, exc_cols,
+                             with_forces)
+    energy = oh[..., 3].sum()
+    if not with_forces:
+        return energy, None
+    return energy, half_writeback(oh, oc, spec.inv_cells_half)
+
+
+def _scatter_forces(f_bucket, bucket, n):
+    forces = f_bucket.new_zeros((n + 1, 3))
+    forces.index_add_(0, bucket.reshape(-1).long(), f_bucket.reshape(-1, 3))
+    return forces[:n]
+
+
+def _full_stencil_guard(x):
+    if x.is_cuda:
+        raise KernelNotPortedError(
+            "this cell grid is too small for half-stencil maps (a dimension "
+            "below 2*reach + 1), so it needs the full-stencil kernel "
+            "(atomsmm_tpu/ops/pallas_pair.py::_pair_kernel), which has no "
+            "CUDA port yet; use a larger box or a finer grid")
+
+
+def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut):
+    """Pair energy over the cell buckets. On the card the half-stencil case
+    runs the CUDA kernel (energy only is its fourth output column)."""
+    if spec.half_stencil:
+        from .pair_kernel import half_pair_energy_forces
+
+        e, _ = half_pair_energy_forces(form, x, box, per_particle, spec,
+                                       bucket, r_cut, with_forces=False)
+        return e
+    _full_stencil_guard(x)
+    e, _ = _cell_pair_sums(spec, form, x, box, per_particle, bucket, r_cut,
+                           with_forces=False)
+    return e
+
+
+def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
+    """(energy, forces (N, 3)) with explicit symmetric forces: the Newton
+    half-stencil sweep (CUDA kernel on the card, its plain twin on the CPU)
+    when half maps exist, else the full-stencil sweep (CPU only)."""
+    if spec.half_stencil:
+        from .pair_kernel import half_pair_energy_forces
+
+        return half_pair_energy_forces(form, x, box, per_particle, spec,
+                                       bucket, r_cut)
+    _full_stencil_guard(x)
+    e, f_bucket = _cell_pair_sums(spec, form, x, box, per_particle, bucket,
+                                  r_cut, with_forces=True)
+    return e, _scatter_forces(f_bucket, bucket, x.shape[0])

@@ -1,0 +1,55 @@
+"""Dense (all-pairs) nonbonded evaluator (counterpart of
+atomsmm_tpu/ops/pairs.py) — the O(N²) oracle.
+
+Chunked, masked evaluation of an arbitrary pair energy function with
+exclusions; forces come from autograd. It is the deterministic reference
+that the golden energies and the cell-list path are checked against, and it
+runs on the CPU only: on the card every nonbonded force goes through the
+cell-pair kernel.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from .pbc import minimum_image
+
+
+def dense_pair_energy(
+    pair_fn: Callable,
+    x: torch.Tensor,
+    box: torch.Tensor,
+    per_particle: Dict[str, torch.Tensor],
+    exclusions: torch.Tensor,
+    r_cut,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Sum of pair_fn over all unique pairs with r < r_cut, minus exclusions.
+
+    pair_fn(r, pi, pj) -> energy; per_particle maps names to (N,) parameter
+    tensors; exclusions is the (N, M) symmetric table padded with -1.
+    """
+    if x.is_cuda:
+        raise RuntimeError(
+            "dense_pair_energy is the CPU oracle; attach a NeighborSpec to "
+            "run nonbonded forces on the card")
+    n = x.shape[0]
+    j_ids = torch.arange(n, device=x.device)[None, :]
+    rc2 = torch.as_tensor(float(r_cut), dtype=x.dtype) ** 2
+    total = torch.zeros((), dtype=x.dtype, device=x.device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        ii = torch.arange(lo, hi, device=x.device)
+        dx = minimum_image(x[lo:hi, None, :] - x[None, :, :], box)
+        r2 = torch.sum(dx * dx, dim=-1)
+        mask = (j_ids > ii[:, None]) & (r2 < rc2)
+        exc = exclusions[lo:hi]
+        excluded = torch.any(j_ids[:, None, :] == exc[:, :, None], dim=1)
+        mask &= ~excluded
+        r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+        pi = {k: v[lo:hi, None] for k, v in per_particle.items()}
+        pj = {k: v[None, :] for k, v in per_particle.items()}
+        e = pair_fn(r, pi, pj)
+        total = total + torch.sum(torch.where(mask, e, torch.zeros_like(e)))
+    return total
