@@ -2,9 +2,11 @@
 
 The JAX package `atomsmm_tpu` stays the reference; this package keeps its
 module layout and public names. It runs in float64 on the CPU (the parity
-tests) and in float32 on an NVIDIA Hopper GPU, where the nonbonded sweep is
-the hand-written CUDA kernel csrc/half_pair.cu. This package never imports
-JAX.
+tests) and in float32 on an NVIDIA Hopper GPU, where the nonbonded sweeps
+are hand-written CUDA kernels: csrc/half_pair.cu (Newton half stencil),
+csrc/cell_pair.cu (full stencil, small boxes) and csrc/tile_pair.cu (the
+standalone tile-list entry point, ops/tilepair.py). This package never
+imports JAX.
 """
 
 __version__ = "0.1.0"

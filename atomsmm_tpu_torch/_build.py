@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-The kernels are plain CUDA C++ with a C interface (``csrc/*.cu``). At first
-use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``atomsmm_tpu_torch/_build/`` and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs at
-import time: the CPU tests import the package without ``nvcc``.
+The kernels are plain CUDA C++ with a C interface (``csrc/*.cu``, sharing
+the pair forms of ``csrc/pair_forms.cuh``). At first use each source is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
+under ``atomsmm_tpu_torch/_build/``, all of them by concurrent ``nvcc``
+processes, and loaded with ``ctypes``. A library's file name carries a hash
+of its source, every header and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing here runs at import
+time: the CPU tests import the package without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -16,14 +18,25 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "half_pair.cu",)
+CSRC = _HERE / "csrc"
+#: kernel name -> source; each becomes lib<name>_<hash>.so
+KERNELS = {name: CSRC / f"{name}.cu"
+           for name in ("half_pair", "cell_pair", "tile_pair")}
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIB = None
+#: argument kinds of every C entry point: p = pointer, i = int
+_SIGNATURES = {
+    "half_pair": "ppppp" "iiiii" "pppp" "p",
+    "cell_pair": "ppppp" "iiiii" "ppp" "p",
+    "tile_pair": "pppppp" "iii" "ppp" "p",
+}
+
+_LIBS = {}
 
 
 def _nvcc() -> str:
@@ -41,46 +54,59 @@ def _nvcc() -> str:
         "are built from source at first use")
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (KERNELS[name], *HEADERS):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"atomsmm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources into the hashed library unless it exists; the
-    compiler's resource report goes to ``<library>.log``."""
-    so = library_path()
-    if so.exists():
-        return so
+def build() -> dict:
+    """Compile every kernel whose hashed library is missing, all at once
+    (one ``nvcc`` process per source), and return {name: library path}.
+    Each compiler's resource report goes to ``<library>.log``."""
+    paths = {name: library_path(name) for name in KERNELS}
+    todo = {name: so for name, so in paths.items() if not so.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True,
-    )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNELS[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        so = todo[name]
+        so.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{KERNELS[name].name} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
 
 
-def load():
-    """The loaded kernel library (built first if needed), with the argument
-    types of every entry point declared."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def load(name: str):
+    """The loaded library of kernel `name` (all kernels are built first if
+    needed), with the argument types of its float32 and float64 entry
+    points declared."""
+    if name in _LIBS:
+        return _LIBS[name]
     import ctypes
 
-    lib = ctypes.CDLL(str(build()))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("half_pair_f32", "half_pair_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
-        fn.restype = ci
-    _LIB = lib
-    return lib
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for lib_name, path in build().items():
+        lib = ctypes.CDLL(str(path))
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{lib_name}_{suffix}")
+            fn.argtypes = [kinds[k] for k in _SIGNATURES[lib_name]]
+            fn.restype = ctypes.c_int
+        _LIBS[lib_name] = lib
+    return _LIBS[name]

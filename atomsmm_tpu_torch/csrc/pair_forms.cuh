@@ -1,0 +1,166 @@
+// Built-in pair forms shared by the three pair kernels (half_pair.cu,
+// cell_pair.cu, tile_pair.cu): the kernels' scalar block, the quintic
+// switch and (u, du/dr^2) of one pair.
+//
+// A hand kernel cannot trace a Python pair function the way Pallas did, so
+// each kernel takes one of three built-in forms, selected by flags, with
+// host-computed f64 scalars (ops/pairfuncs.py::PairForm). The plain PyTorch
+// twin of pair_form is ops/pairfuncs.py::form_u_dudr2, line for line.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pairforms {
+
+constexpr double ONE_4PI_EPS0 = 138.935456;
+constexpr int EXC_OFF = 16;  // exclusion bit of relative offset 0 (self)
+
+template <typename T>
+struct Params {
+  T rc2;       // mask cutoff squared
+  T sw_rs;     // full form: switch start
+  T sw_inv_w;  // full form: 1 / (r_cut - r_switch)
+  T k_rf;      // reaction field
+  T c_rf;
+  T n_rs;      // near form: switch start
+  T n_inv_w;   // near form: 1 / (rc_in - rs_in)
+  T n_rc;      // near form: cutoff
+  T n_rcinv;   // near form: 1 / cutoff
+  T near_sign; // +1 near force, -1 inside the fused far force
+  int has_full;
+  int use_switch;
+  int has_near;
+};
+
+// The kernels' C entry points all take the same host arrays:
+// scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
+// near_sign], flags = [has_full, use_switch, has_near].
+template <typename T>
+inline Params<T> make_params(const double* scal, const int* flags) {
+  Params<T> p;
+  p.rc2 = (T)scal[0];
+  p.sw_rs = (T)scal[1];
+  p.sw_inv_w = (T)scal[2];
+  p.k_rf = (T)scal[3];
+  p.c_rf = (T)scal[4];
+  p.n_rs = (T)scal[5];
+  p.n_inv_w = (T)scal[6];
+  p.n_rc = (T)scal[7];
+  p.n_rcinv = (T)scal[8];
+  p.near_sign = (T)scal[9];
+  p.has_full = flags[0];
+  p.use_switch = flags[1];
+  p.has_near = flags[2];
+  return p;
+}
+
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return 1.0 / sqrt(x); }
+
+// Minimum image of one displacement component, rounding half to even as
+// torch.round and jnp.round do.
+template <typename T>
+__device__ __forceinline__ T min_image(T d, T b, T ib) {
+  return d - b * rint(d * ib);
+}
+
+// Relative-offset exclusion bitmask: bit (cid - hid + 16) of the home atom's
+// bits, clamped to [0, 31] (offsets beyond +-14 are never set).
+__device__ __forceinline__ bool excluded_by_bits(unsigned exc_h, int hid,
+                                                 int cid) {
+  int off = cid - hid + EXC_OFF;
+  off = off < 0 ? 0 : (off > 31 ? 31 : off);
+  return ((exc_h >> off) & 1u) != 0u;
+}
+
+// Quintic switch S(x) = 1 - 10x^3 + 15x^4 - 6x^5 on x clipped to [0, 1],
+// and dS/dx = -30 x^2 (1 - x)^2 (zero at both clip ends).
+template <typename T>
+__device__ __forceinline__ void switch_quintic(T x, T& s, T& ds_dx) {
+  x = x < T(0) ? T(0) : (x > T(1) ? T(1) : x);
+  s = T(1) + x * x * x * (T(-10) + x * (T(15) - T(6) * x));
+  T om = T(1) - x;
+  ds_dx = T(-30) * x * x * om * om;
+}
+
+// Energy u and du/dr^2 of one pair at squared distance r2, with qq the
+// charge product and (sig, eps) the Lorentz-Berthelot pair parameters.
+template <typename T>
+__device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
+                                          T sig, T eps, T& u, T& dudr2) {
+  const T kc = T(ONE_4PI_EPS0);
+  T rinv = rsqrt_t(r2);
+  T r = r2 * rinv;
+  T rinv2 = rinv * rinv;
+  u = T(0);
+  dudr2 = T(0);
+  if (p.has_full) {
+    // switched LJ + reaction-field Coulomb (NonbondedForce, method cutoff)
+    T t = sig * rinv;
+    T t2 = t * t;
+    T s6 = t2 * t2 * t2;
+    T ulj = T(4) * eps * s6 * (s6 - T(1));
+    T dulj = T(-12) * eps * s6 * (T(2) * s6 - T(1)) * rinv2;
+    T sw = T(1), dsw = T(0);
+    if (p.use_switch) {
+      T ds_dx;
+      switch_quintic((r - p.sw_rs) * p.sw_inv_w, sw, ds_dx);
+      dsw = ds_dx * p.sw_inv_w * T(0.5) * rinv;
+    }
+    T uc = kc * qq * (rinv + p.k_rf * r2 - p.c_rf);
+    T duc = kc * qq * (p.k_rf - T(0.5) * rinv * rinv2);
+    u += ulj * sw + uc;
+    dudr2 += dulj * sw + ulj * dsw + duc;
+  }
+  if (p.has_near) {
+    // shifted-force LJ + Coulomb, switched to zero at n_rc (alpha = 0)
+    T xs = (r - p.n_rs) * p.n_inv_w;
+    if (xs < T(1)) {
+      T sw, ds_dx;
+      switch_quintic(xs, sw, ds_dx);
+      T dsw_dr = ds_dx * p.n_inv_w;
+      T cq = kc * qq;
+      T t = sig * rinv;
+      T t2 = t * t;
+      T s6 = t2 * t2 * t2;
+      T base = T(4) * eps * s6 * (s6 - T(1)) + cq * rinv;
+      T dbase = -rinv * (T(24) * eps * s6 * (T(2) * s6 - T(1)) + cq * rinv);
+      T tc = sig * p.n_rcinv;
+      T tc2 = tc * tc;
+      T s6c = tc2 * tc2 * tc2;
+      T base_c = T(4) * eps * s6c * (s6c - T(1)) + cq * p.n_rcinv;
+      T dbase_c =
+          -p.n_rcinv * (T(24) * eps * s6c * (T(2) * s6c - T(1)) + cq * p.n_rcinv);
+      T sh = base - base_c - dbase_c * (r - p.n_rc);
+      T un = sh * sw;
+      T dun_dr = (dbase - dbase_c) * sw + sh * dsw_dr;
+      u += p.near_sign * un;
+      dudr2 += p.near_sign * dun_dr * T(0.5) * rinv;
+    }
+  }
+}
+
+// Exclusion id columns of one home atom, held in registers. MAX_EXC bounds
+// the columns a kernel takes; the wrapper pads with -1 and refuses more.
+constexpr int MAX_EXC = 16;
+
+struct ExcCols {
+  int c[MAX_EXC];
+};
+
+__device__ __forceinline__ void load_exc_cols(const int* __restrict__ row,
+                                              int m, ExcCols& e) {
+#pragma unroll
+  for (int k = 0; k < MAX_EXC; ++k) e.c[k] = (row != nullptr && k < m) ? row[k] : -1;
+}
+
+__device__ __forceinline__ bool excluded_by_cols(const ExcCols& e, int m,
+                                                 int cid) {
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < MAX_EXC; ++k) hit |= (k < m) & (e.c[k] == cid);
+  return hit;
+}
+
+}  // namespace pairforms

@@ -6,10 +6,10 @@ split exactly as in the JAX package. Nonbonded forces have two paths:
 
   * dense — the chunked O(N²) oracle (ops/pairs.py), CPU only, forces by
     autograd; used for goldens and when no neighbor list is attached;
-  * cell list — the half-stencil sweep (ops/neighbors.py), with explicit
-    forces from `energy_and_forces`; on the card it runs the CUDA kernel,
-    which takes a built-in pair form (`_pair_form`) instead of a traced
-    Python pair function.
+  * cell list — the half- or full-stencil sweep (ops/neighbors.py), with
+    explicit forces from `energy_and_forces`; on the card it runs a CUDA
+    kernel, which takes a built-in pair form (`_pair_form`) instead of a
+    traced Python pair function.
 
 Ported: NonbondedForce (method 'cutoff'), NearNonbondedForce, the fused
 FarNonbondedForce, TemplateBondedForce, HarmonicBondForce and

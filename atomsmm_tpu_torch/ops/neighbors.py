@@ -6,10 +6,10 @@ the production nonbonded path.
     ids, padded with the sentinel id N;
   * evaluation: each home cell meets its stencil cells. With Newton
     half-stencil maps (every grid dimension >= 2*reach + 1) the sweep visits
-    each cell pair once and runs the hand-written CUDA kernel on the card
-    (ops/pair_kernel.py); its plain PyTorch twin runs on the CPU. Grids too
-    small for half maps take the full-stencil sweep, which is CPU-only until
-    its kernel is ported.
+    each cell pair once (K1, csrc/half_pair.cu); grids too small for half
+    maps take the full-stencil sweep (K2, csrc/cell_pair.cu). On the card
+    each runs its hand-written CUDA kernel, on the CPU its plain PyTorch
+    twin (ops/pair_kernel.py).
 
 Shapes are static (NeighborSpec). Bucket overflow is flagged, never
 silently dropped: the flag stays on the device and Context.step reads it
@@ -40,10 +40,6 @@ EXC_OFF = 16     # exclusion bit for relative offset 0 (self)
 EXC_WINDOW = 14  # max |i - j| representable in the exclusion bitmask
 
 
-class KernelNotPortedError(NotImplementedError):
-    """A cell-list configuration whose TPU kernel has no CUDA port yet."""
-
-
 def _keys(name: str):
     if name == "default":
         return NBR_BUCKET, NBR_OVERFLOW
@@ -51,10 +47,19 @@ def _keys(name: str):
 
 
 def iter_specs(system):
-    """(name, spec) pairs for every neighbor spec attached to a system."""
+    """(name, spec) pairs for every neighbor spec attached to a system.
+    Only cell lists drive a Context: any other spec raises."""
+    specs = {}
     if getattr(system, "neighbors", None) is not None:
-        yield "default", system.neighbors
-    for name, spec in (getattr(system, "extra_neighbor_specs", None) or {}).items():
+        specs["default"] = system.neighbors
+    specs.update(getattr(system, "extra_neighbor_specs", None) or {})
+    for name, spec in specs.items():
+        if not isinstance(spec, NeighborSpec):
+            raise NotImplementedError(
+                f"{type(spec).__name__} ({name!r}) cannot be attached to a "
+                "System: the TilePairSpec is a standalone entry point "
+                "(build_tile_pairs + tile_pair_energy_forces in "
+                "ops/tilepair.py); attach a NeighborSpec instead")
         yield name, spec
 
 
@@ -342,6 +347,17 @@ def coverage_deficient(spec: NeighborSpec, box) -> bool:
                for b, g, r in zip(box, spec.grid, spec.reach))
 
 
+def moved_beyond_half_skin(skin, xref, boxref, x, box, fraction=0.5):
+    """Some atom moved more than `fraction` * skin since the reference
+    build xref, or the box changed (a device bool). The rebuild predicate of
+    the JAX package's neighbor backends; the port's cell lists rebuild at
+    every outer step instead, the tile-pair list reads it."""
+    disp = minimum_image(x - xref, box)
+    moved = torch.max(torch.sum(disp * disp, dim=-1)) > (
+        fraction * float(skin)) ** 2
+    return moved | torch.any(box != boxref)
+
+
 def neighbor_list_extras(spec, x, box, name: str = "default") -> Dict[str, torch.Tensor]:
     kb, kov = _keys(name)
     bucket, overflow = build_cell_buckets(spec, x, box)
@@ -393,133 +409,28 @@ def update_all_neighbors(system, extra, x, box):
 # --------------------------------------------------------------------------
 
 
-def _stage_buckets(x, per_particle, bucket):
-    """One coarse row gather staging positions + parameters into bucket
-    layout; sentinel slots gather a zero row and are masked by id."""
-    cols = [x] + [p[:, None].to(x.dtype) for p in per_particle.values()]
-    stacked = torch.cat(cols, dim=1)
-    stacked = torch.cat([stacked, stacked.new_zeros((1, stacked.shape[1]))])
-    g = stacked[bucket.long()]
-    bucket_pp = {k: g[..., 3 + i] for i, k in enumerate(per_particle)}
-    return g[..., :3], bucket_pp
-
-
-def _cell_pair_sums(spec, form, x, box, per_particle, bucket, r_cut,
-                    with_forces: bool):
-    """Full-stencil sweep (plain mirror of the JAX package's
-    ``_cell_pair_sums``): each home cell against all its stencil cells, both
-    orderings, energy weight 1/2, exclusions by id columns. Returns (energy,
-    bucket forces (ncells, cap, 3) or None)."""
-    from .pairfuncs import form_u_dudr2, lorentz_berthelot
-
-    n = x.shape[0]
-    ncells, cap = bucket.shape
-    s = spec.nbr_cells.shape[1]
-    chunk = min(spec.cell_chunk, ncells)
-    bucket_x, bucket_pp = _stage_buckets(x, per_particle, bucket)
-    bucket_l = bucket.long()
-    exc = spec.exclusions
-    exc_pad = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])
-    rc2 = torch.as_tensor(float(r_cut), dtype=x.dtype) ** 2
-    energy = torch.zeros((), dtype=x.dtype, device=x.device)
-    f_chunks = []
-    for lo in range(0, ncells, chunk):
-        cid = torch.arange(lo, min(lo + chunk, ncells), device=x.device)
-        b = cid.shape[0]
-        home_x = bucket_x[cid]
-        home_id = bucket_l[cid]
-        ncell_ids = spec.nbr_cells[cid].long()
-        nvalid = ncell_ids >= 0
-        ncid = torch.where(nvalid, ncell_ids, torch.zeros_like(ncell_ids))
-        cand_x = bucket_x[ncid].reshape(b, s * cap, 3)
-        cand_id = torch.where(nvalid[:, :, None], bucket_l[ncid],
-                              torch.full_like(bucket_l[ncid], n)
-                              ).reshape(b, s * cap)
-        dx = minimum_image(home_x[:, :, None, :] - cand_x[:, None, :, :], box)
-        r2 = torch.sum(dx * dx, dim=-1)
-        mask = ((home_id[:, :, None] < n) & (cand_id[:, None, :] < n)
-                & (home_id[:, :, None] != cand_id[:, None, :]) & (r2 < rc2))
-        home_exc = exc_pad[torch.clamp(home_id, 0, n)].long()
-        excluded = torch.any(
-            cand_id[:, None, None, :] == home_exc[:, :, :, None], dim=2)
-        mask &= ~excluded
-        r2m = torch.where(mask, r2, torch.ones_like(r2))
-        pi = {k: v[cid][:, :, None] for k, v in bucket_pp.items()}
-        pj = {k: v[ncid].reshape(b, s * cap)[:, None, :]
-              for k, v in bucket_pp.items()}
-        sig, eps = lorentz_berthelot(pi["sigma"], pj["sigma"],
-                                     pi["epsilon"], pj["epsilon"])
-        u, dudr2 = form_u_dudr2(form, r2m, pi["charge"] * pj["charge"],
-                                sig, eps)
-        energy = energy + 0.5 * torch.sum(torch.where(mask, u,
-                                                      torch.zeros_like(u)))
-        if with_forces:
-            fmag = torch.where(mask, 2.0 * dudr2, torch.zeros_like(dudr2))
-            f_chunks.append(-torch.sum(fmag[..., None] * dx, dim=2))
-    if not with_forces:
-        return energy, None
-    return energy, torch.cat(f_chunks)
-
-
-def _cell_pair_sums_half(spec, form, x, box, per_particle, bucket, r_cut,
-                         with_forces: bool):
-    """Newton half-stencil sweep (plain mirror of the JAX package's
-    ``_cell_pair_sums_half``): each cell pair once, reactions routed back
-    through the inverse direction map. It is the kernel's plain twin run
-    through the kernel wrapper's own staging and write-back. Returns
-    (energy, bucket forces (ncells, cap, 3) or None)."""
-    from .pair_kernel import half_pair_plain, half_writeback, stage
-
-    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
-    oh, oc = half_pair_plain(hf, hm, spec.nbr_cells_half, box, form, r_cut,
-                             x.shape[0], spec.cell_chunk, exc_cols,
-                             with_forces)
-    energy = oh[..., 3].sum()
-    if not with_forces:
-        return energy, None
-    return energy, half_writeback(oh, oc, spec.inv_cells_half)
-
-
 def _scatter_forces(f_bucket, bucket, n):
     forces = f_bucket.new_zeros((n + 1, 3))
     forces.index_add_(0, bucket.reshape(-1).long(), f_bucket.reshape(-1, 3))
     return forces[:n]
 
 
-def _full_stencil_guard(x):
-    if x.is_cuda:
-        raise KernelNotPortedError(
-            "this cell grid is too small for half-stencil maps (a dimension "
-            "below 2*reach + 1), so it needs the full-stencil kernel "
-            "(atomsmm_tpu/ops/pallas_pair.py::_pair_kernel), which has no "
-            "CUDA port yet; use a larger box or a finer grid")
+def _sweep(spec):
+    from . import pair_kernel
+
+    return (pair_kernel.half_pair_energy_forces if spec.half_stencil
+            else pair_kernel.full_pair_energy_forces)
 
 
 def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut):
-    """Pair energy over the cell buckets. On the card the half-stencil case
-    runs the CUDA kernel (energy only is its fourth output column)."""
-    if spec.half_stencil:
-        from .pair_kernel import half_pair_energy_forces
-
-        e, _ = half_pair_energy_forces(form, x, box, per_particle, spec,
-                                       bucket, r_cut, with_forces=False)
-        return e
-    _full_stencil_guard(x)
-    e, _ = _cell_pair_sums(spec, form, x, box, per_particle, bucket, r_cut,
-                           with_forces=False)
+    """Pair energy over the cell buckets (the sweep's energy column)."""
+    e, _ = _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut,
+                        with_forces=False)
     return e
 
 
 def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
     """(energy, forces (N, 3)) with explicit symmetric forces: the Newton
-    half-stencil sweep (CUDA kernel on the card, its plain twin on the CPU)
-    when half maps exist, else the full-stencil sweep (CPU only)."""
-    if spec.half_stencil:
-        from .pair_kernel import half_pair_energy_forces
-
-        return half_pair_energy_forces(form, x, box, per_particle, spec,
-                                       bucket, r_cut)
-    _full_stencil_guard(x)
-    e, f_bucket = _cell_pair_sums(spec, form, x, box, per_particle, bucket,
-                                  r_cut, with_forces=True)
-    return e, _scatter_forces(f_bucket, bucket, x.shape[0])
+    half-stencil sweep (K1) when half maps exist, else the full-stencil
+    sweep (K2); the CUDA kernel on the card, its plain twin on the CPU."""
+    return _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut)

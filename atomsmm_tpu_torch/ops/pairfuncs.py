@@ -5,10 +5,10 @@ Two families live here:
 * energy functions of r (``lj``, ``coulomb``, ``reaction_field_coulomb``,
   ``near_pair_energy``) with Lorentz-Berthelot combining. The dense O(N²)
   oracle evaluates them and takes forces by autograd.
-* the three built-in pair *forms* of the cell-pair kernel, with energy and
+* the three built-in pair *forms* of the pair kernels, with energy and
   du/dr² derived by hand (``PairForm`` and ``form_u_dudr2``). A hand kernel
   cannot trace a Python pair function the way Pallas did, so the CUDA
-  kernel (csrc/half_pair.cu) takes a form and a few host-computed scalars;
+  kernels (csrc/pair_forms.cuh) take a form and a few host-computed scalars;
   ``form_u_dudr2`` is its line-for-line PyTorch transcription, so that a
   derivation error shows in the CPU tests against the JAX package.
 
@@ -104,13 +104,13 @@ def near_pair_energy(r, sigma, epsilon, qq, alpha, r_switch, r_cut,
     return -u if subtract else u
 
 
-# --- hand-derived pair forms of the cell-pair kernel ------------------------
+# --- hand-derived pair forms of the pair kernels -----------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class PairForm:
     """A built-in pair form and its host-computed scalars (f64), exactly the
-    parameter block the CUDA kernel receives."""
+    parameter block the CUDA kernels receive."""
 
     kind: int
     r_cut: float            # mask cutoff
@@ -128,7 +128,7 @@ class PairForm:
     near_sign: float = 1.0
 
     def scalars(self):
-        """The kernel's scalar block, in the order csrc/half_pair.cu reads."""
+        """The kernels' scalar block, in the order csrc/pair_forms.cuh reads."""
         return [self.sw_rs, self.sw_inv_w, self.k_rf, self.c_rf, self.n_rs,
                 self.n_inv_w, self.n_rc, self.n_rcinv, self.near_sign]
 
@@ -172,7 +172,7 @@ def _switch_and_slope(x):
 
 def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
     """(u, du/dr²) of `form` at squared distance r2 (mask invalid slots to
-    r2 = 1 first). Line-for-line twin of pair_form in csrc/half_pair.cu."""
+    r2 = 1 first). Line-for-line twin of pair_form in csrc/pair_forms.cuh."""
     rinv = make_rv(r2).rinv
     r = r2 * rinv
     rinv2 = rinv * rinv

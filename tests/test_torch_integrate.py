@@ -164,7 +164,8 @@ def test_set_velocities_to_temperature():
 
 def test_import_leaves_jax_out():
     code = ("import sys, atomsmm_tpu_torch, atomsmm_tpu_torch.interop, "
-            "atomsmm_tpu_torch.models, atomsmm_tpu_torch.ops.pair_kernel; "
+            "atomsmm_tpu_torch.models, atomsmm_tpu_torch.ops.pair_kernel, "
+            "atomsmm_tpu_torch.ops.tilepair; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

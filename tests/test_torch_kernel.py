@@ -1,7 +1,9 @@
-"""The port's CUDA cell-pair kernel against its plain PyTorch twin, on the
-card. Every test here needs an NVIDIA GPU (marker ``cuda``) and skips
-without one; the file imports no JAX, so it runs on a machine that has
-only PyTorch:  pytest tests/test_torch_kernel.py -m cuda -q
+"""The port's CUDA kernels against their plain PyTorch twins, on the card:
+K1 (csrc/half_pair.cu, both exclusion forms), K2 (csrc/cell_pair.cu,
+including a capacity above 1,024) and K3 (csrc/tile_pair.cu). Every test
+here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
+imports no JAX, so it runs on a machine that has only PyTorch:
+    pytest tests/test_torch_kernel.py -m cuda -q
 
 Tolerances: float64 kernel vs float64 plain at energy rtol 1e-10 and force
 atol 1e-9 x max|F| (same arithmetic, other summation order); float32 kernel
@@ -11,6 +13,7 @@ rsqrt rounding, summation order).
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +21,7 @@ import atomsmm_tpu_torch as amm
 from atomsmm_tpu_torch.models import argon_system, water_system
 from atomsmm_tpu_torch.ops import neighbors as nb
 from atomsmm_tpu_torch.ops import pair_kernel as pk
+from atomsmm_tpu_torch.ops import tilepair as tp
 
 F64 = torch.float64
 TOLS = {"float64": (1e-10, 1e-9), "float32": (1e-4, 1e-4)}
@@ -32,6 +36,14 @@ def cuda():
 
 def _case(name):
     """(force, spec, x, box) on the CPU in float64."""
+    if name.startswith("small_"):   # full stencil (K2): water at 0.9 nm
+        m = int(name.split("_")[1])
+        s, x, box = water_system(n_molecules=m, seed=5, neighbors=True,
+                                 dtype=F64)
+        if name.endswith("far"):
+            r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+            return r.forces[2], r.neighbors, x, box
+        return s.forces[0], s.neighbors, x, box
     if name == "argon_lj":
         s, x, box = argon_system(n=864, jitter=0.1, seed=7, neighbors=True,
                                  dtype=F64)
@@ -50,7 +62,51 @@ def _to(spec, dev):
     return dataclasses.replace(spec, **{
         k: getattr(spec, k).to(dev) for k in (
             "nbr_cells", "exclusions", "nbr_cells_half", "inv_cells_half",
-            "excbits")})
+            "excbits") if getattr(spec, k) is not None})
+
+
+def _permuted(force, x, box, r_cut):
+    """Atoms renumbered by a fixed permutation: no exclusion bitmask fits,
+    so the sweeps take the exclusion id columns."""
+    n = x.shape[0]
+    p = np.random.RandomState(3).permutation(n)
+    inv = np.argsort(p)
+    exc = force.exclusions.numpy()[p]
+    exc = np.where(exc >= 0, inv[np.maximum(exc, 0)], -1).astype(np.int32)
+    pt = torch.as_tensor(p)
+    force = dataclasses.replace(
+        force, exclusions=torch.as_tensor(exc),
+        **{k: v[pt] for k, v in force._per_particle().items()})
+    spec = nb.make_neighbor_spec(box, n, r_cut, exclusions=exc,
+                                 occupancy_floor_from=x[pt])
+    assert spec.excbits is None
+    return force, spec, x[pt]
+
+
+def _check_sweep(force, spec, x, box, dev, dtype, kernel):
+    """One sweep through the wrapper on the card, launching `kernel` once,
+    against the same wrapper on the CPU (the plain twin) in float64 on the
+    same inputs."""
+    dt = getattr(torch, dtype)
+    spec = _to(spec, dev)
+    form = force._pair_form()
+    pp = {k: v.to(dev, dt) for k, v in force._per_particle().items()}
+    x, box = x.to(dev, dt), box.to(dev, dt)
+    bucket, overflow = nb.build_cell_buckets(spec, x, box)
+    assert not bool(overflow)
+    before = dict(pk.LAUNCHES)
+    e_k, f_k = nb.cell_pair_energy_forces(form, x, box, pp, spec, bucket,
+                                          form.r_cut)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == {**before, kernel: before[kernel] + 1}
+    e_p, f_p = nb.cell_pair_energy_forces(
+        form, x.cpu().double(), box.cpu().double(),
+        {k: v.cpu().double() for k, v in pp.items()}, _to(spec, "cpu"),
+        bucket.cpu(), form.r_cut)
+    rtol, ftol = TOLS[dtype]
+    assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
+    assert float((f_k.cpu().double() - f_p).abs().max()) \
+        <= ftol * float(f_p.abs().max())
 
 
 @pytest.mark.cuda
@@ -59,26 +115,81 @@ def _to(spec, dev):
                                   "water_rf"])
 def test_kernel_matches_plain_on_card(cuda, case, dtype):
     force, spec, x, box = _case(case)
+    _check_sweep(force, spec, x, box, cuda, dtype, "half_pair")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("case", ["small_400", "small_400_far", "small_700"])
+def test_full_stencil_kernel_matches_plain_on_card(cuda, case, dtype):
+    force, spec, x, box = _case(case)
+    assert not spec.half_stencil
+    _check_sweep(force, spec, x, box, cuda, dtype, "cell_pair")
+
+
+@pytest.mark.cuda
+def test_full_stencil_kernel_capacity_above_1024(cuda):
+    """Water 216 at 0.9 nm: one cell of 1,112 slots (float64; the float32
+    total of this lattice is a near-cancellation, so only float64 is held
+    to an energy rtol)."""
+    force, spec, x, box = _case("small_216")
+    assert spec.grid == (1, 1, 1) and spec.cell_capacity > 1024
+    _check_sweep(force, spec, x, box, cuda, "float64", "cell_pair")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_cut", [0.7, 0.9])
+def test_exclusion_column_forms_match_plain_on_card(cuda, r_cut):
+    """0.7 nm: K1's column form; 0.9 nm: K2's."""
+    s, x, box = water_system(n_molecules=400, r_cut=r_cut,
+                             r_switch=r_cut - 0.1, seed=5, dtype=F64)
+    force, spec, xp = _permuted(s.forces[0], x, box, r_cut)
+    kernel = "half_pair" if spec.half_stencil else "cell_pair"
+    _check_sweep(force, spec, xp, box, cuda, "float64", kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
+    """K3 against its plain twin; in float64 also against K1 on the same
+    configuration (the same pairs inside the cutoff)."""
     dt = getattr(torch, dtype)
-    spec = _to(spec, cuda)
-    form = force._pair_form()
-    pp = {k: v.to(cuda, dt) for k, v in force._per_particle().items()}
-    x, box = x.to(cuda, dt), box.to(cuda, dt)
-    bucket, overflow = nb.build_cell_buckets(spec, x, box)
+    s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
+                             neighbors=True, dtype=F64)
+    force = s.forces[0]
+    form, pp = force._pair_form(), force._per_particle()
+    spec = tp.make_tilepair_spec(box, x.shape[0], force.r_cut,
+                                 exclusions=force.exclusions,
+                                 occupancy_from=x, device=cuda)
+    xd, bd = x.to(cuda, dt), box.to(cuda, dt)
+    ppd = {k: v.to(cuda, dt) for k, v in pp.items()}
+    order, hb, cb, wrap, overflow = tp.build_tile_pairs(spec, xd, bd)
     assert not bool(overflow)
-    before = pk.LAUNCHES
-    e_k, f_k = nb.cell_pair_energy_forces(form, x, box, pp, spec, bucket,
-                                          form.r_cut)
+    before = pk.LAUNCHES["tile_pair"]
+    e_k, f_k = tp.tile_pair_energy_forces(form, xd, bd, ppd, spec, order, hb,
+                                          cb, wrap, force.r_cut)
     torch.cuda.synchronize()
-    assert pk.LAUNCHES == before + 1
-    e_p, fb_p = nb._cell_pair_sums_half(
-        spec, form, x.double(), box.double(),
-        {k: v.double() for k, v in pp.items()}, bucket, form.r_cut, True)
-    f_p = nb._scatter_forces(fb_p, bucket, x.shape[0])
+    assert pk.LAUNCHES["tile_pair"] == before + 1
+    fs, ms = tp._stage(spec, xd.double(), bd.double(),
+                       {k: v.double() for k, v in ppd.items()}, spec.excbits,
+                       order)
+    acc = tp.tile_pair_plain(fs, ms, hb, cb, wrap, bd.double(), form,
+                             force.r_cut)
+    e_p = acc[:spec.n_blocks, :, 3].sum()
+    f_p = torch.zeros((x.shape[0] + 1, 3), dtype=F64, device=cuda)
+    f_p = f_p.index_add_(0, order.long(),
+                         acc[:spec.n_blocks, :, :3].reshape(-1, 3))[:-1]
     rtol, ftol = TOLS[dtype]
+    fmax = float(f_p.abs().max())
     assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
-    assert float((f_k.double() - f_p).abs().max()) \
-        <= ftol * float(f_p.abs().max())
+    assert float((f_k.double() - f_p).abs().max()) <= ftol * fmax
+    if dtype == "float64":
+        cspec = _to(s.neighbors, cuda)
+        bucket, _ = nb.build_cell_buckets(cspec, xd, bd)
+        e_c, f_c = nb.cell_pair_energy_forces(form, xd, bd, ppd, cspec,
+                                              bucket, force.r_cut)
+        assert abs(float(e_k) - float(e_c)) <= rtol * abs(float(e_c))
+        assert float((f_k - f_c).abs().max()) <= ftol * fmax
 
 
 @pytest.mark.cuda
@@ -89,23 +200,50 @@ def test_energy_only_path_runs_the_kernel(cuda):
     pp = {k: v.to(cuda, torch.float32) for k, v in force._per_particle().items()}
     x, box = x.to(cuda, torch.float32), box.to(cuda, torch.float32)
     bucket, _ = nb.build_cell_buckets(spec, x, box)
-    before = pk.LAUNCHES
+    before = pk.LAUNCHES["half_pair"]
     e = nb.cell_pair_energy(form, x, box, pp, spec, bucket, form.r_cut)
     e_f, _ = nb.cell_pair_energy_forces(form, x, box, pp, spec, bucket,
                                         form.r_cut)
-    assert pk.LAUNCHES == before + 2
+    assert pk.LAUNCHES["half_pair"] == before + 2
     assert float(e) == float(e_f)
 
 
 @pytest.mark.cuda
-def test_unported_configurations_raise_on_card(cuda):
+def test_former_unported_configurations_launch_on_card(cuda):
+    """A spec without the exclusion bitmask launches K1's column form, and
+    a spec without half maps launches K2: neither raises on the card."""
     force, spec, x, box = _case("water_near")
     form = force._pair_form()
     pp = {k: v.to(cuda) for k, v in force._per_particle().items()}
     x, box = x.to(cuda), box.to(cuda)
-    for broken in (dataclasses.replace(_to(spec, cuda), excbits=None),
-                   dataclasses.replace(_to(spec, cuda), half_stencil=False)):
+    for broken, kernel in (
+            (dataclasses.replace(_to(spec, cuda), excbits=None), "half_pair"),
+            (dataclasses.replace(_to(spec, cuda), half_stencil=False),
+             "cell_pair")):
         bucket, _ = nb.build_cell_buckets(broken, x, box)
-        with pytest.raises(nb.KernelNotPortedError):
-            nb.cell_pair_energy_forces(form, x, box, pp, broken, bucket,
-                                       form.r_cut)
+        before = pk.LAUNCHES[kernel]
+        e, f = nb.cell_pair_energy_forces(form, x, box, pp, broken, bucket,
+                                          form.r_cut)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES[kernel] == before + 1
+        assert bool(torch.isfinite(f).all()) and bool(torch.isfinite(e))
+
+
+@pytest.mark.cuda
+def test_small_box_water_steps_on_card(cuda):
+    """water_system(n_molecules=400) at its default cutoff steps on the
+    card through Context: K2 for the far force, K1 for the near force."""
+    s, x, box = water_system(n_molecules=400, neighbors=True,
+                             dtype=torch.float32, device=cuda)
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    integ = amm.MultipleTimeScaleIntegrator(
+        0.002, [4, 2, 1], temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * s.num_particles - 3)
+    ctx = amm.Context(r, integ, amm.make_state(x, box=box))
+    ctx.set_velocities_to_temperature(300.0, seed=1)
+    before = dict(pk.LAUNCHES)
+    ctx.step(3)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["cell_pair"] > before["cell_pair"]
+    assert pk.LAUNCHES["half_pair"] > before["half_pair"]
+    assert bool(torch.isfinite(ctx.state.x).all())
