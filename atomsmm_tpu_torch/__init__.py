@@ -5,8 +5,9 @@ module layout and public names. It runs in float64 on the CPU (the parity
 tests) and in float32 on an NVIDIA Hopper GPU, where the nonbonded sweeps
 are hand-written CUDA kernels: csrc/half_pair.cu (Newton half stencil),
 csrc/cell_pair.cu (full stencil, small boxes) and csrc/tile_pair.cu (the
-standalone tile-list entry point, ops/tilepair.py). This package never
-imports JAX.
+standalone tile-list entry point, ops/tilepair.py). The PME reciprocal sum
+(ops/pme.py) is PyTorch: a scatter, torch.fft and a gather. This package
+never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -19,6 +20,7 @@ from .forces import (
     HarmonicBondForce,
     NearNonbondedForce,
     NonbondedForce,
+    PMEReciprocalForce,
     TemplateBondedForce,
 )
 from .integrate.integrators import (

@@ -47,7 +47,7 @@ constexpr int TILE = 128;
 //   hx  (ncells, cap, m) exclusion id columns, read only when COLS
 //   nbr (ncells, s) stencil cells, -1 padded
 //   out (ncells, n_tiles, cap, 4) per home atom and tile [fx fy fz e/2]
-template <typename T, bool COLS>
+template <typename T, bool COLS, bool DAMPED>
 __global__ void __launch_bounds__(TILE)
 cell_pair_kernel(const T* __restrict__ hf, const int* __restrict__ hm,
                  const int* __restrict__ hx, const int* __restrict__ nbr,
@@ -115,7 +115,7 @@ cell_pair_kernel(const T* __restrict__ hf, const int* __restrict__ hm,
         const T sig = T(0.5) * (si + ss[j]);
         const T eps = sqrt(ei * se[j]);
         T u, dudr2;
-        pair_form(p, r2, qq, sig, eps, u, dudr2);
+        pair_form<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
         const T fm = T(2) * dudr2;
         fx -= fm * dx;
         fy -= fm * dy;
@@ -131,6 +131,20 @@ cell_pair_kernel(const T* __restrict__ hf, const int* __restrict__ hm,
     o[1] = fy;
     o[2] = fz;
     o[3] = T(0.5) * e;
+  }
+}
+
+template <typename T, bool DAMPED>
+void launch_form(const T* hf, const int* hm, const int* hx, const int* nbr,
+                 const T* box, int cap, int s, int tiles_per_cell, int n,
+                 int m, const Params<T>& p, T* out, dim3 grid,
+                 cudaStream_t st) {
+  if (hx != nullptr) {
+    cell_pair_kernel<T, true, DAMPED><<<grid, TILE, 0, st>>>(
+        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m, p, out);
+  } else {
+    cell_pair_kernel<T, false, DAMPED><<<grid, TILE, 0, st>>>(
+        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, 0, p, out);
   }
 }
 
@@ -150,12 +164,12 @@ int launch(const T* hf, const int* hm, const int* hx, const int* nbr,
   const Params<T> p = make_params<T>(scal, flags);
   const dim3 grid((unsigned)bx, (unsigned)tiles_per_cell);
   cudaStream_t st = (cudaStream_t)stream;
-  if (hx != nullptr) {
-    cell_pair_kernel<T, true><<<grid, TILE, 0, st>>>(
-        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m, p, out);
+  if (damped(p)) {
+    launch_form<T, true>(hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m,
+                         p, out, grid, st);
   } else {
-    cell_pair_kernel<T, false><<<grid, TILE, 0, st>>>(
-        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, 0, p, out);
+    launch_form<T, false>(hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m,
+                          p, out, grid, st);
   }
   return (int)cudaGetLastError();
 }

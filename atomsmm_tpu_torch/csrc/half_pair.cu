@@ -41,7 +41,7 @@ using namespace pairforms;
 //   box (3,) orthorhombic edge lengths
 //   oh  (ncells, s_half, cap, 4) per home atom [fx fy fz e]
 //   oc  (ncells, s_half, cap, 3) per candidate atom: reaction sums
-template <typename T, bool COLS>
+template <typename T, bool COLS, bool DAMPED>
 __global__ void half_pair_kernel(const T* __restrict__ hf,
                                  const int* __restrict__ hm,
                                  const int* __restrict__ hx,
@@ -125,7 +125,7 @@ __global__ void half_pair_kernel(const T* __restrict__ hf,
         const T sig = T(0.5) * (si + ss[j]);
         const T eps = sqrt(ei * se[j]);
         T u, dudr2;
-        pair_form(p, r2, qq, sig, eps, u, dudr2);
+        pair_form<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
         const T fm = T(2) * dudr2;
         const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
         fx -= gx;
@@ -158,7 +158,7 @@ __global__ void half_pair_kernel(const T* __restrict__ hf,
   }
 }
 
-template <typename T, bool COLS>
+template <typename T, bool COLS, bool DAMPED>
 int launch_form(const T* hf, const int* hm, const int* hx, const int* nbr,
                 const T* box, int ncells, int cap, int s_half, int n, int m,
                 const Params<T>& p, T* oh, T* oc, cudaStream_t stream) {
@@ -166,14 +166,26 @@ int launch_form(const T* hf, const int* hm, const int* hx, const int* nbr,
   const size_t smem = (size_t)cap * (9 * sizeof(T) + sizeof(int));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        half_pair_kernel<T, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        half_pair_kernel<T, COLS, DAMPED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned blocks = (unsigned)ncells * (unsigned)s_half;
-  half_pair_kernel<T, COLS><<<blocks, threads, smem, stream>>>(
+  half_pair_kernel<T, COLS, DAMPED><<<blocks, threads, smem, stream>>>(
       hf, hm, hx, nbr, box, cap, s_half, n, m, p, oh, oc);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool COLS>
+int launch_cols(const T* hf, const int* hm, const int* hx, const int* nbr,
+                const T* box, int ncells, int cap, int s_half, int n, int m,
+                const Params<T>& p, T* oh, T* oc, cudaStream_t stream) {
+  if (damped(p)) {
+    return launch_form<T, COLS, true>(hf, hm, hx, nbr, box, ncells, cap,
+                                      s_half, n, m, p, oh, oc, stream);
+  }
+  return launch_form<T, COLS, false>(hf, hm, hx, nbr, box, ncells, cap,
+                                     s_half, n, m, p, oh, oc, stream);
 }
 
 template <typename T>
@@ -187,10 +199,10 @@ int launch(const T* hf, const int* hm, const int* hx, const int* nbr,
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
   if (hx != nullptr) {
-    return launch_form<T, true>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
+    return launch_cols<T, true>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
                                 m, p, oh, oc, s);
   }
-  return launch_form<T, false>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
+  return launch_cols<T, false>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
                                0, p, oh, oc, s);
 }
 

@@ -3,9 +3,16 @@
 // switch and (u, du/dr^2) of one pair.
 //
 // A hand kernel cannot trace a Python pair function the way Pallas did, so
-// each kernel takes one of three built-in forms, selected by flags, with
-// host-computed f64 scalars (ops/pairfuncs.py::PairForm). The plain PyTorch
-// twin of pair_form is ops/pairfuncs.py::form_u_dudr2, line for line.
+// each kernel takes one of the built-in forms, selected by flags, with
+// host-computed f64 scalars (ops/pairfuncs.py::PairForm): the full form
+// (switched LJ + reaction-field or Ewald direct-space Coulomb), the RESPA
+// near form (shifted-force LJ + Coulomb, damped by erfc(alpha r) under PME)
+// and the fused far form (full minus near). The damped forms use CUDA's
+// own erfcf/erfc and expf/exp, once per slot, shared by both halves of the
+// far form; whether a form is damped is a template parameter (DAMPED, from
+// alpha != 0 at launch), so the undamped forms carry no erfc code. The
+// plain PyTorch twin of pair_form is ops/pairfuncs.py::form_u_dudr2, line
+// for line.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +21,7 @@
 namespace pairforms {
 
 constexpr double ONE_4PI_EPS0 = 138.935456;
+constexpr double TWO_OVER_SQRT_PI = 1.1283791670955126;
 constexpr int EXC_OFF = 16;  // exclusion bit of relative offset 0 (self)
 
 template <typename T>
@@ -28,14 +36,19 @@ struct Params {
   T n_rc;      // near form: cutoff
   T n_rcinv;   // near form: 1 / cutoff
   T near_sign; // +1 near force, -1 inside the fused far force
+  T alpha;     // damping of c(r) = erfc(alpha r)/r (0: c = 1/r)
+  T n_ec;      // near form: c(n_rc)
+  T n_dec;     // near form: c'(n_rc)
   int has_full;
   int use_switch;
   int has_near;
+  int ewald;   // full form's Coulomb: k qq c(r) (PME direct), else RF
 };
 
 // The kernels' C entry points all take the same host arrays:
 // scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
-// near_sign], flags = [has_full, use_switch, has_near].
+// near_sign, alpha, n_ec, n_dec], flags = [has_full, use_switch, has_near,
+// ewald].
 template <typename T>
 inline Params<T> make_params(const double* scal, const int* flags) {
   Params<T> p;
@@ -49,14 +62,22 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   p.n_rc = (T)scal[7];
   p.n_rcinv = (T)scal[8];
   p.near_sign = (T)scal[9];
+  p.alpha = (T)scal[10];
+  p.n_ec = (T)scal[11];
+  p.n_dec = (T)scal[12];
   p.has_full = flags[0];
   p.use_switch = flags[1];
   p.has_near = flags[2];
+  p.ewald = flags[3];
   return p;
 }
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return 1.0 / sqrt(x); }
+__device__ __forceinline__ float erfc_t(float x) { return erfcf(x); }
+__device__ __forceinline__ double erfc_t(double x) { return erfc(x); }
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
 // Minimum image of one displacement component, rounding half to even as
 // torch.round and jnp.round do.
@@ -85,8 +106,9 @@ __device__ __forceinline__ void switch_quintic(T x, T& s, T& ds_dx) {
 }
 
 // Energy u and du/dr^2 of one pair at squared distance r2, with qq the
-// charge product and (sig, eps) the Lorentz-Berthelot pair parameters.
-template <typename T>
+// charge product and (sig, eps) the Lorentz-Berthelot pair parameters;
+// DAMPED must equal p.alpha != 0.
+template <typename T, bool DAMPED>
 __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
                                           T sig, T eps, T& u, T& dudr2) {
   const T kc = T(ONE_4PI_EPS0);
@@ -95,8 +117,16 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
   T rinv2 = rinv * rinv;
   u = T(0);
   dudr2 = T(0);
+  // Coulomb kernel c(r) = erfc(alpha r)/r and dc/dr, shared by both halves
+  T ec = rinv, dec = -rinv2;
+  if (DAMPED) {
+    T ar = p.alpha * r;
+    ec = erfc_t(ar) * rinv;
+    dec = -(ec + T(TWO_OVER_SQRT_PI) * p.alpha * exp_t(-ar * ar)) * rinv;
+  }
+  T cq = kc * qq;
   if (p.has_full) {
-    // switched LJ + reaction-field Coulomb (NonbondedForce, method cutoff)
+    // switched LJ + reaction-field or Ewald direct-space Coulomb
     T t = sig * rinv;
     T t2 = t * t;
     T s6 = t2 * t2 * t2;
@@ -108,30 +138,38 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
       switch_quintic((r - p.sw_rs) * p.sw_inv_w, sw, ds_dx);
       dsw = ds_dx * p.sw_inv_w * T(0.5) * rinv;
     }
-    T uc = kc * qq * (rinv + p.k_rf * r2 - p.c_rf);
-    T duc = kc * qq * (p.k_rf - T(0.5) * rinv * rinv2);
-    u += ulj * sw + uc;
-    dudr2 += dulj * sw + ulj * dsw + duc;
+    // the two branches keep their own sums: merged, nvcc schedules the
+    // reaction-field arithmetic differently and its float32 rounding moves
+    if (p.ewald) {
+      T uc = cq * ec;
+      T duc = cq * dec * T(0.5) * rinv;
+      u += ulj * sw + uc;
+      dudr2 += dulj * sw + ulj * dsw + duc;
+    } else {
+      T uc = kc * qq * (rinv + p.k_rf * r2 - p.c_rf);
+      T duc = kc * qq * (p.k_rf - T(0.5) * rinv * rinv2);
+      u += ulj * sw + uc;
+      dudr2 += dulj * sw + ulj * dsw + duc;
+    }
   }
   if (p.has_near) {
-    // shifted-force LJ + Coulomb, switched to zero at n_rc (alpha = 0)
+    // shifted-force LJ + Coulomb kernel, switched to zero at n_rc
     T xs = (r - p.n_rs) * p.n_inv_w;
     if (xs < T(1)) {
       T sw, ds_dx;
       switch_quintic(xs, sw, ds_dx);
       T dsw_dr = ds_dx * p.n_inv_w;
-      T cq = kc * qq;
       T t = sig * rinv;
       T t2 = t * t;
       T s6 = t2 * t2 * t2;
-      T base = T(4) * eps * s6 * (s6 - T(1)) + cq * rinv;
-      T dbase = -rinv * (T(24) * eps * s6 * (T(2) * s6 - T(1)) + cq * rinv);
+      T base = T(4) * eps * s6 * (s6 - T(1)) + cq * ec;
+      T dbase = T(-24) * eps * s6 * (T(2) * s6 - T(1)) * rinv + cq * dec;
       T tc = sig * p.n_rcinv;
       T tc2 = tc * tc;
       T s6c = tc2 * tc2 * tc2;
-      T base_c = T(4) * eps * s6c * (s6c - T(1)) + cq * p.n_rcinv;
+      T base_c = T(4) * eps * s6c * (s6c - T(1)) + cq * p.n_ec;
       T dbase_c =
-          -p.n_rcinv * (T(24) * eps * s6c * (T(2) * s6c - T(1)) + cq * p.n_rcinv);
+          T(-24) * eps * s6c * (T(2) * s6c - T(1)) * p.n_rcinv + cq * p.n_dec;
       T sh = base - base_c - dbase_c * (r - p.n_rc);
       T un = sh * sw;
       T dun_dr = (dbase - dbase_c) * sw + sh * dsw_dr;
@@ -139,6 +177,12 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
       dudr2 += p.near_sign * dun_dr * T(0.5) * rinv;
     }
   }
+}
+
+// Whether a parameter block selects the damped forms (DAMPED above).
+template <typename T>
+inline bool damped(const Params<T>& p) {
+  return p.alpha != T(0);
 }
 
 // Exclusion id columns of one home atom, held in registers. MAX_EXC bounds

@@ -48,7 +48,7 @@ constexpr int MAX_B = 128;
 //   cb   (E, 2) candidate blocks, NB = none
 //   wrap (E, 2, 3) integer periodic shift of each candidate half
 //   acc  (NB + 1, B, 4) [fx fy fz e], zeroed by the caller, added to here
-template <typename T>
+template <typename T, bool DAMPED>
 __global__ void __launch_bounds__(MAX_B)
 tile_pair_kernel(const T* __restrict__ fs, const int* __restrict__ ms,
                  const int* __restrict__ hb, const int* __restrict__ cb,
@@ -111,7 +111,7 @@ tile_pair_kernel(const T* __restrict__ fs, const int* __restrict__ ms,
       const T sig = T(0.5) * (si + ss[j]);
       const T eps = sqrt(ei * se[j]);
       T u, dudr2;
-      pair_form(p, r2, qq, sig, eps, u, dudr2);
+      pair_form<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
       const T fm = T(2) * dudr2;
       const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
       fx -= gx;
@@ -152,8 +152,14 @@ int launch(const T* fs, const int* ms, const int* hb, const int* cb,
   }
   if (n_entries == 0) return 0;
   const Params<T> p = make_params<T>(scal, flags);
-  tile_pair_kernel<T><<<(unsigned)n_entries, b, 0, (cudaStream_t)stream>>>(
-      fs, ms, hb, cb, wrap, box, nb, p, acc);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (damped(p)) {
+    tile_pair_kernel<T, true><<<(unsigned)n_entries, b, 0, st>>>(
+        fs, ms, hb, cb, wrap, box, nb, p, acc);
+  } else {
+    tile_pair_kernel<T, false><<<(unsigned)n_entries, b, 0, st>>>(
+        fs, ms, hb, cb, wrap, box, nb, p, acc);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,15 @@ split exactly as in the JAX package. Nonbonded forces have two paths:
     kernel, which takes a built-in pair form (`_pair_form`) instead of a
     traced Python pair function.
 
-Ported: NonbondedForce (method 'cutoff'), NearNonbondedForce, the fused
-FarNonbondedForce, TemplateBondedForce, HarmonicBondForce and
-HarmonicAngleForce.
+PME (method 'pme') splits each Coulomb pair into the damped direct-space
+term, which the pair kernels evaluate (ops/pairfuncs.py, LJ_SW_EWALD), and
+the reciprocal sum with its self and excluded-pair corrections
+(ops/pme.py), whose forces are explicit on both paths.
+
+Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
+dense path), NearNonbondedForce (damped or not), the fused
+FarNonbondedForce, PMEReciprocalForce, TemplateBondedForce,
+HarmonicBondForce and HarmonicAngleForce.
 
 >>> import torch
 >>> f64 = torch.float64
@@ -30,15 +36,20 @@ HarmonicAngleForce.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from .ops import pairfuncs
+from .ops import pairfuncs, pme
 from .ops.bonded import harmonic_angle_energy, harmonic_bond_energy
 from .ops.neighbors import cell_pair_energy, cell_pair_energy_forces
 from .ops.pairs import dense_pair_energy
+from .ops.pbc import box_volume
 from .ops.switching import switch_quintic
+
+_METHODS = ("cutoff", "pme", "nocutoff")
 
 
 def _resolve_neighbors(aux, key: str):
@@ -82,7 +93,7 @@ class _PairForceMixin:
     def _nb_energy(self, x, box, globals, aux, r_cut):
         pp = self._per_particle(globals)
         nbr = _resolve_neighbors(aux, self.neighbor_key)
-        if nbr is not None:
+        if nbr is not None and math.isfinite(r_cut):
             return cell_pair_energy(self._pair_form(globals), x, box, pp,
                                     nbr["spec"], nbr["bucket"], r_cut)
         return dense_pair_energy(self._pair_fn(globals), x, box, pp,
@@ -91,7 +102,7 @@ class _PairForceMixin:
     def _nb_energy_forces(self, x, box, globals, aux, r_cut):
         pp = self._per_particle(globals)
         nbr = _resolve_neighbors(aux, self.neighbor_key)
-        if nbr is not None:
+        if nbr is not None and math.isfinite(r_cut):
             return cell_pair_energy_forces(self._pair_form(globals), x, box,
                                            pp, nbr["spec"], nbr["bucket"],
                                            r_cut)
@@ -105,9 +116,19 @@ class _PairForceMixin:
 
 @dataclasses.dataclass
 class NonbondedForce(_PairForceMixin, Force):
-    """Switched LJ + reaction-field Coulomb within r_cut (method 'cutoff'),
-    per-particle (charge, sigma, epsilon), Lorentz-Berthelot combining and
-    exclusions. Cutoff scalars are host floats."""
+    """Full LJ + Coulomb nonbonded force with per-particle (charge, sigma,
+    epsilon), Lorentz-Berthelot combining and exclusions. Cutoff scalars
+    are host floats.
+
+    method:
+      'nocutoff' - plain LJ + Coulomb over all pairs (dense path only)
+      'cutoff'   - switched LJ + reaction-field Coulomb within r_cut
+      'pme'      - switched LJ + PME Coulomb: the damped direct-space pair
+                   term (the pair kernels), the reciprocal sum and the
+                   self/exclusion corrections (ops/pme.py)
+
+    dispersion_coeff adds the long-range LJ tail coeff / V (no force at
+    fixed volume; compute_dispersion_coefficient)."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -116,54 +137,144 @@ class NonbondedForce(_PairForceMixin, Force):
     r_cut: float = 1.0
     r_switch: float = 0.9
     eps_rf: float = 1e15
+    dispersion_coeff: float = None
+    ewald_alpha: float = 0.0
     method: str = "cutoff"
     use_switch: bool = True
+    grid_shape: Tuple[int, int, int] = (0, 0, 0)
+    spline_order: int = 4
     chunk: int = 256
 
     def __post_init__(self):
-        if self.method != "cutoff":
-            raise NotImplementedError(
-                f"NonbondedForce(method={self.method!r}): atomsmm_tpu_torch "
-                "ports method 'cutoff' only ('pme' and 'nocutoff' are later "
-                "slices)")
+        if self.method not in _METHODS:
+            raise ValueError(f"NonbondedForce(method={self.method!r}): "
+                             f"expected one of {_METHODS}")
 
     def _per_particle(self, globals=None):
         return {"charge": self.charge, "sigma": self.sigma,
                 "epsilon": self.epsilon}
 
     def _pair_fn(self, globals=None):
+        method, use_switch = self.method, self.use_switch
         r_cut, r_switch, eps_rf = self.r_cut, self.r_switch, self.eps_rf
-        use_switch = self.use_switch
+        alpha = float(self.ewald_alpha)
 
         def pair(r, pi, pj):
             sigma, epsilon = _combine(pi, pj)
+            qq = pi["charge"] * pj["charge"]
             u_lj = pairfuncs.lj(r, sigma, epsilon)
+            if method == "nocutoff":
+                return u_lj + pairfuncs.coulomb(r, qq)
             if use_switch:
                 rr = r.r if isinstance(r, pairfuncs.Rv) else r
                 u_lj = u_lj * switch_quintic(rr, r_switch, r_cut)
-            qq = pi["charge"] * pj["charge"]
-            return u_lj + pairfuncs.reaction_field_coulomb(r, qq, r_cut, eps_rf)
+            if method == "cutoff":
+                return u_lj + pairfuncs.reaction_field_coulomb(r, qq, r_cut,
+                                                               eps_rf)
+            return u_lj + pairfuncs.damped_coulomb(r, qq, alpha)
 
         pair.takes_rv = True
         return pair
 
     def _pair_form(self, globals=None):
+        if self.method == "pme":
+            return pairfuncs.lj_sw_ewald_form(self.r_cut, self.r_switch,
+                                              self.ewald_alpha,
+                                              self.use_switch)
+        if self.method == "nocutoff":
+            raise NotImplementedError(
+                "NonbondedForce(method='nocutoff') runs on the dense path "
+                "only: it has no pair-kernel form")
         return pairfuncs.lj_sw_rf_form(self.r_cut, self.r_switch, self.eps_rf,
                                        self.use_switch)
 
+    @property
+    def _pair_cutoff(self):
+        return math.inf if self.method == "nocutoff" else self.r_cut
+
+    def _recip_energy_forces(self, x, box, include_reciprocal=True):
+        """(E, forces) of the PME terms outside the pair sweep: the
+        self/exclusion corrections and, unless a PMEReciprocalForce carries
+        it, the reciprocal sum."""
+        alpha = float(self.ewald_alpha)
+        e, f = pme.pme_corrections_forces(x, box, self.charge,
+                                          self.exclusions, alpha)
+        if include_reciprocal:
+            er, fr = pme.pme_reciprocal_energy_forces(
+                x, box, self.charge, alpha, self.grid_shape,
+                self.spline_order)
+            e, f = e + er, f + fr
+        return e, f
+
+    def _recip_energy(self, x, box, include_reciprocal=True):
+        alpha = float(self.ewald_alpha)
+        e = pme.pme_corrections(x, box, self.charge, self.exclusions, alpha)
+        if include_reciprocal:
+            e = e + pme.pme_reciprocal_energy(x, box, self.charge, alpha,
+                                              self.grid_shape,
+                                              self.spline_order)
+        return e
+
+    def _dispersion(self, box):
+        if self.dispersion_coeff is None:
+            return 0.0
+        return self.dispersion_coeff / box_volume(box)
+
     def energy(self, x, box, globals, aux=None):
-        return self._nb_energy(x, box, globals, aux, self.r_cut)
+        e = self._nb_energy(x, box, globals, aux, self._pair_cutoff)
+        if self.method == "pme":
+            e = e + self._recip_energy(x, box)
+        return e + self._dispersion(box)
 
     def energy_and_forces(self, x, box, globals, aux=None):
-        return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
+        e, f = self._nb_energy_forces(x, box, globals, aux, self._pair_cutoff)
+        if self.method == "pme":
+            e2, f2 = self._recip_energy_forces(x, box)
+            e, f = e + e2, f + f2
+        return e + self._dispersion(box), f
+
+    def uses_neighbors(self) -> bool:
+        return self.method != "nocutoff"
+
+
+def compute_dispersion_coefficient(sigma, epsilon, r_switch, r_cut,
+                                   use_switch=True, n_quad=512):
+    """Long-range LJ tail coefficient (openmm's dispersion correction),
+    E_tail = coeff / V with coeff = 2 pi sum over pairs of the integral of
+    r² (u - u_kept) dr: the full tail beyond r_cut plus what the switch
+    removes on [r_switch, r_cut] (trapezoid quadrature), over the unique
+    (sigma, epsilon) types. Host numpy, float64."""
+    sig = np.asarray(torch.as_tensor(sigma).detach().cpu(), np.float64)
+    eps = np.asarray(torch.as_tensor(epsilon).detach().cpu(), np.float64)
+    types, counts = np.unique(np.stack([sig, eps], 1), axis=0,
+                              return_counts=True)
+    rc, rs = float(r_cut), float(r_switch)
+    total = 0.0
+    for a in range(len(counts)):
+        for b in range(len(counts)):
+            s_ab = 0.5 * (types[a, 0] + types[b, 0])
+            e_ab = np.sqrt(types[a, 1] * types[b, 1])
+            if e_ab == 0.0:
+                continue
+            npairs = counts[a] * counts[b]  # ordered pairs; x1/2 below
+            missed = 4.0 * e_ab * (s_ab**12 / (9.0 * rc**9)
+                                   - s_ab**6 / (3.0 * rc**3))
+            if use_switch and rs < rc:
+                r = np.linspace(rs, rc, n_quad)
+                u = 4.0 * e_ab * ((s_ab / r) ** 12 - (s_ab / r) ** 6)
+                t = np.clip((r - rs) / (rc - rs), 0, 1)
+                s_of_r = 1 + t**3 * (-10 + t * (15 - 6 * t))
+                missed += np.trapezoid(r * r * u * (1.0 - s_of_r), r)
+            total += 0.5 * npairs * missed
+    return float(4.0 * np.pi * total)
 
 
 @dataclasses.dataclass
 class NearNonbondedForce(_PairForceMixin, Force):
     """Short-range RESPA force (atomsmm/forces.py::NearNonbondedForce):
-    shifted-force LJ + Coulomb switched to zero over [r_switch, r_cut];
-    negated with subtract=True (the "minus near" half of the far force).
-    Undamped only (alpha = 0): damping belongs to the PME slice."""
+    shifted-force LJ + shifted-force Coulomb, damped by erfc(alpha r) when
+    alpha != 0 (the PME split), switched to zero over [r_switch, r_cut];
+    negated with subtract=True (the "minus near" half of the far force)."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -176,21 +287,18 @@ class NearNonbondedForce(_PairForceMixin, Force):
     neighbor_key: str = "default"
     chunk: int = 256
 
-    def __post_init__(self):
-        if float(self.alpha) != 0.0:
-            raise NotImplementedError(pairfuncs._PME_SLICE)
-
     def _per_particle(self, globals=None):
         return {"charge": self.charge, "sigma": self.sigma,
                 "epsilon": self.epsilon}
 
     def _pair_fn(self, globals=None):
         r_cut, r_switch, subtract = self.r_cut, self.r_switch, self.subtract
+        alpha = float(self.alpha)
 
         def pair(r, pi, pj):
             sigma, epsilon = _combine(pi, pj)
             return pairfuncs.near_pair_energy(
-                r, sigma, epsilon, pi["charge"] * pj["charge"], 0.0,
+                r, sigma, epsilon, pi["charge"] * pj["charge"], alpha,
                 r_switch, r_cut, subtract=subtract)
 
         pair.takes_rv = True
@@ -211,10 +319,14 @@ class NearNonbondedForce(_PairForceMixin, Force):
 class FarNonbondedForce(_PairForceMixin, Force):
     """Complement force for RESPA (atomsmm/forces.py::FarNonbondedForce):
     the full nonbonded force plus the negated near force, fused into one
-    pass over the full cutoff, so near + far == full."""
+    pass over the full cutoff, so near + far == full. The PME terms outside
+    the pair sweep (corrections, and the reciprocal sum unless
+    include_reciprocal is False because a PMEReciprocalForce carries it at
+    its own level) and the dispersion tail are added here."""
 
     full: NonbondedForce = None
     minus_near: NearNonbondedForce = None
+    include_reciprocal: bool = True
 
     def __post_init__(self):
         if self.full is None or self.minus_near is None:
@@ -250,10 +362,42 @@ class FarNonbondedForce(_PairForceMixin, Force):
                                   self.minus_near._pair_form(globals))
 
     def energy(self, x, box, globals, aux=None):
-        return self._nb_energy(x, box, globals, aux, self.full.r_cut)
+        e = self._nb_energy(x, box, globals, aux, self.full._pair_cutoff)
+        if self.full.method == "pme":
+            e = e + self.full._recip_energy(x, box, self.include_reciprocal)
+        return e + self.full._dispersion(box)
 
     def energy_and_forces(self, x, box, globals, aux=None):
-        return self._nb_energy_forces(x, box, globals, aux, self.full.r_cut)
+        e, f = self._nb_energy_forces(x, box, globals, aux,
+                                      self.full._pair_cutoff)
+        if self.full.method == "pme":
+            e2, f2 = self.full._recip_energy_forces(x, box,
+                                                    self.include_reciprocal)
+            e, f = e + e2, f + f2
+        return e + self.full._dispersion(box), f
+
+
+@dataclasses.dataclass
+class PMEReciprocalForce(Force):
+    """The PME reciprocal (FFT) sum as its own force group, for a third
+    RESPA level (RESPASystem(..., reciprocal_level=True), beside
+    FarNonbondedForce(include_reciprocal=False), which keeps the fast
+    self/exclusion corrections). Forces are explicit (ops/pme.py)."""
+
+    charge: torch.Tensor = None
+    ewald_alpha: float = 3.0
+    grid_shape: Tuple[int, int, int] = (0, 0, 0)
+    spline_order: int = 4
+
+    def energy(self, x, box, globals, aux=None):
+        return pme.pme_reciprocal_energy(x, box, self.charge,
+                                         float(self.ewald_alpha),
+                                         self.grid_shape, self.spline_order)
+
+    def energy_and_forces(self, x, box, globals, aux=None):
+        return pme.pme_reciprocal_energy_forces(
+            x, box, self.charge, float(self.ewald_alpha), self.grid_shape,
+            self.spline_order)
 
 
 @dataclasses.dataclass

@@ -9,7 +9,8 @@ The exchange format is a plain dict of numpy arrays and Python scalars:
   * ``system_from_numpy(desc)`` and ``state_from_numpy(desc)`` turn such a
     dict into this package's objects, on the requested device and dtype.
     A field this package does not port raises NotImplementedError unless its
-    value is the inert default (None, no PME grid, no NBFIX table...).
+    value is the inert default (None, no NBFIX table, no charge-scale
+    mask...).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .forces import (
     HarmonicBondForce,
     NearNonbondedForce,
     NonbondedForce,
+    PMEReciprocalForce,
     TemplateBondedForce,
 )
 from .ops.neighbors import NeighborSpec
@@ -32,20 +34,20 @@ from .system import System
 
 _CLASSES = {c.__name__: c for c in (
     System, NonbondedForce, NearNonbondedForce, FarNonbondedForce,
-    TemplateBondedForce, HarmonicBondForce, HarmonicAngleForce, NeighborSpec)}
+    PMEReciprocalForce, TemplateBondedForce, HarmonicBondForce,
+    HarmonicAngleForce, NeighborSpec)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path
 _INERT = {
     "backend": lambda v: True,             # the tensors' device decides
     "charge_scale_name": lambda v: True,   # only read with charge_scale_mask
-    "spline_order": lambda v: True,        # only read by PME
-    "ewald_alpha": lambda v: float(v) == 0.0,
-    "grid_shape": lambda v: not any(v),
-    "spread_block": lambda v: not v,
-    "spread_cap": lambda v: not v,
-    "spread_pad": lambda v: not v,
-    "include_reciprocal": lambda v: bool(v),
+    # the TPU's block-binned PME spreading layouts: they change how the JAX
+    # package spreads, not the grid it gets, and the port scatters every
+    # atom afresh at each evaluation, so any value carries over as no change
+    "spread_block": lambda v: True,
+    "spread_cap": lambda v: True,
+    "spread_pad": lambda v: True,
 }
 
 

@@ -16,6 +16,7 @@ from ..forces import (
     HarmonicBondForce,
     NonbondedForce,
     TemplateBondedForce,
+    compute_dispersion_coefficient,
 )
 from ..system import System, make_exclusions_array
 from ..utils import InputError
@@ -77,8 +78,11 @@ def water_system(
     seed: int = 0,
     dtype=None,
     chunk: int = 256,
+    pme_grid=None,
+    pme_alpha: float | None = None,
     neighbors: bool = False,
     skin: float = 0.1,
+    dispersion_correction: bool = False,
     template_bonded: bool = True,
     device=None,
 ):
@@ -86,11 +90,10 @@ def water_system(
     `device` in `dtype` (default: torch's default dtype).
 
     Atom order: [O, H, H] per molecule; every force in group 0 (use
-    systems.RESPASystem to split). Method 'cutoff' only.
+    systems.RESPASystem to split). Under method 'pme' the Ewald alpha, grid
+    and spline order come from ops.pme.choose_pme_parameters unless
+    `pme_alpha` / `pme_grid` fix them.
     """
-    if method != "cutoff":
-        raise NotImplementedError(
-            f"water_system(method={method!r}): only 'cutoff' is ported")
     dtype = dtype or torch.get_default_dtype()
     m = n_molecules
     n = 3 * m
@@ -110,11 +113,13 @@ def water_system(
         [np.stack([o, o + 1], 1), np.stack([o, o + 2], 1), np.stack([o + 1, o + 2], 1)]
     )
     exclusions = make_exclusions_array(n, excl_pairs, device=device)
-    nonbonded = NonbondedForce(
+    sigma = np.tile([SIGMA_O, 1.0, 1.0], m)  # irrelevant where eps = 0
+    epsilon = np.tile([EPSILON_O, 0.0, 0.0], m)
+    nb_kwargs = dict(
         group=0,
         charge=t(np.tile([Q_O, Q_H, Q_H], m)),
-        sigma=t(np.tile([SIGMA_O, 1.0, 1.0], m)),  # irrelevant where eps = 0
-        epsilon=t(np.tile([EPSILON_O, 0.0, 0.0], m)),
+        sigma=t(sigma),
+        epsilon=t(epsilon),
         exclusions=exclusions,
         r_cut=float(r_cut),
         r_switch=float(r_switch),
@@ -123,6 +128,17 @@ def water_system(
         use_switch=True,
         chunk=chunk,
     )
+    if method == "pme":
+        from ..ops.pme import choose_pme_parameters
+
+        alpha, grid, order = choose_pme_parameters(
+            r_cut, np.array([box_l] * 3), alpha=pme_alpha, grid=pme_grid)
+        nb_kwargs.update(ewald_alpha=alpha, grid_shape=grid,
+                         spline_order=order)
+    if dispersion_correction:
+        nb_kwargs["dispersion_coeff"] = compute_dispersion_coefficient(
+            sigma, epsilon, r_switch, r_cut)
+    nonbonded = NonbondedForce(**nb_kwargs)
     if template_bonded:
         bonded_forces = (
             TemplateBondedForce(

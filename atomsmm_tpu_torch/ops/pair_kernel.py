@@ -202,8 +202,8 @@ def _form_block(form, r_cut, dtype):
     arrays must outlive the call."""
     import ctypes
 
-    scal = (ctypes.c_double * 10)(_rc2(r_cut, dtype), *form.scalars())
-    flags = (ctypes.c_int * 3)(*form.flags())
+    scal = (ctypes.c_double * 13)(_rc2(r_cut, dtype), *form.scalars())
+    flags = (ctypes.c_int * 4)(*form.flags())
     return scal, flags
 
 

@@ -2,24 +2,29 @@
 
 Two families live here:
 
-* energy functions of r (``lj``, ``coulomb``, ``reaction_field_coulomb``,
-  ``near_pair_energy``) with Lorentz-Berthelot combining. The dense O(N²)
-  oracle evaluates them and takes forces by autograd.
-* the three built-in pair *forms* of the pair kernels, with energy and
-  du/dr² derived by hand (``PairForm`` and ``form_u_dudr2``). A hand kernel
-  cannot trace a Python pair function the way Pallas did, so the CUDA
-  kernels (csrc/pair_forms.cuh) take a form and a few host-computed scalars;
+* energy functions of r (``lj``, ``coulomb``, ``damped_coulomb``,
+  ``reaction_field_coulomb``, ``near_pair_energy``) with Lorentz-Berthelot
+  combining. The dense O(N²) oracle evaluates them and takes forces by
+  autograd.
+* the built-in pair *forms* of the pair kernels, with energy and du/dr²
+  derived by hand (``PairForm`` and ``form_u_dudr2``). A hand kernel cannot
+  trace a Python pair function the way Pallas did, so the CUDA kernels
+  (csrc/pair_forms.cuh) take a form and a few host-computed scalars;
   ``form_u_dudr2`` is its line-for-line PyTorch transcription, so that a
   derivation error shows in the CPU tests against the JAX package.
 
-Forms (Lorentz-Berthelot combining, k = ONE_4PI_EPS0):
+Forms (Lorentz-Berthelot combining, k = ONE_4PI_EPS0, and the Coulomb
+kernel c(r) = erfc(alpha r)/r, which is 1/r when alpha = 0):
 
 * ``LJ_SW_RF``: LJ(r) S(r; rs, rc) + k qq (1/r + k_rf r² - c_rf)
   (NonbondedForce, method 'cutoff');
+* ``LJ_SW_EWALD``: LJ(r) S(r; rs, rc) + k qq c(r), the Ewald direct-space
+  term, unshifted and truncated at rc (NonbondedForce, method 'pme');
 * ``NEAR``: [base(r) - base(rc) - base'(rc)(r - rc)] S(r; rs_in, rc_in), with
-  base(r) = 4 eps [(s/r)^12 - (s/r)^6] + k qq / r (NearNonbondedForce,
-  undamped);
-* ``FAR``: LJ_SW_RF - NEAR in one pass (the fused FarNonbondedForce).
+  base(r) = 4 eps [(s/r)^12 - (s/r)^6] + k qq c(r) (NearNonbondedForce;
+  damped when alpha != 0);
+* ``FAR``: a full form minus NEAR in one pass (the fused FarNonbondedForce);
+  both halves share alpha, so c(r) is evaluated once per slot.
 
 >>> import torch
 >>> round(float(lj(torch.tensor(2.0 ** (1 / 6) * 0.34, dtype=torch.float64), 0.34, 0.65)), 10)
@@ -28,6 +33,7 @@ Forms (Lorentz-Berthelot combining, k = ONE_4PI_EPS0):
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -35,10 +41,9 @@ from ..units import ONE_4PI_EPS0
 from .rv import Rv, make_rv, rv_parts  # noqa: F401  (re-exported)
 from .switching import switch_quintic
 
-LJ_SW_RF, NEAR, FAR = 0, 1, 2
+LJ_SW_RF, NEAR, FAR, LJ_SW_EWALD = 0, 1, 2, 3
 
-_PME_SLICE = ("damped (alpha != 0) Coulomb belongs to the PME slice, which "
-              "atomsmm_tpu_torch has not ported yet")
+TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 
 def lorentz_berthelot(sigma_i, sigma_j, eps_i, eps_j):
@@ -62,6 +67,30 @@ def coulomb(r, qq):
     return ONE_4PI_EPS0 * qq * rinv
 
 
+def erfc(x):
+    """Complementary error function, exact (``torch.erfc``) in every dtype.
+    The JAX package swaps in a polynomial for float32 on the TPU; the port's
+    kernels call CUDA's ``erfcf``/``erfc`` instead."""
+    return torch.erfc(x)
+
+
+def damped_coulomb(r, qq, alpha):
+    """Damped Coulomb k qq erfc(alpha r)/r, the PME direct-space term;
+    alpha = 0 is plain Coulomb."""
+    rr, rinv, _ = rv_parts(r)
+    return ONE_4PI_EPS0 * qq * erfc(alpha * rr) * rinv
+
+
+def coulomb_kernel_at(r_cut: float, alpha: float):
+    """(c(rc), c'(rc)) of the Coulomb kernel c(r) = erfc(alpha r)/r in host
+    f64: the near form's shift constants (1/rc and -1/rc² when alpha = 0).
+    d/dr [erfc(a r)/r] = -erfc(a r)/r² - (2a/sqrt(pi)) exp(-a² r²)/r."""
+    r_cut, alpha = float(r_cut), float(alpha)
+    ec = math.erfc(alpha * r_cut) / r_cut
+    g = TWO_OVER_SQRT_PI * alpha * math.exp(-(alpha * r_cut) ** 2)
+    return ec, -(ec + g) / r_cut
+
+
 def reaction_field_constants(r_cut: float, eps_rf: float):
     """(k_rf, c_rf) of the reaction-field Coulomb, in host f64."""
     r_cut, eps_rf = float(r_cut), float(eps_rf)
@@ -77,29 +106,41 @@ def reaction_field_coulomb(r, qq, r_cut, eps_rf):
     return ONE_4PI_EPS0 * qq * (rinv + k_rf * r2 - c_rf)
 
 
-def _near_base(rinv, sigma, epsilon, qq):
-    """base(r) and d base/dr from 1/r: the undamped LJ + Coulomb that the
-    near force shifts."""
+def _coulomb_kernel(r, rinv, alpha: float):
+    """(c(r), dc/dr) of c(r) = erfc(alpha r)/r per slot: one erfc and one
+    exp when damped, none when alpha = 0."""
+    if alpha == 0.0:
+        return rinv, -rinv * rinv
+    ar = alpha * r
+    ec = erfc(ar) * rinv
+    return ec, -(ec + TWO_OVER_SQRT_PI * alpha * torch.exp(-ar * ar)) * rinv
+
+
+def _near_base(rinv, ec, dec, sigma, epsilon, qq):
+    """base(r) and d base/dr of the LJ + Coulomb that the near force shifts,
+    from 1/r and the Coulomb kernel c(r) and its slope."""
     t = sigma * rinv
     t2 = t * t
     s6 = t2 * t2 * t2
     cq = ONE_4PI_EPS0 * qq
-    base = 4.0 * epsilon * s6 * (s6 - 1.0) + cq * rinv
-    dbase = -rinv * (24.0 * epsilon * s6 * (2.0 * s6 - 1.0) + cq * rinv)
+    base = 4.0 * epsilon * s6 * (s6 - 1.0) + cq * ec
+    dbase = -24.0 * epsilon * s6 * (2.0 * s6 - 1.0) * rinv + cq * dec
     return base, dbase
 
 
 def near_pair_energy(r, sigma, epsilon, qq, alpha, r_switch, r_cut,
                      subtract: bool = False):
     """Inner RESPA pair energy (atomsmm/forces.py::NearNonbondedForce):
-    shifted-force LJ + Coulomb, switched to zero over [r_switch, r_cut]; the
-    negated form with `subtract`. Undamped only: a nonzero alpha raises."""
-    if float(alpha) != 0.0:
-        raise NotImplementedError(_PME_SLICE)
+    shifted-force LJ + shifted-force Coulomb (damped by erfc(alpha r) when
+    alpha != 0), switched to zero over [r_switch, r_cut]; the negated form
+    with `subtract`. The shift constants come from the host in f64."""
+    alpha, r_cut = float(alpha), float(r_cut)
     rr, rinv, _ = rv_parts(r)
-    base, _ = _near_base(rinv, sigma, epsilon, qq)
-    base_c, dbase_c = _near_base(1.0 / float(r_cut), sigma, epsilon, qq)
-    u = (base - base_c - dbase_c * (rr - float(r_cut))) * switch_quintic(
+    ec = rinv if alpha == 0.0 else erfc(alpha * rr) * rinv
+    base = lj(r, sigma, epsilon) + ONE_4PI_EPS0 * qq * ec
+    ec_c, dec_c = coulomb_kernel_at(r_cut, alpha)
+    base_c, dbase_c = _near_base(1.0 / r_cut, ec_c, dec_c, sigma, epsilon, qq)
+    u = (base - base_c - dbase_c * (rr - r_cut)) * switch_quintic(
         rr, r_switch, r_cut)
     return -u if subtract else u
 
@@ -126,14 +167,20 @@ class PairForm:
     n_rc: float = 0.0
     n_rcinv: float = 0.0
     near_sign: float = 1.0
+    ewald: bool = False     # full form's Coulomb: k qq c(r), not reaction field
+    alpha: float = 0.0      # damping of c(r) = erfc(alpha r)/r, both halves
+    n_ec: float = 0.0       # near form: c(rc_in)
+    n_dec: float = 0.0      # near form: c'(rc_in)
 
     def scalars(self):
         """The kernels' scalar block, in the order csrc/pair_forms.cuh reads."""
         return [self.sw_rs, self.sw_inv_w, self.k_rf, self.c_rf, self.n_rs,
-                self.n_inv_w, self.n_rc, self.n_rcinv, self.near_sign]
+                self.n_inv_w, self.n_rc, self.n_rcinv, self.near_sign,
+                self.alpha, self.n_ec, self.n_dec]
 
     def flags(self):
-        return [int(self.has_full), int(self.use_switch), int(self.has_near)]
+        return [int(self.has_full), int(self.use_switch), int(self.has_near),
+                int(self.ewald)]
 
 
 def lj_sw_rf_form(r_cut, r_switch, eps_rf, use_switch: bool = True) -> PairForm:
@@ -144,22 +191,40 @@ def lj_sw_rf_form(r_cut, r_switch, eps_rf, use_switch: bool = True) -> PairForm:
                     k_rf=k_rf, c_rf=c_rf)
 
 
-def near_form(r_cut, r_switch, alpha=0.0, subtract: bool = False) -> PairForm:
-    if float(alpha) != 0.0:
-        raise NotImplementedError(_PME_SLICE)
+def lj_sw_ewald_form(r_cut, r_switch, alpha,
+                     use_switch: bool = True) -> PairForm:
+    """Switched LJ + the Ewald direct-space Coulomb k qq erfc(alpha r)/r,
+    truncated at r_cut (NonbondedForce, method 'pme')."""
     r_cut, r_switch = float(r_cut), float(r_switch)
+    return PairForm(LJ_SW_EWALD, r_cut, has_full=True,
+                    use_switch=bool(use_switch), sw_rs=r_switch,
+                    sw_inv_w=1.0 / (r_cut - r_switch), ewald=True,
+                    alpha=float(alpha))
+
+
+def near_form(r_cut, r_switch, alpha=0.0, subtract: bool = False) -> PairForm:
+    r_cut, r_switch = float(r_cut), float(r_switch)
+    n_ec, n_dec = coulomb_kernel_at(r_cut, alpha)
     return PairForm(NEAR, r_cut, has_near=True, n_rs=r_switch,
                     n_inv_w=1.0 / (r_cut - r_switch), n_rc=r_cut,
-                    n_rcinv=1.0 / r_cut, near_sign=-1.0 if subtract else 1.0)
+                    n_rcinv=1.0 / r_cut, near_sign=-1.0 if subtract else 1.0,
+                    alpha=float(alpha), n_ec=n_ec, n_dec=n_dec)
 
 
 def far_form(full: PairForm, minus_near: PairForm) -> PairForm:
     """The fused far form: the full form plus the (negated) near form, one
-    pass bounded by the full cutoff (the near part is zero beyond its own)."""
+    pass bounded by the full cutoff (the near part is zero beyond its own).
+    Both halves share one alpha: an Ewald full form takes only a near form
+    damped by its own alpha."""
+    if full.ewald and minus_near.alpha != full.alpha:
+        raise ValueError(
+            f"fused far form: the near half's alpha {minus_near.alpha} differs "
+            f"from the Ewald alpha {full.alpha} of the full force")
     return dataclasses.replace(
         full, kind=FAR, has_near=True, n_rs=minus_near.n_rs,
         n_inv_w=minus_near.n_inv_w, n_rc=minus_near.n_rc,
-        n_rcinv=minus_near.n_rcinv, near_sign=minus_near.near_sign)
+        n_rcinv=minus_near.n_rcinv, near_sign=minus_near.near_sign,
+        alpha=minus_near.alpha, n_ec=minus_near.n_ec, n_dec=minus_near.n_dec)
 
 
 def _switch_and_slope(x):
@@ -178,6 +243,9 @@ def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
     rinv2 = rinv * rinv
     u = torch.zeros_like(r2)
     dudr2 = torch.zeros_like(r2)
+    # Coulomb kernel c(r) = erfc(alpha r)/r and dc/dr, shared by both halves
+    ec, dec = _coulomb_kernel(r, rinv, form.alpha)
+    cq = ONE_4PI_EPS0 * qq
     if form.has_full:
         t = sig * rinv
         t2 = t * t
@@ -189,17 +257,24 @@ def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
             dsw = ds_dx * form.sw_inv_w * 0.5 * rinv
         else:
             sw, dsw = torch.ones_like(r2), torch.zeros_like(r2)
-        uc = ONE_4PI_EPS0 * qq * (rinv + form.k_rf * r2 - form.c_rf)
-        duc = ONE_4PI_EPS0 * qq * (form.k_rf - 0.5 * rinv * rinv2)
-        u = u + ulj * sw + uc
-        dudr2 = dudr2 + dulj * sw + ulj * dsw + duc
+        if form.ewald:
+            uc = cq * ec
+            duc = cq * dec * 0.5 * rinv
+            u = u + ulj * sw + uc
+            dudr2 = dudr2 + dulj * sw + ulj * dsw + duc
+        else:
+            uc = ONE_4PI_EPS0 * qq * (rinv + form.k_rf * r2 - form.c_rf)
+            duc = ONE_4PI_EPS0 * qq * (form.k_rf - 0.5 * rinv * rinv2)
+            u = u + ulj * sw + uc
+            dudr2 = dudr2 + dulj * sw + ulj * dsw + duc
     if form.has_near:
         # the kernel skips slots with x >= 1 by a branch; here S = dS = 0
         # there, so they add exactly zero
         sw, ds_dx = _switch_and_slope((r - form.n_rs) * form.n_inv_w)
         dsw_dr = ds_dx * form.n_inv_w
-        base, dbase = _near_base(rinv, sig, eps, qq)
-        base_c, dbase_c = _near_base(form.n_rcinv, sig, eps, qq)
+        base, dbase = _near_base(rinv, ec, dec, sig, eps, qq)
+        base_c, dbase_c = _near_base(form.n_rcinv, form.n_ec, form.n_dec, sig,
+                                     eps, qq)
         sh = base - base_c - dbase_c * (r - form.n_rc)
         un = sh * sw
         dun_dr = (dbase - dbase_c) * sw + sh * dsw_dr

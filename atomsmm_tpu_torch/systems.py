@@ -2,7 +2,8 @@
 
   RESPASystem — atomsmm/systems.py::RESPASystem: split the nonbonded force
                 into near (group 1) / far (group 2), bonded terms in group 0,
-                for r-RESPA integration.
+                and under PME optionally the reciprocal sum (group 3), for
+                r-RESPA integration.
 
 >>> import torch
 >>> from atomsmm_tpu_torch.models import water_system
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .forces import FarNonbondedForce, NearNonbondedForce
+from .forces import FarNonbondedForce, NearNonbondedForce, PMEReciprocalForce
 from .system import System
 from .utils import find_nonbonded_force, replace
 
@@ -42,17 +43,17 @@ def RESPASystem(
                 when the system has a neighbor spec and near_grid is set
       group 2 — FarNonbondedForce: the full nonbonded force plus the negated
                 near force, fused into one pass (near + far == full).
+      group 3 — (reciprocal_level=True, PME only) PMEReciprocalForce: the
+                reciprocal sum as its own slowest level; pass a 4-entry
+                loops list to MultipleTimeScaleIntegrator.
 
-    `fast_exceptions` is kept for the JAX package's signature; the ported
-    systems carry no exception force. `reciprocal_level` needs PME and
-    raises.
+    The near force's Coulomb damping follows the full force: the Ewald
+    alpha under PME, else undamped. `fast_exceptions` is kept for the JAX
+    package's signature; the ported systems carry no exception force.
     """
-    if reciprocal_level:
-        raise NotImplementedError(
-            "RESPASystem(reciprocal_level=True) needs PME, which "
-            "atomsmm_tpu_torch has not ported yet")
     idx = find_nonbonded_force(system)
     nb = system.forces[idx]
+    alpha = float(nb.ewald_alpha) if nb.method == "pme" else 0.0
 
     new_forces = [replace(f, group=0)
                   for i, f in enumerate(system.forces) if i != idx]
@@ -64,16 +65,22 @@ def RESPASystem(
         exclusions=nb.exclusions,
         r_cut=float(rcut_in),
         r_switch=float(rswitch_in),
-        alpha=0.0,
+        alpha=alpha,
         subtract=False,
         chunk=nb.chunk,
     )
+    split_recip = bool(reciprocal_level) and nb.method == "pme"
     far = FarNonbondedForce(
         group=2,
         full=replace(nb, group=2),
         minus_near=replace(near, subtract=True, group=2),
+        include_reciprocal=not split_recip,
     )
     new_forces += [near, far]
+    if split_recip:
+        new_forces.append(PMEReciprocalForce(
+            group=3, charge=nb.charge, ewald_alpha=float(nb.ewald_alpha),
+            grid_shape=nb.grid_shape, spline_order=nb.spline_order))
     out = system.replace_forces(new_forces)
     if near_grid and system.neighbors is not None:
         # the near force integrates most often: give it its own finer cell

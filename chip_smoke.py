@@ -15,7 +15,9 @@ non-zero:
    vs float64 plain: energy rtol 1e-10, forces atol 1e-9 x max|F| (the
    logic). float32 kernel vs float64 plain on the same f32 inputs: energy
    rtol 1e-4, forces atol 1e-4 x max|F| (f32 cancellation in full - near at
-   short range, rsqrt rounding, summation order);
+   short range, rsqrt rounding, summation order); the fused damped far form
+   scales its float32 force tolerance with the unsplit full force's max|F|
+   (the truncated Ewald term jumps at the float32-rounded cutoff);
    - K1: argon 864, water 400 (full cutoff-RF, RESPA near and fused far),
      the 30k equilibrated state's near and far grids, an atom crossing the
      periodic face between rebuilds, and water 400 renumbered so that no
@@ -30,9 +32,14 @@ non-zero:
      the plain twin, then against K1 in float64 at the same tolerances (the
      same pairs inside the cutoff), then after moving every atom by at most
      skin/4, staged with xref, against K1 on fresh buckets;
+   - the damped PME forms (Ewald direct-space full form, damped near form,
+     fused damped far form): K1 at the 30k PME state's far and near grids,
+     K2 on the water 700 far grid, K3 on the 30k PME tile lists (and
+     against K1 in float64);
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
-   grids) and at the default 0.9 nm (K2 far, K1 near): positions and
+   grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
+   (K2 far, K1 near, the reciprocal sum on cuFFT): positions and
    velocities to 1e-9 relative;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
@@ -47,10 +54,22 @@ non-zero:
 7. path (b): the tile-list entry point at the 30k state: build_tile_pairs
    and tile_pair_energy_forces for the fused far form and the near form in
    float32 and float64 (4 K3 launches), finite and Newton-balanced;
-8. timings with CUDA events: K1 and its plain twin at the headline's near
+8. path (c): the 30k headline with PME (water_system(method='pme'):
+   alpha 2.92029 /nm, grid 45^3, order 6; the near force damped at the
+   same alpha) in float32: step(1), then a timed step(200); checks as in
+   phase 5 (K1 launches, T, PE per atom, drift) plus the reciprocal
+   evaluations (one per outer step + 1 per pass), and the card's float32
+   far force (reciprocal included) against its float64 far force at the
+   30k state (energy rtol 1e-4, forces 1e-4 x max|F| of the unsplit
+   near + far force);
+9. timings with CUDA events: K1 and its plain twin at the headline's near
    and far shapes; K2 and its plain twin on the water 700 far grid; K3, its
    wrapper and its plain twin at the 30k near and far lists; the two list
-   builds at 30k.
+   builds at 30k; the damped K1 (and its plain twin) at path (c)'s near and
+   far shapes, the damped K2 on the water 700 far grid, and the reciprocal
+   sum stage by stage (spline weights, spread, rfftn, convolution, irfftn,
+   gather, corrections); then path (c)'s outer step split by force group
+   (host clock, synchronised).
 
 Then one JSON line of kernel results, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
@@ -115,9 +134,21 @@ def plain_sweep(spec, form, x, box, pp, bucket):
             float(e_i.abs().sum()))
 
 
-def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None):
+def form_name(form):
+    """A pair form's name for the kernels line: its kind, and whether its
+    Coulomb kernel is damped (the PME forms)."""
+    from atomsmm_tpu_torch.ops import pairfuncs as pf
+
+    name = {pf.LJ_SW_RF: "lj_sw_rf", pf.NEAR: "near", pf.FAR: "far",
+            pf.LJ_SW_EWALD: "lj_sw_ewald"}[form.kind]
+    return name + ("_damped" if form.alpha and form.kind != pf.LJ_SW_EWALD
+                   else "")
+
+
+def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None, f_scale=None):
     """Hold (e_k, f_k) against the float64 reference (e_p, f_p) at the
-    tolerances of `dtype`; e_scale replaces |e_p| as the energy scale."""
+    tolerances of `dtype`; e_scale replaces |e_p| as the energy scale and
+    f_scale max|f_p| as the force scale."""
     import torch
 
     rtol, ftol = ((F64_RTOL, F64_FTOL) if dtype == torch.float64
@@ -125,21 +156,29 @@ def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None):
     scale = abs(float(e_p)) if e_scale is None else e_scale
     e_err = abs(float(e_k) - float(e_p)) / max(scale, 1e-300)
     f_err = float((f_k.double() - f_p.double()).abs().max())
-    f_max = float(f_p.abs().max())
+    f_max = float(f_p.abs().max()) if f_scale is None else f_scale
     ok = (bool(torch.isfinite(f_k).all()) and e_err <= rtol
           and f_err <= ftol * f_max)
     log(f"kernel {label} {str(dtype)[6:]}: E {float(e_k):.10g} vs "
         f"{float(e_p):.10g} rel {e_err:.2e} (tol {rtol:g}"
         f"{'' if e_scale is None else ' of sum|e_i|'}); "
-        f"max|dF| {f_err:.3e} of max|F| {f_max:.4g} (tol {ftol:g}x)")
+        f"max|dF| {f_err:.3e} of max|F| {f_max:.4g}"
+        f"{'' if f_scale is None else ' of the unsplit force'} "
+        f"(tol {ftol:g}x)")
     if not ok:
         raise RuntimeError(f"kernel disagrees with its reference: {label}")
     return (label, str(dtype)[6:], e_err, f_err, f_max)
 
 
-def compare(label, force, spec, x, box, dev, results, terms_scale=False):
+def compare(label, force, spec, x, box, dev, results, terms_scale=False,
+            unsplit=None):
     """The wrapper's kernel (f64 and f32) against the f64 plain twin on the
-    card; the spec picks K1 (half maps) or K2."""
+    card; the spec picks K1 (half maps) or K2. With `unsplit` (the full
+    force a fused far force was split from) the float32 force tolerance
+    scales with the unsplit force's max|F|: the far force is the difference
+    of two forces of that size, and the truncated Ewald term moves pairs
+    across the float32-rounded cutoff with a force jump of up to
+    k |qq| [erfc(a rc)/rc² + (2a/sqrt(pi)) exp(-a² rc²)/rc] each."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
@@ -164,8 +203,13 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False):
             raise RuntimeError(f"{label}: the wrapper did not launch {kernel}")
         e_p, f_p, terms = plain_sweep(spec, form, xd, bd, pp, bucket)
         scale = terms if terms_scale and dtype == torch.float32 else None
+        f_scale = None
+        if unsplit is not None and dtype == torch.float32:
+            f_scale = float(plain_sweep(spec, unsplit._pair_form(), xd, bd,
+                                        pp, bucket)[1].abs().max())
         results.append((kernel,) + judge(f"{kernel} {label}", dtype, e_k,
-                                         f_k, e_p, f_p, scale))
+                                         f_k, e_p, f_p, scale, f_scale)
+                       + (form_name(form),))
 
 
 def permuted(force, x, box, r_cut):
@@ -254,6 +298,18 @@ def phase_kernels(dev, eq):
                              dtype=f64)
     face_crossing("half_pair argon1728", s, x, box, dev)
 
+    # K1 in the damped PME forms at the 30k PME state's grids
+    s, _, _ = water_system(n_molecules=10000, method="pme", neighbors=True,
+                           dtype=f64)
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
+    compare("water30k pme full (Ewald direct)", s.forces[0], r.neighbors, xe,
+            be, dev, results)
+    compare("water30k pme near (damped)", r.forces[1],
+            r.extra_neighbor_specs["near"], xe, be, dev, results)
+    compare("water30k pme far (fused damped)", r.forces[2], r.neighbors, xe,
+            be, dev, results, unsplit=s.forces[0])
+
     # K2: grids too small for half maps at the default 0.9 nm cutoff
     s, x, box = water_system(n_molecules=216, seed=5, neighbors=True,
                              dtype=f64)
@@ -261,15 +317,18 @@ def phase_kernels(dev, eq):
         raise RuntimeError("water 216 should fill one cell above 1,024 slots")
     compare("water216 one cell cap 1112", s.forces[0], s.neighbors, x, box,
             dev, results, terms_scale=True)
-    for m in (400, 700):
+    for m, method in ((400, "cutoff"), (700, "cutoff"), (700, "pme")):
         s, x, box = water_system(n_molecules=m, seed=5, neighbors=True,
-                                 dtype=f64)
+                                 dtype=f64, method=method)
         r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
         tag = f"water{m} grid {s.neighbors.grid[0]}^3 cap " \
               f"{s.neighbors.cell_capacity}"
-        compare(f"{tag} cutoff-RF", s.forces[0], s.neighbors, x, box, dev,
+        full = "cutoff-RF" if method == "cutoff" else "pme full (Ewald direct)"
+        far = "far" if method == "cutoff" else "pme far (fused damped)"
+        compare(f"{tag} {full}", s.forces[0], s.neighbors, x, box, dev,
                 results)
-        compare(f"{tag} far", r.forces[2], r.neighbors, x, box, dev, results)
+        compare(f"{tag} {far}", r.forces[2], r.neighbors, x, box, dev,
+                results, unsplit=s.forces[0] if method == "pme" else None)
         if m == 400:
             pf, pspec, px = permuted(s.forces[0], x, box, 0.9)
             compare("water400 renumbered (exclusion columns)", pf, pspec, px,
@@ -278,9 +337,10 @@ def phase_kernels(dev, eq):
     return results
 
 
-def tile_lists(dev, eq, dtype):
+def tile_lists(dev, eq, dtype, method="cutoff"):
     """{'far'/'near': (force, tile spec, list, cell spec)} at the 30k state
-    on the card, with the cell specs of the headline retuned as phase 5."""
+    on the card, with the cell specs of the headline retuned as phase 5;
+    under PME also 'full' (the Ewald direct-space form on the far list)."""
     import torch
 
     import atomsmm_tpu_torch as amm
@@ -290,15 +350,17 @@ def tile_lists(dev, eq, dtype):
 
     ex, _, ebox = eq
     s, _, _ = water_system(n_molecules=10000, neighbors=True,
-                           dtype=torch.float64)
+                           dtype=torch.float64, method=method)
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
     r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
     x = torch.as_tensor(ex, dtype=dtype, device=dev)
     box = torch.as_tensor(ebox, dtype=dtype, device=dev)
+    groups = [("far", r.forces[2], r.neighbors),
+              ("near", r.forces[1], r.extra_neighbor_specs["near"])]
+    if method == "pme":
+        groups.insert(0, ("full", s.forces[0], r.neighbors))
     out = {}
-    for label, force, cspec in (
-            ("far", r.forces[2], r.neighbors),
-            ("near", r.forces[1], r.extra_neighbor_specs["near"])):
+    for label, force, cspec in groups:
         spec = tp.make_tilepair_spec(ebox, x.shape[0], force._pair_form().r_cut,
                                      exclusions=force.exclusions,
                                      occupancy_from=ex, device=dev)
@@ -329,25 +391,34 @@ def tile_plain(spec, form, x, box, pp, lst, xref=None):
 
 
 def phase_tile_kernel(dev, eq):
-    """K3 against its plain twin, then against K1 at the 30k state."""
+    """K3 against its plain twin, then against K1 at the 30k state, in the
+    reaction-field and the damped PME forms."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import tilepair as tp
 
     results = []
-    for dtype in (torch.float64, torch.float32):
-        x, box, lists = tile_lists(dev, eq, dtype)
-        for label, (force, spec, lst, cspec) in lists.items():
+    for method, dtype in (("cutoff", torch.float64), ("cutoff", torch.float32),
+                          ("pme", torch.float64), ("pme", torch.float32)):
+        x, box, lists = tile_lists(dev, eq, dtype, method)
+        f_max = {}
+        for group, (force, spec, lst, cspec) in lists.items():
+            label = group if method == "cutoff" else f"pme {group}"
             form = force._pair_form()
             pp = {k: v.to(dev, dtype)
                   for k, v in force._per_particle().items()}
             e_k, f_k = tp.tile_pair_energy_forces(form, x, box, pp, spec,
                                                   *lst[:4], form.r_cut)
             e_p, f_p = tile_plain(spec, form, x, box, pp, lst)
+            f_max[group] = float(f_p.abs().max())
+            # the fused damped far form against the unsplit force's scale
+            # (see compare)
+            f_scale = (f_max["full"] if group == "far" and "full" in f_max
+                       and dtype == torch.float32 else None)
             results.append(("tile_pair",) + judge(
                 f"tile_pair water30k {label} (E {spec.max_entries})", dtype,
-                e_k, f_k, e_p, f_p))
+                e_k, f_k, e_p, f_p, f_scale=f_scale) + (form_name(form),))
             if dtype != torch.float64:
                 continue
             bucket, _ = nb.build_cell_buckets(cspec, x, box)
@@ -411,17 +482,62 @@ def phase_slice(dev, **water_kw):
         raise RuntimeError("the slice on the card departs from the CPU run")
 
 
-def phase_main(dev, eq, steps=200):
+def far_precision(dev, eq, respa):
+    """The card's float32 far force (PME reciprocal sum, corrections and
+    the fused damped pair sweep) against its float64 far force at the 30k
+    state: energy rtol 1e-4, forces 1e-4 x max|F| of the unsplit nonbonded
+    force (see compare)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    ex, _, ebox = eq
+    f64 = torch.float64
+    s, _, _ = water_system(n_molecules=10000, method="pme", neighbors=True,
+                           dtype=f64, device=dev)
+    r64 = retune_neighbor_specs(amm.RESPASystem(s, rcut_in=0.5,
+                                                rswitch_in=0.4),
+                                ex, ebox, safety=1.03)
+    out = []
+    for system in (respa, r64):
+        dtype = system.masses.dtype
+        x = torch.as_tensor(ex, dtype=dtype, device=dev)
+        box = torch.as_tensor(ebox, dtype=dtype, device=dev)
+        aux = {}
+        for name, spec in (("default", system.neighbors),
+                           ("near", system.extra_neighbor_specs["near"])):
+            bucket, overflow = nb.build_cell_buckets(spec, x, box)
+            if bool(overflow):
+                raise RuntimeError("far precision: bucket overflow at 30k")
+            aux[name] = {"spec": spec, "bucket": bucket}
+        out.append(system.forces[2].energy_and_forces(x, box, {}, aux))
+    (e32, f32), (e64, f64_) = out
+    # force scale: the unsplit nonbonded force (near + far), as in compare
+    _, f_near = r64.forces[1].energy_and_forces(
+        torch.as_tensor(ex, dtype=f64, device=dev),
+        torch.as_tensor(ebox, dtype=f64, device=dev), {}, aux)
+    judge("far force with PME reciprocal water30k (card f32 vs card f64)",
+          torch.float32, e32, f32, e64, f64_,
+          f_scale=float((f64_ + f_near).abs().max()))
+
+
+def phase_main(dev, eq, steps=200, method="cutoff"):
+    """The 30k headline through Context.step: reaction field (phase 5) or
+    PME (path (c)), float32."""
     import torch
 
     import atomsmm_tpu_torch as amm
     from atomsmm_tpu_torch.models import water_system
     from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import pme
     from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
 
     f32 = torch.float32
     dt, loops = 0.004, [4, 2, 1]
-    system, _, _ = water_system(n_molecules=10000, method="cutoff",
+    system, _, _ = water_system(n_molecules=10000, method=method,
                                 neighbors=True, dtype=f32, device=dev)
     respa = amm.RESPASystem(system, rcut_in=0.5, rswitch_in=0.4)
     n = system.num_particles
@@ -440,32 +556,46 @@ def phase_main(dev, eq, steps=200):
     torch.cuda.synchronize()
     e0 = float(ctx.conserved_energy())
     pk.reset_launches()
+    pme.reset_evaluations()
     t0 = time.perf_counter()
     ctx.step(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(pk.LAUNCHES)
+    recip = pme.EVALUATIONS["reciprocal"]
     e1 = float(ctx.conserved_energy())
     x, v = ctx.state.x, ctx.state.v
     finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
     temp = float(ctx.temperature())
     pe = float(ctx.get_state(lite=True).potential_energy) / n
     drift = (e1 - e0) / (n * steps * dt)
-    expected = {"half_pair": ctx.last_step_passes * (3 * steps + 2),
+    passes = ctx.last_step_passes
+    expected = {"half_pair": passes * (3 * steps + 2),
                 "cell_pair": 0, "tile_pair": 0}
+    # the far force (and with it the reciprocal sum) once per outer step,
+    # once more for the force-cache refresh of each pass
+    expected_recip = passes * (steps + 1) if method == "pme" else 0
     ms = wall / steps * 1e3
     ns_day = dt * 1e-3 * steps / wall * 86400.0
-    log(f"main water30k RESPA{loops}@{dt*1e3:.0f}fs NVT float32: caps "
-        f"far/near {caps[0]}/{caps[1]} -> "
+    name = "main" if method == "cutoff" else "path (c)"
+    pme_desc = ""
+    if method == "pme":
+        f = system.forces[0]
+        pme_desc = (f" PME alpha {f.ewald_alpha:.5f}/nm grid {f.grid_shape} "
+                    f"order {f.spline_order};")
+    log(f"{name} water30k {method} RESPA{loops}@{dt*1e3:.0f}fs NVT float32:"
+        f"{pme_desc} caps far/near {caps[0]}/{caps[1]} -> "
         f"{ctx.system.neighbors.cell_capacity}/"
         f"{ctx.system.extra_neighbor_specs['near'].cell_capacity}; "
         f"{ms:.3f} ms/step, {ns_day:.3f} ns/day; launches {launches} "
-        f"(expected {expected}, passes {ctx.last_step_passes}); T {temp:.2f} K; "
+        f"(expected {expected}, passes {passes}); reciprocal evaluations "
+        f"{recip} (expected {expected_recip}); T {temp:.2f} K; "
         f"PE/atom {pe:.4f} kJ/mol; drift {drift:.5f} kJ/mol/atom/ps; "
         f"finite {finite}")
     checks = {
         "finite": finite,
         "launches": launches == expected,
+        "reciprocal_evaluations": recip == expected_recip,
         "temperature": 280.0 <= temp <= 320.0,
         "pe_per_atom": -14.6 <= pe <= -13.8,
         "drift": abs(drift) <= 0.1,
@@ -473,9 +603,12 @@ def phase_main(dev, eq, steps=200):
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise RuntimeError(f"main path checks failed: {failed}")
+        raise RuntimeError(f"{name} checks failed: {failed}")
+    if method == "pme":
+        far_precision(dev, eq, respa)
     return {"launches": launches["half_pair"], "ms_per_step": ms,
-            "ns_day": ns_day, "respa": respa, "state": (ex, ebox)}
+            "ns_day": ns_day, "respa": respa, "state": (ex, ebox),
+            "reciprocal": recip}
 
 
 def phase_small_box(dev, steps=200, melt_steps=200):
@@ -605,6 +738,34 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_half(label, force, spec, x, box):
+    """K1, its wrapper and its plain twin at one shape, CUDA events."""
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    n = x.shape[0]
+    form = force._pair_form()
+    pp = force._per_particle()
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    hf, hm, _ = pk.stage(spec, x, pp, bucket)
+    k_ms = time_cuda(lambda: pk.half_pair_cuda(
+        hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n), 20)
+    sweep_ms = time_cuda(lambda: nb.cell_pair_energy_forces(
+        form, x, box, pp, spec, bucket, form.r_cut), 20)
+    p_ms = time_cuda(lambda: pk.half_pair_plain(
+        hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n,
+        spec.cell_chunk), 3)
+    slots = spec.ncells * spec.nbr_cells_half.shape[1] \
+        * spec.cell_capacity ** 2
+    log(f"timing half_pair {label} grid {spec.grid} cap "
+        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms "
+        f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots), "
+        f"wrapper with staging and write-back {sweep_ms:.4f} ms, "
+        f"plain float32 {p_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": p_ms, "sweep_ms": sweep_ms,
+            "slots": slots}
+
+
 def phase_timings(dev, main, small, eq):
     import torch
 
@@ -617,31 +778,11 @@ def phase_timings(dev, main, small, eq):
     f32 = torch.float32
     x = torch.as_tensor(ex, dtype=f32, device=dev)
     box = torch.as_tensor(ebox, dtype=f32, device=dev)
-    n = x.shape[0]
     out = {}
     for label, force, spec in (
             ("far", respa.forces[2], respa.neighbors),
             ("near", respa.forces[1], respa.extra_neighbor_specs["near"])):
-        form = force._pair_form()
-        pp = force._per_particle()
-        bucket, _ = nb.build_cell_buckets(spec, x, box)
-        hf, hm, _ = pk.stage(spec, x, pp, bucket)
-        k_ms = time_cuda(lambda: pk.half_pair_cuda(
-            hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n), 20)
-        sweep_ms = time_cuda(lambda: nb.cell_pair_energy_forces(
-            form, x, box, pp, spec, bucket, form.r_cut), 20)
-        p_ms = time_cuda(lambda: pk.half_pair_plain(
-            hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n,
-            spec.cell_chunk), 3)
-        slots = spec.ncells * spec.nbr_cells_half.shape[1] \
-            * spec.cell_capacity ** 2
-        log(f"timing half_pair {label} grid {spec.grid} cap "
-            f"{spec.cell_capacity}: kernel {k_ms:.4f} ms "
-            f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots), "
-            f"wrapper with staging and write-back {sweep_ms:.4f} ms, "
-            f"plain float32 {p_ms:.4f} ms")
-        out[("half_pair", label)] = {"ms": k_ms, "plain_ms": p_ms,
-                                     "sweep_ms": sweep_ms, "slots": slots}
+        out[("half_pair", label)] = time_half(label, force, spec, x, box)
 
     # K2 on the path (a) far grid, at its state after the run
     s_sys, s_state = small["respa"], small["state"]
@@ -697,6 +838,152 @@ def phase_timings(dev, main, small, eq):
     return out
 
 
+def phase_pme_timings(dev, pme_run, small, eq):
+    """Path (c)'s damped K1 at its far and near shapes, the damped K2 on
+    the water 700 far grid, the damped K3 on the 30k far list and the
+    reciprocal sum stage by stage, all in float32 with CUDA events."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import pme
+    from atomsmm_tpu_torch.ops import tilepair as tp
+
+    respa = pme_run["respa"]
+    ex, ebox = pme_run["state"]
+    f32 = torch.float32
+    x = torch.as_tensor(ex, dtype=f32, device=dev)
+    box = torch.as_tensor(ebox, dtype=f32, device=dev)
+    out = {}
+    for label, force, spec in (
+            ("pme far", respa.forces[2], respa.neighbors),
+            ("pme near", respa.forces[1],
+             respa.extra_neighbor_specs["near"])):
+        out[("half_pair", label)] = time_half(label, force, spec, x, box)
+
+    # K2 in the fused damped far form on the water 700 far grid, at the
+    # positions path (a) ended with
+    s, _, _ = water_system(n_molecules=700, method="pme", neighbors=True,
+                           dtype=f32, device=dev)
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    spec = small["respa"].neighbors
+    force = r.forces[2]
+    form, pp = force._pair_form(), force._per_particle()
+    xs, bs = small["state"].x, small["state"].box
+    bucket, _ = nb.build_cell_buckets(spec, xs, bs)
+    hf, hm, _ = pk.stage(spec, xs, pp, bucket)
+    k_ms = time_cuda(lambda: pk.full_pair_cuda(
+        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0]), 20)
+    p_ms = time_cuda(lambda: pk.full_pair_plain(
+        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0],
+        spec.cell_chunk), 3)
+    log(f"timing cell_pair pme far water700 grid {spec.grid} cap "
+        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms, plain float32 "
+        f"{p_ms:.4f} ms")
+    out[("cell_pair", "pme far")] = {"ms": k_ms, "plain_ms": p_ms}
+
+    # K3 in the fused damped far form on the 30k far list
+    xt, bt, lists = tile_lists(dev, eq, f32, "pme")
+    force, spec, lst, _ = lists["far"]
+    form = force._pair_form()
+    pp = {k: v.to(dev) for k, v in force._per_particle().items()}
+    order_, hb, cb, wrap, _ = lst
+    fs, ms = tp._stage(spec, xt, bt, pp, spec.excbits, order_)
+    k_ms = time_cuda(lambda: tp.tile_pair_cuda(
+        fs, ms, hb, cb, wrap, bt, form, form.r_cut), 20)
+    p_ms = time_cuda(lambda: tp.tile_pair_plain(
+        fs, ms, hb, cb, wrap, bt, form, form.r_cut), 3)
+    log(f"timing tile_pair pme far water30k: kernel {k_ms:.4f} ms, plain "
+        f"float32 {p_ms:.4f} ms")
+    out[("tile_pair", "pme far")] = {"ms": k_ms, "plain_ms": p_ms}
+
+    # the reciprocal sum, stage by stage
+    nbf = respa.forces[2].full
+    q, alpha = nbf.charge, float(nbf.ewald_alpha)
+    grid, order = tuple(nbf.grid_shape), int(nbf.spline_order)
+    idx, w, dw = pme._spline_setup(x, box, grid, order, True)
+    Q = pme._spread(idx, w, q, grid)
+    qhat = torch.fft.rfftn(Q)
+    _, bq = pme._convolve(qhat, box, alpha, grid, order)
+    phi = pme._grid_potential(bq, grid)
+    stages = {
+        "spline weights": lambda: pme._spline_setup(x, box, grid, order,
+                                                    True),
+        "spread": lambda: pme._spread(idx, w, q, grid),
+        "rfftn": lambda: torch.fft.rfftn(Q),
+        "convolution": lambda: pme._convolve(qhat, box, alpha, grid, order),
+        "irfftn": lambda: pme._grid_potential(bq, grid),
+        "gather": lambda: pme._gather(phi, idx, w, dw, q, box, grid, order),
+        "corrections": lambda: pme.pme_corrections_forces(
+            x, box, q, nbf.exclusions, alpha),
+        "reciprocal total": lambda: pme.pme_reciprocal_energy_forces(
+            x, box, q, alpha, grid, order),
+    }
+    times = {k: time_cuda(fn, 20) for k, fn in stages.items()}
+    log("timing PME reciprocal water30k grid {} order {} float32: {}".format(
+        grid, order, ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())))
+    out["reciprocal"] = times
+    return out
+
+
+def phase_path_c_split(dev, pme_run):
+    """Where path (c)'s outer step goes: each force group's evaluation and
+    the two bucket rebuilds timed alone on the host clock with a
+    synchronise after every call (so launch overhead counts), times its
+    count per outer step of RESPA [4, 2, 1]; the rest of the measured
+    ms/step is the integrator (kicks, drifts, NHC) and Python."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pme
+    from atomsmm_tpu_torch.potential import force_fn
+
+    respa = pme_run["respa"]
+    ex, ebox = pme_run["state"]
+    x = torch.as_tensor(ex, dtype=torch.float32, device=dev)
+    box = torch.as_tensor(ebox, dtype=torch.float32, device=dev)
+    aux = nb.make_aux(respa, nb.all_neighbor_extras(respa, x, box))
+    full = respa.forces[2].full
+
+    def wall(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    parts = {  # name: (ms per call, calls per outer step)
+        "bonded (group 0, autograd)": (wall(lambda: force_fn(
+            respa, {0})(x, box, {}, aux)), 8),
+        "near (group 1, K1)": (wall(lambda: force_fn(
+            respa, {1})(x, box, {}, aux)), 2),
+        "far (group 2: K1 + PME)": (wall(lambda: force_fn(
+            respa, {2})(x, box, {}, aux)), 1),
+        "  of which reciprocal sum": (wall(
+            lambda: pme.pme_reciprocal_energy_forces(
+                x, box, full.charge, float(full.ewald_alpha),
+                full.grid_shape, full.spline_order)), 1),
+        "  of which corrections": (wall(lambda: pme.pme_corrections_forces(
+            x, box, full.charge, full.exclusions,
+            float(full.ewald_alpha))), 1),
+        "bucket rebuilds (2 grids)": (wall(lambda: nb.all_neighbor_extras(
+            respa, x, box)), 1),
+    }
+    step_ms = pme_run["ms_per_step"]
+    counted = sum(ms * k for name, (ms, k) in parts.items()
+                  if not name.startswith("  "))
+    log("path (c) split per outer step ({:.3f} ms/step): {}; rest "
+        "(integrator, NHC, Python) {:.3f} ms".format(
+            step_ms, ", ".join(f"{name.strip()} {ms:.3f} ms x {k}"
+                               for name, (ms, k) in parts.items()),
+            step_ms - counted))
+    return parts
+
+
 def main():
     import torch
 
@@ -723,34 +1010,46 @@ def main():
     results = phase_kernels(dev, eq) + phase_tile_kernel(dev, eq)
     phase_slice(dev, r_cut=0.7, r_switch=0.6, split=(0.45, 0.35))
     phase_slice(dev, split=(0.5, 0.4))
+    phase_slice(dev, method="pme", split=(0.5, 0.4))
     main_run = phase_main(dev, eq)
+    pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
     timings = phase_timings(dev, main_run, small, eq)
+    timings.update(phase_pme_timings(dev, pme_run, small, eq))
+    phase_path_c_split(dev, pme_run)
 
     def f32_err(kernel, prefix):
         return max(r[4] for r in results if r[0] == kernel
                    and r[2] == "float32" and prefix in r[1])
 
-    def entry(kernel, source, replaces, launches, err, key, shape):
-        t = timings[key]
+    def forms(kernel):
+        """The forms a kernel was held in against its plain twin."""
+        return sorted({r[6] for r in results if r[0] == kernel})
+
+    def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
+        t, tp_ = timings[key], timings[pme_key]
         return {"name": kernel, "route": "cuda",
                 "source": f"atomsmm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "shape": shape}
+                "shape": shape, "pme_ms": tp_["ms"],
+                "pme_plain_ms": tp_["plain_ms"], "forms": forms(kernel)}
 
     kernels = {"kernels": [
         entry("half_pair", "half_pair.cu", "atomsmm_tpu/ops/pallas_pair.py:240",
-              main_run["launches"], f32_err("half_pair", "water30k"),
-              ("half_pair", "far"), "30k water far grid 7^3 cap 112, f32"),
+              pme_run["launches"], f32_err("half_pair", "water30k"),
+              ("half_pair", "far"), "30k water far grid 7^3 cap 112, f32; "
+              "launches: path (c), 30k PME; pme_ms: its damped far sweep",
+              ("half_pair", "pme far")),
         entry("cell_pair", "cell_pair.cu", "atomsmm_tpu/ops/pallas_pair.py:87",
               small["launches"]["cell_pair"],
               f32_err("cell_pair", "water700"), ("cell_pair", "far"),
-              "water 700 far grid 2^3 cap 456, f32"),
+              "water 700 far grid 2^3 cap 456, f32", ("cell_pair", "pme far")),
         entry("tile_pair", "tile_pair.cu", "atomsmm_tpu/ops/tilepair.py:369",
               tile_launches, f32_err("tile_pair", "far"),
-              ("tile_pair", "far"), "30k water 0.9 nm tile list, f32"),
+              ("tile_pair", "far"), "30k water 0.9 nm tile list, f32",
+              ("tile_pair", "pme far")),
     ]}
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)

@@ -11,6 +11,7 @@ MODULES = {
     "integrate.propagators": 1,
     "ops.pairfuncs": 1,
     "ops.pbc": 3,
+    "ops.pme": 3,
     "ops.switching": 3,
     "state": 4,
     "systems": 3,

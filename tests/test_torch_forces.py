@@ -171,16 +171,42 @@ def test_interop_system_equals_port_model(model):
 
 
 def test_interop_refuses_unported_fields():
+    """The charge-scale mask of the alchemical systems has no counterpart
+    yet (the dispersion tail, ported with PME, now crosses over)."""
+    import jax.numpy as jnp
+
+    from atomsmm_tpu.utils import replace as jreplace
+
     js, _, _ = jmodels.water_system(n_molecules=64, r_cut=0.45,
                                     r_switch=0.35, dispersion_correction=True)
-    with pytest.raises(NotImplementedError, match="dispersion_coeff"):
-        system_from_numpy(describe_reference(js), dtype=F64)
+    carried = system_from_numpy(describe_reference(js), dtype=F64)
+    assert carried.forces[0].dispersion_coeff == pytest.approx(
+        float(js.forces[0].dispersion_coeff), rel=1e-15)
+    masked = js.replace_forces(
+        (jreplace(js.forces[0], charge_scale_mask=jnp.ones(192)),)
+        + tuple(js.forces[1:]))
+    with pytest.raises(NotImplementedError, match="charge_scale_mask"):
+        system_from_numpy(describe_reference(masked), dtype=F64)
 
 
 def test_unported_methods_raise():
-    with pytest.raises(NotImplementedError):
+    """'nocutoff' has no pair-kernel form (dense path only), an unknown
+    method is refused, and a triclinic box raises in the PME sum; the
+    triple split of a system without PME keeps three groups, as in JAX."""
+    from atomsmm_tpu_torch.ops import pme as tpme
+    from atomsmm_tpu_torch.utils import InputError
+
+    s, x, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
+                                   method="nocutoff", dtype=F64)
+    with pytest.raises(NotImplementedError, match="dense path"):
+        s.forces[0]._pair_form()
+    with pytest.raises(ValueError, match="method"):
         tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
-                             method="pme")
+                             method="ewald")
+    with pytest.raises(InputError, match="triclinic"):
+        tpme.pme_reciprocal_energy(x, torch.eye(3, dtype=F64) * 2.0,
+                                   torch.ones(192, dtype=F64), 3.0,
+                                   (8, 8, 8), 4)
     s, _, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35)
-    with pytest.raises(NotImplementedError, match="PME"):
-        tsystems.RESPASystem(s, 0.3, 0.25, reciprocal_level=True)
+    r = tsystems.RESPASystem(s, 0.3, 0.25, reciprocal_level=True)
+    assert sorted({f.group for f in r.forces}) == [0, 1, 2]

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card:
 K1 (csrc/half_pair.cu, both exclusion forms), K2 (csrc/cell_pair.cu,
-including a capacity above 1,024) and K3 (csrc/tile_pair.cu). Every test
+including a capacity above 1,024) and K3 (csrc/tile_pair.cu), each in the
+reaction-field forms and in the damped PME forms (Ewald direct space,
+damped near, fused damped far). Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -35,11 +37,15 @@ def cuda():
 
 
 def _case(name):
-    """(force, spec, x, box) on the CPU in float64."""
+    """(force, spec, x, box) on the CPU in float64; a 'pme_' prefix builds
+    the same system with PME (the damped forms)."""
+    method = "cutoff"
+    if name.startswith("pme_"):
+        method, name = "pme", name[4:]
     if name.startswith("small_"):   # full stencil (K2): water at 0.9 nm
         m = int(name.split("_")[1])
         s, x, box = water_system(n_molecules=m, seed=5, neighbors=True,
-                                 dtype=F64)
+                                 dtype=F64, method=method)
         if name.endswith("far"):
             r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
             return r.forces[2], r.neighbors, x, box
@@ -49,7 +55,7 @@ def _case(name):
                                  dtype=F64)
         return s.forces[0], s.neighbors, x, box
     s, x, box = water_system(n_molecules=400, r_cut=0.7, r_switch=0.6, seed=5,
-                             neighbors=True, dtype=F64)
+                             neighbors=True, dtype=F64, method=method)
     if name == "water_rf":
         return s.forces[0], s.neighbors, x, box
     r = amm.RESPASystem(s, rcut_in=0.45, rswitch_in=0.35)
@@ -83,10 +89,13 @@ def _permuted(force, x, box, r_cut):
     return force, spec, x[pt]
 
 
-def _check_sweep(force, spec, x, box, dev, dtype, kernel):
+def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None):
     """One sweep through the wrapper on the card, launching `kernel` once,
     against the same wrapper on the CPU (the plain twin) in float64 on the
-    same inputs."""
+    same inputs. With `unsplit` (the full force a fused far force was split
+    from) the float32 force tolerance scales with the unsplit force's
+    max|F|: the far force is the difference of two forces of that size,
+    and the truncated Ewald term jumps at the float32-rounded cutoff."""
     dt = getattr(torch, dtype)
     spec = _to(spec, dev)
     form = force._pair_form()
@@ -99,14 +108,17 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel):
                                           form.r_cut)
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {**before, kernel: before[kernel] + 1}
-    e_p, f_p = nb.cell_pair_energy_forces(
-        form, x.cpu().double(), box.cpu().double(),
-        {k: v.cpu().double() for k, v in pp.items()}, _to(spec, "cpu"),
-        bucket.cpu(), form.r_cut)
+    args = (x.cpu().double(), box.cpu().double(),
+            {k: v.cpu().double() for k, v in pp.items()}, _to(spec, "cpu"),
+            bucket.cpu(), form.r_cut)
+    e_p, f_p = nb.cell_pair_energy_forces(form, *args)
+    fmax = float(f_p.abs().max())
+    if unsplit is not None and dtype == "float32":
+        fmax = float(nb.cell_pair_energy_forces(unsplit._pair_form(),
+                                                *args)[1].abs().max())
     rtol, ftol = TOLS[dtype]
     assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
-    assert float((f_k.cpu().double() - f_p).abs().max()) \
-        <= ftol * float(f_p.abs().max())
+    assert float((f_k.cpu().double() - f_p).abs().max()) <= ftol * fmax
 
 
 @pytest.mark.cuda
@@ -150,46 +162,90 @@ def test_exclusion_column_forms_match_plain_on_card(cuda, r_cut):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(TOLS))
-def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
-    """K3 against its plain twin; in float64 also against K1 on the same
-    configuration (the same pairs inside the cutoff)."""
+@pytest.mark.parametrize("case,kernel", [
+    ("pme_water_rf", "half_pair"), ("pme_water_near", "half_pair"),
+    ("pme_water_far", "half_pair"), ("pme_small_400", "cell_pair"),
+    ("pme_small_400_far", "cell_pair")])
+def test_damped_forms_match_plain_on_card(cuda, case, kernel, dtype):
+    """K1 and K2 in the Ewald direct-space form (the full PME force), the
+    damped near form and the fused damped far form."""
+    force, spec, x, box = _case(case)
+    assert force._pair_form().alpha > 0.0
+    unsplit = {"pme_water_far": "pme_water_rf",
+               "pme_small_400_far": "pme_small_400"}.get(case)
+    _check_sweep(force, spec, x, box, cuda, dtype, kernel,
+                 unsplit and _case(unsplit)[0])
+
+
+def _check_tile(force, x, box, dev, dtype, unsplit=None):
+    """K3 on the tile list of `force` against its plain twin; in float64
+    also against K1 on the same configuration (the same pairs inside the
+    cutoff). `unsplit` as in _check_sweep."""
     dt = getattr(torch, dtype)
-    s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
-                             neighbors=True, dtype=F64)
-    force = s.forces[0]
     form, pp = force._pair_form(), force._per_particle()
-    spec = tp.make_tilepair_spec(box, x.shape[0], force.r_cut,
+    spec = tp.make_tilepair_spec(box, x.shape[0], form.r_cut,
                                  exclusions=force.exclusions,
-                                 occupancy_from=x, device=cuda)
-    xd, bd = x.to(cuda, dt), box.to(cuda, dt)
-    ppd = {k: v.to(cuda, dt) for k, v in pp.items()}
+                                 occupancy_from=x, device=dev)
+    xd, bd = x.to(dev, dt), box.to(dev, dt)
+    ppd = {k: v.to(dev, dt) for k, v in pp.items()}
     order, hb, cb, wrap, overflow = tp.build_tile_pairs(spec, xd, bd)
     assert not bool(overflow)
     before = pk.LAUNCHES["tile_pair"]
     e_k, f_k = tp.tile_pair_energy_forces(form, xd, bd, ppd, spec, order, hb,
-                                          cb, wrap, force.r_cut)
+                                          cb, wrap, form.r_cut)
     torch.cuda.synchronize()
     assert pk.LAUNCHES["tile_pair"] == before + 1
     fs, ms = tp._stage(spec, xd.double(), bd.double(),
                        {k: v.double() for k, v in ppd.items()}, spec.excbits,
                        order)
-    acc = tp.tile_pair_plain(fs, ms, hb, cb, wrap, bd.double(), form,
-                             force.r_cut)
-    e_p = acc[:spec.n_blocks, :, 3].sum()
-    f_p = torch.zeros((x.shape[0] + 1, 3), dtype=F64, device=cuda)
-    f_p = f_p.index_add_(0, order.long(),
+
+    def plain(form):
+        acc = tp.tile_pair_plain(fs, ms, hb, cb, wrap, bd.double(), form,
+                                 form.r_cut)
+        f = torch.zeros((x.shape[0] + 1, 3), dtype=F64, device=dev)
+        f = f.index_add_(0, order.long(),
                          acc[:spec.n_blocks, :, :3].reshape(-1, 3))[:-1]
+        return acc[:spec.n_blocks, :, 3].sum(), f
+
+    e_p, f_p = plain(form)
     rtol, ftol = TOLS[dtype]
     fmax = float(f_p.abs().max())
+    if unsplit is not None and dtype == "float32":
+        fmax = float(plain(unsplit._pair_form())[1].abs().max())
     assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
     assert float((f_k.double() - f_p).abs().max()) <= ftol * fmax
     if dtype == "float64":
-        cspec = _to(s.neighbors, cuda)
+        cspec = _to(nb.make_neighbor_spec(box, x.shape[0], form.r_cut,
+                                          exclusions=force.exclusions,
+                                          occupancy_floor_from=x), dev)
         bucket, _ = nb.build_cell_buckets(cspec, xd, bd)
         e_c, f_c = nb.cell_pair_energy_forces(form, xd, bd, ppd, cspec,
-                                              bucket, force.r_cut)
+                                              bucket, form.r_cut)
         assert abs(float(e_k) - float(e_c)) <= rtol * abs(float(e_c))
         assert float((f_k - f_c).abs().max()) <= ftol * fmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
+    """K3 against its plain twin; in float64 also against K1 on the same
+    configuration (the same pairs inside the cutoff)."""
+    s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
+                             dtype=F64)
+    _check_tile(s.forces[0], x, box, cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("group", ["full", "near", "far"])
+def test_tile_pair_damped_forms_on_card(cuda, group, dtype):
+    """K3 in the damped PME forms, water 1000 at 0.9 nm split at 0.5 nm."""
+    s, x, box = water_system(n_molecules=1000, method="pme", dtype=F64)
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    force = {"full": s.forces[0], "near": r.forces[1], "far": r.forces[2]}[
+        group]
+    _check_tile(force, x, box, cuda, dtype,
+                s.forces[0] if group == "far" else None)
 
 
 @pytest.mark.cuda
