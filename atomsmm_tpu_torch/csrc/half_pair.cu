@@ -1,30 +1,57 @@
 // Newton half-stencil cell-pair sweep for Hopper (sm_90a).
 //
 // Replaces atomsmm_tpu/ops/pallas_pair.py::_half_kernel. Each home cell c
-// meets the 14 half-stencil cells nbr[c, k] (k = 0 is c itself, then the 13
+// meets the half-stencil cells nbr[c, k] (k = 0 is c itself, then the
 // lexicographically positive directions). On every (home atom, candidate)
 // slot it applies the per-slot minimum image, the cutoff test, the
-// exclusions and one of the built-in pair forms (pair_forms.cuh), and
-// accumulates the force -2 du/dr^2 dx on the home atom and the reaction on
-// the candidate. Exclusions take one of two forms, a template parameter:
-// the relative-offset bitmask (one shift per slot), or, for systems whose
+// exclusions and one of the built-in pair forms (pair_forms.cuh), and adds
+// the force -2 du/dr^2 dx to the home atom and its reaction to the
+// candidate. Exclusions take one of two forms, a template parameter: the
+// relative-offset bitmask (one shift per slot), or, for systems whose
 // excluded pairs lie more than +-14 atom indices apart, a compare of the
 // candidate id with the home atom's exclusion id columns, held in
 // registers, plus the self test hid != cid.
 //
-// What bounds it: the pair-slot arithmetic, mostly the reciprocal square
-// root and the 6th/12th powers of the pair forms; far sweep 343 cells x 14
-// directions x 112^2 slots, near sweep 1331 x 14 x 36^2 on the 30k water
-// headline. Its design keeps every pair tile out of device memory: one
-// thread block per (home cell, direction), one home atom per thread in
-// registers, the candidate cell staged in shared memory, and the reaction
-// sums accumulated there with shared-memory atomics. Device memory sees only
-// the staged bucket features and the per-(cell, direction) outputs, which
-// the host-side wrapper (ops/pair_kernel.py) reduces and scatters to atoms.
-// There is no cross-block reduction and no global atomic.
+// What bounds it: the slot tests and the latency of each block's chain of
+// directions. On the 30k water headline the far sweep has 343 cells x 14
+// directions x 112^2 = 60.2 M slots, 36.7 M of them between real atoms and
+// 5.6 M in range; the near sweep 1331 x 14 x 36^2 = 24.1 M, 9.5 M and
+// 1.0 M. A slot test (minimum image, r^2, exclusion) is about 21 float
+// operations, a pair form 100-200. The design:
+//   * one block per home cell; its home atoms stay in registers for all
+//     directions, and their force and energy accumulate there;
+//   * the block gathers its atoms itself through the bucket ids, and stages
+//     the next direction's candidate cell into a second shared-memory
+//     buffer with cp.async while the current one is computed; only the
+//     slots up to each cell's last real atom are tested;
+//   * cull, then evaluate: for each direction each thread first tests its
+//     candidate slots and records the hits as bits in registers (four 32-bit
+//     words per 128 slots), then walks only the set bits, so a warp runs the
+//     pair form as often as its busiest lane has hits, not once per slot;
+//     each lane starts its walk at its own word and bit, so that the lanes'
+//     reaction atomics rarely meet on one candidate. The walk's loop is not
+//     unrolled: four inlined copies of the pair form made the far sweep
+//     slower;
+//   * PARTS = 2 candidate partitions of the home cell share a block (one
+//     where a block would exceed 1,024 threads): the far grid's 343 cells
+//     alone give too few warps to hide the walk's latency. Their home sums
+//     are combined in shared memory at the end;
+//   * the minimum image rounds by two additions on the float pipes instead
+//     of rint (the same result, half to even);
+//   * output: one zeroed (n + 1, 4) [fx fy fz e] tensor per atom. A
+//     direction's reaction sums meet in shared memory (compare-and-swap
+//     loops: this card has no native shared-memory float add), and at its
+//     end the block adds them to the candidates' rows, and at the end its
+//     home sums to the home atoms' rows, by global atomics (one vector
+//     red.global.add.v4.f32 per row in float32). A version that added
+//     every hit's reaction to device memory directly, and staged all
+//     directions at once, was slower at both 30k shapes. Float32 results
+//     vary in their last bits from run to run.
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::half_pair_plain
-// with ops/pairfuncs.py::form_u_dudr2, line for line.
+// with ops/pairfuncs.py::form_u_dudr2.
+
+#include <cuda_pipeline.h>
 
 #include "pair_forms.cuh"
 
@@ -32,200 +59,382 @@ namespace {
 
 using namespace pairforms;
 
-// One block per (home cell c, direction k): blockIdx.x = c * s_half + k.
-//   hf  (ncells, cap, 8) [x y z q sigma eps 0 0]; padding slots read zeros
-//   hm  (ncells, cap, 2) [atom id (n = padding), exclusion bits]
-//   hx  (ncells, cap, m) exclusion id columns (-1 padded), read only by the
-//       column form (COLS), which systems without the bitmask take
-//   nbr (ncells, s_half) half-stencil cell map, column 0 = the cell itself
-//   box (3,) orthorhombic edge lengths
-//   oh  (ncells, s_half, cap, 4) per home atom [fx fy fz e]
-//   oc  (ncells, s_half, cap, 3) per candidate atom: reaction sums
-template <typename T, bool COLS, bool DAMPED>
-__global__ void half_pair_kernel(const T* __restrict__ hf,
-                                 const int* __restrict__ hm,
-                                 const int* __restrict__ hx,
-                                 const int* __restrict__ nbr,
-                                 const T* __restrict__ box, int cap,
-                                 int s_half, int n, int m, Params<T> p,
-                                 T* __restrict__ oh, T* __restrict__ oc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sx = reinterpret_cast<T*>(smem_raw);
-  T* sy = sx + cap;
-  T* sz = sy + cap;
-  T* sq = sz + cap;
-  T* ss = sq + cap;
-  T* se = ss + cap;
-  T* rx = se + cap;
-  T* ry = rx + cap;
-  T* rz = ry + cap;
-  int* sid = reinterpret_cast<int*>(rz + cap);
+constexpr int CHUNK = 128;  // candidate slots culled into one hit mask
+constexpr int PARTS = 2;    // candidate partitions of a block
 
-  const int b = blockIdx.x;
-  const int c = b / s_half;
-  const int k = b - c * s_half;
+// A staged candidate: position and atom id (n = padding), read by the slot
+// test with one 16-byte load in float32; its pair parameters beside it.
+template <typename T>
+struct alignas(4 * sizeof(T)) Cand {
+  T x, y, z;
+  int id;
+};
+
+template <typename T>
+struct Par {
+  T q, s, e;
+};
+
+// out[row] += (a, b, c, d) by global atomics
+__device__ __forceinline__ void add_row(float* row, float a, float b, float c,
+                                        float d) {
+  atomicAdd(reinterpret_cast<float4*>(row), make_float4(a, b, c, d));
+}
+
+__device__ __forceinline__ void add_row(double* row, double a, double b,
+                                        double c, double d) {
+  atomicAdd(row, a);
+  atomicAdd(row + 1, b);
+  atomicAdd(row + 2, c);
+  if (d != 0.0) atomicAdd(row + 3, d);
+}
+
+// Round to the nearest integer, half to even, as rint does, by two
+// additions (exact for |v| < 2^22 in float32, 2^51 in float64).
+__device__ __forceinline__ float round_even(float v) {
+  return __fsub_rn(__fadd_rn(v, 12582912.0f), 12582912.0f);  // 1.5 * 2^23
+}
+__device__ __forceinline__ double round_even(double v) {
+  return __dsub_rn(__dadd_rn(v, 6755399441055744.0), 6755399441055744.0);
+}
+
+template <typename T>
+__device__ __forceinline__ T wrap(T d, T b, T ib) {
+  return d - b * round_even(d * ib);
+}
+
+// One block per home cell, threads = round_up(parts * cap, 32): thread
+// t = part * cap + i holds home slot i and tests the candidate slots
+// j = part + parts * s of every direction.
+//   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
+//   excbits (n + 1,)               exclusion bits (bitmask form)
+//   exc (n, m)                     exclusion id columns, -1 padded (COLS)
+//   bucket (ncells, cap)           atom ids, n = padding
+//   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
+//   box (3,)                       orthorhombic edge lengths
+//   out (n + 1, 4)                 zeroed; per atom [fx fy fz e]
+template <typename T, bool COLS, bool DAMPED, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
+                     const T* __restrict__ sig, const T* __restrict__ eps,
+                     const int* __restrict__ excbits,
+                     const int* __restrict__ exc,
+                     const int* __restrict__ bucket,
+                     const int* __restrict__ nbr, const T* __restrict__ box,
+                     int cap, int s_half, int n, int m, int parts, Params<T> p,
+                     T* __restrict__ out) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);     // [2][cap]
+  Par<T>* par = reinterpret_cast<Par<T>*>(cand + 2 * cap);  // [2][cap]
+  T* rx = reinterpret_cast<T*>(par + 2 * cap);              // [2][cap] each
+  T* ry = rx + 2 * cap;
+  T* rz = ry + 2 * cap;
+  T* hs = rz + 2 * cap;  // [parts][cap][4] when parts > 1
+  int* ext = reinterpret_cast<int*>(hs + (parts > 1 ? parts * cap * 4 : 0));
+
+  const int c = blockIdx.x;
   const int t = threadIdx.x;
-  const int nc = nbr[c * s_half + k];
+  const int lane = t & 31;
+  const int part = t / cap;
+  const int i = t - part * cap;
+  const int* nrow = nbr + (size_t)c * s_half;
 
-  for (int j = t; j < cap; j += blockDim.x) {
-    const T* f = hf + ((size_t)nc * cap + j) * 8;
-    sx[j] = f[0];
-    sy[j] = f[1];
-    sz[j] = f[2];
-    sq[j] = f[3];
-    ss[j] = f[4];
-    se[j] = f[5];
-    sid[j] = hm[((size_t)nc * cap + j) * 2];
+  for (int j = t; j < 2 * cap; j += blockDim.x) {
     rx[j] = T(0);
     ry[j] = T(0);
     rz[j] = T(0);
   }
+  if (t < 2) ext[t] = 0;
+  __syncthreads();
 
-  const bool active = t < cap;
+  // Slot t of a candidate cell into buffer b: the id now, the atom's
+  // features by cp.async; ext[b] becomes one past the last real atom.
+  auto stage = [&](int b, int id) {
+    if (t < cap) {
+      Cand<T>& cd = cand[b * cap + t];
+      cd.id = id;
+      if (id < n) {
+        const T* xa = x + 3 * (size_t)id;
+        Par<T>& pr = par[b * cap + t];
+        __pipeline_memcpy_async(&cd.x, xa, sizeof(T));
+        __pipeline_memcpy_async(&cd.y, xa + 1, sizeof(T));
+        __pipeline_memcpy_async(&cd.z, xa + 2, sizeof(T));
+        __pipeline_memcpy_async(&pr.q, q + id, sizeof(T));
+        __pipeline_memcpy_async(&pr.s, sig + id, sizeof(T));
+        __pipeline_memcpy_async(&pr.e, eps + id, sizeof(T));
+        atomicMax(&ext[b], t + 1);
+      }
+    }
+    __pipeline_commit();
+  };
+
+  // the home atom of this thread, in registers for every direction
+  const int hid = part < parts ? bucket[(size_t)c * cap + i] : n;
+  const bool home = hid < n;
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
-  int oid_h = n;
   unsigned exc_h = 0u;
   ExcCols cols;
-  if (active) {
-    const T* f = hf + ((size_t)c * cap + t) * 8;
-    xi = f[0];
-    yi = f[1];
-    zi = f[2];
-    qi = f[3];
-    si = f[4];
-    ei = f[5];
-    oid_h = hm[((size_t)c * cap + t) * 2];
-    exc_h = (unsigned)hm[((size_t)c * cap + t) * 2 + 1];
+  if (home) {
+    xi = x[3 * (size_t)hid];
+    yi = x[3 * (size_t)hid + 1];
+    zi = x[3 * (size_t)hid + 2];
+    qi = q[hid];
+    si = sig[hid];
+    ei = eps[hid];
+    if (!COLS) exc_h = (unsigned)excbits[hid];
   }
-  if (COLS) load_exc_cols(active ? hx + ((size_t)c * cap + t) * m : nullptr,
-                          m, cols);
-  __syncthreads();
+  if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
 
   const T bx = box[0], by = box[1], bz = box[2];
   const T ibx = T(1) / bx, iby = T(1) / by, ibz = T(1) / bz;
-  const bool self_col = (k == 0);
-  const T w = self_col ? T(0.5) : T(1);
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
 
-  if (active && oid_h < n) {
-    for (int jj = 0; jj < cap; ++jj) {
-      // staggered start: the lanes of a warp touch distinct candidates, so
-      // the shared-memory reaction atomics below never collide in a warp
-      int j = t + jj;
-      if (j >= cap) j -= cap;
-      const int oid_c = sid[j];
-      const T dx = min_image(xi - sx[j], bx, ibx);
-      const T dy = min_image(yi - sy[j], by, iby);
-      const T dz = min_image(zi - sz[j], bz, ibz);
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      const bool excl = COLS ? (oid_c == oid_h || excluded_by_cols(cols, m, oid_c))
-                             : excluded_by_bits(exc_h, oid_h, oid_c);
-      if (oid_c < n && r2 < p.rc2 && !excl) {
-        const T qq = qi * sq[j];
-        const T sig = T(0.5) * (si + ss[j]);
-        const T eps = sqrt(ei * se[j]);
-        T u, dudr2;
-        pair_form<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
-        const T fm = T(2) * dudr2;
-        const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
-        fx -= gx;
-        fy -= gy;
-        fz -= gz;
-        e += w * u;
-        if (!self_col) {
-          atomicAdd(&rx[j], gx);
-          atomicAdd(&ry[j], gy);
-          atomicAdd(&rz[j], gz);
+  stage(0, t < cap ? bucket[(size_t)nrow[0] * cap + t] : n);
+  int id_next = (s_half > 1 && t < cap) ? bucket[(size_t)nrow[1] * cap + t] : n;
+
+  for (int k = 0; k < s_half; ++k) {
+    const int b = k & 1;
+    // ids two directions ahead; the next direction's atoms into the other
+    // buffer, in flight while this direction is computed
+    const int id_after = (k + 2 < s_half && t < cap)
+                             ? bucket[(size_t)nrow[k + 2] * cap + t]
+                             : n;
+    if (k + 1 < s_half) {
+      stage(b ^ 1, id_next);
+    } else {
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const int eb = ext[b];
+
+    if (home) {
+      const Cand<T>* cb = cand + b * cap;
+      const Par<T>* pb = par + b * cap;
+      T* rxb = rx + b * cap;
+      T* ryb = ry + b * cap;
+      T* rzb = rz + b * cap;
+      const bool self_dir = (k == 0);
+      const T w = self_dir ? T(0.5) : T(1);
+      const int ns = (eb - part + parts - 1) / parts;  // this partition's slots
+      for (int s0 = 0; s0 < ns; s0 += CHUNK) {
+        // cull: one bit per slot in range, not excluded, not padding
+        unsigned b0 = 0u, b1 = 0u, b2 = 0u, b3 = 0u;
+#pragma unroll
+        for (int wd = 0; wd < 4; ++wd) {
+          const int sb = s0 + 32 * wd;
+          const int lim = min(32, ns - sb);
+          unsigned word = 0u;
+#pragma unroll 4
+          for (int bb = 0; bb < lim; ++bb) {
+            const Cand<T> cj = cb[part + parts * (sb + bb)];
+            const T dx = wrap(xi - cj.x, bx, ibx);
+            const T dy = wrap(yi - cj.y, by, iby);
+            const T dz = wrap(zi - cj.z, bz, ibz);
+            const T r2 = dx * dx + dy * dy + dz * dz;
+            const bool excl =
+                COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
+                     : excluded_by_bits(exc_h, hid, cj.id);
+            const bool hit = (cj.id < n) & (r2 < p.rc2) & !excl;
+            word |= (unsigned)hit << bb;
+          }
+          if (wd == 0) b0 = word;
+          if (wd == 1) b1 = word;
+          if (wd == 2) b2 = word;
+          if (wd == 3) b3 = word;
+        }
+        // evaluate the hits; each lane starts at its own word and bit, so
+        // that the lanes' reaction atomics rarely meet on one candidate
+#pragma unroll 1
+        for (int ww = 0; ww < 4; ++ww) {
+          const int wd = (ww + (lane >> 3)) & 3;
+          unsigned word = wd == 0 ? b0 : (wd == 1 ? b1 : (wd == 2 ? b2 : b3));
+          if (word == 0u) continue;
+          const int span = min(32, ns - s0 - 32 * wd);
+          const int rot = (lane * span) >> 5;
+          word = __funnelshift_r(word, word, rot);
+          while (word != 0u) {
+            const int bit = __ffs(word) - 1;
+            word &= word - 1u;
+            const int j = part + parts * (s0 + 32 * wd + ((bit + rot) & 31));
+            const Cand<T> cj = cb[j];
+            const Par<T> pj = pb[j];
+            const T dx = wrap(xi - cj.x, bx, ibx);
+            const T dy = wrap(yi - cj.y, by, iby);
+            const T dz = wrap(zi - cj.z, bz, ibz);
+            const T r2 = dx * dx + dy * dy + dz * dz;
+            const T qprod = qi * pj.q;
+            const T sg = T(0.5) * (si + pj.s);
+            const T ep = sqrt(ei * pj.e);
+            T u, dudr2;
+            pair_form<T, DAMPED>(p, r2, qprod, sg, ep, u, dudr2);
+            const T fm = T(2) * dudr2;
+            const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
+            fx -= gx;
+            fy -= gy;
+            fz -= gz;
+            e += w * u;
+            if (!self_dir) {
+              atomicAdd(&rxb[j], gx);
+              atomicAdd(&ryb[j], gy);
+              atomicAdd(&rzb[j], gz);
+            }
+          }
         }
       }
     }
+    __syncthreads();
+    if (t == 0) ext[b] = 0;
+    // the candidates' reaction sums of this direction to their atoms
+    if (k > 0 && t < eb) {
+      const int id = cand[b * cap + t].id;
+      const T gx = rx[b * cap + t], gy = ry[b * cap + t], gz = rz[b * cap + t];
+      if (id < n && (gx != T(0) || gy != T(0) || gz != T(0))) {
+        add_row(out + 4 * (size_t)id, gx, gy, gz, T(0));
+      }
+      rx[b * cap + t] = T(0);
+      ry[b * cap + t] = T(0);
+      rz[b * cap + t] = T(0);
+    }
+    __syncthreads();
+    id_next = id_after;
   }
-  __syncthreads();
 
-  const size_t row = ((size_t)c * s_half + k) * cap;
-  if (active) {
-    T* o = oh + (row + t) * 4;
-    o[0] = fx;
-    o[1] = fy;
-    o[2] = fz;
-    o[3] = e;
+  // home sums: the partitions' parts combined, one atomic row per atom
+  if (parts > 1) {
+    if (part < parts) {
+      T* h = hs + 4 * (size_t)t;
+      h[0] = fx;
+      h[1] = fy;
+      h[2] = fz;
+      h[3] = e;
+    }
+    __syncthreads();
+    if (t < cap) {
+      for (int pp = 1; pp < parts; ++pp) {
+        const T* h = hs + 4 * ((size_t)pp * cap + t);
+        fx += h[0];
+        fy += h[1];
+        fz += h[2];
+        e += h[3];
+      }
+    }
   }
-  for (int j = t; j < cap; j += blockDim.x) {
-    T* o = oc + (row + j) * 3;
-    o[0] = rx[j];
-    o[1] = ry[j];
-    o[2] = rz[j];
-  }
-}
-
-template <typename T, bool COLS, bool DAMPED>
-int launch_form(const T* hf, const int* hm, const int* hx, const int* nbr,
-                const T* box, int ncells, int cap, int s_half, int n, int m,
-                const Params<T>& p, T* oh, T* oc, cudaStream_t stream) {
-  const int threads = ((cap + 31) / 32) * 32;
-  const size_t smem = (size_t)cap * (9 * sizeof(T) + sizeof(int));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        half_pair_kernel<T, COLS, DAMPED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const unsigned blocks = (unsigned)ncells * (unsigned)s_half;
-  half_pair_kernel<T, COLS, DAMPED><<<blocks, threads, smem, stream>>>(
-      hf, hm, hx, nbr, box, cap, s_half, n, m, p, oh, oc);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool COLS>
-int launch_cols(const T* hf, const int* hm, const int* hx, const int* nbr,
-                const T* box, int ncells, int cap, int s_half, int n, int m,
-                const Params<T>& p, T* oh, T* oc, cudaStream_t stream) {
-  if (damped(p)) {
-    return launch_form<T, COLS, true>(hf, hm, hx, nbr, box, ncells, cap,
-                                      s_half, n, m, p, oh, oc, stream);
-  }
-  return launch_form<T, COLS, false>(hf, hm, hx, nbr, box, ncells, cap,
-                                     s_half, n, m, p, oh, oc, stream);
+  if (t < cap && home) add_row(out + 4 * (size_t)hid, fx, fy, fz, e);
 }
 
 template <typename T>
-int launch(const T* hf, const int* hm, const int* hx, const int* nbr,
-           const T* box, int ncells, int cap, int s_half, int n, int m,
-           const double* scal, const int* flags, T* oh, T* oc, void* stream) {
-  if (cap < 1 || cap > 1024 || ncells < 1 || s_half < 1 || m < 0 ||
-      m > MAX_EXC || (hx != nullptr && m < 1)) {
+size_t smem_bytes(int cap, int parts) {
+  return (size_t)2 * cap * (sizeof(Cand<T>) + sizeof(Par<T>) + 3 * sizeof(T)) +
+         (parts > 1 ? (size_t)parts * cap * 4 * sizeof(T) : 0) +
+         2 * sizeof(int);
+}
+
+template <typename T, bool COLS, bool DAMPED, int MAXT>
+int launch_form(const T* x, const T* q, const T* sig, const T* eps,
+                const int* excbits, const int* exc, const int* bucket,
+                const int* nbr, const T* box, int ncells, int cap, int s_half,
+                int n, int m, int parts, int threads, const Params<T>& p,
+                T* out, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(cap, parts);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        half_pair_kernel<T, COLS, DAMPED, MAXT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  half_pair_kernel<T, COLS, DAMPED, MAXT><<<ncells, threads, smem, stream>>>(
+      x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s_half, n, m, parts,
+      p, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool COLS, bool DAMPED>
+int launch_size(const T* x, const T* q, const T* sig, const T* eps,
+                const int* excbits, const int* exc, const int* bucket,
+                const int* nbr, const T* box, int ncells, int cap, int s_half,
+                int n, int m, int parts, const Params<T>& p, T* out,
+                cudaStream_t stream) {
+  // blocks of up to 256 threads take the register budget of 256 threads,
+  // larger ones that of 1,024 (64 a thread; a budget of 128 for blocks of
+  // up to 512 left the far grid's 343 blocks too few per SM for one wave)
+  const int threads = ((parts * cap + 31) / 32) * 32;
+  if (threads <= 256) {
+    return launch_form<T, COLS, DAMPED, 256>(x, q, sig, eps, excbits, exc,
+                                             bucket, nbr, box, ncells, cap,
+                                             s_half, n, m, parts, threads, p,
+                                             out, stream);
+  }
+  return launch_form<T, COLS, DAMPED, 1024>(x, q, sig, eps, excbits, exc,
+                                            bucket, nbr, box, ncells, cap,
+                                            s_half, n, m, parts, threads, p,
+                                            out, stream);
+}
+
+template <typename T, bool COLS>
+int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
+                const int* excbits, const int* exc, const int* bucket,
+                const int* nbr, const T* box, int ncells, int cap, int s_half,
+                int n, int m, int parts, const Params<T>& p, T* out,
+                cudaStream_t stream) {
+  if (damped(p)) {
+    return launch_size<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
+                                      nbr, box, ncells, cap, s_half, n, m,
+                                      parts, p, out, stream);
+  }
+  return launch_size<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
+                                     nbr, box, ncells, cap, s_half, n, m,
+                                     parts, p, out, stream);
+}
+
+template <typename T>
+int launch(const T* x, const T* q, const T* sig, const T* eps,
+           const int* excbits, const int* exc, const int* bucket,
+           const int* nbr, const T* box, int ncells, int cap, int s_half,
+           int n, int m, const double* scal, const int* flags, T* out,
+           void* stream) {
+  if (cap < 1 || cap > 1024 || ncells < 1 || s_half < 1 || n < 0 || m < 0 ||
+      m > MAX_EXC || (exc != nullptr && m < 1) ||
+      (exc == nullptr && excbits == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  // one block: at most 1,024 threads
+  const int parts = PARTS * cap <= 1024 ? PARTS : 1024 / cap;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
-  if (hx != nullptr) {
-    return launch_cols<T, true>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
-                                m, p, oh, oc, s);
+  if (exc != nullptr) {
+    return launch_cols<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr,
+                                box, ncells, cap, s_half, n, m, parts, p, out,
+                                s);
   }
-  return launch_cols<T, false>(hf, hm, hx, nbr, box, ncells, cap, s_half, n,
-                               0, p, oh, oc, s);
+  return launch_cols<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                               ncells, cap, s_half, n, 0, parts, p, out, s);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. `scal` and `flags` are host
-// arrays (pair_forms.cuh::make_params). `hx` is null for the bitmask form,
-// else the (ncells, cap, m) exclusion id columns, 1 <= m <= 16. Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int half_pair_f32(const float* hf, const int* hm, const int* hx,
-                             const int* nbr, const float* box, int ncells,
-                             int cap, int s_half, int n, int m,
-                             const double* scal, const int* flags, float* oh,
-                             float* oc, void* stream) {
-  return launch<float>(hf, hm, hx, nbr, box, ncells, cap, s_half, n, m, scal,
-                       flags, oh, oc, stream);
+// arrays (pair_forms.cuh::make_params). Exactly one of `excbits` (the
+// bitmask form) and `exc` (the (n, m) exclusion id columns, 1 <= m <= 16)
+// is non-null. `out` must be zeroed. Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int half_pair_f32(const float* x, const float* q, const float* sig,
+                             const float* eps, const int* excbits,
+                             const int* exc, const int* bucket, const int* nbr,
+                             const float* box, int ncells, int cap, int s_half,
+                             int n, int m, const double* scal,
+                             const int* flags, float* out, void* stream) {
+  return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
+                       cap, s_half, n, m, scal, flags, out, stream);
 }
 
-extern "C" int half_pair_f64(const double* hf, const int* hm, const int* hx,
-                             const int* nbr, const double* box, int ncells,
-                             int cap, int s_half, int n, int m,
-                             const double* scal, const int* flags, double* oh,
-                             double* oc, void* stream) {
-  return launch<double>(hf, hm, hx, nbr, box, ncells, cap, s_half, n, m, scal,
-                        flags, oh, oc, stream);
+extern "C" int half_pair_f64(const double* x, const double* q,
+                             const double* sig, const double* eps,
+                             const int* excbits, const int* exc,
+                             const int* bucket, const int* nbr,
+                             const double* box, int ncells, int cap,
+                             int s_half, int n, int m, const double* scal,
+                             const int* flags, double* out, void* stream) {
+  return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                        ncells, cap, s_half, n, m, scal, flags, out, stream);
 }

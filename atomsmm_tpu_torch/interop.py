@@ -7,7 +7,8 @@ The exchange format is a plain dict of numpy arrays and Python scalars:
     ``dataclasses.fields`` and ``np.asarray`` only — so it works without
     importing JAX. Each dataclass becomes ``{"__class__": name, field: ...}``.
   * ``system_from_numpy(desc)`` and ``state_from_numpy(desc)`` turn such a
-    dict into this package's objects, on the requested device and dtype.
+    dict into this package's objects, on the requested device (default:
+    the CUDA card; without one pass device="cpu") and dtype.
     A field this package does not port raises NotImplementedError unless its
     value is the inert default (None, no NBFIX table, no charge-scale
     mask...).
@@ -31,6 +32,7 @@ from .forces import (
 from .ops.neighbors import NeighborSpec
 from .state import State
 from .system import System
+from .utils import resolve_device
 
 _CLASSES = {c.__name__: c for c in (
     System, NonbondedForce, NearNonbondedForce, FarNonbondedForce,
@@ -116,14 +118,18 @@ def _build(desc, dtype, device):
 
 
 def system_from_numpy(desc, dtype=None, device=None) -> System:
-    """This package's System from a `describe_reference` dict."""
-    return _build(desc, dtype or torch.get_default_dtype(), device)
+    """This package's System from a `describe_reference` dict, on `device`
+    (default: the CUDA card)."""
+    return _build(desc, dtype or torch.get_default_dtype(),
+                  resolve_device(device))
 
 
 def state_from_numpy(desc, dtype=None, device=None, seed: int = 0) -> State:
     """This package's State from a `describe_reference` dict (or a plain
     dict with x, v, box and optionally step and extra). The JAX key is not
-    carried over: the state gets a torch.Generator seeded with `seed`."""
+    carried over: the state gets a torch.Generator seeded with `seed`. On
+    `device` (default: the CUDA card)."""
+    device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
     x = _tensor(np.asarray(desc["x"]), dtype, device)
     rng = torch.Generator(device=x.device)

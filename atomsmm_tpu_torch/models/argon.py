@@ -12,7 +12,7 @@ import torch
 from ..forces import NonbondedForce
 from ..system import System
 from ..units import BOLTZMANN
-from ..utils import InputError
+from ..utils import InputError, resolve_device
 
 ARGON_SIGMA = 0.3405  # nm
 ARGON_EPSILON = 119.8 * BOLTZMANN  # kJ/mol
@@ -32,8 +32,10 @@ def argon_system(
     skin: float = 0.1,
     device=None,
 ):
-    """Build (System, positions, box). No charges, no exclusions;
+    """Build (System, positions, box) on `device` (default: the CUDA card;
+    without one pass device="cpu"). No charges, no exclusions;
     neighbors=True attaches a NeighborSpec (the cell-list path)."""
+    device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
     volume = n * ARGON_SIGMA**3 / rho_star
     box_l = volume ** (1.0 / 3.0)

@@ -19,7 +19,7 @@ from ..forces import (
     compute_dispersion_coefficient,
 )
 from ..system import System, make_exclusions_array
-from ..utils import InputError
+from ..utils import InputError, resolve_device
 
 Q_O = -0.84
 Q_H = 0.42
@@ -87,13 +87,15 @@ def water_system(
     device=None,
 ):
     """Build (System, positions, box) for n_molecules of q-SPC/Fw water on
-    `device` in `dtype` (default: torch's default dtype).
+    `device` (default: the CUDA card; without one pass device="cpu") in
+    `dtype` (default: torch's default dtype).
 
     Atom order: [O, H, H] per molecule; every force in group 0 (use
     systems.RESPASystem to split). Under method 'pme' the Ewald alpha, grid
     and spline order come from ops.pme.choose_pme_parameters unless
     `pme_alpha` / `pme_grid` fix them.
     """
+    device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
     m = n_molecules
     n = 3 * m

@@ -242,9 +242,14 @@ def make_neighbor_spec(
     r_cut_max + min_skin; the skin is whatever margin the width leaves,
     capped at `skin`. Capacity is 1.7 x the mean occupancy, raised (never
     lowered) to 1.15 x the measured max occupancy of `occupancy_floor_from`,
-    a setup configuration. There is no backend choice: the device of the
-    tensors decides where the sweep runs.
+    a setup configuration. There is no backend choice: the spec's tensors
+    lie on `device` (default: the CUDA card; without one pass
+    device="cpu"), and the device of the tensors decides where the sweep
+    runs.
     """
+    from ..utils import resolve_device
+
+    device = resolve_device(device)
     box = np.asarray(_host(box), np.float64)
     if box.ndim != 1:
         from ..utils import InputError

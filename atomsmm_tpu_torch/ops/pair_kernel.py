@@ -3,24 +3,25 @@ and csrc/cell_pair.cu (K2), and their plain PyTorch twins.
 
 K1, the Newton half-stencil sweep (counterpart of
 atomsmm_tpu/ops/pallas_pair.py::stage_and_run_half), replaces
-``_half_kernel``. One thread block per (home cell, direction), one home atom
-per thread, the candidate cell staged in shared memory, the reaction sums
-accumulated there. The blocks of a CUDA grid run in no order, so instead of
-the TPU's sequential accumulation across J-tiles every block writes its own
-(cell, direction) outputs and the wrapper reduces them:
-
-    f_bucket = oh.sum(direction)[..., :3] + oc[inv_cells_half, direction].sum(direction)
+``_half_kernel``. One thread block per home cell walks the half-stencil
+directions, gathers the atoms itself through the bucket ids, tests every
+slot before it evaluates the pair form on the hits, and adds per-atom
+[fx fy fz e] to one zeroed (N + 1, 4) tensor by global atomics (row N takes
+the padding). The blocks of a CUDA grid run in no order, so where the TPU
+accumulated across J-tiles in sequence, the reactions meet in device memory:
+the wrapper is a zero fill, the launch and the energy sum.
 
 K2, the full-stencil sweep without Newton (counterpart of
 ``pallas_pair.py::stage_and_run``), replaces ``_pair_kernel``. It runs where
 the grid is too small for half maps. One thread block per (home cell,
-candidate tile of 128, home chunk of 128); each block writes its partial
-[fx fy fz e/2] per home atom and the wrapper adds the tiles of each cell.
+candidate tile of 128, home chunk of 128) on staged bucket features
+(``stage``); each block writes its partial [fx fy fz e/2] per home atom, the
+wrapper adds the tiles of each cell and scatters bucket slots to atoms
+(every real atom sits in exactly one slot; the sentinel row N is dropped).
 
-Both then scatter bucket slots to atoms (every real atom sits in exactly
-one slot; the sentinel row N is dropped). Exclusions take the relative-
-offset bitmask when the spec has one, else the exclusion id columns (pairs
-more than +-14 indices apart); both kernels and both twins take either.
+Exclusions take the relative-offset bitmask when the spec has one, else the
+exclusion id columns (pairs more than +-14 indices apart); both kernels and
+both twins take either.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
@@ -106,23 +107,29 @@ def _pair_sums(form, rc2, d, valid, home, cand):
     return torch.where(valid, u, zero), torch.where(valid, 2.0 * dudr2, zero)
 
 
-def half_pair_plain(hf, hm, nbr_half, box, form, r_cut, n: int, chunk: int,
-                    exc_cols=None, with_forces: bool = True):
-    """Plain PyTorch twin of K1: the same inputs, the same (oh, oc)
-    outputs, (ncells, S, cap, 4) and (ncells, S, cap, 3). Exclusions by the
-    relative-offset bitmask, as the kernel does, or by the id columns
-    `exc_cols` when given. Home cells run `chunk` at a time."""
+def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
+                    with_forces: bool = True):
+    """Plain PyTorch twin of K1: the same inputs and the same output, the
+    per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
+    atom takes the force and the energy of its slots (the self direction's
+    energy at weight 1/2, both orderings being inside it), each candidate
+    of the other directions the reaction. Exclusions by the relative-offset
+    bitmask when the spec has one, else by the id columns. Home cells run
+    `spec.cell_chunk` at a time."""
+    n = x.shape[0]
+    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
+    nbr_half = spec.nbr_cells_half
     ncells, cap, _ = hf.shape
     s_half = nbr_half.shape[1]
     rc2 = _rc2(r_cut, hf.dtype)
-    oh = hf.new_zeros((ncells, s_half, cap, 4))
-    oc = hf.new_zeros((ncells, s_half, cap, 3)) if with_forces else None
+    out = x.new_zeros((n + 1, 4))
     w_col = hf.new_ones(s_half)
     w_col[0] = 0.5                 # self column: both orderings inside
     j_col = hf.new_ones(s_half)
     j_col[0] = 0.0                 # self column: no reaction
-    for lo in range(0, ncells, chunk):
-        cells = torch.arange(lo, min(lo + chunk, ncells), device=hf.device)
+    for lo in range(0, ncells, spec.cell_chunk):
+        cells = torch.arange(lo, min(lo + spec.cell_chunk, ncells),
+                             device=hf.device)
         home = hf[cells][:, None, :, None, :]          # (B, 1, cap, 1, 8)
         hid = hm[cells][..., 0][:, None, :, None]      # (B, 1, cap, 1)
         ncid = nbr_half[cells].long()                  # (B, S)
@@ -133,13 +140,18 @@ def half_pair_plain(hf, hm, nbr_half, box, form, r_cut, n: int, chunk: int,
             hid, cid, hm[cells][..., 1][:, None, :, None],
             None if exc_cols is None else exc_cols[cells][:, None, :, None, :])
         u, fm = _pair_sums(form, rc2, d, valid, home, cand)
-        hi = lo + len(cells)
-        oh[lo:hi, ..., 3] = torch.sum(u * w_col[None, :, None, None], dim=-1)
+        oh = hf.new_zeros((len(cells), cap, 4))
+        oh[..., 3] = torch.sum(u * w_col[None, :, None, None], dim=(1, 3))
         if with_forces:
             g = fm[..., None] * d
-            oh[lo:hi, ..., :3] = -torch.sum(g, dim=3)
-            oc[lo:hi] = torch.sum(g, dim=2) * j_col[None, :, None, None]
-    return oh, oc
+            oh[..., :3] = -torch.sum(g, dim=(1, 3))
+            react = torch.sum(g, dim=2) * j_col[None, :, None, None]
+            out.index_add_(0, cid.reshape(-1).long(),
+                           torch.nn.functional.pad(react, (0, 1))
+                           .reshape(-1, 4))
+        out.index_add_(0, hm[cells][..., 0].reshape(-1).long(),
+                       oh.reshape(-1, 4))
+    return out
 
 
 def full_pair_plain(hf, hm, nbr, box, form, r_cut, n: int, chunk: int,
@@ -233,32 +245,50 @@ def _launch(kernel, dtype, *args):
     LAUNCHES[kernel] += 1
 
 
-def half_pair_cuda(hf, hm, nbr_half, box, form, r_cut, n: int,
-                   exc_cols=None):
-    """Launch K1 on PyTorch's current stream; returns (oh, oc) as allocated
-    here. Checks device, dtype, shape and contiguity first and raises if the
-    launch is refused. `exc_cols` selects the exclusion-column form."""
+def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
+    """Launch K1 on PyTorch's current stream; returns the per-atom
+    (N + 1, 4) [fx fy fz e], allocated and zeroed here. Checks device,
+    dtype, shape and contiguity first and raises if the launch is refused.
+    A spec without the exclusion bitmask selects the exclusion-column form."""
     import ctypes
 
-    ncells, cap, _ = hf.shape
-    s_half = nbr_half.shape[1]
+    n = x.shape[0]
+    ncells, cap = bucket.shape
+    nbr = spec.nbr_cells_half
+    s_half = nbr.shape[1]
+    q, sig, eps = (per_particle[k].contiguous()
+                   for k in ("charge", "sigma", "epsilon"))
+    if spec.excbits is not None:
+        exc, m = spec.excbits, 0
+        exc_check = ("excbits", exc, torch.int32, (n + 1,))
+    else:
+        exc = spec.exclusions
+        m = exc.shape[1]
+        if not 1 <= m <= MAX_EXC:
+            raise ValueError(f"half_pair: {m} exclusion columns per atom, the "
+                             f"kernel takes 1..{MAX_EXC}")
+        exc_check = ("exclusions", exc, torch.int32, (n, m))
     dev = _checked("half_pair",
-                   ("hf", hf, hf.dtype, (ncells, cap, 8)),
-                   ("hm", hm, torch.int32, (ncells, cap, 2)),
-                   ("nbr_half", nbr_half, torch.int32, (ncells, s_half)),
-                   ("box", box, hf.dtype, (3,)))
+                   ("x", x, x.dtype, (n, 3)),
+                   ("charge", q, x.dtype, (n,)),
+                   ("sigma", sig, x.dtype, (n,)),
+                   ("epsilon", eps, x.dtype, (n,)),
+                   exc_check,
+                   ("bucket", bucket, torch.int32, (ncells, cap)),
+                   ("nbr_cells_half", nbr, torch.int32, (ncells, s_half)),
+                   ("box", box, x.dtype, (3,)))
     if not 1 <= cap <= 1024:
         raise ValueError(f"half_pair: cell capacity {cap} outside the "
                          "kernel's 1..1024 (one thread per home atom)")
-    hx, m, _keep = _exc_args("half_pair", hf, exc_cols)
-    oh = torch.empty((ncells, s_half, cap, 4), dtype=hf.dtype, device=dev)
-    oc = torch.empty((ncells, s_half, cap, 3), dtype=hf.dtype, device=dev)
-    scal, flags = _form_block(form, r_cut, hf.dtype)
-    _launch("half_pair", hf.dtype, hf.data_ptr(), hm.data_ptr(), hx,
-            nbr_half.data_ptr(), box.data_ptr(), ncells, cap, s_half, n, m,
-            ctypes.addressof(scal), ctypes.addressof(flags), oh.data_ptr(),
-            oc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    return oh, oc
+    out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
+    scal, flags = _form_block(form, r_cut, x.dtype)
+    _launch("half_pair", x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
+            eps.data_ptr(), exc.data_ptr() if m == 0 else None,
+            exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
+            box.data_ptr(), ncells, cap, s_half, n, m,
+            ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out
 
 
 def full_pair_cuda(hf, hm, nbr, box, form, r_cut, n: int, exc_cols=None):
@@ -285,34 +315,18 @@ def full_pair_cuda(hf, hm, nbr, box, form, r_cut, n: int, exc_cols=None):
     return out.sum(dim=1)
 
 
-def half_writeback(oh, oc, inv_cells_half):
-    """Bucket forces (ncells, cap, 3): home sums over the directions plus,
-    for each direction k, the reaction sums computed by home cell
-    inv[c, k] = c - d_k."""
-    s_half = inv_cells_half.shape[1]
-    dirs = torch.arange(s_half, device=oh.device)[None, :]
-    gathered = oc[inv_cells_half.long(), dirs]        # (ncells, S, cap, 3)
-    return oh[..., :3].sum(dim=1) + gathered.sum(dim=1)
-
-
 def half_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
                             with_forces: bool = True):
     """(energy, forces (N, 3) or None) over the half-stencil cell pairs:
     K1 for a CUDA tensor, its plain twin for a CPU tensor."""
-    n = x.shape[0]
-    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
     if x.is_cuda:
-        oh, oc = half_pair_cuda(hf, hm, spec.nbr_cells_half, box.contiguous(),
-                                form, r_cut, n, exc_cols)
+        out = half_pair_cuda(x.contiguous(), per_particle, bucket, spec,
+                             box.contiguous(), form, r_cut)
     else:
-        oh, oc = half_pair_plain(hf, hm, spec.nbr_cells_half, box, form,
-                                 r_cut, n, spec.cell_chunk, exc_cols,
-                                 with_forces)
-    energy = oh[..., 3].sum()
-    if not with_forces:
-        return energy, None
-    f_bucket = half_writeback(oh, oc, spec.inv_cells_half)
-    return energy, _scatter_forces(f_bucket, bucket, n)
+        out = half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
+                              with_forces)
+    energy = out[:, 3].sum()
+    return energy, (out[:-1, :3] if with_forces else None)
 
 
 def full_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,

@@ -100,7 +100,12 @@ def make_tilepair_spec(
     multi_image=None auto-selects: small boxes (where one block pair can
     reach through two periodic images) enumerate all 27 image offsets; large
     boxes use the per-pair nearest image. Raises ValueError when an excluded
-    pair spans more than +-14 atom indices (the bitmask cannot hold it)."""
+    pair spans more than +-14 atom indices (the bitmask cannot hold it).
+    The bitmask lies on `device` (default: the CUDA card; without one pass
+    device="cpu")."""
+    from ..utils import resolve_device
+
+    device = resolve_device(device)
     box = np.asarray(_host(box), np.float64)
     r_build = float(r_cut_max) + float(skin)
     nb = -(-n // block_size)

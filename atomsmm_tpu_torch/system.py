@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .utils import replace
+from .utils import replace, resolve_device
 
 
 @dataclasses.dataclass
@@ -59,7 +59,8 @@ class System:
 def make_exclusions_array(n: int, pairs, device=None):
     """Build the (N, M) padded exclusion table from a list of (i, j) pairs.
 
-    Symmetric: each pair is recorded on both rows. Padded with -1.
+    Symmetric: each pair is recorded on both rows. Padded with -1. On
+    `device` (default: the CUDA card; without one pass device="cpu").
     """
     lists = [[] for _ in range(n)]
     for i, j in pairs:
@@ -70,4 +71,4 @@ def make_exclusions_array(n: int, pairs, device=None):
     out = np.full((n, m), -1, dtype=np.int32)
     for i, l in enumerate(lists):
         out[i, : len(l)] = sorted(l)
-    return torch.as_tensor(out, device=device)
+    return torch.as_tensor(out, device=resolve_device(device))

@@ -9,7 +9,7 @@
 >>> from atomsmm_tpu_torch.models import water_system
 >>> from atomsmm_tpu_torch.potential import potential_energy
 >>> system, x, box = water_system(n_molecules=27, r_cut=0.45, r_switch=0.35,
-...                               dtype=torch.float64)
+...                               dtype=torch.float64, device="cpu")
 >>> respa = RESPASystem(system, rcut_in=0.3, rswitch_in=0.25)
 >>> sorted({f.group for f in respa.forces})      # bonded / near / far
 [0, 1, 2]

@@ -7,7 +7,8 @@ ones.
 Examples:
 
 >>> from atomsmm_tpu_torch.models import water_system
->>> system, x, box = water_system(n_molecules=8, r_cut=0.3, r_switch=0.25)
+>>> system, x, box = water_system(n_molecules=8, r_cut=0.3, r_switch=0.25,
+...                               device="cpu")
 >>> count_degrees_of_freedom(system)   # 3N - 3 (COM motion removed)
 69
 >>> find_nonbonded_force(system)       # index of the NonbondedForce
@@ -23,6 +24,22 @@ class InputError(Exception):
 
     def __init__(self, msg: str):
         super().__init__(msg)
+
+
+def resolve_device(device=None):
+    """The torch.device an entry point builds on: `device` when given, else
+    the CUDA card. Without a card and without `device` it raises; the port
+    never falls back to the CPU unasked."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available, and atomsmm_tpu_torch builds on the "
+            "card unless asked otherwise: pass device=\"cpu\" to run on the "
+            "CPU")
+    return torch.device("cuda")
 
 
 def replace(obj, **changes):

@@ -20,8 +20,10 @@ non-zero:
    (the truncated Ewald term jumps at the float32-rounded cutoff);
    - K1: argon 864, water 400 (full cutoff-RF, RESPA near and fused far),
      the 30k equilibrated state's near and far grids, an atom crossing the
-     periodic face between rebuilds, and water 400 renumbered so that no
-     exclusion bitmask fits (the exclusion-column form);
+     periodic face between rebuilds, water 400 renumbered so that no
+     exclusion bitmask fits (the exclusion-column form), and water 2744 at
+     1.4 nm (cells above 256 atoms: blocks above 256 threads, several
+     128-slot chunks per candidate partition);
    - K2: water 216 (one cell of 1,112 slots), the water 400 and water 700
      far grids at 0.9 nm (full cutoff-RF and fused far forms), the
      renumbered water 400, and a face crossing. Water 216's lattice energy
@@ -62,17 +64,26 @@ non-zero:
    far force (reciprocal included) against its float64 far force at the
    30k state (energy rtol 1e-4, forces 1e-4 x max|F| of the unsplit
    near + far force);
-9. timings with CUDA events: K1 and its plain twin at the headline's near
-   and far shapes; K2 and its plain twin on the water 700 far grid; K3, its
-   wrapper and its plain twin at the 30k near and far lists; the two list
-   builds at 30k; the damped K1 (and its plain twin) at path (c)'s near and
-   far shapes, the damped K2 on the water 700 far grid, and the reciprocal
-   sum stage by stage (spline weights, spread, rfftn, convolution, irfftn,
-   gather, corrections); then path (c)'s outer step split by force group
-   (host clock, synchronised).
+9. timings with CUDA events: K1, its whole sweep and its plain twin at
+   the headline's near and far shapes, with the sweep's device operations
+   counted by torch.profiler (1 to 4, exactly one of them K1, else the
+   phase fails), the work the sweep has to do (slot tests between real
+   atoms, in-range evaluations and distinct in-range pairs, counted with
+   the twins' masks) and its bound (the function's work, each distinct pair
+   once: the larger of the operations over the card's float32 and
+   special-function rates and the bytes over its memory rate; the
+   constants below); K2 and its plain
+   twin on the water 700 far grid; K3, its wrapper and its plain twin at
+   the 30k near and far lists; the two list builds at 30k; the damped K1
+   (and its plain twin) at path (c)'s near and far shapes, the damped K2 on
+   the water 700 far grid, and the reciprocal sum stage by stage (spline
+   weights, spread, rfftn, convolution, irfftn, gather, corrections); then
+   path (c)'s outer step split by force group (host clock, synchronised).
 
-Then one JSON line of kernel results, the nvidia-smi line again, and last
-{"ok": true, "device": {...}}.
+Then one JSON line of kernel results (with each kernel's bound_ms,
+bound_by, library_ms = null: no single PyTorch call computes these sweeps,
+and prev_ms, its time before this version of K1), the nvidia-smi line
+again, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -85,6 +96,35 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel-vs-plain tolerances (see the module docstring)
 F64_RTOL, F64_FTOL = 1e-10, 1e-9
 F32_RTOL, F32_FTOL = 1e-4, 1e-4
+
+# The card's peaks for the bounds: float32 outside the tensor cores (FMA = 2
+# operations) and device memory, NVIDIA's H100 SXM data sheet at 700 W; the
+# special-function unit (rsqrt, sqrt, exp, reciprocal) at 16 results per
+# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz.
+PEAK_FP32 = 67e12
+PEAK_SFU = 16 * 132 * 1.98e9
+PEAK_BYTES = 3.35e12
+# Float operations per pair, counted from the kernels' source (FMA = 2):
+# a slot test (minimum image 3 x 5, r^2 5, the compare); an evaluation
+# besides its form (the slot test again, qq, sigma, the force, energy and
+# reaction sums); the forms of csrc/pair_forms.cuh: common part (r, 1/r^2,
+# k qq), full half (LJ, quintic switch, reaction-field or Ewald Coulomb,
+# sums), near half (switch, shifted-force LJ + Coulomb at r and at rc_in,
+# sums; only where r < rc_in) and the damped Coulomb kernel (erfcf's
+# polynomial, the exp term). SFU results per evaluation: rsqrt and sqrt,
+# and under damping erfcf's exp and reciprocal and one exp.
+OPS_SLOT = 21
+OPS_EVAL = 36
+OPS_COMMON = 3
+OPS_FULL = {"rf": 54, "ewald": 48}
+OPS_NEAR = 71
+OPS_DAMPED = 30
+SFU_EVAL, SFU_DAMPED = 2, 3
+# each kernel's float32 time at the shape of the kernels line, before this
+# version of K1 (PERF.md, section 6: CUDA events, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+PREV_MS = {"half_pair": 0.3207, "cell_pair": 0.0842, "tile_pair": 0.3263}
 
 
 def log(msg):
@@ -119,19 +159,111 @@ def plain_sweep(spec, form, x, box, pp, bucket):
     f64 = torch.float64
     x, box = x.to(f64), box.to(f64)
     pp = {k: v.to(f64) for k, v in pp.items()}
-    hf, hm, cols = pk.stage(spec, x, pp, bucket)
     n = x.shape[0]
     if spec.half_stencil:
-        oh, oc = pk.half_pair_plain(hf, hm, spec.nbr_cells_half, box, form,
-                                    form.r_cut, n, spec.cell_chunk, cols)
-        e_i = oh[..., 3].sum(dim=1)
-        f_bucket = pk.half_writeback(oh, oc, spec.inv_cells_half)
-    else:
-        out = pk.full_pair_plain(hf, hm, spec.nbr_cells, box, form,
-                                 form.r_cut, n, spec.cell_chunk, cols)
-        e_i, f_bucket = out[..., 3], out[..., :3]
-    return (e_i.sum(), nb._scatter_forces(f_bucket, bucket, n),
+        out = pk.half_pair_plain(x, pp, bucket, spec, box, form, form.r_cut)
+        return (out[:, 3].sum(), out[:n, :3], float(out[:, 3].abs().sum()))
+    hf, hm, cols = pk.stage(spec, x, pp, bucket)
+    out = pk.full_pair_plain(hf, hm, spec.nbr_cells, box, form, form.r_cut,
+                             n, spec.cell_chunk, cols)
+    e_i = out[..., 3]
+    return (e_i.sum(), nb._scatter_forces(out[..., :3], bucket, n),
             float(e_i.abs().sum()))
+
+
+def sweep_counts(spec, form, x, box, pp, bucket, half=None):
+    """The work of the cell sweep the spec selects (half stencil unless
+    `half` says otherwise) at these positions, counted on the device of x
+    with the plain twins' masks: slot tests between real atoms, in-range
+    pair evaluations (the half stencil's self direction and the full
+    stencil evaluate both orderings), those inside the near form's cutoff,
+    and the distinct in-range pairs, all and inside the near cutoff (the
+    work of the function, each pair once)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.pbc import minimum_image
+
+    half = spec.half_stencil if half is None else half
+    n = x.shape[0]
+    hf, hm, cols = pk.stage(spec, x, pp, bucket)
+    ncells, cap, _ = hf.shape
+    hf_s = torch.cat([hf, hf.new_zeros((1, cap, 8))])
+    ids = torch.cat([hm[..., 0], hm.new_full((1, cap), n)])
+    nbr = spec.nbr_cells_half if half else spec.nbr_cells
+    nbr = torch.where(nbr >= 0, nbr, ncells).long()
+    rc2 = pk._rc2(form.r_cut, x.dtype)
+    near2 = form.n_rc ** 2 if form.has_near else 0.0
+    chunk = max(1, (1 << 22) // (nbr.shape[1] * cap * cap))
+    c = {"slots": 0, "evals": 0, "near": 0, "self": 0, "near_self": 0}
+    for lo in range(0, ncells, chunk):
+        cells = torch.arange(lo, min(lo + chunk, ncells), device=x.device)
+        hid = hm[cells][..., 0][:, None, :, None]
+        cid = ids[nbr[cells]][:, :, None, :]
+        d = minimum_image(hf[cells][:, None, :, None, :3]
+                          - hf_s[nbr[cells]][:, :, None, :, :3], box)
+        r2 = (d * d).sum(-1)
+        real = (hid < n) & (cid < n)
+        hit = real & (r2 < rc2) & ~pk.excluded(
+            hid, cid, hm[cells][..., 1][:, None, :, None],
+            None if cols is None else cols[cells][:, None, :, None, :])
+        c["slots"] += int(real.sum())
+        c["evals"] += int(hit.sum())
+        near = hit & (r2 < near2)
+        c["near"] += int(near.sum())
+        if half:
+            c["self"] += int(hit[:, 0].sum())
+            c["near_self"] += int(near[:, 0].sum())
+    if half:
+        c["pairs"] = c["evals"] - c["self"] // 2
+        c["near_pairs"] = c["near"] - c["near_self"] // 2
+    else:
+        c["pairs"], c["near_pairs"] = c["evals"] // 2, c["near"] // 2
+    return c
+
+
+def bound(form, pairs, near, slots, nbytes):
+    """The least time of a pair sweep on this card (see the constants
+    above), in ms: {"ms", "by", "ops_ms", "sfu_ms", "bytes_ms",
+    "with_slots_ms"} for `pairs` distinct in-range pairs, each evaluated
+    once, `near` of them inside the near cutoff, and `nbytes` read once and
+    written once; with_slots_ms adds the `slots` slot tests."""
+    damped = bool(form.alpha)
+    per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0)
+    if form.has_full:
+        per += OPS_FULL["ewald" if form.ewald else "rf"]
+    ops = pairs * per + (near * OPS_NEAR if form.has_near else 0)
+    sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0))
+    t = {"ops_ms": ops / PEAK_FP32 * 1e3, "sfu_ms": sfu / PEAK_SFU * 1e3,
+         "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    t["ms"] = max(t.values())
+    t["by"] = "bytes" if t["ms"] == t["bytes_ms"] else "operations"
+    t["with_slots_ms"] = max(
+        t["ms"], (ops + slots * OPS_SLOT) / PEAK_FP32 * 1e3)
+    return t
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_kernels(fn, reps=1):
+    """(name, device microseconds) of each device operation (kernel, fill,
+    copy) that `reps` calls of fn run, from torch.profiler; empty if the
+    profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def form_name(form):
@@ -234,7 +366,7 @@ def permuted(force, x, box, r_cut):
         force, exclusions=torch.as_tensor(exc),
         **{k: v[pt] for k, v in force._per_particle().items()})
     spec = nb.make_neighbor_spec(box, n, r_cut, exclusions=exc,
-                                 occupancy_floor_from=x[pt])
+                                 occupancy_floor_from=x[pt], device="cpu")
     if spec.excbits is not None:
         raise RuntimeError("the renumbered water still fits the bitmask")
     return force, spec, x[pt]
@@ -268,15 +400,16 @@ def phase_kernels(dev, eq):
 
     import atomsmm_tpu_torch as amm
     from atomsmm_tpu_torch.models import argon_system, water_system
-    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+    from atomsmm_tpu_torch.ops.neighbors import (
+        _max_cell_occupancy, retune_neighbor_specs, retune_spec)
 
     f64 = torch.float64
     results = []
     s, x, box = argon_system(n=864, jitter=0.1, seed=7, neighbors=True,
-                             dtype=f64)
+                             dtype=f64, device="cpu")
     compare("argon864 LJ", s.forces[0], s.neighbors, x, box, dev, results)
     s, x, box = water_system(n_molecules=400, r_cut=0.7, r_switch=0.6, seed=5,
-                             neighbors=True, dtype=f64)
+                             neighbors=True, dtype=f64, device="cpu")
     compare("water400 cutoff-RF", s.forces[0], s.neighbors, x, box, dev,
             results)
     r = amm.RESPASystem(s, rcut_in=0.45, rswitch_in=0.35)
@@ -287,7 +420,8 @@ def phase_kernels(dev, eq):
     compare("water400 renumbered (exclusion columns)", pf, pspec, px, box,
             dev, results)
     ex, ev, ebox = eq
-    s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f64)
+    s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f64,
+                           device="cpu")
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
     r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
     xe, be = torch.as_tensor(ex, dtype=f64), torch.as_tensor(ebox, dtype=f64)
@@ -295,12 +429,24 @@ def phase_kernels(dev, eq):
             be, dev, results)
     compare("water30k far", r.forces[2], r.neighbors, xe, be, dev, results)
     s, x, box = argon_system(n=1728, jitter=0.1, seed=3, neighbors=True,
-                             dtype=f64)
+                             dtype=f64, device="cpu")
     face_crossing("half_pair argon1728", s, x, box, dev)
+    # cells above 256 atoms: blocks of more than 256 threads, and candidate
+    # partitions of more than one 128-slot chunk
+    s, x, box = water_system(n_molecules=2744, r_cut=1.4, r_switch=1.3,
+                             seed=5, neighbors=True, dtype=f64, device="cpu")
+    spec = retune_spec(s.neighbors, x, box)
+    occ = _max_cell_occupancy(x.numpy(), box.numpy(), spec.grid)
+    if not (spec.half_stencil and 256 < spec.cell_capacity <= 512
+            and occ > 256):
+        raise RuntimeError(f"water 2744 at 1.4 nm: cap {spec.cell_capacity}, "
+                           f"occupancy {occ}; expected cells above 256 atoms")
+    compare(f"water2744 rc 1.4 cap {spec.cell_capacity} (cells of up to "
+            f"{occ} atoms)", s.forces[0], spec, x, box, dev, results)
 
     # K1 in the damped PME forms at the 30k PME state's grids
     s, _, _ = water_system(n_molecules=10000, method="pme", neighbors=True,
-                           dtype=f64)
+                           dtype=f64, device="cpu")
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
     r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
     compare("water30k pme full (Ewald direct)", s.forces[0], r.neighbors, xe,
@@ -312,14 +458,14 @@ def phase_kernels(dev, eq):
 
     # K2: grids too small for half maps at the default 0.9 nm cutoff
     s, x, box = water_system(n_molecules=216, seed=5, neighbors=True,
-                             dtype=f64)
+                             dtype=f64, device="cpu")
     if s.neighbors.cell_capacity <= 1024 or s.neighbors.ncells != 1:
         raise RuntimeError("water 216 should fill one cell above 1,024 slots")
     compare("water216 one cell cap 1112", s.forces[0], s.neighbors, x, box,
             dev, results, terms_scale=True)
     for m, method in ((400, "cutoff"), (700, "cutoff"), (700, "pme")):
         s, x, box = water_system(n_molecules=m, seed=5, neighbors=True,
-                                 dtype=f64, method=method)
+                                 dtype=f64, method=method, device="cpu")
         r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
         tag = f"water{m} grid {s.neighbors.grid[0]}^3 cap " \
               f"{s.neighbors.cell_capacity}"
@@ -350,7 +496,7 @@ def tile_lists(dev, eq, dtype, method="cutoff"):
 
     ex, _, ebox = eq
     s, _, _ = water_system(n_molecules=10000, neighbors=True,
-                           dtype=torch.float64, method=method)
+                           dtype=torch.float64, method=method, device="cpu")
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
     r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
     x = torch.as_tensor(ex, dtype=dtype, device=dev)
@@ -739,7 +885,12 @@ def time_cuda(fn, reps):
 
 
 def time_half(label, force, spec, x, box):
-    """K1, its wrapper and its plain twin at one shape, CUDA events."""
+    """K1, its whole sweep and its plain twin at one shape, CUDA events;
+    the sweep's device operations (at most 4, exactly one of them K1, else
+    the phase fails; none seen by the profiler fails it too), the work it
+    has to do and its bound."""
+    import torch
+
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
@@ -747,23 +898,47 @@ def time_half(label, force, spec, x, box):
     form = force._pair_form()
     pp = force._per_particle()
     bucket, _ = nb.build_cell_buckets(spec, x, box)
-    hf, hm, _ = pk.stage(spec, x, pp, bucket)
-    k_ms = time_cuda(lambda: pk.half_pair_cuda(
-        hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n), 20)
-    sweep_ms = time_cuda(lambda: nb.cell_pair_energy_forces(
-        form, x, box, pp, spec, bucket, form.r_cut), 20)
-    p_ms = time_cuda(lambda: pk.half_pair_plain(
-        hf, hm, spec.nbr_cells_half, box, form, form.r_cut, n,
-        spec.cell_chunk), 3)
-    slots = spec.ncells * spec.nbr_cells_half.shape[1] \
+    args = (x, pp, bucket, spec, box, form, form.r_cut)
+    k_ms = time_cuda(lambda: pk.half_pair_cuda(*args), 20)
+
+    def sweep():
+        return nb.cell_pair_energy_forces(form, x, box, pp, spec, bucket,
+                                          form.r_cut)
+
+    sweep_ms = time_cuda(sweep, 20)
+    p_ms = time_cuda(lambda: pk.half_pair_plain(*args), 3)
+    ops = [name for name, _ in device_kernels(sweep)]
+    k1_ops = sum("half_pair_kernel" in name for name in ops)
+    if not 1 <= len(ops) <= 4 or k1_ops != 1:
+        raise RuntimeError(f"half_pair sweep {label}: {len(ops)} device "
+                           f"operations per sweep ({k1_ops} of them K1), "
+                           f"expected 1 to 4 with one K1: {ops}")
+    c = sweep_counts(spec, form, x, box, pp, bucket)
+    exc = spec.excbits if spec.excbits is not None else spec.exclusions
+    b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
+        x, pp["charge"], pp["sigma"], pp["epsilon"], exc, bucket,
+        spec.nbr_cells_half, box) + (n + 1) * 4 * x.element_size())
+    slots_all = spec.ncells * spec.nbr_cells_half.shape[1] \
         * spec.cell_capacity ** 2
     log(f"timing half_pair {label} grid {spec.grid} cap "
-        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms "
-        f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots), "
-        f"wrapper with staging and write-back {sweep_ms:.4f} ms, "
-        f"plain float32 {p_ms:.4f} ms")
+        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms; "
+        f"sweep {sweep_ms:.4f} ms with "
+        f"{len(ops)} device operations per sweep "
+        f"({', '.join(o[:40] for o in ops)}); plain float32 {p_ms:.4f} ms; "
+        f"{slots_all / 1e6:.1f} M slots ({slots_all / k_ms / 1e6:.2f} "
+        f"Gslot/s), {c['slots'] / 1e6:.2f} M between real atoms, "
+        f"{c['evals'] / 1e6:.3f} M in-range evaluations "
+        f"({c['evals'] / k_ms / 1e6:.2f} G/s, {c['near'] / 1e6:.3f} M inside "
+        f"the near cutoff), {c['pairs'] / 1e6:.3f} M distinct pairs "
+        f"({c['near_pairs'] / 1e6:.3f} M near); bound "
+        f"{b['ms'] * 1e3:.2f} us by {b['by']} "
+        f"(ops {b['ops_ms'] * 1e3:.2f}, SFU {b['sfu_ms'] * 1e3:.2f}, bytes "
+        f"{b['bytes_ms'] * 1e3:.2f} us; with the slot tests "
+        f"{b['with_slots_ms'] * 1e3:.2f} us): {b['ms'] / k_ms:.1%} of the "
+        f"bound, {b['with_slots_ms'] / k_ms:.1%} with the slot tests")
     return {"ms": k_ms, "plain_ms": p_ms, "sweep_ms": sweep_ms,
-            "slots": slots}
+            "slots": slots_all, "counts": c, "bound": b,
+            "launches_per_sweep": len(ops)}
 
 
 def phase_timings(dev, main, small, eq):
@@ -776,7 +951,7 @@ def phase_timings(dev, main, small, eq):
     respa = main["respa"]
     ex, ebox = main["state"]
     f32 = torch.float32
-    x = torch.as_tensor(ex, dtype=f32, device=dev)
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
     box = torch.as_tensor(ebox, dtype=f32, device=dev)
     out = {}
     for label, force, spec in (
@@ -799,12 +974,22 @@ def phase_timings(dev, main, small, eq):
         hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0],
         spec.cell_chunk), 3)
     slots = spec.ncells * spec.nbr_cells.shape[1] * spec.cell_capacity ** 2
+    c = sweep_counts(spec, form, xs, bs, pp, bucket)
+    # the function's output: [fx fy fz e] per home slot, written once
+    b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
+        hf, hm, spec.nbr_cells, bs) + spec.ncells * spec.cell_capacity * 4
+        * xs.element_size())
     log(f"timing cell_pair water700 far grid {spec.grid} cap "
         f"{spec.cell_capacity}: kernel {k_ms:.4f} ms "
-        f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots), "
-        f"wrapper {sweep_ms:.4f} ms, plain float32 {p_ms:.4f} ms")
+        f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots, "
+        f"{c['evals'] / 1e6:.3f} M in-range evaluations, "
+        f"{c['pairs'] / 1e6:.3f} M distinct pairs), "
+        f"wrapper {sweep_ms:.4f} ms, plain float32 {p_ms:.4f} ms; bound "
+        f"{b['ms'] * 1e3:.2f} us by {b['by']} (with the slot tests "
+        f"{b['with_slots_ms'] * 1e3:.2f} us): {b['ms'] / k_ms:.1%} of it")
     out[("cell_pair", "far")] = {"ms": k_ms, "plain_ms": p_ms,
-                                 "sweep_ms": sweep_ms, "slots": slots}
+                                 "sweep_ms": sweep_ms, "slots": slots,
+                                 "bound": b}
 
     # K3 at the 30k lists, beside K1 above
     x, box, lists = tile_lists(dev, eq, f32)
@@ -822,13 +1007,22 @@ def phase_timings(dev, main, small, eq):
         live = int((hb < spec.n_blocks).sum())
         slots = live * spec.block_size * 2 * spec.block_size
         k1 = out[("half_pair", label)]
+        # K3 evaluates each distinct pair once: K1's pairs at this state
+        c = k1["counts"]
+        acc = tp.tile_pair_cuda(fs, ms, hb, cb, wrap, box, form, form.r_cut)
+        b = bound(form, c["pairs"], c["near_pairs"], slots,
+                  nbytes(fs, ms, hb, cb, wrap, box, acc))
         log(f"timing tile_pair {label} {live} entries: kernel {k_ms:.4f} ms "
             f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots) "
             f"vs half_pair {k1['ms']:.4f} ms ({k1['slots'] / 1e6:.1f} M "
             f"slots); wrapper {w_ms:.4f} ms vs {k1['sweep_ms']:.4f} ms; "
-            f"plain float32 {p_ms:.4f} ms")
+            f"plain float32 {p_ms:.4f} ms; bound {b['ms'] * 1e3:.2f} us by "
+            f"{b['by']} for {c['pairs'] / 1e6:.3f} M pairs (with the slot "
+            f"tests {b['with_slots_ms'] * 1e3:.2f} us): "
+            f"{b['ms'] / k_ms:.1%} of it")
         out[("tile_pair", label)] = {"ms": k_ms, "plain_ms": p_ms,
-                                     "sweep_ms": w_ms, "slots": slots}
+                                     "sweep_ms": w_ms, "slots": slots,
+                                     "bound": b}
     spec = lists["far"][1]
     cspec = lists["far"][3]
     t_ms = time_cuda(lambda: tp.build_tile_pairs(spec, x, box), 10)
@@ -854,7 +1048,7 @@ def phase_pme_timings(dev, pme_run, small, eq):
     respa = pme_run["respa"]
     ex, ebox = pme_run["state"]
     f32 = torch.float32
-    x = torch.as_tensor(ex, dtype=f32, device=dev)
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
     box = torch.as_tensor(ebox, dtype=f32, device=dev)
     out = {}
     for label, force, spec in (
@@ -1028,11 +1222,15 @@ def main():
         return sorted({r[6] for r in results if r[0] == kernel})
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
+        # no single PyTorch call computes a cutoff pair sweep over cell
+        # buckets or a tile list: library_ms is null
         t, tp_ = timings[key], timings[pme_key]
         return {"name": kernel, "route": "cuda",
                 "source": f"atomsmm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"]["ms"], "bound_by": t["bound"]["by"],
+                "library_ms": None, "prev_ms": PREV_MS[kernel],
                 "shape": shape, "pme_ms": tp_["ms"],
                 "pme_plain_ms": tp_["plain_ms"], "forms": forms(kernel)}
 

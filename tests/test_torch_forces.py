@@ -36,10 +36,12 @@ F64 = torch.float64
 @pytest.mark.parametrize("label", ["argon_864", "water_216_cutoff"])
 def test_golden_split_energies(label):
     if label == "argon_864":
-        s, x, box = tmodels.argon_system(n=864, jitter=0.1, seed=7, dtype=F64)
+        s, x, box = tmodels.argon_system(n=864, jitter=0.1, seed=7, dtype=F64,
+                                         device="cpu")
     else:
         s, x, box = tmodels.water_system(n_molecules=216, r_cut=0.8,
-                                         r_switch=0.7, seed=3, dtype=F64)
+                                         r_switch=0.7, seed=3, dtype=F64,
+                                             device="cpu")
     split = tpot.split_potential_energy(s, x, box, {})
     expected = GOLDENS[label]
     assert set(split) == set(expected)
@@ -57,7 +59,7 @@ def water():
                                       r_switch=0.6, seed=5, neighbors=True)
     ts, tx, tb = tmodels.water_system(n_molecules=400, r_cut=0.7,
                                       r_switch=0.6, seed=5, neighbors=True,
-                                      dtype=F64)
+                                      dtype=F64, device="cpu")
     # move off the lattice so bonds and angles carry force
     noise = np.random.RandomState(1).normal(scale=0.01, size=tx.shape)
     jx = jx + noise
@@ -118,7 +120,8 @@ def test_bonded_forces_match_jax(template):
                                       template_bonded=template)
     ts, tx, tb = tmodels.water_system(n_molecules=64, r_cut=0.45,
                                       r_switch=0.35, seed=2,
-                                      template_bonded=template, dtype=F64)
+                                      template_bonded=template, dtype=F64,
+                                          device="cpu")
     noise = np.random.RandomState(4).normal(scale=0.01, size=tx.shape)
     jx, tx = jx + noise, tx + torch.as_tensor(noise)
     jsb = js.replace_forces(js.forces[1:])
@@ -157,16 +160,18 @@ def test_interop_system_equals_port_model(model):
         js, _, _ = jmodels.argon_system(n=864, jitter=0.1, seed=7,
                                         neighbors=True)
         ts, _, _ = tmodels.argon_system(n=864, jitter=0.1, seed=7,
-                                        neighbors=True, dtype=F64)
+                                        neighbors=True, dtype=F64,
+                                            device="cpu")
     else:
         js, _, _ = jmodels.water_system(n_molecules=400, r_cut=0.7,
                                         r_switch=0.6, seed=5, neighbors=True)
         ts, _, _ = tmodels.water_system(n_molecules=400, r_cut=0.7,
                                         r_switch=0.6, seed=5, neighbors=True,
-                                        dtype=F64)
+                                        dtype=F64, device="cpu")
         js = jsystems.RESPASystem(js, rcut_in=0.45, rswitch_in=0.35)
         ts = tsystems.RESPASystem(ts, rcut_in=0.45, rswitch_in=0.35)
-    carried = system_from_numpy(describe_reference(js), dtype=F64)
+    carried = system_from_numpy(describe_reference(js), dtype=F64,
+                                device="cpu")
     _assert_same(carried, ts)
 
 
@@ -179,14 +184,15 @@ def test_interop_refuses_unported_fields():
 
     js, _, _ = jmodels.water_system(n_molecules=64, r_cut=0.45,
                                     r_switch=0.35, dispersion_correction=True)
-    carried = system_from_numpy(describe_reference(js), dtype=F64)
+    carried = system_from_numpy(describe_reference(js), dtype=F64,
+                                device="cpu")
     assert carried.forces[0].dispersion_coeff == pytest.approx(
         float(js.forces[0].dispersion_coeff), rel=1e-15)
     masked = js.replace_forces(
         (jreplace(js.forces[0], charge_scale_mask=jnp.ones(192)),)
         + tuple(js.forces[1:]))
     with pytest.raises(NotImplementedError, match="charge_scale_mask"):
-        system_from_numpy(describe_reference(masked), dtype=F64)
+        system_from_numpy(describe_reference(masked), dtype=F64, device="cpu")
 
 
 def test_unported_methods_raise():
@@ -197,16 +203,17 @@ def test_unported_methods_raise():
     from atomsmm_tpu_torch.utils import InputError
 
     s, x, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
-                                   method="nocutoff", dtype=F64)
+                                   method="nocutoff", dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match="dense path"):
         s.forces[0]._pair_form()
     with pytest.raises(ValueError, match="method"):
         tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
-                             method="ewald")
+                             method="ewald", device="cpu")
     with pytest.raises(InputError, match="triclinic"):
         tpme.pme_reciprocal_energy(x, torch.eye(3, dtype=F64) * 2.0,
                                    torch.ones(192, dtype=F64), 3.0,
                                    (8, 8, 8), 4)
-    s, _, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35)
+    s, _, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
+                                   device="cpu")
     r = tsystems.RESPASystem(s, 0.3, 0.25, reciprocal_level=True)
     assert sorted({f.group for f in r.forces}) == [0, 1, 2]

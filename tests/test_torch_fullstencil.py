@@ -45,11 +45,11 @@ def _pair(name):
         return (jmodels.argon_system(n=256, jitter=0.1, seed=4,
                                      neighbors=True),
                 tmodels.argon_system(n=256, jitter=0.1, seed=4,
-                                     neighbors=True, dtype=F64))
+                                     neighbors=True, dtype=F64, device="cpu"))
     m = int(name[5:])
     return (jmodels.water_system(n_molecules=m, seed=5, neighbors=True),
             tmodels.water_system(n_molecules=m, seed=5, neighbors=True,
-                                 dtype=F64))
+                                 dtype=F64, device="cpu"))
 
 
 CASES = {  # case -> (system, force: 'full' or 'far')
@@ -148,7 +148,7 @@ def _permuted(pkg, force, x, box, r_cut, seed=3):
         return f, jnp.asarray(xp), spec
     f = dataclasses.replace(force, exclusions=torch.as_tensor(exc),
                             **{k: torch.as_tensor(v) for k, v in pp.items()})
-    spec = tnb.make_neighbor_spec(box, n, r_cut, **spec_kw)
+    spec = tnb.make_neighbor_spec(box, n, r_cut, **spec_kw, device="cpu")
     return f, torch.as_tensor(xp), spec
 
 
@@ -158,7 +158,8 @@ def test_permuted_water_column_form_matches_jax(r_cut):
     js, jx, jb = jmodels.water_system(n_molecules=400, r_cut=r_cut,
                                       r_switch=r_cut - 0.1, seed=5)
     ts, tx, tb = tmodels.water_system(n_molecules=400, r_cut=r_cut,
-                                      r_switch=r_cut - 0.1, seed=5, dtype=F64)
+                                      r_switch=r_cut - 0.1, seed=5, dtype=F64,
+                                          device="cpu")
     jf, jxp, jspec = _permuted(jamm, js.forces[0], jx, jb, r_cut)
     tf, txp, tspec = _permuted(tamm, ts.forces[0], tx, tb, r_cut)
     assert jspec.excbits is None and tspec.excbits is None
@@ -175,7 +176,7 @@ def test_permuted_water_column_form_matches_jax(r_cut):
     # the unpermuted system (bitmask form) gives the same energy
     spec = tnb.make_neighbor_spec(tb, tx.shape[0], r_cut,
                                   exclusions=ts.forces[0].exclusions,
-                                  occupancy_floor_from=tx)
+                                  occupancy_floor_from=tx, device="cpu")
     assert spec.excbits is not None
     bucket, _ = tnb.build_cell_buckets(spec, tx, tb)
     e_bits = tnb.cell_pair_energy(ts.forces[0]._pair_form(), tx, tb,

@@ -51,7 +51,7 @@ def _water_pair(loops, dt):
                                       r_switch=0.6, seed=5, neighbors=True)
     ts, tx, tb = tmodels.water_system(n_molecules=400, r_cut=0.7,
                                       r_switch=0.6, seed=5, neighbors=True,
-                                      dtype=F64)
+                                      dtype=F64, device="cpu")
     js = jamm.RESPASystem(js, rcut_in=0.45, rswitch_in=0.35)
     ts = tamm.RESPASystem(ts, rcut_in=0.45, rswitch_in=0.35)
     v = _velocities(ts.masses, 300.0, seed=9)
@@ -87,7 +87,7 @@ def test_velocity_verlet_argon_matches_jax():
     js, jx, jb = jmodels.argon_system(n=864, jitter=0.1, seed=7,
                                       neighbors=True)
     ts, tx, tb = tmodels.argon_system(n=864, jitter=0.1, seed=7,
-                                      neighbors=True, dtype=F64)
+                                      neighbors=True, dtype=F64, device="cpu")
     v = _velocities(ts.masses, 120.0, seed=3)
     jctx = jamm.Context(js, jamm.VelocityVerletIntegrator(0.002),
                         jamm.make_state(jx, v=v, box=jb))
@@ -127,9 +127,11 @@ def test_state_interop_matches_make_state():
                                       r_switch=0.35, seed=2)
     jstate = jamm.make_state(jx, box=jb).with_extra(
         nhc_v=np.array([0.5, -0.25]))
-    carried = state_from_numpy(describe_reference(jstate), dtype=F64)
+    carried = state_from_numpy(describe_reference(jstate), dtype=F64,
+                               device="cpu")
     _, tx, tb = tmodels.water_system(n_molecules=64, r_cut=0.45,
-                                     r_switch=0.35, seed=2, dtype=F64)
+                                     r_switch=0.35, seed=2, dtype=F64,
+                                         device="cpu")
     assert torch.equal(carried.x, tx) and torch.equal(carried.box, tb)
     assert torch.equal(carried.v, torch.zeros_like(tx))
     assert carried.step == 0
@@ -140,7 +142,7 @@ def test_cold_start_overflow_retunes():
     import dataclasses
 
     ts, tx, tb = tmodels.argon_system(n=864, jitter=0.1, seed=7,
-                                      neighbors=True, dtype=F64)
+                                      neighbors=True, dtype=F64, device="cpu")
     tiny = ts.with_neighbors(dataclasses.replace(ts.neighbors,
                                                  cell_capacity=8))
     ctx = tamm.Context(tiny, tamm.VelocityVerletIntegrator(0.002),
@@ -153,7 +155,7 @@ def test_cold_start_overflow_retunes():
 
 def test_set_velocities_to_temperature():
     ts, tx, tb = tmodels.argon_system(n=864, jitter=0.1, seed=7,
-                                      neighbors=True, dtype=F64)
+                                      neighbors=True, dtype=F64, device="cpu")
     ctx = tamm.Context(ts, tamm.VelocityVerletIntegrator(0.002),
                        tamm.make_state(tx, box=tb))
     ctx.set_velocities_to_temperature(120.0, seed=3)
@@ -177,7 +179,7 @@ def test_overflow_restores_retunes_and_replays():
     import warnings
 
     ts, tx, tb = tmodels.argon_system(n=864, jitter=0.1, seed=7,
-                                      neighbors=True, dtype=F64)
+                                      neighbors=True, dtype=F64, device="cpu")
     v = torch.as_tensor(_velocities(ts.masses, 120.0, seed=3))
     clean = tamm.Context(ts, tamm.VelocityVerletIntegrator(0.002),
                          tamm.make_state(tx, v=v, box=tb))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card:
-K1 (csrc/half_pair.cu, both exclusion forms), K2 (csrc/cell_pair.cu,
+K1 (csrc/half_pair.cu, both exclusion forms, cells above 256 atoms,
+through the sweep and per atom through its own interface), K2 (csrc/cell_pair.cu,
 including a capacity above 1,024) and K3 (csrc/tile_pair.cu), each in the
 reaction-field forms and in the damped PME forms (Ewald direct space,
 damped near, fused damped far). Every test
@@ -45,17 +46,28 @@ def _case(name):
     if name.startswith("small_"):   # full stencil (K2): water at 0.9 nm
         m = int(name.split("_")[1])
         s, x, box = water_system(n_molecules=m, seed=5, neighbors=True,
-                                 dtype=F64, method=method)
+                                 dtype=F64, method=method, device="cpu")
         if name.endswith("far"):
             r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
             return r.forces[2], r.neighbors, x, box
         return s.forces[0], s.neighbors, x, box
+    if name == "water_large":
+        # cells of 243-345 atoms at capacity 400: K1's blocks exceed 256
+        # threads and a candidate partition takes several 128-slot chunks
+        s, x, box = water_system(n_molecules=2744, r_cut=1.4, r_switch=1.3,
+                                 seed=5, neighbors=True, dtype=F64,
+                                 device="cpu")
+        spec = nb.retune_spec(s.neighbors, x, box)
+        assert spec.half_stencil and 256 < spec.cell_capacity <= 512
+        assert nb._max_cell_occupancy(x.numpy(), box.numpy(), spec.grid) > 256
+        return s.forces[0], spec, x, box
     if name == "argon_lj":
         s, x, box = argon_system(n=864, jitter=0.1, seed=7, neighbors=True,
-                                 dtype=F64)
+                                 dtype=F64, device="cpu")
         return s.forces[0], s.neighbors, x, box
     s, x, box = water_system(n_molecules=400, r_cut=0.7, r_switch=0.6, seed=5,
-                             neighbors=True, dtype=F64, method=method)
+                             neighbors=True, dtype=F64, method=method,
+                                 device="cpu")
     if name == "water_rf":
         return s.forces[0], s.neighbors, x, box
     r = amm.RESPASystem(s, rcut_in=0.45, rswitch_in=0.35)
@@ -84,7 +96,7 @@ def _permuted(force, x, box, r_cut):
         force, exclusions=torch.as_tensor(exc),
         **{k: v[pt] for k, v in force._per_particle().items()})
     spec = nb.make_neighbor_spec(box, n, r_cut, exclusions=exc,
-                                 occupancy_floor_from=x[pt])
+                                 occupancy_floor_from=x[pt], device="cpu")
     assert spec.excbits is None
     return force, spec, x[pt]
 
@@ -119,12 +131,24 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None):
     rtol, ftol = TOLS[dtype]
     assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
     assert float((f_k.cpu().double() - f_p).abs().max()) <= ftol * fmax
+    if kernel == "half_pair":
+        # K1's own interface: per-atom [fx fy fz e] against the twin's,
+        # each atom's energy to the tolerance of the largest
+        out_k = pk.half_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut)
+        xc, bc, ppc, spec_c, bucket_c, _ = args
+        out_p = pk.half_pair_plain(xc, ppc, bucket_c, spec_c, bc, form,
+                                   form.r_cut)
+        e_max = float(out_p[:, 3].abs().max())
+        assert float((out_k[:, 3].cpu().double() - out_p[:, 3]).abs().max()) \
+            <= ftol * e_max
+        assert float((out_k[:, :3].cpu().double() - out_p[:, :3]).abs()
+                     .max()) <= ftol * fmax
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(TOLS))
 @pytest.mark.parametrize("case", ["argon_lj", "water_far", "water_near",
-                                  "water_rf"])
+                                  "water_rf", "water_large"])
 def test_kernel_matches_plain_on_card(cuda, case, dtype):
     force, spec, x, box = _case(case)
     _check_sweep(force, spec, x, box, cuda, dtype, "half_pair")
@@ -154,7 +178,8 @@ def test_full_stencil_kernel_capacity_above_1024(cuda):
 def test_exclusion_column_forms_match_plain_on_card(cuda, r_cut):
     """0.7 nm: K1's column form; 0.9 nm: K2's."""
     s, x, box = water_system(n_molecules=400, r_cut=r_cut,
-                             r_switch=r_cut - 0.1, seed=5, dtype=F64)
+                             r_switch=r_cut - 0.1, seed=5, dtype=F64,
+                                 device="cpu")
     force, spec, xp = _permuted(s.forces[0], x, box, r_cut)
     kernel = "half_pair" if spec.half_stencil else "cell_pair"
     _check_sweep(force, spec, xp, box, cuda, "float64", kernel)
@@ -217,7 +242,8 @@ def _check_tile(force, x, box, dev, dtype, unsplit=None):
     if dtype == "float64":
         cspec = _to(nb.make_neighbor_spec(box, x.shape[0], form.r_cut,
                                           exclusions=force.exclusions,
-                                          occupancy_floor_from=x), dev)
+                                          occupancy_floor_from=x,
+                                              device="cpu"), dev)
         bucket, _ = nb.build_cell_buckets(cspec, xd, bd)
         e_c, f_c = nb.cell_pair_energy_forces(form, xd, bd, ppd, cspec,
                                               bucket, form.r_cut)
@@ -231,7 +257,7 @@ def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
     """K3 against its plain twin; in float64 also against K1 on the same
     configuration (the same pairs inside the cutoff)."""
     s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
-                             dtype=F64)
+                             dtype=F64, device="cpu")
     _check_tile(s.forces[0], x, box, cuda, dtype)
 
 
@@ -240,7 +266,8 @@ def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
 @pytest.mark.parametrize("group", ["full", "near", "far"])
 def test_tile_pair_damped_forms_on_card(cuda, group, dtype):
     """K3 in the damped PME forms, water 1000 at 0.9 nm split at 0.5 nm."""
-    s, x, box = water_system(n_molecules=1000, method="pme", dtype=F64)
+    s, x, box = water_system(n_molecules=1000, method="pme", dtype=F64,
+                             device="cpu")
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
     force = {"full": s.forces[0], "near": r.forces[1], "far": r.forces[2]}[
         group]

@@ -48,13 +48,13 @@ def systems():
     out = {}
     for name in ("argon", "water"):
         out[name] = (_build(jmodels, jsystems, name),
-                     _build(tmodels, tsystems, name, dtype=F64))
+                     _build(tmodels, tsystems, name, dtype=F64, device="cpu"))
     # the full (unsplit) water force on the default grid
     ws, wx, wb = jmodels.water_system(n_molecules=400, r_cut=0.7,
                                       r_switch=0.6, seed=5, neighbors=True)
     ts, tx, tb = tmodels.water_system(n_molecules=400, r_cut=0.7,
                                       r_switch=0.6, seed=5, neighbors=True,
-                                      dtype=F64)
+                                      dtype=F64, device="cpu")
     out["water_full"] = ((ws, wx, wb), (ts, tx, tb))
     return out
 
@@ -169,7 +169,7 @@ def test_boundary_crossing_between_rebuilds():
     js, jx, jb = jmodels.argon_system(n=1728, jitter=0.1, seed=3,
                                       neighbors=True)
     ts, tx, tb = tmodels.argon_system(n=1728, jitter=0.1, seed=3,
-                                      neighbors=True, dtype=F64)
+                                      neighbors=True, dtype=F64, device="cpu")
     assert ts.neighbors.half_stencil and ts.neighbors.excbits is not None
     jx = jx.at[7, 0].set(0.0009)
     tx = tx.clone()
@@ -213,19 +213,141 @@ def test_overflow_is_flagged_not_dropped(systems):
 
 
 def test_writeback_routes_reactions(systems):
-    """Stage + plain twin + write-back reproduce the sweep's bucket forces,
-    and the total force vanishes (Newton's third law)."""
+    """The half-stencil twin's per-atom output routes every reaction to its
+    atom: its forces equal the full-stencil twin's (each atom's force as a
+    home atom only, no reactions), the total force vanishes (Newton's third
+    law), the padding row stays zero and the energy column sums to the
+    energy-only sweep."""
     (_, _, _), (ts, tx, tb) = systems["water"]
     spec = _spec(ts, "default")
     f = _force(ts, "FarNonbondedForce")
     bucket, _ = tnb.build_cell_buckets(spec, tx, tb)
-    hf, hm, cols = tpk.stage(spec, tx, f._per_particle(), bucket)
-    assert cols is None and hf.shape == (spec.ncells, spec.cell_capacity, 8)
-    oh, oc = tpk.half_pair_plain(hf, hm, spec.nbr_cells_half, tb,
-                                 f._pair_form(), f.full.r_cut, tx.shape[0],
-                                 spec.cell_chunk)
-    assert float(oc[:, 0].abs().max()) == 0.0      # self column: no reaction
-    forces = tnb._scatter_forces(
-        tpk.half_writeback(oh, oc, spec.inv_cells_half), bucket, tx.shape[0])
-    np.testing.assert_allclose(forces.sum(0).numpy(), 0.0,
-                               atol=1e-9 * float(forces.abs().max()))
+    args = (tx, f._per_particle(), bucket, spec, tb, f._pair_form(),
+            f.full.r_cut)
+    out = tpk.half_pair_plain(*args)
+    n = tx.shape[0]
+    assert out.shape == (n + 1, 4) and float(out[n].abs().max()) == 0.0
+    full = dataclasses.replace(spec, half_stencil=False)
+    e_full, f_full = tnb.cell_pair_energy_forces(
+        f._pair_form(), tx, tb, f._per_particle(), full, bucket, f.full.r_cut)
+    np.testing.assert_allclose(out[:n, :3].numpy(), f_full.numpy(), rtol=RTOL,
+                               atol=RTOL * float(f_full.abs().max()))
+    np.testing.assert_allclose(float(out[:, 3].sum()), float(e_full),
+                               rtol=RTOL)
+    np.testing.assert_allclose(out[:n, :3].sum(0).numpy(), 0.0,
+                               atol=1e-9 * float(out[:n, :3].abs().max()))
+    e_only = tpk.half_pair_plain(*args, with_forces=False)
+    assert float(e_only[:, :3].abs().max()) == 0.0
+    np.testing.assert_allclose(float(e_only[:, 3].sum()),
+                               float(out[:, 3].sum()), rtol=RTOL)
+
+
+def _renumbered(pkg_models, pkg_nb, **kw):
+    """Water 400 at 0.7 nm with the atoms renumbered by a fixed
+    permutation: no exclusion bitmask fits, so the sweep takes the
+    exclusion id columns. (force, x, box, spec) of the full form."""
+    s, x, box = pkg_models.water_system(n_molecules=400, r_cut=0.7,
+                                        r_switch=0.6, seed=5, **kw)
+    force = s.forces[0]
+    n = x.shape[0]
+    p = np.random.RandomState(3).permutation(n)
+    inv = np.argsort(p)
+    exc = np.asarray(force.exclusions)[p]
+    exc = np.where(exc >= 0, inv[np.maximum(exc, 0)], -1).astype(np.int32)
+    xp = np.asarray(x)[p]
+    if pkg_models is jmodels:
+        import jax.numpy as jnp
+
+        conv, spec_kw = jnp.asarray, {}
+        pp = {k: np.asarray(v)[p]
+              for k, v in force._per_particle({}).items()}
+    else:
+        conv, spec_kw = torch.as_tensor, {"device": "cpu"}
+        pp = {k: v.numpy()[p] for k, v in force._per_particle().items()}
+    force = dataclasses.replace(force, exclusions=conv(exc),
+                                **{k: conv(v) for k, v in pp.items()})
+    spec = pkg_nb.make_neighbor_spec(np.asarray(box), n, 0.7, exclusions=exc,
+                                     occupancy_floor_from=xp, **spec_kw)
+    assert spec.excbits is None and spec.half_stencil
+    return force, conv(xp), box, spec
+
+
+def _face_crossing(pkg_models, **kw):
+    """Argon 1728 bucketed with atom 7 just inside the x = 0 face, then
+    moved across it (well inside the skin): (force, x, box, spec,
+    x at the build)."""
+    s, x, box = pkg_models.argon_system(n=1728, jitter=0.1, seed=3,
+                                        neighbors=True, **kw)
+    if pkg_models is jmodels:
+        x0 = x.at[7, 0].set(0.0009)
+        x1 = x0.at[7, 0].add(-0.011)
+    else:
+        x0 = x.clone()
+        x0[7, 0] = 0.0009
+        x1 = x0.clone()
+        x1[7, 0] -= 0.011
+    return s.forces[0], x1, box, s.neighbors, x0
+
+
+def _pme_water(pkg_models, pkg_systems, **kw):
+    s, x, box = pkg_models.water_system(n_molecules=400, r_cut=0.7,
+                                        r_switch=0.6, seed=5, neighbors=True,
+                                        method="pme", **kw)
+    return pkg_systems.RESPASystem(s, rcut_in=0.45, rswitch_in=0.35), x, box
+
+
+# half_pair_plain against the JAX sweep: (JAX case, port case) builders
+PLAIN_CASES = {
+    "argon_lj": "argon_lj", "water_rf": "water_rf",
+    "water_near": "water_near", "water_far": "water_far",
+    "pme_near_damped": ("pme", "near", "NearNonbondedForce"),
+    "pme_far_fused_damped": ("pme", "default", "FarNonbondedForce"),
+    "columns_renumbered": "columns", "face_crossing": "face",
+}
+
+
+def _plain_case(systems, case):
+    """((JAX force, x, box, spec, x at the build), the same for the port)
+    for one half-stencil case."""
+    kind = PLAIN_CASES[case]
+    if kind == "columns":
+        return tuple(_renumbered(pm, pn, **kw) + (None,) for pm, pn, kw in (
+            (jmodels, jnb, {}), (tmodels, tnb, {"dtype": F64,
+                                                 "device": "cpu"})))
+    if kind == "face":
+        return (_face_crossing(jmodels),
+                _face_crossing(tmodels, dtype=F64, device="cpu"))
+    if isinstance(kind, tuple):
+        _, key, cls_name = kind
+        pair = (_pme_water(jmodels, jsystems),
+                _pme_water(tmodels, tsystems, dtype=F64, device="cpu"))
+    else:
+        sys_name, key, cls_name = FORCES[kind]
+        pair = systems[sys_name]
+    return tuple((_force(s, cls_name), x, b, _spec(s, key), None)
+                 for s, x, b in pair)
+
+
+@pytest.mark.parametrize("case", sorted(PLAIN_CASES))
+def test_half_pair_plain_matches_jax(systems, case):
+    """K1's plain twin, per atom, against the JAX package's
+    cell_pair_energy_forces (the XLA half-stencil sweep): the energy column
+    sums to its energy and the force columns equal its forces (rtol 1e-10),
+    in every pair form and both exclusion forms, and across a periodic
+    face crossed between rebuilds; the padding row stays zero."""
+    (jf, jx, jb, jspec, jx0), (tf, tx, tb, tspec, tx0) = _plain_case(
+        systems, case)
+    assert tspec.half_stencil and jspec.half_stencil
+    jbucket, _ = jnb.build_cell_buckets(jspec, jx if jx0 is None else jx0, jb)
+    tbucket, tov = tnb.build_cell_buckets(tspec, tx if tx0 is None else tx0,
+                                          tb)
+    assert not bool(tov)
+    far = type(tf).__name__ == "FarNonbondedForce"
+    r_cut = tf.full.r_cut if far else tf.r_cut
+    e_want, f_want = jnb.cell_pair_energy_forces(
+        jf._pair_fn({}), jx, jb, jf._per_particle({}), jspec, jbucket, r_cut)
+    out = tpk.half_pair_plain(tx, tf._per_particle(), tbucket, tspec, tb,
+                              tf._pair_form(), r_cut)
+    n = tx.shape[0]
+    assert out.shape == (n + 1, 4) and float(out[n].abs().max()) == 0.0
+    _assert_ef((e_want, f_want), (out[:, 3].sum(), out[:n, :3]))

@@ -166,7 +166,7 @@ def test_choose_pme_parameters_match_jax(molecules, order):
 
 def _water_state(m, seed=5, noise=0.02):
     s, x, box = tmodels.water_system(n_molecules=m, method="pme", seed=seed,
-                                     dtype=F64)
+                                     dtype=F64, device="cpu")
     xn = x.numpy() + np.random.RandomState(1).normal(scale=noise,
                                                     size=x.shape)
     return s.forces[0], xn, box.numpy()
@@ -261,7 +261,8 @@ def test_exclusion_correction_matches_jax():
 def test_golden_water_216_pme():
     s, x, box = tmodels.water_system(n_molecules=216, method="pme", r_cut=0.8,
                                      r_switch=0.7, seed=3,
-                                     dispersion_correction=True, dtype=F64)
+                                     dispersion_correction=True, dtype=F64,
+                                         device="cpu")
     split = tpot.split_potential_energy(s, x, box, {})
     expected = GOLDENS["water_216_pme"]
     assert set(split) == set(expected)
@@ -282,7 +283,7 @@ def _pme_pair(r_cut, m=400):
     kw = dict(n_molecules=m, method="pme", r_cut=r_cut, r_switch=r_cut - 0.1,
               seed=5, neighbors=True)
     js, jx, jb = jmodels.water_system(**kw)
-    ts, tx, tb = tmodels.water_system(dtype=F64, **kw)
+    ts, tx, tb = tmodels.water_system(dtype=F64, **kw, device="cpu")
     noise = np.random.RandomState(1).normal(scale=0.01, size=tx.shape)
     jx, tx = jx + noise, tx + torch.as_tensor(noise)
     split = (0.5, 0.4) if r_cut > 0.8 else (0.45, 0.35)
@@ -337,7 +338,7 @@ def test_respa_pme_trajectory_matches_jax():
     [4, 2, 1] + NHC steps against the JAX package."""
     kw = dict(n_molecules=400, method="pme", seed=5, neighbors=True)
     js, jx, jb = jmodels.water_system(**kw)
-    ts, tx, tb = tmodels.water_system(dtype=F64, **kw)
+    ts, tx, tb = tmodels.water_system(dtype=F64, **kw, device="cpu")
     js = jamm.RESPASystem(js, rcut_in=0.5, rswitch_in=0.4)
     ts = tamm.RESPASystem(ts, rcut_in=0.5, rswitch_in=0.4)
     m = ts.masses.numpy()
@@ -374,7 +375,7 @@ def test_interop_carries_pme_respa_with_spread_layout():
     jr = jamm.RESPASystem(js, 0.5, 0.4, reciprocal_level=True)
     jr = jforces.retune_pme_spread(jr, jx, jb)
     assert any(getattr(f, "spread_block", ()) for f in jr.forces)
-    tr = system_from_numpy(describe_reference(jr), dtype=F64)
+    tr = system_from_numpy(describe_reference(jr), dtype=F64, device="cpu")
     assert [type(f).__name__ for f in tr.forces] == \
         [type(f).__name__ for f in jr.forces]
     tx, tb = _t(jx), _t(jb)
@@ -394,7 +395,7 @@ def test_nocutoff_matches_jax():
                                       r_cut=0.45, r_switch=0.35, seed=2)
     ts, tx, tb = tmodels.water_system(n_molecules=27, method="nocutoff",
                                       r_cut=0.45, r_switch=0.35, seed=2,
-                                      dtype=F64)
+                                      dtype=F64, device="cpu")
     assert not ts.forces[0].uses_neighbors()
     noise = rs.normal(scale=0.01, size=tx.shape)
     jx, tx = jx + noise, tx + torch.as_tensor(noise)

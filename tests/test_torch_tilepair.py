@@ -42,14 +42,15 @@ def _systems(name):
     """((JAX system, x, box), (port system, x, box), spec kwargs)."""
     if name == "argon216":
         return (jmodels.argon_system(n=216, jitter=0.25, seed=1),
-                tmodels.argon_system(n=216, jitter=0.25, seed=1, dtype=F64),
+                tmodels.argon_system(n=216, jitter=0.25, seed=1, dtype=F64,
+                                     device="cpu"),
                 {})
     m = int(name.split("_")[0][5:])
     r = 0.55 if m == 64 else 0.8
     kw = {"block_size": 32} if name.endswith("b32") else {}
     return (jmodels.water_system(n_molecules=m, r_cut=r, r_switch=r - 0.1),
             tmodels.water_system(n_molecules=m, r_cut=r, r_switch=r - 0.1,
-                                 dtype=F64), kw)
+                                 dtype=F64, device="cpu"), kw)
 
 
 CASES = ["argon216", "water64", "water216_b32"]
@@ -64,7 +65,7 @@ def _specs_and_lists(name):
         **kw)
     tspec = ttp.make_tilepair_spec(tb, tx.shape[0], tf.r_cut,
                                    exclusions=tf.exclusions,
-                                   occupancy_from=tx, **kw)
+                                   occupancy_from=tx, **kw, device="cpu")
     jlist = jtp.build_tile_pairs(jspec, jx, jb)
     tlist = ttp.build_tile_pairs(tspec, tx, tb)
     return (jf, jspec, jx, jb, jlist), (tf, tspec, tx, tb, tlist)
@@ -108,7 +109,7 @@ def test_tile_list_equal_jax_single_image_30k():
     x, box = d["x"], d["box"]
     n = x.shape[0]
     jspec = jtp.make_tilepair_spec(box, n, 0.5)
-    tspec = ttp.make_tilepair_spec(box, n, 0.5)
+    tspec = ttp.make_tilepair_spec(box, n, 0.5, device="cpu")
     assert not tspec.multi_image and tspec.n_blocks == 469
     _assert_specs_equal(jspec, tspec)
     _assert_lists_equal(
@@ -153,14 +154,16 @@ def test_face_crossing_with_xref():
     """Positions staged continuously relative to the build reference keep
     a face-crossing atom's pairs (cf. test_tilepair.py)."""
     js, jx, jb = jmodels.argon_system(n=500, jitter=0.1, seed=3)
-    ts, tx, tb = tmodels.argon_system(n=500, jitter=0.1, seed=3, dtype=F64)
+    ts, tx, tb = tmodels.argon_system(n=500, jitter=0.1, seed=3, dtype=F64,
+                                      device="cpu")
     jx = jx.at[7, 0].set(0.0009)
     tx = tx.clone()
     tx[7, 0] = 0.0009
     jf, tf = js.forces[0], ts.forces[0]
     jspec = jtp.make_tilepair_spec(np.asarray(jb), 500, float(jf.r_cut),
                                    occupancy_from=np.asarray(jx))
-    tspec = ttp.make_tilepair_spec(tb, 500, tf.r_cut, occupancy_from=tx)
+    tspec = ttp.make_tilepair_spec(tb, 500, tf.r_cut, occupancy_from=tx,
+                                   device="cpu")
     jlist = jtp.build_tile_pairs(jspec, jx, jb)
     tlist = ttp.build_tile_pairs(tspec, tx, tb)
     _assert_lists_equal(jlist, tlist)
@@ -177,7 +180,8 @@ def test_face_crossing_with_xref():
     # and against the cell path on fresh buckets (same pairs in range)
     from atomsmm_tpu_torch.ops import neighbors as tnb
 
-    spec = tnb.make_neighbor_spec(tb, 500, tf.r_cut, occupancy_floor_from=tx1)
+    spec = tnb.make_neighbor_spec(tb, 500, tf.r_cut, occupancy_floor_from=tx1,
+                                  device="cpu")
     bucket, _ = tnb.build_cell_buckets(spec, tx1, tb)
     e_c, f_c = tnb.cell_pair_energy_forces(tf._pair_form(), tx1, tb,
                                            tf._per_particle(), spec, bucket,
@@ -189,7 +193,7 @@ def test_face_crossing_with_xref():
 
 def test_overflow_flagged_and_retune_measures_entries():
     _, (ts, tx, tb), _ = _systems("argon216")
-    tspec = ttp.make_tilepair_spec(tb, 216, ts.forces[0].r_cut)
+    tspec = ttp.make_tilepair_spec(tb, 216, ts.forces[0].r_cut, device="cpu")
     tuned = ttp.retune_tilepair_spec(tspec, tx, tb)
     assert not bool(ttp.build_tile_pairs(tuned, tx, tb)[4])
     tiny = dataclasses.replace(tuned, max_entries=2)
@@ -220,7 +224,8 @@ def test_update_rebuilds_only_past_half_skin(built):
 
 def test_tilepair_spec_on_a_system_raises(built):
     _, (_, tspec, tx, tb, _) = built["argon216"]
-    system, _, _ = tmodels.argon_system(n=216, jitter=0.25, seed=1, dtype=F64)
+    system, _, _ = tmodels.argon_system(n=216, jitter=0.25, seed=1, dtype=F64,
+                                        device="cpu")
     with pytest.raises(NotImplementedError, match="TilePairSpec"):
         tamm.Context(system.with_neighbors(tspec),
                      tamm.VelocityVerletIntegrator(0.002),
