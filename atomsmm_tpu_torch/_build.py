@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 #: argument kinds of every C entry point: p = pointer, i = int
 _SIGNATURES = {
     "half_pair": "ppppppppp" "iiiii" "ppp" "p",
-    "cell_pair": "ppppp" "iiiii" "ppp" "p",
+    "cell_pair": "ppppppppp" "iiiii" "ppp" "p",
     "tile_pair": "pppppp" "iii" "ppp" "p",
 }
 

@@ -7,192 +7,351 @@
 // orderings of each pair: on every (home atom, candidate) slot it applies the
 // per-slot minimum image, the cutoff test, the exclusions and one of the
 // built-in pair forms (pair_forms.cuh), and sums on the home atom
-// F_i = -sum 2 du/dr^2 dx and E_i = 1/2 sum u. It writes no reactions, so it
-// needs no atomics.
+// F_i = -sum 2 du/dr^2 dx and E_i = 1/2 sum u. It writes no reactions.
 //
-// What bounds it: the pair-slot arithmetic, as in half_pair.cu, on twice
-// the slots (no Newton). Cell capacities reach past 1,024 atoms here (216
-// waters at a 0.9 nm cutoff fill one cell of 1,112 slots; 71 KB of staged
-// candidates in float64), so nothing assumes one thread per home atom of a
-// whole cell or one whole cell in shared memory. One thread block per
-// (home cell, candidate tile, home chunk): TILE = 128 threads, one home atom
-// of the chunk per thread with its sums and exclusion columns in registers,
-// against one tile of up to TILE candidates of one stencil cell, staged in
-// static shared memory (6.5 KB in float64). The grid then has enough blocks
-// to fill the card even for one cell (9 x 9 blocks at cap 1,112). Each block
-// writes its own partial sums; the wrapper (ops/pair_kernel.py) adds the
-// tiles of a home cell, a sum over a fixed axis, so the result does not
-// depend on the order in which blocks run.
-//
-// Padding columns of nbr (-1) stand for the sentinel cell, whose slots are
-// all masked: their tiles are skipped. Exclusions: the relative-offset
-// bitmask when the system has one, else the id columns (the template
-// parameter COLS), as in half_pair.cu; the CPU tests show that both forms
-// give the same mask.
+// What bounds it: instruction slots and latency, not operations or bytes. The
+// work is small (700 waters: 2,100 home atoms against 2,100 candidates
+// each, 4.4 M slot tests, 0.64 M of them in range) and the pair form costs
+// five times the test, so what matters is that no lane idles through a
+// form, that no padding is tested, and that enough warps are in flight.
+// Cell capacities reach past 1,024 slots (216 waters fill one cell of
+// 1,112), so nothing assumes a whole cell in a block or in shared memory.
+// The design:
+//   * the kernel gathers and writes per atom itself: it reads the atoms
+//     through the bucket ids and writes one [fx fy fz e] row per real atom
+//     of a zeroed (n + 1, 4) tensor; the wrapper is a zero fill, the launch
+//     and the energy sum;
+//   * a warp owns one home atom for its whole stencil, its lanes run across
+//     32 candidates at a time. Every hit of a warp belongs to that atom, so
+//     the lanes' partial sums meet by shuffles at the end and the row is a
+//     plain store: no atomics, and a result that does not change from run
+//     to run;
+//   * test, compact, then evaluate with full warps: the lanes push their
+//     hits (displacement and pair parameters) on the warp's queue in shared
+//     memory (hit_queue.cuh) and evaluate 32 at a time;
+//   * padding is never tested: build_cell_buckets puts a cell's real ids
+//     first, so a candidate cell's walk ends at its first sentinel, a block
+//     whose first home slot holds the sentinel leaves at once, and -1
+//     stencil columns are skipped;
+//   * a block of 8 warps stages a stencil cell 256 candidates at a time in
+//     shared memory, and the walk is pipelined two loads deep: while the block computes one chunk, the atoms of the next
+//     are on their way into registers and the bucket ids of the one after
+//     behind them, so neither of the two dependent loads (bucket id, then
+//     the atom) is waited for where it is started;
+//   * where there are few atoms (216 waters: 648), `split` warps share a
+//     home atom and divide each chunk's candidates between them, so that
+//     about 2,048 warps are in flight; their sums meet in shared memory in
+//     a fixed order.
+// The minimum image rounds by two additions (pair_forms.cuh::min_image).
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
+#include "hit_queue.cuh"
 #include "pair_forms.cuh"
 
 namespace {
 
 using namespace pairforms;
 
-constexpr int TILE = 128;
+constexpr int WARPS = 8;             // warps of a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int CHUNK = THREADS;       // candidates staged at a time
+constexpr int TARGET_WARPS = 2048;   // home-atom warps wanted in flight
 
-// blockIdx.x = c * n_tiles + tile, tile = s * tiles_per_cell + piece;
-// blockIdx.y = home chunk.
-//   hf  (ncells, cap, 8) [x y z q sigma eps 0 0]; padding slots read zeros
-//   hm  (ncells, cap, 2) [atom id (n = padding), exclusion bits]
-//   hx  (ncells, cap, m) exclusion id columns, read only when COLS
-//   nbr (ncells, s) stencil cells, -1 padded
-//   out (ncells, n_tiles, cap, 4) per home atom and tile [fx fy fz e/2]
+// A staged candidate: position and atom id, read by the slot test with one
+// 16-byte load in float32; its pair parameters beside it.
+template <typename T>
+struct alignas(4 * sizeof(T)) Cand {
+  T x, y, z;
+  int id;
+};
+
+template <typename T>
+struct Par {
+  T q, s, e;
+};
+
+// A queued hit: the displacement and the candidate's pair parameters (the
+// staged chunk it came from may be gone when it is evaluated).
+template <typename T>
+struct alignas(2 * sizeof(T)) Hit {
+  T dx, dy, dz, q, s, e;
+};
+
+__device__ __forceinline__ void store_row(float* row, float a, float b,
+                                          float c, float d) {
+  *reinterpret_cast<float4*>(row) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store_row(double* row, double a, double b,
+                                          double c, double d) {
+  *reinterpret_cast<double2*>(row) = make_double2(a, b);
+  *reinterpret_cast<double2*>(row + 2) = make_double2(c, d);
+}
+
+// One block per (home cell, group of WARPS / split home slots); warp w holds
+// home slot i0 + w / split and tests the 32-candidate groups
+// w % split, w % split + split, ... of every staged chunk.
+//   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
+//   excbits (n + 1,)               exclusion bits (bitmask form)
+//   exc (n, m)                     exclusion id columns, -1 padded (COLS)
+//   bucket (ncells, cap)           atom ids, real ids first, then n
+//   nbr (ncells, s)                stencil cells, -1 padded
+//   box (3,)                       orthorhombic edge lengths
+//   out (n + 1, 4)                 zeroed; per real atom [fx fy fz e]
 template <typename T, bool COLS, bool DAMPED>
-__global__ void __launch_bounds__(TILE)
-cell_pair_kernel(const T* __restrict__ hf, const int* __restrict__ hm,
-                 const int* __restrict__ hx, const int* __restrict__ nbr,
-                 const T* __restrict__ box, int cap, int s, int tiles_per_cell,
-                 int n, int m, Params<T> p, T* __restrict__ out) {
-  __shared__ T sx[TILE], sy[TILE], sz[TILE], sq[TILE], ss[TILE], se[TILE];
-  __shared__ int sid[TILE];
+__global__ void __launch_bounds__(THREADS)
+    cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
+                     const T* __restrict__ sig, const T* __restrict__ eps,
+                     const int* __restrict__ excbits,
+                     const int* __restrict__ exc,
+                     const int* __restrict__ bucket,
+                     const int* __restrict__ nbr, const T* __restrict__ box,
+                     int cap, int s, int n, int m, int split, Params<T> p,
+                     T* __restrict__ out) {
+  __shared__ Cand<T> cand[CHUNK];
+  __shared__ Par<T> par[CHUNK];
+  __shared__ Hit<T> queue[WARPS][hitqueue::DEPTH];
+  __shared__ T parts[WARPS][4];
 
-  const int n_tiles = s * tiles_per_cell;
-  const int c = blockIdx.x / n_tiles;
-  const int tile = blockIdx.x - c * n_tiles;
-  const int sc = tile / tiles_per_cell;
-  const int j0 = (tile - sc * tiles_per_cell) * TILE;
-  const int jn = min(TILE, cap - j0);
-  const int nc = nbr[c * s + sc];
   const int t = threadIdx.x;
-  const int hi = blockIdx.y * TILE + t;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int per_block = WARPS / split;  // home slots of a block
+  const int blocks_per_cell = (cap + per_block - 1) / per_block;
+  const int c = blockIdx.x / blocks_per_cell;
+  const int i0 = (blockIdx.x - c * blocks_per_cell) * per_block;
+  const int* hrow = bucket + (size_t)c * cap;
+  if (hrow[i0] >= n) return;  // only padding from here on: the block leaves
 
-  if (nc >= 0 && t < jn) {
-    const T* f = hf + ((size_t)nc * cap + j0 + t) * 8;
-    sx[t] = f[0];
-    sy[t] = f[1];
-    sz[t] = f[2];
-    sq[t] = f[3];
-    ss[t] = f[4];
-    se[t] = f[5];
-    sid[t] = hm[((size_t)nc * cap + j0 + t) * 2];
-  }
-
-  const bool active = hi < cap;
+  const int i = i0 + warp / split;
+  const int part = warp - (warp / split) * split;
+  const int hid = i < cap ? hrow[i] : n;
+  const bool home = hid < n;
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
-  int oid_h = n;
   unsigned exc_h = 0u;
   ExcCols cols;
-  if (active) {
-    const T* f = hf + ((size_t)c * cap + hi) * 8;
-    xi = f[0];
-    yi = f[1];
-    zi = f[2];
-    qi = f[3];
-    si = f[4];
-    ei = f[5];
-    oid_h = hm[((size_t)c * cap + hi) * 2];
-    exc_h = (unsigned)hm[((size_t)c * cap + hi) * 2 + 1];
+  if (home) {
+    xi = x[3 * (size_t)hid];
+    yi = x[3 * (size_t)hid + 1];
+    zi = x[3 * (size_t)hid + 2];
+    qi = q[hid];
+    si = sig[hid];
+    ei = eps[hid];
+    if (!COLS) exc_h = (unsigned)excbits[hid];
   }
-  if (COLS) load_exc_cols(active ? hx + ((size_t)c * cap + hi) * m : nullptr,
-                          m, cols);
-  __syncthreads();
+  if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
 
   const T bx = box[0], by = box[1], bz = box[2];
   const T ibx = T(1) / bx, iby = T(1) / by, ibz = T(1) / bz;
+  const int* nrow = nbr + (size_t)c * s;
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
+  Hit<T>* my_queue = queue[warp];
+  int queued = 0;
 
-  if (nc >= 0 && active && oid_h < n) {
-    for (int j = 0; j < jn; ++j) {
-      const int oid_c = sid[j];
-      const T dx = min_image(xi - sx[j], bx, ibx);
-      const T dy = min_image(yi - sy[j], by, iby);
-      const T dz = min_image(zi - sz[j], bz, ibz);
-      const T r2 = dx * dx + dy * dy + dz * dz;
-      const bool excl = COLS ? (oid_c == oid_h || excluded_by_cols(cols, m, oid_c))
-                             : excluded_by_bits(exc_h, oid_h, oid_c);
-      if (oid_c < n && r2 < p.rc2 && !excl) {
-        const T qq = qi * sq[j];
-        const T sig = T(0.5) * (si + ss[j]);
-        const T eps = sqrt(ei * se[j]);
-        T u, dudr2;
-        pair_form<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
-        const T fm = T(2) * dudr2;
-        fx -= fm * dx;
-        fy -= fm * dy;
-        fz -= fm * dz;
-        e += u;
+  auto evaluate = [&](const Hit<T>& h) {
+    const T r2 = h.dx * h.dx + h.dy * h.dy + h.dz * h.dz;
+    T u, dudr2;
+    pair_form<T, DAMPED>(p, r2, qi * h.q, T(0.5) * (si + h.s),
+                         sqrt(ei * h.e), u, dudr2);
+    const T fm = T(2) * dudr2;
+    fx -= fm * h.dx;
+    fy -= fm * h.dy;
+    fz -= fm * h.dz;
+    e += u;
+  };
+
+  // The walk over the stencil's chunks, two dependent loads deep: while
+  // the block computes chunk k from shared memory, the atoms of chunk
+  // k + 1 are on their way into registers and the bucket ids of chunk k + 2
+  // behind them, so no load is waited for where it is started.
+  auto next_column = [&](int k) {
+    while (k < s && nrow[k] < 0) ++k;
+    return k;
+  };
+  // the chunk after the one at (col, j0) that held cnt real atoms: a full
+  // chunk may have more of its cell behind it, else the next cell
+  auto advance = [&](int& col, int& j0, int cnt) {
+    if (cnt == CHUNK && j0 + CHUNK < cap) {
+      j0 += CHUNK;
+    } else {
+      col = next_column(col + 1);
+      j0 = 0;
+    }
+  };
+  // this thread's slot of the chunk at (col, j0): its bucket id
+  auto load_id = [&](int col, int j0) {
+    const int j = j0 + t;
+    return (col < s && j < cap) ? bucket[(size_t)nrow[col] * cap + j] : n;
+  };
+  Cand<T> atom;
+  Par<T> atom_par;
+  auto load_atom = [&](int a) {
+    atom.id = a;
+    if (a < n) {
+      atom.x = x[3 * (size_t)a];
+      atom.y = x[3 * (size_t)a + 1];
+      atom.z = x[3 * (size_t)a + 2];
+      atom_par = Par<T>{q[a], sig[a], eps[a]};
+    }
+  };
+
+  int col = next_column(0), j0 = 0;     // the chunk about to be computed
+  int id = load_id(col, j0);
+  int cnt = __syncthreads_count(id < n);  // its real atoms
+  load_atom(id);
+  int col_next = col, j0_next = j0;     // the chunk after it
+  advance(col_next, j0_next, cnt);
+  id = load_id(col_next, j0_next);
+  while (col < s) {
+    __syncthreads();  // the chunk before this one has been read
+    if (atom.id < n) {
+      cand[t] = atom;
+      par[t] = atom_par;
+    }
+    // the next chunk's real atoms; the barrier makes this chunk visible
+    const int cnt_next = __syncthreads_count(id < n);
+    int col_after = col_next, j0_after = j0_next;
+    advance(col_after, j0_after, cnt_next);
+    const int id_after = load_id(col_after, j0_after);
+    load_atom(id);
+
+    if (home) {
+      for (int base = 32 * part; base < cnt; base += 32 * split) {
+        const int j = base + lane;
+        const Cand<T> cj = cand[j];
+        const T dx = min_image(xi - cj.x, bx, ibx);
+        const T dy = min_image(yi - cj.y, by, iby);
+        const T dz = min_image(zi - cj.z, bz, ibz);
+        const T r2 = dx * dx + dy * dy + dz * dz;
+        const bool excl =
+            COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
+                 : excluded_by_bits(exc_h, hid, cj.id);
+        const bool hit = (j < cnt) & (r2 < p.rc2) & !excl;
+        const int slot = hitqueue::reserve(hit, queued);
+        if (hit) {
+          const Par<T> pj = par[j];
+          my_queue[slot] = Hit<T>{dx, dy, dz, pj.q, pj.s, pj.e};
+        }
+        __syncwarp();
+        if (queued >= 32) {
+          queued -= 32;
+          const Hit<T> h = my_queue[queued + lane];
+          __syncwarp();
+          evaluate(h);
+        }
+      }
+    }
+    cnt = cnt_next;
+    col = col_next;
+    col_next = col_after;
+    j0_next = j0_after;
+    id = id_after;
+  }
+  if (lane < queued) evaluate(my_queue[lane]);
+
+  // the lanes' sums to lane 0, then the partitions' sums to partition 0
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    fx += __shfl_xor_sync(hitqueue::FULL_WARP, fx, d);
+    fy += __shfl_xor_sync(hitqueue::FULL_WARP, fy, d);
+    fz += __shfl_xor_sync(hitqueue::FULL_WARP, fz, d);
+    e += __shfl_xor_sync(hitqueue::FULL_WARP, e, d);
+  }
+  if (split > 1) {
+    if (lane == 0) {
+      parts[warp][0] = fx;
+      parts[warp][1] = fy;
+      parts[warp][2] = fz;
+      parts[warp][3] = e;
+    }
+    __syncthreads();
+    if (part == 0) {
+      for (int k = 1; k < split; ++k) {
+        fx += parts[warp + k][0];
+        fy += parts[warp + k][1];
+        fz += parts[warp + k][2];
+        e += parts[warp + k][3];
       }
     }
   }
-
-  if (active) {
-    T* o = out + (((size_t)c * n_tiles + tile) * cap + hi) * 4;
-    o[0] = fx;
-    o[1] = fy;
-    o[2] = fz;
-    o[3] = T(0.5) * e;
+  if (home && part == 0 && lane == 0) {
+    store_row(out + 4 * (size_t)hid, fx, fy, fz, T(0.5) * e);
   }
 }
 
-template <typename T, bool DAMPED>
-void launch_form(const T* hf, const int* hm, const int* hx, const int* nbr,
-                 const T* box, int cap, int s, int tiles_per_cell, int n,
-                 int m, const Params<T>& p, T* out, dim3 grid,
-                 cudaStream_t st) {
-  if (hx != nullptr) {
-    cell_pair_kernel<T, true, DAMPED><<<grid, TILE, 0, st>>>(
-        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m, p, out);
-  } else {
-    cell_pair_kernel<T, false, DAMPED><<<grid, TILE, 0, st>>>(
-        hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, 0, p, out);
-  }
-}
-
-template <typename T>
-int launch(const T* hf, const int* hm, const int* hx, const int* nbr,
-           const T* box, int ncells, int cap, int s, int n, int m,
-           const double* scal, const int* flags, T* out, void* stream) {
-  if (cap < 1 || ncells < 1 || s < 1 || m < 0 || m > MAX_EXC ||
-      (hx != nullptr && m < 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int tiles_per_cell = (cap + TILE - 1) / TILE;
-  const long long bx = (long long)ncells * s * tiles_per_cell;
-  if (bx > 0x7fffffffLL || tiles_per_cell > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Params<T> p = make_params<T>(scal, flags);
-  const dim3 grid((unsigned)bx, (unsigned)tiles_per_cell);
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T, bool COLS>
+int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
+                const int* excbits, const int* exc, const int* bucket,
+                const int* nbr, const T* box, int cap, int s, int n, int m,
+                int split, unsigned blocks, const Params<T>& p, T* out,
+                cudaStream_t st) {
   if (damped(p)) {
-    launch_form<T, true>(hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m,
-                         p, out, grid, st);
+    cell_pair_kernel<T, COLS, true><<<blocks, THREADS, 0, st>>>(
+        x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
+        p, out);
   } else {
-    launch_form<T, false>(hf, hm, hx, nbr, box, cap, s, tiles_per_cell, n, m,
-                          p, out, grid, st);
+    cell_pair_kernel<T, COLS, false><<<blocks, THREADS, 0, st>>>(
+        x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
+        p, out);
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry points, bound with ctypes. `scal` and `flags` are host
-// arrays (pair_forms.cuh::make_params); `hx` is null for the bitmask form,
-// else the (ncells, cap, m) exclusion id columns, 1 <= m <= 16. `out` holds
-// (ncells, s * ceil(cap / 128), cap, 4). Returns cudaGetLastError() after
-// the launch (0 on success).
-extern "C" int cell_pair_f32(const float* hf, const int* hm, const int* hx,
-                             const int* nbr, const float* box, int ncells,
-                             int cap, int s, int n, int m, const double* scal,
-                             const int* flags, float* out, void* stream) {
-  return launch<float>(hf, hm, hx, nbr, box, ncells, cap, s, n, m, scal, flags,
-                       out, stream);
+template <typename T>
+int launch(const T* x, const T* q, const T* sig, const T* eps,
+           const int* excbits, const int* exc, const int* bucket,
+           const int* nbr, const T* box, int ncells, int cap, int s, int n,
+           int m, const double* scal, const int* flags, T* out,
+           void* stream) {
+  if (cap < 1 || ncells < 1 || s < 1 || n < 0 || m < 0 || m > MAX_EXC ||
+      (exc != nullptr && m < 1) || (exc == nullptr && excbits == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // warps that share a home atom: 1 where the atoms alone fill the card
+  int split = 1;
+  while (split < WARPS && (long long)n * split < TARGET_WARPS) split *= 2;
+  const int per_block = WARPS / split;
+  const long long blocks =
+      (long long)ncells * ((cap + per_block - 1) / per_block);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Params<T> p = make_params<T>(scal, flags);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (exc != nullptr) {
+    return launch_cols<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr,
+                                box, cap, s, n, m, split, (unsigned)blocks, p,
+                                out, st);
+  }
+  return launch_cols<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                               cap, s, n, 0, split, (unsigned)blocks, p, out,
+                               st);
 }
 
-extern "C" int cell_pair_f64(const double* hf, const int* hm, const int* hx,
-                             const int* nbr, const double* box, int ncells,
-                             int cap, int s, int n, int m, const double* scal,
+}  // namespace
+
+// Plain C entry points, bound with ctypes; the arguments of half_pair.cu's.
+// `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
+// one of `excbits` (the bitmask form) and `exc` (the (n, m) exclusion id
+// columns, 1 <= m <= 16) is non-null. Every row of `bucket` holds its real
+// ids first. `out` must be zeroed. Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
+                             const float* eps, const int* excbits,
+                             const int* exc, const int* bucket, const int* nbr,
+                             const float* box, int ncells, int cap, int s,
+                             int n, int m, const double* scal,
+                             const int* flags, float* out, void* stream) {
+  return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
+                       cap, s, n, m, scal, flags, out, stream);
+}
+
+extern "C" int cell_pair_f64(const double* x, const double* q,
+                             const double* sig, const double* eps,
+                             const int* excbits, const int* exc,
+                             const int* bucket, const int* nbr,
+                             const double* box, int ncells, int cap, int s,
+                             int n, int m, const double* scal,
                              const int* flags, double* out, void* stream) {
-  return launch<double>(hf, hm, hx, nbr, box, ncells, cap, s, n, m, scal,
-                        flags, out, stream);
+  return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                        ncells, cap, s, n, m, scal, flags, out, stream);
 }

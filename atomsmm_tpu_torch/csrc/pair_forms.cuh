@@ -80,10 +80,18 @@ __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
 // Minimum image of one displacement component, rounding half to even as
-// torch.round and jnp.round do.
-template <typename T>
-__device__ __forceinline__ T min_image(T d, T b, T ib) {
-  return d - b * rint(d * ib);
+// torch.round and jnp.round do. The rounding is two additions on the float
+// pipes, not rint's conversion unit: adding and subtracting 1.5 * 2^23
+// (1.5 * 2^52 in float64) rounds half to even, exactly as rint does, for
+// |d / b| < 2^22 (2^51).
+__device__ __forceinline__ float min_image(float d, float b, float ib) {
+  const float k = __fsub_rn(__fadd_rn(d * ib, 12582912.0f), 12582912.0f);
+  return d - b * k;
+}
+__device__ __forceinline__ double min_image(double d, double b, double ib) {
+  const double k =
+      __dsub_rn(__dadd_rn(d * ib, 6755399441055744.0), 6755399441055744.0);
+  return d - b * k;
 }
 
 // Relative-offset exclusion bitmask: bit (cid - hid + 16) of the home atom's

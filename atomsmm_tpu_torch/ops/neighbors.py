@@ -414,12 +414,6 @@ def update_all_neighbors(system, extra, x, box):
 # --------------------------------------------------------------------------
 
 
-def _scatter_forces(f_bucket, bucket, n):
-    forces = f_bucket.new_zeros((n + 1, 3))
-    forces.index_add_(0, bucket.reshape(-1).long(), f_bucket.reshape(-1, 3))
-    return forces[:n]
-
-
 def _sweep(spec):
     from . import pair_kernel
 

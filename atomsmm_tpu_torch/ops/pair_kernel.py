@@ -13,11 +13,14 @@ the wrapper is a zero fill, the launch and the energy sum.
 
 K2, the full-stencil sweep without Newton (counterpart of
 ``pallas_pair.py::stage_and_run``), replaces ``_pair_kernel``. It runs where
-the grid is too small for half maps. One thread block per (home cell,
-candidate tile of 128, home chunk of 128) on staged bucket features
-(``stage``); each block writes its partial [fx fy fz e/2] per home atom, the
-wrapper adds the tiles of each cell and scatters bucket slots to atoms
-(every real atom sits in exactly one slot; the sentinel row N is dropped).
+the grid is too small for half maps. It takes K1's inputs and gives K1's
+output: a warp per home atom gathers the atoms through the bucket ids, walks
+the real atoms of every stencil cell with its lanes across the candidates,
+evaluates the hits 32 at a time and stores the atom's [fx fy fz e] row of
+the zeroed (N + 1, 4) tensor. It writes no reactions, so it needs no atomics
+and its result does not change from run to run; the wrapper is a zero fill,
+the launch and the energy sum. It relies on every bucket row holding its
+real ids first, as ``build_cell_buckets`` lays them out.
 
 Exclusions take the relative-offset bitmask when the spec has one, else the
 exclusion id columns (pairs more than +-14 indices apart); both kernels and
@@ -32,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .neighbors import EXC_OFF, _scatter_forces
+from .neighbors import EXC_OFF
 from .pairfuncs import form_u_dudr2
 from .pbc import minimum_image
 
@@ -40,7 +43,6 @@ from .pbc import minimum_image
 #: (half_pair = K1, cell_pair = K2, tile_pair = K3); reset by callers
 LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
 
-FULL_TILE = 128   # csrc/cell_pair.cu: candidates per tile, home atoms per block
 MAX_EXC = 16      # csrc/pair_forms.cuh: exclusion columns a kernel takes
 _PLAIN_SLOTS = 1 << 21  # pair slots per chunk of the full-stencil plain twin
 
@@ -51,7 +53,7 @@ def reset_launches():
 
 
 def stage(spec, x, per_particle, bucket):
-    """Stage bucket-layout features with one row gather each:
+    """Stage bucket-layout features for the plain twins, one row gather each:
     hf (ncells, cap, 8) [x y z q sigma eps 0 0] in the dtype of x, and
     hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots (id N)
     read a zero feature row. Without a bitmask (excluded pairs more than
@@ -154,18 +156,24 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     return out
 
 
-def full_pair_plain(hf, hm, nbr, box, form, r_cut, n: int, chunk: int,
-                    exc_cols=None, with_forces: bool = True):
-    """Plain PyTorch twin of K2: the same inputs, and the kernel's output
-    summed over its candidate tiles, (ncells, cap, 4) [fx fy fz e/2] per
-    home slot. Padding columns of `nbr` (-1) read the sentinel cell, whose
-    slots are all masked. Exclusions as in half_pair_plain. Home cells run
-    `chunk` at a time, fewer where a chunk would exceed 2M pair slots."""
+def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
+                    with_forces: bool = True):
+    """Plain PyTorch twin of K2: the same inputs and the same output, the
+    per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
+    atom takes the force and half the energy of its slots over the full
+    stencil `spec.nbr_cells`, both orderings of each pair, no reactions.
+    Padding columns of the stencil (-1) read the sentinel cell, whose slots
+    are all masked. Exclusions as in half_pair_plain. Home cells run
+    `spec.cell_chunk` at a time, fewer where a chunk would exceed 2M pair
+    slots."""
+    n = x.shape[0]
+    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
+    nbr = spec.nbr_cells
     ncells, cap, _ = hf.shape
     s = nbr.shape[1]
-    chunk = max(1, min(chunk, _PLAIN_SLOTS // (cap * s * cap)))
+    chunk = max(1, min(spec.cell_chunk, _PLAIN_SLOTS // (cap * s * cap)))
     rc2 = _rc2(r_cut, hf.dtype)
-    out = hf.new_zeros((ncells, cap, 4))
+    out = x.new_zeros((n + 1, 4))
     hf_s = torch.cat([hf, hf.new_zeros((1, cap, 8))])
     ids_s = torch.cat([hm[..., 0], hm.new_full((1, cap), n)])
     ncid_all = torch.where(nbr >= 0, nbr, ncells).long()
@@ -182,9 +190,11 @@ def full_pair_plain(hf, hm, nbr, box, form, r_cut, n: int, chunk: int,
             hid, cid, hm[cells][..., 1][:, :, None],
             None if exc_cols is None else exc_cols[cells][:, :, None, :])
         u, fm = _pair_sums(form, rc2, d, valid, home, cand)
-        out[lo:lo + b, :, 3] = 0.5 * torch.sum(u, dim=-1)
+        rows = hf.new_zeros((b, cap, 4))
+        rows[..., 3] = 0.5 * torch.sum(u, dim=-1)
         if with_forces:
-            out[lo:lo + b, :, :3] = -torch.sum(fm[..., None] * d, dim=2)
+            rows[..., :3] = -torch.sum(fm[..., None] * d, dim=2)
+        out.index_add_(0, hid.reshape(-1).long(), rows.reshape(-1, 4))
     return out
 
 
@@ -219,21 +229,6 @@ def _form_block(form, r_cut, dtype):
     return scal, flags
 
 
-def _exc_args(kernel, hf, exc_cols):
-    """(pointer or None, m, the int32 columns to keep alive) of the
-    exclusion-column form, checked against the staged features hf."""
-    if exc_cols is None:
-        return None, 0, None
-    m = exc_cols.shape[-1]
-    if not 1 <= m <= MAX_EXC:
-        raise ValueError(f"{kernel}: {m} exclusion columns per atom, the "
-                         f"kernel takes 1..{MAX_EXC}")
-    cols = exc_cols.to(torch.int32).contiguous()
-    _checked(kernel, ("hf", hf, hf.dtype, hf.shape),
-             ("exc_cols", cols, torch.int32, hf.shape[:2] + (m,)))
-    return cols.data_ptr(), m, cols
-
-
 def _launch(kernel, dtype, *args):
     from .. import _build
 
@@ -245,17 +240,18 @@ def _launch(kernel, dtype, *args):
     LAUNCHES[kernel] += 1
 
 
-def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
-    """Launch K1 on PyTorch's current stream; returns the per-atom
-    (N + 1, 4) [fx fy fz e], allocated and zeroed here. Checks device,
-    dtype, shape and contiguity first and raises if the launch is refused.
-    A spec without the exclusion bitmask selects the exclusion-column form."""
+def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
+                     r_cut):
+    """Launch K1 or K2 (they take the same arguments) over the stencil map
+    `nbr` on PyTorch's current stream; returns the per-atom (N + 1, 4)
+    [fx fy fz e], allocated and zeroed here. Checks device, dtype, shape and
+    contiguity first and raises if the launch is refused. A spec without
+    the exclusion bitmask selects the exclusion-column form."""
     import ctypes
 
     n = x.shape[0]
     ncells, cap = bucket.shape
-    nbr = spec.nbr_cells_half
-    s_half = nbr.shape[1]
+    s = nbr.shape[1]
     q, sig, eps = (per_particle[k].contiguous()
                    for k in ("charge", "sigma", "epsilon"))
     if spec.excbits is not None:
@@ -265,83 +261,73 @@ def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
         exc = spec.exclusions
         m = exc.shape[1]
         if not 1 <= m <= MAX_EXC:
-            raise ValueError(f"half_pair: {m} exclusion columns per atom, the "
+            raise ValueError(f"{kernel}: {m} exclusion columns per atom, the "
                              f"kernel takes 1..{MAX_EXC}")
         exc_check = ("exclusions", exc, torch.int32, (n, m))
-    dev = _checked("half_pair",
+    dev = _checked(kernel,
                    ("x", x, x.dtype, (n, 3)),
                    ("charge", q, x.dtype, (n,)),
                    ("sigma", sig, x.dtype, (n,)),
                    ("epsilon", eps, x.dtype, (n,)),
                    exc_check,
                    ("bucket", bucket, torch.int32, (ncells, cap)),
-                   ("nbr_cells_half", nbr, torch.int32, (ncells, s_half)),
+                   ("stencil map", nbr, torch.int32, (ncells, s)),
                    ("box", box, x.dtype, (3,)))
-    if not 1 <= cap <= 1024:
-        raise ValueError(f"half_pair: cell capacity {cap} outside the "
-                         "kernel's 1..1024 (one thread per home atom)")
     out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
     scal, flags = _form_block(form, r_cut, x.dtype)
-    _launch("half_pair", x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
+    _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
             eps.data_ptr(), exc.data_ptr() if m == 0 else None,
             exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
-            box.data_ptr(), ncells, cap, s_half, n, m,
+            box.data_ptr(), ncells, cap, s, n, m,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def full_pair_cuda(hf, hm, nbr, box, form, r_cut, n: int, exc_cols=None):
-    """Launch K2 on PyTorch's current stream; returns its output summed
-    over the candidate tiles, (ncells, cap, 4) [fx fy fz e/2]. Checks
-    first and raises if the launch is refused."""
-    import ctypes
+def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
+    """Launch K1 (see _cell_sweep_cuda) over the half stencil."""
+    cap = bucket.shape[1]
+    if not 1 <= cap <= 1024:
+        raise ValueError(f"half_pair: cell capacity {cap} outside the "
+                         "kernel's 1..1024 (one thread per home atom)")
+    return _cell_sweep_cuda("half_pair", spec.nbr_cells_half, x, per_particle,
+                            bucket, spec, box, form, r_cut)
 
-    ncells, cap, _ = hf.shape
-    s = nbr.shape[1]
-    dev = _checked("cell_pair",
-                   ("hf", hf, hf.dtype, (ncells, cap, 8)),
-                   ("hm", hm, torch.int32, (ncells, cap, 2)),
-                   ("nbr", nbr, torch.int32, (ncells, s)),
-                   ("box", box, hf.dtype, (3,)))
-    hx, m, _keep = _exc_args("cell_pair", hf, exc_cols)
-    n_tiles = s * (-(-cap // FULL_TILE))
-    out = torch.empty((ncells, n_tiles, cap, 4), dtype=hf.dtype, device=dev)
-    scal, flags = _form_block(form, r_cut, hf.dtype)
-    _launch("cell_pair", hf.dtype, hf.data_ptr(), hm.data_ptr(), hx,
-            nbr.data_ptr(), box.data_ptr(), ncells, cap, s, n, m,
-            ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    return out.sum(dim=1)
+
+def full_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
+    """Launch K2 (see _cell_sweep_cuda) over the full stencil; any cell
+    capacity. Every row of `bucket` must hold its real ids first, in any
+    order, and the sentinel N after them, as build_cell_buckets lays them
+    out: K2 ends a row's walk at its first sentinel, so atoms behind one are
+    left out. This is not checked (only a read of the bucket on the host
+    could); full_pair_plain takes any layout."""
+    return _cell_sweep_cuda("cell_pair", spec.nbr_cells, x, per_particle,
+                            bucket, spec, box, form, r_cut)
+
+
+def _sweep_energy_forces(cuda, plain, form, x, box, per_particle, spec,
+                         bucket, r_cut, with_forces):
+    if x.is_cuda:
+        out = cuda(x.contiguous(), per_particle, bucket, spec,
+                   box.contiguous(), form, r_cut)
+    else:
+        out = plain(x, per_particle, bucket, spec, box, form, r_cut,
+                    with_forces)
+    energy = out[:, 3].sum()
+    return energy, (out[:-1, :3] if with_forces else None)
 
 
 def half_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
                             with_forces: bool = True):
     """(energy, forces (N, 3) or None) over the half-stencil cell pairs:
     K1 for a CUDA tensor, its plain twin for a CPU tensor."""
-    if x.is_cuda:
-        out = half_pair_cuda(x.contiguous(), per_particle, bucket, spec,
-                             box.contiguous(), form, r_cut)
-    else:
-        out = half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
-                              with_forces)
-    energy = out[:, 3].sum()
-    return energy, (out[:-1, :3] if with_forces else None)
+    return _sweep_energy_forces(half_pair_cuda, half_pair_plain, form, x, box,
+                                per_particle, spec, bucket, r_cut, with_forces)
 
 
 def full_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
                             with_forces: bool = True):
     """(energy, forces (N, 3) or None) over the full-stencil cell pairs:
     K2 for a CUDA tensor, its plain twin for a CPU tensor."""
-    n = x.shape[0]
-    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
-    if x.is_cuda:
-        out = full_pair_cuda(hf, hm, spec.nbr_cells, box.contiguous(), form,
-                             r_cut, n, exc_cols)
-    else:
-        out = full_pair_plain(hf, hm, spec.nbr_cells, box, form, r_cut, n,
-                              spec.cell_chunk, exc_cols, with_forces)
-    energy = out[..., 3].sum()
-    if not with_forces:
-        return energy, None
-    return energy, _scatter_forces(out[..., :3], bucket, n)
+    return _sweep_energy_forces(full_pair_cuda, full_pair_plain, form, x, box,
+                                per_particle, spec, bucket, r_cut, with_forces)

@@ -18,9 +18,11 @@ The tile list is the NAMD/OpenMM-GPU formulation of the pair sweep:
     pairs within +-14 atom indices, checked at setup); sentinel slots carry
     coordinates poisoned at 1e4 nm.
 
-K3 runs one thread block per entry and adds its home and reaction sums to
-one accumulator with global atomics (csrc/tile_pair.cu says what that means
-for summation order). On a CUDA tensor the wrapper launches it or raises;
+K3 runs one thread block per entry: it culls the tile by the bounding boxes
+of its 32-candidate groups, tests what is left with its lanes across the
+candidates, evaluates the hits 32 at a time and adds its home and reaction
+sums to one accumulator with global atomics (csrc/tile_pair.cu says what
+that means for summation order). On a CUDA tensor the wrapper launches it or raises;
 on a CPU tensor it runs the plain twin, ``tile_pair_plain``.
 """
 from __future__ import annotations
@@ -415,7 +417,7 @@ def tile_pair_cuda(fs, ms, hb, cb, wrap, box, form, r_cut):
                    ("box", box, fs.dtype, (3,)))
     if not 1 <= b <= 128:
         raise ValueError(f"tile_pair: block size {b} outside the kernel's "
-                         "1..128 (one thread per home atom)")
+                         "1..128 (one lane per home atom)")
     acc = torch.zeros((nb1, b, 4), dtype=fs.dtype, device=dev)
     scal, flags = _form_block(form, r_cut, fs.dtype)
     _launch("tile_pair", fs.dtype, fs.data_ptr(), ms.data_ptr(),

@@ -64,26 +64,33 @@ non-zero:
    far force (reciprocal included) against its float64 far force at the
    30k state (energy rtol 1e-4, forces 1e-4 x max|F| of the unsplit
    near + far force);
-9. timings with CUDA events: K1, its whole sweep and its plain twin at
-   the headline's near and far shapes, with the sweep's device operations
-   counted by torch.profiler (1 to 4, exactly one of them K1, else the
-   phase fails), the work the sweep has to do (slot tests between real
+9. timings: each kernel's device time by torch.profiler (CUDA events
+   around a launch wrapper read the host's launch rate once a kernel is
+   shorter than its launch), everything else by CUDA events: K1, its
+   whole sweep and its plain twin at the headline's near and far shapes,
+   with the sweep's device operations
+   counted by torch.profiler (1 to 4, exactly one of them the kernel, else
+   the phase fails), the work the sweep has to do (slot tests between real
    atoms, in-range evaluations and distinct in-range pairs, counted with
    the twins' masks) and its bound (the function's work, each distinct pair
    once: the larger of the operations over the card's float32 and
    special-function rates and the bytes over its memory rate; the
-   constants below); K2 and its plain
-   twin on the water 700 far grid; K3, its wrapper and its plain twin at
-   the 30k near and far lists; the two list builds at 30k; the damped K1
-   (and its plain twin) at path (c)'s near and far shapes, the damped K2 on
-   the water 700 far grid, and the reciprocal sum stage by stage (spline
-   weights, spread, rfftn, convolution, irfftn, gather, corrections); then
-   path (c)'s outer step split by force group (host clock, synchronised).
+   constants below); K2 in the same way (kernel, whole sweep, device
+   operations, plain twin, bound over its per-atom inputs) on the water 700
+   far grid at the state path (a) ended with, and path (a)'s device
+   operations per outer step; K3, its launch wrapper, its sweep and its
+   plain twin at the 30k near and far lists; the two list builds at 30k;
+   the damped K1 (and its plain twin) at path (c)'s near and far shapes,
+   the damped K2 on the water 700 far grid, and the reciprocal sum stage
+   by stage (spline weights, spread, rfftn, convolution, irfftn, gather,
+   corrections); then path (c)'s outer step split by force group (host
+   clock, synchronised).
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
-bound_by, library_ms = null: no single PyTorch call computes these sweeps,
-and prev_ms, its time before this version of K1), the nvidia-smi line
-again, and last {"ok": true, "device": {...}}.
+bound_by, library_ms = null: no single PyTorch call computes these sweeps;
+ms is the kernel's device time in torch.profiler, launch_ms the time of one
+call of its launch wrapper by CUDA events, both of this run), the
+nvidia-smi line again, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -121,10 +128,6 @@ OPS_FULL = {"rf": 54, "ewald": 48}
 OPS_NEAR = 71
 OPS_DAMPED = 30
 SFU_EVAL, SFU_DAMPED = 2, 3
-# each kernel's float32 time at the shape of the kernels line, before this
-# version of K1 (PERF.md, section 6: CUDA events, NVIDIA H100 80GB HBM3,
-# 700.00 W)
-PREV_MS = {"half_pair": 0.3207, "cell_pair": 0.0842, "tile_pair": 0.3263}
 
 
 def log(msg):
@@ -153,22 +156,14 @@ def plain_sweep(spec, form, x, box, pp, bucket):
     device of x: (energy, forces, sum of |per-atom energy|)."""
     import torch
 
-    from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
     f64 = torch.float64
     x, box = x.to(f64), box.to(f64)
     pp = {k: v.to(f64) for k, v in pp.items()}
-    n = x.shape[0]
-    if spec.half_stencil:
-        out = pk.half_pair_plain(x, pp, bucket, spec, box, form, form.r_cut)
-        return (out[:, 3].sum(), out[:n, :3], float(out[:, 3].abs().sum()))
-    hf, hm, cols = pk.stage(spec, x, pp, bucket)
-    out = pk.full_pair_plain(hf, hm, spec.nbr_cells, box, form, form.r_cut,
-                             n, spec.cell_chunk, cols)
-    e_i = out[..., 3]
-    return (e_i.sum(), nb._scatter_forces(out[..., :3], bucket, n),
-            float(e_i.abs().sum()))
+    plain = pk.half_pair_plain if spec.half_stencil else pk.full_pair_plain
+    out = plain(x, pp, bucket, spec, box, form, form.r_cut)
+    return (out[:, 3].sum(), out[:-1, :3], float(out[:, 3].abs().sum()))
 
 
 def sweep_counts(spec, form, x, box, pp, bucket, half=None):
@@ -264,6 +259,18 @@ def device_kernels(fn, reps=1):
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_ms(fn, kernel, reps=20):
+    """Milliseconds of device time per launch of `kernel` inside fn, from
+    torch.profiler over `reps` calls. Unlike CUDA events around a wrapper
+    this does not grow when the host cannot launch as fast as the kernel
+    runs."""
+    mine = [us for name, us in device_kernels(fn, reps)
+            if f"{kernel}_kernel" in name]
+    if not mine:
+        raise RuntimeError(f"torch.profiler saw no {kernel} launch")
+    return sum(mine) / len(mine) / 1e3
 
 
 def form_name(form):
@@ -835,6 +842,23 @@ def phase_small_box(dev, steps=200, melt_steps=200):
             "respa": ctx.system, "state": ctx.state}
 
 
+def step_device_ops(small, steps=10):
+    """Device operations (kernels, fills, copies) per outer step of path
+    (a), by torch.profiler over one step(steps) call from the state
+    phase_small_box ended with; the call's force-cache refresh (one more
+    evaluation of each force) is inside the count."""
+    import atomsmm_tpu_torch as amm
+
+    respa, state = small["respa"], small["state"]
+    integ = amm.MultipleTimeScaleIntegrator(
+        0.004, [4, 2, 1], temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * respa.num_particles - 3)
+    ctx = amm.Context(respa, integ, amm.make_state(state.x, v=state.v,
+                                                   box=state.box))
+    ctx.step(1)
+    return len(device_kernels(lambda: ctx.step(steps))) / steps
+
+
 def phase_tile_path(dev, eq):
     """Path (b): the tile-list entry point at 30k, far and near forms, in
     float32 and float64, through the calls a user makes."""
@@ -884,13 +908,13 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_half(label, force, spec, x, box):
-    """K1, its whole sweep and its plain twin at one shape, CUDA events;
-    the sweep's device operations (at most 4, exactly one of them K1, else
-    the phase fails; none seen by the profiler fails it too), the work it
-    has to do and its bound."""
-    import torch
-
+def time_cells(label, force, spec, x, box):
+    """K1 or K2 (the kernel the spec selects) at one shape: the kernel's
+    device time inside the sweep (torch.profiler), the launch wrapper, the
+    whole sweep and the plain twin by CUDA events; the sweep's device
+    operations (at most
+    4, exactly one of them the kernel, else the phase fails; none seen by
+    the profiler fails it too), the work it has to do and its bound."""
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
@@ -898,30 +922,38 @@ def time_half(label, force, spec, x, box):
     form = force._pair_form()
     pp = force._per_particle()
     bucket, _ = nb.build_cell_buckets(spec, x, box)
+    if spec.half_stencil:
+        kernel, cuda, plain = "half_pair", pk.half_pair_cuda, pk.half_pair_plain
+        nbr = spec.nbr_cells_half
+    else:
+        kernel, cuda, plain = "cell_pair", pk.full_pair_cuda, pk.full_pair_plain
+        nbr = spec.nbr_cells
     args = (x, pp, bucket, spec, box, form, form.r_cut)
-    k_ms = time_cuda(lambda: pk.half_pair_cuda(*args), 20)
+    launch_ms = time_cuda(lambda: cuda(*args), 20)
 
     def sweep():
         return nb.cell_pair_energy_forces(form, x, box, pp, spec, bucket,
                                           form.r_cut)
 
     sweep_ms = time_cuda(sweep, 20)
-    p_ms = time_cuda(lambda: pk.half_pair_plain(*args), 3)
+    p_ms = time_cuda(lambda: plain(*args), 3)
+    k_ms = kernel_device_ms(sweep, kernel)
     ops = [name for name, _ in device_kernels(sweep)]
-    k1_ops = sum("half_pair_kernel" in name for name in ops)
-    if not 1 <= len(ops) <= 4 or k1_ops != 1:
-        raise RuntimeError(f"half_pair sweep {label}: {len(ops)} device "
-                           f"operations per sweep ({k1_ops} of them K1), "
-                           f"expected 1 to 4 with one K1: {ops}")
+    k_ops = sum(f"{kernel}_kernel" in name for name in ops)
+    if not 1 <= len(ops) <= 4 or k_ops != 1:
+        raise RuntimeError(f"{kernel} sweep {label}: {len(ops)} device "
+                           f"operations per sweep ({k_ops} of them the "
+                           f"kernel), expected 1 to 4 with one: {ops}")
     c = sweep_counts(spec, form, x, box, pp, bucket)
     exc = spec.excbits if spec.excbits is not None else spec.exclusions
     b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
-        x, pp["charge"], pp["sigma"], pp["epsilon"], exc, bucket,
-        spec.nbr_cells_half, box) + (n + 1) * 4 * x.element_size())
-    slots_all = spec.ncells * spec.nbr_cells_half.shape[1] \
-        * spec.cell_capacity ** 2
-    log(f"timing half_pair {label} grid {spec.grid} cap "
-        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms; "
+        x, pp["charge"], pp["sigma"], pp["epsilon"], exc, bucket, nbr, box)
+        + (n + 1) * 4 * x.element_size())
+    slots_all = spec.ncells * nbr.shape[1] * spec.cell_capacity ** 2
+    log(f"timing {kernel} {label} grid {spec.grid} cap "
+        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms of device time "
+        f"({launch_ms:.4f} ms by CUDA events around its wrapper, the zero "
+        f"fill and the host's launch rate included); "
         f"sweep {sweep_ms:.4f} ms with "
         f"{len(ops)} device operations per sweep "
         f"({', '.join(o[:40] for o in ops)}); plain float32 {p_ms:.4f} ms; "
@@ -936,16 +968,15 @@ def time_half(label, force, spec, x, box):
         f"{b['bytes_ms'] * 1e3:.2f} us; with the slot tests "
         f"{b['with_slots_ms'] * 1e3:.2f} us): {b['ms'] / k_ms:.1%} of the "
         f"bound, {b['with_slots_ms'] / k_ms:.1%} with the slot tests")
-    return {"ms": k_ms, "plain_ms": p_ms, "sweep_ms": sweep_ms,
-            "slots": slots_all, "counts": c, "bound": b,
-            "launches_per_sweep": len(ops)}
+    return {"ms": k_ms, "launch_ms": launch_ms, "plain_ms": p_ms,
+            "sweep_ms": sweep_ms, "slots": slots_all, "counts": c,
+            "bound": b, "launches_per_sweep": len(ops)}
 
 
 def phase_timings(dev, main, small, eq):
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
-    from atomsmm_tpu_torch.ops import pair_kernel as pk
     from atomsmm_tpu_torch.ops import tilepair as tp
 
     respa = main["respa"]
@@ -957,39 +988,15 @@ def phase_timings(dev, main, small, eq):
     for label, force, spec in (
             ("far", respa.forces[2], respa.neighbors),
             ("near", respa.forces[1], respa.extra_neighbor_specs["near"])):
-        out[("half_pair", label)] = time_half(label, force, spec, x, box)
+        out[("half_pair", label)] = time_cells(label, force, spec, x, box)
 
+    log(f"path (a) device operations per outer step: "
+        f"{step_device_ops(small):.1f} (torch.profiler, step(10))")
     # K2 on the path (a) far grid, at its state after the run
     s_sys, s_state = small["respa"], small["state"]
-    spec, force = s_sys.neighbors, s_sys.forces[-1]
-    form, pp = force._pair_form(), force._per_particle()
-    xs, bs = s_state.x, s_state.box
-    bucket, _ = nb.build_cell_buckets(spec, xs, bs)
-    hf, hm, _ = pk.stage(spec, xs, pp, bucket)
-    k_ms = time_cuda(lambda: pk.full_pair_cuda(
-        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0]), 20)
-    sweep_ms = time_cuda(lambda: nb.cell_pair_energy_forces(
-        form, xs, bs, pp, spec, bucket, form.r_cut), 20)
-    p_ms = time_cuda(lambda: pk.full_pair_plain(
-        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0],
-        spec.cell_chunk), 3)
-    slots = spec.ncells * spec.nbr_cells.shape[1] * spec.cell_capacity ** 2
-    c = sweep_counts(spec, form, xs, bs, pp, bucket)
-    # the function's output: [fx fy fz e] per home slot, written once
-    b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
-        hf, hm, spec.nbr_cells, bs) + spec.ncells * spec.cell_capacity * 4
-        * xs.element_size())
-    log(f"timing cell_pair water700 far grid {spec.grid} cap "
-        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms "
-        f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots, "
-        f"{c['evals'] / 1e6:.3f} M in-range evaluations, "
-        f"{c['pairs'] / 1e6:.3f} M distinct pairs), "
-        f"wrapper {sweep_ms:.4f} ms, plain float32 {p_ms:.4f} ms; bound "
-        f"{b['ms'] * 1e3:.2f} us by {b['by']} (with the slot tests "
-        f"{b['with_slots_ms'] * 1e3:.2f} us): {b['ms'] / k_ms:.1%} of it")
-    out[("cell_pair", "far")] = {"ms": k_ms, "plain_ms": p_ms,
-                                 "sweep_ms": sweep_ms, "slots": slots,
-                                 "bound": b}
+    out[("cell_pair", "far")] = time_cells(
+        "water700 far", s_sys.forces[-1], s_sys.neighbors, s_state.x,
+        s_state.box)
 
     # K3 at the 30k lists, beside K1 above
     x, box, lists = tile_lists(dev, eq, f32)
@@ -998,7 +1005,9 @@ def phase_timings(dev, main, small, eq):
         pp = {k: v.to(dev) for k, v in force._per_particle().items()}
         order, hb, cb, wrap, _ = lst
         fs, ms = tp._stage(spec, x, box, pp, spec.excbits, order)
-        k_ms = time_cuda(lambda: tp.tile_pair_cuda(
+        k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
+            fs, ms, hb, cb, wrap, box, form, form.r_cut), "tile_pair")
+        l_ms = time_cuda(lambda: tp.tile_pair_cuda(
             fs, ms, hb, cb, wrap, box, form, form.r_cut), 20)
         w_ms = time_cuda(lambda: tp.tile_pair_energy_forces(
             form, x, box, pp, spec, order, hb, cb, wrap, form.r_cut), 20)
@@ -1013,14 +1022,17 @@ def phase_timings(dev, main, small, eq):
         b = bound(form, c["pairs"], c["near_pairs"], slots,
                   nbytes(fs, ms, hb, cb, wrap, box, acc))
         log(f"timing tile_pair {label} {live} entries: kernel {k_ms:.4f} ms "
-            f"({slots / k_ms / 1e6:.2f} Gslot/s, {slots / 1e6:.1f} M slots) "
+            f"of device time ({l_ms:.4f} ms by CUDA events around its "
+            f"launch wrapper; {slots / k_ms / 1e6:.2f} Gslot/s, "
+            f"{slots / 1e6:.1f} M slots) "
             f"vs half_pair {k1['ms']:.4f} ms ({k1['slots'] / 1e6:.1f} M "
             f"slots); wrapper {w_ms:.4f} ms vs {k1['sweep_ms']:.4f} ms; "
             f"plain float32 {p_ms:.4f} ms; bound {b['ms'] * 1e3:.2f} us by "
             f"{b['by']} for {c['pairs'] / 1e6:.3f} M pairs (with the slot "
             f"tests {b['with_slots_ms'] * 1e3:.2f} us): "
             f"{b['ms'] / k_ms:.1%} of it")
-        out[("tile_pair", label)] = {"ms": k_ms, "plain_ms": p_ms,
+        out[("tile_pair", label)] = {"ms": k_ms, "launch_ms": l_ms,
+                                     "plain_ms": p_ms,
                                      "sweep_ms": w_ms, "slots": slots,
                                      "bound": b}
     spec = lists["far"][1]
@@ -1040,8 +1052,6 @@ def phase_pme_timings(dev, pme_run, small, eq):
 
     import atomsmm_tpu_torch as amm
     from atomsmm_tpu_torch.models import water_system
-    from atomsmm_tpu_torch.ops import neighbors as nb
-    from atomsmm_tpu_torch.ops import pair_kernel as pk
     from atomsmm_tpu_torch.ops import pme
     from atomsmm_tpu_torch.ops import tilepair as tp
 
@@ -1055,28 +1065,16 @@ def phase_pme_timings(dev, pme_run, small, eq):
             ("pme far", respa.forces[2], respa.neighbors),
             ("pme near", respa.forces[1],
              respa.extra_neighbor_specs["near"])):
-        out[("half_pair", label)] = time_half(label, force, spec, x, box)
+        out[("half_pair", label)] = time_cells(label, force, spec, x, box)
 
     # K2 in the fused damped far form on the water 700 far grid, at the
     # positions path (a) ended with
     s, _, _ = water_system(n_molecules=700, method="pme", neighbors=True,
                            dtype=f32, device=dev)
     r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
-    spec = small["respa"].neighbors
-    force = r.forces[2]
-    form, pp = force._pair_form(), force._per_particle()
-    xs, bs = small["state"].x, small["state"].box
-    bucket, _ = nb.build_cell_buckets(spec, xs, bs)
-    hf, hm, _ = pk.stage(spec, xs, pp, bucket)
-    k_ms = time_cuda(lambda: pk.full_pair_cuda(
-        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0]), 20)
-    p_ms = time_cuda(lambda: pk.full_pair_plain(
-        hf, hm, spec.nbr_cells, bs, form, form.r_cut, xs.shape[0],
-        spec.cell_chunk), 3)
-    log(f"timing cell_pair pme far water700 grid {spec.grid} cap "
-        f"{spec.cell_capacity}: kernel {k_ms:.4f} ms, plain float32 "
-        f"{p_ms:.4f} ms")
-    out[("cell_pair", "pme far")] = {"ms": k_ms, "plain_ms": p_ms}
+    out[("cell_pair", "pme far")] = time_cells(
+        "pme far water700", r.forces[2], small["respa"].neighbors,
+        small["state"].x, small["state"].box)
 
     # K3 in the fused damped far form on the 30k far list
     xt, bt, lists = tile_lists(dev, eq, f32, "pme")
@@ -1085,8 +1083,8 @@ def phase_pme_timings(dev, pme_run, small, eq):
     pp = {k: v.to(dev) for k, v in force._per_particle().items()}
     order_, hb, cb, wrap, _ = lst
     fs, ms = tp._stage(spec, xt, bt, pp, spec.excbits, order_)
-    k_ms = time_cuda(lambda: tp.tile_pair_cuda(
-        fs, ms, hb, cb, wrap, bt, form, form.r_cut), 20)
+    k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
+        fs, ms, hb, cb, wrap, bt, form, form.r_cut), "tile_pair")
     p_ms = time_cuda(lambda: tp.tile_pair_plain(
         fs, ms, hb, cb, wrap, bt, form, form.r_cut), 3)
     log(f"timing tile_pair pme far water30k: kernel {k_ms:.4f} ms, plain "
@@ -1230,7 +1228,7 @@ def main():
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"]["ms"], "bound_by": t["bound"]["by"],
-                "library_ms": None, "prev_ms": PREV_MS[kernel],
+                "library_ms": None, "launch_ms": t["launch_ms"],
                 "shape": shape, "pme_ms": tp_["ms"],
                 "pme_plain_ms": tp_["plain_ms"], "forms": forms(kernel)}
 

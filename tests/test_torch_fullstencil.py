@@ -3,8 +3,8 @@ the port against the JAX package, float64 on the CPU.
 
 Grids too small for half-stencil maps (a dimension below 2*reach + 1: small
 boxes at a 0.9 nm cutoff) take the full-stencil sweep. The port runs K2's
-plain twin through the kernel wrapper's own staging; the JAX package runs
-its XLA full sweep on an 'xla'-backend spec, which is how its tests hold
+plain twin, which takes K2's inputs and gives its per-atom (N + 1, 4)
+output; the JAX package runs its XLA full sweep on an 'xla'-backend spec, which is how its tests hold
 the Pallas kernel's math on the CPU (Mosaic's interpret mode cannot run
 float64). Cases: water 216 (one cell, capacity 1,112), water 400 at 0.9 nm
 (2^3 grid, the full cutoff-RF form and the fused far form of the RESPA
@@ -14,6 +14,13 @@ Water renumbered by a fixed permutation has excluded pairs far more than
 +-14 indices apart, so it has no exclusion bitmask (excbits is None) and
 both sweeps take the exclusion id columns; it runs through K1's column
 form (half stencil, 0.7 nm) and K2's (full stencil, 0.9 nm).
+
+The twin's per-atom output is also held against the JAX sweep in every pair
+form (reaction field, near, fused far and their damped PME forms), with the
+bitmask and with the id columns, on the one-cell grid and on a 2^3 grid
+(forces 1e-10 x max|F|, summed energy rtol 1e-10), with a bucket several
+times wider than its cells' occupancy, and across a periodic face crossed
+between rebuilds.
 
 Tolerances: energy rtol 1e-12, forces atol 1e-9 x max|F| (the same
 arithmetic summed in another order); the 5-step RESPA+NHC trajectory of
@@ -218,3 +225,108 @@ def test_respa_small_box_default_cutoff_matches_jax():
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=TRAJ_TOL,
                                    atol=TRAJ_TOL * np.abs(want).max())
+
+
+# K2's plain twin per atom: (pair form) x (grid) x (exclusion form)
+PLAIN_RTOL = 1e-10
+FORMS = {  # name -> (method, force: 'full', 'near' or 'far')
+    "rf": ("cutoff", "full"), "near": ("cutoff", "near"),
+    "far": ("cutoff", "far"), "ewald": ("pme", "full"),
+    "near_damped": ("pme", "near"), "far_damped": ("pme", "far"),
+}
+GRIDS = {"one_cell": 216, "grid_2x2x2": 400}
+
+
+def _plain_pair(grid, form):
+    """((JAX force, x, box, spec), (port force, x, box, spec), r_cut): the
+    force of one pair form on the full-stencil grid of a small water box."""
+    method, kind = FORMS[form]
+    out = []
+    for models, pkg, kw in ((jmodels, jamm, {}),
+                            (tmodels, tamm, {"dtype": F64, "device": "cpu"})):
+        s, x, box = models.water_system(n_molecules=GRIDS[grid], seed=5,
+                                        neighbors=True, method=method, **kw)
+        force = s.forces[0]
+        if kind != "full":
+            r = pkg.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+            force = r.forces[1 if kind == "near" else 2]
+        out.append((force, x, box, s.neighbors))
+    tf = out[1][0]
+    return out[0], out[1], (_r_cut(tf) if kind != "near" else tf.r_cut)
+
+
+def _assert_rows(out, n, e_want, f_want):
+    assert out.shape == (n + 1, 4) and float(out[n].abs().max()) == 0.0
+    f_want = np.asarray(f_want)
+    np.testing.assert_allclose(float(out[:, 3].sum()), float(e_want),
+                               rtol=PLAIN_RTOL)
+    np.testing.assert_allclose(out[:n, :3].numpy(), f_want, rtol=0,
+                               atol=PLAIN_RTOL * np.abs(f_want).max())
+
+
+@pytest.mark.parametrize("exc", ["bitmask", "columns"])
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_full_pair_plain_matches_jax(grid, form, exc):
+    """K2's plain twin, per atom, against the JAX package's full-stencil
+    sweep: the energy column sums to its energy, the force columns equal
+    its forces, the padding row stays zero; with_forces=False leaves the
+    force columns zero and the energy as it was."""
+    (jf, jx, jb, jspec), (tf, tx, tb, tspec), r_cut = _plain_pair(grid, form)
+    assert not jspec.half_stencil and not tspec.half_stencil
+    assert tspec.ncells == (1 if grid == "one_cell" else 8)
+    jbucket, _ = jnb.build_cell_buckets(jspec, jx, jb)
+    tbucket, tov = tnb.build_cell_buckets(tspec, tx, tb)
+    assert not bool(tov)
+    e_want, f_want = jnb.cell_pair_energy_forces(
+        jf._pair_fn({}), jx, jb, jf._per_particle({}), jspec, jbucket, r_cut)
+    if exc == "columns":
+        tspec = dataclasses.replace(tspec, excbits=None)
+    args = (tx, tf._per_particle(), tbucket, tspec, tb, tf._pair_form(),
+            r_cut)
+    out = tpk.full_pair_plain(*args)
+    n = tx.shape[0]
+    _assert_rows(out, n, e_want, f_want)
+    e_only = tpk.full_pair_plain(*args, with_forces=False)
+    assert float(e_only[:, :3].abs().max()) == 0.0
+    np.testing.assert_allclose(float(e_only[:, 3].sum()),
+                               float(out[:, 3].sum()), rtol=1e-12)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_full_pair_plain_wide_bucket_gives_the_same_rows(grid):
+    """A bucket whose capacity is three times what its cells hold gives
+    the rows of the tight one: padding contributes nothing."""
+    _, (tf, tx, tb, tspec), r_cut = _plain_pair(grid, "far")
+    wide = dataclasses.replace(tspec, cell_capacity=3 * tspec.cell_capacity)
+    rows = []
+    for spec in (tspec, wide):
+        bucket, overflow = tnb.build_cell_buckets(spec, tx, tb)
+        assert not bool(overflow)
+        assert bucket.shape == (spec.ncells, spec.cell_capacity)
+        real = bucket < tx.shape[0]    # K2 relies on real ids coming first
+        assert bool((real[:, 1:] <= real[:, :-1]).all())
+        rows.append(tpk.full_pair_plain(tx, tf._per_particle(), bucket, spec,
+                                        tb, tf._pair_form(), r_cut))
+    np.testing.assert_allclose(rows[1].numpy(), rows[0].numpy(), rtol=0,
+                               atol=1e-12 * float(rows[0].abs().max()))
+
+
+def test_full_pair_plain_face_crossing_matches_jax():
+    """An atom that crosses the periodic face between rebuilds keeps its
+    pairs on the full stencil too: the minimum image is per slot."""
+    (jf, jx, jb, jspec), (tf, tx, tb, tspec), r_cut = _plain_pair(
+        "grid_2x2x2", "rf")
+    jx = jx.at[0, 0].set(0.0009)
+    tx = tx.clone()
+    tx[0, 0] = 0.0009
+    jbucket, _ = jnb.build_cell_buckets(jspec, jx, jb)
+    tbucket, _ = tnb.build_cell_buckets(tspec, tx, tb)
+    np.testing.assert_array_equal(np.asarray(jbucket), tbucket.numpy())
+    jx = jx.at[0, 0].add(-0.011)
+    tx[0, 0] -= 0.011
+    e_want, f_want = jnb.cell_pair_energy_forces(
+        jf._pair_fn({}), jx, jb, jf._per_particle({}), jspec, jbucket, r_cut)
+    out = tpk.full_pair_plain(tx, tf._per_particle(), tbucket, tspec, tb,
+                              tf._pair_form(), r_cut)
+    _assert_rows(out, tx.shape[0], e_want, f_want)

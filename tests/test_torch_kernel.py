@@ -1,9 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card:
 K1 (csrc/half_pair.cu, both exclusion forms, cells above 256 atoms,
-through the sweep and per atom through its own interface), K2 (csrc/cell_pair.cu,
-including a capacity above 1,024) and K3 (csrc/tile_pair.cu), each in the
-reaction-field forms and in the damped PME forms (Ewald direct space,
-damped near, fused damped far). Every test
+through the sweep and per atom through its own interface), K2
+(csrc/cell_pair.cu, the same two ways, including a capacity above 1,024, a
+bucket far wider than its cells, bit-equal rows from run to run and the
+bucket layout it relies on) and K3
+(csrc/tile_pair.cu, at 32, 64 and 128 atoms a block, and on a shuffled list
+with dead entries and half-empty entries), each in the reaction-field forms
+and in the damped PME forms (Ewald direct space, damped near, fused damped
+far). Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -131,18 +135,21 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None):
     rtol, ftol = TOLS[dtype]
     assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
     assert float((f_k.cpu().double() - f_p).abs().max()) <= ftol * fmax
-    if kernel == "half_pair":
-        # K1's own interface: per-atom [fx fy fz e] against the twin's,
-        # each atom's energy to the tolerance of the largest
-        out_k = pk.half_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut)
-        xc, bc, ppc, spec_c, bucket_c, _ = args
-        out_p = pk.half_pair_plain(xc, ppc, bucket_c, spec_c, bc, form,
-                                   form.r_cut)
-        e_max = float(out_p[:, 3].abs().max())
-        assert float((out_k[:, 3].cpu().double() - out_p[:, 3]).abs().max()) \
-            <= ftol * e_max
-        assert float((out_k[:, :3].cpu().double() - out_p[:, :3]).abs()
-                     .max()) <= ftol * fmax
+    # the kernel's own interface: per-atom [fx fy fz e] against the twin's,
+    # each atom's energy to the tolerance of the largest
+    cuda_fn, plain_fn = {
+        "half_pair": (pk.half_pair_cuda, pk.half_pair_plain),
+        "cell_pair": (pk.full_pair_cuda, pk.full_pair_plain)}[kernel]
+    out_k = cuda_fn(x, pp, bucket, spec, box, form, form.r_cut)
+    xc, bc, ppc, spec_c, bucket_c, _ = args
+    out_p = plain_fn(xc, ppc, bucket_c, spec_c, bc, form, form.r_cut)
+    assert out_k.shape == out_p.shape == (x.shape[0] + 1, 4)
+    assert float(out_k[-1].abs().max()) == 0.0
+    e_max = float(out_p[:, 3].abs().max())
+    assert float((out_k[:, 3].cpu().double() - out_p[:, 3]).abs().max()) \
+        <= ftol * e_max
+    assert float((out_k[:, :3].cpu().double() - out_p[:, :3]).abs()
+                 .max()) <= ftol * fmax
 
 
 @pytest.mark.cuda
@@ -174,6 +181,73 @@ def test_full_stencil_kernel_capacity_above_1024(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+def test_full_stencil_kernel_bucket_far_wider_than_its_cells(cuda, dtype):
+    """Three times the capacity the cells need: K2 walks the real atoms
+    only, and its rows match the twin's."""
+    force, spec, x, box = _case("small_400_far")
+    wide = dataclasses.replace(spec, cell_capacity=3 * spec.cell_capacity)
+    _check_sweep(force, wide, x, box, cuda, dtype, "cell_pair")
+
+
+@pytest.mark.cuda
+def test_full_stencil_kernel_needs_real_ids_first_in_each_bucket_row(cuda):
+    """K2's layout contract: a bucket row holds its real ids first, in any
+    order, and the sentinel after them. Rows whose real ids are shuffled
+    among themselves give the twin's rows; a row turned round (sentinels
+    first) does not, because K2 stops at a row's first sentinel, while the
+    twin takes any layout."""
+    force, spec, x, box = _case("small_400_far")
+    n = x.shape[0]
+    form, pp = force._pair_form(), force._per_particle()
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    real = bucket < n
+    assert bool(real.any(dim=1).all()) and not bool(real.all(dim=1).any())
+    assert bool((real[:, 1:] <= real[:, :-1]).all())   # real ids first
+    rng = np.random.RandomState(11)
+    shuffled = bucket.clone()
+    for c in range(bucket.shape[0]):
+        k = int(real[c].sum())
+        shuffled[c, :k] = bucket[c, torch.as_tensor(rng.permutation(k))]
+    turned = bucket.flip(1).contiguous()
+
+    def rows(bk):
+        want = pk.full_pair_plain(x, pp, bk, spec, box, form, form.r_cut)
+        got = pk.full_pair_cuda(
+            x.to(cuda), {k: v.to(cuda) for k, v in pp.items()}, bk.to(cuda),
+            _to(spec, cuda), box.to(cuda), form, form.r_cut)
+        return want, got.cpu()
+
+    want, got = rows(shuffled)
+    fmax = float(want[:, :3].abs().max())
+    assert float((got - want)[:, :3].abs().max()) <= 1e-9 * fmax
+    want_t, got_t = rows(turned)
+    assert float((want_t - want)[:, :3].abs().max()) <= 1e-9 * fmax
+    # wrong by far, or not a number: what K2 reads behind a sentinel is
+    # whatever its shared memory held (no read leaves the inputs)
+    assert not float((got_t - want_t)[:, :3].abs().max()) <= 1e-3 * fmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small_216", "small_700"])
+def test_full_stencil_kernel_rows_are_bit_equal_between_runs(cuda, case):
+    """K2 has no atomics and sums in a fixed order: float32 rows of two
+    launches on the same input are equal bit for bit."""
+    force, spec, x, box = _case(case)
+    spec = _to(spec, cuda)
+    form = force._pair_form()
+    pp = {k: v.to(cuda, torch.float32)
+          for k, v in force._per_particle().items()}
+    x, box = x.to(cuda, torch.float32), box.to(cuda, torch.float32)
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    a = pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut)
+    b = pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut)
+    torch.cuda.synchronize()
+    assert float(a[:, :3].abs().max()) > 0.0
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("r_cut", [0.7, 0.9])
 def test_exclusion_column_forms_match_plain_on_card(cuda, r_cut):
     """0.7 nm: K1's column form; 0.9 nm: K2's."""
@@ -202,19 +276,31 @@ def test_damped_forms_match_plain_on_card(cuda, case, kernel, dtype):
                  unsplit and _case(unsplit)[0])
 
 
-def _check_tile(force, x, box, dev, dtype, unsplit=None):
+def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,
+                shuffle=False):
     """K3 on the tile list of `force` against its plain twin; in float64
     also against K1 on the same configuration (the same pairs inside the
-    cutoff). `unsplit` as in _check_sweep."""
+    cutoff). `unsplit` as in _check_sweep. The list always has dead entries
+    (its unused tail) and entries whose second candidate block is the
+    sentinel (home blocks with an odd number of partners); with `shuffle`
+    its entries are permuted, so that dead entries lie among live ones."""
     dt = getattr(torch, dtype)
     form, pp = force._pair_form(), force._per_particle()
     spec = tp.make_tilepair_spec(box, x.shape[0], form.r_cut,
                                  exclusions=force.exclusions,
+                                 block_size=block_size,
                                  occupancy_from=x, device=dev)
     xd, bd = x.to(dev, dt), box.to(dev, dt)
     ppd = {k: v.to(dev, dt) for k, v in pp.items()}
     order, hb, cb, wrap, overflow = tp.build_tile_pairs(spec, xd, bd)
     assert not bool(overflow)
+    live = hb < spec.n_blocks
+    assert bool((~live).any())
+    assert bool((live & (cb[:, 1] == spec.n_blocks)).any())
+    if shuffle:
+        perm = torch.as_tensor(
+            np.random.RandomState(5).permutation(hb.shape[0]), device=dev)
+        hb, cb, wrap = (t[perm].contiguous() for t in (hb, cb, wrap))
     before = pk.LAUNCHES["tile_pair"]
     e_k, f_k = tp.tile_pair_energy_forces(form, xd, bd, ppd, spec, order, hb,
                                           cb, wrap, form.r_cut)
@@ -259,6 +345,19 @@ def test_tile_pair_kernel_matches_plain_and_cells_on_card(cuda, dtype):
     s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
                              dtype=F64, device="cpu")
     _check_tile(s.forces[0], x, box, cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("block_size", [32, 48, 128])
+def test_tile_pair_kernel_block_sizes_on_card(cuda, block_size, dtype):
+    """K3 at 32 and 128 atoms a block (one warp and four, two and eight
+    candidate groups) and at 48 (a ragged last warp and group), on a
+    shuffled list."""
+    s, x, box = water_system(n_molecules=1000, r_cut=0.9, r_switch=0.8,
+                             dtype=F64, device="cpu")
+    _check_tile(s.forces[0], x, box, cuda, dtype, block_size=block_size,
+                shuffle=True)
 
 
 @pytest.mark.cuda
