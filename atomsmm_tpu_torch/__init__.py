@@ -19,22 +19,43 @@ from .forces import (
     HarmonicAngleForce,
     HarmonicBondForce,
     NearNonbondedForce,
+    NonbondedExceptionsForce,
     NonbondedForce,
+    PeriodicTorsionForce,
     PMEReciprocalForce,
     TemplateBondedForce,
 )
 from .integrate.integrators import (
+    GlobalThermostatIntegrator,
     Integrator,
+    LangevinMiddleIntegrator,
     MultipleTimeScaleIntegrator,
+    PropagatorIntegrator,
     VelocityVerletIntegrator,
 )
 from .integrate.propagators import (
     BoostPropagator,
+    ChainedPropagator,
+    GenericBoostPropagator,
+    GenericScalingPropagator,
     NoseHooverChainPropagator,
+    OrnsteinUhlenbeckPropagator,
     Propagator,
     RespaPropagator,
+    SplitPropagator,
+    SuzukiYoshidaPropagator,
     TranslationPropagator,
+    TrotterSuzukiPropagator,
+    VelocityRescalingPropagator,
     VelocityVerletPropagator,
+)
+from .integrate.sinr import (
+    IsokineticBoostPropagator,
+    MassiveNoseHooverLangevinPropagator,
+    MassiveNoseHooverPropagator,
+    NHL_R_Integrator,
+    SIN_R_Integrator,
+    SINRThermostatPropagator,
 )
 from .potential import (
     force_fn,
@@ -51,4 +72,9 @@ from .state import (
 )
 from .system import System, make_exclusions_array
 from .systems import RESPASystem
-from .utils import InputError, count_degrees_of_freedom, find_nonbonded_force
+from .utils import (
+    InputError,
+    count_degrees_of_freedom,
+    find_nonbonded_force,
+    hijack_force,
+)

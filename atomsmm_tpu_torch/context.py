@@ -5,8 +5,11 @@ atomsmm_tpu/context.py).
 operations (the JAX package runs one jitted device loop). The neighbor
 buckets are rebuilt after every outer step and their overflow flags stay on
 the device; step(n) reads them once, at its end, and on overflow restores
-the state from before the call, grows the cell capacities and runs the n
-steps again.
+the state from before the call (the generator's included, so one seed gives
+one trajectory whether or not a capacity overflowed), grows the cell
+capacities and runs the n steps again. `set_parameter` holds the global
+context parameters (lambda_vdw and the like) that every force evaluation and
+propagator receives as `globals`.
 """
 from __future__ import annotations
 
@@ -69,7 +72,9 @@ class StateSnapshot:
 
 
 def _clone_state(state: State) -> State:
-    return replace(state, x=state.x.clone(), v=state.v.clone(),
+    row_major = torch.contiguous_format
+    return replace(state, x=state.x.clone(memory_format=row_major),
+                   v=state.v.clone(memory_format=row_major),
                    box=state.box.clone(),
                    extra={k: v.clone() for k, v in state.extra.items()})
 
@@ -79,6 +84,8 @@ class Context:
                  seed: int = 0):
         self.system = system
         self.integrator = integrator
+        #: global context parameters, name -> 0-d tensor (set_parameter)
+        self.parameters: Dict[str, torch.Tensor] = {}
         #: how many times the last step(n) ran its n steps (2+ after an
         #: overflow recovery)
         self.last_step_passes = 0
@@ -88,15 +95,7 @@ class Context:
                             device=system.masses.device)
             state = make_state(x, box=system.default_box, seed=seed)
         state = _clone_state(state)
-        from .ops.pbc import validate_cutoffs
-
-        validate_cutoffs(system, state.box)
-        for name, spec in iter_specs(system):
-            if coverage_deficient(spec, state.box):
-                raise RuntimeError(
-                    f"cell-list spec {name!r}: the stencil reach does not "
-                    "cover the cutoff at this box — pairs would be silently "
-                    "dropped; build the NeighborSpec for this box")
+        self._check_box(state.box)
         if system.neighbors is not None:
             extras = all_neighbor_extras(system, state.x, state.box)
             if any(bool(v) for k, v in extras.items() if k.endswith("overflow")):
@@ -110,6 +109,19 @@ class Context:
         self._step_fn = integrator.make_step()
         self.check_overflow = system.neighbors is not None
 
+    def _check_box(self, box):
+        """Raise unless every cutoff fits the minimum image at `box` and
+        every cell grid's stencil still covers its cutoff there."""
+        from .ops.pbc import validate_cutoffs
+
+        validate_cutoffs(self.system, box)
+        for name, spec in iter_specs(self.system):
+            if coverage_deficient(spec, box):
+                raise RuntimeError(
+                    f"cell-list spec {name!r}: the stencil reach does not "
+                    "cover the cutoff at this box — pairs would be silently "
+                    "dropped; build the NeighborSpec for this box")
+
     # -- stepping ----------------------------------------------------------
 
     def _update_neighbors(self, s: State) -> State:
@@ -121,9 +133,10 @@ class Context:
     def _advance(self, n: int):
         system = self.system
         s = self._update_neighbors(self.state)
-        s = refresh_force_caches(system, s, {})
+        s = refresh_force_caches(system, s, self.parameters)
         for _ in range(n):
-            s = self._update_neighbors(self._step_fn(system, s, {}))
+            s = self._update_neighbors(
+                self._step_fn(system, s, self.parameters))
         self.state = s
 
     def _flags(self):
@@ -142,7 +155,10 @@ class Context:
         run again."""
         self.last_step_passes = 0
         for attempt in range(3):
-            backup = _clone_state(self.state) if self.check_overflow else None
+            backup = rng_state = None
+            if self.check_overflow:
+                backup = _clone_state(self.state)
+                rng_state = self.state.rng.get_state()
             self._advance(n)
             self.last_step_passes += 1
             if not self.check_overflow:
@@ -159,6 +175,9 @@ class Context:
                 "before step(), retuning capacities and running again",
                 stacklevel=2)
             self.state = backup
+            # State.rng is one generator advanced in place: wind it back so
+            # that the replay draws what the first pass drew
+            backup.rng.set_state(rng_state)
             self.retune_neighbors(safety=1.15 * (1.2 ** attempt),
                                   grow_only=True)
         return self
@@ -169,7 +188,7 @@ class Context:
         """Snapshot with the per-force split, per-group energies and forces,
         or with lite=True positions, velocities and energies only (one
         total-energy pass)."""
-        system, globals = self.system, {}
+        system, globals = self.system, self.parameters
         s = self._update_neighbors(self.state)
         aux = make_aux(system, s.extra)
         ke = kinetic_energy(system.masses, s.v)
@@ -189,9 +208,18 @@ class Context:
 
     # -- openmm.Context-like surface ---------------------------------------
 
+    def set_positions(self, x):
+        """Replace the positions; the next step() or get_state() rebuilds
+        the neighbor buckets and the force caches from them."""
+        x = torch.as_tensor(x).to(
+            dtype=self.state.x.dtype, device=self.state.x.device).clone(
+                memory_format=torch.contiguous_format)
+        self.state = replace(self.state, x=x)
+
     def set_velocities(self, v):
-        v = torch.as_tensor(v).to(dtype=self.state.v.dtype,
-                                  device=self.state.v.device).clone()
+        v = torch.as_tensor(v).to(
+            dtype=self.state.v.dtype, device=self.state.v.device).clone(
+                memory_format=torch.contiguous_format)
         self.state = replace(self.state, v=v)
 
     def set_velocities_to_temperature(self, temperature, seed: int = 0):
@@ -202,6 +230,23 @@ class Context:
         if self.system.remove_com_motion:
             v = remove_com_motion(self.system.masses, v)
         self.set_velocities(v)
+
+    def set_periodic_box(self, box):
+        """Replace the box. A box that a cutoff or a cell grid no longer
+        fits raises here, before any step can drop pairs."""
+        box = torch.as_tensor(box).to(dtype=self.state.x.dtype,
+                                      device=self.state.x.device).clone()
+        self._check_box(box)
+        self.state = replace(self.state, box=box)
+
+    def set_parameter(self, name: str, value):
+        """Set a global context parameter (a 0-d tensor of the state's
+        dtype on its device); it reaches the forces at the next call."""
+        self.parameters[name] = torch.as_tensor(value).to(
+            dtype=self.state.x.dtype, device=self.state.x.device)
+
+    def get_parameter(self, name: str):
+        return self.parameters[name]
 
     def retune_neighbors(self, safety: float = 1.15, grow_only: bool = False):
         """Resize every neighbor spec's cell capacity to the measured max
@@ -218,6 +263,29 @@ class Context:
         self.state = state.with_extra(
             **all_neighbor_extras(self.system, state.x, state.box))
         return self
+
+    # -- openmm-style camelCase aliases ------------------------------------
+
+    def setPositions(self, x):
+        return self.set_positions(x)
+
+    def setVelocities(self, v):
+        return self.set_velocities(v)
+
+    def setVelocitiesToTemperature(self, temperature, seed: int = 0):
+        return self.set_velocities_to_temperature(temperature, seed)
+
+    def setParameter(self, name, value):
+        return self.set_parameter(name, value)
+
+    def getParameter(self, name):
+        return self.get_parameter(name)
+
+    def setPeriodicBoxVectors(self, box):
+        return self.set_periodic_box(box)
+
+    def getState(self, **_ignored) -> StateSnapshot:
+        return self.get_state()
 
     # -- convenience -------------------------------------------------------
 

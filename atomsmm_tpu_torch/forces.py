@@ -18,8 +18,9 @@ the reciprocal sum with its self and excluded-pair corrections
 
 Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
 dense path), NearNonbondedForce (damped or not), the fused
-FarNonbondedForce, PMEReciprocalForce, TemplateBondedForce,
-HarmonicBondForce and HarmonicAngleForce.
+FarNonbondedForce, PMEReciprocalForce, NonbondedExceptionsForce,
+TemplateBondedForce, HarmonicBondForce, HarmonicAngleForce and
+PeriodicTorsionForce.
 
 >>> import torch
 >>> f64 = torch.float64
@@ -43,11 +44,16 @@ import numpy as np
 import torch
 
 from .ops import pairfuncs, pme
-from .ops.bonded import harmonic_angle_energy, harmonic_bond_energy
+from .ops.bonded import (
+    harmonic_angle_energy,
+    harmonic_bond_energy,
+    periodic_torsion_energy,
+)
 from .ops.neighbors import cell_pair_energy, cell_pair_energy_forces
-from .ops.pairs import dense_pair_energy
+from .ops.pairs import dense_pair_energy, pairlist_energy
 from .ops.pbc import box_volume
 from .ops.switching import switch_quintic
+from .units import ONE_4PI_EPS0
 
 _METHODS = ("cutoff", "pme", "nocutoff")
 
@@ -270,6 +276,31 @@ def compute_dispersion_coefficient(sigma, epsilon, r_switch, r_cut,
 
 
 @dataclasses.dataclass
+class NonbondedExceptionsForce(Force):
+    """1-4 exception pairs as a bond-like force, so they can live in the
+    innermost RESPA group (atomsmm/forces.py::NonbondedExceptionsForce).
+
+    E = 4 eps [(s/r)^12 - (s/r)^6] + k qq / r per listed pair, no cutoff
+    and no damping. Forces by autograd (potential.force_fn).
+    """
+
+    pairs: torch.Tensor = None       # (P, 2) int32
+    chargeprod: torch.Tensor = None  # (P,) [e^2]
+    sigma: torch.Tensor = None       # (P,)
+    epsilon: torch.Tensor = None     # (P,)
+    valid: torch.Tensor = None       # (P,) bool mask for padding
+
+    def energy(self, x, box, globals, aux=None):
+        def pair(r, p):
+            return (pairfuncs.lj(r, p["sigma"], p["epsilon"])
+                    + ONE_4PI_EPS0 * p["chargeprod"] / r)
+
+        params = {"chargeprod": self.chargeprod, "sigma": self.sigma,
+                  "epsilon": self.epsilon}
+        return pairlist_energy(pair, x, box, self.pairs, params, self.valid)
+
+
+@dataclasses.dataclass
 class NearNonbondedForce(_PairForceMixin, Force):
     """Short-range RESPA force (atomsmm/forces.py::NearNonbondedForce):
     shifted-force LJ + shifted-force Coulomb, damped by erfc(alpha r) when
@@ -461,3 +492,17 @@ class HarmonicAngleForce(Force):
 
     def energy(self, x, box, globals, aux=None):
         return harmonic_angle_energy(x, self.idx.long(), self.theta0, self.k)
+
+
+@dataclasses.dataclass
+class PeriodicTorsionForce(Force):
+    """E = sum k (1 + cos(n phi - phase)) (openmm.PeriodicTorsionForce)."""
+
+    idx: torch.Tensor = None  # (T, 4)
+    periodicity: torch.Tensor = None
+    phase: torch.Tensor = None
+    k: torch.Tensor = None
+
+    def energy(self, x, box, globals, aux=None):
+        return periodic_torsion_energy(x, self.idx.long(), self.periodicity,
+                                       self.phase, self.k)

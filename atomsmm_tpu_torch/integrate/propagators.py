@@ -5,9 +5,13 @@ fraction*ctx.dt with PyTorch operations on the State; composition follows
 the operator-splitting math of the reference, operator order included.
 `describe(fraction)` prints the same instruction dump as the JAX package.
 
-Ported: Translation (unconstrained), Boost (with the force-cache registers
-that hold per-group forces between a 'write' kick and the next 'read'
-kick), VelocityVerlet, Respa and NoseHooverChain.
+The algebra (Chained / Split / TrotterSuzuki / SuzukiYoshida / Respa) is
+that of the reference. Translation moves unconstrained systems only; Boost
+carries the force-cache registers that hold per-group forces between a
+'write' kick and the next 'read' kick. Stochastic propagators
+(OrnsteinUhlenbeck, VelocityRescaling) draw from the state's
+torch.Generator, which advances in place: the same seed gives the same
+trajectory, and another stream than the JAX package's.
 
 >>> vv = VelocityVerletPropagator()
 >>> for line in vv.describe(1.0):
@@ -16,9 +20,22 @@ VelocityVerlet:
   v <- v + F[all]/m * 0.5 dt, read cache
   x <- x + v * 1 dt (+SETTLE/SHAKE if constrained)
   v <- v + F[all]/m * 0.5 dt, write cache
+
+>>> ts = TrotterSuzukiPropagator(TranslationPropagator(),
+...                              BoostPropagator(groups={0}))
+>>> for line in ts.describe(1.0):
+...     print(line)
+TrotterSuzuki:
+  v <- v + F[[0]]/m * 0.5 dt
+  x <- x + v * 1 dt (+SETTLE/SHAKE if constrained)
+  v <- v + F[[0]]/m * 0.5 dt
+
+>>> [round(sum(_SY_WEIGHTS[n]), 12) for n in (1, 3, 7, 15)]
+[1.0, 1.0, 1.0, 1.0]
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -55,9 +72,17 @@ class StepContext:
     def masses(self):
         return self.system.masses
 
+    def kT(self, temperature):
+        return BOLTZMANN * temperature
+
 
 class Propagator:
     """Base class (atomsmm/propagators.py::Propagator)."""
+
+    #: positive marker for bath/thermostat propagators, used by
+    #: GlobalThermostatIntegrator's swapped-argument guard (a thermostat in
+    #: the trajectory-core slot silently integrates the wrong splitting)
+    is_thermostat = False
 
     def extra_variables(self, system, state) -> Dict[str, torch.Tensor]:
         return {}
@@ -67,6 +92,88 @@ class Propagator:
 
     def describe(self, fraction: float = 1.0):
         return [f"{type(self).__name__}({fraction:g} dt)"]
+
+    def integrator(self, dt):
+        """Wrap this propagator as a user-facing integrator
+        (atomsmm Propagator.integrator())."""
+        from .integrators import PropagatorIntegrator
+
+        return PropagatorIntegrator(dt, self)
+
+
+class ChainedPropagator(Propagator):
+    """Apply propagators in sequence, each over the full fraction:
+    exp(t A_n) ... exp(t A_1) — list order [A_1, ..., A_n] is application
+    order (atomsmm/propagators.py::ChainedPropagator)."""
+
+    def __init__(self, propagators: Sequence[Propagator]):
+        self.propagators = list(propagators)
+
+    def extra_variables(self, system, state):
+        out = {}
+        for p in self.propagators:
+            out.update(p.extra_variables(system, state))
+        return out
+
+    def apply(self, ctx, state, fraction):
+        for p in self.propagators:
+            state = p.apply(ctx, state, fraction)
+        return state
+
+    def describe(self, fraction=1.0):
+        lines = [f"Chained({fraction:g} dt):"]
+        for p in self.propagators:
+            lines += ["  " + l for l in p.describe(fraction)]
+        return lines
+
+
+class SplitPropagator(Propagator):
+    """exp(t A) = [exp(t/n A)]^n (atomsmm/propagators.py::SplitPropagator)."""
+
+    def __init__(self, propagator: Propagator, n: int):
+        self.propagator = propagator
+        self.n = int(n)
+
+    def extra_variables(self, system, state):
+        return self.propagator.extra_variables(system, state)
+
+    def apply(self, ctx, state, fraction):
+        for _ in range(self.n):
+            state = self.propagator.apply(ctx, state, fraction / self.n)
+        return state
+
+    def describe(self, fraction=1.0):
+        lines = [f"Split x{self.n}:"]
+        lines += ["  " + l for l in self.propagator.describe(fraction / self.n)]
+        return lines
+
+
+class TrotterSuzukiPropagator(Propagator):
+    """Symmetric splitting exp(t/2 B) exp(t A) exp(t/2 B)
+    (atomsmm/propagators.py::TrotterSuzukiPropagator): `outer` is B (half step
+    on each side), `inner` is A (full step in the middle)."""
+
+    def __init__(self, inner: Propagator, outer: Propagator):
+        self.inner = inner
+        self.outer = outer
+
+    def extra_variables(self, system, state):
+        out = self.inner.extra_variables(system, state)
+        out.update(self.outer.extra_variables(system, state))
+        return out
+
+    def apply(self, ctx, state, fraction):
+        state = self.outer.apply(ctx, state, 0.5 * fraction)
+        state = self.inner.apply(ctx, state, fraction)
+        state = self.outer.apply(ctx, state, 0.5 * fraction)
+        return state
+
+    def describe(self, fraction=1.0):
+        lines = ["TrotterSuzuki:"]
+        lines += ["  " + l for l in self.outer.describe(0.5 * fraction)]
+        lines += ["  " + l for l in self.inner.describe(fraction)]
+        lines += ["  " + l for l in self.outer.describe(0.5 * fraction)]
+        return lines
 
 
 #: Suzuki-Yoshida composition weights (atomsmm/propagators.py::SuzukiYoshidaPropagator)
@@ -100,6 +207,31 @@ _SY_WEIGHTS = {
         0.102799849391985,
     ],
 }
+
+
+class SuzukiYoshidaPropagator(Propagator):
+    """Higher-order composition: apply A with the nsy-point Suzuki-Yoshida
+    weights (used to sub-split thermostat propagators)."""
+
+    def __init__(self, propagator: Propagator, nsy: int = 3):
+        if nsy not in _SY_WEIGHTS:
+            raise ValueError(f"nsy must be one of {sorted(_SY_WEIGHTS)}")
+        self.propagator = propagator
+        self.nsy = nsy
+
+    def extra_variables(self, system, state):
+        return self.propagator.extra_variables(system, state)
+
+    def apply(self, ctx, state, fraction):
+        for w in _SY_WEIGHTS[self.nsy]:
+            state = self.propagator.apply(ctx, state, w * fraction)
+        return state
+
+    def describe(self, fraction=1.0):
+        lines = [f"SuzukiYoshida(nsy={self.nsy}):"]
+        for w in _SY_WEIGHTS[self.nsy]:
+            lines += ["  " + l for l in self.propagator.describe(w * fraction)]
+        return lines
 
 
 class TranslationPropagator(Propagator):
@@ -169,12 +301,14 @@ class BoostPropagator(Propagator):
 
 
 class VelocityVerletPropagator(Propagator):
-    """Velocity Verlet: B(t/2) A(t) B(t/2); the leading kick reads the
-    force cache, the trailing kick refreshes it."""
+    """Velocity Verlet: B(t/2) A(t) B(t/2)
+    (atomsmm/propagators.py::VelocityVerletPropagator). The leading kick
+    reads the force cache and the trailing kick refreshes it; with
+    cached=False both evaluate the forces afresh."""
 
-    def __init__(self, groups=None):
-        self.pre = BoostPropagator(groups, cache="read")
-        self.post = BoostPropagator(groups, cache="write")
+    def __init__(self, groups=None, cached: bool = True):
+        self.pre = BoostPropagator(groups, cache="read" if cached else None)
+        self.post = BoostPropagator(groups, cache="write" if cached else None)
         self.move = TranslationPropagator()
 
     def extra_variables(self, system, state):
@@ -204,24 +338,35 @@ class RespaPropagator(Propagator):
     loops[k] is the number of substeps at level k (innermost = force group
     0). At level k > 0 one pass over fraction f performs loops[k] iterations
     of  B_k(f'/2) [bath_k(f'/2)] level_{k-1}(f') [bath_k(f'/2)] B_k(f'/2)
-    with f' = f / loops[k]; level 0 is a plain translation. `baths` maps
-    level -> Propagator; level -1 wraps the outermost level. Every kick
-    reads the force cache on its leading half and writes it on its trailing
-    half.
+    with f' = f / loops[k], where B_k = boost_cls(groups={k}, cache=...)
+    kicks with the forces of group k; the innermost motion at level 0 is
+    `core` (default: a plain translation). `baths` maps level -> Propagator
+    spliced inside that level's kicks; level -1 wraps the outermost level.
+    Every kick reads the force cache on its leading half and writes it on
+    its trailing half.
     """
 
-    def __init__(self, loops: Sequence[int],
-                 baths: Optional[Dict[int, Propagator]] = None):
+    def __init__(
+        self,
+        loops: Sequence[int],
+        core: Optional[Propagator] = None,
+        baths: Optional[Dict[int, Propagator]] = None,
+        boost_cls=BoostPropagator,
+    ):
         self.loops = [int(n) for n in loops]
         self.levels = len(self.loops)
+        self.core = core
         self.baths = dict(baths or {})
+        self.boost_cls = boost_cls
 
     def extra_variables(self, system, state):
         out = {}
+        if self.core is not None:
+            out.update(self.core.extra_variables(system, state))
         for b in self.baths.values():
             out.update(b.extra_variables(system, state))
         for k in range(self.levels):
-            out.update(BoostPropagator(groups={k}, cache="write")
+            out.update(self.boost_cls(groups={k}, cache="write")
                        .extra_variables(system, state))
         return out
 
@@ -229,14 +374,17 @@ class RespaPropagator(Propagator):
         n = self.loops[k]
         sub = fraction / n
         bath = self.baths.get(k)
-        boost_pre = BoostPropagator(groups={k}, cache="read")
-        boost_post = BoostPropagator(groups={k}, cache="write")
+        boost_pre = self.boost_cls(groups={k}, cache="read")
+        boost_post = self.boost_cls(groups={k}, cache="write")
         for _ in range(n):
             state = boost_pre.apply(ctx, state, 0.5 * sub)
             if bath is not None:
                 state = bath.apply(ctx, state, 0.5 * sub)
             if k == 0:
-                state = TranslationPropagator().apply(ctx, state, sub)
+                if self.core is not None:
+                    state = self.core.apply(ctx, state, sub)
+                else:
+                    state = TranslationPropagator().apply(ctx, state, sub)
             else:
                 state = self._level(ctx, state, k - 1, sub)
             if bath is not None:
@@ -265,7 +413,11 @@ class RespaPropagator(Propagator):
             if k in self.baths:
                 lines.append(pad + f"  bath[{k}]({0.5*sub:g} dt)")
             if k == 0:
-                lines.append(pad + f"  x <- x + v * {sub:g} dt")
+                if self.core is not None:
+                    for l in self.core.describe(sub):
+                        lines.append(pad + "  " + l)
+                else:
+                    lines.append(pad + f"  x <- x + v * {sub:g} dt")
             else:
                 level(k - 1, sub, indent + 1)
             if k in self.baths:
@@ -291,15 +443,17 @@ class NoseHooverChainPropagator(Propagator):
     operations on the device of the velocities (no host synchronisation).
     """
 
+    is_thermostat = True
+
     def __init__(self, temperature, degrees_of_freedom, time_scale,
-                 nchain: int = 2, nsy: int = 3, nloops: int = 1):
+                 nchain: int = 2, nsy: int = 3, nloops: int = 1, tag="nhc"):
         self.temperature = float(temperature)
         self.dof = int(degrees_of_freedom)
         self.tau = float(time_scale)
         self.nchain = int(nchain)
         self.nsy = int(nsy)
         self.nloops = int(nloops)
-        self.tag = "nhc"
+        self.tag = tag
 
     def _q(self):
         """Chain masses as host floats."""
@@ -365,3 +519,150 @@ class NoseHooverChainPropagator(Propagator):
             f"nchain={self.nchain}, nsy={self.nsy}) over {fraction:g} dt"
         ]
 
+
+
+def _normal(rng: torch.Generator, like: torch.Tensor, shape=None):
+    """Standard normal draws of `like`'s dtype on its device from `rng`
+    (which lives on that device and advances in place)."""
+    return torch.randn(like.shape if shape is None else shape, generator=rng,
+                       dtype=like.dtype, device=like.device)
+
+
+class OrnsteinUhlenbeckPropagator(Propagator):
+    """Exact Ornstein-Uhlenbeck update on particle velocities (the Langevin
+    friction+noise half: v <- v e^{-gamma t} + sqrt(kT/m (1 - e^{-2 gamma t})) R)
+    (atomsmm/propagators.py::OrnsteinUhlenbeckPropagator). Setting
+    `variable` updates a named extra tensor with effective mass `mass`
+    instead. With `temperature_global` the bath temperature is read from
+    that global parameter at step time (falling back to `temperature`).
+    R is drawn from the state's torch.Generator."""
+
+    is_thermostat = True
+
+    def __init__(self, temperature, friction, variable: Optional[str] = None,
+                 mass=None, temperature_global: Optional[str] = None):
+        self.temperature = float(temperature)
+        self.friction = float(friction)  # 1/ps
+        self.variable = variable
+        self.mass = mass
+        self.temperature_global = temperature_global
+
+    def apply(self, ctx, state, fraction):
+        t = fraction * ctx.dt
+        t_set = self.temperature
+        if self.temperature_global is not None:
+            t_set = (ctx.globals or {}).get(self.temperature_global, t_set)
+        kT = BOLTZMANN * t_set
+        decay = math.exp(-self.friction * t)
+        noise = math.sqrt(max(1.0 - decay * decay, 0.0))
+        if self.variable is None:
+            m = ctx.masses[:, None]
+            # massless rows carry no momentum: zero noise
+            sigma = torch.where(
+                m > 0, (kT / torch.where(m > 0, m, torch.ones_like(m))) ** 0.5,
+                torch.zeros_like(m))
+            r = _normal(state.rng, state.v)
+            return replace(state, v=state.v * decay + sigma * noise * r)
+        z = state.extra[self.variable]
+        sigma = (kT / self.mass) ** 0.5
+        z = z * decay + sigma * noise * _normal(state.rng, z)
+        return state.with_extra(**{self.variable: z})
+
+    def describe(self, fraction=1.0):
+        target = self.variable or "v"
+        return [
+            f"{target} <- OU(T={self.temperature}K, gamma={self.friction}/ps) "
+            f"over {fraction:g} dt"
+        ]
+
+
+class VelocityRescalingPropagator(Propagator):
+    """Bussi-Donadio-Parrinello stochastic velocity rescaling (CSVR)
+    (atomsmm/propagators.py::VelocityRescalingPropagator).
+
+    The chi-square variate with dof - 1 degrees of freedom is the sum of
+    dof - 1 squared standard normals drawn from the state's
+    torch.Generator (torch's gamma sampler takes no generator): exact, no
+    rejection loop and so no host synchronisation, at dof - 1 draws per
+    application."""
+
+    is_thermostat = True
+
+    def __init__(self, temperature, degrees_of_freedom, time_scale):
+        self.temperature = float(temperature)
+        self.dof = int(degrees_of_freedom)
+        self.tau = float(time_scale)
+
+    def apply(self, ctx, state, fraction):
+        t = fraction * ctx.dt
+        kT = BOLTZMANN * self.temperature
+        m = ctx.masses[:, None]
+        ke = 0.5 * torch.sum(m * state.v * state.v)
+        ke_bar = 0.5 * self.dof * kT
+        c = math.exp(-t / self.tau)
+        r1 = _normal(state.rng, state.v, ())
+        rsum = torch.sum(_normal(state.rng, state.v, (self.dof - 1,)) ** 2)
+        ratio = ke_bar / (self.dof * ke)
+        alpha2 = (
+            c
+            + (1.0 - c) * ratio * (r1 * r1 + rsum)
+            + 2.0 * r1 * torch.sqrt(c * (1.0 - c) * ratio)
+        )
+        # Bussi's alpha carries a sign: negative when the r1 noise term
+        # dominates (sign of r1 + sqrt(c/((1-c)*ratio))); losing the velocity
+        # flip biases the KE distribution at small dof.
+        sign = torch.sign(r1 + torch.sqrt(c / ((1.0 - c) * ratio)))
+        alpha = torch.where(sign == 0, torch.ones_like(sign), sign) \
+            * torch.sqrt(alpha2)
+        return replace(state, v=state.v * alpha)
+
+    def describe(self, fraction=1.0):
+        return [
+            f"v <- CSVR rescale(T={self.temperature}K, tau={self.tau}ps) "
+            f"over {fraction:g} dt"
+        ]
+
+
+class GenericBoostPropagator(Propagator):
+    """target <- target + rate_fn(ctx, state) * t — building block for
+    extended-variable kicks (atomsmm/propagators.py::GenericBoostPropagator).
+    target is 'v' or a State.extra key."""
+
+    def __init__(self, rate_fn, target: str = "v"):
+        self.rate_fn = rate_fn
+        self.target = target
+
+    def apply(self, ctx, state, fraction):
+        t = fraction * ctx.dt
+        rate = self.rate_fn(ctx, state)
+        if self.target == "v":
+            return replace(state, v=state.v + t * rate)
+        z = state.extra[self.target] + t * rate
+        return state.with_extra(**{self.target: z})
+
+    def describe(self, fraction=1.0):
+        return [f"{self.target} <- {self.target} + rate * {fraction:g} dt"]
+
+
+class GenericScalingPropagator(Propagator):
+    """v <- v * exp(-t * rate_fn(ctx, state)) — building block for
+    extended-variable couplings
+    (atomsmm/propagators.py::GenericScalingPropagator)."""
+
+    def __init__(self, rate_fn, target: str = "v"):
+        self.rate_fn = rate_fn
+        self.target = target
+
+    def apply(self, ctx, state, fraction):
+        t = fraction * ctx.dt
+        z = state.v if self.target == "v" else state.extra[self.target]
+        # rate_fn may return a tensor or a plain number
+        rate = torch.as_tensor(self.rate_fn(ctx, state), dtype=z.dtype,
+                               device=z.device)
+        z = z * torch.exp(-t * rate)
+        if self.target == "v":
+            return replace(state, v=z)
+        return state.with_extra(**{self.target: z})
+
+    def describe(self, fraction=1.0):
+        return [f"{self.target} <- {self.target} * exp(-{fraction:g} dt * rate)"]

@@ -25,7 +25,9 @@ from .forces import (
     HarmonicAngleForce,
     HarmonicBondForce,
     NearNonbondedForce,
+    NonbondedExceptionsForce,
     NonbondedForce,
+    PeriodicTorsionForce,
     PMEReciprocalForce,
     TemplateBondedForce,
 )
@@ -36,8 +38,9 @@ from .utils import resolve_device
 
 _CLASSES = {c.__name__: c for c in (
     System, NonbondedForce, NearNonbondedForce, FarNonbondedForce,
-    PMEReciprocalForce, TemplateBondedForce, HarmonicBondForce,
-    HarmonicAngleForce, NeighborSpec)}
+    PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
+    HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
+    NeighborSpec)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path

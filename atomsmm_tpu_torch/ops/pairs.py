@@ -1,5 +1,6 @@
 """Dense (all-pairs) nonbonded evaluator (counterpart of
-atomsmm_tpu/ops/pairs.py) — the O(N²) oracle.
+atomsmm_tpu/ops/pairs.py) — the O(N²) oracle — and the explicit pair-list
+sum that the exception force uses (any device).
 
 Chunked, masked evaluation of an arbitrary pair energy function with
 exclusions; forces come from autograd. It is the deterministic reference
@@ -53,3 +54,30 @@ def dense_pair_energy(
         e = pair_fn(r, pi, pj)
         total = total + torch.sum(torch.where(mask, e, torch.zeros_like(e)))
     return total
+
+
+def pairlist_energy(
+    pair_fn: Callable,
+    x: torch.Tensor,
+    box: torch.Tensor,
+    pairs: torch.Tensor,
+    pair_params: Dict[str, torch.Tensor],
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sum pair_fn(r, params) over an explicit (P, 2) pair list with
+    per-pair parameters, at the minimum image and with no cutoff.
+
+    Used for exceptions (atomsmm/forces.py::NonbondedExceptionsForce).
+    Padded entries are masked (mask False): pad indices with 0 and
+    parameters with benign values.
+    """
+    pairs = pairs.long()
+    # index_select: its backward pass is one index_add_
+    dx = minimum_image(torch.index_select(x, 0, pairs[:, 0])
+                       - torch.index_select(x, 0, pairs[:, 1]), box)
+    r2 = torch.sum(dx * dx, dim=-1)
+    if mask is None:
+        return torch.sum(pair_fn(torch.sqrt(r2), pair_params))
+    r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+    e = pair_fn(r, pair_params)
+    return torch.sum(torch.where(mask, e, torch.zeros_like(e)))

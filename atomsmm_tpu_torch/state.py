@@ -57,13 +57,16 @@ class State:
 
 
 def make_state(x, v=None, box=None, seed: int = 0, extra=None) -> State:
-    x = torch.as_tensor(x)
+    """A State on the device of `x`. Positions and velocities are made
+    contiguous (a numpy array may arrive in column order, and the CUDA
+    kernels take row-major tensors only)."""
+    x = torch.as_tensor(x).contiguous()
     if not x.is_floating_point():
         x = x.to(torch.get_default_dtype())
     if v is None:
         v = torch.zeros_like(x)
     else:
-        v = torch.as_tensor(v).to(dtype=x.dtype, device=x.device)
+        v = torch.as_tensor(v).to(dtype=x.dtype, device=x.device).contiguous()
     if box is None:
         raise ValueError("box is required: (3,) orthorhombic lengths")
     box = torch.as_tensor(box).to(dtype=x.dtype, device=x.device)

@@ -22,7 +22,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from .forces import FarNonbondedForce, NearNonbondedForce, PMEReciprocalForce
+from .forces import (
+    FarNonbondedForce,
+    NearNonbondedForce,
+    NonbondedExceptionsForce,
+    PMEReciprocalForce,
+)
 from .system import System
 from .utils import find_nonbonded_force, replace
 
@@ -37,7 +42,8 @@ def RESPASystem(
 ) -> System:
     """Split for r-RESPA:
 
-      group 0 — bonded forces
+      group 0 — bonded forces (+ 1-4 exceptions when fast_exceptions;
+                else they join the near force in group 1)
       group 1 — NearNonbondedForce: shifted-force LJ + Coulomb, switched over
                 [rswitch_in, rcut_in], on its own finer cell grid ('near')
                 when the system has a neighbor spec and near_grid is set
@@ -48,15 +54,20 @@ def RESPASystem(
                 loops list to MultipleTimeScaleIntegrator.
 
     The near force's Coulomb damping follows the full force: the Ewald
-    alpha under PME, else undamped. `fast_exceptions` is kept for the JAX
-    package's signature; the ported systems carry no exception force.
+    alpha under PME, else undamped.
     """
     idx = find_nonbonded_force(system)
     nb = system.forces[idx]
     alpha = float(nb.ewald_alpha) if nb.method == "pme" else 0.0
 
-    new_forces = [replace(f, group=0)
-                  for i, f in enumerate(system.forces) if i != idx]
+    new_forces = []
+    for i, f in enumerate(system.forces):
+        if i == idx:
+            continue
+        if isinstance(f, NonbondedExceptionsForce):
+            new_forces.append(replace(f, group=0 if fast_exceptions else 1))
+        else:
+            new_forces.append(replace(f, group=0))
     near = NearNonbondedForce(
         group=1,
         charge=nb.charge,

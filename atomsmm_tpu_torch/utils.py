@@ -65,3 +65,14 @@ def find_nonbonded_force(system, position: int = 0):
     if len(hits) <= position:
         raise InputError("system does not contain the requested NonbondedForce")
     return hits[position]
+
+
+def hijack_force(system, index: int):
+    """Detach and return the force at `index` (atomsmm/utils.py::hijackForce).
+
+    Returns (force, new_system): systems are not edited in place here, so
+    unlike the reference this leaves `system` as it was.
+    """
+    force = system.forces[index]
+    new_forces = tuple(f for i, f in enumerate(system.forces) if i != index)
+    return force, replace(system, forces=new_forces)

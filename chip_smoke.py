@@ -38,19 +38,27 @@ non-zero:
      fused damped far form): K1 at the 30k PME state's far and near grids,
      K2 on the water 700 far grid, K3 on the 30k PME tile lists (and
      against K1 in float64);
+   - the emim/BF4 ionic liquid under PME (8- and 5-site ions, every pair
+     within three bonds excluded): K1 in the three damped forms at path
+     (d)'s far (5^3) and near (6^3) grids from bench_data/eq_emim.npz, and
+     K2 on the 24-ion-pair system's 2^3 far grid (K1 on its 3^3 near grid)
+     from tests/data/emim_bf4_24_minimized.npz;
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
    grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
    (K2 far, K1 near, the reciprocal sum on cuFFT): positions and
-   velocities to 1e-9 relative;
+   velocities to 1e-9 relative; then 3 outer SIN(R) [10, 2, 1] @ 10 fs
+   steps of the 24-pair ionic liquid (350 K, tau 0.02 ps, friction 0, so
+   no draw enters; v, v1, v2 set from numpy on the isokinetic constraint)
+   in the same way;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
-   timed step(200); checks finiteness, K1's launch count (3 per outer
+   timed step(100); checks finiteness, K1's launch count (3 per outer
    step + 2 for the force-cache refresh, per pass of step()), temperature,
    potential energy per atom and conserved-energy drift;
 6. path (a): small-box water (700 molecules, 2.759 nm box, default 0.9 nm
    cutoff) RESPA [4, 2, 1] @ 4 fs NVT in float32 from the lattice, melted by
-   chunked velocity rescaling, then step(1) and a timed step(200); checks
+   chunked velocity rescaling, then step(1) and a timed step(100); checks
    finiteness, the K2 (far: 1 per outer step + 1) and K1 (near: 2 per
    outer step + 1) launch counts, temperature and drift;
 7. path (b): the tile-list entry point at the 30k state: build_tile_pairs
@@ -58,12 +66,25 @@ non-zero:
    float32 and float64 (4 K3 launches), finite and Newton-balanced;
 8. path (c): the 30k headline with PME (water_system(method='pme'):
    alpha 2.92029 /nm, grid 45^3, order 6; the near force damped at the
-   same alpha) in float32: step(1), then a timed step(200); checks as in
+   same alpha) in float32: step(1), then a timed step(100); checks as in
    phase 5 (K1 launches, T, PE per atom, drift) plus the reciprocal
    evaluations (one per outer step + 1 per pass), and the card's float32
    far force (reciprocal included) against its float64 far force at the
    30k state (energy rtol 1e-4, forces 1e-4 x max|F| of the unsplit
    near + far force);
+   path (d): the emim/BF4 ionic liquid at full size (400 ion pairs, 5,200
+   atoms, 4.934 nm box) with a PME far force, RESPASystem(0.7, 0.6) and
+   SIN_R_Integrator(30 fs, [4, 10, 1], 353 K, tau 0.05 ps, gamma 10/ps)
+   from bench_data/eq_emim.npz in float32: step(50) to settle, then 100
+   timed outer steps as 10 calls of step(10) with the kinetic temperature
+   read after each; checks finiteness, the launch counts (11 sweeps per
+   outer step, 10 near and 1 far, + 2 per pass of step(), on the kernel
+   each grid takes), the reciprocal evaluations (one per outer step + 1
+   per pass), the isokinetic constraint residual
+   max |m v^2 + Q1 v1^2 / 2 - kT| / kT < 5e-3 and the mean kinetic
+   temperature, 165-190 K (the isokinetic kT/2 per degree of freedom is
+   176.5 K at the 353 K setpoint); SIN(R) has no conserved energy, so no
+   drift is checked;
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -83,8 +104,8 @@ non-zero:
    the damped K1 (and its plain twin) at path (c)'s near and far shapes,
    the damped K2 on the water 700 far grid, and the reciprocal sum stage
    by stage (spline weights, spread, rfftn, convolution, irfftn, gather,
-   corrections); then path (c)'s outer step split by force group (host
-   clock, synchronised).
+   corrections); K1 at path (d)'s far and near shapes; then path (c)'s and
+   path (d)'s outer steps split by force group (host clock, synchronised).
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
@@ -490,6 +511,67 @@ def phase_kernels(dev, eq):
     return results
 
 
+def ionic_liquid(n_pairs, dtype, device, root=HERE):
+    """(unsplit system, RESPA system, positions, velocities or None, box)
+    of the emim/BF4 liquid under PME with its cell capacities retuned to
+    the state it is loaded with: 400 ion pairs, the equilibrated state of
+    bench_data/eq_emim.npz split at 0.7 nm (path (d)); or 24 pairs, the
+    minimized state of the emim_bf4_24 golden split at 0.5 nm."""
+    import numpy as np
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import ionic_liquid_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    if n_pairs == 400:
+        d = np.load(os.path.join(root, "bench_data", "eq_emim.npz"))
+        x, v, box, kw, split = d["x"], d["v"], d["box"], {}, (0.7, 0.6)
+    else:
+        d = np.load(os.path.join(root, "tests", "data",
+                                 "emim_bf4_24_minimized.npz"))
+        x, v, box, split = d["x"], None, None, (0.5, 0.4)
+        kw = dict(r_cut=0.65, r_switch=0.55)
+    s, _, sbox = ionic_liquid_system(n_pairs=n_pairs, method="pme",
+                                     neighbors=True, dtype=dtype,
+                                     device=device, **kw)
+    box = sbox.cpu().numpy() if box is None else box
+    r = amm.RESPASystem(s, rcut_in=split[0], rswitch_in=split[1])
+    return s, retune_neighbor_specs(r, x, box), x, v, box
+
+
+def pair_forces(respa):
+    """(near, far) nonbonded forces of a RESPA-split system."""
+    near, = (f for f in respa.forces if f.name == "NearNonbondedForce")
+    far, = (f for f in respa.forces if f.name == "FarNonbondedForce")
+    return near, far
+
+
+def phase_kernels_ionic(dev):
+    """K1 and K2 in the damped forms on the ionic liquid's grids."""
+    import torch
+
+    f64 = torch.float64
+    results = []
+    for n_pairs in (400, 24):
+        s, r, x, _, box = ionic_liquid(n_pairs, f64, "cpu")
+        x, box = torch.as_tensor(x, dtype=f64), torch.as_tensor(box, dtype=f64)
+        near, far = pair_forces(r)
+        nspec = r.extra_neighbor_specs["near"]
+        want = ((True, True) if n_pairs == 400 else (False, True))
+        if (r.neighbors.half_stencil, nspec.half_stencil) != want:
+            raise RuntimeError(f"emim {n_pairs}: unexpected stencils")
+        tag = f"emim{n_pairs}"
+        compare(f"{tag} pme full (Ewald direct) grid {r.neighbors.grid[0]}^3 "
+                f"cap {r.neighbors.cell_capacity}", s.forces[0], r.neighbors,
+                x, box, dev, results)
+        compare(f"{tag} pme far (fused damped) grid {r.neighbors.grid[0]}^3 "
+                f"cap {r.neighbors.cell_capacity}", far, r.neighbors, x, box,
+                dev, results, unsplit=s.forces[0])
+        compare(f"{tag} pme near (damped) grid {nspec.grid[0]}^3 cap "
+                f"{nspec.cell_capacity}", near, nspec, x, box, dev, results)
+    return results
+
+
 def tile_lists(dev, eq, dtype, method="cutoff"):
     """{'far'/'near': (force, tile spec, list, cell spec)} at the 30k state
     on the card, with the cell specs of the headline retuned as phase 5;
@@ -635,6 +717,75 @@ def phase_slice(dev, **water_kw):
         raise RuntimeError("the slice on the card departs from the CPU run")
 
 
+def isokinetic_draw(masses, temperature, tau, seed):
+    """(v, v1, v2) drawn with numpy on the isokinetic constraint
+    m v^2 + Q1 v1^2 / 2 = kT, Q1 = Q2 = kT tau^2."""
+    import numpy as np
+
+    from atomsmm_tpu_torch.units import BOLTZMANN
+
+    rs = np.random.RandomState(seed)
+    m = np.asarray(masses, np.float64)[:, None]
+    kT = BOLTZMANN * temperature
+    q = kT * tau ** 2
+    phi = rs.uniform(0.0, 2 * np.pi, size=(m.shape[0], 3))
+    return (np.sqrt(kT / m) * np.sin(phi), np.sqrt(2 * kT / q) * np.cos(phi),
+            np.sqrt(kT / q) * rs.normal(size=phi.shape))
+
+
+def constraint_residual(system, state, temperature, tau):
+    """max |m v^2 + Q1 v1^2 / 2 - kT| / kT over the degrees of freedom."""
+    from atomsmm_tpu_torch.integrate.sinr import V1
+    from atomsmm_tpu_torch.units import BOLTZMANN
+
+    kT = BOLTZMANN * temperature
+    c = system.masses[:, None] * state.v ** 2 \
+        + 0.5 * kT * tau ** 2 * state.extra[V1] ** 2
+    return float((c / kT - 1.0).abs().max())
+
+
+def phase_slice_ionic(dev):
+    """3 outer SIN(R) steps of the 24-pair ionic liquid on the card against
+    the CPU, float64, friction 0 and the velocities set from numpy."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.integrate.sinr import V1, V2
+    from atomsmm_tpu_torch.utils import replace
+
+    f64 = torch.float64
+    temp, tau = 350.0, 0.02
+    runs = []
+    for device in ("cpu", dev):
+        _, r, x, _, box = ionic_liquid(24, f64, device)
+        v, v1, v2 = (torch.as_tensor(a, dtype=f64, device=device)
+                     for a in isokinetic_draw(r.masses.cpu().numpy(), temp,
+                                              tau, seed=8))
+        integ = amm.SIN_R_Integrator(0.010, [10, 2, 1], temperature=temp,
+                                     time_scale=tau, friction=0.0)
+        ctx = amm.Context(r, integ, amm.make_state(
+            torch.as_tensor(x, dtype=f64, device=device),
+            box=torch.as_tensor(box, dtype=f64, device=device)))
+        ctx.state = replace(ctx.state, v=v).with_extra(**{V1: v1, V2: v2})
+        ctx.step(3)
+        runs.append((ctx, r))
+    (cpu, r), (gpu, _) = runs
+    worst = 0.0
+    for a, b in ((cpu.state.x, gpu.state.x), (cpu.state.v, gpu.state.v),
+                 (cpu.state.extra[V1], gpu.state.extra[V1]),
+                 (cpu.state.extra[V2], gpu.state.extra[V2])):
+        worst = max(worst,
+                    float((a - b.cpu()).abs().max()) / float(a.abs().max()))
+    res = constraint_residual(gpu.system, gpu.state, temp, tau)
+    log(f"slice emim24 pme SIN(R)[10, 2, 1]@10fs 3 steps float64, far "
+        f"{r.neighbors.grid} ({'half' if r.neighbors.half_stencil else 'full'}"
+        f"), near {r.extra_neighbor_specs['near'].grid}, card vs CPU: max rel "
+        f"diff {worst:.2e} (x, v, v1, v2); constraint residual {res:.2e}")
+    if not (worst < 1e-9 and res < 1e-9):
+        raise RuntimeError("the SIN(R) slice on the card departs from the "
+                           "CPU run")
+
+
 def far_precision(dev, eq, respa):
     """The card's float32 far force (PME reciprocal sum, corrections and
     the fused damped pair sweep) against its float64 far force at the 30k
@@ -677,7 +828,7 @@ def far_precision(dev, eq, respa):
           f_scale=float((f64_ + f_near).abs().max()))
 
 
-def phase_main(dev, eq, steps=200, method="cutoff"):
+def phase_main(dev, eq, steps=100, method="cutoff"):
     """The 30k headline through Context.step: reaction field (phase 5) or
     PME (path (c)), float32."""
     import torch
@@ -764,7 +915,7 @@ def phase_main(dev, eq, steps=200, method="cutoff"):
             "reciprocal": recip}
 
 
-def phase_small_box(dev, steps=200, melt_steps=200):
+def phase_small_box(dev, steps=100, melt_steps=200):
     """Path (a): 700 q-SPC/Fw waters at the default cutoff through
     Context.step; the far force runs K2, the near force K1."""
     import torch
@@ -840,6 +991,91 @@ def phase_small_box(dev, steps=200, melt_steps=200):
         raise RuntimeError(f"path (a) checks failed: {failed}")
     return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
             "respa": ctx.system, "state": ctx.state}
+
+
+def phase_ionic(dev, settle=50, calls=10, steps_per_call=10):
+    """Path (d): BASELINE config 4, the emim/BF4 ionic liquid with a PME
+    far force under SIN(R) at a 30 fs outer step, through Context.step."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import pme
+
+    f32 = torch.float32
+    dt, loops, temp, tau = 0.030, [4, 10, 1], 353.0, 0.05
+    system, respa, ex, ev, ebox = ionic_liquid(400, f32, dev)
+    n = system.num_particles
+    far, near = respa.neighbors, respa.extra_neighbor_specs["near"]
+    integ = amm.SIN_R_Integrator(dt, loops, temperature=temp,
+                                 time_scale=tau, friction=10.0)
+    # initialize() redraws (v, v1, v2) on the constraint from the state's
+    # generator; the loaded velocities only pass through make_state
+    ctx = amm.Context(respa, integ, amm.make_state(
+        torch.as_tensor(ex, dtype=f32, device=dev),
+        v=torch.as_tensor(ev, dtype=f32, device=dev),
+        box=torch.as_tensor(ebox, dtype=f32, device=dev), seed=11))
+    res0 = constraint_residual(ctx.system, ctx.state, temp, tau)
+    ctx.step(settle)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    pme.reset_evaluations()
+    passes, temps = 0, []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ctx.step(steps_per_call)
+        passes += ctx.last_step_passes
+        temps.append(float(ctx.temperature()))  # synchronises
+    wall = time.perf_counter() - t0
+    steps = calls * steps_per_call
+    launches = dict(pk.LAUNCHES)
+    recip = pme.EVALUATIONS["reciprocal"]
+    # per pass of step(k): loops[1] near sweeps and one far sweep per outer
+    # step, and one of each for the force-cache refresh
+    kernel = {True: "half_pair", False: "cell_pair"}
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    expected[kernel[near.half_stencil]] += passes * (
+        loops[1] * steps_per_call + 1)
+    expected[kernel[far.half_stencil]] += passes * (steps_per_call + 1)
+    expected_recip = passes * (steps_per_call + 1)
+    x, v = ctx.state.x, ctx.state.v
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
+    res = constraint_residual(ctx.system, ctx.state, temp, tau)
+    t_mean = sum(temps) / len(temps)
+    pe = float(ctx.get_state(lite=True).potential_energy) / n
+    ms = wall / steps * 1e3
+    ns_day = dt * 1e-3 * steps / wall * 86400.0
+    f = system.forces[0]
+    log(f"path (d) emim/BF4 400 pairs ({n} atoms, box {float(ebox[0]):.3f} "
+        f"nm) pme SIN(R){loops}@{dt*1e3:.0f}fs {temp:g} K tau {tau} ps gamma "
+        f"10/ps float32: PME alpha {f.ewald_alpha:.5f}/nm grid {f.grid_shape} "
+        f"order {f.spline_order}; far grid {far.grid} cap "
+        f"{ctx.system.neighbors.cell_capacity} ({kernel[far.half_stencil]}), "
+        f"near grid {near.grid} cap "
+        f"{ctx.system.extra_neighbor_specs['near'].cell_capacity} "
+        f"({kernel[near.half_stencil]}); {steps} outer steps as {calls} calls "
+        f"of step({steps_per_call}) after step({settle}): {ms:.3f} ms per "
+        f"outer step, {ns_day:.3f} ns/day on {smi_line()}; launches "
+        f"{launches} (expected {expected}, passes {passes}); reciprocal "
+        f"evaluations {recip} (expected {expected_recip}); constraint "
+        f"residual {res:.3e} (at initialisation {res0:.3e}); kinetic T mean "
+        f"{t_mean:.2f} K over {len(temps)} readings (min {min(temps):.2f}, "
+        f"max {max(temps):.2f}; isokinetic kT/2 per degree of freedom: "
+        f"{temp / 2:.1f} K); PE/atom {pe:.4f} kJ/mol; finite {finite}")
+    checks = {
+        "finite": finite,
+        "launches": launches == expected,
+        "reciprocal_evaluations": recip == expected_recip,
+        "constraint": res < 5e-3,
+        "temperature": 165.0 <= t_mean <= 190.0,
+        "shape": tuple(x.shape) == (n, 3) and tuple(v.shape) == (n, 3),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"path (d) checks failed: {failed}")
+    return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
+            "respa": ctx.system, "state": (ex, ebox), "loops": loops,
+            "steps": steps}
 
 
 def step_device_ops(small, steps=10):
@@ -1120,24 +1356,48 @@ def phase_pme_timings(dev, pme_run, small, eq):
     return out
 
 
-def phase_path_c_split(dev, pme_run):
-    """Where path (c)'s outer step goes: each force group's evaluation and
-    the two bucket rebuilds timed alone on the host clock with a
-    synchronise after every call (so launch overhead counts), times its
-    count per outer step of RESPA [4, 2, 1]; the rest of the measured
-    ms/step is the integrator (kicks, drifts, NHC) and Python."""
+def phase_ionic_timings(dev, ionic):
+    """K1 at path (d)'s far and near shapes (the fused damped far form and
+    the damped near form), as time_cells times every shape."""
+    import torch
+
+    respa = ionic["respa"]
+    ex, ebox = ionic["state"]
+    x = torch.as_tensor(ex, dtype=torch.float32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=torch.float32, device=dev)
+    near, far = pair_forces(respa)
+    return {
+        ("half_pair", "emim far"): time_cells(
+            "emim400 pme far", far, respa.neighbors, x, box),
+        ("half_pair", "emim near"): time_cells(
+            "emim400 pme near", near, respa.extra_neighbor_specs["near"], x,
+            box),
+    }
+
+
+def phase_step_split(dev, run, name, loops):
+    """Where the outer step of a three-level PME RESPA path goes: each
+    force group's evaluation and the two bucket rebuilds timed alone on the
+    host clock with a synchronise after every call (so launch overhead
+    counts), times its count per outer step of RESPA `loops` (every level
+    evaluates its group once per substep: the trailing kick writes the
+    cache that the next leading kick reads); the rest of the measured
+    ms/step is the integrator (kicks, drifts, baths) and Python."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pme
     from atomsmm_tpu_torch.potential import force_fn
 
-    respa = pme_run["respa"]
-    ex, ebox = pme_run["state"]
+    respa = run["respa"]
+    ex, ebox = run["state"]
     x = torch.as_tensor(ex, dtype=torch.float32, device=dev)
     box = torch.as_tensor(ebox, dtype=torch.float32, device=dev)
     aux = nb.make_aux(respa, nb.all_neighbor_extras(respa, x, box))
-    full = respa.forces[2].full
+    full = pair_forces(respa)[1].full
+    # evaluations per outer step: one per substep of each level
+    calls = {0: loops[0] * loops[1] * loops[2], 1: loops[1] * loops[2],
+             2: loops[2]}
 
     def wall(fn, reps=20):
         fn()
@@ -1148,30 +1408,31 @@ def phase_path_c_split(dev, pme_run):
             torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3
 
+    group0 = ", ".join(f.name for f in respa.forces if f.group == 0)
     parts = {  # name: (ms per call, calls per outer step)
-        "bonded (group 0, autograd)": (wall(lambda: force_fn(
-            respa, {0})(x, box, {}, aux)), 8),
+        f"group 0, autograd ({group0})": (wall(lambda: force_fn(
+            respa, {0})(x, box, {}, aux)), calls[0]),
         "near (group 1, K1)": (wall(lambda: force_fn(
-            respa, {1})(x, box, {}, aux)), 2),
+            respa, {1})(x, box, {}, aux)), calls[1]),
         "far (group 2: K1 + PME)": (wall(lambda: force_fn(
-            respa, {2})(x, box, {}, aux)), 1),
+            respa, {2})(x, box, {}, aux)), calls[2]),
         "  of which reciprocal sum": (wall(
             lambda: pme.pme_reciprocal_energy_forces(
                 x, box, full.charge, float(full.ewald_alpha),
-                full.grid_shape, full.spline_order)), 1),
+                full.grid_shape, full.spline_order)), calls[2]),
         "  of which corrections": (wall(lambda: pme.pme_corrections_forces(
             x, box, full.charge, full.exclusions,
-            float(full.ewald_alpha))), 1),
+            float(full.ewald_alpha))), calls[2]),
         "bucket rebuilds (2 grids)": (wall(lambda: nb.all_neighbor_extras(
             respa, x, box)), 1),
     }
-    step_ms = pme_run["ms_per_step"]
-    counted = sum(ms * k for name, (ms, k) in parts.items()
-                  if not name.startswith("  "))
-    log("path (c) split per outer step ({:.3f} ms/step): {}; rest "
-        "(integrator, NHC, Python) {:.3f} ms".format(
-            step_ms, ", ".join(f"{name.strip()} {ms:.3f} ms x {k}"
-                               for name, (ms, k) in parts.items()),
+    step_ms = run["ms_per_step"]
+    counted = sum(ms * k for part, (ms, k) in parts.items()
+                  if not part.startswith("  "))
+    log("{} split per outer step ({:.3f} ms/step): {}; rest "
+        "(integrator, baths, Python) {:.3f} ms".format(
+            name, step_ms, ", ".join(f"{part.strip()} {ms:.3f} ms x {k}"
+                                     for part, (ms, k) in parts.items()),
             step_ms - counted))
     return parts
 
@@ -1199,17 +1460,22 @@ def main():
         f"({', '.join(p.name for p in libs.values())})")
     d = np.load(os.path.join(HERE, "bench_data", "eq_water30k.npz"))
     eq = (d["x"], d["v"], d["box"])
-    results = phase_kernels(dev, eq) + phase_tile_kernel(dev, eq)
+    results = (phase_kernels(dev, eq) + phase_kernels_ionic(dev)
+               + phase_tile_kernel(dev, eq))
     phase_slice(dev, r_cut=0.7, r_switch=0.6, split=(0.45, 0.35))
     phase_slice(dev, split=(0.5, 0.4))
     phase_slice(dev, method="pme", split=(0.5, 0.4))
+    phase_slice_ionic(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
+    ionic = phase_ionic(dev)
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
-    phase_path_c_split(dev, pme_run)
+    timings.update(phase_ionic_timings(dev, ionic))
+    phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
+    phase_step_split(dev, ionic, "path (d)", ionic["loops"])
 
     def f32_err(kernel, prefix):
         return max(r[4] for r in results if r[0] == kernel
@@ -1219,11 +1485,23 @@ def main():
         """The forms a kernel was held in against its plain twin."""
         return sorted({r[6] for r in results if r[0] == kernel})
 
+    # launches of each kernel on each path, each counted from zero over
+    # that path's timed run
+    by_path = {
+        "main": {"half_pair": main_run["launches"]},
+        "path_c": {"half_pair": pme_run["launches"]},
+        "path_a": small["launches"],
+        "path_b": {"tile_pair": tile_launches},
+        "path_d": ionic["launches"],
+    }
+
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
         # no single PyTorch call computes a cutoff pair sweep over cell
         # buckets or a tile list: library_ms is null
         t, tp_ = timings[key], timings[pme_key]
         return {"name": kernel, "route": "cuda",
+                "launches_by_path": {path: counts.get(kernel, 0)
+                                     for path, counts in by_path.items()},
                 "source": f"atomsmm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1232,6 +1510,9 @@ def main():
                 "shape": shape, "pme_ms": tp_["ms"],
                 "pme_plain_ms": tp_["plain_ms"], "forms": forms(kernel)}
 
+    emim = {f"emim_{g}_{k}": (t["bound"]["ms"] if k == "bound_ms" else t[k])
+            for g in ("far", "near") for k in ("ms", "plain_ms", "bound_ms")
+            for t in (timings[("half_pair", f"emim {g}")],)}
     kernels = {"kernels": [
         entry("half_pair", "half_pair.cu", "atomsmm_tpu/ops/pallas_pair.py:240",
               pme_run["launches"], f32_err("half_pair", "water30k"),
@@ -1247,6 +1528,9 @@ def main():
               ("tile_pair", "far"), "30k water 0.9 nm tile list, f32",
               ("tile_pair", "pme far")),
     ]}
+    # K1 at path (d)'s two shapes (5,200 atoms, fused damped far form on the
+    # 5^3 grid, damped near form on the 6^3 grid), float32
+    kernels["kernels"][0].update(emim)
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

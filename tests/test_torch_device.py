@@ -11,7 +11,11 @@ from atomsmm_tpu_torch.interop import (
     state_from_numpy,
     system_from_numpy,
 )
-from atomsmm_tpu_torch.models import argon_system, water_system
+from atomsmm_tpu_torch.models import (
+    argon_system,
+    ionic_liquid_system,
+    water_system,
+)
 from atomsmm_tpu_torch.ops.neighbors import make_neighbor_spec
 from atomsmm_tpu_torch.ops.tilepair import make_tilepair_spec
 from atomsmm_tpu_torch.system import make_exclusions_array
@@ -31,6 +35,8 @@ ENTRY_POINTS = {
                                          r_switch=0.25, neighbors=True)[1],
     "argon_system": lambda: argon_system(n=64, r_cut=0.3, r_switch=0.25,
                                          neighbors=True)[1],
+    "ionic_liquid_system": lambda: ionic_liquid_system(
+        n_pairs=24, r_cut=0.65, r_switch=0.55, neighbors=True)[1],
     "system_from_numpy": lambda: system_from_numpy(_desc()).masses,
     "state_from_numpy": lambda: state_from_numpy(
         {"x": np.zeros((4, 3)), "v": np.zeros((4, 3)), "box": BOX}).x,

@@ -7,8 +7,9 @@ import pytest
 
 MODULES = {
     "forces": 1,
-    "integrate.integrators": 1,
-    "integrate.propagators": 1,
+    "integrate.integrators": 3,
+    "integrate.propagators": 3,
+    "integrate.sinr": 2,
     "ops.pairfuncs": 1,
     "ops.pbc": 3,
     "ops.pme": 3,

@@ -7,7 +7,8 @@ bucket layout it relies on) and K3
 (csrc/tile_pair.cu, at 32, 64 and 128 atoms a block, and on a shuffled list
 with dead entries and half-empty entries), each in the reaction-field forms
 and in the damped PME forms (Ewald direct space, damped near, fused damped
-far). Every test
+far), and on the emim/BF4 ionic liquid (exclusions up to three bonds, 7
+partners an atom: K1 at 400 ion pairs on both grids, K2 at 24). Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -19,13 +20,18 @@ force atol 1e-4 x max|F| (f32 cancellation in full - near at short range,
 rsqrt rounding, summation order).
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import atomsmm_tpu_torch as amm
-from atomsmm_tpu_torch.models import argon_system, water_system
+from atomsmm_tpu_torch.models import (
+    argon_system,
+    ionic_liquid_system,
+    water_system,
+)
 from atomsmm_tpu_torch.ops import neighbors as nb
 from atomsmm_tpu_torch.ops import pair_kernel as pk
 from atomsmm_tpu_torch.ops import tilepair as tp
@@ -274,6 +280,53 @@ def test_damped_forms_match_plain_on_card(cuda, case, kernel, dtype):
                "pme_small_400_far": "pme_small_400"}.get(case)
     _check_sweep(force, spec, x, box, cuda, dtype, kernel,
                  unsplit and _case(unsplit)[0])
+
+
+def _ionic_case(name):
+    """(force, spec, x, box, unsplit full force) of the emim/BF4 liquid
+    under PME, float64 on the CPU: 400 ion pairs at the equilibrated state
+    of bench_data/eq_emim.npz split at 0.7 nm (both grids half stencil), or
+    24 pairs at the minimized state of the emim_bf4_24 golden (far grid 2^3:
+    full stencil)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    size, which = name.split("_")
+    if size == "400":
+        s, _, box = ionic_liquid_system(n_pairs=400, neighbors=True,
+                                        dtype=F64, device="cpu")
+        x = np.load(os.path.join(root, "bench_data", "eq_emim.npz"))["x"]
+        r = amm.RESPASystem(s, rcut_in=0.7, rswitch_in=0.6)
+    else:
+        s, _, box = ionic_liquid_system(n_pairs=24, r_cut=0.65, r_switch=0.55,
+                                        neighbors=True, dtype=F64,
+                                        device="cpu")
+        x = np.load(os.path.join(root, "tests", "data",
+                                 "emim_bf4_24_minimized.npz"))["x"]
+        r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    # the stored arrays are in column order; the kernels take row-major
+    x = torch.as_tensor(np.ascontiguousarray(x), dtype=F64)
+    r = nb.retune_neighbor_specs(r, x, box)
+    full = s.forces[0]
+    near, far = (f for f in r.forces if f.name.endswith("rNonbondedForce"))
+    if which == "near":
+        return near, r.extra_neighbor_specs["near"], x, box, None
+    if which == "far":
+        return far, r.neighbors, x, box, full
+    return full, r.neighbors, x, box, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("case,kernel", [
+    ("400_near", "half_pair"), ("400_far", "half_pair"),
+    ("400_full", "half_pair"), ("24_far", "cell_pair"),
+    ("24_full", "cell_pair"), ("24_near", "half_pair")])
+def test_ionic_liquid_sweeps_match_plain_on_card(cuda, case, kernel, dtype):
+    """The damped forms on a charged multi-species liquid whose exclusions
+    reach three bonds (bitmask offsets up to +-7)."""
+    force, spec, x, box, unsplit = _ionic_case(case)
+    assert spec.excbits is not None and force.exclusions.shape[1] == 7
+    assert spec.half_stencil == (kernel == "half_pair")
+    _check_sweep(force, spec, x, box, cuda, dtype, kernel, unsplit)
 
 
 def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,
