@@ -6,15 +6,26 @@ tests) and in float32 on an NVIDIA Hopper GPU, where the nonbonded sweeps
 are hand-written CUDA kernels: csrc/half_pair.cu (Newton half stencil),
 csrc/cell_pair.cu (full stencil, small boxes) and csrc/tile_pair.cu (the
 standalone tile-list entry point, ops/tilepair.py). The PME reciprocal sum
-(ops/pme.py) is PyTorch: a scatter, torch.fft and a gather. This package
-never imports JAX.
+(ops/pme.py) is PyTorch: a scatter, torch.fft and a gather. The
+alchemical machinery (alchemy.py: multi-state energies, MBAR, TI, the
+solvation free energy) runs its softcore forms on the same kernels. This
+package never imports JAX.
 """
 
 __version__ = "0.1.0"
 
 from . import units
+from .alchemy import (
+    mbar_free_energies,
+    multistate_energies,
+    reduced_energy_matrix,
+    ti_gradient,
+)
 from .context import Context, StateSnapshot
 from .forces import (
+    CustomBondForce,
+    CustomNonbondedForce,
+    DampedSmoothedForce,
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
@@ -23,6 +34,7 @@ from .forces import (
     NonbondedForce,
     PeriodicTorsionForce,
     PMEReciprocalForce,
+    SoftcoreLennardJonesForce,
     TemplateBondedForce,
 )
 from .integrate.integrators import (
@@ -71,7 +83,7 @@ from .state import (
     remove_com_motion,
 )
 from .system import System, make_exclusions_array
-from .systems import RESPASystem
+from .systems import AlchemicalRespaSystem, RESPASystem, SolvationSystem
 from .utils import (
     InputError,
     count_degrees_of_freedom,

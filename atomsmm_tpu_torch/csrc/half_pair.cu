@@ -37,7 +37,8 @@
 //     alone give too few warps to hide the walk's latency. Their home sums
 //     are combined in shared memory at the end;
 //   * the minimum image rounds by two additions on the float pipes instead
-//     of rint (the same result, half to even);
+//     of rint (the same result, half to even; pair_forms.cuh::min_image,
+//     shared with K2 and K3);
 //   * output: one zeroed (n + 1, 4) [fx fy fz e] tensor per atom. A
 //     direction's reaction sums meet in shared memory (compare-and-swap
 //     loops: this card has no native shared-memory float add), and at its
@@ -87,20 +88,6 @@ __device__ __forceinline__ void add_row(double* row, double a, double b,
   atomicAdd(row + 1, b);
   atomicAdd(row + 2, c);
   if (d != 0.0) atomicAdd(row + 3, d);
-}
-
-// Round to the nearest integer, half to even, as rint does, by two
-// additions (exact for |v| < 2^22 in float32, 2^51 in float64).
-__device__ __forceinline__ float round_even(float v) {
-  return __fsub_rn(__fadd_rn(v, 12582912.0f), 12582912.0f);  // 1.5 * 2^23
-}
-__device__ __forceinline__ double round_even(double v) {
-  return __dsub_rn(__dadd_rn(v, 6755399441055744.0), 6755399441055744.0);
-}
-
-template <typename T>
-__device__ __forceinline__ T wrap(T d, T b, T ib) {
-  return d - b * round_even(d * ib);
 }
 
 // One block per home cell, threads = round_up(parts * cap, 32): thread
@@ -228,9 +215,9 @@ __global__ void __launch_bounds__(MAXT)
 #pragma unroll 4
           for (int bb = 0; bb < lim; ++bb) {
             const Cand<T> cj = cb[part + parts * (sb + bb)];
-            const T dx = wrap(xi - cj.x, bx, ibx);
-            const T dy = wrap(yi - cj.y, by, iby);
-            const T dz = wrap(zi - cj.z, bz, ibz);
+            const T dx = min_image(xi - cj.x, bx, ibx);
+            const T dy = min_image(yi - cj.y, by, iby);
+            const T dz = min_image(zi - cj.z, bz, ibz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const bool excl =
                 COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
@@ -259,9 +246,9 @@ __global__ void __launch_bounds__(MAXT)
             const int j = part + parts * (s0 + 32 * wd + ((bit + rot) & 31));
             const Cand<T> cj = cb[j];
             const Par<T> pj = pb[j];
-            const T dx = wrap(xi - cj.x, bx, ibx);
-            const T dy = wrap(yi - cj.y, by, iby);
-            const T dz = wrap(zi - cj.z, bz, ibz);
+            const T dx = min_image(xi - cj.x, bx, ibx);
+            const T dy = min_image(yi - cj.y, by, iby);
+            const T dz = min_image(zi - cj.z, bz, ibz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const T qprod = qi * pj.q;
             const T sg = T(0.5) * (si + pj.s);

@@ -5,9 +5,14 @@
 // A hand kernel cannot trace a Python pair function the way Pallas did, so
 // each kernel takes one of the built-in forms, selected by flags, with
 // host-computed f64 scalars (ops/pairfuncs.py::PairForm): the full form
-// (switched LJ + reaction-field or Ewald direct-space Coulomb), the RESPA
-// near form (shifted-force LJ + Coulomb, damped by erfc(alpha r) under PME)
-// and the fused far form (full minus near). The damped forms use CUDA's
+// (switched LJ + reaction-field or Ewald direct-space Coulomb, or the damped
+// Coulomb smoothed by the switch), the RESPA near form (shifted-force LJ +
+// Coulomb, damped by erfc(alpha r) under PME), the fused far form (full
+// minus near), and Beutler softcore LJ with its lambda derivative (the
+// alchemical decoupling of a solute). A softcore form reads the solute
+// indicator through the charge product: its force puts 2 solute - 1 (+-1)
+// in the charge column, so qq = -1 marks a solute-solvent pair and
+// cross = (1 - qq) / 2. The damped forms use CUDA's
 // own erfcf/erfc and expf/exp, once per slot, shared by both halves of the
 // far form; whether a form is damped is a template parameter (DAMPED, from
 // alpha != 0 at launch), so the undamped forms carry no erfc code. The
@@ -23,6 +28,7 @@ namespace pairforms {
 constexpr double ONE_4PI_EPS0 = 138.935456;
 constexpr double TWO_OVER_SQRT_PI = 1.1283791670955126;
 constexpr int EXC_OFF = 16;  // exclusion bit of relative offset 0 (self)
+constexpr double ALPHA_SC = 0.5;  // softcore alpha (pairfuncs.py::ALPHA_SC)
 
 template <typename T>
 struct Params {
@@ -39,16 +45,20 @@ struct Params {
   T alpha;     // damping of c(r) = erfc(alpha r)/r (0: c = 1/r)
   T n_ec;      // near form: c(n_rc)
   T n_dec;     // near form: c'(n_rc)
+  T lamb;      // softcore: lambda
   int has_full;
   int use_switch;
   int has_near;
-  int ewald;   // full form's Coulomb: k qq c(r) (PME direct), else RF
+  int ewald;    // full form's Coulomb: k qq c(r) (PME direct), else RF
+  int softcore; // Beutler softcore LJ (undamped instantiation only)
+  int dlambda;  // softcore: d u / d lambda in place of u, no force
+  int smoothed; // full form: the switch multiplies the Coulomb too
 };
 
 // The kernels' C entry points all take the same host arrays:
 // scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
-// near_sign, alpha, n_ec, n_dec], flags = [has_full, use_switch, has_near,
-// ewald].
+// near_sign, alpha, n_ec, n_dec, lamb], flags = [has_full,
+// use_switch, has_near, ewald, softcore, dlambda, smoothed].
 template <typename T>
 inline Params<T> make_params(const double* scal, const int* flags) {
   Params<T> p;
@@ -65,10 +75,14 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   p.alpha = (T)scal[10];
   p.n_ec = (T)scal[11];
   p.n_dec = (T)scal[12];
+  p.lamb = (T)scal[13];
   p.has_full = flags[0];
   p.use_switch = flags[1];
   p.has_near = flags[2];
   p.ewald = flags[3];
+  p.softcore = flags[4];
+  p.dlambda = flags[5];
+  p.smoothed = flags[6];
   return p;
 }
 
@@ -125,6 +139,34 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
   T rinv2 = rinv * rinv;
   u = T(0);
   dudr2 = T(0);
+  if (!DAMPED && p.softcore) {
+    // Beutler softcore LJ: 4 eps lambda inv (inv - 1) S(r) cross with
+    // inv = 1 / (ALPHA_SC (1 - lambda) + (r / sig)^6)
+    const T cross = T(0.5) * (T(1) - qq);
+    T sw = T(1), dsw = T(0);
+    if (p.use_switch) {
+      T ds_dx;
+      switch_quintic((r - p.sw_rs) * p.sw_inv_w, sw, ds_dx);
+      dsw = ds_dx * p.sw_inv_w * T(0.5) * rinv;
+    }
+    const T isig2 = T(1) / (sig * sig);
+    const T t = r2 * isig2;
+    const T inv = T(1) / (T(ALPHA_SC) * (T(1) - p.lamb) + t * t * t);
+    const T c4 = T(4) * eps * cross;
+    if (p.dlambda) {
+      u = c4 *
+          (inv * (inv - T(1)) +
+           p.lamb * T(ALPHA_SC) * inv * inv * (T(2) * inv - T(1))) *
+          sw;
+      return;
+    }
+    const T usc = c4 * p.lamb * inv * (inv - T(1));
+    const T dusc =
+        c4 * p.lamb * inv * inv * (T(1) - T(2) * inv) * T(3) * t * t * isig2;
+    u = usc * sw;
+    dudr2 = dusc * sw + usc * dsw;
+    return;
+  }
   // Coulomb kernel c(r) = erfc(alpha r)/r and dc/dr, shared by both halves
   T ec = rinv, dec = -rinv2;
   if (DAMPED) {
@@ -146,9 +188,15 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
       switch_quintic((r - p.sw_rs) * p.sw_inv_w, sw, ds_dx);
       dsw = ds_dx * p.sw_inv_w * T(0.5) * rinv;
     }
-    // the two branches keep their own sums: merged, nvcc schedules the
+    // the branches keep their own sums: merged, nvcc schedules the
     // reaction-field arithmetic differently and its float32 rounding moves
-    if (p.ewald) {
+    if (p.smoothed) {
+      // the (damped) Coulomb inside the switch, no shift
+      T uc = cq * ec;
+      T duc = cq * dec * T(0.5) * rinv;
+      u += (ulj + uc) * sw;
+      dudr2 += (dulj + duc) * sw + (ulj + uc) * dsw;
+    } else if (p.ewald) {
       T uc = cq * ec;
       T duc = cq * dec * T(0.5) * rinv;
       u += ulj * sw + uc;

@@ -9,18 +9,28 @@ split exactly as in the JAX package. Nonbonded forces have two paths:
   * cell list — the half- or full-stencil sweep (ops/neighbors.py), with
     explicit forces from `energy_and_forces`; on the card it runs a CUDA
     kernel, which takes a built-in pair form (`_pair_form`) instead of a
-    traced Python pair function.
+    traced Python pair function. A force with no built-in form (the user
+    pair function of CustomNonbondedForce) runs through the callable cell
+    sweep instead: the same slots as torch operations, forces by autograd.
 
 PME (method 'pme') splits each Coulomb pair into the damped direct-space
 term, which the pair kernels evaluate (ops/pairfuncs.py, LJ_SW_EWALD), and
 the reciprocal sum with its self and excluded-pair corrections
 (ops/pme.py), whose forces are explicit on both paths.
 
+Alchemical parameters (lambda_vdw, lambda_coul and the like) arrive in
+`globals`. Each force gives its own energy's lambda derivative,
+`denergy_dlambda` (alchemy.ti_gradient): by autograd where the energy is
+torch operations, by the softcore form's dlambda twin on the kernels, and
+by an exact quadratic rule for the charge-scaled forces.
+
 Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
-dense path), NearNonbondedForce (damped or not), the fused
-FarNonbondedForce, PMEReciprocalForce, NonbondedExceptionsForce,
-TemplateBondedForce, HarmonicBondForce, HarmonicAngleForce and
-PeriodicTorsionForce.
+dense path, with the charge-scale mask of SolvationSystem),
+NearNonbondedForce (damped or not), FarNonbondedForce (fused, or in two
+sweeps under a charge-scale mask), PMEReciprocalForce,
+NonbondedExceptionsForce, DampedSmoothedForce, SoftcoreLennardJonesForce,
+CustomNonbondedForce, CustomBondForce, TemplateBondedForce,
+HarmonicBondForce, HarmonicAngleForce and PeriodicTorsionForce.
 
 >>> import torch
 >>> f64 = torch.float64
@@ -38,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +59,11 @@ from .ops.bonded import (
     harmonic_bond_energy,
     periodic_torsion_energy,
 )
-from .ops.neighbors import cell_pair_energy, cell_pair_energy_forces
+from .ops.neighbors import (
+    cell_pair_energy,
+    cell_pair_energy_fn,
+    cell_pair_energy_forces,
+)
 from .ops.pairs import dense_pair_energy, pairlist_energy
 from .ops.pbc import box_volume
 from .ops.switching import switch_quintic
@@ -88,34 +102,79 @@ class Force:
     def energy(self, x, box, globals, aux=None):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        """d energy / d globals[name] at this configuration (a missing
+        parameter reads as 1.0). The default differentiates energy() by
+        torch autograd with lambda as a 0-d tensor, which is exact for a
+        force made of torch operations; a force that hands lambda to a
+        kernel as a host scalar overrides it."""
+        g = dict(globals or {})
+        lam = torch.as_tensor(g.get(name, 1.0), dtype=x.dtype,
+                              device=x.device).detach().clone()
+        g[name] = lam.requires_grad_(True)
+        with torch.enable_grad():
+            e = self.energy(x.detach(), box, g, aux)
+            if not e.requires_grad:
+                return torch.zeros((), dtype=x.dtype, device=x.device)
+            (d,) = torch.autograd.grad(e, lam, allow_unused=True)
+        return torch.zeros((), dtype=x.dtype, device=x.device) \
+            if d is None else d
+
+
+def _charge_scaled_dlambda(force, scaled, x, box, globals, name, aux):
+    """dU/dlambda of a charge-scaled force (`scaled` holds its mask and the
+    mask's parameter name): zero unless `name` scales the charges; else
+    from U(0), U(1/2) and U(1), exactly, since the charges enter only as
+    products of q_i (1 - m_i (1 - lambda)) and U = a + b lambda + c
+    lambda²."""
+    if scaled.charge_scale_mask is None or name != scaled.charge_scale_name:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    g = dict(globals or {})
+    lam = g.get(name, 1.0)
+    u0, uh, u1 = (force.energy(x, box, {**g, name: v}, aux)
+                  for v in (0.0, 0.5, 1.0))
+    b = 4.0 * uh - 3.0 * u0 - u1
+    c = 2.0 * (u1 + u0 - 2.0 * uh)
+    return b + 2.0 * c * torch.as_tensor(lam, dtype=x.dtype, device=x.device)
+
 
 class _PairForceMixin:
     """Shared dense/cell dispatch for pair forces. Subclasses provide
-    _pair_fn(globals) -> (r, pi, pj) -> energy (dense path),
-    _pair_form(globals) -> PairForm (cell path) and _per_particle()."""
+    _pair_fn(globals) -> (r, pi, pj) -> energy (dense path, and the
+    callable cell sweep), _per_particle() and, for a built-in form of the
+    kernels, _pair_form(globals) -> PairForm (cell path). A force without
+    _pair_form evaluates its pair function over the cell list as torch
+    operations (ops/neighbors.py::cell_pair_energy_fn), forces by
+    autograd."""
 
     neighbor_key = "default"
 
+    def _cell(self, aux, r_cut):
+        """The neighbor entry the cell path takes, or None (dense)."""
+        nbr = _resolve_neighbors(aux, self.neighbor_key)
+        return nbr if nbr is not None and math.isfinite(r_cut) else None
+
     def _nb_energy(self, x, box, globals, aux, r_cut):
         pp = self._per_particle(globals)
-        nbr = _resolve_neighbors(aux, self.neighbor_key)
-        if nbr is not None and math.isfinite(r_cut):
+        nbr = self._cell(aux, r_cut)
+        if nbr is None:
+            return dense_pair_energy(self._pair_fn(globals), x, box, pp,
+                                     self.exclusions, r_cut, chunk=self.chunk)
+        if hasattr(self, "_pair_form"):
             return cell_pair_energy(self._pair_form(globals), x, box, pp,
                                     nbr["spec"], nbr["bucket"], r_cut)
-        return dense_pair_energy(self._pair_fn(globals), x, box, pp,
-                                 self.exclusions, r_cut, chunk=self.chunk)
+        return cell_pair_energy_fn(self._pair_fn(globals), x, box, pp,
+                                   nbr["spec"], nbr["bucket"], r_cut)
 
     def _nb_energy_forces(self, x, box, globals, aux, r_cut):
-        pp = self._per_particle(globals)
-        nbr = _resolve_neighbors(aux, self.neighbor_key)
-        if nbr is not None and math.isfinite(r_cut):
-            return cell_pair_energy_forces(self._pair_form(globals), x, box,
-                                           pp, nbr["spec"], nbr["bucket"],
-                                           r_cut)
+        nbr = self._cell(aux, r_cut)
+        if nbr is not None and hasattr(self, "_pair_form"):
+            return cell_pair_energy_forces(
+                self._pair_form(globals), x, box, self._per_particle(globals),
+                nbr["spec"], nbr["bucket"], r_cut)
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            e = dense_pair_energy(self._pair_fn(globals), xx, box, pp,
-                                  self.exclusions, r_cut, chunk=self.chunk)
+            e = self._nb_energy(xx, box, globals, aux, r_cut)
             (g,) = torch.autograd.grad(e, xx)
         return e.detach(), -g
 
@@ -134,7 +193,10 @@ class NonbondedForce(_PairForceMixin, Force):
                    self/exclusion corrections (ops/pme.py)
 
     dispersion_coeff adds the long-range LJ tail coeff / V (no force at
-    fixed volume; compute_dispersion_coefficient)."""
+    fixed volume; compute_dispersion_coefficient). charge_scale_mask (N,)
+    {0, 1} scales the masked (solute) charges by globals[charge_scale_name]
+    (SolvationSystem); every place the charges reach takes the scaled ones:
+    the pair sweep, the PME corrections and the reciprocal sum."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -143,6 +205,8 @@ class NonbondedForce(_PairForceMixin, Force):
     r_cut: float = 1.0
     r_switch: float = 0.9
     eps_rf: float = 1e15
+    charge_scale_mask: torch.Tensor = None  # (N,) {0, 1}: scaled charges
+    charge_scale_name: str = "lambda_coul"
     dispersion_coeff: float = None
     ewald_alpha: float = 0.0
     method: str = "cutoff"
@@ -156,9 +220,15 @@ class NonbondedForce(_PairForceMixin, Force):
             raise ValueError(f"NonbondedForce(method={self.method!r}): "
                              f"expected one of {_METHODS}")
 
+    def _effective_charge(self, globals=None):
+        """Per-particle charge, the masked (solute) charges scaled by
+        globals[charge_scale_name] (1.0 when missing)."""
+        return _scaled_charge(self.charge, self.charge_scale_mask,
+                              self.charge_scale_name, globals)
+
     def _per_particle(self, globals=None):
-        return {"charge": self.charge, "sigma": self.sigma,
-                "epsilon": self.epsilon}
+        return {"charge": self._effective_charge(globals),
+                "sigma": self.sigma, "epsilon": self.epsilon}
 
     def _pair_fn(self, globals=None):
         method, use_switch = self.method, self.use_switch
@@ -198,25 +268,26 @@ class NonbondedForce(_PairForceMixin, Force):
     def _pair_cutoff(self):
         return math.inf if self.method == "nocutoff" else self.r_cut
 
-    def _recip_energy_forces(self, x, box, include_reciprocal=True):
-        """(E, forces) of the PME terms outside the pair sweep: the
-        self/exclusion corrections and, unless a PMEReciprocalForce carries
-        it, the reciprocal sum."""
+    def _recip_energy_forces(self, x, box, globals=None,
+                             include_reciprocal=True):
+        """(E, forces) of the PME terms outside the pair sweep at the
+        scaled charges: the self/exclusion corrections and, unless a
+        PMEReciprocalForce carries it, the reciprocal sum."""
         alpha = float(self.ewald_alpha)
-        e, f = pme.pme_corrections_forces(x, box, self.charge,
-                                          self.exclusions, alpha)
+        q = self._effective_charge(globals)
+        e, f = pme.pme_corrections_forces(x, box, q, self.exclusions, alpha)
         if include_reciprocal:
             er, fr = pme.pme_reciprocal_energy_forces(
-                x, box, self.charge, alpha, self.grid_shape,
-                self.spline_order)
+                x, box, q, alpha, self.grid_shape, self.spline_order)
             e, f = e + er, f + fr
         return e, f
 
-    def _recip_energy(self, x, box, include_reciprocal=True):
+    def _recip_energy(self, x, box, globals=None, include_reciprocal=True):
         alpha = float(self.ewald_alpha)
-        e = pme.pme_corrections(x, box, self.charge, self.exclusions, alpha)
+        q = self._effective_charge(globals)
+        e = pme.pme_corrections(x, box, q, self.exclusions, alpha)
         if include_reciprocal:
-            e = e + pme.pme_reciprocal_energy(x, box, self.charge, alpha,
+            e = e + pme.pme_reciprocal_energy(x, box, q, alpha,
                                               self.grid_shape,
                                               self.spline_order)
         return e
@@ -229,18 +300,30 @@ class NonbondedForce(_PairForceMixin, Force):
     def energy(self, x, box, globals, aux=None):
         e = self._nb_energy(x, box, globals, aux, self._pair_cutoff)
         if self.method == "pme":
-            e = e + self._recip_energy(x, box)
+            e = e + self._recip_energy(x, box, globals)
         return e + self._dispersion(box)
 
     def energy_and_forces(self, x, box, globals, aux=None):
         e, f = self._nb_energy_forces(x, box, globals, aux, self._pair_cutoff)
         if self.method == "pme":
-            e2, f2 = self._recip_energy_forces(x, box)
+            e2, f2 = self._recip_energy_forces(x, box, globals)
             e, f = e + e2, f + f2
         return e + self._dispersion(box), f
 
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        return _charge_scaled_dlambda(self, self, x, box, globals, name, aux)
+
     def uses_neighbors(self) -> bool:
         return self.method != "nocutoff"
+
+
+def _scaled_charge(charge, mask, name, globals):
+    """q (1 - m (1 - lambda)) with lambda = globals[name] (1.0 when
+    missing): the charge scaling of SolvationSystem."""
+    if mask is None:
+        return charge
+    lam = (globals or {}).get(name, 1.0)
+    return charge * (1.0 - mask * (1.0 - lam))
 
 
 def compute_dispersion_coefficient(sigma, epsilon, r_switch, r_cut,
@@ -353,7 +436,13 @@ class FarNonbondedForce(_PairForceMixin, Force):
     pass over the full cutoff, so near + far == full. The PME terms outside
     the pair sweep (corrections, and the reciprocal sum unless
     include_reciprocal is False because a PMEReciprocalForce carries it at
-    its own level) and the dispersion tail are added here."""
+    its own level) and the dispersion tail are added here.
+
+    Under a charge-scale mask (AlchemicalRespaSystem) the two halves no
+    longer share their charges: the full force takes the scaled ones and
+    the near force the raw ones, so the pass cannot be fused. The far force
+    is then the full force plus the negated near force in two sweeps, and
+    near + far == full still holds at every lambda."""
 
     full: NonbondedForce = None
     minus_near: NearNonbondedForce = None
@@ -375,6 +464,9 @@ class FarNonbondedForce(_PairForceMixin, Force):
     def exclusions(self):
         return self.full.exclusions
 
+    def _fusable(self) -> bool:
+        return self.full.charge_scale_mask is None
+
     def _per_particle(self, globals=None):
         return self.full._per_particle(globals)
 
@@ -393,19 +485,36 @@ class FarNonbondedForce(_PairForceMixin, Force):
                                   self.minus_near._pair_form(globals))
 
     def energy(self, x, box, globals, aux=None):
-        e = self._nb_energy(x, box, globals, aux, self.full._pair_cutoff)
-        if self.full.method == "pme":
-            e = e + self.full._recip_energy(x, box, self.include_reciprocal)
-        return e + self.full._dispersion(box)
+        full = self.full
+        if self._fusable():
+            e = self._nb_energy(x, box, globals, aux, full._pair_cutoff)
+        else:
+            e = full._nb_energy(x, box, globals, aux, full._pair_cutoff) \
+                + self.minus_near.energy(x, box, globals, aux)
+        if full.method == "pme":
+            e = e + full._recip_energy(x, box, globals,
+                                       self.include_reciprocal)
+        return e + full._dispersion(box)
 
     def energy_and_forces(self, x, box, globals, aux=None):
-        e, f = self._nb_energy_forces(x, box, globals, aux,
-                                      self.full._pair_cutoff)
-        if self.full.method == "pme":
-            e2, f2 = self.full._recip_energy_forces(x, box,
-                                                    self.include_reciprocal)
+        full = self.full
+        if self._fusable():
+            e, f = self._nb_energy_forces(x, box, globals, aux,
+                                          full._pair_cutoff)
+        else:
+            e, f = full._nb_energy_forces(x, box, globals, aux,
+                                          full._pair_cutoff)
+            e2, f2 = self.minus_near.energy_and_forces(x, box, globals, aux)
             e, f = e + e2, f + f2
-        return e + self.full._dispersion(box), f
+        if full.method == "pme":
+            e2, f2 = full._recip_energy_forces(x, box, globals,
+                                               self.include_reciprocal)
+            e, f = e + e2, f + f2
+        return e + full._dispersion(box), f
+
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        return _charge_scaled_dlambda(self, self.full, x, box, globals, name,
+                                      aux)
 
 
 @dataclasses.dataclass
@@ -416,19 +525,204 @@ class PMEReciprocalForce(Force):
     self/exclusion corrections). Forces are explicit (ops/pme.py)."""
 
     charge: torch.Tensor = None
+    charge_scale_mask: torch.Tensor = None
     ewald_alpha: float = 3.0
     grid_shape: Tuple[int, int, int] = (0, 0, 0)
     spline_order: int = 4
+    charge_scale_name: str = "lambda_coul"
+
+    def _effective_charge(self, globals=None):
+        return _scaled_charge(self.charge, self.charge_scale_mask,
+                              self.charge_scale_name, globals)
 
     def energy(self, x, box, globals, aux=None):
-        return pme.pme_reciprocal_energy(x, box, self.charge,
-                                         float(self.ewald_alpha),
-                                         self.grid_shape, self.spline_order)
+        return pme.pme_reciprocal_energy(x, box, self._effective_charge(
+            globals), float(self.ewald_alpha), self.grid_shape,
+            self.spline_order)
 
     def energy_and_forces(self, x, box, globals, aux=None):
         return pme.pme_reciprocal_energy_forces(
-            x, box, self.charge, float(self.ewald_alpha), self.grid_shape,
-            self.spline_order)
+            x, box, self._effective_charge(globals), float(self.ewald_alpha),
+            self.grid_shape, self.spline_order)
+
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        return _charge_scaled_dlambda(self, self, x, box, globals, name, aux)
+
+
+@dataclasses.dataclass
+class DampedSmoothedForce(_PairForceMixin, Force):
+    """Damped Coulomb + LJ, smoothed over [r_switch, r_cut]
+    (atomsmm/forces.py::DampedSmoothedForce; Fennell & Gezelter JCP 2006,
+    with the switch in place of the force shift)."""
+
+    charge: torch.Tensor = None
+    sigma: torch.Tensor = None
+    epsilon: torch.Tensor = None
+    exclusions: torch.Tensor = None
+    r_cut: float = 1.0
+    r_switch: float = 0.9
+    alpha: float = 2.0
+    chunk: int = 256
+
+    def _per_particle(self, globals=None):
+        return {"charge": self.charge, "sigma": self.sigma,
+                "epsilon": self.epsilon}
+
+    def _pair_fn(self, globals=None):
+        r_cut, r_switch, alpha = self.r_cut, self.r_switch, float(self.alpha)
+
+        def pair(r, pi, pj):
+            sigma, epsilon = _combine(pi, pj)
+            return pairfuncs.damped_smoothed_energy(
+                r, sigma, epsilon, pi["charge"] * pj["charge"], alpha,
+                r_switch, r_cut)
+
+        pair.takes_rv = True
+        return pair
+
+    def _pair_form(self, globals=None):
+        return pairfuncs.damped_smoothed_form(self.r_cut, self.r_switch,
+                                              self.alpha)
+
+    def energy(self, x, box, globals, aux=None):
+        return self._nb_energy(x, box, globals, aux, self.r_cut)
+
+    def energy_and_forces(self, x, box, globals, aux=None):
+        return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
+
+
+@dataclasses.dataclass
+class SoftcoreLennardJonesForce(_PairForceMixin, Force):
+    """Beutler softcore LJ between an interaction group (solute <->
+    solvent), scaled by the global parameter `lambda_name`
+    (atomsmm/forces.py::SoftcoreLennardJonesForce); a missing lambda reads
+    as 1.0. `solute` is the (N,) {0, 1} indicator, and the constructor
+    refuses any other value: on the cell path the kernels read it as
+    2 solute - 1 in the charge column (ops/pairfuncs.py::softcore_form).
+    denergy_dlambda runs the form's dlambda twin, one more sweep."""
+
+    sigma: torch.Tensor = None
+    epsilon: torch.Tensor = None
+    solute: torch.Tensor = None  # (N,) {0, 1} indicator
+    exclusions: torch.Tensor = None
+    r_cut: float = 1.0
+    r_switch: float = 0.9
+    use_switch: bool = True
+    lambda_name: str = "lambda_vdw"
+    chunk: int = 256
+
+    def __post_init__(self):
+        if self.solute is not None and not bool(
+                ((self.solute == 0) | (self.solute == 1)).all()):
+            raise ValueError(
+                "SoftcoreLennardJonesForce.solute must hold only 0 and 1: "
+                "the pair kernels read the solute-solvent cross mask from "
+                "the product of the 2 solute - 1 columns")
+
+    def _per_particle(self, globals=None):
+        return {"charge": 2.0 * self.solute - 1.0, "sigma": self.sigma,
+                "epsilon": self.epsilon, "solute": self.solute}
+
+    def _pair_fn(self, globals=None):
+        lamb = (globals or {}).get(self.lambda_name, 1.0)
+        r_cut, r_switch, use_switch = self.r_cut, self.r_switch, self.use_switch
+
+        def pair(r, pi, pj):
+            sigma, epsilon = _combine(pi, pj)
+            u = pairfuncs.softcore_lj(r, sigma, epsilon, lamb)
+            if use_switch:
+                rr = r.r if isinstance(r, pairfuncs.Rv) else r
+                u = u * switch_quintic(rr, r_switch, r_cut)
+            # interaction group: exactly one of (i, j) in the solute set
+            cross = pi["solute"] + pj["solute"] \
+                - 2.0 * pi["solute"] * pj["solute"]
+            return u * cross
+
+        pair.takes_rv = True
+        return pair
+
+    def _pair_form(self, globals=None, dlambda: bool = False):
+        # lambda enters the kernels' parameter block as a host float: one
+        # device read when the Context holds it as a tensor on the card
+        lamb = float((globals or {}).get(self.lambda_name, 1.0))
+        return pairfuncs.softcore_form(self.r_cut, self.r_switch, lamb,
+                                       self.use_switch, dlambda=dlambda)
+
+    def energy(self, x, box, globals, aux=None):
+        return self._nb_energy(x, box, globals, aux, self.r_cut)
+
+    def energy_and_forces(self, x, box, globals, aux=None):
+        return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
+
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        if name != self.lambda_name:
+            return torch.zeros((), dtype=x.dtype, device=x.device)
+        nbr = self._cell(aux, self.r_cut)
+        if nbr is None:  # dense path: autograd through the pair function
+            return super().denergy_dlambda(x, box, globals, name, aux)
+        return cell_pair_energy(self._pair_form(globals, dlambda=True), x,
+                                box, self._per_particle(globals),
+                                nbr["spec"], nbr["bucket"], self.r_cut)
+
+
+@dataclasses.dataclass
+class CustomNonbondedForce(_PairForceMixin, Force):
+    """Arbitrary pair potential: `energy_function(r, pi, pj, globals)` plays
+    the role of an openmm.CustomNonbondedForce Lepton string
+    (atomsmm_tpu/forces.py::CustomNonbondedForce). per_particle maps
+    parameter name to an (N,) tensor, gathered into pi/pj per pair.
+
+    A hand-written kernel cannot take a Python function, so this is the
+    port's path for user expressions, not a fallback: on a cell list the
+    function runs as torch operations over the full stencil's slots
+    (ops/neighbors.py::cell_pair_energy_fn), on whatever device the tensors
+    lie on, with forces and lambda derivatives by autograd. It walks every
+    slot of the cell list, so it suits solute-sized work (a few dozen
+    pairs in a few thousand atoms), not a solvent-wide force."""
+
+    per_particle: Dict[str, torch.Tensor] = None
+    exclusions: torch.Tensor = None
+    r_cut: float = 1.0
+    energy_function: Callable = None
+    chunk: int = 256
+
+    def _per_particle(self, globals=None):
+        return self.per_particle
+
+    def _pair_fn(self, globals=None):
+        fn, g = self.energy_function, globals or {}
+
+        def pair(r, pi, pj):
+            return fn(r, pi, pj, g)
+
+        return pair
+
+    def energy(self, x, box, globals, aux=None):
+        return self._nb_energy(x, box, globals, aux, self.r_cut)
+
+    def energy_and_forces(self, x, box, globals, aux=None):
+        return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
+
+
+@dataclasses.dataclass
+class CustomBondForce(Force):
+    """Arbitrary bond-pair potential `energy_function(r, params, globals)`
+    over an explicit pair list (ops/pairs.py::pairlist_energy), torch
+    operations on any device; forces by autograd."""
+
+    pairs: torch.Tensor = None
+    per_bond: Dict[str, torch.Tensor] = None
+    valid: torch.Tensor = None
+    energy_function: Callable = None
+
+    def energy(self, x, box, globals, aux=None):
+        fn, g = self.energy_function, globals or {}
+
+        def pair(r, params):
+            return fn(r, params, g)
+
+        return pairlist_energy(pair, x, box, self.pairs, self.per_bond,
+                               self.valid)
 
 
 @dataclasses.dataclass

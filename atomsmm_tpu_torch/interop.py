@@ -10,8 +10,12 @@ The exchange format is a plain dict of numpy arrays and Python scalars:
     dict into this package's objects, on the requested device (default:
     the CUDA card; without one pass device="cpu") and dtype.
     A field this package does not port raises NotImplementedError unless its
-    value is the inert default (None, no NBFIX table, no charge-scale
-    mask...).
+    value is the inert default (None, no NBFIX table...).
+
+A force that holds a Python function (CustomNonbondedForce,
+CustomBondForce) does not cross: a JAX function is not a torch one. To
+carry an alchemical system, describe the JAX base system and apply this
+package's own SolvationSystem / AlchemicalRespaSystem to the result.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from .forces import (
+    DampedSmoothedForce,
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
@@ -29,6 +34,7 @@ from .forces import (
     NonbondedForce,
     PeriodicTorsionForce,
     PMEReciprocalForce,
+    SoftcoreLennardJonesForce,
     TemplateBondedForce,
 )
 from .ops.neighbors import NeighborSpec
@@ -40,13 +46,12 @@ _CLASSES = {c.__name__: c for c in (
     System, NonbondedForce, NearNonbondedForce, FarNonbondedForce,
     PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
     HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
-    NeighborSpec)}
+    DampedSmoothedForce, SoftcoreLennardJonesForce, NeighborSpec)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path
 _INERT = {
     "backend": lambda v: True,             # the tensors' device decides
-    "charge_scale_name": lambda v: True,   # only read with charge_scale_mask
     # the TPU's block-binned PME spreading layouts: they change how the JAX
     # package spreads, not the grid it gets, and the port scatters every
     # atom afresh at each evaluation, so any value carries over as no change
@@ -70,7 +75,13 @@ def describe_reference(obj):
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     if callable(obj):
-        raise TypeError(f"cannot describe a callable ({obj!r})")
+        raise TypeError(
+            f"cannot describe a callable ({obj!r}): a force that holds a "
+            "Python function (CustomNonbondedForce, CustomBondForce, such as "
+            "the solute-solute force of a SolvationSystem) does not cross; "
+            "describe the base system instead and apply atomsmm_tpu_torch's "
+            "own SolvationSystem / AlchemicalRespaSystem to the system it "
+            "gives")
     return np.asarray(obj)
 
 

@@ -9,7 +9,9 @@ the production nonbonded path.
     each cell pair once (K1, csrc/half_pair.cu); grids too small for half
     maps take the full-stencil sweep (K2, csrc/cell_pair.cu). On the card
     each runs its hand-written CUDA kernel, on the CPU its plain PyTorch
-    twin (ops/pair_kernel.py).
+    twin (ops/pair_kernel.py). A user pair function (CustomNonbondedForce)
+    takes the callable sweep, cell_pair_energy_fn: the full stencil's
+    slots as torch operations on any device, forces by autograd.
 
 Shapes are static (NeighborSpec). Bucket overflow is flagged, never
 silently dropped: the flag stays on the device and Context.step reads it
@@ -433,3 +435,58 @@ def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
     half-stencil sweep (K1) when half maps exist, else the full-stencil
     sweep (K2); the CUDA kernel on the card, its plain twin on the CPU."""
     return _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut)
+
+
+_FN_SLOTS = 1 << 21  # pair slots per chunk of the callable sweep
+
+
+def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut):
+    """Sum of a Python pair function pair_fn(r, pi, pj) over the cell list,
+    as torch operations on the device of x: every home atom meets every
+    slot of its full stencil (spec.nbr_cells), both orderings of a pair,
+    each at weight 1/2; slots past r_cut, excluded pairs (the bitmask, or
+    the exclusion id columns) and padding are masked. per_particle holds
+    any (N,) tensors, gathered into pi / pj. Differentiable in x, so forces
+    come by autograd.
+
+    This is the path for user expressions, which no hand-written kernel can
+    take; it evaluates every slot of the stencil, so its cost grows with
+    the whole cell list, however few pairs the function leaves nonzero."""
+    from .pair_kernel import _rc2, excluded
+    from .rv import pair_eval
+
+    n = x.shape[0]
+    ncells, cap = bucket.shape
+    nbr = spec.nbr_cells
+    s = nbr.shape[1]
+    dev = x.device
+    rc2 = _rc2(r_cut, x.dtype)
+    ids_s = torch.cat([bucket, bucket.new_full((1, cap), n)]).long()
+    ncid_all = torch.where(nbr >= 0, nbr, ncells).long()
+    xp = torch.cat([x, x.new_zeros((1, 3))])
+    pp = {k: torch.cat([v, v.new_zeros((1,))]) for k, v in per_particle.items()}
+    exc_bits = exc_cols = None
+    if spec.excbits is not None:
+        exc_bits = spec.excbits
+    else:
+        exc = spec.exclusions
+        exc_cols = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])
+    chunk = max(1, min(ncells, _FN_SLOTS // (cap * s * cap)))
+    total = torch.zeros((), dtype=x.dtype, device=dev)
+    for lo in range(0, ncells, chunk):
+        cells = torch.arange(lo, min(lo + chunk, ncells), device=dev)
+        b = len(cells)
+        hid = ids_s[cells][:, :, None]                        # (B, cap, 1)
+        cid = ids_s[ncid_all[cells]].reshape(b, 1, s * cap)   # (B, 1, S cap)
+        d = minimum_image(xp[hid] - xp[cid], box)
+        r2 = torch.sum(d * d, dim=-1)
+        valid = (hid < n) & (cid < n) & (r2 < rc2) & ~excluded(
+            hid, cid, None if exc_bits is None else exc_bits[hid],
+            None if exc_cols is None else exc_cols[hid])
+        r2m = torch.where(valid, r2, torch.ones_like(r2))
+        pi = {k: v[hid] for k, v in pp.items()}
+        pj = {k: v[cid] for k, v in pp.items()}
+        u, _ = pair_eval(pair_fn, r2m, pi, pj, with_tangent=False)
+        total = total + 0.5 * torch.sum(torch.where(valid, u,
+                                                    torch.zeros_like(u)))
+    return total

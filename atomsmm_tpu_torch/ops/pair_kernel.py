@@ -224,8 +224,9 @@ def _form_block(form, r_cut, dtype):
     arrays must outlive the call."""
     import ctypes
 
-    scal = (ctypes.c_double * 13)(_rc2(r_cut, dtype), *form.scalars())
-    flags = (ctypes.c_int * 4)(*form.flags())
+    scalars, flags = form.scalars(), form.flags()
+    scal = (ctypes.c_double * (1 + len(scalars)))(_rc2(r_cut, dtype), *scalars)
+    flags = (ctypes.c_int * len(flags))(*flags)
     return scal, flags
 
 

@@ -24,7 +24,17 @@ kernel c(r) = erfc(alpha r)/r, which is 1/r when alpha = 0):
   base(r) = 4 eps [(s/r)^12 - (s/r)^6] + k qq c(r) (NearNonbondedForce;
   damped when alpha != 0);
 * ``FAR``: a full form minus NEAR in one pass (the fused FarNonbondedForce);
-  both halves share alpha, so c(r) is evaluated once per slot.
+  both halves share alpha, so c(r) is evaluated once per slot;
+* ``SOFTCORE``: Beutler softcore LJ 4 eps lambda inv (inv - 1) S(r; rs, rc)
+  cross, inv = 1/(ALPHA_SC (1 - lambda) + (r/s)^6), between the solute and
+  the rest (SoftcoreLennardJonesForce). The kernels hand a form only the
+  charge product, so the force puts 2 solute - 1 (+-1) in the charge column
+  and the form takes cross = (1 - qq)/2: 1 for a solute-solvent pair, 0
+  otherwise. With ``dlambda`` the form returns the energy's lambda
+  derivative 4 eps [inv (inv - 1) + lambda ALPHA_SC inv^2 (2 inv - 1)] S
+  cross in place of u, and no force (thermodynamic integration);
+* ``DAMPED_SMOOTHED``: (LJ + k qq c(r)) S(r; rs, rc), the damped Coulomb
+  smoothed by the switch with no shift (DampedSmoothedForce).
 
 >>> import torch
 >>> round(float(lj(torch.tensor(2.0 ** (1 / 6) * 0.34, dtype=torch.float64), 0.34, 0.65)), 10)
@@ -41,9 +51,12 @@ from ..units import ONE_4PI_EPS0
 from .rv import Rv, make_rv, rv_parts  # noqa: F401  (re-exported)
 from .switching import switch_quintic
 
-LJ_SW_RF, NEAR, FAR, LJ_SW_EWALD = 0, 1, 2, 3
+LJ_SW_RF, NEAR, FAR, LJ_SW_EWALD, SOFTCORE, DAMPED_SMOOTHED = range(6)
 
 TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
+# the softcore alpha of SoftcoreLennardJonesForce, fixed as in the JAX
+# package; csrc/pair_forms.cuh holds the same constant
+ALPHA_SC = 0.5
 
 
 def lorentz_berthelot(sigma_i, sigma_j, eps_i, eps_j):
@@ -128,6 +141,39 @@ def _near_base(rinv, ec, dec, sigma, epsilon, qq):
     return base, dbase
 
 
+def softcore_lj(r, sigma, epsilon, lamb, alpha=0.5):
+    """Beutler-style softcore LJ (atomsmm/forces.py::SoftcoreLennardJonesForce):
+
+    u = 4 eps lambda [(1/x)^2 - 1/x],  x = alpha (1 - lambda) + (r/sigma)^6.
+
+    lambda = 1 recovers plain LJ; lambda = 0 turns the interaction off with a
+    bounded core (finite at r = 0):
+
+    >>> import torch
+    >>> r = torch.tensor(0.38, dtype=torch.float64)
+    >>> abs(float(softcore_lj(r, 0.34, 0.65, 1.0) - lj(r, 0.34, 0.65))) < 1e-14
+    True
+    >>> float(softcore_lj(torch.tensor(0.0, dtype=torch.float64), 0.34, 0.65, 0.0))
+    0.0
+    >>> bool(torch.isfinite(softcore_lj(torch.tensor(1e-6, dtype=torch.float64), 0.34, 0.65, 0.5)))
+    True
+    """
+    _, _, r2 = rv_parts(r)
+    t = r2 / (sigma * sigma)
+    x = alpha * (1.0 - lamb) + t * t * t
+    inv = 1.0 / x
+    return 4.0 * epsilon * lamb * inv * (inv - 1.0)
+
+
+def damped_smoothed_energy(r, sigma, epsilon, qq, alpha, r_switch, r_cut):
+    """atomsmm/forces.py::DampedSmoothedForce: (LJ + damped Coulomb) S(r),
+    the damped-shifted formulation of Fennell & Gezelter (JCP 2006) with a
+    smoothing polynomial in place of the force shift."""
+    rr, _, _ = rv_parts(r)
+    return (lj(r, sigma, epsilon) + damped_coulomb(r, qq, alpha)) \
+        * switch_quintic(rr, r_switch, r_cut)
+
+
 def near_pair_energy(r, sigma, epsilon, qq, alpha, r_switch, r_cut,
                      subtract: bool = False):
     """Inner RESPA pair energy (atomsmm/forces.py::NearNonbondedForce):
@@ -171,16 +217,21 @@ class PairForm:
     alpha: float = 0.0      # damping of c(r) = erfc(alpha r)/r, both halves
     n_ec: float = 0.0       # near form: c(rc_in)
     n_dec: float = 0.0      # near form: c'(rc_in)
+    softcore: bool = False  # Beutler softcore LJ, cross = (1 - qq)/2
+    dlambda: bool = False   # softcore: d u / d lambda in place of u, no force
+    lamb: float = 1.0       # softcore: lambda
+    smoothed: bool = False  # full form: the switch multiplies the Coulomb too
 
     def scalars(self):
         """The kernels' scalar block, in the order csrc/pair_forms.cuh reads."""
         return [self.sw_rs, self.sw_inv_w, self.k_rf, self.c_rf, self.n_rs,
                 self.n_inv_w, self.n_rc, self.n_rcinv, self.near_sign,
-                self.alpha, self.n_ec, self.n_dec]
+                self.alpha, self.n_ec, self.n_dec, self.lamb]
 
     def flags(self):
         return [int(self.has_full), int(self.use_switch), int(self.has_near),
-                int(self.ewald)]
+                int(self.ewald), int(self.softcore), int(self.dlambda),
+                int(self.smoothed)]
 
 
 def lj_sw_rf_form(r_cut, r_switch, eps_rf, use_switch: bool = True) -> PairForm:
@@ -209,6 +260,26 @@ def near_form(r_cut, r_switch, alpha=0.0, subtract: bool = False) -> PairForm:
                     n_inv_w=1.0 / (r_cut - r_switch), n_rc=r_cut,
                     n_rcinv=1.0 / r_cut, near_sign=-1.0 if subtract else 1.0,
                     alpha=float(alpha), n_ec=n_ec, n_dec=n_dec)
+
+
+def softcore_form(r_cut, r_switch, lamb, use_switch: bool = True,
+                  dlambda: bool = False) -> PairForm:
+    """Beutler softcore LJ at `lamb`, switched over [r_switch, r_cut], with
+    the solute indicator in the charge column as 2 solute - 1; `dlambda`
+    gives d u / d lambda in place of u, and no force."""
+    r_cut, r_switch = float(r_cut), float(r_switch)
+    return PairForm(SOFTCORE, r_cut, use_switch=bool(use_switch),
+                    sw_rs=r_switch, sw_inv_w=1.0 / (r_cut - r_switch),
+                    softcore=True, dlambda=bool(dlambda), lamb=float(lamb))
+
+
+def damped_smoothed_form(r_cut, r_switch, alpha) -> PairForm:
+    """(LJ + k qq erfc(alpha r)/r) S(r; r_switch, r_cut), no shift
+    (DampedSmoothedForce)."""
+    r_cut, r_switch = float(r_cut), float(r_switch)
+    return PairForm(DAMPED_SMOOTHED, r_cut, has_full=True, sw_rs=r_switch,
+                    sw_inv_w=1.0 / (r_cut - r_switch), ewald=True,
+                    alpha=float(alpha), smoothed=True)
 
 
 def far_form(full: PairForm, minus_near: PairForm) -> PairForm:
@@ -243,6 +314,26 @@ def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
     rinv2 = rinv * rinv
     u = torch.zeros_like(r2)
     dudr2 = torch.zeros_like(r2)
+    if form.softcore:
+        # Beutler softcore LJ; qq is the product of the 2 solute - 1 columns
+        cross = 0.5 * (1.0 - qq)
+        if form.use_switch:
+            sw, ds_dx = _switch_and_slope((r - form.sw_rs) * form.sw_inv_w)
+            dsw = ds_dx * form.sw_inv_w * 0.5 * rinv
+        else:
+            sw, dsw = torch.ones_like(r2), torch.zeros_like(r2)
+        isig2 = 1.0 / (sig * sig)
+        t = r2 * isig2
+        inv = 1.0 / (ALPHA_SC * (1.0 - form.lamb) + t * t * t)
+        c4 = 4.0 * eps * cross
+        if form.dlambda:
+            u = c4 * (inv * (inv - 1.0) + form.lamb * ALPHA_SC * inv * inv
+                      * (2.0 * inv - 1.0)) * sw
+            return u, dudr2
+        usc = c4 * form.lamb * inv * (inv - 1.0)
+        dusc = c4 * form.lamb * inv * inv * (1.0 - 2.0 * inv) * 3.0 * t * t \
+            * isig2
+        return usc * sw, dusc * sw + usc * dsw
     # Coulomb kernel c(r) = erfc(alpha r)/r and dc/dr, shared by both halves
     ec, dec = _coulomb_kernel(r, rinv, form.alpha)
     cq = ONE_4PI_EPS0 * qq
@@ -257,7 +348,12 @@ def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
             dsw = ds_dx * form.sw_inv_w * 0.5 * rinv
         else:
             sw, dsw = torch.ones_like(r2), torch.zeros_like(r2)
-        if form.ewald:
+        if form.smoothed:
+            uc = cq * ec
+            duc = cq * dec * 0.5 * rinv
+            u = u + (ulj + uc) * sw
+            dudr2 = dudr2 + (dulj + duc) * sw + (ulj + uc) * dsw
+        elif form.ewald:
             uc = cq * ec
             duc = cq * dec * 0.5 * rinv
             u = u + ulj * sw + uc

@@ -43,6 +43,15 @@ non-zero:
      (d)'s far (5^3) and near (6^3) grids from bench_data/eq_emim.npz, and
      K2 on the 24-ion-pair system's 2^3 far grid (K1 on its 3^3 near grid)
      from tests/data/emim_bf4_24_minimized.npz;
+   - phenol in water (BASELINE config 3): the softcore form (the solute
+     indicator as +-1 in the charge column) and its dlambda twin at lambda
+     0, 0.5 and 1 on K1 (path (e)'s 3^3 grid, 1,000 waters) and K2 (200
+     waters, 2^3, also with the solute pushed into the solvent), the
+     damped-smoothed form, the reaction-field form at lambda_coul = 0.5 and
+     the solute-solute LJ term (zero charges) on both, the softcore form on
+     K3 (path (e)'s tile list); after path
+     (e), K1 and K2 (full stencil, same grid) at lambda 0, 0.05, 0.5 and 1
+     at a configuration sampled at lambda_vdw = 0;
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
    grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
@@ -50,7 +59,13 @@ non-zero:
    velocities to 1e-9 relative; then 3 outer SIN(R) [10, 2, 1] @ 10 fs
    steps of the 24-pair ionic liquid (350 K, tau 0.02 ps, friction 0, so
    no draw enters; v, v1, v2 set from numpy on the isokinetic constraint)
-   in the same way;
+   in the same way; then phenol + 200 waters (SolvationSystem): the
+   multi-state energies at 4 states (rel 1e-10), dU/dlambda for both names
+   (rel 1e-9) and 5 outer AlchemicalRespaSystem RESPA [4, 2, 1] + NHC steps
+   at lambda_vdw 0.5, lambda_coul 0 (x and v to 1e-9 relative), with the
+   exact launch counts: K1 the near force, K2 the far force in two sweeps
+   (unfused under the charge-scale mask), the softcore force and the
+   solute-solute term, each at its group's rate + 1 per pass;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
    timed step(100); checks finiteness, K1's launch count (3 per outer
@@ -85,6 +100,14 @@ non-zero:
    temperature, 165-190 K (the isokinetic kT/2 per degree of freedom is
    176.5 K at the 353 K setpoint); SIN(R) has no conserved energy, so no
    drift is checked;
+   path (e): BASELINE config 3 at bench_alchemy's shape (phenol + 1,000
+   waters, 2,941 atoms, 3^3 grid, SolvationSystem, float32): 50 timed
+   16-state multistate_energies rows (3 K1 launches a state: the scaled
+   NonbondedForce, the softcore force, the solute-solute term), a melt and
+   50 timed velocity Verlet + OU steps (3 K1 launches a step + 3 per pass)
+   split by force, a short solvation_free_energy with MBAR, TI and each
+   state's mean temperature (300 +- 40 K), and the float32 dU/dlambda_coul
+   against float64;
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -104,8 +127,10 @@ non-zero:
    the damped K1 (and its plain twin) at path (c)'s near and far shapes,
    the damped K2 on the water 700 far grid, and the reciprocal sum stage
    by stage (spline weights, spread, rfftn, convolution, irfftn, gather,
-   corrections); K1 at path (d)'s far and near shapes; then path (c)'s and
-   path (d)'s outer steps split by force group (host clock, synchronised).
+   corrections); K1 at path (d)'s far and near shapes; K1 and K2 (full
+   stencil) with the softcore form at path (e)'s grid, bounded by the
+   solute-solvent pairs; then path (c)'s and path (d)'s outer steps split
+   by force group (host clock, synchronised).
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
@@ -145,10 +170,15 @@ PEAK_BYTES = 3.35e12
 OPS_SLOT = 21
 OPS_EVAL = 36
 OPS_COMMON = 3
-OPS_FULL = {"rf": 54, "ewald": 48}
+OPS_FULL = {"rf": 54, "ewald": 48, "smoothed": 52}
 OPS_NEAR = 71
 OPS_DAMPED = 30
 SFU_EVAL, SFU_DAMPED = 2, 3
+# the softcore form (cross mask, quintic switch, 1/sig^2, x, the energy and
+# du/dr^2 or the lambda derivative) and its two reciprocals on the SFU; the
+# work of the function is the solute-solvent pairs in range (cross = 1)
+OPS_SOFTCORE = 50
+SFU_SOFTCORE = 2
 
 
 def log(msg):
@@ -194,7 +224,10 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     pair evaluations (the half stencil's self direction and the full
     stencil evaluate both orderings), those inside the near form's cutoff,
     and the distinct in-range pairs, all and inside the near cutoff (the
-    work of the function, each pair once)."""
+    work of the function, each pair once). For a softcore form the work of
+    the function is the distinct solute-solvent pairs in range (the
+    kernels evaluate every in-range pair and multiply by the cross
+    mask)."""
     import torch
 
     from atomsmm_tpu_torch.ops import pair_kernel as pk
@@ -211,30 +244,37 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     rc2 = pk._rc2(form.r_cut, x.dtype)
     near2 = form.n_rc ** 2 if form.has_near else 0.0
     chunk = max(1, (1 << 22) // (nbr.shape[1] * cap * cap))
-    c = {"slots": 0, "evals": 0, "near": 0, "self": 0, "near_self": 0}
+    c = {"slots": 0, "evals": 0, "near": 0, "self": 0, "near_self": 0,
+         "cross": 0, "cross_self": 0}
     for lo in range(0, ncells, chunk):
         cells = torch.arange(lo, min(lo + chunk, ncells), device=x.device)
         hid = hm[cells][..., 0][:, None, :, None]
         cid = ids[nbr[cells]][:, :, None, :]
-        d = minimum_image(hf[cells][:, None, :, None, :3]
-                          - hf_s[nbr[cells]][:, :, None, :, :3], box)
+        home, cand = hf[cells][:, None, :, None], hf_s[nbr[cells]][:, :, None]
+        d = minimum_image(home[..., :3] - cand[..., :3], box)
         r2 = (d * d).sum(-1)
         real = (hid < n) & (cid < n)
         hit = real & (r2 < rc2) & ~pk.excluded(
             hid, cid, hm[cells][..., 1][:, None, :, None],
             None if cols is None else cols[cells][:, None, :, None, :])
-        c["slots"] += int(real.sum())
-        c["evals"] += int(hit.sum())
         near = hit & (r2 < near2)
-        c["near"] += int(near.sum())
+        cross = hit & (home[..., 3] * cand[..., 3] < 0)
+        for key, m in (("slots", real), ("evals", hit), ("near", near),
+                       ("cross", cross)):
+            c[key] += int(m.sum())
         if half:
-            c["self"] += int(hit[:, 0].sum())
-            c["near_self"] += int(near[:, 0].sum())
+            for key, m in (("self", hit), ("near_self", near),
+                           ("cross_self", cross)):
+                c[key] += int(m[:, 0].sum())
     if half:
         c["pairs"] = c["evals"] - c["self"] // 2
         c["near_pairs"] = c["near"] - c["near_self"] // 2
+        c["cross_pairs"] = c["cross"] - c["cross_self"] // 2
     else:
         c["pairs"], c["near_pairs"] = c["evals"] // 2, c["near"] // 2
+        c["cross_pairs"] = c["cross"] // 2
+    if form.softcore:
+        c["pairs"] = c["cross_pairs"]
     return c
 
 
@@ -247,9 +287,13 @@ def bound(form, pairs, near, slots, nbytes):
     damped = bool(form.alpha)
     per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0)
     if form.has_full:
-        per += OPS_FULL["ewald" if form.ewald else "rf"]
+        per += OPS_FULL["smoothed" if form.smoothed else
+                        "ewald" if form.ewald else "rf"]
+    if form.softcore:
+        per += OPS_SOFTCORE
     ops = pairs * per + (near * OPS_NEAR if form.has_near else 0)
-    sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0))
+    sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0)
+                   + (SFU_SOFTCORE if form.softcore else 0))
     t = {"ops_ms": ops / PEAK_FP32 * 1e3, "sfu_ms": sfu / PEAK_SFU * 1e3,
          "bytes_ms": nbytes / PEAK_BYTES * 1e3}
     t["ms"] = max(t.values())
@@ -300,8 +344,11 @@ def form_name(form):
     from atomsmm_tpu_torch.ops import pairfuncs as pf
 
     name = {pf.LJ_SW_RF: "lj_sw_rf", pf.NEAR: "near", pf.FAR: "far",
-            pf.LJ_SW_EWALD: "lj_sw_ewald"}[form.kind]
-    return name + ("_damped" if form.alpha and form.kind != pf.LJ_SW_EWALD
+            pf.LJ_SW_EWALD: "lj_sw_ewald", pf.SOFTCORE: "softcore",
+            pf.DAMPED_SMOOTHED: "damped_smoothed"}[form.kind]
+    if form.dlambda:
+        return name + "_dlambda"
+    return name + ("_damped" if form.alpha and form.kind in (pf.NEAR, pf.FAR)
                    else "")
 
 
@@ -331,14 +378,16 @@ def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None, f_scale=None):
 
 
 def compare(label, force, spec, x, box, dev, results, terms_scale=False,
-            unsplit=None):
+            unsplit=None, form=None, globals=None):
     """The wrapper's kernel (f64 and f32) against the f64 plain twin on the
     card; the spec picks K1 (half maps) or K2. With `unsplit` (the full
     force a fused far force was split from) the float32 force tolerance
     scales with the unsplit force's max|F|: the far force is the difference
     of two forces of that size, and the truncated Ewald term moves pairs
     across the float32-rounded cutoff with a force jump of up to
-    k |qq| [erfc(a rc)/rc² + (2a/sqrt(pi)) exp(-a² rc²)/rc] each."""
+    k |qq| [erfc(a rc)/rc² + (2a/sqrt(pi)) exp(-a² rc²)/rc] each. `form`
+    replaces the force's own pair form, `globals` the parameters its form
+    and per-particle columns read (lambda)."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
@@ -346,9 +395,9 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
 
     spec = to_device(spec, dev)
     kernel = "half_pair" if spec.half_stencil else "cell_pair"
-    form = force._pair_form()
+    form = force._pair_form(globals) if form is None else form
     pp64 = {k: v.to(dev, torch.float64)
-            for k, v in force._per_particle().items()}
+            for k, v in force._per_particle(globals).items()}
     for dtype in (torch.float64, torch.float32):
         xd, bd = x.to(dev, dtype), box.to(dev, dtype)
         pp = {k: v.to(dtype) for k, v in pp64.items()}
@@ -1144,18 +1193,19 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_cells(label, force, spec, x, box):
+def time_cells(label, force, spec, x, box, form=None):
     """K1 or K2 (the kernel the spec selects) at one shape: the kernel's
     device time inside the sweep (torch.profiler), the launch wrapper, the
     whole sweep and the plain twin by CUDA events; the sweep's device
     operations (at most
     4, exactly one of them the kernel, else the phase fails; none seen by
-    the profiler fails it too), the work it has to do and its bound."""
+    the profiler fails it too), the work it has to do and its bound.
+    `form` replaces the force's own pair form."""
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
     n = x.shape[0]
-    form = force._pair_form()
+    form = force._pair_form() if form is None else form
     pp = force._per_particle()
     bucket, _ = nb.build_cell_buckets(spec, x, box)
     if spec.half_stencil:
@@ -1174,12 +1224,18 @@ def time_cells(label, force, spec, x, box):
     sweep_ms = time_cuda(sweep, 20)
     p_ms = time_cuda(lambda: plain(*args), 3)
     k_ms = kernel_device_ms(sweep, kernel)
-    ops = [name for name, _ in device_kernels(sweep)]
-    k_ops = sum(f"{kernel}_kernel" in name for name in ops)
-    if not 1 <= len(ops) <= 4 or k_ops != 1:
-        raise RuntimeError(f"{kernel} sweep {label}: {len(ops)} device "
-                           f"operations per sweep ({k_ops} of them the "
-                           f"kernel), expected 1 to 4 with one: {ops}")
+    # device operations per sweep: the span between two launches of the
+    # kernel among 5 profiled sweeps (the profiler has dropped events at
+    # the start of its window: all of one sweep, or the first two)
+    seen = [name for name, _ in device_kernels(sweep, reps=5)]
+    at = [i for i, name in enumerate(seen) if f"{kernel}_kernel" in name]
+    spans = {j - i for i, j in zip(at[1:], at[2:])}
+    ops = seen[at[1] + 1:at[2] + 1] if len(at) >= 3 else []
+    if len(at) < 3 or spans != {len(ops)} or not 1 <= len(ops) <= 4:
+        raise RuntimeError(f"{kernel} sweep {label}: kernel launches at "
+                           f"{at} of {len(seen)} device operations in 5 "
+                           f"sweeps, expected 1 to 4 a sweep with one: "
+                           f"{seen}")
     c = sweep_counts(spec, form, x, box, pp, bucket)
     exc = spec.excbits if spec.excbits is not None else spec.exclusions
     b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
@@ -1197,7 +1253,8 @@ def time_cells(label, force, spec, x, box):
         f"Gslot/s), {c['slots'] / 1e6:.2f} M between real atoms, "
         f"{c['evals'] / 1e6:.3f} M in-range evaluations "
         f"({c['evals'] / k_ms / 1e6:.2f} G/s, {c['near'] / 1e6:.3f} M inside "
-        f"the near cutoff), {c['pairs'] / 1e6:.3f} M distinct pairs "
+        f"the near cutoff), {c['pairs'] / 1e6:.3f} M distinct "
+        f"{'solute-solvent ' if form.softcore else ''}pairs ({c['pairs']}) "
         f"({c['near_pairs'] / 1e6:.3f} M near); bound "
         f"{b['ms'] * 1e3:.2f} us by {b['by']} "
         f"(ops {b['ops_ms'] * 1e3:.2f}, SFU {b['sfu_ms'] * 1e3:.2f}, bytes "
@@ -1437,6 +1494,406 @@ def phase_step_split(dev, run, name, loops):
     return parts
 
 
+LAMBDAS = (0.0, 0.5, 1.0)
+
+
+def phenol(n_water, dtype, device, overlap=False):
+    """(SolvationSystem, positions, box, cell spec retuned to them) of one
+    phenol in n_water q-SPC/Fw waters at the default 0.75 nm, reaction
+    field: 1,000 waters give path (e)'s 2,941 atoms in a 3.113 nm box on a
+    3^3 grid with half maps (K1), 200 give 541 atoms in 1.832 nm on a 2^3
+    grid (K2). `overlap` moves the solute 0.15 nm into the solvent, so that
+    waters sit inside its sigma as they do at small lambda."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import phenol_in_water
+    from atomsmm_tpu_torch.ops.neighbors import retune_spec
+
+    s, x, box, solute = phenol_in_water(n_water=n_water, neighbors=True,
+                                        dtype=dtype, device=device)
+    if overlap:
+        x = x.clone()
+        x[:13] += torch.tensor([0.12, 0.08, 0.05], dtype=dtype, device=device)
+    solv = amm.SolvationSystem(s, solute)
+    return solv, x, box, retune_spec(solv.neighbors, x, box)
+
+
+def softcore_of(system):
+    import atomsmm_tpu_torch as amm
+
+    soft, = (f for f in system.forces
+             if isinstance(f, amm.SoftcoreLennardJonesForce))
+    return soft
+
+
+def compare_softcore(tag, soft, spec, x, box, dev, results, lambdas=LAMBDAS):
+    """The softcore form and its dlambda twin at each lambda (see compare)."""
+    for lam in lambdas:
+        for dlambda in (False, True):
+            compare(f"{tag} softcore{' dlambda' if dlambda else ''} lambda "
+                    f"{lam:g}", soft, spec, x, box, dev, results,
+                    form=soft._pair_form({"lambda_vdw": lam},
+                                         dlambda=dlambda))
+
+
+def phase_kernels_alchemy(dev):
+    """K1 (path (e)'s 3^3 grid) and K2 (200 waters, 2^3; also with the
+    solute pushed into the solvent) in the softcore form and its dlambda
+    twin at lambda 0, 0.5 and 1, the damped-smoothed form and the
+    reaction-field form at lambda_coul = 0.5 (the solute's charges scaled);
+    then the softcore form on K3 (path (e)'s tile list) against its twin."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import tilepair as tp
+
+    f64 = torch.float64
+    results = []
+    for n_water, overlap, half in ((1000, False, True), (200, False, False),
+                                   (200, True, False)):
+        solv, x, box, spec = phenol(n_water, f64, "cpu", overlap)
+        if spec.half_stencil != half:
+            raise RuntimeError(f"phenol {n_water}: unexpected stencil")
+        tag = (f"phenol{n_water}w{' overlap' if overlap else ''} grid "
+               f"{spec.grid[0]}^3 cap {spec.cell_capacity}")
+        compare_softcore(tag, softcore_of(solv), spec, x, box, dev, results)
+        if overlap:
+            continue
+        full = solv.forces[0]
+        ds = amm.DampedSmoothedForce(
+            charge=full.charge, sigma=full.sigma, epsilon=full.epsilon,
+            exclusions=full.exclusions, r_cut=0.75, r_switch=0.65, alpha=3.0)
+        compare(f"{tag} damped-smoothed alpha 3", ds, spec, x, box, dev,
+                results)
+        compare(f"{tag} cutoff-RF lambda_coul 0.5", full, spec, x, box, dev,
+                results, globals={"lambda_coul": 0.5})
+        compare(f"{tag} solute-solute LJ (zero charges)", solv.forces[-1],
+                spec, x, box, dev, results)
+    # K3: the softcore form on path (e)'s tile list
+    solv, x, box, _ = phenol(1000, f64, "cpu")
+    soft = softcore_of(solv)
+    form = soft._pair_form({"lambda_vdw": 0.5})
+    for dtype in (f64, torch.float32):
+        xd, bd = x.to(dev, dtype), box.to(dev, dtype)
+        pp = {k: v.to(dev, dtype) for k, v in soft._per_particle().items()}
+        spec = tp.make_tilepair_spec(box, x.shape[0], form.r_cut,
+                                     exclusions=soft.exclusions,
+                                     occupancy_from=x, device=dev)
+        lst = tp.build_tile_pairs(spec, xd, bd)
+        e_k, f_k = tp.tile_pair_energy_forces(form, xd, bd, pp, spec,
+                                              *lst[:4], form.r_cut)
+        e_p, f_p = tile_plain(spec, form, xd, bd, pp, lst)
+        results.append(("tile_pair",) + judge(
+            "tile_pair phenol1000w softcore lambda 0.5", dtype, e_k, f_k,
+            e_p, f_p) + (form_name(form),))
+    return results
+
+
+def phase_kernels_sampled(dev, x):
+    """K1 and K2 (the full stencil on the same 3^3 grid) in the softcore
+    form and its dlambda twin at lambda 0, 0.05, 0.5 and 1, at a
+    configuration x that path (e) sampled at lambda_vdw = 0 (solvent inside
+    the solute's sigma)."""
+    import dataclasses
+
+    import torch
+
+    from atomsmm_tpu_torch.ops.neighbors import retune_spec
+
+    f64 = torch.float64
+    solv, _, box, _ = phenol(1000, f64, "cpu")
+    x = x.to("cpu", f64)
+    spec = retune_spec(solv.neighbors, x, box)
+    results = []
+    for half in (True, False):
+        sp = dataclasses.replace(spec, half_stencil=half)
+        compare_softcore(f"phenol1000w sampled at lambda_vdw 0, grid 3^3 "
+                         f"cap {sp.cell_capacity}{'' if half else ' (K2)'}",
+                         softcore_of(solv), sp, x, box, dev, results,
+                         lambdas=(0.0, 0.05, 0.5, 1.0))
+    return results
+
+
+def phase_slice_alchemy(dev):
+    """Phenol + 200 waters in float64, the card against the CPU: the
+    multi-state energies at 4 states (rel 1e-10), dU/dlambda for both
+    names (rel 1e-9; the softcore dlambda sweep, the quadratic rule), and
+    5 outer AlchemicalRespaSystem RESPA [4, 2, 1] + NHC steps at
+    lambda_vdw 0.5, lambda_coul 0 (no draw enters), positions and
+    velocities to 1e-9 relative."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import alchemy
+    from atomsmm_tpu_torch.models import phenol_in_water
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f64 = torch.float64
+    steps, loops = 5, [4, 2, 1]
+    lams = {"lambda_vdw": [0.0, 0.3, 0.7, 1.0],
+            "lambda_coul": [0.0, 0.0, 0.5, 1.0]}
+    runs = []
+    for device in ("cpu", dev):
+        base, x, box, solute = phenol_in_water(n_water=200, neighbors=True,
+                                               dtype=f64, device=device)
+        solv = amm.SolvationSystem(base, solute)
+        es = alchemy.multistate_energies(solv, x, box, lams)
+        ti = [alchemy.ti_gradient(solv, x, box, name, 0.5, {other: 0.7})
+              for name, other in (("lambda_vdw", "lambda_coul"),
+                                  ("lambda_coul", "lambda_vdw"))]
+        ars = amm.AlchemicalRespaSystem(base, 0.45, 0.35, solute)
+        m = ars.masses.cpu().numpy()
+        v = np.random.RandomState(9).normal(size=(m.size, 3)) \
+            * np.sqrt(amm.units.BOLTZMANN * 300.0 / m)[:, None]
+        integ = amm.MultipleTimeScaleIntegrator(
+            0.002, loops, temperature=300.0, time_scale=0.1,
+            degrees_of_freedom=3 * m.size - 3)
+        ctx = amm.Context(ars, integ, amm.make_state(
+            x, v=torch.as_tensor(v, dtype=f64, device=device), box=box))
+        ctx.set_parameter("lambda_vdw", 0.5)
+        ctx.set_parameter("lambda_coul", 0.0)
+        pk.reset_launches()
+        ctx.step(steps)
+        runs.append((es, torch.stack(ti), ctx.state, ars, dict(pk.LAUNCHES),
+                     ctx.last_step_passes))
+    (es_c, ti_c, st_c, ars, _, _), (es_g, ti_g, st_g, _, launches,
+                                    passes) = runs
+    # per pass, each force once more for the force-cache refresh: K1 runs
+    # the near force (group 1) on the near grid; K2 the far force unfused
+    # under the charge-scale mask (two sweeps, group 2), the softcore force
+    # (group 1) and the solute-solute term (group 0) on the far grid
+    per_outer = {2: loops[2], 1: loops[1] * loops[2],
+                 0: loops[0] * loops[1] * loops[2]}
+    expected = {"half_pair": passes * (per_outer[1] * steps + 1),
+                "cell_pair": passes * (2 * (per_outer[2] * steps + 1)
+                                       + per_outer[1] * steps + 1
+                                       + per_outer[0] * steps + 1),
+                "tile_pair": 0}
+    e_err = float((es_g.cpu() - es_c).abs().max() / es_c.abs().max())
+    ti_err = float(((ti_g.cpu() - ti_c).abs() / ti_c.abs()).max())
+    md_err = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
+                 for a, b in ((st_c.x, st_g.x), (st_c.v, st_g.v)))
+    log(f"slice phenol200w float64 card vs CPU: multistate_energies at 4 "
+        f"states {[round(float(e), 6) for e in es_g]} max rel diff "
+        f"{e_err:.2e}; ti_gradient (vdw, coul) "
+        f"{[round(float(t), 6) for t in ti_g]} max rel diff {ti_err:.2e}; "
+        f"AlchemicalRespaSystem RESPA{loops}+NHC {steps} steps at "
+        f"lambda_vdw 0.5, lambda_coul 0 (far grid {ars.neighbors.grid}, near "
+        f"{ars.extra_neighbor_specs['near'].grid}; launches {launches}, "
+        f"expected {expected}, passes {passes}): max rel diff {md_err:.2e} "
+        f"(x, v)")
+    if not (e_err < 1e-10 and ti_err < 1e-9 and md_err < 1e-9):
+        raise RuntimeError("the alchemical slice on the card departs from "
+                           "the CPU run")
+    if launches != expected:
+        raise RuntimeError(f"alchemical slice launches {launches}: expected "
+                           f"{expected}")
+
+
+def phase_alchemy(dev, evals=50, k_states=16):
+    """Path (e): BASELINE config 3 at bench_alchemy's shape, float32. The
+    multi-state evaluation (16 states, lambda_vdw = lambda_coul), timed
+    over `evals` rows; then a short solvation free energy on
+    coupling_path(linspace(0, 1, 4)) (n_equil 100, 8 samples 10 steps
+    apart, velocity Verlet + OU at 300 K, 5/ps) from a configuration
+    melted at the coupled state, with the temperature of each state, MBAR
+    and TI; the float32 dU/dlambda_coul against float64 at one sample; one
+    MD step split by force."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import alchemy
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.potential import _energy_and_forces
+    from atomsmm_tpu_torch.utils import find_nonbonded_force
+
+    f32 = torch.float32
+    temp = 300.0
+    solv, x, box, _ = phenol(1000, f32, dev)
+    spec = solv.neighbors
+    n = solv.num_particles
+    if not (spec.half_stencil and spec.grid == (3, 3, 3)):
+        raise RuntimeError(f"path (e): expected a 3^3 half-stencil grid, got "
+                           f"{spec.grid}")
+    aux = make_aux(solv, all_neighbor_extras(solv, x, box))
+    lams = torch.linspace(0.0, 1.0, k_states)
+    lambdas = {"lambda_vdw": lams, "lambda_coul": lams}
+    alchemy.multistate_energies(solv, x, box, lambdas, aux=aux)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(evals):
+        rows = alchemy.multistate_energies(solv, x, box, lambdas, aux=aux)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row_launches = dict(pk.LAUNCHES)
+    rows_per_s = evals / wall
+    expected = {"half_pair": 3 * k_states * evals, "cell_pair": 0,
+                "tile_pair": 0}
+    log(f"path (e) phenol+1000w ({n} atoms, box {float(box[0]):.3f} nm, grid "
+        f"{spec.grid} cap {spec.cell_capacity}) x {k_states} states float32 "
+        f"multistate_energies: {rows_per_s:.3f} K-state rows/s "
+        f"({rows_per_s * k_states:.1f} state-energies/s, "
+        f"{wall / evals * 1e3:.3f} ms a row) on {smi_line()}; launches "
+        f"{row_launches} (expected {expected}: the scaled NonbondedForce, "
+        f"the softcore force and the solute-solute term, one K1 sweep each "
+        f"per state); energies "
+        f"{float(rows[0]):.4f} .. {float(rows[-1]):.4f} kJ/mol")
+    if not (row_launches == expected and bool(torch.isfinite(rows).all())):
+        raise RuntimeError("path (e) multi-state evaluation failed")
+
+    # melt the builder lattice at the coupled state (velocity Verlet + OU,
+    # the sampler's integrator), rescaling to 300 K after each chunk; the
+    # last chunk is timed (one K1 sweep of each cell-list force a step)
+    integ = amm.GlobalThermostatIntegrator(
+        0.001, amm.VelocityVerletPropagator(),
+        amm.OrnsteinUhlenbeckPropagator(temp, 5.0))
+    ctx = amm.Context(solv, integ, amm.make_state(x, box=box, seed=5))
+    ctx.set_velocities_to_temperature(temp, seed=6)
+    for _ in range(5):
+        ctx.step(60)
+        t_now = float(ctx.temperature())
+        if not t_now == t_now or t_now > 5000.0:
+            raise RuntimeError(f"path (e) melt diverged (T {t_now} K)")
+        ctx.set_velocities((temp / t_now) ** 0.5 * ctx.state.v)
+    ctx.set_parameter("lambda_vdw", 1.0)
+    ctx.set_parameter("lambda_coul", 1.0)
+    ctx.step(1)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    md_steps = 50
+    t0 = time.perf_counter()
+    ctx.step(md_steps)
+    torch.cuda.synchronize()
+    md_ms = (time.perf_counter() - t0) / md_steps * 1e3
+    md_launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    md_expected = {"half_pair": passes * 3 * (md_steps + 1), "cell_pair": 0,
+                   "tile_pair": 0}
+    x_melt = ctx.state.x.clone()
+    log(f"path (e) MD phenol+1000w VV+OU 1 fs float32 at the coupled state: "
+        f"{md_ms:.3f} ms/step ({0.001 * 86400 / md_ms:.3f} ns/day); launches "
+        f"{md_launches} (expected {md_expected}, passes {passes}); T "
+        f"{float(ctx.temperature()):.2f} K")
+    if md_launches != md_expected:
+        raise RuntimeError("path (e) MD launch count")
+
+    # one MD step split by force: each force's energy and forces timed
+    # alone with a synchronise after every call (the globals as the
+    # Context holds them: 0-d tensors on the card)
+    g = ctx.parameters
+    run = ctx.system  # its cell capacities, retuned if the melt overflowed
+    aux = make_aux(run, all_neighbor_extras(run, x_melt, box))
+
+    def wall_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    scaled = solv.forces[find_nonbonded_force(solv)]
+    solute_solute = solv.forces[-1]  # the second NonbondedForce
+    bonded = [f for f in solv.forces if f.name in (
+        "HarmonicBondForce", "HarmonicAngleForce", "PeriodicTorsionForce",
+        "NonbondedExceptionsForce")]
+    parts = {
+        "scaled NonbondedForce (K1)": wall_ms(lambda: _energy_and_forces(
+            scaled, x_melt, box, g, aux)),
+        "SoftcoreLennardJonesForce (K1)": wall_ms(lambda: _energy_and_forces(
+            softcore_of(solv), x_melt, box, g, aux)),
+        "solute-solute NonbondedForce (K1)": wall_ms(
+            lambda: _energy_and_forces(solute_solute, x_melt, box, g, aux)),
+        "group-0 bonded (4 forces, autograd)": wall_ms(lambda: [
+            _energy_and_forces(f, x_melt, box, g, aux) for f in bonded]),
+        "bucket rebuild": wall_ms(lambda: all_neighbor_extras(run, x_melt,
+                                                              box)),
+    }
+    counted = sum(parts.values())
+    log("path (e) MD step split ({:.3f} ms/step): {}; rest (integrator, OU, "
+        "Python) {:.3f} ms".format(md_ms, ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()), md_ms - counted))
+
+    # the short solvation free energy from the melted configuration
+    temps, sampled = {}, {}
+
+    def reporter(k, c):
+        temps.setdefault(k, []).append(float(c.temperature()))
+        sampled[k] = c.state.x.clone()
+
+    schedule = torch.linspace(0.0, 1.0, 4, dtype=torch.float64)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    out = alchemy.solvation_free_energy(
+        solv, x_melt, box, schedule, temp, n_equil=100, n_samples=8,
+        sample_interval=10, friction=5.0, seed=7, reporter=reporter)
+    torch.cuda.synchronize()
+    dg_wall = time.perf_counter() - t0
+    t_mean = {k: sum(v) / len(v) for k, v in sorted(temps.items())}
+    f_k = out["f_k"]
+    log(f"path (e) solvation_free_energy coupling_path(linspace(0, 1, 4)) "
+        f"n_equil 100, 8 samples x 10 steps, VV+OU 300 K 5/ps, float32: "
+        f"dg_mbar {out['dg_mbar']:.4f} +- {out['err_mbar']:.4f} kJ/mol, "
+        f"dg_ti {out['dg_ti']:.4f} +- {out['err_ti']:.4f} kJ/mol; f_k "
+        f"{[round(float(v), 5) for v in f_k]}; TI profile "
+        f"{ {k: [round(float(v), 3) for v in p] for k, p in out['ti_profile'].items()} }; "
+        f"mean T per state {[round(v, 2) for v in t_mean.values()]} K; "
+        f"{dg_wall:.1f} s, launches {dict(pk.LAUNCHES)}")
+    finite = all(torch.isfinite(torch.as_tensor(v)).all() for v in (
+        out["dg_mbar"], out["dg_ti"], out["err_mbar"], out["err_ti"], f_k))
+    checks = {
+        "finite": bool(finite),
+        "f_0": float(f_k[0]) == 0.0,
+        "temperature": all(260.0 <= t <= 340.0 for t in t_mean.values())
+        and len(t_mean) == 4,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"path (e) checks failed: {failed}")
+
+    # the quadratic dU/dlambda_coul in float32 against float64 at the last
+    # sample, beside the sampling noise of its mean at that state
+    xs64 = x_melt.double()
+    solv64, _, box64, _ = phenol(1000, torch.float64, dev)
+    g = {"lambda_vdw": 1.0}
+    d32 = float(alchemy.ti_gradient(solv, x_melt, box, "lambda_coul", 0.5, g))
+    d64 = float(alchemy.ti_gradient(solv64, xs64, box64, "lambda_coul", 0.5,
+                                    g))
+    log(f"path (e) dU/dlambda_coul at lambda_coul 0.5 (quadratic rule): "
+        f"float32 {d32:.5f}, float64 {d64:.5f} kJ/mol, difference "
+        f"{abs(d32 - d64):.5f} kJ/mol; block error of TI "
+        f"{out['err_ti']:.4f} kJ/mol")
+    return {"rows_per_s": rows_per_s, "row_launches": row_launches,
+            "md_launches": md_launches, "md_ms": md_ms, "solv": run,
+            "x": x_melt, "box": box, "sampled0": sampled[0], "parts": parts,
+            "out": out, "temps": t_mean, "ti_f32_err": abs(d32 - d64)}
+
+
+def phase_alchemy_timings(dev, alch):
+    """K1 with the softcore form at path (e)'s grid and state, and K2 (the
+    full stencil on the same grid), as time_cells times every shape."""
+    import dataclasses
+
+    from atomsmm_tpu_torch.ops.neighbors import retune_spec
+
+    solv, x, box = alch["solv"], alch["x"].contiguous(), alch["box"]
+    soft = softcore_of(solv)
+    form = soft._pair_form({"lambda_vdw": 0.5})
+    spec = retune_spec(solv.neighbors, x, box)
+    return {
+        ("half_pair", "softcore"): time_cells(
+            "phenol1000w softcore lambda 0.5", soft, spec, x, box, form),
+        ("cell_pair", "softcore"): time_cells(
+            "phenol1000w softcore lambda 0.5 (full stencil)", soft,
+            dataclasses.replace(spec, half_stencil=False), x, box, form),
+    }
+
+
 def main():
     import torch
 
@@ -1461,19 +1918,23 @@ def main():
     d = np.load(os.path.join(HERE, "bench_data", "eq_water30k.npz"))
     eq = (d["x"], d["v"], d["box"])
     results = (phase_kernels(dev, eq) + phase_kernels_ionic(dev)
-               + phase_tile_kernel(dev, eq))
+               + phase_kernels_alchemy(dev) + phase_tile_kernel(dev, eq))
     phase_slice(dev, r_cut=0.7, r_switch=0.6, split=(0.45, 0.35))
     phase_slice(dev, split=(0.5, 0.4))
     phase_slice(dev, method="pme", split=(0.5, 0.4))
     phase_slice_ionic(dev)
+    phase_slice_alchemy(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
     ionic = phase_ionic(dev)
+    alch = phase_alchemy(dev)
+    results += phase_kernels_sampled(dev, alch["sampled0"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
+    timings.update(phase_alchemy_timings(dev, alch))
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
 
@@ -1493,6 +1954,8 @@ def main():
         "path_a": small["launches"],
         "path_b": {"tile_pair": tile_launches},
         "path_d": ionic["launches"],
+        "path_e_rows": alch["row_launches"],
+        "path_e_md": alch["md_launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -1531,6 +1994,14 @@ def main():
     # K1 at path (d)'s two shapes (5,200 atoms, fused damped far form on the
     # 5^3 grid, damped near form on the 6^3 grid), float32
     kernels["kernels"][0].update(emim)
+    # K1 and K2 with the softcore form at path (e)'s 3^3 grid (K2 on its
+    # full stencil), float32; the bound counts the solute-solvent pairs
+    for entry_, kernel in zip(kernels["kernels"], ("half_pair", "cell_pair")):
+        t = timings[(kernel, "softcore")]
+        entry_.update({"softcore_ms": t["ms"],
+                       "softcore_plain_ms": t["plain_ms"],
+                       "softcore_bound_ms": t["bound"]["ms"],
+                       "softcore_bound_by": t["bound"]["by"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

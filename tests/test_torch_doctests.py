@@ -6,6 +6,7 @@ import importlib
 import pytest
 
 MODULES = {
+    "alchemy": 5,
     "forces": 1,
     "integrate.integrators": 3,
     "integrate.propagators": 3,

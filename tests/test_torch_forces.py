@@ -176,8 +176,9 @@ def test_interop_system_equals_port_model(model):
 
 
 def test_interop_refuses_unported_fields():
-    """The charge-scale mask of the alchemical systems has no counterpart
-    yet (the dispersion tail, ported with PME, now crosses over)."""
+    """NBFIX per-type-pair tables have no counterpart yet; the dispersion
+    tail (ported with PME) and the charge-scale mask of the alchemical
+    systems (ported with them) cross over."""
     import jax.numpy as jnp
 
     from atomsmm_tpu.utils import replace as jreplace
@@ -189,10 +190,18 @@ def test_interop_refuses_unported_fields():
     assert carried.forces[0].dispersion_coeff == pytest.approx(
         float(js.forces[0].dispersion_coeff), rel=1e-15)
     masked = js.replace_forces(
-        (jreplace(js.forces[0], charge_scale_mask=jnp.ones(192)),)
-        + tuple(js.forces[1:]))
-    with pytest.raises(NotImplementedError, match="charge_scale_mask"):
-        system_from_numpy(describe_reference(masked), dtype=F64, device="cpu")
+        (jreplace(js.forces[0], charge_scale_mask=jnp.ones(192),
+                  charge_scale_name="lambda_q"),) + tuple(js.forces[1:]))
+    carried = system_from_numpy(describe_reference(masked), dtype=F64,
+                                device="cpu")
+    assert carried.forces[0].charge_scale_name == "lambda_q"
+    assert carried.forces[0].charge_scale_mask.tolist() == [1.0] * 192
+    nbfix = js.replace_forces(
+        (jreplace(js.forces[0], lj_type=jnp.zeros(192, jnp.int32),
+                  pair_sigma=jnp.ones((1, 1)),
+                  pair_epsilon=jnp.ones((1, 1))),) + tuple(js.forces[1:]))
+    with pytest.raises(NotImplementedError, match="lj_type|pair_sigma"):
+        system_from_numpy(describe_reference(nbfix), dtype=F64, device="cpu")
 
 
 def test_unported_methods_raise():

@@ -7,8 +7,12 @@ bucket layout it relies on) and K3
 (csrc/tile_pair.cu, at 32, 64 and 128 atoms a block, and on a shuffled list
 with dead entries and half-empty entries), each in the reaction-field forms
 and in the damped PME forms (Ewald direct space, damped near, fused damped
-far), and on the emim/BF4 ionic liquid (exclusions up to three bonds, 7
-partners an atom: K1 at 400 ion pairs on both grids, K2 at 24). Every test
+far), on the emim/BF4 ionic liquid (exclusions up to three bonds, 7
+partners an atom: K1 at 400 ion pairs on both grids, K2 at 24), and on
+phenol in water (BASELINE config 3) in the softcore form and its lambda
+derivative at lambda 0, 0.5 and 1 (K1 at 1,000 waters, K2 at 200, also
+with the solute pushed into the solvent as at small lambda) and in the
+damped-smoothed form. Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -30,6 +34,7 @@ import atomsmm_tpu_torch as amm
 from atomsmm_tpu_torch.models import (
     argon_system,
     ionic_liquid_system,
+    phenol_in_water,
     water_system,
 )
 from atomsmm_tpu_torch.ops import neighbors as nb
@@ -111,16 +116,19 @@ def _permuted(force, x, box, r_cut):
     return force, spec, x[pt]
 
 
-def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None):
+def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
+                 form=None):
     """One sweep through the wrapper on the card, launching `kernel` once,
     against the same wrapper on the CPU (the plain twin) in float64 on the
     same inputs. With `unsplit` (the full force a fused far force was split
     from) the float32 force tolerance scales with the unsplit force's
     max|F|: the far force is the difference of two forces of that size,
-    and the truncated Ewald term jumps at the float32-rounded cutoff."""
+    and the truncated Ewald term jumps at the float32-rounded cutoff.
+    `form` replaces the force's own pair form (a lambda, the dlambda
+    twin)."""
     dt = getattr(torch, dtype)
     spec = _to(spec, dev)
-    form = force._pair_form()
+    form = force._pair_form() if form is None else form
     pp = {k: v.to(dev, dt) for k, v in force._per_particle().items()}
     x, box = x.to(dev, dt), box.to(dev, dt)
     bucket, overflow = nb.build_cell_buckets(spec, x, box)
@@ -327,6 +335,60 @@ def test_ionic_liquid_sweeps_match_plain_on_card(cuda, case, kernel, dtype):
     assert spec.excbits is not None and force.exclusions.shape[1] == 7
     assert spec.half_stencil == (kernel == "half_pair")
     _check_sweep(force, spec, x, box, cuda, dtype, kernel, unsplit)
+
+
+def _phenol_case(name):
+    """(SolvationSystem, spec, x, box) of phenol in water, float64 on the
+    CPU: '1000' waters at 0.75 nm (2,941 atoms, a 3^3 grid with half maps:
+    K1) or '200' (541 atoms, a 2^3 grid: K2); an '_overlap' suffix moves
+    the solute 0.15 nm into the solvent, so that waters sit inside its
+    sigma as they do at small lambda."""
+    n_water, *overlap = name.split("_")
+    s, x, box, solute = phenol_in_water(n_water=int(n_water), neighbors=True,
+                                        dtype=F64, device="cpu")
+    if overlap:
+        x = x.clone()
+        x[:13] += torch.tensor([0.12, 0.08, 0.05], dtype=F64)
+    solv = amm.SolvationSystem(s, solute)
+    return solv, nb.retune_spec(solv.neighbors, x, box), x, box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("dlambda", [False, True])
+@pytest.mark.parametrize("lam", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("case,kernel", [
+    ("1000", "half_pair"), ("200", "cell_pair"), ("200_overlap", "cell_pair")])
+def test_softcore_forms_match_plain_on_card(cuda, case, kernel, lam, dlambda,
+                                            dtype):
+    """The softcore form (the solute indicator as +-1 in the charge column)
+    and its dlambda twin (energy column only, zero force)."""
+    solv, spec, x, box = _phenol_case(case)
+    assert spec.half_stencil == (kernel == "half_pair")
+    soft, = (f for f in solv.forces
+             if isinstance(f, amm.SoftcoreLennardJonesForce))
+    _check_sweep(soft, spec, x, box, cuda, dtype, kernel,
+                 form=soft._pair_form({"lambda_vdw": lam}, dlambda=dlambda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("case,kernel", [("1000", "half_pair"),
+                                         ("200", "cell_pair")])
+def test_damped_smoothed_and_scaled_forms_match_plain_on_card(cuda, case,
+                                                             kernel, dtype):
+    """The damped-smoothed form, and the reaction-field form at
+    lambda_coul = 0.5 (the solute's charges halved)."""
+    solv, spec, x, box = _phenol_case(case)
+    full = solv.forces[0]
+    ds = amm.DampedSmoothedForce(charge=full.charge, sigma=full.sigma,
+                                 epsilon=full.epsilon,
+                                 exclusions=full.exclusions, r_cut=0.75,
+                                 r_switch=0.65, alpha=3.0)
+    _check_sweep(ds, spec, x, box, cuda, dtype, kernel)
+    half = dataclasses.replace(full, charge=full._effective_charge(
+        {"lambda_coul": 0.5}), charge_scale_mask=None)
+    _check_sweep(half, spec, x, box, cuda, dtype, kernel)
 
 
 def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,

@@ -195,13 +195,22 @@ def test_kernel_scalar_block_layout():
     k_rf, c_rf = tpf.reaction_field_constants(0.9, 1e15)
     assert far.scalars() == [0.8, 1.0 / (0.9 - 0.8), k_rf, c_rf, 0.4,
                              1.0 / (0.5 - 0.4), 0.5, 1.0 / 0.5, -1.0, 0.0,
-                             1.0 / 0.5, -1.0 / 0.5 ** 2]
-    assert far.flags() == [1, 1, 1, 0]
+                             1.0 / 0.5, -1.0 / 0.5 ** 2, 1.0]
+    assert far.flags() == [1, 1, 1, 0, 0, 0, 0]
     assert far.kind == tpf.FAR and far.r_cut == 0.9
     pme = fs["far_pme"]._pair_form()
     ec, dec = tpf.coulomb_kernel_at(0.5, ALPHA)
     assert pme.scalars() == [0.8, 1.0 / (0.9 - 0.8), 0.0, 0.0, 0.4,
                              1.0 / (0.5 - 0.4), 0.5, 1.0 / 0.5, -1.0, ALPHA,
-                             ec, dec]
-    assert pme.flags() == [1, 1, 1, 1]
+                             ec, dec, 1.0]
+    assert pme.flags() == [1, 1, 1, 1, 0, 0, 0]
     assert pme.kind == tpf.FAR and pme.r_cut == 0.9
+    # the softcore forms: lambda, no charge kernel; the
+    # damped-smoothed form: the full half with the switch on the Coulomb
+    soft = tpf.softcore_form(0.75, 0.65, 0.3, dlambda=True)
+    assert soft.scalars() == [0.65, 1.0 / (0.75 - 0.65)] + [0.0] * 6 \
+        + [1.0, 0.0, 0.0, 0.0, 0.3]
+    assert soft.flags() == [0, 1, 0, 0, 1, 1, 0]
+    assert soft.kind == tpf.SOFTCORE and soft.alpha == 0.0
+    ds = tpf.damped_smoothed_form(0.9, 0.8, ALPHA)
+    assert ds.flags() == [1, 1, 0, 1, 0, 0, 1] and ds.alpha == ALPHA
