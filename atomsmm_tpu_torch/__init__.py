@@ -8,8 +8,10 @@ csrc/cell_pair.cu (full stencil, small boxes) and csrc/tile_pair.cu (the
 standalone tile-list entry point, ops/tilepair.py). The PME reciprocal sum
 (ops/pme.py) is PyTorch: a scatter, torch.fft and a gather. The
 alchemical machinery (alchemy.py: multi-state energies, MBAR, TI, the
-solvation free energy) runs its softcore forms on the same kernels. This
-package never imports JAX.
+solvation free energy) runs its softcore forms on the same kernels. A
+MonteCarloBarostat in a system moves the box (integrate/barostat.py), and
+computers.py gives virials and pressures, from the kernels' virial form on
+the cell path. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +23,7 @@ from .alchemy import (
     reduced_energy_matrix,
     ti_gradient,
 )
+from .computers import PressureComputer
 from .context import Context, StateSnapshot
 from .forces import (
     CustomBondForce,
@@ -29,6 +32,7 @@ from .forces import (
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
+    MonteCarloBarostat,
     NearNonbondedForce,
     NonbondedExceptionsForce,
     NonbondedForce,

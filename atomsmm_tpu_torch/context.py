@@ -10,6 +10,15 @@ one trajectory whether or not a capacity overflowed), grows the cell
 capacities and runs the n steps again. `set_parameter` holds the global
 context parameters (lambda_vdw and the like) that every force evaluation and
 propagator receives as `globals`.
+
+The box moves when the system holds a MonteCarloBarostat: a volume move is
+attempted right after every step whose post-increment counter satisfies
+step % frequency == frequency - 1 (the JAX package's host segmentation; the
+counter is a host int, so the test costs no sync). The same single read at
+the end of step(n) then also checks that every cell grid's stencil still
+covers its cutoff at the final box, that no PME grid has fallen behind a
+grown box (sticky flags, `retune_pme` re-derives the grids), and how many
+volume trials were vetoed for an invalid pair list.
 """
 from __future__ import annotations
 
@@ -19,6 +28,13 @@ from typing import Dict, Optional
 
 import torch
 
+from .forces import MonteCarloBarostat, pme_coverage_flags
+from .integrate.barostat import (
+    BARO_NATT,
+    BARO_NBAD,
+    MonteCarloBarostatPropagator,
+)
+from .integrate.propagators import StepContext
 from .ops.neighbors import (
     all_neighbor_extras,
     coverage_deficient,
@@ -106,8 +122,27 @@ class Context:
                 extras = all_neighbor_extras(system, state.x, state.box)
             state = state.with_extra(**extras)
         self.state = integrator.initialize(system, state)
+        # openmm semantics: a MonteCarloBarostat force drives MC volume
+        # moves after the steps it is due at (integrate/barostat.py)
+        self._barostat = None
+        for f in system.forces:
+            if isinstance(f, MonteCarloBarostat):
+                self._barostat = MonteCarloBarostatPropagator(
+                    float(f.pressure), float(f.temperature), f.frequency)
+                missing = {k: v.clone() for k, v in
+                           self._barostat.extra_variables(system,
+                                                          self.state).items()
+                           if k not in self.state.extra}
+                self.state = self.state.with_extra(**missing)
+        # sticky PME coverage flags, checked against the live box at the
+        # start of every step(n) and after every volume move
+        self._pme_flags = tuple(pme_coverage_flags(system, {}, state.box))
+        self.state = self.state.with_extra(**{
+            k: torch.zeros((), dtype=torch.bool, device=state.x.device)
+            for k in self._pme_flags})
         self._step_fn = integrator.make_step()
         self.check_overflow = system.neighbors is not None
+        self._warned_baro_nbad = False
 
     def _check_box(self, box):
         """Raise unless every cutoff fits the minimum image at `box` and
@@ -130,22 +165,42 @@ class Context:
         return s.with_extra(**update_all_neighbors(self.system, s.extra, s.x,
                                                    s.box))
 
+    def _flag_pme(self, s: State) -> State:
+        return s.with_extra(**pme_coverage_flags(self.system, s.extra, s.box))
+
     def _advance(self, n: int):
-        system = self.system
-        s = self._update_neighbors(self.state)
+        system, baro = self.system, self._barostat
+        s = self._flag_pme(self._update_neighbors(self.state))
         s = refresh_force_caches(system, s, self.parameters)
         for _ in range(n):
             s = self._update_neighbors(
                 self._step_fn(system, s, self.parameters))
+            if baro is not None and \
+                    s.step % baro.frequency == baro.frequency - 1:
+                s = self._flag_pme(baro._attempt(
+                    StepContext(system, self.parameters, 0.0), s))
         self.state = s
 
     def _flags(self):
-        """Host copy of the sticky overflow flags: one device sync."""
-        flags = overflow_flags(self.state.extra)
-        if not flags:
-            return {}
-        values = torch.stack([v.reshape(()) for v in flags.values()]).tolist()
-        return dict(zip(flags, values))
+        """Host copies, in one device sync, of four groups of flags by name:
+        "overflow" (the sticky bucket-overflow flags), "pme" (the sticky PME
+        coverage flags), "undercover" (whether each cell grid's stencil
+        fails to cover its cutoff at the current box, by spec name) and
+        "baro" (the barostat's attempt and invalid-trial counts)."""
+        extra = self.state.extra
+        groups = {
+            "overflow": overflow_flags(extra),
+            "pme": {k: extra[k] for k in self._pme_flags},
+            "undercover": {name: coverage_deficient(spec, self.state.box)
+                           for name, spec in iter_specs(self.system)},
+            "baro": ({k: extra[k] for k in (BARO_NATT, BARO_NBAD)}
+                     if self._barostat is not None else {}),
+        }
+        flat = [v.reshape(()).to(torch.int64)
+                for g in groups.values() for v in g.values()]
+        values = iter(torch.stack(flat).tolist() if flat else [])
+        return {name: {k: next(values) for k in g}
+                for name, g in groups.items()}
 
     def step(self, n: int):
         """Advance n outer steps.
@@ -161,9 +216,8 @@ class Context:
                 rng_state = self.state.rng.get_state()
             self._advance(n)
             self.last_step_passes += 1
-            if not self.check_overflow:
-                break
-            overflowed = [k for k, v in self._flags().items() if v]
+            flags = self._flags()
+            overflowed = [k for k, v in flags["overflow"].items() if v]
             if not overflowed:
                 break
             if attempt == 2:
@@ -180,7 +234,43 @@ class Context:
             backup.rng.set_state(rng_state)
             self.retune_neighbors(safety=1.15 * (1.2 ** attempt),
                                   grow_only=True)
+        self._check_flags(flags)
         return self
+
+    def _check_flags(self, flags):
+        """Raise on a stencil that no longer covers its cutoff at the final
+        box or on a PME grid the box outgrew; warn once when more than 10%
+        of at least 20 volume trials were vetoed for an invalid pair
+        list."""
+        for name, bad in flags["undercover"].items():
+            if bad:
+                raise RuntimeError(
+                    f"cell-list coverage loss (spec {name!r}): the box "
+                    "shrank until the stencil reach no longer covers the "
+                    "cutoff, so pairs would be dropped. Rebuild the "
+                    "NeighborSpec at the current box, or pass a larger "
+                    "min_skin to make_neighbor_spec for NPT runs")
+        for key, bad in flags["pme"].items():
+            if bad:
+                raise RuntimeError(
+                    f"PME grid coverage loss ({key}): the box grew past the "
+                    "validity bound of the static (alpha, grid), so the "
+                    "reciprocal-space error exceeds its design tolerance. "
+                    "Call retune_pme() to re-derive the grid for the current "
+                    "box")
+        natt, nbad = (flags["baro"].get(k, 0) for k in (BARO_NATT, BARO_NBAD))
+        if natt >= 20 and nbad > 0.1 * natt and not self._warned_baro_nbad:
+            # a rejected undercovering trial is never priced on a truncated
+            # pair list, but a compression vetoed again and again is a
+            # reflecting wall that biases <V>
+            self._warned_baro_nbad = True
+            warnings.warn(
+                f"MC barostat: {nbad}/{natt} volume-move trials were "
+                "rejected because the trial pair list was invalid (bucket "
+                "overflow or coverage loss at the trial box). If this "
+                "persists the volume distribution is biased at the coverage "
+                "boundary: rebuild the NeighborSpec with a larger min_skin "
+                "for NPT headroom", stacklevel=3)
 
     # -- observation -------------------------------------------------------
 
@@ -247,6 +337,47 @@ class Context:
 
     def get_parameter(self, name: str):
         return self.parameters[name]
+
+    def retune_pme(self):
+        """Re-derive every PME force's grid for the current box, keeping
+        the larger grid per dimension and alpha (which depends only on the
+        cutoff and the error tolerance, not on the volume); a
+        PMEReciprocalForce of the same alpha takes its companion's grid.
+        Clears the sticky PME coverage flags."""
+        import math
+
+        import numpy as np
+
+        from .forces import PMEReciprocalForce, _pme_carrier
+        from .ops.pme import choose_pme_parameters
+
+        box = np.asarray(self.state.box.detach().cpu(), np.float64)
+        new_forces, regrids = [], {}
+        for f in self.system.forces:
+            g = _pme_carrier(f)
+            if g is None:
+                new_forces.append(f)
+                continue
+            alpha = float(g.ewald_alpha)
+            # the design tolerance, recovered from openmm's alpha rule
+            tol = 0.5 * math.exp(-((alpha * float(g.r_cut)) ** 2))
+            _, grid, _ = choose_pme_parameters(float(g.r_cut), box, tol=tol,
+                                               alpha=alpha,
+                                               order=int(g.spline_order))
+            grid = tuple(max(a, b) for a, b in zip(grid, g.grid_shape))
+            regrids[alpha] = grid
+            new_forces.append(replace(f, grid_shape=grid) if g is f else
+                              replace(f, full=replace(f.full,
+                                                      grid_shape=grid)))
+        new_forces = [
+            replace(f, grid_shape=regrids[float(f.ewald_alpha)])
+            if isinstance(f, PMEReciprocalForce)
+            and float(f.ewald_alpha) in regrids else f
+            for f in new_forces]
+        self.system = self.system.replace_forces(new_forces)
+        self.state = self.state.with_extra(**{
+            k: torch.zeros_like(self.state.extra[k]) for k in self._pme_flags})
+        return self
 
     def retune_neighbors(self, safety: float = 1.15, grow_only: bool = False):
         """Resize every neighbor spec's cell capacity to the measured max

@@ -305,7 +305,8 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
            int m, const double* scal, const int* flags, T* out,
            void* stream) {
   if (cap < 1 || ncells < 1 || s < 1 || n < 0 || m < 0 || m > MAX_EXC ||
-      (exc != nullptr && m < 1) || (exc == nullptr && excbits == nullptr)) {
+      (exc != nullptr && m < 1) || (exc == nullptr && excbits == nullptr) ||
+      !flags_valid(flags)) {
     return (int)cudaErrorInvalidValue;
   }
   // warps that share a home atom: 1 where the atoms alone fill the card

@@ -382,7 +382,7 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
            void* stream) {
   if (cap < 1 || cap > 1024 || ncells < 1 || s_half < 1 || n < 0 || m < 0 ||
       m > MAX_EXC || (exc != nullptr && m < 1) ||
-      (exc == nullptr && excbits == nullptr)) {
+      (exc == nullptr && excbits == nullptr) || !flags_valid(flags)) {
     return (int)cudaErrorInvalidValue;
   }
   // one block: at most 1,024 threads

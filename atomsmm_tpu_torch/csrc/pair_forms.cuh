@@ -15,9 +15,12 @@
 // cross = (1 - qq) / 2. The damped forms use CUDA's
 // own erfcf/erfc and expf/exp, once per slot, shared by both halves of the
 // far form; whether a form is damped is a template parameter (DAMPED, from
-// alpha != 0 at launch), so the undamped forms carry no erfc code. The
-// plain PyTorch twin of pair_form is ops/pairfuncs.py::form_u_dudr2, line
-// for line.
+// alpha != 0 at launch), so the undamped forms carry no erfc code. Under
+// the virial flag (any form but the dlambda one) pair_form returns the
+// pair's virial w = -2 r^2 du/dr^2 = d . F in place of u, and the force is
+// unchanged: the energy column then sums to W = -dU(s x, s box)/ds at
+// s = 1. The plain PyTorch twin of pair_form is
+// ops/pairfuncs.py::form_u_dudr2, line for line.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,12 +56,13 @@ struct Params {
   int softcore; // Beutler softcore LJ (undamped instantiation only)
   int dlambda;  // softcore: d u / d lambda in place of u, no force
   int smoothed; // full form: the switch multiplies the Coulomb too
+  int virial;   // -2 r^2 du/dr^2 in place of u, force unchanged
 };
 
 // The kernels' C entry points all take the same host arrays:
 // scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
 // near_sign, alpha, n_ec, n_dec, lamb], flags = [has_full,
-// use_switch, has_near, ewald, softcore, dlambda, smoothed].
+// use_switch, has_near, ewald, softcore, dlambda, smoothed, virial].
 template <typename T>
 inline Params<T> make_params(const double* scal, const int* flags) {
   Params<T> p;
@@ -83,8 +87,13 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   p.softcore = flags[4];
   p.dlambda = flags[5];
   p.smoothed = flags[6];
+  p.virial = flags[7];
   return p;
 }
+
+// A flag block the kernels take: the virial flag replaces u, which the
+// dlambda flag has already replaced, so the two together are refused.
+inline bool flags_valid(const int* flags) { return !(flags[5] && flags[7]); }
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return 1.0 / sqrt(x); }
@@ -131,8 +140,9 @@ __device__ __forceinline__ void switch_quintic(T x, T& s, T& ds_dx) {
 // charge product and (sig, eps) the Lorentz-Berthelot pair parameters;
 // DAMPED must equal p.alpha != 0.
 template <typename T, bool DAMPED>
-__device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
-                                          T sig, T eps, T& u, T& dudr2) {
+__device__ __forceinline__ void pair_form_energy(const Params<T>& p, T r2,
+                                                 T qq, T sig, T eps, T& u,
+                                                 T& dudr2) {
   const T kc = T(ONE_4PI_EPS0);
   T rinv = rsqrt_t(r2);
   T r = r2 * rinv;
@@ -233,6 +243,15 @@ __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
       dudr2 += p.near_sign * dun_dr * T(0.5) * rinv;
     }
   }
+}
+
+// pair_form_energy, with the pair's virial -2 r^2 du/dr^2 in place of u
+// under the virial flag: what the kernels call.
+template <typename T, bool DAMPED>
+__device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
+                                          T sig, T eps, T& u, T& dudr2) {
+  pair_form_energy<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
+  if (p.virial) u = T(-2) * r2 * dudr2;
 }
 
 // Whether a parameter block selects the damped forms (DAMPED above).

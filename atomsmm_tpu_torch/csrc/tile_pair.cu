@@ -368,7 +368,7 @@ int launch(const T* fs, const int* ms, const int* hb, const int* cb,
            const int* wrap, const T* box, int n_entries, int nb, int b,
            const double* scal, const int* flags, T* acc, void* stream) {
   if (b < 1 || b > MAX_B || nb < 1 || n_entries < 0 ||
-      n_entries > 0x3fffffff) {
+      n_entries > 0x3fffffff || !flags_valid(flags)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_entries == 0) return 0;

@@ -24,13 +24,20 @@ Alchemical parameters (lambda_vdw, lambda_coul and the like) arrive in
 torch operations, by the softcore form's dlambda twin on the kernels, and
 by an exact quadratic rule for the charge-scaled forces.
 
+Each force also gives its virial, `virial` -> (W, forces) with
+W = -dU(s x, s box)/ds at s = 1 (computers.py): by one autograd pass where
+the energy is torch operations, as the JAX package takes it with jax.grad,
+and by the pair form's virial flag on the kernels, which return numbers,
+not a graph (a pair's -dU/ds is its d . F).
+
 Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
 dense path, with the charge-scale mask of SolvationSystem),
 NearNonbondedForce (damped or not), FarNonbondedForce (fused, or in two
 sweeps under a charge-scale mask), PMEReciprocalForce,
 NonbondedExceptionsForce, DampedSmoothedForce, SoftcoreLennardJonesForce,
 CustomNonbondedForce, CustomBondForce, TemplateBondedForce,
-HarmonicBondForce, HarmonicAngleForce and PeriodicTorsionForce.
+HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce and the
+MonteCarloBarostat marker.
 
 >>> import torch
 >>> f64 = torch.float64
@@ -85,6 +92,21 @@ def _combine(pi, pj):
                                        pi["epsilon"], pj["epsilon"])
 
 
+def autograd_virial(energy, x, box):
+    """(W, forces) of energy(x, box) by one backward pass: the virial
+    W = -dU(s x, s box)/ds at s = 1 and the forces -dU/dx."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    with torch.enable_grad():
+        s = torch.ones((), dtype=x.dtype, device=x.device, requires_grad=True)
+        xx = x.detach().requires_grad_(True)
+        e = energy(s * xx, s * box)
+        if not (isinstance(e, torch.Tensor) and e.requires_grad):
+            return zero, torch.zeros_like(x)
+        ds, gx = torch.autograd.grad(e, (s, xx), allow_unused=True)
+    return (zero if ds is None else -ds,
+            torch.zeros_like(x) if gx is None else -gx)
+
+
 @dataclasses.dataclass
 class Force:
     """Base force: subclasses define energy(x, box, globals, aux) -> scalar.
@@ -94,6 +116,9 @@ class Force:
     are differentiated by potential.force_fn."""
 
     group: int = 0
+    #: a marker that adds no energy and no force (MonteCarloBarostat): the
+    #: evaluators of a step skip it
+    inert = False
 
     @property
     def name(self) -> str:
@@ -119,6 +144,15 @@ class Force:
             (d,) = torch.autograd.grad(e, lam, allow_unused=True)
         return torch.zeros((), dtype=x.dtype, device=x.device) \
             if d is None else d
+
+
+    def virial(self, x, box, globals, aux=None):
+        """(W, forces): W = -dU(s x, s box)/ds at s = 1, the isotropic
+        virial, and the forces. The default takes both by autograd of
+        energy(), which is exact for a force made of torch operations; a
+        force whose energy comes from a kernel overrides it."""
+        return autograd_virial(
+            lambda xx, bb: self.energy(xx, bb, globals, aux), x, box)
 
 
 def _charge_scaled_dlambda(force, scaled, x, box, globals, name, aux):
@@ -177,6 +211,23 @@ class _PairForceMixin:
             e = self._nb_energy(xx, box, globals, aux, r_cut)
             (g,) = torch.autograd.grad(e, xx)
         return e.detach(), -g
+
+    def _nb_virial(self, x, box, globals, aux, r_cut):
+        """(W, forces) of the pair term: on the cell path with a built-in
+        form one sweep of its virial form (the energy column carries each
+        pair's d . F), else by autograd."""
+        nbr = self._cell(aux, r_cut)
+        if nbr is not None and hasattr(self, "_pair_form"):
+            return cell_pair_energy_forces(
+                pairfuncs.virial_form(self._pair_form(globals)), x, box,
+                self._per_particle(globals), nbr["spec"], nbr["bucket"],
+                r_cut)
+        return autograd_virial(
+            lambda xx, bb: self._nb_energy(xx, bb, globals, aux, r_cut), x,
+            box)
+
+    def virial(self, x, box, globals, aux=None):
+        return self._nb_virial(x, box, globals, aux, self.r_cut)
 
 
 @dataclasses.dataclass
@@ -297,11 +348,27 @@ class NonbondedForce(_PairForceMixin, Force):
             return 0.0
         return self.dispersion_coeff / box_volume(box)
 
+    def _outside_sweep_virial(self, x, box, globals, include_reciprocal=True):
+        """(W, forces) of the terms outside the pair sweep, torch operations
+        all: the PME reciprocal sum and corrections, the dispersion tail."""
+        def energy(xx, bb):
+            e = self._dispersion(bb)
+            if self.method == "pme":
+                e = e + self._recip_energy(xx, bb, globals, include_reciprocal)
+            return e
+
+        return autograd_virial(energy, x, box)
+
     def energy(self, x, box, globals, aux=None):
         e = self._nb_energy(x, box, globals, aux, self._pair_cutoff)
         if self.method == "pme":
             e = e + self._recip_energy(x, box, globals)
         return e + self._dispersion(box)
+
+    def virial(self, x, box, globals, aux=None):
+        w, f = self._nb_virial(x, box, globals, aux, self._pair_cutoff)
+        w2, f2 = self._outside_sweep_virial(x, box, globals)
+        return w + w2, f + f2
 
     def energy_and_forces(self, x, box, globals, aux=None):
         e, f = self._nb_energy_forces(x, box, globals, aux, self._pair_cutoff)
@@ -511,6 +578,18 @@ class FarNonbondedForce(_PairForceMixin, Force):
                                                self.include_reciprocal)
             e, f = e + e2, f + f2
         return e + full._dispersion(box), f
+
+    def virial(self, x, box, globals, aux=None):
+        full = self.full
+        if self._fusable():
+            w, f = self._nb_virial(x, box, globals, aux, full._pair_cutoff)
+        else:
+            w, f = full._nb_virial(x, box, globals, aux, full._pair_cutoff)
+            w2, f2 = self.minus_near.virial(x, box, globals, aux)
+            w, f = w + w2, f + f2
+        w2, f2 = full._outside_sweep_virial(x, box, globals,
+                                            self.include_reciprocal)
+        return w + w2, f + f2
 
     def denergy_dlambda(self, x, box, globals, name, aux=None):
         return _charge_scaled_dlambda(self, self.full, x, box, globals, name,
@@ -723,6 +802,56 @@ class CustomBondForce(Force):
 
         return pairlist_energy(pair, x, box, self.pairs, self.per_bond,
                                self.valid)
+
+
+@dataclasses.dataclass
+class MonteCarloBarostat(Force):
+    """Marker force mirroring openmm.MonteCarloBarostat: no energy, no
+    force, no work in a step (`inert`). A Context that finds it attempts an
+    MC volume move every `frequency` steps
+    (integrate/barostat.py::MonteCarloBarostatPropagator)."""
+
+    pressure: float = 1.0      # bar
+    temperature: float = 300.0
+    frequency: int = 25
+    inert = True
+
+    def energy(self, x, box, globals, aux=None):
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _pme_carrier(force):
+    """The force (possibly nested under .full) that owns a PME cutoff and
+    a static grid, or None."""
+    g = force
+    while (getattr(g, "method", None) != "pme"
+           and getattr(g, "full", None) is not None):
+        g = g.full
+    if getattr(g, "method", None) != "pme" or not any(g.grid_shape):
+        return None
+    return g
+
+
+def pme_coverage_flags(system, extra, box):
+    """Sticky per-force flags pme_<i>_undercover (device bools): the box
+    has grown past the validity bound of a PME force's static (alpha,
+    grid), ops/pme.py::pme_validity_lengths, with a 5% grace (the grid rule
+    inverts to tol_eff = tol (L / L_max)^5, so tripping at 1.05 L_max
+    means tol_eff <= 1.28 tol). The reciprocal counterpart of the cell
+    lists' coverage check; Context.step raises on it."""
+    out = {}
+    for i, f in enumerate(system.forces):
+        g = _pme_carrier(f)
+        if g is None:
+            continue
+        bounds = torch.as_tensor(pme.pme_validity_lengths(
+            g.ewald_alpha, g.grid_shape, g.spline_order, g.r_cut),
+            dtype=box.dtype, device=box.device)
+        key = f"pme_{i}_undercover"
+        prev = extra.get(key)
+        flag = torch.any(box > 1.05 * bounds)
+        out[key] = flag if prev is None else prev | flag
+    return out
 
 
 @dataclasses.dataclass

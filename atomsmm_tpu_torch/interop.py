@@ -29,6 +29,7 @@ from .forces import (
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
+    MonteCarloBarostat,
     NearNonbondedForce,
     NonbondedExceptionsForce,
     NonbondedForce,
@@ -46,7 +47,8 @@ _CLASSES = {c.__name__: c for c in (
     System, NonbondedForce, NearNonbondedForce, FarNonbondedForce,
     PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
     HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
-    DampedSmoothedForce, SoftcoreLennardJonesForce, NeighborSpec)}
+    DampedSmoothedForce, SoftcoreLennardJonesForce, MonteCarloBarostat,
+    NeighborSpec)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path

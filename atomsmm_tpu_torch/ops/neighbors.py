@@ -15,8 +15,11 @@ the production nonbonded path.
 
 Shapes are static (NeighborSpec). Bucket overflow is flagged, never
 silently dropped: the flag stays on the device and Context.step reads it
-once per call. The box is fixed (no barostat is ported), so the stencil's
-coverage of the cutoff is checked once, when a Context is built.
+once per call. The box may move (the MC barostat scales it), but the grid
+and the stencil reach stay: a box that shrank until the stencil no longer
+covers the cutoff would drop pairs, so `coverage_deficient` is tested on
+each barostat trial (an uncovered trial is rejected), at every box a
+Context is given, and at the box each Context.step ends with.
 
 Unlike the JAX package, which rebuilds only when an atom has moved half the
 skin, the port rebuilds at every outer step (JAX's ``force=True`` branch):
@@ -345,13 +348,18 @@ def build_cell_buckets(spec: NeighborSpec, x, box):
     return bucket[:-1].reshape(ncells, cap), torch.any(~ok)
 
 
-def coverage_deficient(spec: NeighborSpec, box) -> bool:
-    """Host-side: the stencil reach does not cover the cutoff at `box`
-    (only dims where the stencil does not wrap the whole grid count)."""
-    box = np.asarray(_host(box), np.float64)
-    r_cut = spec.r_build - spec.skin
-    return any(2 * r + 1 < g and b / g * r < r_cut
-               for b, g, r in zip(box, spec.grid, spec.reach))
+def coverage_deficient(spec: NeighborSpec, box):
+    """The stencil reach does not cover the cutoff at `box`: a bool tensor
+    on the device of `box`, read without a sync. Only dims where the
+    stencil does not wrap the whole grid count: along a wrapping dim every
+    cell pair is a candidate whatever the cell width."""
+    box = torch.as_tensor(box)
+    # the reach in box lengths, infinite along a wrapping dim
+    reach = torch.as_tensor(
+        [r / g if 2 * r + 1 < g else math.inf
+         for g, r in zip(spec.grid, spec.reach)],
+        dtype=box.dtype, device=box.device)
+    return torch.any(box * reach < spec.r_build - spec.skin)
 
 
 def moved_beyond_half_skin(skin, xref, boxref, x, box, fraction=0.5):

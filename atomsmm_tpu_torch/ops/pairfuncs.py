@@ -36,6 +36,11 @@ kernel c(r) = erfc(alpha r)/r, which is 1/r when alpha = 0):
 * ``DAMPED_SMOOTHED``: (LJ + k qq c(r)) S(r; rs, rc), the damped Coulomb
   smoothed by the switch with no shift (DampedSmoothedForce).
 
+Any form but a dlambda one takes the ``virial`` flag (``virial_form``): the
+energy column then carries the pair's virial w = -2 r² du/dr² = d . F in
+place of u, and the force is unchanged. Summed like the energy, it gives
+W = -dU(s x, s box)/ds at s = 1 (computers.py).
+
 >>> import torch
 >>> round(float(lj(torch.tensor(2.0 ** (1 / 6) * 0.34, dtype=torch.float64), 0.34, 0.65)), 10)
 -0.65
@@ -221,6 +226,12 @@ class PairForm:
     dlambda: bool = False   # softcore: d u / d lambda in place of u, no force
     lamb: float = 1.0       # softcore: lambda
     smoothed: bool = False  # full form: the switch multiplies the Coulomb too
+    virial: bool = False    # -2 r² du/dr² in place of u, force unchanged
+
+    def __post_init__(self):
+        if self.virial and self.dlambda:
+            raise ValueError("a pair form takes the virial or the dlambda "
+                             "flag, not both")
 
     def scalars(self):
         """The kernels' scalar block, in the order csrc/pair_forms.cuh reads."""
@@ -231,7 +242,7 @@ class PairForm:
     def flags(self):
         return [int(self.has_full), int(self.use_switch), int(self.has_near),
                 int(self.ewald), int(self.softcore), int(self.dlambda),
-                int(self.smoothed)]
+                int(self.smoothed), int(self.virial)]
 
 
 def lj_sw_rf_form(r_cut, r_switch, eps_rf, use_switch: bool = True) -> PairForm:
@@ -282,6 +293,12 @@ def damped_smoothed_form(r_cut, r_switch, alpha) -> PairForm:
                     alpha=float(alpha), smoothed=True)
 
 
+def virial_form(form: PairForm) -> PairForm:
+    """`form` with the virial flag: each pair's -2 r² du/dr² (its d . F)
+    in the energy column, the force unchanged."""
+    return dataclasses.replace(form, virial=True)
+
+
 def far_form(full: PairForm, minus_near: PairForm) -> PairForm:
     """The fused far form: the full form plus the (negated) near form, one
     pass bounded by the full cutoff (the near part is zero beyond its own).
@@ -308,7 +325,16 @@ def _switch_and_slope(x):
 
 def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
     """(u, du/dr²) of `form` at squared distance r2 (mask invalid slots to
-    r2 = 1 first). Line-for-line twin of pair_form in csrc/pair_forms.cuh."""
+    r2 = 1 first); under the virial flag -2 r² du/dr² in place of u.
+    Line-for-line twin of pair_form in csrc/pair_forms.cuh."""
+    u, dudr2 = _form_energy(form, r2, qq, sig, eps)
+    if form.virial:
+        u = -2.0 * r2 * dudr2
+    return u, dudr2
+
+
+def _form_energy(form: PairForm, r2, qq, sig, eps):
+    """(u, du/dr²) of `form`: the twin of pair_form_energy."""
     rinv = make_rv(r2).rinv
     r = r2 * rinv
     rinv2 = rinv * rinv

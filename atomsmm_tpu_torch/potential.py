@@ -4,7 +4,8 @@ atomsmm_tpu/potential.py).
 `aux` carries evaluation-time structures that are state, not parameters:
 the neighbor buckets (ops/neighbors.py). Forces with an explicit
 `energy_and_forces` are used directly; the others are differentiated with
-autograd.
+autograd. A marker force (`inert`, the MonteCarloBarostat) adds nothing and
+is skipped by the evaluators a step runs.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def potential_energy(system, x, box, globals=None,
     globals = globals or {}
     total = torch.zeros((), dtype=x.dtype, device=x.device)
     for f in system.forces:
-        if groups is None or f.group in groups:
+        if not f.inert and (groups is None or f.group in groups):
             total = total + f.energy(x, box, globals, aux)
     return total
 
@@ -38,7 +39,8 @@ def _energy_and_forces(force, x, box, globals, aux):
 def force_fn(system, groups: Optional[Iterable[int]] = None):
     """Return f(x, box, globals, aux) -> (energy, forces) for the given groups."""
     groups = None if groups is None else frozenset(groups)
-    selected = [f for f in system.forces if groups is None or f.group in groups]
+    selected = [f for f in system.forces
+                if not f.inert and (groups is None or f.group in groups)]
 
     def f(x, box, globals=None, aux=None):
         globals = globals or {}

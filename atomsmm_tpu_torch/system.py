@@ -2,7 +2,9 @@
 
 A `System` owns particle masses, molecule assignment and a tuple of Force
 objects, each carrying its RESPA force group. Transformations build new
-systems (`replace`) instead of editing one in place.
+systems (`replace`) instead of editing one in place. `molecule_centres` and
+`molecular_scale` work on its molecule assignment (the barostat's molecular
+scaling, the molecular virial).
 """
 from __future__ import annotations
 
@@ -52,8 +54,37 @@ class System:
     def num_particles(self) -> int:
         return self.masses.shape[0]
 
+    def add_force(self, force) -> "System":
+        """A new system with `force` appended (this one is left as it was).
+
+        >>> import torch
+        >>> from atomsmm_tpu_torch.forces import MonteCarloBarostat
+        >>> s = System(masses=torch.ones(2), default_box=torch.full((3,), 2.0))
+        >>> npt = s.add_force(MonteCarloBarostat(pressure=1.0, frequency=25))
+        >>> [f.name for f in npt.forces], len(s.forces)
+        (['MonteCarloBarostat'], 0)
+        """
+        return replace(self, forces=tuple(self.forces) + (force,))
+
     def replace_forces(self, forces) -> "System":
         return replace(self, forces=tuple(forces))
+
+
+def molecule_centres(x, molecule, num_molecules, masses):
+    """(N, 3): the centre of mass of each atom's molecule, by index_add_
+    over the molecule ids."""
+    mol = molecule.long()
+    mw = masses[:, None].to(x.dtype)
+    com = (x.new_zeros((num_molecules, 3)).index_add_(0, mol, mw * x)
+           / x.new_zeros((num_molecules, 1)).index_add_(0, mol, mw))
+    return com[mol]
+
+
+def molecular_scale(x, molecule, num_molecules, masses, s):
+    """Scale the molecules' centres of mass by s, keeping each molecule's
+    geometry."""
+    return x + (s - 1.0) * molecule_centres(x, molecule, num_molecules,
+                                            masses)
 
 
 def make_exclusions_array(n: int, pairs, device=None):

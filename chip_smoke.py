@@ -52,6 +52,12 @@ non-zero:
      K3 (path (e)'s tile list); after path
      (e), K1 and K2 (full stencil, same grid) at lambda 0, 0.05, 0.5 and 1
      at a configuration sampled at lambda_vdw = 0;
+   - the virial flag (each pair's -2 r^2 du/dr^2 = d . F in the energy
+     column, the forces unchanged; the summed column held to the tolerance
+     of sum |w_i| over the atoms, in float32 of the unsplit form's under
+     the fused far form): K1 on water 400 (RF, near, far) and the 30k PME
+     near and far grids, K2 on the water 700 far grids (RF and PME, full
+     and far), K3 on the 30k damped far list;
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
    grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
@@ -65,7 +71,12 @@ non-zero:
    at lambda_vdw 0.5, lambda_coul 0 (x and v to 1e-9 relative), with the
    exact launch counts: K1 the near force, K2 the far force in two sweeps
    (unfused under the charge-scale mask), the softcore force and the
-   solute-solute term, each at its group's rate + 1 per pass;
+   solute-solute term, each at its group's rate + 1 per pass; then 216
+   waters with a MonteCarloBarostat every 2 steps (K2 far, K1 near), 10
+   RESPA [2, 2, 1] + NHC steps with the same uniforms fed to both runs
+   through _uniforms: x, v and box to 1e-9 relative, equal acceptances
+   with at least one move accepted and one rejected, the atomic and
+   molecular virials at the end to 1e-10;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
    timed step(100); checks finiteness, K1's launch count (3 per outer
@@ -108,6 +119,20 @@ non-zero:
    split by force, a short solvation_free_energy with MBAR, TI and each
    state's mean temperature (300 +- 40 K), and the float32 dU/dlambda_coul
    against float64;
+   path (f): BASELINE config 5 at bench_npt_100k's shape (33,334 q-SPC/Fw
+   waters, 100,002 atoms, from bench_data/eq_water100k.npz, a
+   MonteCarloBarostat at 1 bar and 300 K every 25 steps, RESPASystem(0.6,
+   0.5), RESPA [4, 2, 1] @ 4 fs + NHC, float32), reaction field and PME:
+   first K1 against its plain twin at the run's own grids and capacities
+   (far and near force, energy and virial forms), then
+   step(100), then 8 (PME: 4) timed calls of step(25) with the
+   temperature read after each; checks the attempts (exactly those the
+   post-increment rule gives), at least one acceptance, no invalid trial,
+   the exact launch counts (K1 on both grids: 2 near and 1 far sweeps per
+   outer step, 2 per pass for the cache refresh, 6 per volume move), the
+   reciprocal evaluations, mean T 280-320 K, PE/atom -14.6 ... -13.8
+   kJ/mol, |dV/V| < 3% and finite atomic and molecular pressures (the
+   virial form: one K1 sweep of each grid);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -129,8 +154,12 @@ non-zero:
    by stage (spline weights, spread, rfftn, convolution, irfftn, gather,
    corrections); K1 at path (d)'s far and near shapes; K1 and K2 (full
    stencil) with the softcore form at path (e)'s grid, bounded by the
-   solute-solvent pairs; then path (c)'s and path (d)'s outer steps split
-   by force group (host clock, synchronised).
+   solute-solvent pairs; K1 at path (f)'s far and near grids in the energy
+   and the virial forms, K2 and K3 with the virial flag; then path (c)'s
+   and path (d)'s outer steps split by force group (host clock,
+   synchronised), and path (f)'s outer step and one volume move split by
+   part (trial build, e_old at the current box, e_new at the trial box
+   on the trial's buckets, rebuild and cache refresh).
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
@@ -179,6 +208,8 @@ SFU_EVAL, SFU_DAMPED = 2, 3
 # work of the function is the solute-solvent pairs in range (cross = 1)
 OPS_SOFTCORE = 50
 SFU_SOFTCORE = 2
+# the virial flag: w = -2 r^2 du/dr^2 in place of u, two multiplies
+OPS_VIRIAL = 2
 
 
 def log(msg):
@@ -285,7 +316,8 @@ def bound(form, pairs, near, slots, nbytes):
     once, `near` of them inside the near cutoff, and `nbytes` read once and
     written once; with_slots_ms adds the `slots` slot tests."""
     damped = bool(form.alpha)
-    per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0)
+    per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0) \
+        + (OPS_VIRIAL if form.virial else 0)
     if form.has_full:
         per += OPS_FULL["smoothed" if form.smoothed else
                         "ewald" if form.ewald else "rf"]
@@ -307,23 +339,29 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def device_kernels(fn, reps=1):
+def device_kernels(fn, reps=1, tries=3):
     """(name, device microseconds) of each device operation (kernel, fill,
     copy) that `reps` calls of fn run, from torch.profiler; empty if the
-    profiler saw no device activity."""
+    profiler saw no device activity in `tries` profiles. (A profile of
+    work that launched kernels has come back with no device event at all
+    on the card's machine: that read is taken again.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if seen:
+            return seen
+    return []
 
 
 def kernel_device_ms(fn, kernel, reps=20):
@@ -349,7 +387,7 @@ def form_name(form):
     if form.dlambda:
         return name + "_dlambda"
     return name + ("_damped" if form.alpha and form.kind in (pf.NEAR, pf.FAR)
-                   else "")
+                   else "") + ("_virial" if form.virial else "")
 
 
 def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None, f_scale=None):
@@ -387,15 +425,24 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
     across the float32-rounded cutoff with a force jump of up to
     k |qq| [erfc(a rc)/rc² + (2a/sqrt(pi)) exp(-a² rc²)/rc] each. `form`
     replaces the force's own pair form, `globals` the parameters its form
-    and per-particle columns read (lambda)."""
+    and per-particle columns read (lambda). Under the virial flag (each
+    pair's -2 r^2 du/dr^2 in the energy column) the summed column is held,
+    in both dtypes, to the tolerance of sum |w_i| over the atoms (of the
+    unsplit form's, with the flag, in float32 with `unsplit`)."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
+    from atomsmm_tpu_torch.ops.pairfuncs import virial_form
+
     spec = to_device(spec, dev)
     kernel = "half_pair" if spec.half_stencil else "cell_pair"
     form = force._pair_form(globals) if form is None else form
+    virial = form.virial
+    unsplit_form = None if unsplit is None else unsplit._pair_form()
+    if virial and unsplit_form is not None:
+        unsplit_form = virial_form(unsplit_form)
     pp64 = {k: v.to(dev, torch.float64)
             for k, v in force._per_particle(globals).items()}
     for dtype in (torch.float64, torch.float32):
@@ -411,11 +458,14 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
         if pk.LAUNCHES != {**before, kernel: before[kernel] + 1}:
             raise RuntimeError(f"{label}: the wrapper did not launch {kernel}")
         e_p, f_p, terms = plain_sweep(spec, form, xd, bd, pp, bucket)
-        scale = terms if terms_scale and dtype == torch.float32 else None
+        scale = terms if (terms_scale and dtype == torch.float32) or virial \
+            else None
         f_scale = None
         if unsplit is not None and dtype == torch.float32:
-            f_scale = float(plain_sweep(spec, unsplit._pair_form(), xd, bd,
-                                        pp, bucket)[1].abs().max())
+            _, f_u, terms_u = plain_sweep(spec, unsplit_form, xd, bd, pp,
+                                          bucket)
+            f_scale = float(f_u.abs().max())
+            scale = terms_u if virial else scale
         results.append((kernel,) + judge(f"{kernel} {label}", dtype, e_k,
                                          f_k, e_p, f_p, scale, f_scale)
                        + (form_name(form),))
@@ -656,7 +706,8 @@ def tile_lists(dev, eq, dtype, method="cutoff"):
 
 
 def tile_plain(spec, form, x, box, pp, lst, xref=None):
-    """K3's plain twin in float64 on the device of x: (energy, forces)."""
+    """K3's plain twin in float64 on the device of x: (energy, forces, sum
+    of |per-atom energy|)."""
     import torch
 
     from atomsmm_tpu_torch.ops import tilepair as tp
@@ -671,7 +722,7 @@ def tile_plain(spec, form, x, box, pp, lst, xref=None):
     nb = spec.n_blocks
     f = torch.zeros((x.shape[0] + 1, 3), dtype=f64, device=x.device)
     f.index_add_(0, order.long(), acc[:nb, :, :3].reshape(-1, 3))
-    return acc[:nb, :, 3].sum(), f[:-1]
+    return acc[:nb, :, 3].sum(), f[:-1], float(acc[:nb, :, 3].abs().sum())
 
 
 def phase_tile_kernel(dev, eq):
@@ -694,7 +745,7 @@ def phase_tile_kernel(dev, eq):
                   for k, v in force._per_particle().items()}
             e_k, f_k = tp.tile_pair_energy_forces(form, x, box, pp, spec,
                                                   *lst[:4], form.r_cut)
-            e_p, f_p = tile_plain(spec, form, x, box, pp, lst)
+            e_p, f_p, _ = tile_plain(spec, form, x, box, pp, lst)
             f_max[group] = float(f_p.abs().max())
             # the fused damped far form against the unsplit force's scale
             # (see compare)
@@ -1583,7 +1634,7 @@ def phase_kernels_alchemy(dev):
         lst = tp.build_tile_pairs(spec, xd, bd)
         e_k, f_k = tp.tile_pair_energy_forces(form, xd, bd, pp, spec,
                                               *lst[:4], form.r_cut)
-        e_p, f_p = tile_plain(spec, form, xd, bd, pp, lst)
+        e_p, f_p, _ = tile_plain(spec, form, xd, bd, pp, lst)
         results.append(("tile_pair",) + judge(
             "tile_pair phenol1000w softcore lambda 0.5", dtype, e_k, f_k,
             e_p, f_p) + (form_name(form),))
@@ -1894,6 +1945,496 @@ def phase_alchemy_timings(dev, alch):
     }
 
 
+NPT_N_MOLECULES = 33334  # bench.py::bench_npt_100k: 100,002 atoms
+NPT_FREQUENCY = 25
+
+
+def attempts_due(step0, n, frequency):
+    """Volume moves that step(n) attempts from counter step0: one after
+    every step whose post-increment counter is frequency - 1 (mod
+    frequency)."""
+    return sum(1 for s in range(step0 + 1, step0 + n + 1)
+               if s % frequency == frequency - 1)
+
+
+def npt_water(dev, method, eq100, dtype=None):
+    """BASELINE config 5 as bench.py::bench_npt_100k builds it: 33,334
+    q-SPC/Fw waters with a MonteCarloBarostat (1 bar, 300 K, every 25
+    steps), RESPASystem(0.6, 0.5), capacities retuned at the equilibrated
+    state of bench_data/eq_water100k.npz; (respa, x, v, box) on the card."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    dtype = dtype or torch.float32
+    system, _, _ = water_system(n_molecules=NPT_N_MOLECULES, neighbors=True,
+                                method=method, dtype=dtype, device=dev)
+    system = system.add_force(amm.MonteCarloBarostat(
+        pressure=1.0, temperature=300.0, frequency=NPT_FREQUENCY))
+    respa = amm.RESPASystem(system, rcut_in=0.6, rswitch_in=0.5)
+    ex, ev, ebox = eq100
+    respa = retune_neighbor_specs(respa, ex, ebox)
+    t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in (ex, ev, ebox)]
+    return respa, t[0], t[1], t[2]
+
+
+def compare_npt(dev, respa, x, box, method):
+    """K1 against its plain twin at path (f)'s own shapes: the RESPA specs
+    npt_water tuned at the state of eq_water100k (its far grid takes a
+    block of more than 256 threads), the far and the near force, each in
+    the energy form and in the virial form that gives path (f)'s
+    pressures. The far force's float32 force scale is the unsplit force's
+    wherever the smaller grids' checks take it (the fused damped far form,
+    and the virial form)."""
+    from atomsmm_tpu_torch.ops.pairfuncs import virial_form
+
+    results = []
+    near, far = pair_forces(respa)
+    for virial in (False, True):
+        for name, force, spec in (
+                ("far", far, respa.neighbors),
+                ("near", near, respa.extra_neighbor_specs["near"])):
+            form = force._pair_form()
+            unsplit = far.full if name == "far" and (
+                virial or method == "pme") else None
+            compare(f"water100k {method} {name} grid {spec.grid[0]}^3 cap "
+                    f"{spec.cell_capacity}{' virial' if virial else ''}",
+                    force, spec, x, box, dev, results, unsplit=unsplit,
+                    form=virial_form(form) if virial else form)
+    return results
+
+
+def density(system, box):
+    """g/cm^3 of the system's mass in the box."""
+    import torch
+
+    return float(system.masses.sum()) * 1.66053907e-3 / float(torch.prod(box))
+
+
+def phase_npt(dev, eq100, method="cutoff", settle=100, calls=8,
+              per_call=25):
+    """Path (f): BASELINE config 5 at full size, 100,002 atoms (RESPA
+    [4, 2, 1] @ 4 fs, NHC 300 K, MC barostat at 1 bar every 25 steps),
+    float32: step(settle), then `calls` timed calls of step(per_call) with
+    the temperature read after each."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import computers
+    from atomsmm_tpu_torch.integrate import barostat as baro
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import pme
+
+    dt, loops = 0.004, [4, 2, 1]
+    respa, x, v, box = npt_water(dev, method, eq100)
+    n = respa.num_particles
+    kernel_checks = compare_npt(dev, respa, x, box, method)
+    integ = amm.MultipleTimeScaleIntegrator(
+        dt, loops, temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * 3 * NPT_N_MOLECULES - 3)
+    ctx = amm.Context(respa, integ, amm.make_state(x, v=v, box=box))
+    far, near = respa.neighbors, respa.extra_neighbor_specs["near"]
+    ctx.step(settle)
+    torch.cuda.synchronize()
+    box0, rho0 = ctx.state.box.clone(), density(respa, ctx.state.box)
+    ext0 = {k: int(ctx.state.extra[k]) for k in (baro.BARO_NATT,
+                                                 baro.BARO_NACC,
+                                                 baro.BARO_NBAD)}
+    pk.reset_launches()
+    pme.reset_evaluations()
+    expected_att = 0
+    per_call_runs = []  # (steps, attempts, passes) of each call
+    temps = []
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        a = attempts_due(ctx.state.step, per_call, NPT_FREQUENCY)
+        ctx.step(per_call)
+        expected_att += a
+        per_call_runs.append((per_call, a, ctx.last_step_passes))
+        temps.append(float(ctx.temperature()))  # synchronises
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev_ms = start.elapsed_time(end)
+    launches = dict(pk.LAUNCHES)
+    recip = pme.EVALUATIONS["reciprocal"]
+    steps = calls * per_call
+    att, acc, bad = (int(ctx.state.extra[k]) - ext0[k] for k in (
+        baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD))
+    # per pass of step(k): near loops[1] times and far once per outer step,
+    # one of each for the force-cache refresh, and per volume move e_old,
+    # e_new and the refresh (one sweep of each grid each)
+    kernel = {True: "half_pair", False: "cell_pair"}
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    expected_recip = 0
+    for k, a, passes in per_call_runs:
+        expected[kernel[near.half_stencil]] += passes * (
+            loops[1] * k + 1 + 3 * a)
+        expected[kernel[far.half_stencil]] += passes * (k + 1 + 3 * a)
+        if method == "pme":
+            expected_recip += passes * (k + 1 + 3 * a)
+    # the pressures at the end, on the virial form (outside the count): one
+    # sweep of each grid
+    virial_expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    for spec in (near, far):
+        virial_expected[kernel[spec.half_stencil]] += 1
+    before = dict(pk.LAUNCHES)
+    obs = computers.compute_observables(ctx.system, ctx.state, ctx.parameters,
+                                        include_coulomb=False)
+    p_at, p_mol = (float(obs[k]) for k in ("atomic_pressure",
+                                           "molecular_pressure"))
+    virial_launches = {k: pk.LAUNCHES[k] - before[k] for k in before}
+    box1, rho1 = ctx.state.box, density(respa, ctx.state.box)
+    dv = float(torch.prod(box1) / torch.prod(box0)) - 1.0
+    pe = float(ctx.get_state(lite=True).potential_energy) / n
+    xs, vs = ctx.state.x, ctx.state.v
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(vs).all())
+    t_mean = sum(temps) / len(temps)
+    ms = ev_ms / steps
+    ns_day = dt * 1e-3 * steps / (ev_ms * 1e-3) * 86400.0
+    name = "path (f)" + (" pme" if method == "pme" else "")
+    pme_desc = ""
+    if method == "pme":
+        f = pair_forces(respa)[1].full
+        pme_desc = (f" PME alpha {f.ewald_alpha:.5f}/nm grid {f.grid_shape} "
+                    f"order {f.spline_order};")
+    log(f"{name} water100k ({n} atoms) {method} NPT RESPA{loops}@"
+        f"{dt*1e3:.0f}fs NHC 300 K, MC barostat 1 bar every "
+        f"{NPT_FREQUENCY} steps, float32:{pme_desc} far grid {far.grid} cap "
+        f"{ctx.system.neighbors.cell_capacity} ({kernel[far.half_stencil]}), "
+        f"near grid {near.grid} cap "
+        f"{ctx.system.extra_neighbor_specs['near'].cell_capacity} "
+        f"({kernel[near.half_stencil]}); {steps} timed outer steps as {calls} "
+        f"calls of step({per_call}) after step({settle}): {ms:.3f} ms per "
+        f"outer step by CUDA events ({wall / steps * 1e3:.3f} ms host clock), "
+        f"{ns_day:.3f} ns/day on {smi_line()}; attempts {att} (expected "
+        f"{expected_att}), accepted {acc}, invalid trials {bad}; box "
+        f"{float(box0[0]):.5f} -> {float(box1[0]):.5f} nm, density "
+        f"{rho0:.5f} -> {rho1:.5f} g/cm^3 (dV/V {dv:+.4%}); launches "
+        f"{launches} (expected {expected}, passes "
+        f"{[p for _, _, p in per_call_runs]}); reciprocal evaluations {recip} "
+        f"(expected {expected_recip}); kinetic T mean {t_mean:.2f} K over "
+        f"{len(temps)} readings; PE/atom {pe:.4f} kJ/mol; pressure at the "
+        f"end: atomic {p_at:.2f} bar, molecular {p_mol:.2f} bar (virial "
+        f"sweeps {virial_launches}); finite {finite}")
+    checks = {
+        "finite": finite,
+        "attempts": att == expected_att,
+        "accepted": acc >= 1,
+        "invalid_trials": bad == 0,
+        "launches": launches == expected,
+        "reciprocal_evaluations": recip == expected_recip,
+        "temperature": 280.0 <= t_mean <= 320.0,
+        "pe_per_atom": -14.6 <= pe <= -13.8,
+        "volume": abs(dv) < 0.03,
+        "pressures": all(abs(p) < float("inf") for p in (p_at, p_mol)),
+        "virial_sweeps": virial_launches == virial_expected,
+        "shape": tuple(xs.shape) == (n, 3) and tuple(vs.shape) == (n, 3),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} checks failed: {failed}")
+    return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
+            "respa": ctx.system, "ctx": ctx, "loops": loops,
+            "state": (xs.detach().cpu().numpy(), box1.cpu().numpy()),
+            "virial_launches": virial_launches,
+            "kernel_checks": kernel_checks}
+
+
+def phase_npt_split(dev, run, name):
+    """Where path (f)'s outer step and volume move go: each force group's
+    evaluation (under PME also the reciprocal sum and its corrections
+    alone) and the bucket rebuilds timed alone on the host clock with a
+    synchronise after every call, times its count per outer step (as
+    phase_step_split), and one volume move split into its trial build
+    (molecular scaling and both grids' buckets at the trial box), its two
+    energies, the rebuild and cache refresh at the end, and the rest
+    (the Metropolis arithmetic)."""
+    import torch
+
+    from atomsmm_tpu_torch.context import refresh_force_caches
+    from atomsmm_tpu_torch.integrate import barostat as baro
+    from atomsmm_tpu_torch.integrate.propagators import StepContext
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pme
+    from atomsmm_tpu_torch.potential import force_fn, potential_energy
+
+    ctx = run["ctx"]
+    respa, st, g = ctx.system, ctx.state, ctx.parameters
+    loops = run["loops"]
+    x, box = st.x, st.box
+    aux = nb.make_aux(respa, st.extra)
+    calls = {0: loops[0] * loops[1] * loops[2], 1: loops[1] * loops[2],
+             2: loops[2]}
+
+    def wall(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    pme_tag = " + PME)" if "pme" in name else ")"
+    parts = {
+        "group 0, autograd (TemplateBondedForce)": (wall(lambda: force_fn(
+            respa, {0})(x, box, g, aux)), calls[0]),
+        "near (group 1, K1)": (wall(lambda: force_fn(
+            respa, {1})(x, box, g, aux)), calls[1]),
+        "far (group 2, K1" + pme_tag: (
+            wall(lambda: force_fn(respa, {2})(x, box, g, aux)), calls[2]),
+    }
+    if "pme" in name:
+        full = pair_forces(respa)[1].full
+        parts["  of which reciprocal sum"] = (wall(
+            lambda: pme.pme_reciprocal_energy_forces(
+                x, box, full.charge, float(full.ewald_alpha),
+                full.grid_shape, full.spline_order)), calls[2])
+        parts["  of which corrections"] = (wall(
+            lambda: pme.pme_corrections_forces(
+                x, box, full.charge, full.exclusions,
+                float(full.ewald_alpha))), calls[2])
+    parts["bucket rebuilds (2 grids)"] = (wall(
+        lambda: nb.update_all_neighbors(respa, st.extra, x, box)), 1)
+    step_ms = run["ms_per_step"]
+    counted = sum(ms * k for p, (ms, k) in parts.items()
+                  if not p.startswith("  "))
+    log("{} split per outer step ({:.3f} ms/step): {}; rest (integrator, "
+        "NHC, flags, Python; the volume move every {} steps) {:.3f} "
+        "ms".format(name, step_ms, ", ".join(
+            f"{p.strip()} {ms:.3f} ms x {k}" for p, (ms, k) in parts.items()),
+            NPT_FREQUENCY, step_ms - counted))
+    prop = ctx._barostat
+    sctx = StepContext(respa, g, 0.0)
+    s_t = torch.tensor(1.001, dtype=x.dtype, device=x.device)
+
+    def trial_build():
+        xn = baro.molecular_scale(x, respa.molecule, respa.num_molecules,
+                                  respa.masses, s_t)
+        return xn, nb.all_neighbor_extras(respa, xn, box * s_t)
+
+    x_new, trial_extras = trial_build()
+    trial_aux = nb.make_aux(respa, trial_extras)
+    move = {
+        "whole attempt": wall(lambda: prop._attempt(sctx, st)),
+        "trial build (scaling + 2 grids' buckets)": wall(trial_build),
+        "e_old (2 K1 sweeps" + pme_tag: wall(lambda: potential_energy(
+            respa, x, box, g, aux=aux)),
+        "e_new (the same at the trial box, on its buckets)": wall(
+            lambda: potential_energy(respa, x_new, box * s_t, g,
+                                     aux=trial_aux)),
+        "rebuild + cache refresh": wall(lambda: refresh_force_caches(
+            respa, st.with_extra(**nb.update_all_neighbors(
+                respa, st.extra, x, box)), g)),
+    }
+    rest = move["whole attempt"] - sum(
+        v for k, v in move.items() if k != "whole attempt")
+    log("{} volume move split: {}; rest (uniforms, Metropolis, torch.where, "
+        "move size) {:.3f} ms; per outer step at frequency {}: {:.3f} "
+        "ms".format(name, ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                    move.items()), rest, NPT_FREQUENCY,
+                    move["whole attempt"] / NPT_FREQUENCY))
+    return parts, move
+
+
+def phase_slice_npt(dev, steps=10, frequency=2):
+    """216 waters (0.6 nm, RESPASystem(0.35, 0.3): K2 far on a 2^3 grid,
+    K1 near on 4^3) with a MonteCarloBarostat every 2 steps, float64, 10
+    outer RESPA [2, 2, 1] + NHC steps on the card against the CPU, the
+    same uniforms fed to both through _uniforms: x, v and box to 1e-9,
+    equal acceptances with at least one move accepted and one rejected,
+    the atomic and molecular virials at the end to 1e-10 relative."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import computers
+    from atomsmm_tpu_torch.integrate import barostat as baro
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f64 = torch.float64
+    draws = np.random.RandomState(21).uniform(size=(steps, 2))
+    runs = []
+    for device in ("cpu", dev):
+        s, x, box = water_system(n_molecules=216, r_cut=0.6, r_switch=0.5,
+                                 seed=5, neighbors=True, dtype=f64,
+                                 device=device)
+        s = s.add_force(amm.MonteCarloBarostat(pressure=1.0, temperature=300.0,
+                                               frequency=frequency))
+        r = amm.RESPASystem(s, rcut_in=0.35, rswitch_in=0.3)
+        m = r.masses.cpu().numpy()
+        v = np.random.RandomState(9).normal(size=(m.size, 3)) \
+            * np.sqrt(amm.units.BOLTZMANN * 300.0 / m)[:, None]
+        integ = amm.MultipleTimeScaleIntegrator(
+            0.002, [2, 2, 1], temperature=300.0, time_scale=0.1,
+            degrees_of_freedom=3 * m.size - 3)
+        ctx = amm.Context(r, integ, amm.make_state(
+            x, v=torch.as_tensor(v, dtype=f64, device=device), box=box))
+        it = iter(draws)
+
+        def uniforms(state, it=it):
+            u = next(it)
+            return (torch.tensor(2.0 * u[0] - 1.0, dtype=f64,
+                                 device=state.x.device),
+                    torch.tensor(u[1], dtype=f64, device=state.x.device))
+
+        ctx._barostat._uniforms = uniforms
+        pk.reset_launches()
+        ctx.step(steps)
+        obs = computers.compute_observables(ctx.system, ctx.state, {},
+                                            include_coulomb=False)
+        runs.append((ctx, obs, dict(pk.LAUNCHES)))
+    (cpu, obs_c, _), (gpu, obs_g, launches) = runs
+    md_err = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
+                 for a, b in ((cpu.state.x, gpu.state.x),
+                              (cpu.state.v, gpu.state.v),
+                              (cpu.state.box, gpu.state.box)))
+    w_err = max(abs(float(obs_g[k]) - float(obs_c[k])) / abs(float(obs_c[k]))
+                for k in ("atomic_virial", "molecular_virial"))
+    att, acc = (int(gpu.state.extra[k]) for k in (baro.BARO_NATT,
+                                                  baro.BARO_NACC))
+    acc_cpu = int(cpu.state.extra[baro.BARO_NACC])
+    log(f"slice water216 NPT float64 card vs CPU: far grid "
+        f"{gpu.system.neighbors.grid} (K2), near "
+        f"{gpu.system.extra_neighbor_specs['near'].grid} (K1); {steps} RESPA "
+        f"[2, 2, 1] + NHC steps, barostat every {frequency} steps: attempts "
+        f"{att}, accepted {acc} (CPU {acc_cpu}); box "
+        f"{float(gpu.state.box[0]):.9f} nm; launches {launches}; max rel diff "
+        f"{md_err:.2e} (x, v, box); virials atomic "
+        f"{float(obs_g['atomic_virial']):.6f} molecular "
+        f"{float(obs_g['molecular_virial']):.6f} kJ/mol, max rel diff "
+        f"{w_err:.2e}")
+    if not (md_err < 1e-9 and w_err < 1e-10 and att == steps // frequency
+            and acc == acc_cpu and 0 < acc < att):
+        raise RuntimeError("the NPT slice on the card departs from the CPU "
+                           "run")
+
+
+def phase_kernels_virial(dev, eq):
+    """The virial form (each pair's -2 r^2 du/dr^2 in the energy column) on
+    K1 and K2 against their plain twins in the reaction-field, near, fused
+    far and damped PME forms, and on K3 once (the 30k damped far list)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import tilepair as tp
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+    from atomsmm_tpu_torch.ops.pairfuncs import virial_form
+
+    f64 = torch.float64
+    results = []
+
+    def check(label, force, spec, x, box, unsplit=None):
+        compare(label, force, spec, x, box, dev, results, unsplit=unsplit,
+                form=virial_form(force._pair_form()))
+
+    s, x, box = water_system(n_molecules=400, r_cut=0.7, r_switch=0.6, seed=5,
+                             neighbors=True, dtype=f64, device="cpu")
+    r = amm.RESPASystem(s, rcut_in=0.45, rswitch_in=0.35)
+    check("water400 cutoff-RF virial", s.forces[0], s.neighbors, x, box)
+    check("water400 near virial", r.forces[1],
+          r.extra_neighbor_specs["near"], x, box)
+    check("water400 far virial", r.forces[2], r.neighbors, x, box,
+          unsplit=s.forces[0])
+    ex, _, ebox = eq
+    s, _, _ = water_system(n_molecules=10000, method="pme", neighbors=True,
+                           dtype=f64, device="cpu")
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
+    xe, be = torch.as_tensor(ex, dtype=f64), torch.as_tensor(ebox, dtype=f64)
+    check("water30k pme near (damped) virial", r.forces[1],
+          r.extra_neighbor_specs["near"], xe, be)
+    check("water30k pme far (fused damped) virial", r.forces[2],
+          r.neighbors, xe, be, unsplit=s.forces[0])
+    for method in ("cutoff", "pme"):
+        s, x, box = water_system(n_molecules=700, seed=5, neighbors=True,
+                                 dtype=f64, method=method, device="cpu")
+        r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+        tag = f"water700 grid {s.neighbors.grid[0]}^3 {method}"
+        check(f"{tag} full virial", s.forces[0], s.neighbors, x, box)
+        check(f"{tag} far virial", r.forces[2], r.neighbors, x, box,
+              unsplit=s.forces[0])
+    # K3: the fused damped far form with the virial flag on the 30k list
+    for dtype in (f64, torch.float32):
+        xt, bt, lists = tile_lists(dev, eq, dtype, "pme")
+        force, spec, lst, _ = lists["far"]
+        form = virial_form(force._pair_form())
+        pp = {k: v.to(dev, dtype) for k, v in force._per_particle().items()}
+        e_k, f_k = tp.tile_pair_energy_forces(form, xt, bt, pp, spec,
+                                              *lst[:4], form.r_cut)
+        e_p, f_p, terms = tile_plain(spec, form, xt, bt, pp, lst)
+        f_scale = None
+        if dtype == torch.float32:  # the unsplit form's scales (compare)
+            _, f_u, terms = tile_plain(
+                spec, virial_form(lists["full"][0]._pair_form()), xt, bt,
+                pp, lst)
+            f_scale = float(f_u.abs().max())
+        results.append(("tile_pair",) + judge(
+            "tile_pair water30k pme far (fused damped) virial", dtype, e_k,
+            f_k, e_p, f_p, e_scale=terms, f_scale=f_scale)
+            + (form_name(form),))
+    return results
+
+
+def phase_npt_timings(dev, npt, small, eq, timings):
+    """K1 at path (f)'s far and near shapes (100k, the state the RF run
+    ended with) in the energy form and the virial form, K2 with the virial
+    form on the water 700 far grid, and K3 with it on the 30k far list
+    (bounded by the pairs K1 counted there, `timings` of phase_timings)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import tilepair as tp
+    from atomsmm_tpu_torch.ops.pairfuncs import virial_form
+
+    respa = npt["respa"]
+    ex, ebox = npt["state"]
+    x = torch.as_tensor(ex, dtype=torch.float32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=torch.float32, device=dev)
+    near, far = pair_forces(respa)
+    out = {}
+    for label, force, spec in (("far", far, respa.neighbors),
+                               ("near", near,
+                                respa.extra_neighbor_specs["near"])):
+        out[("half_pair", f"100k {label}")] = time_cells(
+            f"water100k {label}", force, spec, x, box)
+        out[("half_pair", f"100k {label} virial")] = time_cells(
+            f"water100k {label} virial", force, spec, x, box,
+            virial_form(force._pair_form()))
+    s_sys, s_state = small["respa"], small["state"]
+    force = s_sys.forces[-1]
+    out[("cell_pair", "virial")] = time_cells(
+        "water700 far virial", force, s_sys.neighbors, s_state.x,
+        s_state.box, virial_form(force._pair_form()))
+    xt, bt, lists = tile_lists(dev, eq, torch.float32)
+    force, spec, lst, _ = lists["far"]
+    form = virial_form(force._pair_form())
+    pp = {k: v.to(dev) for k, v in force._per_particle().items()}
+    order, hb, cb, wrap, _ = lst
+    fs, ms = tp._stage(spec, xt, bt, pp, spec.excbits, order)
+    k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
+        fs, ms, hb, cb, wrap, bt, form, form.r_cut), "tile_pair")
+    p_ms = time_cuda(lambda: tp.tile_pair_plain(
+        fs, ms, hb, cb, wrap, bt, form, form.r_cut), 3)
+    c = timings[("half_pair", "far")]["counts"]
+    live = int((hb < spec.n_blocks).sum())
+    acc = tp.tile_pair_cuda(fs, ms, hb, cb, wrap, bt, form, form.r_cut)
+    b = bound(form, c["pairs"], c["near_pairs"],
+              live * spec.block_size * 2 * spec.block_size,
+              nbytes(fs, ms, hb, cb, wrap, bt, acc))
+    log(f"timing tile_pair water30k far virial: kernel {k_ms:.4f} ms, plain "
+        f"float32 {p_ms:.4f} ms; bound {b['ms'] * 1e3:.2f} us by {b['by']}")
+    out[("tile_pair", "virial")] = {"ms": k_ms, "plain_ms": p_ms, "bound": b}
+    return out
+
+
 def main():
     import torch
 
@@ -1917,26 +2458,36 @@ def main():
         f"({', '.join(p.name for p in libs.values())})")
     d = np.load(os.path.join(HERE, "bench_data", "eq_water30k.npz"))
     eq = (d["x"], d["v"], d["box"])
+    d = np.load(os.path.join(HERE, "bench_data", "eq_water100k.npz"))
+    eq100 = (d["x"], d["v"], d["box"])
     results = (phase_kernels(dev, eq) + phase_kernels_ionic(dev)
-               + phase_kernels_alchemy(dev) + phase_tile_kernel(dev, eq))
+               + phase_kernels_alchemy(dev) + phase_tile_kernel(dev, eq)
+               + phase_kernels_virial(dev, eq))
     phase_slice(dev, r_cut=0.7, r_switch=0.6, split=(0.45, 0.35))
     phase_slice(dev, split=(0.5, 0.4))
     phase_slice(dev, method="pme", split=(0.5, 0.4))
     phase_slice_ionic(dev)
     phase_slice_alchemy(dev)
+    phase_slice_npt(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
     ionic = phase_ionic(dev)
     alch = phase_alchemy(dev)
-    results += phase_kernels_sampled(dev, alch["sampled0"])
+    npt = phase_npt(dev, eq100)
+    npt_pme = phase_npt(dev, eq100, method="pme", calls=4)
+    results += (phase_kernels_sampled(dev, alch["sampled0"])
+                + npt["kernel_checks"] + npt_pme["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
     timings.update(phase_alchemy_timings(dev, alch))
+    timings.update(phase_npt_timings(dev, npt, small, eq, timings))
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
+    phase_npt_split(dev, npt, "path (f)")
+    phase_npt_split(dev, npt_pme, "path (f) pme")
 
     def f32_err(kernel, prefix):
         return max(r[4] for r in results if r[0] == kernel
@@ -1956,6 +2507,9 @@ def main():
         "path_d": ionic["launches"],
         "path_e_rows": alch["row_launches"],
         "path_e_md": alch["md_launches"],
+        "path_f": npt["launches"],
+        "path_f_pme": npt_pme["launches"],
+        "path_f_pressure": npt["virial_launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -2002,6 +2556,23 @@ def main():
                        "softcore_plain_ms": t["plain_ms"],
                        "softcore_bound_ms": t["bound"]["ms"],
                        "softcore_bound_by": t["bound"]["by"]})
+    # the virial form (path (f)'s pressure): K1 at path (f)'s far and near
+    # shapes beside the energy form there, K2 on the water 700 far grid,
+    # K3 on the 30k far list, float32
+    k1 = kernels["kernels"][0]
+    k1["path_f_max_abs_err"] = f32_err("half_pair", "water100k")
+    for label in ("far", "near"):
+        for form, key in (("", f"100k {label}"),
+                          ("virial_", f"100k {label} virial")):
+            t = timings[("half_pair", key)]
+            k1.update({f"path_f_{form}{label}_ms": t["ms"],
+                       f"path_f_{form}{label}_plain_ms": t["plain_ms"],
+                       f"path_f_{form}{label}_bound_ms": t["bound"]["ms"]})
+    for entry_, kernel in zip(kernels["kernels"][1:],
+                              ("cell_pair", "tile_pair")):
+        t = timings[(kernel, "virial")]
+        entry_.update({"virial_ms": t["ms"], "virial_plain_ms": t["plain_ms"],
+                       "virial_bound_ms": t["bound"]["ms"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

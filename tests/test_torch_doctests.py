@@ -7,7 +7,9 @@ import pytest
 
 MODULES = {
     "alchemy": 5,
+    "computers": 3,
     "forces": 1,
+    "integrate.barostat": 3,
     "integrate.integrators": 3,
     "integrate.propagators": 3,
     "integrate.sinr": 2,
@@ -16,6 +18,7 @@ MODULES = {
     "ops.pme": 3,
     "ops.switching": 3,
     "state": 4,
+    "system": 3,
     "systems": 3,
     "utils": 2,
 }

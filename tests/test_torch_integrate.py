@@ -150,7 +150,8 @@ def test_cold_start_overflow_retunes():
     assert ctx.system.neighbors.cell_capacity > 8
     ctx.step(2)
     assert ctx.last_step_passes == 1
-    assert not any(ctx._flags().values())
+    assert not any(v for group in ctx._flags().values()
+                   for v in group.values())
 
 
 def test_set_velocities_to_temperature():

@@ -12,7 +12,9 @@ partners an atom: K1 at 400 ion pairs on both grids, K2 at 24), and on
 phenol in water (BASELINE config 3) in the softcore form and its lambda
 derivative at lambda 0, 0.5 and 1 (K1 at 1,000 waters, K2 at 200, also
 with the solute pushed into the solvent as at small lambda) and in the
-damped-smoothed form. Every test
+damped-smoothed form; and the virial flag (each pair's -2 r^2 du/dr^2 in
+the energy column) in every form on K1, K2 and K3, its summed column held
+to the tolerance of sum |w_i|. Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -39,6 +41,7 @@ from atomsmm_tpu_torch.models import (
 )
 from atomsmm_tpu_torch.ops import neighbors as nb
 from atomsmm_tpu_torch.ops import pair_kernel as pk
+from atomsmm_tpu_torch.ops import pairfuncs as pf
 from atomsmm_tpu_torch.ops import tilepair as tp
 
 F64 = torch.float64
@@ -125,7 +128,10 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
     max|F|: the far force is the difference of two forces of that size,
     and the truncated Ewald term jumps at the float32-rounded cutoff.
     `form` replaces the force's own pair form (a lambda, the dlambda
-    twin)."""
+    twin, the virial flag). Under the virial flag the summed energy column
+    is held to the tolerance of sum |e_i| over the atoms (the virial, a sum
+    of terms of both signs), of the unsplit form's in float32 with
+    `unsplit`."""
     dt = getattr(torch, dtype)
     spec = _to(spec, dev)
     form = force._pair_form() if form is None else form
@@ -143,11 +149,23 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
             bucket.cpu(), form.r_cut)
     e_p, f_p = nb.cell_pair_energy_forces(form, *args)
     fmax = float(f_p.abs().max())
+    e_scale = abs(float(e_p))
+    plain_sweep = {"half_pair": pk.half_pair_plain,
+                   "cell_pair": pk.full_pair_plain}[kernel]
+    xc, bc, ppc, spec_c, bucket_c, _ = args
+    if form.virial:
+        e_scale = float(plain_sweep(xc, ppc, bucket_c, spec_c, bc, form,
+                                    form.r_cut)[:, 3].abs().sum())
     if unsplit is not None and dtype == "float32":
-        fmax = float(nb.cell_pair_energy_forces(unsplit._pair_form(),
-                                                *args)[1].abs().max())
+        uform = unsplit._pair_form()
+        if form.virial:
+            uform = pf.virial_form(uform)
+        fmax = float(nb.cell_pair_energy_forces(uform, *args)[1].abs().max())
+        if form.virial:
+            e_scale = float(plain_sweep(xc, ppc, bucket_c, spec_c, bc, uform,
+                                        form.r_cut)[:, 3].abs().sum())
     rtol, ftol = TOLS[dtype]
-    assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
+    assert abs(float(e_k) - float(e_p)) <= rtol * e_scale
     assert float((f_k.cpu().double() - f_p).abs().max()) <= ftol * fmax
     # the kernel's own interface: per-atom [fx fy fz e] against the twin's,
     # each atom's energy to the tolerance of the largest
@@ -155,7 +173,6 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
         "half_pair": (pk.half_pair_cuda, pk.half_pair_plain),
         "cell_pair": (pk.full_pair_cuda, pk.full_pair_plain)}[kernel]
     out_k = cuda_fn(x, pp, bucket, spec, box, form, form.r_cut)
-    xc, bc, ppc, spec_c, bucket_c, _ = args
     out_p = plain_fn(xc, ppc, bucket_c, spec_c, bc, form, form.r_cut)
     assert out_k.shape == out_p.shape == (x.shape[0] + 1, 4)
     assert float(out_k[-1].abs().max()) == 0.0
@@ -391,16 +408,83 @@ def test_damped_smoothed_and_scaled_forms_match_plain_on_card(cuda, case,
     _check_sweep(half, spec, x, box, cuda, dtype, kernel)
 
 
+VIRIAL_CASES = [
+    ("water_rf", "half_pair"), ("water_near", "half_pair"),
+    ("water_far", "half_pair"), ("pme_water_rf", "half_pair"),
+    ("pme_water_near", "half_pair"), ("pme_water_far", "half_pair"),
+    ("small_400", "cell_pair"), ("small_400_far", "cell_pair"),
+    ("pme_small_400", "cell_pair"), ("pme_small_400_far", "cell_pair")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("case,kernel", VIRIAL_CASES)
+def test_virial_forms_match_plain_on_card(cuda, case, kernel, dtype):
+    """The virial flag (each pair's -2 r^2 du/dr^2 in the energy column,
+    the forces unchanged) on K1 and K2 in the reaction-field, near, fused
+    far and damped PME forms."""
+    force, spec, x, box = _case(case)
+    unsplit = {"water_far": "water_rf", "pme_water_far": "pme_water_rf",
+               "small_400_far": "small_400",
+               "pme_small_400_far": "pme_small_400"}.get(case)
+    _check_sweep(force, spec, x, box, cuda, dtype, kernel,
+                 unsplit and _case(unsplit)[0],
+                 form=pf.virial_form(force._pair_form()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("case,kernel", [("1000", "half_pair"),
+                                         ("200", "cell_pair")])
+def test_virial_softcore_and_smoothed_forms_on_card(cuda, case, kernel,
+                                                   dtype):
+    """The virial flag on the softcore form at lambda 0.5 and on the
+    damped-smoothed form (phenol in water)."""
+    solv, spec, x, box = _phenol_case(case)
+    soft, = (f for f in solv.forces
+             if isinstance(f, amm.SoftcoreLennardJonesForce))
+    _check_sweep(soft, spec, x, box, cuda, dtype, kernel,
+                 form=pf.virial_form(soft._pair_form({"lambda_vdw": 0.5})))
+    full = solv.forces[0]
+    ds = amm.DampedSmoothedForce(charge=full.charge, sigma=full.sigma,
+                                 epsilon=full.epsilon,
+                                 exclusions=full.exclusions, r_cut=0.75,
+                                 r_switch=0.65, alpha=3.0)
+    _check_sweep(ds, spec, x, box, cuda, dtype, kernel,
+                 form=pf.virial_form(ds._pair_form()))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_virial_with_dlambda(cuda):
+    """A flag block with both dlambda and virial set is refused at launch
+    (the PairForm refuses it on the host first)."""
+    solv, spec, x, box = _phenol_case("200")
+    soft, = (f for f in solv.forces
+             if isinstance(f, amm.SoftcoreLennardJonesForce))
+    form = soft._pair_form({"lambda_vdw": 0.5}, dlambda=True)
+    both = dataclasses.replace(form, dlambda=False, virial=True)
+    object.__setattr__(both, "dlambda", True)
+    spec = _to(spec, cuda)
+    pp = {k: v.to(cuda) for k, v in soft._per_particle().items()}
+    x, box = x.to(cuda), box.to(cuda)
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pk.full_pair_cuda(x, pp, bucket, spec, box, both, both.r_cut)
+
+
 def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,
-                shuffle=False):
+                shuffle=False, form=None):
     """K3 on the tile list of `force` against its plain twin; in float64
     also against K1 on the same configuration (the same pairs inside the
     cutoff). `unsplit` as in _check_sweep. The list always has dead entries
     (its unused tail) and entries whose second candidate block is the
     sentinel (home blocks with an odd number of partners); with `shuffle`
-    its entries are permuted, so that dead entries lie among live ones."""
+    its entries are permuted, so that dead entries lie among live ones.
+    `form` replaces the force's own pair form; under the virial flag the
+    energy is held to the tolerance of sum |e_i| over the atoms."""
     dt = getattr(torch, dtype)
-    form, pp = force._pair_form(), force._per_particle()
+    form = force._pair_form() if form is None else form
+    pp = force._per_particle()
     spec = tp.make_tilepair_spec(box, x.shape[0], form.r_cut,
                                  exclusions=force.exclusions,
                                  block_size=block_size,
@@ -438,7 +522,12 @@ def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,
     fmax = float(f_p.abs().max())
     if unsplit is not None and dtype == "float32":
         fmax = float(plain(unsplit._pair_form())[1].abs().max())
-    assert abs(float(e_k) - float(e_p)) <= rtol * abs(float(e_p))
+    e_scale = abs(float(e_p))
+    if form.virial:  # a sum of terms of both signs: sum |w_i| of the atoms
+        acc = tp.tile_pair_plain(fs, ms, hb, cb, wrap, bd.double(), form,
+                                 form.r_cut)
+        e_scale = float(acc[:spec.n_blocks, :, 3].abs().sum())
+    assert abs(float(e_k) - float(e_p)) <= rtol * e_scale
     assert float((f_k.double() - f_p).abs().max()) <= ftol * fmax
     if dtype == "float64":
         cspec = _to(nb.make_neighbor_spec(box, x.shape[0], form.r_cut,
@@ -448,7 +537,8 @@ def _check_tile(force, x, box, dev, dtype, unsplit=None, block_size=64,
         bucket, _ = nb.build_cell_buckets(cspec, xd, bd)
         e_c, f_c = nb.cell_pair_energy_forces(form, xd, bd, ppd, cspec,
                                               bucket, form.r_cut)
-        assert abs(float(e_k) - float(e_c)) <= rtol * abs(float(e_c))
+        assert abs(float(e_k) - float(e_c)) <= rtol * (
+            e_scale if form.virial else abs(float(e_c)))
         assert float((f_k - f_c).abs().max()) <= ftol * fmax
 
 
@@ -487,6 +577,18 @@ def test_tile_pair_damped_forms_on_card(cuda, group, dtype):
         group]
     _check_tile(force, x, box, cuda, dtype,
                 s.forces[0] if group == "far" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+def test_tile_pair_virial_form_on_card(cuda, dtype):
+    """K3 with the virial flag (the fused damped far form) against its
+    plain twin, and in float64 against K1."""
+    s, x, box = water_system(n_molecules=1000, method="pme", dtype=F64,
+                             device="cpu")
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    _check_tile(r.forces[2], x, box, cuda, dtype, s.forces[0],
+                form=pf.virial_form(r.forces[2]._pair_form()))
 
 
 @pytest.mark.cuda
