@@ -11,7 +11,10 @@ alchemical machinery (alchemy.py: multi-state energies, MBAR, TI, the
 solvation free energy) runs its softcore forms on the same kernels. A
 MonteCarloBarostat in a system moves the box (integrate/barostat.py), and
 computers.py gives virials and pressures, from the kernels' virial form on
-the cell path. This package never imports JAX.
+the cell path. Rigid water holds its geometry by SETTLE (ops/settle.py) or
+SHAKE/RATTLE (ops/constraints.py), TIP4P/Ew's M site is a virtual site
+(ops/virtual_sites.py), and HydrogenMassRepartitionedSystem moves mass
+onto the hydrogens. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -87,7 +90,12 @@ from .state import (
     remove_com_motion,
 )
 from .system import System, make_exclusions_array
-from .systems import AlchemicalRespaSystem, RESPASystem, SolvationSystem
+from .systems import (
+    AlchemicalRespaSystem,
+    HydrogenMassRepartitionedSystem,
+    RESPASystem,
+    SolvationSystem,
+)
 from .utils import (
     InputError,
     count_degrees_of_freedom,

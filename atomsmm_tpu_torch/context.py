@@ -44,6 +44,7 @@ from .ops.neighbors import (
     retune_neighbor_specs,
     update_all_neighbors,
 )
+from .ops.virtual_sites import place_virtual_sites, zero_virtual_velocities
 from .potential import (
     force_fn,
     group_energies,
@@ -112,6 +113,13 @@ class Context:
             state = make_state(x, box=system.default_box, seed=seed)
         state = _clone_state(state)
         self._check_box(state.box)
+        vs = system.virtual_sites
+        if vs is not None:
+            # place the virtual rows once, so that the buckets and the
+            # reporters see them where the forces do (a builder's rows may
+            # hold anything)
+            state = replace(state, x=place_virtual_sites(vs, state.x),
+                            v=zero_virtual_velocities(vs, state.v))
         if system.neighbors is not None:
             extras = all_neighbor_extras(system, state.x, state.box)
             if any(bool(v) for k, v in extras.items() if k.endswith("overflow")):
@@ -317,8 +325,15 @@ class Context:
         rng.manual_seed(seed)
         v = maxwell_boltzmann_velocities(rng, self.system.masses, temperature,
                                          self.state.x.dtype)
+        vs = self.system.virtual_sites
+        if vs is not None:
+            # a massless row carries no momentum: zero it before the COM
+            # projection spreads anything over it, and again after
+            v = zero_virtual_velocities(vs, v)
         if self.system.remove_com_motion:
             v = remove_com_motion(self.system.masses, v)
+        if vs is not None:
+            v = zero_virtual_velocities(vs, v)
         self.set_velocities(v)
 
     def set_periodic_box(self, box):

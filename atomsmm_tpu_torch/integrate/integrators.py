@@ -2,6 +2,12 @@
 atomsmm_tpu/integrate/integrators.py). `describe()` prints the same
 instruction dump as the JAX package.
 
+Every integrator here steps a rigid system as it steps a flexible one: the
+translations apply SETTLE and SHAKE, and the kicks and the
+Ornstein-Uhlenbeck step of LangevinMiddleIntegrator project the velocities
+onto the constraints (integrate/propagators.py); a thermostat's dof is
+count_degrees_of_freedom(system), constraints and virtual sites taken off.
+
 >>> mts = MultipleTimeScaleIntegrator(0.004, [2, 1], temperature=300.0,
 ...                                   time_scale=0.1, degrees_of_freedom=93)
 >>> print(mts.describe())

@@ -6,12 +6,15 @@ the operator-splitting math of the reference, operator order included.
 `describe(fraction)` prints the same instruction dump as the JAX package.
 
 The algebra (Chained / Split / TrotterSuzuki / SuzukiYoshida / Respa) is
-that of the reference. Translation moves unconstrained systems only; Boost
-carries the force-cache registers that hold per-group forces between a
-'write' kick and the next 'read' kick. Stochastic propagators
-(OrnsteinUhlenbeck, VelocityRescaling) draw from the state's
-torch.Generator, which advances in place: the same seed gives the same
-trajectory, and another stream than the JAX package's.
+that of the reference. Translation follows a move of a constrained system
+with SETTLE and SHAKE and the matching velocity correction, and places the
+virtual sites; Boost and the Ornstein-Uhlenbeck step project the
+velocities onto the constraints (SETTLE, RATTLE) and pin the virtual
+sites' rows to zero. Boost carries the force-cache registers that hold
+per-group forces between a 'write' kick and the next 'read' kick.
+Stochastic propagators (OrnsteinUhlenbeck, VelocityRescaling) draw from
+the state's torch.Generator, which advances in place: the same seed gives
+the same trajectory, and another stream than the JAX package's.
 
 >>> vv = VelocityVerletPropagator()
 >>> for line in vv.describe(1.0):
@@ -40,6 +43,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..ops.constraints import rattle_velocities, shake_positions
+from ..ops.settle import settle_positions, settle_velocities
+from ..ops.virtual_sites import place_virtual_sites, zero_virtual_velocities
 from ..potential import force_fn
 from ..state import State
 from ..units import BOLTZMANN
@@ -236,16 +242,57 @@ class SuzukiYoshidaPropagator(Propagator):
 
 class TranslationPropagator(Propagator):
     """x <- x + v * t (atomsmm/propagators.py::TranslationPropagator).
-    Unconstrained systems only: constraints are a later slice."""
+
+    A constrained system follows the move with the position projection and
+    the matching velocity correction v += (x_new - x_unc) / t: closed-form
+    SETTLE for the rigid 3-site molecules (ops/settle.py), then Jacobi
+    SHAKE for the remaining constraints (ops/constraints.py). Virtual sites
+    are placed from their moved parents and their velocities zeroed."""
 
     def apply(self, ctx, state, fraction):
-        if getattr(ctx.system, "num_constraints", 0):
-            raise NotImplementedError(
-                "constrained systems (SETTLE/SHAKE) are not ported yet")
-        return replace(state, x=state.x + state.v * (fraction * ctx.dt))
+        t = fraction * ctx.dt
+        system = ctx.system
+        cons = getattr(system, "constraints", None)
+        sset = getattr(system, "settle", None)
+        vsites = getattr(system, "virtual_sites", None)
+        x_unc = state.x + state.v * t
+        if cons is None and sset is None:
+            if vsites is not None:
+                x_unc = place_virtual_sites(vsites, x_unc)
+            return replace(state, x=x_unc)
+        x_new = x_unc
+        if sset is not None:
+            x_new = settle_positions(sset, x_new, state.x, ctx.masses)
+        if cons is not None:
+            x_new = shake_positions(cons, x_new, state.x, 1.0 / ctx.masses)
+        v = state.v + (x_new - x_unc) / t
+        if vsites is not None:
+            # the stored virtual rows follow their parents (the forces
+            # place them afresh at every evaluation all the same)
+            x_new = place_virtual_sites(vsites, x_new)
+            v = zero_virtual_velocities(vsites, v)
+        return replace(state, x=x_new, v=v)
 
     def describe(self, fraction=1.0):
         return [f"x <- x + v * {fraction:g} dt (+SETTLE/SHAKE if constrained)"]
+
+
+def _project_velocities(ctx, x, v):
+    """Project velocities onto the constraint tangent space: closed-form
+    SETTLE for the 3-site molecules, iterative RATTLE for the remaining
+    constraints; the virtual sites' rows are pinned to zero. A system with
+    none of these gets v back as it is, with no device operation."""
+    system = ctx.system
+    sset = getattr(system, "settle", None)
+    if sset is not None:
+        v = settle_velocities(sset, x, v, ctx.masses)
+    cons = getattr(system, "constraints", None)
+    if cons is not None:
+        v = rattle_velocities(cons, x, v, 1.0 / ctx.masses)
+    vsites = getattr(system, "virtual_sites", None)
+    if vsites is not None:
+        v = zero_virtual_velocities(vsites, v)
+    return v
 
 
 def force_cache_tag(groups) -> str:
@@ -263,7 +310,8 @@ def parse_force_cache_tag(key: str):
 
 class BoostPropagator(Propagator):
     """v <- v + (F_groups / m) * t
-    (atomsmm/propagators.py::VelocityBoostPropagator).
+    (atomsmm/propagators.py::VelocityBoostPropagator), followed by the
+    velocity projection of a constrained system.
 
     cache: None  — always evaluate forces fresh;
            'read' — use the cached forces in State.extra (stored by the
@@ -289,7 +337,8 @@ class BoostPropagator(Propagator):
         m = ctx.masses
         inv_m = torch.where(m > 0, 1.0 / torch.where(m > 0, m, torch.ones_like(m)),
                             torch.zeros_like(m))
-        state = replace(state, v=state.v + f * inv_m[:, None] * t)
+        v = _project_velocities(ctx, state.x, state.v + f * inv_m[:, None] * t)
+        state = replace(state, v=v)
         if self.cache == "write":
             state = state.with_extra(**{force_cache_tag(self.groups): f})
         return state
@@ -535,7 +584,8 @@ class OrnsteinUhlenbeckPropagator(Propagator):
     `variable` updates a named extra tensor with effective mass `mass`
     instead. With `temperature_global` the bath temperature is read from
     that global parameter at step time (falling back to `temperature`).
-    R is drawn from the state's torch.Generator."""
+    R is drawn from the state's torch.Generator. The particle velocities
+    are projected onto the constraints afterwards."""
 
     is_thermostat = True
 
@@ -562,7 +612,11 @@ class OrnsteinUhlenbeckPropagator(Propagator):
                 m > 0, (kT / torch.where(m > 0, m, torch.ones_like(m))) ** 0.5,
                 torch.zeros_like(m))
             r = _normal(state.rng, state.v)
-            return replace(state, v=state.v * decay + sigma * noise * r)
+            # additive noise breaks the constraints' tangency: project as
+            # the kicks do (uniform rescalings such as NHC or CSVR keep it)
+            v = _project_velocities(ctx, state.x,
+                                    state.v * decay + sigma * noise * r)
+            return replace(state, v=v)
         z = state.extra[self.variable]
         sigma = (kT / self.mass) ** 0.5
         z = z * decay + sigma * noise * _normal(state.rng, z)

@@ -12,6 +12,10 @@ The exchange format is a plain dict of numpy arrays and Python scalars:
     A field this package does not port raises NotImplementedError unless its
     value is the inert default (None, no NBFIX table...).
 
+The constraint sets of a rigid system (ConstraintSet, SettleSet,
+VirtualSiteSet) cross with their index arrays as integers (the sets hold
+them as int64).
+
 A force that holds a Python function (CustomNonbondedForce,
 CustomBondForce) does not cross: a JAX function is not a torch one. To
 carry an alchemical system, describe the JAX base system and apply this
@@ -38,7 +42,10 @@ from .forces import (
     SoftcoreLennardJonesForce,
     TemplateBondedForce,
 )
+from .ops.constraints import ConstraintSet
 from .ops.neighbors import NeighborSpec
+from .ops.settle import SettleSet
+from .ops.virtual_sites import VirtualSiteSet
 from .state import State
 from .system import System
 from .utils import resolve_device
@@ -48,7 +55,7 @@ _CLASSES = {c.__name__: c for c in (
     PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
     HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
     DampedSmoothedForce, SoftcoreLennardJonesForce, MonteCarloBarostat,
-    NeighborSpec)}
+    NeighborSpec, ConstraintSet, SettleSet, VirtualSiteSet)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path

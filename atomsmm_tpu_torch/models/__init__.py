@@ -2,4 +2,4 @@
 from .argon import argon_system
 from .ionic_liquid import ionic_liquid_system
 from .phenol import phenol_in_water
-from .water import water_system
+from .water import rigid_water_system, tip4p_water_system, water_system

@@ -5,7 +5,9 @@ atomsmm_tpu/potential.py).
 the neighbor buckets (ops/neighbors.py). Forces with an explicit
 `energy_and_forces` are used directly; the others are differentiated with
 autograd. A marker force (`inert`, the MonteCarloBarostat) adds nothing and
-is skipped by the evaluators a step runs.
+is skipped by the evaluators a step runs. A system with virtual sites is
+evaluated at the placed coordinates (ops/virtual_sites.py), and its forces
+are pulled back onto the parent atoms.
 """
 from __future__ import annotations
 
@@ -14,11 +16,21 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from .ops.virtual_sites import place_virtual_sites, pull_back_forces
+
+
+def _resolve_x(system, x):
+    """Positions as the forces see them: virtual-site rows replaced by
+    their construction from parents."""
+    vs = getattr(system, "virtual_sites", None)
+    return x if vs is None else place_virtual_sites(vs, x)
+
 
 def potential_energy(system, x, box, globals=None,
                      groups: Optional[Iterable[int]] = None, aux=None):
     """Total potential energy, optionally restricted to a set of force groups."""
     globals = globals or {}
+    x = _resolve_x(system, x)
     total = torch.zeros((), dtype=x.dtype, device=x.device)
     for f in system.forces:
         if not f.inert and (groups is None or f.group in groups):
@@ -37,19 +49,30 @@ def _energy_and_forces(force, x, box, globals, aux):
 
 
 def force_fn(system, groups: Optional[Iterable[int]] = None):
-    """Return f(x, box, globals, aux) -> (energy, forces) for the given groups."""
+    """Return f(x, box, globals, aux) -> (energy, forces) for the given groups.
+
+    With virtual sites the forces are evaluated at the placed coordinates
+    and pulled back through the placement's vector-Jacobian product: the
+    chain-rule redistribution onto the parent atoms, with the virtual rows
+    exactly zero. A group set that holds no force gives zero energy and
+    zero forces.
+    """
     groups = None if groups is None else frozenset(groups)
     selected = [f for f in system.forces
                 if not f.inert and (groups is None or f.group in groups)]
+    vs = getattr(system, "virtual_sites", None)
 
     def f(x, box, globals=None, aux=None):
         globals = globals or {}
+        x_eval = _resolve_x(system, x)
         e_total = torch.zeros((), dtype=x.dtype, device=x.device)
         f_total = torch.zeros_like(x)
         for force in selected:
-            e, fr = _energy_and_forces(force, x, box, globals, aux)
+            e, fr = _energy_and_forces(force, x_eval, box, globals, aux)
             e_total = e_total + e
             f_total = f_total + fr
+        if vs is not None and selected:
+            f_total = pull_back_forces(vs, x, f_total)
         return e_total, f_total
 
     return f
@@ -60,6 +83,7 @@ def split_potential_energy(system, x, box, globals=None,
     """Energy per force object, keyed by class name (with #k suffix on
     duplicates), plus 'Total' — mirrors atomsmm/utils.py::splitPotentialEnergy."""
     globals = globals or {}
+    x = _resolve_x(system, x)
     out = OrderedDict()
     counts: Dict[str, int] = {}
     total = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -78,6 +102,7 @@ def split_potential_energy(system, x, box, globals=None,
 def group_energies(system, x, box, globals=None, aux=None) -> Dict[int, torch.Tensor]:
     """Energy per force group (the RESPA decomposition)."""
     globals = globals or {}
+    x = _resolve_x(system, x)
     out: Dict[int, torch.Tensor] = {}
     for f in system.forces:
         e = f.energy(x, box, globals, aux)

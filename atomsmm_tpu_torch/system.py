@@ -28,8 +28,15 @@ class System:
       default_box: (3,) box lengths used when building the initial State.
       neighbors: the default NeighborSpec, or None (dense pair path).
       extra_neighbor_specs: name -> NeighborSpec (e.g. 'near').
+      constraints: the iterative distance constraints
+        (ops.constraints.ConstraintSet), or None.
+      settle: the rigid 3-site molecules on closed-form SETTLE
+        (ops.settle.SettleSet), or None.
+      virtual_sites: the massless sites rebuilt from their parents
+        (ops.virtual_sites.VirtualSiteSet), or None.
       num_molecules, num_constraints, remove_com_motion: counts and flags
-        for degree-of-freedom bookkeeping.
+        for degree-of-freedom bookkeeping (num_constraints counts SETTLE's
+        three per molecule and the iterative ones alike).
     """
 
     masses: torch.Tensor = None
@@ -38,6 +45,9 @@ class System:
     default_box: torch.Tensor = None
     neighbors: object = None
     extra_neighbor_specs: dict = None
+    constraints: object = None
+    settle: object = None
+    virtual_sites: object = None
     num_molecules: int = 0
     num_constraints: int = 0
     remove_com_motion: bool = True

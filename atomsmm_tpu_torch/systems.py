@@ -9,6 +9,8 @@
                 with lambda_coul (solvation free energies).
   AlchemicalRespaSystem — both transformations combined, the softcore
                 force in the near group.
+  HydrogenMassRepartitionedSystem — heavier hydrogens, lighter heavy
+                partners, the same total mass (OpenMM's hydrogenMass=).
 
 >>> import torch
 >>> from atomsmm_tpu_torch.models import water_system
@@ -225,3 +227,114 @@ def AlchemicalRespaSystem(system: System, rcut_in, rswitch_in, solute_atoms,
     return respa.replace_forces(
         replace(f, group=1) if isinstance(f, SoftcoreLennardJonesForce) else f
         for f in respa.forces)
+
+
+# particles lighter than this (and not massless) are hydrogens [amu]
+HMR_HYDROGEN_MASS = 1.5
+
+
+def HydrogenMassRepartitionedSystem(
+    system: System,
+    factor: float = 3.0,
+    bonds=None,
+    target_mass: float | None = None,
+) -> System:
+    """Hydrogen mass repartitioning (HMR): scale every hydrogen's mass by
+    ``factor`` and remove the added mass from its bonded heavy partner
+    (atomsmm_tpu/systems.py::HydrogenMassRepartitionedSystem, OpenMM's
+    ``createSystem(hydrogenMass=...)``). Configurational averages do not
+    depend on the masses, while the fastest H-X motions slow by about
+    sqrt(factor): a 4 fs step becomes stable for rigid water.
+
+    Connectivity comes from ``bonds`` ((P, 2)) when given, else from the
+    system: the SETTLE triplets (A-B, A-C), the iterative constraint pairs
+    and every ``HarmonicBondForce.idx``. (``TemplateBondedForce`` holds
+    per-template local indices: pass ``bonds`` for such systems.)
+
+    The SETTLE triangle (ra/rb/rc) is mass-weighted, so the SettleSet is
+    rebuilt for the new masses from the target distances recovered from
+    the old one (d_BC = 2 rc, d_AB = sqrt(rc^2 + (ra + rb)^2)).
+
+    Hydrogens are particles with 0 < m < ``HMR_HYDROGEN_MASS`` (1.5 amu);
+    massless particles (virtual sites) are never touched. Raises InputError when a
+    hydrogen has no bonded heavy partner or a heavy atom's mass would go
+    non-positive. ``target_mass`` sets every hydrogen to exactly that mass
+    instead of multiplying, debiting the difference from its partner.
+
+    >>> from atomsmm_tpu_torch.models import rigid_water_system
+    >>> system, x, box = rigid_water_system(n_molecules=64, r_cut=0.55,
+    ...     r_switch=0.5, dtype=torch.float64, device="cpu")
+    >>> hmr = HydrogenMassRepartitionedSystem(system, factor=3.0)
+    >>> bool(torch.allclose(hmr.masses[1::3], 3.0 * system.masses[1::3]))
+    True
+    >>> bool(abs(hmr.masses.sum() - system.masses.sum()) < 1e-9)
+    True
+    """
+    from .forces import HarmonicBondForce
+    from .ops.settle import make_settle_set
+
+    if target_mass is not None:
+        if target_mass <= 0:
+            raise InputError(
+                f"HMR target_mass must be positive, got {target_mass}")
+    elif factor <= 0:
+        raise InputError(f"HMR factor must be positive, got {factor}")
+    masses = system.masses.detach().cpu().numpy().astype(np.float64)
+    n = masses.shape[0]
+
+    conn = []
+    if bonds is not None:
+        conn.append(np.asarray(bonds, np.int64).reshape(-1, 2))
+    else:
+        if system.settle is not None and system.settle.size:
+            t = system.settle.triplets.cpu().numpy()
+            conn.append(np.stack([t[:, 0], t[:, 1]], 1))
+            conn.append(np.stack([t[:, 0], t[:, 2]], 1))
+        if system.constraints is not None and system.constraints.size:
+            conn.append(system.constraints.pairs.cpu().numpy())
+        for f in system.forces:
+            if isinstance(f, HarmonicBondForce) and f.idx is not None:
+                conn.append(f.idx.cpu().numpy().astype(np.int64))
+    if not conn:
+        raise InputError(
+            "HMR needs connectivity: no SETTLE/constraints/HarmonicBondForce "
+            "found and no explicit bonds given")
+    pairs = np.concatenate(conn, 0)
+
+    is_h = (masses > 0) & (masses < HMR_HYDROGEN_MASS)
+    heavy_of = np.full(n, -1, np.int64)
+    for a, b in np.concatenate([pairs, pairs[:, ::-1]], 0):
+        if is_h[a] and not is_h[b] and masses[b] > 0 and heavy_of[a] < 0:
+            heavy_of[a] = b
+    hs = np.where(is_h)[0]
+    orphan = hs[heavy_of[hs] < 0]
+    if orphan.size:
+        raise InputError(
+            f"HMR: hydrogens {orphan[:5].tolist()}... have no bonded heavy "
+            "partner (H-H constraint pairs do not count; pass bonds=)")
+    new = masses.copy()
+    if target_mass is not None:
+        delta = target_mass - masses[hs]
+    else:
+        delta = (factor - 1.0) * masses[hs]
+    new[hs] += delta
+    np.subtract.at(new, heavy_of[hs], delta)
+    bad = np.where((masses > 0) & ~is_h & (new <= 0))[0]
+    if bad.size:
+        what = (f"target_mass {target_mass}" if target_mass is not None
+                else f"factor {factor}")
+        raise InputError(
+            f"HMR {what} drives heavy atoms {bad[:5].tolist()} to "
+            f"non-positive mass (worst: {new[bad].min():.4f} amu)")
+
+    new_masses = torch.as_tensor(new, dtype=system.masses.dtype,
+                                 device=system.masses.device)
+    settle = system.settle
+    if settle is not None and settle.size:
+        ra, rb, rc = (a.detach().cpu().numpy().astype(np.float64)
+                      for a in (settle.ra, settle.rb, settle.rc))
+        d_ab = np.sqrt(rc**2 + (ra + rb) ** 2)
+        settle = make_settle_set(settle.triplets, d_ab, 2.0 * rc, new_masses,
+                                 dtype=settle.ra.dtype,
+                                 device=settle.ra.device)
+    return replace(system, masses=new_masses, settle=settle)

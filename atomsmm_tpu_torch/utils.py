@@ -49,8 +49,12 @@ def replace(obj, **changes):
 
 def count_degrees_of_freedom(system) -> int:
     """Number of kinetic degrees of freedom (atomsmm/utils.py::countDegreesOfFreedom):
-    3N, minus the constraints, minus 3 if center-of-mass motion is removed."""
+    3N, minus the constraints, minus 3 per virtual site (a massless site's
+    velocity is pinned to zero), minus 3 if center-of-mass motion is
+    removed."""
     dof = 3 * system.num_particles - system.num_constraints
+    if system.virtual_sites is not None:
+        dof -= 3 * system.virtual_sites.size
     if system.remove_com_motion:
         dof -= 3
     return dof

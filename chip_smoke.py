@@ -58,6 +58,10 @@ non-zero:
      the fused far form): K1 on water 400 (RF, near, far) and the 30k PME
      near and far grids, K2 on the water 700 far grids (RF and PME, full
      and far), K3 on the 30k damped far list;
+   - rigid water (path (g), after its runs, at their own grids and
+     capacities): K1 in the cutoff-RF form at (g1)'s 0.9 nm grid, in the
+     near and fused far forms at (g2)'s two grids, and at (g3)'s TIP4P/Ew
+     grid (the M site 0.0125 nm from its O);
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
    grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
@@ -76,7 +80,12 @@ non-zero:
    RESPA [2, 2, 1] + NHC steps with the same uniforms fed to both runs
    through _uniforms: x, v and box to 1e-9 relative, equal acceptances
    with at least one move accepted and one rejected, the atomic and
-   molecular virials at the end to 1e-10;
+   molecular virials at the end to 1e-10; then path (g)'s slices, 216
+   rigid waters: TIP3P on SETTLE under VV + NHC, 10 steps at 0.5 nm (K1,
+   3^3) and at 0.9 nm (K2, 1^3), on SHAKE/RATTLE (analytic=False) 5 steps
+   at 0.5 nm, HMR x3 + RESPASystem(0.45, 0.4) + RESPA [1, 4, 1] @ 16 fs +
+   NHC 5 outer steps (K2 far, K1 near), TIP4P/Ew 10 steps at 0.5 nm and
+   LangevinMiddle at friction 0, 5 steps: x and v to 1e-9 relative;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
    timed step(100); checks finiteness, K1's launch count (3 per outer
@@ -133,6 +142,22 @@ non-zero:
    reciprocal evaluations, mean T 280-320 K, PE/atom -14.6 ... -13.8
    kJ/mol, |dV/V| < 3% and finite atomic and molecular pressures (the
    virial form: one K1 sweep of each grid);
+   path (g): rigid water at bench_rigid_water's shape, float32.
+   (g1) BASELINE-bench config 6: 10,000 TIP3P waters (30,000 atoms), 0.9
+   nm RF, every water on SETTLE, VV @ 2 fs + NHC from
+   bench_data/eq_tip3p30k.npz retuned at safety 1.03: step(1),
+   step(250), a timed step(200), then 8 x step(50) with T and PE read;
+   checks finiteness, the SETTLE residual <= 1e-4, the K1 launches (1 a
+   step + 1 a pass), T 294-308 K, PE/atom -15.1 ... -14.3 kJ/mol,
+   |drift| <= 0.15 kJ/mol/atom/ps (bench.py's bands). (g2) config 6c:
+   the same with HMR x3, RESPASystem(0.6, 0.5) and RESPA [1, 4, 1] @ 16
+   fs + NHC, the velocities resampled at seed 9: K1 5 a step (1 far, 4
+   near) + 2 a pass, T 294-308 K, PE/atom -13.7 ... -12.8, |drift| <=
+   0.1. (g3) 2,000 TIP4P/Ew waters (8,000 sites, 3.915 nm, 0.9 nm RF, K1
+   on 4^3) melted off the lattice by chunked rescaling (1600 steps), then
+   a timed step(100) of VV @ 2 fs + NHC and 4 x step(25) with T read: the
+   SETTLE residual, every M within 1e-6 nm of its placement, the M
+   velocity rows 0, the mean T 270-330 K, the K1 launches;
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -155,11 +180,16 @@ non-zero:
    corrections); K1 at path (d)'s far and near shapes; K1 and K2 (full
    stencil) with the softcore form at path (e)'s grid, bounded by the
    solute-solvent pairs; K1 at path (f)'s far and near grids in the energy
-   and the virial forms, K2 and K3 with the virial flag; then path (c)'s
+   and the virial forms, K2 and K3 with the virial flag; K1 at path (g)'s
+   grids, SETTLE's two stages at 30k and the virtual-site placement and
+   pull-back at (g3) (CUDA events, device operations a call), path (g)'s
+   device operations per step; then path (c)'s
    and path (d)'s outer steps split by force group (host clock,
-   synchronised), and path (f)'s outer step and one volume move split by
+   synchronised), path (f)'s outer step and one volume move split by
    part (trial build, e_old at the current box, e_new at the trial box
-   on the trial's buckets, rebuild and cache refresh).
+   on the trial's buckets, rebuild and cache refresh), (g1)'s step split
+   by part (K1 sweep, SETTLE's stages, the bucket rebuild) and (g2)'s
+   outer step by group.
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
@@ -339,12 +369,13 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def device_kernels(fn, reps=1, tries=3):
+def device_kernels(fn, reps=1, tries=3, enough=bool):
     """(name, device microseconds) of each device operation (kernel, fill,
-    copy) that `reps` calls of fn run, from torch.profiler; empty if the
-    profiler saw no device activity in `tries` profiles. (A profile of
-    work that launched kernels has come back with no device event at all
-    on the card's machine: that read is taken again.)"""
+    copy) that `reps` calls of fn run, from torch.profiler. A profile that
+    `enough` refuses (by default one with no device event) is taken again,
+    up to `tries` profiles in all; the last is returned. (A profile of work
+    that launched kernels has come back with no device event at all, or
+    without the events of its first calls, on the card's machine.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -359,9 +390,9 @@ def device_kernels(fn, reps=1, tries=3):
             torch.cuda.synchronize()
         seen = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
-        if seen:
-            return seen
-    return []
+        if enough(seen):
+            break
+    return seen
 
 
 def kernel_device_ms(fn, kernel, reps=20):
@@ -1244,6 +1275,19 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def wall_ms(fn, reps=20):
+    """Host-clock milliseconds of one synchronised call of fn."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def time_cells(label, force, spec, x, box, form=None):
     """K1 or K2 (the kernel the spec selects) at one shape: the kernel's
     device time inside the sweep (torch.profiler), the launch wrapper, the
@@ -1276,9 +1320,12 @@ def time_cells(label, force, spec, x, box, form=None):
     p_ms = time_cuda(lambda: plain(*args), 3)
     k_ms = kernel_device_ms(sweep, kernel)
     # device operations per sweep: the span between two launches of the
-    # kernel among 5 profiled sweeps (the profiler has dropped events at
-    # the start of its window: all of one sweep, or the first two)
-    seen = [name for name, _ in device_kernels(sweep, reps=5)]
+    # kernel among 5 profiled sweeps. The profiler has dropped events at
+    # the start of its window (all of one sweep, two or three), so a read
+    # with fewer than 3 launches of the kernel is taken again
+    seen = [name for name, _ in device_kernels(
+        sweep, reps=5, enough=lambda ev: sum(
+            f"{kernel}_kernel" in name for name, _ in ev) >= 3)]
     at = [i for i, name in enumerate(seen) if f"{kernel}_kernel" in name]
     spans = {j - i for i, j in zip(at[1:], at[2:])}
     ops = seen[at[1] + 1:at[2] + 1] if len(at) >= 3 else []
@@ -1507,41 +1554,25 @@ def phase_step_split(dev, run, name, loops):
     calls = {0: loops[0] * loops[1] * loops[2], 1: loops[1] * loops[2],
              2: loops[2]}
 
-    def wall(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     group0 = ", ".join(f.name for f in respa.forces if f.group == 0)
     parts = {  # name: (ms per call, calls per outer step)
-        f"group 0, autograd ({group0})": (wall(lambda: force_fn(
+        f"group 0, autograd ({group0})": (wall_ms(lambda: force_fn(
             respa, {0})(x, box, {}, aux)), calls[0]),
-        "near (group 1, K1)": (wall(lambda: force_fn(
+        "near (group 1, K1)": (wall_ms(lambda: force_fn(
             respa, {1})(x, box, {}, aux)), calls[1]),
-        "far (group 2: K1 + PME)": (wall(lambda: force_fn(
+        "far (group 2: K1 + PME)": (wall_ms(lambda: force_fn(
             respa, {2})(x, box, {}, aux)), calls[2]),
-        "  of which reciprocal sum": (wall(
+        "  of which reciprocal sum": (wall_ms(
             lambda: pme.pme_reciprocal_energy_forces(
                 x, box, full.charge, float(full.ewald_alpha),
                 full.grid_shape, full.spline_order)), calls[2]),
-        "  of which corrections": (wall(lambda: pme.pme_corrections_forces(
+        "  of which corrections": (wall_ms(lambda: pme.pme_corrections_forces(
             x, box, full.charge, full.exclusions,
             float(full.ewald_alpha))), calls[2]),
-        "bucket rebuilds (2 grids)": (wall(lambda: nb.all_neighbor_extras(
+        "bucket rebuilds (2 grids)": (wall_ms(lambda: nb.all_neighbor_extras(
             respa, x, box)), 1),
     }
-    step_ms = run["ms_per_step"]
-    counted = sum(ms * k for part, (ms, k) in parts.items()
-                  if not part.startswith("  "))
-    log("{} split per outer step ({:.3f} ms/step): {}; rest "
-        "(integrator, baths, Python) {:.3f} ms".format(
-            name, step_ms, ", ".join(f"{part.strip()} {ms:.3f} ms x {k}"
-                                     for part, (ms, k) in parts.items()),
-            step_ms - counted))
+    split_log(name, run["ms_per_step"], parts, "integrator, baths, Python")
     return parts
 
 
@@ -1838,15 +1869,6 @@ def phase_alchemy(dev, evals=50, k_states=16):
     g = ctx.parameters
     run = ctx.system  # its cell capacities, retuned if the melt overflowed
     aux = make_aux(run, all_neighbor_extras(run, x_melt, box))
-
-    def wall_ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
 
     scaled = solv.forces[find_nonbonded_force(solv)]
     solute_solute = solv.forces[-1]  # the second NonbondedForce
@@ -2172,44 +2194,29 @@ def phase_npt_split(dev, run, name):
     calls = {0: loops[0] * loops[1] * loops[2], 1: loops[1] * loops[2],
              2: loops[2]}
 
-    def wall(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     pme_tag = " + PME)" if "pme" in name else ")"
     parts = {
-        "group 0, autograd (TemplateBondedForce)": (wall(lambda: force_fn(
+        "group 0, autograd (TemplateBondedForce)": (wall_ms(lambda: force_fn(
             respa, {0})(x, box, g, aux)), calls[0]),
-        "near (group 1, K1)": (wall(lambda: force_fn(
+        "near (group 1, K1)": (wall_ms(lambda: force_fn(
             respa, {1})(x, box, g, aux)), calls[1]),
         "far (group 2, K1" + pme_tag: (
-            wall(lambda: force_fn(respa, {2})(x, box, g, aux)), calls[2]),
+            wall_ms(lambda: force_fn(respa, {2})(x, box, g, aux)), calls[2]),
     }
     if "pme" in name:
         full = pair_forces(respa)[1].full
-        parts["  of which reciprocal sum"] = (wall(
+        parts["  of which reciprocal sum"] = (wall_ms(
             lambda: pme.pme_reciprocal_energy_forces(
                 x, box, full.charge, float(full.ewald_alpha),
                 full.grid_shape, full.spline_order)), calls[2])
-        parts["  of which corrections"] = (wall(
+        parts["  of which corrections"] = (wall_ms(
             lambda: pme.pme_corrections_forces(
                 x, box, full.charge, full.exclusions,
                 float(full.ewald_alpha))), calls[2])
-    parts["bucket rebuilds (2 grids)"] = (wall(
+    parts["bucket rebuilds (2 grids)"] = (wall_ms(
         lambda: nb.update_all_neighbors(respa, st.extra, x, box)), 1)
-    step_ms = run["ms_per_step"]
-    counted = sum(ms * k for p, (ms, k) in parts.items()
-                  if not p.startswith("  "))
-    log("{} split per outer step ({:.3f} ms/step): {}; rest (integrator, "
-        "NHC, flags, Python; the volume move every {} steps) {:.3f} "
-        "ms".format(name, step_ms, ", ".join(
-            f"{p.strip()} {ms:.3f} ms x {k}" for p, (ms, k) in parts.items()),
-            NPT_FREQUENCY, step_ms - counted))
+    split_log(name, run["ms_per_step"], parts, "integrator, NHC, flags, "
+              f"Python; the volume move every {NPT_FREQUENCY} steps")
     prop = ctx._barostat
     sctx = StepContext(respa, g, 0.0)
     s_t = torch.tensor(1.001, dtype=x.dtype, device=x.device)
@@ -2222,14 +2229,14 @@ def phase_npt_split(dev, run, name):
     x_new, trial_extras = trial_build()
     trial_aux = nb.make_aux(respa, trial_extras)
     move = {
-        "whole attempt": wall(lambda: prop._attempt(sctx, st)),
-        "trial build (scaling + 2 grids' buckets)": wall(trial_build),
-        "e_old (2 K1 sweeps" + pme_tag: wall(lambda: potential_energy(
+        "whole attempt": wall_ms(lambda: prop._attempt(sctx, st)),
+        "trial build (scaling + 2 grids' buckets)": wall_ms(trial_build),
+        "e_old (2 K1 sweeps" + pme_tag: wall_ms(lambda: potential_energy(
             respa, x, box, g, aux=aux)),
-        "e_new (the same at the trial box, on its buckets)": wall(
+        "e_new (the same at the trial box, on its buckets)": wall_ms(
             lambda: potential_energy(respa, x_new, box * s_t, g,
                                      aux=trial_aux)),
-        "rebuild + cache refresh": wall(lambda: refresh_force_caches(
+        "rebuild + cache refresh": wall_ms(lambda: refresh_force_caches(
             respa, st.with_extra(**nb.update_all_neighbors(
                 respa, st.extra, x, box)), g)),
     }
@@ -2435,6 +2442,507 @@ def phase_npt_timings(dev, npt, small, eq, timings):
     return out
 
 
+# --- path (g): rigid water (SETTLE, SHAKE/RATTLE, HMR, TIP4P/Ew) -----------
+
+G1_BANDS = {"T": (294.0, 308.0), "pe": (-15.1, -14.3), "drift": 0.15}
+G2_BANDS = {"T": (294.0, 308.0), "pe": (-13.7, -12.8), "drift": 0.1}
+# (g3): 8,000 sites at 300 K spread by ~1.5% (5 K); 30 K leaves room for
+# the last relaxation of the melt
+G3_T_BAND = (270.0, 330.0)
+# (g3)'s conserved-energy drift, kJ/mol/atom/ps: after the melt the NHC
+# takes up 0.02-0.05 kJ/mol/atom/ps from the structure still relaxing
+# while the conserved energy moves by < 0.005 (float32 and float64,
+# k1_ab/rigid_water_relaxation.py); heat made by the integrator at the
+# uptake's rate would move the conserved energy as much
+G3_DRIFT = 0.02
+
+
+def rigid_run(builder, dev, steps, kw, hmr=False, respa=None, integ="nhc",
+              dt=0.002):
+    """One float64 run of a path (g) slice on `dev`: 216 molecules from the
+    builder's lattice, velocities from one numpy draw (0 on massless rows),
+    optionally HMR x3 and a RESPASystem split; `steps` outer steps of
+    VV + NHC ("nhc"), LangevinMiddle at friction 0 ("langevin") or RESPA
+    [1, 4, 1] + NHC ("respa"). Returns the Context and the kernel launches
+    of the run."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import models
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f64 = torch.float64
+    s, x, box = getattr(models, builder)(n_molecules=216, seed=5,
+                                         neighbors=True, dtype=f64,
+                                         device=dev, **kw)
+    if hmr:
+        s = amm.HydrogenMassRepartitionedSystem(s, factor=3.0)
+    if respa:
+        s = amm.RESPASystem(s, rcut_in=respa[0], rswitch_in=respa[1])
+    m = s.masses.cpu().numpy()
+    v = np.random.RandomState(9).normal(size=(m.size, 3)) * np.sqrt(
+        amm.units.BOLTZMANN * 300.0 / np.where(m > 0, m, 1.0))[:, None]
+    v[m == 0] = 0.0
+    dof = amm.count_degrees_of_freedom(s)
+    if integ == "respa":
+        integrator = amm.MultipleTimeScaleIntegrator(
+            dt, [1, 4, 1], temperature=300.0, time_scale=0.1,
+            degrees_of_freedom=dof)
+    elif integ == "langevin":
+        integrator = amm.LangevinMiddleIntegrator(dt, 300.0, friction=0.0)
+    else:
+        integrator = amm.GlobalThermostatIntegrator(
+            dt, amm.NoseHooverChainPropagator(300.0, dof, 0.1))
+    ctx = amm.Context(s, integrator, amm.make_state(
+        x, v=torch.as_tensor(v, dtype=f64, device=dev), box=box))
+    pk.reset_launches()
+    ctx.step(steps)
+    return ctx, dict(pk.LAUNCHES)
+
+
+def geometry_residual(system, x):
+    """The largest relative constraint error: SETTLE's, else SHAKE's."""
+    from atomsmm_tpu_torch.ops.constraints import constraint_residual
+    from atomsmm_tpu_torch.ops.settle import settle_residual
+
+    if system.settle is not None:
+        return float(settle_residual(system.settle, x.double()))
+    return float(constraint_residual(system.constraints, x.double()))
+
+
+def phase_slice_rigid(dev):
+    """Path (g)'s slices, float64, card against CPU (the plain twins
+    there): 216 rigid TIP3P waters on SETTLE, VV + NHC, 10 steps at 0.5 nm
+    (K1 on a 3^3 grid) and at 0.9 nm (K2 on a 1^3 grid); the same at 0.5 nm
+    on SHAKE/RATTLE (analytic=False), 5 steps; HMR x3 +
+    RESPASystem(0.45, 0.4) + RESPA [1, 4, 1] @ 16 fs + NHC, 5 outer steps
+    (K2 far on 1^3, K1 near on 3^3; group 0 holds no force); 216 TIP4P/Ew
+    at 0.5 nm, VV + NHC, 10 steps; LangevinMiddle at friction 0 on rigid
+    TIP3P at 0.5 nm, 5 steps (the projection after the OU step). x and v
+    to 1e-9 relative to their largest entry, every grid's kernel
+    launched."""
+    cases = {
+        "tip3p settle 0.5 nm VV+NHC": ("rigid_water_system", 10, dict(
+            r_cut=0.5, r_switch=0.4), {}),
+        "tip3p settle 0.9 nm VV+NHC": ("rigid_water_system", 10, dict(
+            r_cut=0.9, r_switch=0.8), {}),
+        "tip3p shake 0.5 nm VV+NHC": ("rigid_water_system", 5, dict(
+            r_cut=0.5, r_switch=0.4, analytic=False), {}),
+        "tip3p HMR RESPA[1,4,1]@16fs": ("rigid_water_system", 5, dict(
+            r_cut=0.9, r_switch=0.8), dict(hmr=True, respa=(0.45, 0.4),
+                                           integ="respa", dt=0.016)),
+        "tip4p/ew 0.5 nm VV+NHC": ("tip4p_water_system", 10, dict(
+            r_cut=0.5, r_switch=0.4), {}),
+        "tip3p LangevinMiddle friction 0": ("rigid_water_system", 5, dict(
+            r_cut=0.5, r_switch=0.4), dict(integ="langevin")),
+    }
+    for label, (builder, steps, kw, opts) in cases.items():
+        (cpu, _), (gpu, launches) = (
+            rigid_run(builder, device, steps, kw, **opts)
+            for device in ("cpu", dev))
+        worst = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
+                    for a, b in ((cpu.state.x, gpu.state.x),
+                                 (cpu.state.v, gpu.state.v)))
+        s = gpu.system
+        specs = {"far": s.neighbors, **(s.extra_neighbor_specs or {})}
+        used = {name: "half_pair" if spec.half_stencil else "cell_pair"
+                for name, spec in specs.items()}
+        log(f"slice (g) {label} float64, {s.num_particles} atoms, "
+            + ", ".join(f"{name} grid {specs[name].grid} ({kernel})"
+                        for name, kernel in used.items())
+            + f", {steps} steps, card vs CPU: max rel diff {worst:.2e}; "
+            f"geometry residual {geometry_residual(s, gpu.state.x):.1e}; "
+            f"launches {launches}")
+        if not (worst < 1e-9 and all(launches[k] > 0
+                                     for k in used.values())):
+            raise RuntimeError(f"slice (g) {label}: the card departs from "
+                               "the CPU run or skipped a kernel")
+
+
+def rigid_system(dev, eq, hmr_respa=False):
+    """Config 6 (or 6c with hmr_respa) as bench_rigid_water builds it:
+    rigid TIP3P waters at 0.9 nm with cell lists, as many as the state `eq`
+    holds (10,000 in bench_data/eq_tip3p30k.npz), every water on SETTLE,
+    retuned to that state at safety 1.03; 6c adds HMR x3 and
+    RESPASystem(0.6, 0.5). Returns (system, dof)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import rigid_water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    ex, _, ebox = eq
+    m = len(ex) // 3
+    system, _, _ = rigid_water_system(
+        n_molecules=m, r_cut=0.9, r_switch=0.8, neighbors=True,
+        dtype=torch.float32, device=dev)
+    if system.constraints is not None or system.settle.size != m:
+        raise RuntimeError("config 6: a water is off SETTLE")
+    dof = amm.count_degrees_of_freedom(system)
+    if hmr_respa:
+        system = amm.RESPASystem(
+            amm.HydrogenMassRepartitionedSystem(system, factor=3.0),
+            rcut_in=0.6, rswitch_in=0.5)
+    return retune_neighbor_specs(system, ex, ebox, safety=1.03), dof
+
+
+def phase_rigid(dev, eq, hmr_respa=False, settle=250, steps=200, chunks=8,
+                chunk=50):
+    """Path (g1), config 6 (VV @ 2 fs + NHC), or (g2), config 6c (HMR x3,
+    RESPA [1, 4, 1] @ 16 fs + NHC, the velocities resampled at seed 9), at
+    30,000 atoms from bench_data/eq_tip3p30k.npz in float32 through
+    Context.step: step(1), step(settle), a timed step(steps) (CUDA events;
+    the conserved energy before and after), then `chunks` calls of
+    step(chunk) with T and PE read after each. Checks finiteness, the
+    SETTLE residual, the exact K1 launches of the timed call and
+    bench.py's bands for T, PE per atom and drift."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f32 = torch.float32
+    system, dof = rigid_system(dev, eq, hmr_respa)
+    name, bands = ("path (g2)", G2_BANDS) if hmr_respa else ("path (g1)",
+                                                            G1_BANDS)
+    if hmr_respa:
+        dt, loops = 0.016, [1, 4, 1]
+        integ = amm.MultipleTimeScaleIntegrator(
+            dt, loops, temperature=300.0, time_scale=0.1,
+            degrees_of_freedom=dof)
+    else:
+        dt = 0.002
+        integ = amm.GlobalThermostatIntegrator(
+            dt, amm.NoseHooverChainPropagator(300.0, dof, 0.1))
+    ex, ev, ebox = eq
+    n = system.num_particles
+    ctx = amm.Context(system, integ, amm.make_state(
+        torch.as_tensor(ex, dtype=f32, device=dev),
+        v=torch.as_tensor(ev, dtype=f32, device=dev),
+        box=torch.as_tensor(ebox, dtype=f32, device=dev)))
+    if hmr_respa:
+        # the stored velocities were drawn for the physical masses
+        ctx.set_velocities_to_temperature(300.0, seed=9)
+    ctx.step(1)
+    ctx.step(settle)
+    torch.cuda.synchronize()
+    e0 = float(ctx.conserved_energy())
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / steps
+    launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    e1 = float(ctx.conserved_energy())
+    drift = (e1 - e0) / (n * steps * dt)
+    x, v = ctx.state.x, ctx.state.v
+    finite = bool(torch.isfinite(x).all() and torch.isfinite(v).all())
+    residual = geometry_residual(system, x)
+    temps, pes = [], []
+    for _ in range(chunks):
+        ctx.step(chunk)
+        temps.append(float(ctx.temperature()))
+        pes.append(float(ctx.get_state(lite=True).potential_energy) / n)
+    temp, pe = sum(temps) / chunks, sum(pes) / chunks
+    # per pass of step(n): VV evaluates the forces once a step (the
+    # trailing kick writes the cache the leading kick reads); RESPA
+    # [1, 4, 1] the far force once and the near force 4 times an outer
+    # step (group 0 holds no force); one more of each for the cache refresh
+    per_step, refresh = (5, 2) if hmr_respa else (1, 1)
+    expected = {"half_pair": passes * (per_step * steps + refresh),
+                "cell_pair": 0, "tile_pair": 0}
+    grids = ", ".join(
+        f"{k} {spec.grid} cap {spec.cell_capacity}" for k, spec in
+        {"far": ctx.system.neighbors,
+         **(ctx.system.extra_neighbor_specs or {})}.items())
+    ns_day = dt * 1e-3 * 86400.0 / (ms * 1e-3)
+    scheme = (f"HMR x3 RESPA{loops}@{dt * 1e3:.0f}fs" if hmr_respa
+              else f"VV@{dt * 1e3:.0f}fs")
+    log(f"{name} tip3p30k SETTLE {scheme} NHC float32: grids {grids}; "
+        f"{ms:.3f} ms/step by CUDA events ({wall / steps * 1e3:.3f} by the "
+        f"host clock), {ns_day:.3f} ns/day; launches {launches} (expected "
+        f"{expected}, passes {passes}); T {temp:.2f} K (band {bands['T']}; "
+        f"reads {', '.join(f'{t:.2f}' for t in temps)}); PE/atom {pe:.4f} "
+        f"kJ/mol (band {bands['pe']}; reads "
+        f"{', '.join(f'{e:.4f}' for e in pes)}); drift {drift:.5f} "
+        f"kJ/mol/atom/ps "
+        f"(bound {bands['drift']}); SETTLE residual {residual:.2e}; finite "
+        f"{finite}")
+    checks = {
+        "finite": finite,
+        "launches": launches == expected,
+        "settle_residual": residual <= 1e-4,
+        "temperature": bands["T"][0] <= temp <= bands["T"][1],
+        "pe_per_atom": bands["pe"][0] <= pe <= bands["pe"][1],
+        "drift": abs(drift) <= bands["drift"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} checks failed: {failed}")
+    return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
+            "ns_day": ns_day, "dt": dt, "T": temp, "pe": pe,
+            "drift": drift, "residual": residual}
+
+
+def phase_tip4p(dev, n_molecules=2000, melt_steps=1600, steps=100, chunks=4,
+                chunk=25):
+    """Path (g3): 2,000 TIP4P/Ew waters (8,000 sites, 3.915 nm box, 0.9 nm
+    reaction field, a 4^3 grid: K1) in float32, melted off the lattice at
+    2 fs by chunked velocity rescaling (as path (a); T before each rescale
+    and PE logged), then step(1), a timed step(steps) of VV @ 2 fs + NHC
+    and `chunks` calls of step(chunk) with T, PE and the conserved energy
+    read after each. Checks finiteness, the SETTLE residual, every M
+    within 1e-6 nm of its placement, the M velocity rows exactly 0 (after
+    the timed call), the mean T 270-330 K, the conserved-energy drift of
+    the timed call and of the reads after it (per atom with mass) and the
+    exact K1 launches. The thermostat's uptake over the reads is logged
+    beside the drift: heat from the relaxing structure goes there."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import tip4p_water_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.virtual_sites import place_virtual_sites
+
+    dt, temp0 = 0.002, 300.0
+    system, x, box = tip4p_water_system(n_molecules=n_molecules,
+                                        neighbors=True, dtype=torch.float32,
+                                        device=dev)
+    if not system.neighbors.half_stencil:
+        raise RuntimeError("path (g3): expected a half-stencil grid (K1)")
+    dof = amm.count_degrees_of_freedom(system)
+    n = system.num_particles
+    atoms = int((system.masses > 0).sum())  # the M sites carry no energy
+    ctx = amm.Context(system, amm.GlobalThermostatIntegrator(
+        dt, amm.NoseHooverChainPropagator(temp0, dof, 0.1)),
+        amm.make_state(x, box=box))
+    ctx.set_velocities_to_temperature(temp0, seed=1)
+
+    def pe():
+        return float(ctx.get_state(lite=True).potential_energy) / atoms
+
+    melt = []
+    for _ in range(8):
+        ctx.step(melt_steps // 8)
+        t_now = float(ctx.temperature())
+        if not t_now == t_now or t_now > 5000.0:
+            raise RuntimeError(f"path (g3) melt diverged (T {t_now} K)")
+        melt.append((t_now, pe()))
+        ctx.set_velocities((temp0 / t_now) ** 0.5 * ctx.state.v)
+    ctx.step(1)
+    torch.cuda.synchronize()
+    e0 = float(ctx.conserved_energy())
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
+                "tile_pair": 0}
+    e1 = float(ctx.conserved_energy())
+    drift = (e1 - e0) / (atoms * steps * dt)
+    xs, vs = ctx.state.x, ctx.state.v
+    sites = system.virtual_sites.sites
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(vs).all())
+    residual = geometry_residual(system, xs)
+    m_err = float((place_virtual_sites(system.virtual_sites, xs)[sites]
+                   - xs[sites]).abs().max())
+    m_still = bool((vs[sites] == 0).all())
+    bath0 = float(ctx.integrator.conserved_extra(ctx.state))
+    reads = []  # (T, PE per atom)
+    for _ in range(chunks):
+        ctx.step(chunk)
+        reads.append((float(ctx.temperature()), pe()))
+    temp = sum(t for t, _ in reads) / chunks
+    span = atoms * chunks * chunk * dt
+    drift_reads = (float(ctx.conserved_energy()) - e1) / span
+    uptake = (float(ctx.integrator.conserved_extra(ctx.state)) - bath0) / span
+    ns_day = dt * 1e-3 * 86400.0 / (ms * 1e-3)
+    log(f"path (g3) tip4p/ew {n_molecules} molecules ({n} sites) box "
+        f"{float(box[0]):.3f} nm VV@2fs NHC float32: melt of {melt_steps} "
+        f"steps, T before each rescale and PE/atom "
+        + ", ".join(f"{t:.2f} K {e:.4f}" for t, e in melt)
+        + f"; grid {system.neighbors.grid} cap "
+        f"{ctx.system.neighbors.cell_capacity} (K1); {ms:.3f} ms/step, "
+        f"{ns_day:.3f} ns/day; launches {launches} (expected {expected}, "
+        f"passes {passes}); drift {drift:.5f} kJ/mol/atom/ps over the "
+        f"timed call, {drift_reads:.5f} over the reads (bound "
+        f"{G3_DRIFT}), the thermostat's uptake {uptake:.5f}; T {temp:.2f} "
+        f"K (band {G3_T_BAND}); reads every {chunk} steps, T and PE/atom: "
+        + ", ".join(f"{t:.2f} K {e:.4f}" for t, e in reads)
+        + f"; SETTLE residual {residual:.2e}; max |M - placement| "
+        f"{m_err:.2e} nm; M velocities zero {m_still}; finite {finite}")
+    checks = {
+        "finite": finite,
+        "launches": launches == expected,
+        "settle_residual": residual <= 1e-4,
+        "m_placement": m_err <= 1e-6,
+        "m_velocities": m_still,
+        "temperature": G3_T_BAND[0] <= temp <= G3_T_BAND[1],
+        "drift": max(abs(drift), abs(drift_reads)) <= G3_DRIFT,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"path (g3) checks failed: {failed}")
+    return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
+            "ns_day": ns_day, "drift": drift, "T": temp}
+
+
+def phase_kernels_rigid(dev, g1, g2, g3):
+    """K1 against its plain twin, float64 and float32, at path (g)'s own
+    grids and capacities and the states its runs ended with: (g1)'s 0.9 nm
+    grid (cutoff-RF form), (g2)'s near (0.6 nm) and fused far grids and
+    (g3)'s TIP4P/Ew grid (the M site 0.0125 nm from its O, excluded from
+    its own molecule)."""
+    results = []
+    for label, run in (("tip3p30k", g1), ("tip3p30k hmr", g2),
+                       ("tip4p8k", g3)):
+        s, st = run["ctx"].system, run["ctx"].state
+        x, box = st.x.detach().cpu().double(), st.box.detach().cpu().double()
+        if s.extra_neighbor_specs:
+            near, far = pair_forces(s)
+            compare(f"{label} near", near, s.extra_neighbor_specs["near"],
+                    x, box, dev, results)
+            compare(f"{label} far", far, s.neighbors, x, box, dev, results,
+                    unsplit=far.full)
+        else:
+            compare(f"{label} cutoff-RF", s.forces[0], s.neighbors, x, box,
+                    dev, results)
+        if not s.neighbors.half_stencil:
+            raise RuntimeError(f"{label}: expected K1 on the far grid")
+    return results
+
+
+def phase_rigid_timings(dev, g1, g2, g3):
+    """Path (g) on the clock: K1 at (g1)'s grid, (g2)'s near and far grids
+    and (g3)'s grid (time_cells: device time, plain twin, bound); SETTLE's
+    two stages, the virtual-site placement and pull-back by CUDA events
+    with their device operations per call (torch.profiler); (g1)'s step
+    split by part and (g2)'s outer step by group, each part timed alone on
+    the host clock with a synchronise after every call, times its count
+    per step; the device operations per step of (g1), (g2) and (g3)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops.settle import (
+        settle_positions,
+        settle_velocities,
+    )
+    from atomsmm_tpu_torch.ops.virtual_sites import (
+        place_virtual_sites,
+        pull_back_forces,
+    )
+    from atomsmm_tpu_torch.potential import force_fn
+
+    out = {}
+    for key, run in (("g1", g1), ("g2", g2), ("g3", g3)):
+        s, st = run["ctx"].system, run["ctx"].state
+        if s.extra_neighbor_specs:
+            near, far = pair_forces(s)
+            out[("half_pair", f"{key} near")] = time_cells(
+                f"path ({key}) near", near, s.extra_neighbor_specs["near"],
+                st.x, st.box)
+            out[("half_pair", f"{key} far")] = time_cells(
+                f"path ({key}) far", far, s.neighbors, st.x, st.box)
+        else:
+            out[("half_pair", key)] = time_cells(
+                f"path ({key})", s.forces[0], s.neighbors, st.x, st.box)
+
+    def ops_per_call(fn):
+        return len(device_kernels(fn, reps=5)) / 5
+
+    # SETTLE at 30k (g1's state), the virtual sites at 8,000 (g3's)
+    s, st = g1["ctx"].system, g1["ctx"].state
+    ss, m, x, v = s.settle, s.masses, st.x, st.v
+    x_unc = x + 0.002 * v
+    ops = {
+        "settle_positions": (lambda: settle_positions(ss, x_unc, x, m)),
+        "settle_velocities": (lambda: settle_velocities(ss, x, v, m)),
+    }
+    s4, st4 = g3["ctx"].system, g3["ctx"].state
+    vs4 = s4.virtual_sites
+    f4 = torch.randn_like(st4.x)
+    ops["place_virtual_sites"] = (lambda: place_virtual_sites(vs4, st4.x))
+    ops["pull_back_forces"] = (lambda: pull_back_forces(vs4, st4.x, f4))
+    cops = {name: {"ms": time_cuda(fn, 50), "ops": ops_per_call(fn)}
+            for name, fn in ops.items()}
+    out["constraint_ops"] = cops
+    log("timing path (g) constraint ops, float32: " + "; ".join(
+        f"{k} {t['ms']:.4f} ms by CUDA events, {t['ops']:.0f} device "
+        f"operations a call" for k, t in cops.items())
+        + f" (SETTLE on {ss.size} waters, the placement on {vs4.size} "
+        "sites)")
+
+    # (g1): one VV + NHC step by part
+    aux = nb.make_aux(s, st.extra)
+    g = g1["ctx"].parameters
+    parts = {
+        "forces (K1 sweep)": (wall_ms(lambda: force_fn(s)(x, st.box, g,
+                                                           aux)), 1),
+        "settle_positions": (wall_ms(ops["settle_positions"]), 1),
+        "settle_velocities": (wall_ms(ops["settle_velocities"]), 2),
+        "bucket rebuild": (wall_ms(lambda: nb.update_all_neighbors(
+            s, st.extra, x, st.box)), 1),
+    }
+    split_log("path (g1)", g1["ms_per_step"], parts,
+              "NHC, kicks, drift, Python")
+    out["g1_split"] = parts
+    # (g2): one RESPA [1, 4, 1] outer step by group
+    s2, st2 = g2["ctx"].system, g2["ctx"].state
+    x2, aux2, g = st2.x, nb.make_aux(s2, st2.extra), g2["ctx"].parameters
+    parts = {
+        "group 0 (no force)": (wall_ms(lambda: force_fn(s2, {0})(
+            x2, st2.box, g, aux2)), 4),
+        "near (group 1, K1)": (wall_ms(lambda: force_fn(s2, {1})(
+            x2, st2.box, g, aux2)), 4),
+        "far (group 2, K1)": (wall_ms(lambda: force_fn(s2, {2})(
+            x2, st2.box, g, aux2)), 1),
+        "settle_positions": (wall_ms(lambda: settle_positions(
+            s2.settle, x2 + 0.004 * st2.v, x2, s2.masses)), 4),
+        "settle_velocities": (wall_ms(lambda: settle_velocities(
+            s2.settle, x2, st2.v, s2.masses)), 18),
+        "bucket rebuilds (2 grids)": (wall_ms(lambda: nb.update_all_neighbors(
+            s2, st2.extra, x2, st2.box)), 1),
+    }
+    split_log("path (g2)", g2["ms_per_step"], parts,
+              "NHC, kicks, drifts, Python")
+    out["g2_split"] = parts
+    for key, run in (("g1", g1), ("g2", g2), ("g3", g3)):
+        ctx = run["ctx"]
+        out[f"{key}_ops_per_step"] = len(device_kernels(
+            lambda: ctx.step(5))) / 5
+    log("path (g) device operations per outer step (torch.profiler, "
+        "step(5), the force-cache refresh and flag read of the call "
+        "included): " + ", ".join(
+            f"({k}) {out[f'{k}_ops_per_step']:.1f}" for k in ("g1", "g2",
+                                                              "g3")))
+    return out
+
+
+def split_log(name, step_ms, parts, rest_of):
+    """Log a step split: each part's ms x its count per step, and the rest
+    of the measured step. A part whose name starts with two spaces is a
+    piece of the part before it and is not counted again."""
+    counted = sum(ms * k for p, (ms, k) in parts.items()
+                  if not p.startswith("  "))
+    log("{} split per outer step ({:.3f} ms/step): {}; rest ({}) {:.3f} "
+        "ms".format(name, step_ms, ", ".join(
+            f"{p.strip()} {ms:.3f} ms x {k}" for p, (ms, k) in parts.items()),
+            rest_of, step_ms - counted))
+
+
 def main():
     import torch
 
@@ -2469,6 +2977,7 @@ def main():
     phase_slice_ionic(dev)
     phase_slice_alchemy(dev)
     phase_slice_npt(dev)
+    phase_slice_rigid(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
@@ -2477,13 +2986,20 @@ def main():
     alch = phase_alchemy(dev)
     npt = phase_npt(dev, eq100)
     npt_pme = phase_npt(dev, eq100, method="pme", calls=4)
+    d = np.load(os.path.join(HERE, "bench_data", "eq_tip3p30k.npz"))
+    eq_tip3p = (d["x"], d["v"], d["box"])
+    g1 = phase_rigid(dev, eq_tip3p)
+    g2 = phase_rigid(dev, eq_tip3p, hmr_respa=True)
+    g3 = phase_tip4p(dev)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
-                + npt["kernel_checks"] + npt_pme["kernel_checks"])
+                + npt["kernel_checks"] + npt_pme["kernel_checks"]
+                + phase_kernels_rigid(dev, g1, g2, g3))
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
     timings.update(phase_alchemy_timings(dev, alch))
     timings.update(phase_npt_timings(dev, npt, small, eq, timings))
+    timings.update(phase_rigid_timings(dev, g1, g2, g3))
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
     phase_npt_split(dev, npt, "path (f)")
@@ -2510,6 +3026,9 @@ def main():
         "path_f": npt["launches"],
         "path_f_pme": npt_pme["launches"],
         "path_f_pressure": npt["virial_launches"],
+        "path_g1": g1["launches"],
+        "path_g2": g2["launches"],
+        "path_g3": g3["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -2573,6 +3092,17 @@ def main():
         t = timings[(kernel, "virial")]
         entry_.update({"virial_ms": t["ms"], "virial_plain_ms": t["plain_ms"],
                        "virial_bound_ms": t["bound"]["ms"]})
+    # path (g): K1 at (g1)'s grid, (g2)'s near and far grids and (g3)'s
+    # TIP4P/Ew grid, float32, and its float32 error against the plain twin
+    # at those grids
+    k1["path_g_max_abs_err"] = f32_err("half_pair", "tip")
+    for key in ("g1", "g2 near", "g2 far", "g3"):
+        t = timings[("half_pair", key)]
+        tag = key.replace(" ", "_")
+        k1.update({f"path_{tag}_ms": t["ms"],
+                   f"path_{tag}_plain_ms": t["plain_ms"],
+                   f"path_{tag}_bound_ms": t["bound"]["ms"],
+                   f"path_{tag}_bound_by": t["bound"]["by"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,12 @@ from atomsmm_tpu_torch.interop import (
 from atomsmm_tpu_torch.models import (
     argon_system,
     ionic_liquid_system,
+    rigid_water_system,
+    tip4p_water_system,
     water_system,
 )
 from atomsmm_tpu_torch.ops.neighbors import make_neighbor_spec
+from atomsmm_tpu_torch.ops.settle import make_settle_set
 from atomsmm_tpu_torch.ops.tilepair import make_tilepair_spec
 from atomsmm_tpu_torch.system import make_exclusions_array
 
@@ -37,10 +40,16 @@ ENTRY_POINTS = {
                                          neighbors=True)[1],
     "ionic_liquid_system": lambda: ionic_liquid_system(
         n_pairs=24, r_cut=0.65, r_switch=0.55, neighbors=True)[1],
+    "rigid_water_system": lambda: rigid_water_system(
+        n_molecules=27, r_cut=0.4, r_switch=0.35, neighbors=True)[1],
+    "tip4p_water_system": lambda: tip4p_water_system(
+        n_molecules=27, r_cut=0.4, r_switch=0.35, neighbors=True)[1],
     "system_from_numpy": lambda: system_from_numpy(_desc()).masses,
     "state_from_numpy": lambda: state_from_numpy(
         {"x": np.zeros((4, 3)), "v": np.zeros((4, 3)), "box": BOX}).x,
     "make_exclusions_array": lambda: make_exclusions_array(4, [(0, 1)]),
+    "make_settle_set": lambda: make_settle_set(
+        [[0, 1, 2]], 0.1, 0.16, np.array([16.0, 1.0, 1.0])).ra,
     "make_neighbor_spec": lambda: make_neighbor_spec(BOX, 200, 0.5).nbr_cells,
     "make_tilepair_spec": lambda: make_tilepair_spec(BOX, 200, 0.5).excbits,
 }

@@ -13,14 +13,18 @@ MODULES = {
     "integrate.integrators": 3,
     "integrate.propagators": 3,
     "integrate.sinr": 2,
+    "models.water": 8,
+    "ops.constraints": 10,
     "ops.pairfuncs": 1,
     "ops.pbc": 3,
     "ops.pme": 3,
+    "ops.settle": 17,
     "ops.switching": 3,
     "state": 4,
     "system": 3,
-    "systems": 3,
+    "systems": 17,
     "utils": 2,
+    "ops.virtual_sites": 12,
 }
 
 
