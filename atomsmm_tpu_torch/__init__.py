@@ -14,7 +14,10 @@ computers.py gives virials and pressures, from the kernels' virial form on
 the cell path. Rigid water holds its geometry by SETTLE (ops/settle.py) or
 SHAKE/RATTLE (ops/constraints.py), TIP4P/Ew's M site is a virtual site
 (ops/virtual_sites.py), and HydrogenMassRepartitionedSystem moves mass
-onto the hydrogens. This package never imports JAX.
+onto the hydrogens. SWM4-NDP water is polarizable through Drude
+oscillators (ops/drude.py, integrate/drude.py: extended-Lagrangian and
+SCF dynamics); CMAP (ops/cmap.py) and harmonic impropers complete the
+CHARMM bonded terms. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -29,12 +32,15 @@ from .alchemy import (
 from .computers import PressureComputer
 from .context import Context, StateSnapshot
 from .forces import (
+    CMAPTorsionForce,
     CustomBondForce,
     CustomNonbondedForce,
     DampedSmoothedForce,
+    DrudeForce,
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
+    HarmonicImproperForce,
     MonteCarloBarostat,
     NearNonbondedForce,
     NonbondedExceptionsForce,
@@ -43,6 +49,11 @@ from .forces import (
     PMEReciprocalForce,
     SoftcoreLennardJonesForce,
     TemplateBondedForce,
+)
+from .integrate.drude import (
+    DrudeLangevinIntegrator,
+    DrudeOrnsteinUhlenbeckPropagator,
+    DrudeSCFIntegrator,
 )
 from .integrate.integrators import (
     GlobalThermostatIntegrator,

@@ -36,7 +36,8 @@ NearNonbondedForce (damped or not), FarNonbondedForce (fused, or in two
 sweeps under a charge-scale mask), PMEReciprocalForce,
 NonbondedExceptionsForce, DampedSmoothedForce, SoftcoreLennardJonesForce,
 CustomNonbondedForce, CustomBondForce, TemplateBondedForce,
-HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce and the
+HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
+HarmonicImproperForce, CMAPTorsionForce, DrudeForce and the
 MonteCarloBarostat marker.
 
 >>> import torch
@@ -64,8 +65,11 @@ from .ops import pairfuncs, pme
 from .ops.bonded import (
     harmonic_angle_energy,
     harmonic_bond_energy,
+    harmonic_improper_energy,
     periodic_torsion_energy,
 )
+from .ops.cmap import cmap_energy
+from .ops.drude import drude_spring_energy, thole_screening_energy
 from .ops.neighbors import (
     cell_pair_energy,
     cell_pair_energy_fn,
@@ -929,3 +933,59 @@ class PeriodicTorsionForce(Force):
     def energy(self, x, box, globals, aux=None):
         return periodic_torsion_energy(x, self.idx.long(), self.periodicity,
                                        self.phase, self.k)
+
+
+@dataclasses.dataclass
+class CMAPTorsionForce(Force):
+    """CHARMM CMAP cross-term: a periodic bicubic correction surface over
+    the (phi, psi) dihedral pair of 5 consecutive atoms (ops/cmap.py).
+    `table` is the (T, n, n, 4) value+derivative tensor from
+    `ops.cmap.build_cmap_table` [kJ/mol], in the dtype of the state. A
+    numpy table or type index is made a tensor on idx's device once, here,
+    and the type index is held as int64."""
+
+    idx: torch.Tensor = None         # (C, 5) atoms i,j,k,l,m
+    type_index: torch.Tensor = None  # (C,) into table
+    table: torch.Tensor = None       # (T, n, n, 4)
+
+    def __post_init__(self):
+        device = torch.as_tensor(self.idx).device
+        self.table = torch.as_tensor(self.table, device=device)
+        self.type_index = torch.as_tensor(self.type_index,
+                                          device=device).long()
+
+    def energy(self, x, box, globals, aux=None):
+        return cmap_energy(x, self.idx.long(), self.type_index, self.table)
+
+
+@dataclasses.dataclass
+class HarmonicImproperForce(Force):
+    """CHARMM-style harmonic improper torsion E = k (phi - phi0)^2 with the
+    difference wrapped to (-pi, pi]: the CHAMBER prmtop improper term (k
+    carries no 1/2, the CHARMM convention)."""
+
+    idx: torch.Tensor = None   # (I, 4)
+    phi0: torch.Tensor = None  # (I,) [rad]
+    k: torch.Tensor = None     # (I,) [kJ/mol/rad^2]
+
+    def energy(self, x, box, globals, aux=None):
+        return harmonic_improper_energy(x, self.idx.long(), self.phi0, self.k)
+
+
+@dataclasses.dataclass
+class DrudeForce(Force):
+    """Drude-oscillator polarizability terms (ops/drude.py): core-Drude
+    restoring springs plus Thole-screened dipole-dipole interactions
+    between bonded-neighbor dipoles (OpenMM's ``DrudeForce``). The Drude
+    particles' Coulomb interactions with everything else ride the regular
+    NonbondedForce (they are ordinary charged particles there); this force
+    adds only the polarizability-specific terms, forces by autograd.
+    Bond-like range: it belongs in the innermost RESPA group."""
+
+    drude: object = None  # ops.drude.DrudeSet
+
+    def energy(self, x, box, globals, aux=None):
+        e = drude_spring_energy(self.drude, x)
+        if self.drude.num_screened:
+            e = e + thole_screening_energy(self.drude, x, box)
+        return e

@@ -13,8 +13,9 @@ The exchange format is a plain dict of numpy arrays and Python scalars:
     value is the inert default (None, no NBFIX table...).
 
 The constraint sets of a rigid system (ConstraintSet, SettleSet,
-VirtualSiteSet) cross with their index arrays as integers (the sets hold
-them as int64).
+VirtualSiteSet) and the DrudeSet of a DrudeForce cross with their index
+arrays as integers (the sets hold them as int64); CMAPTorsionForce's table
+crosses as a float array in the requested dtype.
 
 A force that holds a Python function (CustomNonbondedForce,
 CustomBondForce) does not cross: a JAX function is not a torch one. To
@@ -29,10 +30,13 @@ import numpy as np
 import torch
 
 from .forces import (
+    CMAPTorsionForce,
     DampedSmoothedForce,
+    DrudeForce,
     FarNonbondedForce,
     HarmonicAngleForce,
     HarmonicBondForce,
+    HarmonicImproperForce,
     MonteCarloBarostat,
     NearNonbondedForce,
     NonbondedExceptionsForce,
@@ -43,6 +47,7 @@ from .forces import (
     TemplateBondedForce,
 )
 from .ops.constraints import ConstraintSet
+from .ops.drude import DrudeSet
 from .ops.neighbors import NeighborSpec
 from .ops.settle import SettleSet
 from .ops.virtual_sites import VirtualSiteSet
@@ -55,7 +60,8 @@ _CLASSES = {c.__name__: c for c in (
     PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
     HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
     DampedSmoothedForce, SoftcoreLennardJonesForce, MonteCarloBarostat,
-    NeighborSpec, ConstraintSet, SettleSet, VirtualSiteSet)}
+    NeighborSpec, ConstraintSet, SettleSet, VirtualSiteSet, DrudeSet,
+    DrudeForce, CMAPTorsionForce, HarmonicImproperForce)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path

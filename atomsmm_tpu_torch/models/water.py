@@ -7,6 +7,8 @@
     held by SETTLE (or SHAKE/RATTLE with analytic=False).
   tip4p_water_system — rigid TIP4P/Ew: SETTLE on (O, H1, H2) and the
     massless M site as a virtual site.
+  swm4_water_system — SWM4-NDP polarizable water: TIP4P's layout plus a
+    Drude particle on a spring at the oxygen (ops/drude.py).
 
 The initial lattices use the same numpy RandomState layout as the JAX
 package's builders, so the same seed gives the same positions.
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..forces import (
+    DrudeForce,
     HarmonicAngleForce,
     HarmonicBondForce,
     NonbondedForce,
@@ -403,6 +406,122 @@ def tip4p_water_system(
         masses=masses,
         forces=(NonbondedForce(**nb_kwargs),),
         molecule=torch.as_tensor(np.repeat(np.arange(m), 4),
+                                 dtype=torch.int32, device=device),
+        default_box=box,
+        settle=sset,
+        virtual_sites=vsites,
+        num_molecules=m,
+        num_constraints=3 * m,
+    )
+    if neighbors:
+        from ..ops.neighbors import make_neighbor_spec
+
+        system = system.with_neighbors(make_neighbor_spec(
+            np.full(3, box_l), n, r_cut, skin=skin,
+            exclusions=nb_kwargs["exclusions"],
+            occupancy_floor_from=x.cpu().numpy(), device=device))
+    return system, x, box
+
+
+# --- SWM4-NDP polarizable 5-site water (a Drude oscillator) ------------------
+
+SWM4_Q_H = 0.557330
+SWM4_Q_M = -1.114660
+SWM4_Q_D = -1.71636           # negative Drude particle ("NDP")
+SWM4_ALPHA_O = 9.7825e-4      # nm^3 (0.97825 A^3)
+SWM4_SIGMA_O = 0.318395       # nm  (R_min/2 = 1.78693 A)
+SWM4_EPSILON_O = 0.88257      # kJ/mol (0.21094 kcal/mol)
+SWM4_R_OH = 0.09572           # nm
+SWM4_THETA = 104.52 * np.pi / 180.0
+SWM4_D_OM = 0.024034          # nm, O -> M along the HOH bisector
+SWM4_DRUDE_MASS = 0.4         # amu, debited from O (extended Lagrangian)
+
+
+def swm4_water_system(
+    n_molecules: int = 64,
+    method: str = "cutoff",
+    r_cut: float = 0.9,
+    r_switch: float = 0.8,
+    drude_mass: float = SWM4_DRUDE_MASS,
+    seed: int = 0,
+    dtype=None,
+    neighbors: bool = False,
+    skin: float = 0.1,
+    device=None,
+):
+    """SWM4-NDP polarizable water (Lamoureux et al., CPL 418, 245 (2006))
+    on `device` (default: the CUDA card) in `dtype`: 5 sites per molecule,
+    the O core (+1.71636 e, LJ), its Drude satellite (-1.71636 e on a
+    k = ONE_4PI_EPS0 q_D^2 / alpha spring, alpha = 0.97825 A^3), two H,
+    and the massless M site on the HOH bisector as a virtual site. SETTLE
+    holds (O, H1, H2); every Drude starts exactly on its core.
+
+    drude_mass > 0 (default 0.4 amu, debited from O) suits the
+    extended-Lagrangian DrudeLangevinIntegrator; drude_mass = 0 makes the
+    Drude rows massless state for DrudeSCFIntegrator. Atom order per
+    molecule: [O, D, H1, H2, M]. On the card pass neighbors=True (the
+    dense path is the CPU oracle). Returns (System, positions, box).
+
+    >>> import torch
+    >>> system, x, box = swm4_water_system(n_molecules=8, r_cut=0.3,
+    ...     r_switch=0.25, dtype=torch.float64, device="cpu")
+    >>> system.num_particles, system.virtual_sites.size, system.settle.size
+    (40, 8, 8)
+    >>> [f.name for f in system.forces]
+    ['NonbondedForce', 'DrudeForce']
+    """
+    from ..ops.drude import make_drude_set
+    from ..ops.settle import make_settle_set
+    from ..ops.virtual_sites import VirtualSiteSet, place_virtual_sites
+
+    device = resolve_device(device)
+    dtype = dtype or torch.get_default_dtype()
+    m = n_molecules
+    n = 5 * m
+    box_l = (m / WATER_NUMBER_DENSITY) ** (1.0 / 3.0)
+    if r_cut > 0.5 * box_l:
+        raise InputError(f"r_cut {r_cut} > box/2 ({box_l/2:.3f})")
+    r, th = SWM4_R_OH, SWM4_THETA
+    mol = np.stack([
+        np.zeros(3),                                     # O
+        np.zeros(3),                                     # D rides on O
+        [r * np.sin(th / 2), r * np.cos(th / 2), 0.0],   # H1
+        [-r * np.sin(th / 2), r * np.cos(th / 2), 0.0],  # H2
+        np.zeros(3),                                     # M: placed below
+    ])
+    x = _lattice(m, box_l, mol, seed)
+
+    o = 5 * np.arange(m)
+    excl_pairs = np.concatenate([np.stack([o + a, o + b], 1)
+                                 for a in range(5) for b in range(a + 1, 5)])
+    nb_kwargs = _rigid_nonbonded(
+        n, m, excl_pairs, [-SWM4_Q_D, SWM4_Q_D, SWM4_Q_H, SWM4_Q_H, SWM4_Q_M],
+        [SWM4_SIGMA_O, 1.0, 1.0, 1.0, 1.0],
+        [SWM4_EPSILON_O, 0.0, 0.0, 0.0, 0.0], method, r_cut, r_switch, box_l,
+        dtype, device)
+    masses = torch.as_tensor(
+        np.tile([MASS_O - drude_mass, drude_mass, MASS_H, MASS_H, 0.0], m),
+        dtype=dtype, device=device)
+    d_hh = 2.0 * r * np.sin(th / 2.0)
+    sset = make_settle_set(np.stack([o, o + 2, o + 3], 1), r, d_hh, masses)
+    c = SWM4_D_OM / (2.0 * r * np.cos(th / 2.0))
+    vsites = VirtualSiteSet(
+        sites=torch.as_tensor(o + 4, device=device),
+        parents=torch.as_tensor(np.stack([o, o + 2, o + 3], 1), device=device),
+        weights=torch.as_tensor(np.tile([1.0 - 2 * c, c, c], (m, 1)),
+                                dtype=dtype, device=device),
+        oop=torch.zeros((m,), dtype=dtype, device=device),
+    )
+    x = place_virtual_sites(vsites, torch.as_tensor(x, dtype=dtype,
+                                                    device=device))
+    drude = make_drude_set(np.stack([o + 1, o], 1), np.full(m, SWM4_Q_D),
+                           np.full(m, SWM4_ALPHA_O), dtype=dtype,
+                           device=device)
+    box = torch.full((3,), box_l, dtype=dtype, device=device)
+    system = System(
+        masses=masses,
+        forces=(NonbondedForce(**nb_kwargs), DrudeForce(drude=drude)),
+        molecule=torch.as_tensor(np.repeat(np.arange(m), 5),
                                  dtype=torch.int32, device=device),
         default_box=box,
         settle=sset,

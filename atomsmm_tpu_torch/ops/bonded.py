@@ -1,4 +1,5 @@
-"""Harmonic bonds and angles, periodic torsions (counterpart of atomsmm_tpu/ops/bonded.py).
+"""Harmonic bonds and angles, periodic torsions, harmonic impropers
+(counterpart of atomsmm_tpu/ops/bonded.py).
 
 Bonded terms use direct (non-minimum-image) displacements: positions stay
 unwrapped during dynamics, so molecules stay whole. Forces come from
@@ -7,6 +8,8 @@ is one `index_add_` (advanced indexing goes back through a sort-based
 `index_put_`: half as many device operations again for the same forces).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,3 +55,14 @@ def periodic_torsion_energy(x, idx, periodicity, phase, k):
     """E = sum k (1 + cos(n phi - phase)); idx (T,4) for dihedral i-j-k-l."""
     phi = dihedral_angle(x, idx)
     return torch.sum(k * (1.0 + torch.cos(periodicity * phi - phase)))
+
+
+def harmonic_improper_energy(x, idx, phi0, k):
+    """CHARMM-style harmonic improper: E = sum k (phi - phi0)^2 with the
+    difference wrapped to (-pi, pi] (idx (I,4); k carries NO 1/2, the
+    CHARMM convention of CHAMBER prmtop force constants). torch.round
+    rounds half to even, as jnp.round does."""
+    phi = dihedral_angle(x, idx)
+    dphi = phi - phi0
+    dphi = dphi - 2.0 * math.pi * torch.round(dphi / (2.0 * math.pi))
+    return torch.sum(k * dphi * dphi)

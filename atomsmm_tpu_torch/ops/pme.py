@@ -330,26 +330,39 @@ def _excluded_pairs(x, box, exclusions):
     return ii, j, valid, minimum_image(x[ii] - x[j], box)
 
 
+def _erf_over_r(alpha, r2):
+    """(r, erf(alpha r)/r) over the excluded pairs, with the r -> 0 limit
+    2 alpha/sqrt(pi) where r2 = 0 (a Drude particle on its core) and r = 1
+    there, so that no NaN reaches either branch or a backward pass."""
+    apart = r2 > 0
+    r = torch.sqrt(torch.where(apart, r2, torch.ones_like(r2)))
+    limit = torch.zeros_like(r) + 2.0 * alpha / math.sqrt(math.pi)
+    return r, torch.where(apart, torch.erf(alpha * r) / r, limit)
+
+
 def pme_exclusion_correction(x, box, q, exclusions, alpha):
     """Remove the reciprocal-space interactions of excluded pairs:
-    -k_e q_i q_j erf(alpha r)/r summed over each excluded pair once."""
+    -k_e q_i q_j erf(alpha r)/r summed over each excluded pair once. A
+    coincident excluded pair takes the r -> 0 limit -k_e q_i q_j 2
+    alpha/sqrt(pi) (the JAX package gives NaN there)."""
     ii, j, valid, d = _excluded_pairs(x, box, exclusions)
     r2 = torch.sum(d * d, dim=-1)
-    r = torch.sqrt(torch.where(valid, r2, torch.ones_like(r2)))
-    e = -ONE_4PI_EPS0 * q[ii] * q[j] * torch.erf(alpha * r) / r
+    _, erf_r = _erf_over_r(alpha, torch.where(valid, r2, torch.ones_like(r2)))
+    e = -ONE_4PI_EPS0 * q[ii] * q[j] * erf_r
     return torch.sum(torch.where(valid, e, torch.zeros_like(e)))
 
 
 def pme_exclusion_correction_forces(x, box, q, exclusions, alpha):
     """(E, forces (N, 3)) of pme_exclusion_correction, forces explicit:
     with e(r) = -k qq erf(a r)/r, de/dr = -k qq [(2a/sqrt(pi)) exp(-a² r²)
-    - erf(a r)/r]/r, and F_i = -de/dr (x_i - x_j)/r = -F_j."""
+    - erf(a r)/r]/r, and F_i = -de/dr (x_i - x_j)/r = -F_j. A coincident
+    pair takes the limits: its energy as in pme_exclusion_correction, its
+    force 0 (d = 0 there)."""
     ii, j, valid, d = _excluded_pairs(x, box, exclusions)
     r2 = torch.sum(d * d, dim=-1)
-    r = torch.sqrt(torch.where(valid, r2, torch.ones_like(r2)))
+    r, erf_r = _erf_over_r(alpha, torch.where(valid, r2, torch.ones_like(r2)))
     cq = torch.where(valid, -ONE_4PI_EPS0 * q[ii] * q[j],
                      torch.zeros_like(r))
-    erf_r = torch.erf(alpha * r) / r
     de_dr = cq * (2.0 / math.sqrt(math.pi) * alpha
                   * torch.exp(-(alpha * r) ** 2) - erf_r) / r
     g = (-de_dr / r)[:, None] * d

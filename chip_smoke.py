@@ -62,6 +62,9 @@ non-zero:
      capacities): K1 in the cutoff-RF form at (g1)'s 0.9 nm grid, in the
      near and fused far forms at (g2)'s two grids, and at (g3)'s TIP4P/Ew
      grid (the M site 0.0125 nm from its O);
+   - polarizable water (path (h), after (h1)'s run, at its grid and
+     capacity): K1 in the cutoff-RF form at (h1)'s 4^3 grid with the
+     Drude charges in the charge column and the Drudes off their cores;
 4. slices: 5 outer RESPA+NHC steps of water 400 in float64 on the card
    against the same run on the CPU (plain twins), at 0.7 nm (K1 on both
    grids), at the default 0.9 nm (K2 far, K1 near) and with PME at 0.9 nm
@@ -158,6 +161,24 @@ non-zero:
    a timed step(100) of VV @ 2 fs + NHC and 4 x step(25) with T read: the
    SETTLE residual, every M within 1e-6 nm of its placement, the M
    velocity rows 0, the mean T 270-330 K, the K1 launches;
+   path (h): polarizable water, float32. (h1) config 7 as
+   bench_swm4_drude runs it: 2,000 SWM4-NDP waters (10,000 sites, 3.915
+   nm, 0.9 nm RF, K1 on 4^3), DrudeLangevinIntegrator(1 fs, 300 K, the
+   Drude bath at 1 K): velocities at seed 9, step(1), step(800),
+   retune_neighbors(), step(1), a timed step(150), 4 x step(250) with T
+   and PE read; checks bench.py's bands (mixed T 180-240 K, T_atoms
+   280-320 K, T_drude <= 10 K), the SETTLE residual <= 1e-4, every
+   core-Drude distance < 0.05 nm, the M sites placed (1e-6 nm) and at
+   rest, the K1 launches (1 a step + 1 a pass). (h2) the same waters
+   with massless Drudes at (h1)'s final positions (each pair's momentum
+   on its core), DrudeSCFIntegrator(1 fs, 12 iterations, 300 K, 5/ps):
+   step(1), a timed step(20); the Drude velocity rows exactly 0, max|F|
+   on a Drude row <= 4 k ulp(max|x|) (the float32 floor of the fixed
+   point), K1 13 launches a step + 1 a pass, geometry as (h1). (h3) a
+   chain of 4,096 CMAP terms on one random periodic 24 x 24 surface and
+   4,096 impropers: energy and forces on the card against the float64
+   CPU (float64 1e-12, float32 1e-4 of the energy and of max|F|), then
+   each force's float32 call timed (CUDA events, device operations);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -183,13 +204,16 @@ non-zero:
    and the virial forms, K2 and K3 with the virial flag; K1 at path (g)'s
    grids, SETTLE's two stages at 30k and the virtual-site placement and
    pull-back at (g3) (CUDA events, device operations a call), path (g)'s
-   device operations per step; then path (c)'s
+   device operations per step; K1 at path (h1)'s grid, (h1)'s and
+   (h2)'s device operations per step; then path (c)'s
    and path (d)'s outer steps split by force group (host clock,
    synchronised), path (f)'s outer step and one volume move split by
    part (trial build, e_old at the current box, e_new at the trial box
    on the trial's buckets, rebuild and cache refresh), (g1)'s step split
-   by part (K1 sweep, SETTLE's stages, the bucket rebuild) and (g2)'s
-   outer step by group.
+   by part (K1 sweep, SETTLE's stages, the bucket rebuild), (g2)'s
+   outer step by group, and (h1)'s and (h2)'s steps by part (the force
+   evaluation: K1, DrudeForce by autograd, the placement and pull-back;
+   SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild).
 
 Then one JSON line of kernel results (with each kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
@@ -244,6 +268,13 @@ OPS_VIRIAL = 2
 
 def log(msg):
     print(msg, flush=True)
+
+
+def require(name, checks):
+    """Raise unless every named check holds."""
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{name} checks failed: {failed}")
 
 
 def smi_line():
@@ -1036,9 +1067,7 @@ def phase_main(dev, eq, steps=100, method="cutoff"):
         "drift": abs(drift) <= 0.1,
         "shape": tuple(x.shape) == (n, 3) and tuple(v.shape) == (n, 3),
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"{name} checks failed: {failed}")
+    require(name, checks)
     if method == "pme":
         far_precision(dev, eq, respa)
     return {"launches": launches["half_pair"], "ms_per_step": ms,
@@ -1117,9 +1146,7 @@ def phase_small_box(dev, steps=100, melt_steps=200):
         # extended energy to far better than this
         "drift": abs(drift) <= 0.1,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"path (a) checks failed: {failed}")
+    require("path (a)", checks)
     return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
             "respa": ctx.system, "state": ctx.state}
 
@@ -1201,9 +1228,7 @@ def phase_ionic(dev, settle=50, calls=10, steps_per_call=10):
         "temperature": 165.0 <= t_mean <= 190.0,
         "shape": tuple(x.shape) == (n, 3) and tuple(v.shape) == (n, 3),
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"path (d) checks failed: {failed}")
+    require("path (d)", checks)
     return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
             "respa": ctx.system, "state": (ex, ebox), "loops": loops,
             "steps": steps}
@@ -1925,9 +1950,7 @@ def phase_alchemy(dev, evals=50, k_states=16):
         "temperature": all(260.0 <= t <= 340.0 for t in t_mean.values())
         and len(t_mean) == 4,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"path (e) checks failed: {failed}")
+    require("path (e)", checks)
 
     # the quadratic dU/dlambda_coul in float32 against float64 at the last
     # sample, beside the sampling noise of its mean at that state
@@ -2158,9 +2181,7 @@ def phase_npt(dev, eq100, method="cutoff", settle=100, calls=8,
         "virial_sweeps": virial_launches == virial_expected,
         "shape": tuple(xs.shape) == (n, 3) and tuple(vs.shape) == (n, 3),
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"{name} checks failed: {failed}")
+    require(name, checks)
     return {"launches": launches, "ms_per_step": ms, "ns_day": ns_day,
             "respa": ctx.system, "ctx": ctx, "loops": loops,
             "state": (xs.detach().cpu().numpy(), box1.cpu().numpy()),
@@ -2683,9 +2704,7 @@ def phase_rigid(dev, eq, hmr_respa=False, settle=250, steps=200, chunks=8,
         "pe_per_atom": bands["pe"][0] <= pe <= bands["pe"][1],
         "drift": abs(drift) <= bands["drift"],
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"{name} checks failed: {failed}")
+    require(name, checks)
     return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
             "ns_day": ns_day, "dt": dt, "T": temp, "pe": pe,
             "drift": drift, "residual": residual}
@@ -2793,9 +2812,7 @@ def phase_tip4p(dev, n_molecules=2000, melt_steps=1600, steps=100, chunks=4,
         "temperature": G3_T_BAND[0] <= temp <= G3_T_BAND[1],
         "drift": max(abs(drift), abs(drift_reads)) <= G3_DRIFT,
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise RuntimeError(f"path (g3) checks failed: {failed}")
+    require("path (g3)", checks)
     return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
             "ns_day": ns_day, "drift": drift, "T": temp}
 
@@ -2931,6 +2948,426 @@ def phase_rigid_timings(dev, g1, g2, g3):
     return out
 
 
+# --- path (h): polarizable water (SWM4-NDP Drude oscillators), CMAP --------
+
+# bench.py's bands for config 7 (swm4_10k_drude_el): the mixed kinetic
+# temperature over every counted degree of freedom (the cold 1 K Drude
+# oscillators pull it far below the 300 K atom bath), the atom bath's and
+# the Drude relative motion's
+H1_BANDS = {"T": (180.0, 240.0), "T_atoms": (280.0, 320.0),
+            "T_drude_max": 10.0}
+# the SCF's float32 floor: the update x_D += F_D / k loses steps below half
+# an ulp of the coordinates, and the spring's force reads d = x_D - x_O to
+# an ulp, so the relaxed Drude rows keep |F_D| of order k ulp(x); the bound
+# is four of those at the run's largest coordinate
+H2_ULPS = 4.0
+
+
+def swm4(dev, drude_mass=0.4, n_molecules=2000):
+    """Config 7's system as bench_swm4_drude builds it: SWM4-NDP waters at
+    0.9 nm reaction field with cell lists, float32, on the card."""
+    import torch
+
+    from atomsmm_tpu_torch.models import swm4_water_system
+
+    system, x, box = swm4_water_system(
+        n_molecules=n_molecules, r_cut=0.9, r_switch=0.8,
+        drude_mass=drude_mass, neighbors=True, dtype=torch.float32,
+        device=dev)
+    if not system.neighbors.half_stencil:
+        raise RuntimeError("path (h): expected a half-stencil grid (K1)")
+    return system, x, box
+
+
+def drude_checks(system, state):
+    """Finiteness, the SETTLE residual, the largest core-Drude distance,
+    the M sites' distance from their placement and whether their velocity
+    rows are exactly zero, at `state`."""
+    import torch
+
+    from atomsmm_tpu_torch.integrate.drude import find_drude_set
+    from atomsmm_tpu_torch.ops.drude import drude_displacements
+    from atomsmm_tpu_torch.ops.virtual_sites import place_virtual_sites
+
+    xs, vs = state.x, state.v
+    sites = system.virtual_sites.sites
+    d = drude_displacements(find_drude_set(system), xs)
+    return {
+        "finite": bool(torch.isfinite(xs).all() and torch.isfinite(vs).all()),
+        "residual": geometry_residual(system, xs),
+        "d_max": float(torch.linalg.norm(d, dim=1).max()),
+        "m_err": float((place_virtual_sites(system.virtual_sites, xs)[sites]
+                        - xs[sites]).abs().max()),
+        "m_still": bool((vs[sites] == 0).all()),
+    }
+
+
+def phase_swm4(dev, melt=800, steps=150, reads=4, chunk=250):
+    """Path (h1), config 7 exactly as bench_swm4_drude runs it: 2,000
+    SWM4-NDP waters (10,000 sites, 3.91 nm box, 0.9 nm RF, K1),
+    DrudeLangevinIntegrator(1 fs, 300 K; the Drude bath at 1 K, 20/ps) in
+    float32: velocities at 300 K (seed 9), step(1), step(melt),
+    retune_neighbors(), step(1), a timed step(steps) (CUDA events), then
+    `reads` calls of step(chunk) with T and PE read after each (bench.py's
+    telemetry), and drude_temperatures at the end. Checks bench.py's bands
+    (mixed T, T_atoms, T_drude), the SETTLE residual, the core-Drude
+    distances (< 0.05 nm), the M sites placed and at rest, finiteness and
+    the exact K1 launches of the timed call (1 a step + 1 a pass)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.drude import drude_temperatures
+
+    dt = 0.001
+    system, x, box = swm4(dev)
+    n = system.num_particles
+    integ = amm.DrudeLangevinIntegrator(dt, 300.0, system=system)
+    ctx = amm.Context(system, integ, amm.make_state(x, box=box))
+    ctx.set_velocities_to_temperature(300.0, seed=9)
+    ctx.step(1)
+    ctx.step(melt)
+    ctx.retune_neighbors()
+    ctx.step(1)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / steps
+    launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
+                "tile_pair": 0}
+    temps, pes = [], []
+    for _ in range(reads):
+        ctx.step(chunk)
+        temps.append(float(ctx.temperature()))
+        pes.append(float(ctx.get_state().potential_energy) / n)
+    temp = sum(temps) / reads
+    t_atoms, t_drude = (float(t) for t in drude_temperatures(
+        integ.thermostat.drude, ctx.state.v, system.masses,
+        n_constraints=system.num_constraints))
+    c = drude_checks(system, ctx.state)
+    ns_day = dt * 1e-3 * 86400.0 / (ms * 1e-3)
+    spec = ctx.system.neighbors
+    log(f"path (h1) swm4-ndp {system.num_molecules} molecules ({n} sites) "
+        f"box {float(box[0]):.3f} nm Drude-EL@1fs float32: grid {spec.grid} "
+        f"cap {spec.cell_capacity} (K1); {ms:.3f} ms/step by CUDA events "
+        f"({wall / steps * 1e3:.3f} by the host clock), {ns_day:.3f} "
+        f"ns/day; launches {launches} (expected {expected}, passes "
+        f"{passes}); T {temp:.2f} K (band {H1_BANDS['T']}; reads "
+        f"{', '.join(f'{t:.2f}' for t in temps)}); PE/site "
+        f"{', '.join(f'{e:.4f}' for e in pes)} kJ/mol; T_atoms {t_atoms:.2f} "
+        f"K (band {H1_BANDS['T_atoms']}), T_drude {t_drude:.3f} K (max "
+        f"{H1_BANDS['T_drude_max']}); SETTLE residual {c['residual']:.2e}; "
+        f"max |x_D - x_O| {c['d_max']:.5f} nm; max |M - placement| "
+        f"{c['m_err']:.2e} nm; M velocities zero {c['m_still']}; finite "
+        f"{c['finite']}")
+    checks = {
+        "finite": c["finite"],
+        "launches": launches == expected,
+        "settle_residual": c["residual"] <= 1e-4,
+        "displacements": c["d_max"] < 0.05,
+        "m_placement": c["m_err"] <= 1e-6,
+        "m_velocities": c["m_still"],
+        "temperature": H1_BANDS["T"][0] <= temp <= H1_BANDS["T"][1],
+        "t_atoms": H1_BANDS["T_atoms"][0] <= t_atoms <= H1_BANDS["T_atoms"][1],
+        "t_drude": t_drude <= H1_BANDS["T_drude_max"],
+    }
+    require("path (h1)", checks)
+    return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
+            "ns_day": ns_day, "T": temp, "T_atoms": t_atoms,
+            "T_drude": t_drude}
+
+
+def phase_swm4_scf(dev, h1, steps=20, n_iter=12):
+    """Path (h2): the same 2,000 waters with massless Drudes
+    (drude_mass=0) at (h1)'s final positions, each pair's momentum on its
+    core and the Drude rows at rest, under DrudeSCFIntegrator(1 fs,
+    n_iter, 300 K, 5/ps) in float32: step(1), then a timed step(steps).
+    Checks finiteness, the Drude velocity rows exactly 0, the SETTLE
+    residual, the displacements, the M sites, the exact K1 launches
+    (n_iter + 1 a step + 1 a pass) and the force left on the Drude rows:
+    at most H2_ULPS k ulp(max|x|) (the float32 floor of the fixed point)."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    dt = 0.001
+    system, _, _ = swm4(dev, drude_mass=0.0)
+    st = h1["ctx"].state
+    m = h1["ctx"].system.masses[:, None]
+    v = st.v.clone()
+    v[0::5] = (m[0::5] * v[0::5] + m[1::5] * v[1::5]) / (m[0::5] + m[1::5])
+    v[1::5] = 0.0
+    ctx = amm.Context(system, amm.DrudeSCFIntegrator(
+        dt, n_iter=n_iter, temperature=300.0, friction=5.0, system=system),
+        amm.make_state(st.x, v=v, box=st.box))
+    ctx.step(1)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    expected = {"half_pair": passes * ((n_iter + 1) * steps + 1),
+                "cell_pair": 0, "tile_pair": 0}
+    c = drude_checks(system, ctx.state)
+    d_still = bool((ctx.state.v[1::5] == 0).all())
+    f = ctx.get_state().forces
+    f_drude = float(f[1::5].abs().max())
+    f_max = float(f.abs().max())
+    x_max = float(ctx.state.x.abs().max())
+    k = float(system.forces[1].drude.k.max())
+    ulp = float(np.spacing(np.float32(x_max)))
+    f_bound = H2_ULPS * k * ulp
+    temp = float(ctx.temperature())
+    ns_day = dt * 1e-3 * 86400.0 / (ms * 1e-3)
+    log(f"path (h2) swm4-ndp SCF ({n_iter} iterations) @1fs + OU 5/ps "
+        f"float32, from (h1)'s positions: {ms:.3f} ms/step by CUDA events, "
+        f"{ns_day:.3f} ns/day; launches {launches} (expected {expected}, "
+        f"passes {passes}); max |F| on a Drude row {f_drude:.4f} kJ/mol/nm "
+        f"= {f_drude / f_max:.2e} of max|F| {f_max:.1f} (bound "
+        f"{H2_ULPS:g} k ulp(max|x| = {x_max:.3f} nm) = {f_bound:.4f}); T "
+        f"{temp:.2f} K; Drude velocities zero {d_still}; SETTLE residual "
+        f"{c['residual']:.2e}; max |x_D - x_O| {c['d_max']:.5f} nm; max |M "
+        f"- placement| {c['m_err']:.2e} nm; M velocities zero "
+        f"{c['m_still']}; finite {c['finite']}")
+    checks = {
+        "finite": c["finite"],
+        "launches": launches == expected,
+        "drude_velocities": d_still,
+        "drude_forces": f_drude <= f_bound,
+        "settle_residual": c["residual"] <= 1e-4,
+        "displacements": c["d_max"] < 0.05,
+        "m_placement": c["m_err"] <= 1e-6,
+        "m_velocities": c["m_still"],
+    }
+    require("path (h2)", checks)
+    return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
+            "ns_day": ns_day, "f_drude": f_drude, "f_max": f_max,
+            "n_iter": n_iter}
+
+
+def _place(a, b, c, torsion, bond=0.153, angle=1.95):
+    """The next chain atom after a, b, c at the given bond length, angle
+    and dihedral (a, b, c, d) = torsion (NeRF construction)."""
+    import numpy as np
+
+    bc = (c - b) / np.linalg.norm(c - b)
+    n = np.cross(b - a, bc)
+    n /= np.linalg.norm(n)
+    m = np.cross(n, bc)
+    return (c - bond * np.cos(angle) * bc
+            + bond * np.sin(angle) * (np.cos(torsion) * m
+                                      - np.sin(torsion) * n))
+
+
+def phase_cmap(dev, n_terms=4096, res=24, seed=11):
+    """Path (h3): CMAP and harmonic impropers on the card. A chain of
+    n_terms + 4 atoms with random dihedrals (centred at the origin), n_terms
+    CMAP terms (i..i+4) on one random periodic res x res surface, n_terms
+    impropers (i..i+3) with random phi0 and k, in a 100 nm box; energy and forces (autograd)
+    of both forces on the card in float64 and float32 against the float64
+    CPU: 1e-12, and 1e-4 of the energy and of max|F|. Then each force's
+    energy-and-forces call timed on the card in float32 (CUDA events,
+    device operations a call)."""
+    import numpy as np
+    import torch
+
+    from atomsmm_tpu_torch.forces import (
+        CMAPTorsionForce,
+        HarmonicImproperForce,
+    )
+    from atomsmm_tpu_torch.ops.cmap import build_cmap_table
+    from atomsmm_tpu_torch.potential import force_fn
+    from atomsmm_tpu_torch.system import System
+
+    rs = np.random.RandomState(seed)
+    x = [np.zeros(3), np.array([0.153, 0.0, 0.0]),
+         np.array([0.2, 0.145, 0.0])]
+    for t in rs.uniform(-np.pi, np.pi, n_terms + 1):
+        x.append(_place(x[-3], x[-2], x[-1], t))
+    x = np.stack(x)
+    x -= x.mean(0)
+    n = len(x)
+    ang = -np.pi + 2 * np.pi * np.arange(res) / res
+    p, q = np.meshgrid(ang, ang, indexing="ij")
+    # a few random Fourier modes about a mean of 3 kJ/mol
+    grid = 3.0 + sum(rs.normal(0, 2.0) * np.cos(a * p + b * q
+                                               + rs.uniform(0, 2 * np.pi))
+                     for a in range(4) for b in range(4))
+    table = build_cmap_table(grid[None])
+    cidx = np.stack([np.arange(i, i + 5) for i in range(n_terms)])
+    iidx = np.stack([np.arange(i, i + 4) for i in range(n_terms)])
+    phi0 = rs.uniform(-np.pi, np.pi, n_terms)
+    k = rs.uniform(20.0, 400.0, n_terms)
+
+    def build(device, dtype):
+        def t(a, d=dtype):
+            return torch.as_tensor(a, dtype=d, device=device)
+
+        forces = (CMAPTorsionForce(idx=t(cidx, torch.int64),
+                                   type_index=t(np.zeros(n_terms),
+                                                torch.int64),
+                                   table=t(table)),
+                  HarmonicImproperForce(idx=t(iidx, torch.int64),
+                                        phi0=t(phi0), k=t(k)))
+        system = System(masses=t(np.full(n, 12.0)),
+                        default_box=t(np.full(3, 100.0)),
+                        molecule=t(np.zeros(n), torch.int32), forces=forces)
+        return system, t(x), t(np.full(3, 100.0))
+
+    cpu, xc, bc = build("cpu", torch.float64)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        card, xg, bg = build(dev, dtype)
+        for i, force in enumerate(card.forces):
+            one = card.replace_forces([force])
+            e, f = force_fn(one)(xg, bg)
+            e_c, f_c = force_fn(cpu.replace_forces([cpu.forces[i]]))(xc, bc)
+            tol = 1e-12 if dtype == torch.float64 else 1e-4
+            e_err = abs(float(e) - float(e_c)) / abs(float(e_c))
+            f_err = float((f.double().cpu() - f_c).abs().max())
+            f_max = float(f_c.abs().max())
+            ok = (bool(torch.isfinite(f).all()) and e_err <= tol
+                  and f_err <= tol * f_max)
+            log(f"path (h3) {force.name} {n_terms} terms {str(dtype)[6:]} "
+                f"card vs float64 CPU: E {float(e):.10g} vs {float(e_c):.10g} "
+                f"rel {e_err:.2e}; max|dF| {f_err:.3e} of max|F| "
+                f"{f_max:.4g} (tol {tol:g})")
+            if not ok:
+                raise RuntimeError(f"path (h3) {force.name} {dtype}: the "
+                                   "card departs from the CPU")
+            if dtype == torch.float32:
+                fn = force_fn(one)
+                out[force.name] = {
+                    "ms": time_cuda(lambda: fn(xg, bg), 20),
+                    "ops": len(device_kernels(lambda: fn(xg, bg), 5)) / 5}
+    log("path (h3) timing, float32, energy and forces by autograd: " + "; ".join(
+        f"{name} {t['ms']:.4f} ms by CUDA events, {t['ops']:.0f} device "
+        f"operations a call" for name, t in out.items()))
+    return out
+
+
+def phase_kernels_swm4(dev, h1):
+    """K1 against its plain twin, float64 and float32, at (h1)'s own grid
+    and capacity and the state its run ended with: the Drudes off their
+    cores, the Drude charges in the charge column (cutoff-RF form)."""
+    results = []
+    s, st = h1["ctx"].system, h1["ctx"].state
+    compare("swm4 10k cutoff-RF", s.forces[0], s.neighbors,
+            st.x.detach().cpu().double(), st.box.detach().cpu().double(),
+            dev, results)
+    return results
+
+
+def phase_swm4_timings(dev, h1, h2):
+    """Path (h) on the clock: K1 at (h1)'s grid (time_cells: device time,
+    plain twin, bound); one (h1) step and one (h2) step split by part, each
+    part timed alone on the host clock with a synchronise after every
+    call, times its count per step; the device operations per step of
+    (h1) and (h2) (torch.profiler)."""
+    import dataclasses
+
+    from atomsmm_tpu_torch.integrate.drude import (
+        DrudeOrnsteinUhlenbeckPropagator,
+        find_drude_set,
+    )
+    from atomsmm_tpu_torch.integrate.propagators import (
+        OrnsteinUhlenbeckPropagator,
+        StepContext,
+    )
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops.drude import drude_scf_minimize
+    from atomsmm_tpu_torch.ops.settle import (
+        settle_positions,
+        settle_velocities,
+    )
+    from atomsmm_tpu_torch.ops.virtual_sites import (
+        place_virtual_sites,
+        pull_back_forces,
+    )
+    from atomsmm_tpu_torch.potential import _energy_and_forces, force_fn
+
+    out = {}
+    s, st = h1["ctx"].system, h1["ctx"].state
+    out[("half_pair", "h1")] = time_cells("path (h1)", s.forces[0],
+                                          s.neighbors, st.x, st.box)
+
+    def split(run, forces_label, scf_iters, bath, bath_label):
+        """Each part of one step of `run` (force evaluations: scf_iters in
+        the SCF loop, and the write kick's), timed alone."""
+        ctx = run["ctx"]
+        s, st, g = ctx.system, ctx.state, ctx.parameters
+        x, v, box, m = st.x, st.v, st.box, s.masses
+        aux = nb.make_aux(s, st.extra)
+        vs = s.virtual_sites
+        xe = place_virtual_sites(vs, x)
+        f = force_fn(s)(x, box, g, aux)[1]
+        # the bath without its projection: SETTLE's is timed on its own
+        bare = StepContext(dataclasses.replace(s, settle=None,
+                                               virtual_sites=None), g, 0.001)
+        parts = {}
+        if scf_iters:
+            ds = find_drude_set(s)
+            parts[f"SCF loop ({scf_iters} force evaluations)"] = (wall_ms(
+                lambda: drude_scf_minimize(
+                    lambda y: force_fn(s)(y, box, g, aux)[1], ds, x,
+                    scf_iters), 5), 1)
+        parts.update({
+            forces_label: (wall_ms(lambda: force_fn(s)(x, box, g, aux)), 1),
+            "  K1 sweep": (wall_ms(lambda: _energy_and_forces(
+                s.forces[0], xe, box, g, aux)), 1),
+            "  DrudeForce by autograd": (wall_ms(lambda: _energy_and_forces(
+                s.forces[1], xe, box, g, aux)), 1),
+            "  placement + pull-back": (wall_ms(lambda: (
+                place_virtual_sites(vs, x), pull_back_forces(vs, x, f))), 1),
+            "settle_positions": (wall_ms(lambda: settle_positions(
+                s.settle, x + 0.001 * v, x, m)), 1),
+            "settle_velocities": (wall_ms(lambda: settle_velocities(
+                s.settle, x, v, m)), 4),
+            bath_label: (wall_ms(lambda: bath.apply(bare, st, 0.5)), 2),
+            "bucket rebuild": (wall_ms(lambda: nb.update_all_neighbors(
+                s, st.extra, x, box)), 1),
+        })
+        return parts
+
+    parts = split(h1, "forces (all groups)", 0,
+                  DrudeOrnsteinUhlenbeckPropagator(
+                      find_drude_set(h1["ctx"].system), 300.0, 5.0),
+                  "Drude OU (without its projection)")
+    split_log("path (h1)", h1["ms_per_step"], parts, "kicks, drift, Python")
+    out["h1_split"] = parts
+    parts = split(h2, "forces (the write kick)", h2["n_iter"],
+                  OrnsteinUhlenbeckPropagator(300.0, 5.0),
+                  "OU (without its projection)")
+    split_log("path (h2)", h2["ms_per_step"], parts, "kicks, drift, Python")
+    out["h2_split"] = parts
+    for key, run, k in (("h1", h1, 5), ("h2", h2, 2)):
+        ctx = run["ctx"]
+        out[f"{key}_ops_per_step"] = len(device_kernels(
+            lambda: ctx.step(k))) / k
+    log("path (h) device operations per step (torch.profiler, step(5) and "
+        "step(2), the force-cache refresh and flag read of the call "
+        "included): " + ", ".join(
+            f"({k}) {out[f'{k}_ops_per_step']:.1f}" for k in ("h1", "h2")))
+    return out
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -2991,15 +3428,20 @@ def main():
     g1 = phase_rigid(dev, eq_tip3p)
     g2 = phase_rigid(dev, eq_tip3p, hmr_respa=True)
     g3 = phase_tip4p(dev)
+    h1 = phase_swm4(dev)
+    h2 = phase_swm4_scf(dev, h1)
+    phase_cmap(dev)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
-                + phase_kernels_rigid(dev, g1, g2, g3))
+                + phase_kernels_rigid(dev, g1, g2, g3)
+                + phase_kernels_swm4(dev, h1))
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
     timings.update(phase_alchemy_timings(dev, alch))
     timings.update(phase_npt_timings(dev, npt, small, eq, timings))
     timings.update(phase_rigid_timings(dev, g1, g2, g3))
+    timings.update(phase_swm4_timings(dev, h1, h2))
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
     phase_npt_split(dev, npt, "path (f)")
@@ -3029,6 +3471,8 @@ def main():
         "path_g1": g1["launches"],
         "path_g2": g2["launches"],
         "path_g3": g3["launches"],
+        "path_h1": h1["launches"],
+        "path_h2": h2["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -3103,6 +3547,15 @@ def main():
                    f"path_{tag}_plain_ms": t["plain_ms"],
                    f"path_{tag}_bound_ms": t["bound"]["ms"],
                    f"path_{tag}_bound_by": t["bound"]["by"]})
+    # path (h): K1 at (h1)'s SWM4-NDP grid (the Drude charges in the charge
+    # column), float32, and its float32 error against the plain twin there;
+    # (h3)'s CMAP and improper evaluations are PyTorch operations, logged
+    # above, not kernels
+    k1["path_h_max_abs_err"] = f32_err("half_pair", "swm4")
+    t = timings[("half_pair", "h1")]
+    k1.update({"path_h_ms": t["ms"], "path_h_plain_ms": t["plain_ms"],
+               "path_h_bound_ms": t["bound"]["ms"],
+               "path_h_bound_by": t["bound"]["by"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,14 @@ MODULES = {
     "computers": 3,
     "forces": 1,
     "integrate.barostat": 3,
+    "integrate.drude": 2,
     "integrate.integrators": 3,
     "integrate.propagators": 3,
     "integrate.sinr": 2,
-    "models.water": 8,
+    "models.water": 12,
+    "ops.cmap": 10,
     "ops.constraints": 10,
+    "ops.drude": 9,
     "ops.pairfuncs": 1,
     "ops.pbc": 3,
     "ops.pme": 3,
