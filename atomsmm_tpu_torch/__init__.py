@@ -17,7 +17,11 @@ SHAKE/RATTLE (ops/constraints.py), TIP4P/Ew's M site is a virtual site
 onto the hydrogens. SWM4-NDP water is polarizable through Drude
 oscillators (ops/drude.py, integrate/drude.py: extended-Lagrangian and
 SCF dynamics); CMAP (ops/cmap.py) and harmonic impropers complete the
-CHARMM bonded terms. This package never imports JAX.
+CHARMM bonded terms. Context(neighbor_update_every=K) rebuilds the cell
+lists every K steps under a staleness guard, and parallel/ runs lambda (or
+temperature) replicas with neighbor-swap exchange on one card
+(HREXSampler, solvation_free_energy(hrex=True)). This package never
+imports JAX.
 """
 
 __version__ = "0.1.0"

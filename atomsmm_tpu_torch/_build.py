@@ -24,9 +24,15 @@ KERNELS = {name: CSRC / f"{name}.cu"
            for name in ("half_pair", "cell_pair", "tile_pair")}
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _HERE / "_build"
+# --fmad=false: the kernels round every product and sum as their plain
+# twins do (ops/pairfuncs.py, line for line). Contracted into FMAs, the
+# float32 near form's energy at config 5's 0.6 nm split (33,334 waters)
+# erred by -5.15 kJ/mol and the fused far form's by +5.21, against +0.47 /
+# -0.48 for the float32 twin and for the kernels built without contraction
+# (k1_ab/rf_bias_variants.py).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: argument kinds of every C entry point: p = pointer, i = int

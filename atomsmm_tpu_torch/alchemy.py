@@ -220,7 +220,7 @@ def sample_lambda_states(system, x0, box, lambdas, temperature, dt=0.001,
 def solvation_free_energy(system, x0, box, schedule, temperature,
                           lambdas=None, n_blocks=4, aux=None,
                           mbar_iter=1000, mesh=None, hrex=False,
-                          **sample_kwargs):
+                          swap_every=1, **sample_kwargs):
     """Coupling free energy dG(s: schedule[0] -> schedule[-1]) by MBAR and
     TI on the same trajectories, with block-wise error estimates.
 
@@ -233,18 +233,30 @@ def solvation_free_energy(system, x0, box, schedule, temperature,
     Returns a dict: dg_mbar, dg_ti [kJ/mol]; err_mbar, err_ti (block
     standard errors over n_blocks blocks); f_k (K,) dimensionless MBAR
     free energies; ti_profile {name: (K,) mean dU/dlambda}; and
-    n_samples_total. The replica-exchange sampler of the JAX package
-    (hrex=True, or a device mesh) is not ported."""
-    if hrex or mesh is not None:
+    n_samples_total. With hrex=True the K states run as replicas with
+    neighbor-swap exchange every `swap_every` sampling chunks
+    (parallel.hrex.hrex_sample_lambda_states), and the dict also holds
+    swap_acceptance and swap_attempts. A device mesh is not ported
+    (ROADMAP item 14b) and raises."""
+    if mesh is not None:
         raise NotImplementedError(
-            "solvation_free_energy(hrex=True / mesh=...): replica exchange "
-            "and device meshes are not ported (ROADMAP item 14, parallel)")
+            "solvation_free_energy(mesh=...): a device mesh is not ported "
+            "(ROADMAP item 14b, more than one GPU); hrex=True runs the "
+            "replicas on one card")
     schedule = torch.as_tensor(schedule, dtype=torch.float64)
     k_states = schedule.shape[0]
     lambdas = dict(lambdas) if lambdas is not None else coupling_path(schedule)
     values = _host_lambdas(lambdas)
-    xs, n_k = sample_lambda_states(system, x0, box, lambdas, temperature,
-                                   **sample_kwargs)
+    swap_info = None
+    if hrex:
+        from .parallel.hrex import hrex_sample_lambda_states
+
+        xs, n_k, swap_info = hrex_sample_lambda_states(
+            system, x0, box, lambdas, temperature, swap_every=swap_every,
+            **sample_kwargs)
+    else:
+        xs, n_k = sample_lambda_states(system, x0, box, lambdas, temperature,
+                                       **sample_kwargs)
     kT = BOLTZMANN * temperature
     u_kn = reduced_energy_matrix(system, xs, box, lambdas, temperature,
                                  aux=aux).to("cpu", torch.float64)
@@ -288,7 +300,7 @@ def solvation_free_energy(system, x0, box, schedule, temperature,
         return (float(np.std(v, ddof=1) / np.sqrt(len(v))) if len(v) > 1
                 else float("nan"))
 
-    return {
+    out = {
         "dg_mbar": mbar_dg(u_kn),
         "dg_ti": ti_dg(slice(None)),
         "err_mbar": err(blocks_mbar),
@@ -297,3 +309,7 @@ def solvation_free_energy(system, x0, box, schedule, temperature,
         "ti_profile": {k: torch.mean(v, dim=1) for k, v in dudl.items()},
         "n_samples_total": int(xs.shape[0]),
     }
+    if swap_info is not None:
+        out["swap_acceptance"] = swap_info["acceptance"]
+        out["swap_attempts"] = swap_info["swap_attempts"]
+    return out

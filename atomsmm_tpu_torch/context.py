@@ -3,8 +3,11 @@ atomsmm_tpu/context.py).
 
 `step(n)` runs the step function n times in a Python loop of eager PyTorch
 operations (the JAX package runs one jitted device loop). The neighbor
-buckets are rebuilt after every outer step and their overflow flags stay on
-the device; step(n) reads them once, at its end, and on overflow restores
+buckets are rebuilt after every outer step, or with
+neighbor_update_every=K after every K-th with the staleness guard sampled
+after each step between (`advance`, which the replica runner shares). The
+flags stay on the device; step(n) reads them once, at its end, raises on
+a stale list, and on overflow restores
 the state from before the call (the generator's included, so one seed gives
 one trajectory whether or not a capacity overflowed), grows the cell
 capacities and runs the n steps again. `set_parameter` holds the global
@@ -42,6 +45,8 @@ from .ops.neighbors import (
     make_aux,
     overflow_flags,
     retune_neighbor_specs,
+    stale_key,
+    staleness_flags,
     update_all_neighbors,
 )
 from .ops.virtual_sites import place_virtual_sites, zero_virtual_velocities
@@ -72,6 +77,84 @@ def refresh_force_caches(system, state, globals):
     return state.with_extra(**updates) if updates else state
 
 
+def update_neighbor_lists(system, state):
+    """`state` with every cell list of `system` rebuilt
+    (ops.neighbors.update_all_neighbors, forced)."""
+    if system.neighbors is None:
+        return state
+    return state.with_extra(**update_all_neighbors(
+        system, state.extra, state.x, state.box, force=True))
+
+
+def with_neighbor_lists(system, state, k_update: int = 1):
+    """`state` with a fresh build of every cell list of `system` and, for
+    grouped updates (k_update > 1), its sticky staleness flags cleared:
+    the extras that `advance` expects. Context and HREXSampler both set
+    up their states here."""
+    if system.neighbors is None:
+        return state
+    extras = all_neighbor_extras(system, state.x, state.box)
+    if k_update > 1:
+        extras.update({
+            stale_key(name): torch.zeros((), dtype=torch.bool,
+                                         device=state.x.device)
+            for name, _ in iter_specs(system)})
+    return state.with_extra(**extras)
+
+
+def stale_flags(extra) -> Dict[str, torch.Tensor]:
+    """The sticky staleness flags held in `extra` (device bools)."""
+    return {k: v for k, v in extra.items()
+            if k.startswith("nbr") and k.endswith("stale")}
+
+
+def raise_on_stale(flags, where: str = ""):
+    """Raise on the first set flag of `flags` ({key: host bool}, the
+    values of stale_flags read in the caller's one sync); `where` names
+    the replica, if any."""
+    for key, bad in flags.items():
+        if bad:
+            raise RuntimeError(
+                f"neighbor staleness{where} ({key}): an atom pair may have "
+                "closed past the skin between grouped neighbor updates, so "
+                "pairs may have been missed; reduce neighbor_update_every "
+                "or enlarge the skin")
+
+
+def advance(system, step_fn, state, globals, n: int, k_update: int = 1,
+            after_step=None):
+    """Run n outer steps of step_fn from `state` under `globals`, and
+    return the state they end in.
+
+    First the cell lists are rebuilt and the force caches recomputed at the
+    starting positions. With k_update = 1 (or no cell list) the lists are
+    rebuilt after every step and `after_step(state)`, when given, runs
+    after each (Context's barostat). With k_update = K > 1 the steps run
+    in groups of K: the sticky staleness flags are sampled after every
+    step and the lists rebuilt, forced, at the end of each group (a
+    conditional skin/2 rebuild would race the two-displacement staleness
+    bound and trip the guard on thermal motion); the n % K remainder steps
+    run singly, each followed by a rebuild. Context.step and the replica
+    runner (parallel/hrex.py) both step through here."""
+    s = refresh_force_caches(system, update_neighbor_lists(system, state),
+                             globals)
+    if k_update == 1 or system.neighbors is None:
+        for _ in range(n):
+            s = update_neighbor_lists(system, step_fn(system, s, globals))
+            if after_step is not None:
+                s = after_step(s)
+        return s
+    groups, rest = divmod(n, k_update)
+    for _ in range(groups):
+        for _ in range(k_update):
+            s = step_fn(system, s, globals)
+            s = s.with_extra(**staleness_flags(system, s.extra, s.x, s.box))
+        s = update_neighbor_lists(system, s)
+    for _ in range(rest):
+        s = update_neighbor_lists(system, step_fn(system, s, globals))
+    return s
+
+
 @dataclasses.dataclass
 class StateSnapshot:
     """Positions, velocities, forces and energies, with the per-group and
@@ -98,9 +181,15 @@ def _clone_state(state: State) -> State:
 
 class Context:
     def __init__(self, system, integrator, state: Optional[State] = None,
-                 seed: int = 0):
+                 seed: int = 0, neighbor_update_every: int = 1):
+        """neighbor_update_every=K rebuilds the cell lists after every K-th
+        outer step instead of every step, under the staleness guard
+        (`advance`); step(n) raises if an atom pair may have closed past
+        the skin in between. K is 1 under a MonteCarloBarostat, whose
+        volume moves rebuild the lists themselves."""
         self.system = system
         self.integrator = integrator
+        self.neighbor_update_every = max(int(neighbor_update_every), 1)
         #: global context parameters, name -> 0-d tensor (set_parameter)
         self.parameters: Dict[str, torch.Tensor] = {}
         #: how many times the last step(n) ran its n steps (2+ after an
@@ -120,15 +209,15 @@ class Context:
             # hold anything)
             state = replace(state, x=place_virtual_sites(vs, state.x),
                             v=zero_virtual_velocities(vs, state.v))
-        if system.neighbors is not None:
-            extras = all_neighbor_extras(system, state.x, state.box)
-            if any(bool(v) for k, v in extras.items() if k.endswith("overflow")):
-                # cold-start capacity estimate busted: retune every spec to
-                # the measured configuration instead of raising
-                self.system = system = retune_neighbor_specs(
-                    system, state.x, state.box)
-                extras = all_neighbor_extras(system, state.x, state.box)
-            state = state.with_extra(**extras)
+        built = with_neighbor_lists(system, state, self.neighbor_update_every)
+        if any(bool(v) for v in overflow_flags(built.extra).values()):
+            # cold-start capacity estimate busted: retune every spec to the
+            # measured configuration instead of raising
+            self.system = system = retune_neighbor_specs(
+                system, state.x, state.box)
+            built = with_neighbor_lists(system, state,
+                                        self.neighbor_update_every)
+        state = built
         self.state = integrator.initialize(system, state)
         # openmm semantics: a MonteCarloBarostat force drives MC volume
         # moves after the steps it is due at (integrate/barostat.py)
@@ -167,37 +256,34 @@ class Context:
 
     # -- stepping ----------------------------------------------------------
 
-    def _update_neighbors(self, s: State) -> State:
-        if self.system.neighbors is None:
-            return s
-        return s.with_extra(**update_all_neighbors(self.system, s.extra, s.x,
-                                                   s.box))
-
     def _flag_pme(self, s: State) -> State:
         return s.with_extra(**pme_coverage_flags(self.system, s.extra, s.box))
 
     def _advance(self, n: int):
         system, baro = self.system, self._barostat
-        s = self._flag_pme(self._update_neighbors(self.state))
-        s = refresh_force_caches(system, s, self.parameters)
-        for _ in range(n):
-            s = self._update_neighbors(
-                self._step_fn(system, s, self.parameters))
-            if baro is not None and \
-                    s.step % baro.frequency == baro.frequency - 1:
-                s = self._flag_pme(baro._attempt(
+        after_step = None
+        if baro is not None:
+            def after_step(s):
+                if s.step % baro.frequency != baro.frequency - 1:
+                    return s
+                return self._flag_pme(baro._attempt(
                     StepContext(system, self.parameters, 0.0), s))
-        self.state = s
+        self.state = advance(
+            system, self._step_fn, self._flag_pme(self.state),
+            self.parameters, n,
+            1 if baro is not None else self.neighbor_update_every, after_step)
 
     def _flags(self):
-        """Host copies, in one device sync, of four groups of flags by name:
-        "overflow" (the sticky bucket-overflow flags), "pme" (the sticky PME
+        """Host copies, in one device sync, of five groups of flags by name:
+        "overflow" (the sticky bucket-overflow flags), "stale" (the sticky
+        staleness flags of grouped updates), "pme" (the sticky PME
         coverage flags), "undercover" (whether each cell grid's stencil
         fails to cover its cutoff at the current box, by spec name) and
         "baro" (the barostat's attempt and invalid-trial counts)."""
         extra = self.state.extra
         groups = {
             "overflow": overflow_flags(extra),
+            "stale": stale_flags(extra),
             "pme": {k: extra[k] for k in self._pme_flags},
             "undercover": {name: coverage_deficient(spec, self.state.box)
                            for name, spec in iter_specs(self.system)},
@@ -247,9 +333,9 @@ class Context:
 
     def _check_flags(self, flags):
         """Raise on a stencil that no longer covers its cutoff at the final
-        box or on a PME grid the box outgrew; warn once when more than 10%
-        of at least 20 volume trials were vetoed for an invalid pair
-        list."""
+        box, on a stale list between grouped updates or on a PME grid the
+        box outgrew; warn once when more than 10% of at least 20 volume
+        trials were vetoed for an invalid pair list."""
         for name, bad in flags["undercover"].items():
             if bad:
                 raise RuntimeError(
@@ -258,6 +344,7 @@ class Context:
                     "cutoff, so pairs would be dropped. Rebuild the "
                     "NeighborSpec at the current box, or pass a larger "
                     "min_skin to make_neighbor_spec for NPT runs")
+        raise_on_stale(flags["stale"])
         for key, bad in flags["pme"].items():
             if bad:
                 raise RuntimeError(
@@ -287,7 +374,7 @@ class Context:
         or with lite=True positions, velocities and energies only (one
         total-energy pass)."""
         system, globals = self.system, self.parameters
-        s = self._update_neighbors(self.state)
+        s = update_neighbor_lists(system, self.state)
         aux = make_aux(system, s.extra)
         ke = kinetic_energy(system.masses, s.v)
         if lite:
@@ -403,8 +490,9 @@ class Context:
         self.system = retune_neighbor_specs(
             self.system, self.state.x, self.state.box, safety,
             grow_only=grow_only)
+        # the staleness flags stay: they record what earlier steps missed
         kept = {k: v for k, v in self.state.extra.items()
-                if not k.startswith("nbr")}
+                if not k.startswith("nbr") or k.endswith("stale")}
         state = replace(self.state, extra=kept)
         self.state = state.with_extra(
             **all_neighbor_extras(self.system, state.x, state.box))

@@ -72,19 +72,15 @@ class MonteCarloBarostatPropagator(Propagator):
         buckets built for it; the two flags are device bools."""
         from ..ops.neighbors import (
             all_neighbor_extras,
-            coverage_deficient,
-            iter_specs,
             make_aux,
-            overflow_flags,
+            unhealthy_flags,
         )
 
         no = torch.zeros((), dtype=torch.bool, device=x.device)
         if system.neighbors is None:
             return potential_energy(system, x, box, globals), no, no
         extras = all_neighbor_extras(system, x, box)
-        overflow = torch.stack(list(overflow_flags(extras).values())).any()
-        undercover = torch.stack([coverage_deficient(spec, box)
-                                  for _, spec in iter_specs(system)]).any()
+        overflow, undercover = unhealthy_flags(extras)
         return (potential_energy(system, x, box, globals,
                                  aux=make_aux(system, extras)),
                 overflow, undercover)
@@ -135,7 +131,7 @@ class MonteCarloBarostatPropagator(Propagator):
             BARO_NBAD: state.extra[BARO_NBAD] + trial_bad.to(torch.int32)})
         if system.neighbors is not None:
             updated = update_all_neighbors(system, state.extra, state.x,
-                                           state.box)
+                                           state.box, force=True)
             # a trial rejected for bucket overflow marks the sticky overflow
             # flags, so that Context.step's restore -> retune -> replay
             # gives the move a fair retry; a trial rejected only because

@@ -21,10 +21,14 @@ covers the cutoff would drop pairs, so `coverage_deficient` is tested on
 each barostat trial (an uncovered trial is rejected), at every box a
 Context is given, and at the box each Context.step ends with.
 
-Unlike the JAX package, which rebuilds only when an atom has moved half the
-skin, the port rebuilds at every outer step (JAX's ``force=True`` branch):
-a data-dependent branch in eager PyTorch would stop the host at every step,
-and the forces do not depend on which valid bucket is used.
+Each build stores the positions and box it binned (``nbr_xref``,
+``nbr_boxref``) and whether the stencil covers the cutoff there
+(``nbr_undercover``). Context rebuilds at every outer step by default
+(``update_neighbors(force=True)``): the conditional rebuild of the JAX
+package, a displacement test, costs a host sync per step in eager PyTorch
+unless both branches run, and the forces do not depend on which valid
+bucket is used. Context(neighbor_update_every=K) rebuilds every K steps
+and samples `staleness_flags` after every step in between.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from .pbc import minimum_image
 
 # State.extra keys (the default spec; named specs use nbr_<name>_bucket ...)
 NBR_BUCKET = "nbr_bucket"
+NBR_XREF = "nbr_xref"
+NBR_BOXREF = "nbr_boxref"
 NBR_OVERFLOW = "nbr_overflow"
 
 EXC_OFF = 16     # exclusion bit for relative offset 0 (self)
@@ -47,8 +53,18 @@ EXC_WINDOW = 14  # max |i - j| representable in the exclusion bitmask
 
 def _keys(name: str):
     if name == "default":
-        return NBR_BUCKET, NBR_OVERFLOW
-    return f"nbr_{name}_bucket", f"nbr_{name}_overflow"
+        return NBR_BUCKET, NBR_XREF, NBR_BOXREF, NBR_OVERFLOW
+    return (f"nbr_{name}_bucket", f"nbr_{name}_xref", f"nbr_{name}_boxref",
+            f"nbr_{name}_overflow")
+
+
+def _cover_key(name: str) -> str:
+    return "nbr_undercover" if name == "default" else f"nbr_{name}_undercover"
+
+
+def stale_key(name: str) -> str:
+    """The State.extra key of a spec's sticky staleness flag."""
+    return "nbr_stale" if name == "default" else f"nbr_{name}_stale"
 
 
 def iter_specs(system):
@@ -348,35 +364,51 @@ def build_cell_buckets(spec: NeighborSpec, x, box):
     return bucket[:-1].reshape(ncells, cap), torch.any(~ok)
 
 
-def coverage_deficient(spec: NeighborSpec, box):
-    """The stencil reach does not cover the cutoff at `box`: a bool tensor
-    on the device of `box`, read without a sync. Only dims where the
-    stencil does not wrap the whole grid count: along a wrapping dim every
-    cell pair is a candidate whatever the cell width."""
+def _covered(spec: NeighborSpec, box):
+    """The distance the stencil covers along each dim at `box` (reach cell
+    widths), infinite along a dim where the stencil wraps the whole grid:
+    there every cell pair is a candidate whatever the cell width."""
     box = torch.as_tensor(box)
-    # the reach in box lengths, infinite along a wrapping dim
     reach = torch.as_tensor(
         [r / g if 2 * r + 1 < g else math.inf
          for g, r in zip(spec.grid, spec.reach)],
         dtype=box.dtype, device=box.device)
-    return torch.any(box * reach < spec.r_build - spec.skin)
+    return box * reach
+
+
+def coverage_deficient(spec: NeighborSpec, box):
+    """The stencil reach does not cover the cutoff at `box`: a bool tensor
+    on the device of `box`, read without a sync. Only dims where the
+    stencil does not wrap the whole grid count."""
+    return torch.any(_covered(spec, box) < spec.r_build - spec.skin)
+
+
+def effective_skin(spec: NeighborSpec, box):
+    """The displacement margin the grid leaves at `box` (a 0-d tensor):
+    spec.skin, the margin at the setup box, shrunk to what the stencil's
+    reach still covers beyond the cutoff (0 at the coverage boundary).
+    After an NPT compression the setup skin would overstate it, and the
+    rebuild test and the staleness guard would miss pairs in between.
+    Orthorhombic boxes only (triclinic boxes are ROADMAP item 12)."""
+    margin = torch.min(_covered(spec, box)) - (spec.r_build - spec.skin)
+    return torch.clamp(torch.clamp(margin, min=0.0), max=spec.skin)
 
 
 def moved_beyond_half_skin(skin, xref, boxref, x, box, fraction=0.5):
     """Some atom moved more than `fraction` * skin since the reference
-    build xref, or the box changed (a device bool). The rebuild predicate of
-    the JAX package's neighbor backends; the port's cell lists rebuild at
-    every outer step instead, the tile-pair list reads it."""
+    build xref, or the box changed (a device bool): the rebuild predicate
+    shared by the cell lists (needs_rebuild) and the tile-pair list."""
     disp = minimum_image(x - xref, box)
     moved = torch.max(torch.sum(disp * disp, dim=-1)) > (
-        fraction * float(skin)) ** 2
+        fraction * torch.as_tensor(skin, dtype=x.dtype)) ** 2
     return moved | torch.any(box != boxref)
 
 
 def neighbor_list_extras(spec, x, box, name: str = "default") -> Dict[str, torch.Tensor]:
-    kb, kov = _keys(name)
+    kb, kx, kbox, kov = _keys(name)
     bucket, overflow = build_cell_buckets(spec, x, box)
-    return {kb: bucket, kov: overflow}
+    return {kb: bucket, kx: x, kbox: box, kov: overflow,
+            _cover_key(name): coverage_deficient(spec, box)}
 
 
 def all_neighbor_extras(system, x, box) -> Dict[str, torch.Tensor]:
@@ -392,6 +424,43 @@ def overflow_flags(extra) -> Dict[str, torch.Tensor]:
             if k.startswith("nbr") and k.endswith("overflow")}
 
 
+def unhealthy_flags(extras: Dict[str, torch.Tensor],
+                    kinds=("overflow", "undercover")):
+    """One device bool per kind of health flag in `extras`: the OR of its
+    '*_overflow' (or '*_undercover', ...) entries, False where there are
+    none, so that a consumer (the barostat's trial) need not match key
+    names itself."""
+    dev = next((v.device for v in extras.values()
+                if isinstance(v, torch.Tensor)), None)
+    out = []
+    for kind in kinds:
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        for k, v in extras.items():
+            if k.endswith(kind):
+                flag = flag | v
+        out.append(flag)
+    return tuple(out)
+
+
+def assert_neighbor_health(extras: Dict[str, torch.Tensor]) -> None:
+    """Raise if a neighbor list in `extras` overflowed its cell capacity or
+    its stencil undercovers the cutoff. Context.step recovers from these
+    itself; a caller that builds extras by hand (all_neighbor_extras, then
+    make_aux) should call this before trusting an energy. One host read of
+    the flags."""
+    keys = [k for k in extras
+            if k.endswith("overflow") or k.endswith("undercover")]
+    values = (torch.stack([extras[k].reshape(()) for k in keys]).tolist()
+              if keys else [])
+    bad = [k for k, v in zip(keys, values) if v]
+    if bad:
+        raise RuntimeError(
+            f"neighbor list unhealthy: {bad}: a cell capacity overflow drops "
+            "pairs and an undercovering stencil misses cells; rebuild the "
+            "spec with a larger capacity (retune_neighbor_specs) or a finer "
+            "grid before trusting energies")
+
+
 def make_aux(system, extra):
     """The aux dict passed to force evaluations: for each attached neighbor
     spec, its spec and current bucket. None when no neighbor path exists."""
@@ -403,19 +472,77 @@ def make_aux(system, extra):
     return aux or None
 
 
-def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default"):
-    """Re-bin unconditionally (JAX's ``force=True`` branch). The overflow
-    flag is sticky: it ORs across rebuilds."""
-    kb, kov = _keys(name)
+def staleness_flags(system, extra, x, box):
+    """Sticky per-spec flags ({stale_key(name): device bool}): pairs may
+    have been missed since the reference build. Sampled after every outer
+    step between grouped rebuilds (Context(neighbor_update_every=K)).
+
+    A pair absent at the build can have closed by at most d_i + d_j, so
+    none can have entered the cutoff while the two largest displacements
+    of distinct atoms sum to no more than the effective skin; a single
+    atom falls back to 2 max d. A changed box is stale too."""
+    out = {}
+    for name, spec in iter_specs(system):
+        _, kx, kbox, _ = _keys(name)
+        if kx not in extra:
+            continue
+        key = stale_key(name)
+        prev = extra.get(key, torch.zeros((), dtype=torch.bool,
+                                          device=x.device))
+        disp = minimum_image(x - extra[kx], box)
+        d2 = torch.sum(disp * disp, dim=-1)
+        if d2.shape[0] >= 2:
+            top2 = torch.sqrt(torch.topk(d2, 2).values)
+            pair_close = top2[0] + top2[1]
+        else:
+            pair_close = 2.0 * torch.sqrt(torch.max(d2))
+        stale = (pair_close > effective_skin(spec, box).to(x.dtype)) \
+            | torch.any(box != extra[kbox])
+        out[key] = prev | stale
+    return out
+
+
+def needs_rebuild(spec: NeighborSpec, extra, x, box, name: str = "default"):
+    """Some atom moved more than half the effective skin since the
+    reference build, or the box changed (a device bool)."""
+    _, kx, kbox, _ = _keys(name)
+    return moved_beyond_half_skin(effective_skin(spec, box), extra[kx],
+                                  extra[kbox], x, box)
+
+
+def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default",
+                     force: bool = False):
+    """Re-bin, and store x and box as the new reference. force=True
+    rebuilds unconditionally, as Context does after every outer step and
+    at the boundaries of grouped updates; otherwise the rebuilt entries
+    replace the kept ones where needs_rebuild holds, chosen by torch.where
+    on the device (no host sync: the rebuild is paid either way). The
+    overflow and coverage flags are sticky: they OR across rebuilds."""
+    keys = _keys(name) + (_cover_key(name),)
+    kb, kx, kbox, kov, kcv = keys
+    cover_prev = extra.get(kcv, torch.zeros((), dtype=torch.bool,
+                                            device=x.device))
     bucket, overflow = build_cell_buckets(spec, x, box)
-    return {kb: bucket, kov: extra[kov] | overflow}
+    rebuilt = (bucket, x, box, extra[kov] | overflow,
+               cover_prev | coverage_deficient(spec, box))
+    if force:
+        return dict(zip(keys, rebuilt))
+    need = needs_rebuild(spec, extra, x, box, name)
+    kept = (extra[kb], extra[kx], extra[kbox], extra[kov], cover_prev)
+    return {k: torch.where(need, new, old)
+            for k, new, old in zip(keys, rebuilt, kept)}
 
 
-def update_all_neighbors(system, extra, x, box):
+def update_all_neighbors(system, extra, x, box, force: bool = False):
+    """update_neighbors for every spec of `system` whose bucket `extra`
+    holds. The signature is the JAX package's; every caller in the port
+    (Context's loops, the barostat) passes force=True, and force=False,
+    the device-side select, has no production caller yet."""
     out = {}
     for name, spec in iter_specs(system):
         if _keys(name)[0] in extra:
-            out.update(update_neighbors(spec, extra, x, box, name))
+            out.update(update_neighbors(spec, extra, x, box, name,
+                                        force=force))
     return out
 
 

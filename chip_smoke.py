@@ -51,7 +51,13 @@ non-zero:
      the solute-solute LJ term (zero charges) on both, the softcore form on
      K3 (path (e)'s tile list); after path
      (e), K1 and K2 (full stencil, same grid) at lambda 0, 0.05, 0.5 and 1
-     at a configuration sampled at lambda_vdw = 0;
+     at a configuration sampled at lambda_vdw = 0; the softcore float32
+     energies are held to 1e-4 of the sum of the per-atom energy
+     magnitudes (a sampled total can near-cancel);
+   - K1's float32 energy error in the reaction-field form, localised at
+     the 30k far grid and at path (f)'s far and near grids: K1's and K2's
+     per-atom rows against their float64 twins on one bucket, their
+     float32 sums and a float64 sum of the same rows (logged, not held);
    - the virial flag (each pair's -2 r^2 du/dr^2 = d . F in the energy
      column, the forces unchanged; the summed column held to the tolerance
      of sum |w_i| over the atoms, in float32 of the unsplit form's under
@@ -88,7 +94,12 @@ non-zero:
    3^3) and at 0.9 nm (K2, 1^3), on SHAKE/RATTLE (analytic=False) 5 steps
    at 0.5 nm, HMR x3 + RESPASystem(0.45, 0.4) + RESPA [1, 4, 1] @ 16 fs +
    NHC 5 outer steps (K2 far, K1 near), TIP4P/Ew 10 steps at 0.5 nm and
-   LangevinMiddle at friction 0, 5 steps: x and v to 1e-9 relative;
+   LangevinMiddle at friction 0, 5 steps: x and v to 1e-9 relative; then
+   replica exchange: phenol + 60 waters (K2, 2^3), 4 replicas on
+   coupling_path, friction 0, velocities from numpy,
+   neighbor_update_every=4, 12 steps and one swap with pinned uniforms:
+   x, v and box to 1e-9 relative, the swap energies to 1e-10, the same
+   accept mask;
 5. main path: the 30k-atom q-SPC/Fw water RESPA [4, 2, 1] @ 4 fs NVT
    headline from bench_data/eq_water30k.npz in float32: step(1), then a
    timed step(100); checks finiteness, K1's launch count (3 per outer
@@ -179,6 +190,17 @@ non-zero:
    4,096 impropers: energy and forces on the card against the float64
    CPU (float64 1e-12, float32 1e-4 of the energy and of max|F|), then
    each force's float32 call timed (CUDA events, device operations);
+   path (i): BASELINE config 3b at bench_hrex's shape (phenol + 1,000
+   waters, skin 0.2, 3^3, SolvationSystem, 16 states on coupling_path,
+   VV + OU 300 K 5/ps @ 1 fs, float32): a 200-step melt at the coupled
+   state, a sequential Context timed over 100 steps at
+   neighbor_update_every=5 and at 1, then HREXSampler(
+   neighbor_update_every=5, seed=3): a warm chunk and swap, then 4 x
+   (25 steps + attempt_swaps()) timed by CUDA events; checks no
+   staleness or overflow flag (run() raises), each row's mean T 260-340
+   K, the attempts exactly the eligible pairs, the acceptance in [0, 1],
+   the K1 launches (3 a replica step + 3 a replica a run + 12 an
+   eligible pair of a swap) and the rebuilds (1 a run + 1 a group);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -533,6 +555,64 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
                        + (form_name(form),))
 
 
+def rf_rows(label, force, spec, x, box, dev):
+    """Where K1's float32 energy error arises, in one force's energy form at
+    one grid: K1's and K2's float32 per-atom energy rows on the same bucket
+    against their float64 plain twins (the same float32 inputs), and K1's
+    plain twin run in float32 ("twin32") against the same float64 twin:
+    max and RMS of the row errors, the float32 sum the wrappers take (the
+    energy), and a float64 sum of the same float32 rows. Row errors in both
+    kernels point at the per-slot arithmetic they share
+    (csrc/pair_forms.cuh), row errors in K1 alone at its atomics, and a
+    float32 sum worse than the float64 sum of its rows at the final
+    reduction; the float32 twin's rows err as the kernels' do when the
+    error is the form's own float32 rounding (its constants, rsqrt), not
+    the kernels'. Logs one line; returns {name: (row max, row rms, f32 sum
+    rel, f64-summed rows rel, f32 sum, twin sum, f64 sum of the f32
+    rows)}."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    spec = to_device(spec, dev)
+    form = force._pair_form()
+    f32, f64 = torch.float32, torch.float64
+    x32, b32 = x.to(dev, f32).contiguous(), box.to(dev, f32)
+    pp32 = {k: v.to(dev, f32) for k, v in force._per_particle().items()}
+    bucket, overflow = nb.build_cell_buckets(spec, x32, b32)
+    if bool(overflow):
+        raise RuntimeError(f"{label}: bucket overflow")
+    pp64 = {k: v.to(f64) for k, v in pp32.items()}
+    out, parts = {}, []
+    def twin32(*args):
+        return pk.half_pair_plain(*args, with_forces=False)
+
+    for kernel, run, plain in (("K1", pk.half_pair_cuda, pk.half_pair_plain),
+                               ("K2", pk.full_pair_cuda, pk.full_pair_plain),
+                               ("twin32", twin32, pk.half_pair_plain)):
+        rows = run(x32, pp32, bucket, spec, b32, form, form.r_cut)[:, 3]
+        ref = plain(x32.to(f64), pp64, bucket, spec, b32.to(f64), form,
+                    form.r_cut, with_forces=False)[:, 3]
+        d = rows.to(f64) - ref
+        e64 = float(ref.sum())
+        e32 = float(rows.sum())
+        e32_64 = float(rows.to(f64).sum())
+        out[kernel] = (float(d.abs().max()), float(d.pow(2).mean().sqrt()),
+                       abs(e32 - e64) / abs(e64), abs(e32_64 - e64) / abs(e64),
+                       e32, e64, e32_64)
+        parts.append(
+            f"{kernel}: rows max|de| {out[kernel][0]:.3e} rms "
+            f"{out[kernel][1]:.3e} kJ/mol (rms |e_i| "
+            f"{float(ref.pow(2).mean().sqrt()):.4g}), float32 sum "
+            f"{e32:.10g} (rel {out[kernel][2]:.2e}), float64 sum of the "
+            f"float32 rows {e32_64:.10g} (rel {out[kernel][3]:.2e}), twin "
+            f"{e64:.10g}")
+    log(f"K1 float32 energy error localised, {label} grid {spec.grid[0]}^3 "
+        f"cap {spec.cell_capacity}: " + "; ".join(parts))
+    return out
+
+
 def permuted(force, x, box, r_cut):
     """The nonbonded force, its spec and positions with the atoms renumbered
     by a fixed permutation: excluded pairs lie far more than +-14 indices
@@ -617,6 +697,7 @@ def phase_kernels(dev, eq):
     compare("water30k near", r.forces[1], r.extra_neighbor_specs["near"], xe,
             be, dev, results)
     compare("water30k far", r.forces[2], r.neighbors, xe, be, dev, results)
+    rf_rows("water30k far", r.forces[2], r.neighbors, xe, be, dev)
     s, x, box = argon_system(n=1728, jitter=0.1, seed=3, neighbors=True,
                              dtype=f64, device="cpu")
     face_crossing("half_pair argon1728", s, x, box, dev)
@@ -1635,11 +1716,15 @@ def softcore_of(system):
 
 
 def compare_softcore(tag, soft, spec, x, box, dev, results, lambdas=LAMBDAS):
-    """The softcore form and its dlambda twin at each lambda (see compare)."""
+    """The softcore form and its dlambda twin at each lambda (see compare).
+    The float32 energy is held to the tolerance of the sum of |e_i| over
+    the atoms: at a sampled configuration the total can near-cancel (-0.0086
+    kJ/mol of terms summing to hundreds at lambda 0.5)."""
     for lam in lambdas:
         for dlambda in (False, True):
             compare(f"{tag} softcore{' dlambda' if dlambda else ''} lambda "
                     f"{lam:g}", soft, spec, x, box, dev, results,
+                    terms_scale=True,
                     form=soft._pair_form({"lambda_vdw": lam},
                                          dlambda=dlambda))
 
@@ -2076,6 +2161,34 @@ def phase_npt(dev, eq100, method="cutoff", settle=100, calls=8,
     respa, x, v, box = npt_water(dev, method, eq100)
     n = respa.num_particles
     kernel_checks = compare_npt(dev, respa, x, box, method)
+    if method == "cutoff":
+        near_f, far_f = pair_forces(respa)
+        far_r = rf_rows("water100k far", far_f, respa.neighbors, x, box, dev)
+        near_r = rf_rows("water100k near", near_f,
+                         respa.extra_neighbor_specs["near"], x, box, dev)
+        full_r = rf_rows("water100k unsplit (far grid)", far_f.full,
+                         respa.neighbors, x, box, dev)
+        # the split's float32 errors against their sum, and the unsplit
+        # form's own on the far grid
+        parts = []
+        for k in ("K1", "K2", "twin32"):
+            d_far, d_near, d_full = (r[k][4] - r[k][5]
+                                     for r in (far_r, near_r, full_r))
+            whole = far_r[k][5] + near_r[k][5]
+            parts.append(f"{k} {d_far:+.4f} + {d_near:+.4f} = "
+                         f"{d_far + d_near:+.4f} kJ/mol (rel "
+                         f"{abs(d_far + d_near) / abs(whole):.2e}), unsplit "
+                         f"{d_full:+.4f} (rel "
+                         f"{abs(d_full) / abs(full_r[k][5]):.2e})")
+        log("K1 float32 energy error, water100k far + near and unsplit: "
+            + "; ".join(parts))
+        # the kernels round each pair as the float32 twin does (no FMA
+        # contraction): their rows, summed in float64, give the twin's
+        # energy to 1e-7 of |E| (contracted, 4e-6 near and 2.3e-5 far)
+        require("K1/K2 float32 RF energy against the float32 twin", {
+            f"{k} {g}": abs(r[k][6] - r["twin32"][6]) <= 1e-7 * abs(r[k][5])
+            for g, r in (("far", far_r), ("near", near_r), ("unsplit", full_r))
+            for k in ("K1", "K2")})
     integ = amm.MultipleTimeScaleIntegrator(
         dt, loops, temperature=300.0, time_scale=0.1,
         degrees_of_freedom=3 * 3 * NPT_N_MOLECULES - 3)
@@ -2235,7 +2348,8 @@ def phase_npt_split(dev, run, name):
                 x, box, full.charge, full.exclusions,
                 float(full.ewald_alpha))), calls[2])
     parts["bucket rebuilds (2 grids)"] = (wall_ms(
-        lambda: nb.update_all_neighbors(respa, st.extra, x, box)), 1)
+        lambda: nb.update_all_neighbors(respa, st.extra, x, box,
+                                        force=True)), 1)
     split_log(name, run["ms_per_step"], parts, "integrator, NHC, flags, "
               f"Python; the volume move every {NPT_FREQUENCY} steps")
     prop = ctx._barostat
@@ -2259,7 +2373,7 @@ def phase_npt_split(dev, run, name):
                                      aux=trial_aux)),
         "rebuild + cache refresh": wall_ms(lambda: refresh_force_caches(
             respa, st.with_extra(**nb.update_all_neighbors(
-                respa, st.extra, x, box)), g)),
+                respa, st.extra, x, box, force=True)), g)),
     }
     rest = move["whole attempt"] - sum(
         v for k, v in move.items() if k != "whole attempt")
@@ -2911,7 +3025,7 @@ def phase_rigid_timings(dev, g1, g2, g3):
         "settle_positions": (wall_ms(ops["settle_positions"]), 1),
         "settle_velocities": (wall_ms(ops["settle_velocities"]), 2),
         "bucket rebuild": (wall_ms(lambda: nb.update_all_neighbors(
-            s, st.extra, x, st.box)), 1),
+            s, st.extra, x, st.box, force=True)), 1),
     }
     split_log("path (g1)", g1["ms_per_step"], parts,
               "NHC, kicks, drift, Python")
@@ -2931,7 +3045,7 @@ def phase_rigid_timings(dev, g1, g2, g3):
         "settle_velocities": (wall_ms(lambda: settle_velocities(
             s2.settle, x2, st2.v, s2.masses)), 18),
         "bucket rebuilds (2 grids)": (wall_ms(lambda: nb.update_all_neighbors(
-            s2, st2.extra, x2, st2.box)), 1),
+            s2, st2.extra, x2, st2.box, force=True)), 1),
     }
     split_log("path (g2)", g2["ms_per_step"], parts,
               "NHC, kicks, drifts, Python")
@@ -3342,7 +3456,7 @@ def phase_swm4_timings(dev, h1, h2):
                 s.settle, x, v, m)), 4),
             bath_label: (wall_ms(lambda: bath.apply(bare, st, 0.5)), 2),
             "bucket rebuild": (wall_ms(lambda: nb.update_all_neighbors(
-                s, st.extra, x, box)), 1),
+                s, st.extra, x, box, force=True)), 1),
         })
         return parts
 
@@ -3366,6 +3480,262 @@ def phase_swm4_timings(dev, h1, h2):
         "included): " + ", ".join(
             f"({k}) {out[f'{k}_ops_per_step']:.1f}" for k in ("h1", "h2")))
     return out
+
+
+def swap_eligible(k_states, parity):
+    """Pairs (i, i + 1) an exchange attempt of this parity tries."""
+    return len(range(parity, k_states - 1, 2))
+
+
+def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
+    """Path (i): BASELINE config 3b at bench_hrex's shape (phenol + 1,000
+    waters, 2,941 atoms, skin 0.2 on the 3^3 grid, SolvationSystem,
+    coupling_path over 16 states, velocity Verlet + OU at 300 K, 5/ps, 1
+    fs, float32). A Context melts the builder's lattice at the coupled
+    state, 200 steps at K = 1 (4 chunks of 50, each followed by a rescale
+    to 300 K); the sequential comparator, a Context at
+    neighbor_update_every=5, and the same state at K = 1 each time 100
+    steps; then HREXSampler(neighbor_update_every=5, seed=3) runs one warm
+    chunk and swap, then `reps` chunks of `chunk` steps, each followed by
+    attempt_swaps(), timed with CUDA events (replica steps and swaps
+    apart). Checks: no staleness or overflow flag in any replica (run()
+    raises), each row's mean T 260-340 K, the attempts exactly the
+    eligible pairs, the acceptance in [0, 1], K1's launches exactly as
+    derived: 3 a replica step (the scaled NonbondedForce, the softcore
+    force, the solute-solute term), 3 a replica at each run() (its force
+    caches under its row), 3 for each of the 4 energies of an eligible
+    pair in a swap. Then K1 is held against its plain twin (compare) at
+    path (i)'s own bucket, at the replicas of lambda 0 and 1 and those
+    of the lambda_vdw and the lambda_coul nearest 0.5, in the three forms
+    a replica step sweeps."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.alchemy import coupling_path
+    from atomsmm_tpu_torch.models import phenol_in_water
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.parallel import HREXSampler
+    from atomsmm_tpu_torch.state import kinetic_energy
+    from atomsmm_tpu_torch.units import BOLTZMANN
+    from atomsmm_tpu_torch.utils import count_degrees_of_freedom
+
+    f32, temp = torch.float32, 300.0
+    base, x, box, solute = phenol_in_water(n_water=1000, neighbors=True,
+                                           skin=0.2, dtype=f32, device=dev)
+    solv = amm.SolvationSystem(base, solute)
+    spec = solv.neighbors
+    if not (spec.half_stencil and spec.grid == (3, 3, 3)):
+        raise RuntimeError(f"path (i): expected a 3^3 half-stencil grid, got "
+                           f"{spec.grid}")
+    lams = coupling_path(torch.linspace(0.0, 1.0, k_states,
+                                        dtype=torch.float64))
+
+    def integrator():
+        return amm.GlobalThermostatIntegrator(
+            0.001, amm.VelocityVerletPropagator(),
+            amm.OrnsteinUhlenbeckPropagator(temp, 5.0))
+
+    def coupled(ctx):
+        ctx.set_parameter("lambda_vdw", 1.0)
+        ctx.set_parameter("lambda_coul", 1.0)
+        return ctx
+
+    warm = coupled(amm.Context(solv, integrator(),
+                               amm.make_state(x, box=box, seed=1)))
+    warm.set_velocities_to_temperature(temp, seed=2)
+    for _ in range(4):
+        warm.step(50)
+        t_now = float(warm.temperature())
+        if not t_now == t_now or t_now > 5000.0:
+            raise RuntimeError(f"path (i) melt diverged (T {t_now} K)")
+        warm.set_velocities((temp / t_now) ** 0.5 * warm.state.v)
+    run_sys = warm.system
+    xw, vw = warm.state.x.clone(), warm.state.v.clone()
+
+    seq = {}
+    steps = chunk * reps
+    for k_upd in (update_every, 1):
+        ctx = coupled(amm.Context(run_sys, integrator(),
+                                  amm.make_state(xw, v=vw, box=box, seed=1),
+                                  neighbor_update_every=k_upd))
+        ctx.step(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.step(steps)
+        torch.cuda.synchronize()
+        seq[k_upd] = steps / (time.perf_counter() - t0)
+
+    sampler = HREXSampler(run_sys, xw, box, lams, temp, dt=0.001, seed=3,
+                          neighbor_update_every=update_every)
+    sampler.run(chunk)
+    sampler.attempt_swaps()
+    torch.cuda.synchronize()
+    dof = count_degrees_of_freedom(run_sys)
+    masses = run_sys.masses
+    att0, acc0 = sampler.swap_attempts, sampler.swap_accepts
+    rebuilds = [0]
+    real_build = nb.build_cell_buckets
+
+    def counting_build(*args):
+        rebuilds[0] += 1
+        return real_build(*args)
+
+    nb.build_cell_buckets = counting_build
+    pk.reset_launches()
+    eligible, run_ms, swap_ms, t_rows = 0, [], [], []
+    try:
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            eligible += swap_eligible(k_states, sampler._parity)
+            ev[0].record()
+            sampler.run(chunk)
+            ev[1].record()
+            sampler.attempt_swaps()
+            ev[2].record()
+            torch.cuda.synchronize()
+            run_ms.append(ev[0].elapsed_time(ev[1]))
+            swap_ms.append(ev[1].elapsed_time(ev[2]))
+            t_rows.append(torch.stack([
+                2.0 * kinetic_energy(masses, s.v) / (dof * BOLTZMANN)
+                for s in sampler.states]))
+    finally:
+        nb.build_cell_buckets = real_build
+    launches = dict(pk.LAUNCHES)
+    expected = {"half_pair": reps * k_states * 3 * (chunk + 1)
+                + 3 * 4 * eligible, "cell_pair": 0, "tile_pair": 0}
+    rebuilds_derived = reps * k_states * (1 + chunk // update_every
+                                          + chunk % update_every)
+    t_mean = torch.stack(t_rows).mean(0).tolist()
+    total_s = (sum(run_ms) + sum(swap_ms)) / 1e3
+    batch = k_states * steps / total_s
+    att, acc = sampler.swap_attempts - att0, sampler.swap_accepts - acc0
+    step_ms = sum(run_ms) / (reps * k_states * chunk)
+    rebuild_ms = wall_ms(lambda: nb.update_all_neighbors(
+        run_sys, sampler.states[0].extra, sampler.states[0].x, box,
+        force=True))
+    log(f"path (i) HREX phenol+1000w ({run_sys.num_particles} atoms, grid "
+        f"{spec.grid} cap {run_sys.neighbors.cell_capacity}, skin "
+        f"{spec.skin:.3f} nm) x {k_states} states, neighbor_update_every "
+        f"{update_every}, VV+OU 1 fs float32 on {smi_line()}: "
+        f"{batch:.2f} state-steps/s over {reps} x ({chunk} steps + a swap) "
+        f"(CUDA events, {total_s:.3f} s); sequential Context "
+        f"{seq[update_every]:.2f} steps/s at K = {update_every}, "
+        f"{seq[1]:.2f} at K = 1 (host clock, {steps} steps); batch / "
+        f"sequential {batch / seq[update_every]:.4f} (K = {update_every}), "
+        f"K = {update_every} / K = 1 {seq[update_every] / seq[1]:.4f}")
+    log(f"path (i) split: replica steps {sum(run_ms):.3f} ms "
+        f"({step_ms:.4f} ms a replica step, {run_ms}), swaps "
+        f"{sum(swap_ms):.3f} ms ({sum(swap_ms) / reps:.3f} ms an attempt, "
+        f"{swap_ms}; {100 * sum(swap_ms) / (sum(run_ms) + sum(swap_ms)):.2f}"
+        f"% of the run), rebuilds {rebuilds[0] / k_states:.1f} a replica "
+        f"(derived {rebuilds_derived / k_states:.1f}) at {rebuild_ms:.4f} "
+        f"ms each (one synchronised, host clock) = "
+        f"{100 * rebuilds[0] * rebuild_ms / (sum(run_ms) + sum(swap_ms)):.2f}"
+        f"% of the run")
+    log(f"path (i) swaps: {att} attempts ({eligible} eligible pairs), {acc} "
+        f"accepted, acceptance {acc / att:.4f} (all: "
+        f"{sampler.acceptance_rate:.4f} of {sampler.swap_attempts}); mean T "
+        f"per row {[round(t, 2) for t in t_mean]} K; launches {launches} "
+        f"(expected {expected})")
+    checks = {
+        "finite": bool(torch.isfinite(sampler.positions()).all()),
+        "temperature": all(260.0 <= t <= 340.0 for t in t_mean),
+        "attempts": att == eligible,
+        "acceptance": 0.0 <= acc / att <= 1.0,
+        "launches": launches == expected,
+        "rebuilds": rebuilds[0] == rebuilds_derived,
+    }
+    require("path (i)", checks)
+    # K1 against its plain twin at path (i)'s own bucket (the cap the melt
+    # retuned to), at the replicas of lambda 0, of the lambda_vdw and the
+    # lambda_coul nearest 0.5, and of lambda 1, in the three forms a
+    # replica step sweeps; these launches are not counted
+    kernel_checks = []
+    cap = run_sys.neighbors.cell_capacity
+    soft = softcore_of(run_sys)
+    ladder = sampler._globals(sampler.lambdas)
+    mids = [min(range(k_states), key=lambda k: abs(ladder[n][k] - 0.5))
+            for n in ("lambda_vdw", "lambda_coul")]
+    for k in sorted({0, *mids, k_states - 1}):
+        st, row = sampler.states[k], {n: v[k] for n, v in ladder.items()}
+        tag = (f"path (i) replica {k} (lambda_vdw {row['lambda_vdw']:.4g}, "
+               f"lambda_coul {row['lambda_coul']:.4g}) grid 3^3 cap {cap}")
+        compare(f"{tag} cutoff-RF scaled", run_sys.forces[0],
+                run_sys.neighbors, st.x, st.box, dev, kernel_checks,
+                globals=row)
+        compare_softcore(tag, soft, run_sys.neighbors, st.x, st.box, dev,
+                         kernel_checks, lambdas=(row["lambda_vdw"],))
+        compare(f"{tag} solute-solute LJ", run_sys.forces[-1],
+                run_sys.neighbors, st.x, st.box, dev, kernel_checks,
+                terms_scale=True)
+    return {"launches": launches, "kernel_checks": kernel_checks,
+            "state_steps_per_s": batch,
+            "seq_steps_per_s": seq, "swap_ms": sum(swap_ms) / reps,
+            "step_ms": step_ms, "rebuild_ms": rebuild_ms,
+            "acceptance": acc / att, "t_rows": t_mean}
+
+
+def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
+    """Replica exchange in float64, the card against the CPU: phenol + 60
+    waters at 0.5 nm (tests/test_torch_hrex.py's fixture, K2 on its 2^3
+    grid), 4 replicas on coupling_path, the bath at friction 0 and the
+    velocities from numpy (no draw enters), neighbor_update_every=4, 12
+    steps, then one exchange attempt with the uniforms pinned from numpy:
+    x, v and box to 1e-9 relative, the swap energies to 1e-10 relative,
+    the same accept mask."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.alchemy import coupling_path
+    from atomsmm_tpu_torch.models import phenol_in_water
+    from atomsmm_tpu_torch.parallel import HREXSampler
+    from atomsmm_tpu_torch.utils import replace
+
+    f64 = torch.float64
+    u = np.random.RandomState(4).uniform(size=k_states)
+    runs = []
+    for device in ("cpu", dev):
+        base, x, box, solute = phenol_in_water(
+            n_water=60, r_cut=0.5, r_switch=0.42, seed=5, neighbors=True,
+            dtype=f64, device=device)
+        solv = amm.SolvationSystem(base, solute)
+        m = solv.masses.cpu().numpy()
+        v = np.random.RandomState(9).normal(size=(k_states,) + x.shape) \
+            * np.sqrt(amm.units.BOLTZMANN * 300.0 / m)[None, :, None]
+        sampler = HREXSampler(
+            solv, x, box, coupling_path(torch.linspace(0.0, 1.0, k_states,
+                                                       dtype=f64)),
+            300.0, dt=0.0005, friction=0.0, seed=3,
+            neighbor_update_every=update_every)
+        sampler.states = [replace(s, v=torch.as_tensor(v[i], device=device))
+                          for i, s in enumerate(sampler.states)]
+        sampler.run(steps)
+        before = sampler.positions().clone()
+        _, energies, _ = sampler._swap.deltas(
+            sampler.states, sampler._globals(sampler.lambdas), 0)
+        sampler._swap._uniforms = lambda key, k, like: torch.as_tensor(
+            u, dtype=like.dtype, device=like.device)
+        sampler.attempt_swaps()
+        moved = [not torch.equal(a, b)
+                 for a, b in zip(before, sampler.positions())]
+        runs.append((sampler.positions().cpu(),
+                     torch.stack([s.v for s in sampler.states]).cpu(),
+                     torch.stack([s.box for s in sampler.states]).cpu(),
+                     energies.cpu(), moved, solv.neighbors.grid))
+    (xc, vc, bc, ec, mc, grid), (xg, vg, bg, eg, mg, _) = runs
+    md_err = max(float((a - b).abs().max()) / float(a.abs().max())
+                 for a, b in ((xc, xg), (vc, vg), (bc, bg)))
+    e_err = float(((eg - ec).abs() / ec.abs()).max())
+    log(f"slice hrex phenol60w float64 card vs CPU ({k_states} replicas, "
+        f"grid {grid}, neighbor_update_every {update_every}, {steps} steps, "
+        f"friction 0): x, v, box max rel diff {md_err:.2e}; swap energies "
+        f"{[round(float(e), 6) for e in eg.reshape(-1)]} max rel diff "
+        f"{e_err:.2e}; accept mask (rows moved) card {mg}, CPU {mc}")
+    if not (md_err < 1e-9 and e_err < 1e-10 and mg == mc):
+        raise RuntimeError("the replica-exchange slice on the card departs "
+                           "from the CPU run")
 
 
 def split_log(name, step_ms, parts, rest_of):
@@ -3415,6 +3785,7 @@ def main():
     phase_slice_alchemy(dev)
     phase_slice_npt(dev)
     phase_slice_rigid(dev)
+    phase_slice_hrex(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
@@ -3431,10 +3802,11 @@ def main():
     h1 = phase_swm4(dev)
     h2 = phase_swm4_scf(dev, h1)
     phase_cmap(dev)
+    hrex = phase_hrex(dev)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
-                + phase_kernels_swm4(dev, h1))
+                + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
@@ -3473,6 +3845,7 @@ def main():
         "path_g3": g3["launches"],
         "path_h1": h1["launches"],
         "path_h2": h2["launches"],
+        "path_i": hrex["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -3556,6 +3929,8 @@ def main():
     k1.update({"path_h_ms": t["ms"], "path_h_plain_ms": t["plain_ms"],
                "path_h_bound_ms": t["bound"]["ms"],
                "path_h_bound_by": t["bound"]["by"]})
+    # path (i): K1's float32 error against the plain twin at its own bucket
+    k1["path_i_max_abs_err"] = f32_err("half_pair", "path (i)")
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

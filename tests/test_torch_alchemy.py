@@ -567,9 +567,12 @@ def test_custom_bond_force_matches_jax():
 
 
 def test_hrex_is_not_ported(solvated):
+    """Replica exchange on one card is ported (tests/test_torch_hrex.py);
+    its device mesh is not, and raises naming the item."""
     _, tsv, _, tx, _, tb, _, _ = solvated
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        talch.solvation_free_energy(tsv, tx, tb, [0.0, 1.0], 300.0, hrex=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+        talch.solvation_free_energy(tsv, tx, tb, [0.0, 1.0], 300.0,
+                                    hrex=True, mesh=object())
 
 
 @pytest.mark.slow

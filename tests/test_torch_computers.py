@@ -12,9 +12,12 @@ Systems: water 216 (reaction field and PME with the dispersion tail, whole
 and under RESPASystem, i.e. the fused far form), the emim_bf4_24 ionic
 liquid (torsions, 1-4 exceptions, PME) at its minimized state, and phenol
 in 60 waters under SolvationSystem at lambda_vdw = lambda_coul = 0.5
-(softcore, scaled charges). Positions are jittered from the models'
-lattices and velocities drawn from one numpy seed, the same numbers in
-both packages.
+(softcore, scaled charges), and 64 waters at 0.55 nm held rigid: TIP4P/Ew
+(its M site a virtual site, reaction field and PME), TIP3P on SETTLE and
+polarizable SWM4-NDP (Drudes, M sites). Positions are jittered from the
+models' lattices (the rigid waters keep their builders' geometry, only the
+Drudes move off their cores) and velocities drawn from one numpy seed,
+the same numbers in both packages.
 
 Tolerances: rtol 1e-10 with atol 1e-8 (kJ/mol, or bar for the pressures);
 the virial form of every built-in PairForm against torch autograd of
@@ -44,7 +47,10 @@ QUANTITIES = ("atomic_virial", "molecular_virial", "atomic_pressure",
               "molecular_pressure", "molecular_kinetic_energy",
               "coulomb_energy")
 CASES = ("water216_rf", "water216_pme", "water216_rf_respa",
-         "water216_pme_respa", "emim_bf4_24", "phenol60w_lambda_0.5")
+         "water216_pme_respa", "emim_bf4_24", "phenol60w_lambda_0.5",
+         "tip4pew64_rf", "tip4pew64_pme", "tip3p64_settle", "swm4ndp64")
+# the rigid, virtual-site and polarizable waters: 64 molecules at 0.55 nm
+SMALL_RIGID = dict(n_molecules=64, r_cut=0.55, r_switch=0.45)
 HALF = {"lambda_vdw": 0.5, "lambda_coul": 0.5}
 
 
@@ -79,6 +85,27 @@ def _build(case):
         x = np.load(os.path.join(os.path.dirname(__file__), "data",
                                  "emim_bf4_24_minimized.npz"))["x"]
         globals = {}
+    elif case.startswith(("tip4pew64", "tip3p64", "swm4ndp64")):
+        # the builders' own geometry (SETTLE triangles, M on its
+        # placement), only the Drudes moved off their cores
+        builder, kw = {
+            "tip4pew64": ("tip4p_water_system", {}),
+            "tip3p64": ("rigid_water_system", {}),
+            "swm4ndp64": ("swm4_water_system", {}),
+        }[case.split("_")[0]]
+        kw.update(SMALL_RIGID, method="pme" if "pme" in case else "cutoff")
+        js, jx, jb = getattr(jmodels, builder)(**kw)
+        ts, _, _ = getattr(tmodels, builder)(neighbors=True, dtype=F64,
+                                             device="cpu", **kw)
+        rs = np.random.RandomState(17)
+        x = np.array(jx)
+        if case == "swm4ndp64":
+            x[1::5] += rs.normal(scale=0.004, size=x[1::5].shape)
+        m = np.asarray(js.masses)
+        safe = np.where(m > 0, m, 1.0)
+        v = rs.normal(size=x.shape) * np.where(
+            m > 0, np.sqrt(tamm.units.BOLTZMANN * 300.0 / safe), 0.0)[:, None]
+        return js, ts, x, v, np.asarray(jb), {}
     else:
         js, jx, jb, jsol = jmodels.phenol_in_water(n_water=60, r_cut=0.5,
                                                    r_switch=0.42, seed=5)

@@ -21,6 +21,7 @@ MODULES = {
     "ops.pairfuncs": 1,
     "ops.pbc": 3,
     "ops.pme": 3,
+    "parallel.replicas": 6,
     "ops.settle": 17,
     "ops.switching": 3,
     "state": 4,

@@ -14,7 +14,9 @@ derivative at lambda 0, 0.5 and 1 (K1 at 1,000 waters, K2 at 200, also
 with the solute pushed into the solvent as at small lambda) and in the
 damped-smoothed form; and the virial flag (each pair's -2 r^2 du/dr^2 in
 the energy column) in every form on K1, K2 and K3, its summed column held
-to the tolerance of sum |w_i|. Every test
+to the tolerance of sum |w_i|; and K1's and K2's float32 energies at
+BASELINE config 5's near and far grids equal to the float32 twin's (the
+kernels are built without FMA contraction). Every test
 here needs an NVIDIA GPU (marker ``cuda``) and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
     pytest tests/test_torch_kernel.py -m cuda -q
@@ -646,3 +648,55 @@ def test_small_box_water_steps_on_card(cuda):
     assert pk.LAUNCHES["cell_pair"] > before["cell_pair"]
     assert pk.LAUNCHES["half_pair"] > before["half_pair"]
     assert bool(torch.isfinite(ctx.state.x).all())
+
+
+@pytest.fixture(scope="module")
+def config5_grids():
+    """BASELINE config 5's near and far forms and specs on the card, in
+    float32: 33,334 q-SPC/Fw waters at the state of
+    bench_data/eq_water100k.npz, RESPASystem(0.6, 0.5), capacities retuned
+    there (chip_smoke.py::npt_water without the barostat)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev, f32 = torch.device("cuda"), torch.float32
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    eq = np.load(os.path.join(root, "bench_data", "eq_water100k.npz"))
+    s, _, _ = water_system(n_molecules=33334, neighbors=True, dtype=f32,
+                           device=dev)
+    r = nb.retune_neighbor_specs(
+        amm.RESPASystem(s, rcut_in=0.6, rswitch_in=0.5), eq["x"], eq["box"])
+    near, = (f for f in r.forces if f.name == "NearNonbondedForce")
+    far, = (f for f in r.forces if f.name == "FarNonbondedForce")
+    x = torch.as_tensor(eq["x"], dtype=f32, device=dev).contiguous()
+    box = torch.as_tensor(eq["box"], dtype=f32, device=dev)
+    return {"near": (near, r.extra_neighbor_specs["near"]),
+            "far": (far, r.neighbors)}, x, box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["half_pair", "cell_pair"])
+@pytest.mark.parametrize("group", ["near", "far"])
+def test_float32_energy_rounds_as_the_plain_twin(config5_grids, group,
+                                                  kernel):
+    """K1 and K2 (the full stencil on the same grid) in float32 give the
+    near and the fused far energy of config 5 that the float32 plain twin
+    gives, to 1e-7 of |E|: the kernels are built without FMA contraction
+    (_build.NVCC_FLAGS), so each pair rounds as the twin's line does.
+    Contracted, both kernels erred by -5.15 (near) and +5.21 kJ/mol (far)
+    against the float64 twin, 3.8e-6 and 2.3e-5 of |E|, where the float32
+    twin errs by +0.47 and -0.48 (k1_ab/rf_bias_variants.py)."""
+    forces, x, box = config5_grids
+    force, spec = forces[group]
+    form = force._pair_form()
+    pp = {k: v.to(x.device, torch.float32)
+          for k, v in force._per_particle().items()}
+    bucket, overflow = nb.build_cell_buckets(spec, x, box)
+    assert not bool(overflow)
+    run = {"half_pair": pk.half_pair_cuda, "cell_pair": pk.full_pair_cuda}[
+        kernel]
+    e_k = float(run(x, pp, bucket, spec, box, form, form.r_cut)[:, 3]
+                .double().sum())
+    e_twin = float(pk.half_pair_plain(x, pp, bucket, spec, box, form,
+                                      form.r_cut, with_forces=False)[:, 3]
+                   .double().sum())
+    assert abs(e_k - e_twin) <= 1e-7 * abs(e_twin)
