@@ -20,8 +20,13 @@ SCF dynamics); CMAP (ops/cmap.py) and harmonic impropers complete the
 CHARMM bonded terms. Context(neighbor_update_every=K) rebuilds the cell
 lists every K steps under a staleness guard, and parallel/ runs lambda (or
 temperature) replicas with neighbor-swap exchange on one card
-(HREXSampler, solvation_free_energy(hrex=True)). This package never
-imports JAX.
+(HREXSampler, solvation_free_energy(hrex=True)). The application layer
+mirrors the JAX package's: Simulation (app.py) with its reporters,
+checkpoints and System files (checkpoint.py), FIRE minimization on the
+cell lists (minimize.py), profiling and PDB files (io/pdb.py). A box is
+(3,) edge lengths or a (3, 3) triclinic cell matrix (ops/pbc.py), which
+the cell lists and the pair kernels take too. This package never imports
+JAX.
 """
 
 __version__ = "0.1.0"
@@ -107,6 +112,7 @@ from .state import (
 from .system import System, make_exclusions_array
 from .systems import (
     AlchemicalRespaSystem,
+    ComputingSystem,
     HydrogenMassRepartitionedSystem,
     RESPASystem,
     SolvationSystem,
@@ -116,4 +122,17 @@ from .utils import (
     count_degrees_of_freedom,
     find_nonbonded_force,
     hijack_force,
+)
+from .app import Simulation
+from .checkpoint import load_checkpoint, save_checkpoint
+from .io import PDBFile, read_pdb, write_pdb
+from .minimize import fire_minimize, minimize_energy
+from .profiling import profile_forces, profile_step
+from .reporters import (
+    CenterOfMassReporter,
+    CustomIntegratorReporter,
+    ExtendedStateDataReporter,
+    PDBReporter,
+    StateDataReporter,
+    XYZReporter,
 )

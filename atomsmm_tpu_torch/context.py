@@ -396,14 +396,14 @@ class Context:
     def set_positions(self, x):
         """Replace the positions; the next step() or get_state() rebuilds
         the neighbor buckets and the force caches from them."""
-        x = torch.as_tensor(x).to(
-            dtype=self.state.x.dtype, device=self.state.x.device).clone(
+        x = torch.as_tensor(
+            x, dtype=self.state.x.dtype, device=self.state.x.device).clone(
                 memory_format=torch.contiguous_format)
         self.state = replace(self.state, x=x)
 
     def set_velocities(self, v):
-        v = torch.as_tensor(v).to(
-            dtype=self.state.v.dtype, device=self.state.v.device).clone(
+        v = torch.as_tensor(
+            v, dtype=self.state.v.dtype, device=self.state.v.device).clone(
                 memory_format=torch.contiguous_format)
         self.state = replace(self.state, v=v)
 
@@ -424,18 +424,21 @@ class Context:
         self.set_velocities(v)
 
     def set_periodic_box(self, box):
-        """Replace the box. A box that a cutoff or a cell grid no longer
+        """Replace the box: (3,) lengths or a (3, 3) cell matrix (rows =
+        lattice vectors). A box that a cutoff or a cell grid no longer
         fits raises here, before any step can drop pairs."""
-        box = torch.as_tensor(box).to(dtype=self.state.x.dtype,
-                                      device=self.state.x.device).clone()
+        box = torch.as_tensor(box, dtype=self.state.x.dtype,
+                              device=self.state.x.device).clone()
         self._check_box(box)
         self.state = replace(self.state, box=box)
 
     def set_parameter(self, name: str, value):
         """Set a global context parameter (a 0-d tensor of the state's
-        dtype on its device); it reaches the forces at the next call."""
-        self.parameters[name] = torch.as_tensor(value).to(
-            dtype=self.state.x.dtype, device=self.state.x.device)
+        dtype on its device); it reaches the forces at the next call. A
+        Python float goes straight to that dtype, not through torch's
+        float32 default."""
+        self.parameters[name] = torch.as_tensor(
+            value, dtype=self.state.x.dtype, device=self.state.x.device)
 
     def get_parameter(self, name: str):
         return self.parameters[name]

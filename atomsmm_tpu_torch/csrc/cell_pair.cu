@@ -42,7 +42,8 @@
 //     home atom and divide each chunk's candidates between them, so that
 //     about 2,048 warps are in flight; their sums meet in shared memory in
 //     a fixed order.
-// The minimum image rounds by two additions (pair_forms.cuh::min_image).
+// The minimum image rounds by two additions, in fractional coordinates for
+// a (3, 3) cell (TRI; pair_forms.cuh::Image).
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
@@ -97,9 +98,9 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 //   exc (n, m)                     exclusion id columns, -1 padded (COLS)
 //   bucket (ncells, cap)           atom ids, real ids first, then n
 //   nbr (ncells, s)                stencil cells, -1 padded
-//   box (3,)                       orthorhombic edge lengths
+//   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (n + 1, 4)                 zeroed; per real atom [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED>
+template <typename T, bool COLS, bool DAMPED, bool TRI>
 __global__ void __launch_bounds__(THREADS)
     cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -142,8 +143,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
 
-  const T bx = box[0], by = box[1], bz = box[2];
-  const T ibx = T(1) / bx, iby = T(1) / by, ibz = T(1) / bz;
+  const Image<T, TRI> image(box);
   const int* nrow = nbr + (size_t)c * s;
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
   Hit<T>* my_queue = queue[warp];
@@ -220,9 +220,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int base = 32 * part; base < cnt; base += 32 * split) {
         const int j = base + lane;
         const Cand<T> cj = cand[j];
-        const T dx = min_image(xi - cj.x, bx, ibx);
-        const T dy = min_image(yi - cj.y, by, iby);
-        const T dz = min_image(zi - cj.z, bz, ibz);
+        T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
+        image.apply(dx, dy, dz);
         const T r2 = dx * dx + dy * dy + dz * dz;
         const bool excl =
             COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
@@ -280,29 +279,45 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, bool COLS>
+template <typename T, bool COLS, bool TRI>
 int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
                 const int* excbits, const int* exc, const int* bucket,
                 const int* nbr, const T* box, int cap, int s, int n, int m,
                 int split, unsigned blocks, const Params<T>& p, T* out,
                 cudaStream_t st) {
   if (damped(p)) {
-    cell_pair_kernel<T, COLS, true><<<blocks, THREADS, 0, st>>>(
+    cell_pair_kernel<T, COLS, true, TRI><<<blocks, THREADS, 0, st>>>(
         x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
         p, out);
   } else {
-    cell_pair_kernel<T, COLS, false><<<blocks, THREADS, 0, st>>>(
+    cell_pair_kernel<T, COLS, false, TRI><<<blocks, THREADS, 0, st>>>(
         x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
         p, out);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool COLS>
+int launch_box(const T* x, const T* q, const T* sig, const T* eps,
+               const int* excbits, const int* exc, const int* bucket,
+               const int* nbr, const T* box, int cap, int s, int n, int m,
+               int tri, int split, unsigned blocks, const Params<T>& p,
+               T* out, cudaStream_t st) {
+  if (tri) {
+    return launch_cols<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
+                                      nbr, box, cap, s, n, m, split, blocks,
+                                      p, out, st);
+  }
+  return launch_cols<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
+                                     nbr, box, cap, s, n, m, split, blocks, p,
+                                     out, st);
+}
+
 template <typename T>
 int launch(const T* x, const T* q, const T* sig, const T* eps,
            const int* excbits, const int* exc, const int* bucket,
            const int* nbr, const T* box, int ncells, int cap, int s, int n,
-           int m, const double* scal, const int* flags, T* out,
+           int m, int tri, const double* scal, const int* flags, T* out,
            void* stream) {
   if (cap < 1 || ncells < 1 || s < 1 || n < 0 || m < 0 || m > MAX_EXC ||
       (exc != nullptr && m < 1) || (exc == nullptr && excbits == nullptr) ||
@@ -319,13 +334,13 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
   if (exc != nullptr) {
-    return launch_cols<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr,
-                                box, cap, s, n, m, split, (unsigned)blocks, p,
-                                out, st);
+    return launch_box<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                               cap, s, n, m, tri, split, (unsigned)blocks, p,
+                               out, st);
   }
-  return launch_cols<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                               cap, s, n, 0, split, (unsigned)blocks, p, out,
-                               st);
+  return launch_box<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                              cap, s, n, 0, tri, split, (unsigned)blocks, p,
+                              out, st);
 }
 
 }  // namespace
@@ -333,17 +348,18 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
 // Plain C entry points, bound with ctypes; the arguments of half_pair.cu's.
 // `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
 // one of `excbits` (the bitmask form) and `exc` (the (n, m) exclusion id
-// columns, 1 <= m <= 16) is non-null. Every row of `bucket` holds its real
-// ids first. `out` must be zeroed. Returns cudaGetLastError() after the
-// launch (0 on success).
+// columns, 1 <= m <= 16) is non-null. `box` holds the (3,) edge lengths
+// when `tri` is 0, else the (3, 3) cell matrix, rows = lattice vectors.
+// Every row of `bucket` holds its real ids first. `out` must be zeroed.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int cap, int s,
-                             int n, int m, const double* scal,
+                             int n, int m, int tri, const double* scal,
                              const int* flags, float* out, void* stream) {
   return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
-                       cap, s, n, m, scal, flags, out, stream);
+                       cap, s, n, m, tri, scal, flags, out, stream);
 }
 
 extern "C" int cell_pair_f64(const double* x, const double* q,
@@ -351,8 +367,8 @@ extern "C" int cell_pair_f64(const double* x, const double* q,
                              const int* excbits, const int* exc,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int cap, int s,
-                             int n, int m, const double* scal,
+                             int n, int m, int tri, const double* scal,
                              const int* flags, double* out, void* stream) {
   return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                        ncells, cap, s, n, m, scal, flags, out, stream);
+                        ncells, cap, s, n, m, tri, scal, flags, out, stream);
 }

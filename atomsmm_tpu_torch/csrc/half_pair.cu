@@ -37,8 +37,10 @@
 //     alone give too few warps to hide the walk's latency. Their home sums
 //     are combined in shared memory at the end;
 //   * the minimum image rounds by two additions on the float pipes instead
-//     of rint (the same result, half to even; pair_forms.cuh::min_image,
-//     shared with K2 and K3);
+//     of rint (the same result, half to even; pair_forms.cuh::Image,
+//     shared with K2 and K3); a (3, 3) cell (TRI) rounds in fractional
+//     coordinates through inv(H), 18 products a slot where the (3,) box
+//     takes 6;
 //   * output: one zeroed (n + 1, 4) [fx fy fz e] tensor per atom. A
 //     direction's reaction sums meet in shared memory (compare-and-swap
 //     loops: this card has no native shared-memory float add), and at its
@@ -98,9 +100,9 @@ __device__ __forceinline__ void add_row(double* row, double a, double b,
 //   exc (n, m)                     exclusion id columns, -1 padded (COLS)
 //   bucket (ncells, cap)           atom ids, n = padding
 //   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
-//   box (3,)                       orthorhombic edge lengths
+//   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (n + 1, 4)                 zeroed; per atom [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED, int MAXT>
+template <typename T, bool COLS, bool DAMPED, bool TRI, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -172,8 +174,7 @@ __global__ void __launch_bounds__(MAXT)
   }
   if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
 
-  const T bx = box[0], by = box[1], bz = box[2];
-  const T ibx = T(1) / bx, iby = T(1) / by, ibz = T(1) / bz;
+  const Image<T, TRI> image(box);
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
 
   stage(0, t < cap ? bucket[(size_t)nrow[0] * cap + t] : n);
@@ -215,9 +216,8 @@ __global__ void __launch_bounds__(MAXT)
 #pragma unroll 4
           for (int bb = 0; bb < lim; ++bb) {
             const Cand<T> cj = cb[part + parts * (sb + bb)];
-            const T dx = min_image(xi - cj.x, bx, ibx);
-            const T dy = min_image(yi - cj.y, by, iby);
-            const T dz = min_image(zi - cj.z, bz, ibz);
+            T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
+            image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const bool excl =
                 COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
@@ -246,9 +246,8 @@ __global__ void __launch_bounds__(MAXT)
             const int j = part + parts * (s0 + 32 * wd + ((bit + rot) & 31));
             const Cand<T> cj = cb[j];
             const Par<T> pj = pb[j];
-            const T dx = min_image(xi - cj.x, bx, ibx);
-            const T dy = min_image(yi - cj.y, by, iby);
-            const T dz = min_image(zi - cj.z, bz, ibz);
+            T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
+            image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const T qprod = qi * pj.q;
             const T sg = T(0.5) * (si + pj.s);
@@ -317,7 +316,7 @@ size_t smem_bytes(int cap, int parts) {
          2 * sizeof(int);
 }
 
-template <typename T, bool COLS, bool DAMPED, int MAXT>
+template <typename T, bool COLS, bool DAMPED, bool TRI, int MAXT>
 int launch_form(const T* x, const T* q, const T* sig, const T* eps,
                 const int* excbits, const int* exc, const int* bucket,
                 const int* nbr, const T* box, int ncells, int cap, int s_half,
@@ -326,17 +325,17 @@ int launch_form(const T* x, const T* q, const T* sig, const T* eps,
   const size_t smem = smem_bytes<T>(cap, parts);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        half_pair_kernel<T, COLS, DAMPED, MAXT>,
+        half_pair_kernel<T, COLS, DAMPED, TRI, MAXT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  half_pair_kernel<T, COLS, DAMPED, MAXT><<<ncells, threads, smem, stream>>>(
+  half_pair_kernel<T, COLS, DAMPED, TRI, MAXT><<<ncells, threads, smem, stream>>>(
       x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s_half, n, m, parts,
       p, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COLS, bool DAMPED>
+template <typename T, bool COLS, bool DAMPED, bool TRI>
 int launch_size(const T* x, const T* q, const T* sig, const T* eps,
                 const int* excbits, const int* exc, const int* bucket,
                 const int* nbr, const T* box, int ncells, int cap, int s_half,
@@ -347,29 +346,45 @@ int launch_size(const T* x, const T* q, const T* sig, const T* eps,
   // up to 512 left the far grid's 343 blocks too few per SM for one wave)
   const int threads = ((parts * cap + 31) / 32) * 32;
   if (threads <= 256) {
-    return launch_form<T, COLS, DAMPED, 256>(x, q, sig, eps, excbits, exc,
+    return launch_form<T, COLS, DAMPED, TRI, 256>(x, q, sig, eps, excbits, exc,
                                              bucket, nbr, box, ncells, cap,
                                              s_half, n, m, parts, threads, p,
                                              out, stream);
   }
-  return launch_form<T, COLS, DAMPED, 1024>(x, q, sig, eps, excbits, exc,
+  return launch_form<T, COLS, DAMPED, TRI, 1024>(x, q, sig, eps, excbits, exc,
                                             bucket, nbr, box, ncells, cap,
                                             s_half, n, m, parts, threads, p,
                                             out, stream);
 }
 
-template <typename T, bool COLS>
+template <typename T, bool COLS, bool TRI>
 int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
                 const int* excbits, const int* exc, const int* bucket,
                 const int* nbr, const T* box, int ncells, int cap, int s_half,
                 int n, int m, int parts, const Params<T>& p, T* out,
                 cudaStream_t stream) {
   if (damped(p)) {
-    return launch_size<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
+    return launch_size<T, COLS, true, TRI>(x, q, sig, eps, excbits, exc, bucket,
                                       nbr, box, ncells, cap, s_half, n, m,
                                       parts, p, out, stream);
   }
-  return launch_size<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
+  return launch_size<T, COLS, false, TRI>(x, q, sig, eps, excbits, exc, bucket,
+                                     nbr, box, ncells, cap, s_half, n, m,
+                                     parts, p, out, stream);
+}
+
+template <typename T, bool COLS>
+int launch_box(const T* x, const T* q, const T* sig, const T* eps,
+               const int* excbits, const int* exc, const int* bucket,
+               const int* nbr, const T* box, int ncells, int cap, int s_half,
+               int n, int m, int tri, int parts, const Params<T>& p, T* out,
+               cudaStream_t stream) {
+  if (tri) {
+    return launch_cols<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
+                                      nbr, box, ncells, cap, s_half, n, m,
+                                      parts, p, out, stream);
+  }
+  return launch_cols<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
                                      nbr, box, ncells, cap, s_half, n, m,
                                      parts, p, out, stream);
 }
@@ -378,8 +393,8 @@ template <typename T>
 int launch(const T* x, const T* q, const T* sig, const T* eps,
            const int* excbits, const int* exc, const int* bucket,
            const int* nbr, const T* box, int ncells, int cap, int s_half,
-           int n, int m, const double* scal, const int* flags, T* out,
-           void* stream) {
+           int n, int m, int tri, const double* scal, const int* flags,
+           T* out, void* stream) {
   if (cap < 1 || cap > 1024 || ncells < 1 || s_half < 1 || n < 0 || m < 0 ||
       m > MAX_EXC || (exc != nullptr && m < 1) ||
       (exc == nullptr && excbits == nullptr) || !flags_valid(flags)) {
@@ -390,12 +405,13 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
   if (exc != nullptr) {
-    return launch_cols<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr,
-                                box, ncells, cap, s_half, n, m, parts, p, out,
-                                s);
+    return launch_box<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                               ncells, cap, s_half, n, m, tri, parts, p, out,
+                               s);
   }
-  return launch_cols<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                               ncells, cap, s_half, n, 0, parts, p, out, s);
+  return launch_box<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
+                              ncells, cap, s_half, n, 0, tri, parts, p, out,
+                              s);
 }
 
 }  // namespace
@@ -403,16 +419,18 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
 // Plain C entry points, bound with ctypes. `scal` and `flags` are host
 // arrays (pair_forms.cuh::make_params). Exactly one of `excbits` (the
 // bitmask form) and `exc` (the (n, m) exclusion id columns, 1 <= m <= 16)
-// is non-null. `out` must be zeroed. Returns cudaGetLastError() after the
-// launch (0 on success).
+// is non-null. `box` holds the (3,) edge lengths when `tri` is 0, else the
+// (3, 3) cell matrix, rows = lattice vectors (pair_forms.cuh::Image).
+// `out` must be zeroed. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int half_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int cap, int s_half,
-                             int n, int m, const double* scal,
+                             int n, int m, int tri, const double* scal,
                              const int* flags, float* out, void* stream) {
   return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
-                       cap, s_half, n, m, scal, flags, out, stream);
+                       cap, s_half, n, m, tri, scal, flags, out, stream);
 }
 
 extern "C" int half_pair_f64(const double* x, const double* q,
@@ -420,8 +438,10 @@ extern "C" int half_pair_f64(const double* x, const double* q,
                              const int* excbits, const int* exc,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int cap,
-                             int s_half, int n, int m, const double* scal,
-                             const int* flags, double* out, void* stream) {
+                             int s_half, int n, int m, int tri,
+                             const double* scal, const int* flags,
+                             double* out, void* stream) {
   return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                        ncells, cap, s_half, n, m, scal, flags, out, stream);
+                        ncells, cap, s_half, n, m, tri, scal, flags, out,
+                        stream);
 }

@@ -102,20 +102,82 @@ __device__ __forceinline__ double erfc_t(double x) { return erfc(x); }
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
-// Minimum image of one displacement component, rounding half to even as
-// torch.round and jnp.round do. The rounding is two additions on the float
-// pipes, not rint's conversion unit: adding and subtracting 1.5 * 2^23
-// (1.5 * 2^52 in float64) rounds half to even, exactly as rint does, for
-// |d / b| < 2^22 (2^51).
+// Round half to even, as torch.round and jnp.round do, by two additions on
+// the float pipes, not rint's conversion unit: adding and subtracting
+// 1.5 * 2^23 (1.5 * 2^52 in float64) rounds exactly as rint does for
+// |v| < 2^22 (2^51).
+__device__ __forceinline__ float round_even(float v) {
+  return __fsub_rn(__fadd_rn(v, 12582912.0f), 12582912.0f);
+}
+__device__ __forceinline__ double round_even(double v) {
+  return __dsub_rn(__dadd_rn(v, 6755399441055744.0), 6755399441055744.0);
+}
+
+// Minimum image of one displacement component of an orthorhombic box.
 __device__ __forceinline__ float min_image(float d, float b, float ib) {
-  const float k = __fsub_rn(__fadd_rn(d * ib, 12582912.0f), 12582912.0f);
-  return d - b * k;
+  return d - b * round_even(d * ib);
 }
 __device__ __forceinline__ double min_image(double d, double b, double ib) {
-  const double k =
-      __dsub_rn(__dadd_rn(d * ib, 6755399441055744.0), 6755399441055744.0);
-  return d - b * k;
+  return d - b * round_even(d * ib);
 }
+
+// The minimum image of a pair's displacement, from a kernel's box
+// argument. TRI = false: the (3,) edge lengths, each component rounded on
+// its own (min_image). TRI = true: the (3, 3) cell matrix H (rows = lattice
+// vectors), 9 values, row-major, whose inverse each thread forms once from
+// the adjugate; the image rounds in fractional coordinates,
+// d - round(d inv(H)) H, as ops/pbc.py::minimum_image does (exact for a
+// reduced cell while the cutoff is at most half its smallest perpendicular
+// width). The inverse here and torch.linalg.inv's differ in the last
+// bits, which moves a displacement by as much.
+template <typename T, bool TRI>
+struct Image;
+
+template <typename T>
+struct Image<T, false> {
+  T b[3], ib[3];
+  __device__ explicit Image(const T* __restrict__ box) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      b[k] = box[k];
+      ib[k] = T(1) / b[k];
+    }
+  }
+  __device__ __forceinline__ void apply(T& dx, T& dy, T& dz) const {
+    dx = min_image(dx, b[0], ib[0]);
+    dy = min_image(dy, b[1], ib[1]);
+    dz = min_image(dz, b[2], ib[2]);
+  }
+};
+
+template <typename T>
+struct Image<T, true> {
+  T h[9], hi[9];
+  __device__ explicit Image(const T* __restrict__ box) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) h[k] = box[k];
+    hi[0] = h[4] * h[8] - h[5] * h[7];
+    hi[1] = h[2] * h[7] - h[1] * h[8];
+    hi[2] = h[1] * h[5] - h[2] * h[4];
+    hi[3] = h[5] * h[6] - h[3] * h[8];
+    hi[4] = h[0] * h[8] - h[2] * h[6];
+    hi[5] = h[2] * h[3] - h[0] * h[5];
+    hi[6] = h[3] * h[7] - h[4] * h[6];
+    hi[7] = h[1] * h[6] - h[0] * h[7];
+    hi[8] = h[0] * h[4] - h[1] * h[3];
+    const T idet = T(1) / (h[0] * hi[0] + h[1] * hi[3] + h[2] * hi[6]);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) hi[k] *= idet;
+  }
+  __device__ __forceinline__ void apply(T& dx, T& dy, T& dz) const {
+    const T s0 = round_even(dx * hi[0] + dy * hi[3] + dz * hi[6]);
+    const T s1 = round_even(dx * hi[1] + dy * hi[4] + dz * hi[7]);
+    const T s2 = round_even(dx * hi[2] + dy * hi[5] + dz * hi[8]);
+    dx -= s0 * h[0] + s1 * h[3] + s2 * h[6];
+    dy -= s0 * h[1] + s1 * h[4] + s2 * h[7];
+    dz -= s0 * h[2] + s1 * h[5] + s2 * h[8];
+  }
+};
 
 // Relative-offset exclusion bitmask: bit (cid - hid + 16) of the home atom's
 // bits, clamped to [0, 31] (offsets beyond +-14 are never set).

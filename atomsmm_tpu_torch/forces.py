@@ -844,6 +844,8 @@ def pme_coverage_flags(system, extra, box):
     means tol_eff <= 1.28 tol). The reciprocal counterpart of the cell
     lists' coverage check; Context.step raises on it."""
     out = {}
+    # a (3, 3) cell's grid was sized by its lattice vectors' lengths
+    lengths = box if box.ndim == 1 else torch.linalg.norm(box, dim=1)
     for i, f in enumerate(system.forces):
         g = _pme_carrier(f)
         if g is None:
@@ -853,7 +855,7 @@ def pme_coverage_flags(system, extra, box):
             dtype=box.dtype, device=box.device)
         key = f"pme_{i}_undercover"
         prev = extra.get(key)
-        flag = torch.any(box > 1.05 * bounds)
+        flag = torch.any(lengths > 1.05 * bounds)
         out[key] = flag if prev is None else prev | flag
     return out
 

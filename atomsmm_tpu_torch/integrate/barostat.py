@@ -51,6 +51,13 @@ class MonteCarloBarostatPropagator(Propagator):
         self.dv0 = float(initial_dv_fraction)
 
     def extra_variables(self, system, state):
+        if state.box.ndim != 1:
+            from ..utils import InputError
+
+            # no test of the JAX package covers a volume move of a (3, 3)
+            # cell, so the port does not offer one
+            raise InputError("the Monte Carlo barostat takes (3,) boxes; a "
+                             "(3, 3) cell runs at constant volume")
         dev = state.x.device
         return {
             BARO_DV: (self.dv0 * box_volume(state.box)).to(state.x.dtype),

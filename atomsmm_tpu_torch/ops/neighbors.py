@@ -13,6 +13,12 @@ the production nonbonded path.
     takes the callable sweep, cell_pair_energy_fn: the full stencil's
     slots as torch operations on any device, forces by autograd.
 
+A (3, 3) triclinic box takes the same stencil topology: the grid and the
+reach are sized from the cell's perpendicular widths and atoms are binned
+in fractional coordinates. Its sweep is the same K1 or K2 launch (or plain
+twin on the CPU): the kernels and the twins take the minimum image of
+either box form, so nothing else tells the two forms apart.
+
 Shapes are static (NeighborSpec). Bucket overflow is flagged, never
 silently dropped: the flag stays on the device and Context.step reads it
 once per call. The box may move (the MC barostat scales it), but the grid
@@ -39,7 +45,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .pbc import minimum_image
+from .pbc import _inv, host_widths, minimum_image, perp_widths
 
 # State.extra keys (the default spec; named specs use nbr_<name>_bucket ...)
 NBR_BUCKET = "nbr_bucket"
@@ -195,7 +201,9 @@ def _host(a) -> np.ndarray:
 
 
 def _max_cell_occupancy(x, box, grid) -> int:
-    """Host-side: max atoms in any cell of `grid` for configuration x."""
+    """Host-side: max atoms in any cell of `grid` for configuration x
+    (either box form; a matrix box bins fractionally, as
+    build_cell_buckets does)."""
     x = _host(x)
     box = np.asarray(_host(box), np.float64)
     grid_a = np.asarray(grid)
@@ -204,9 +212,14 @@ def _max_cell_occupancy(x, box, grid) -> int:
         raise FloatingPointError(
             f"{bad}/{x.shape[0]} positions are non-finite — the trajectory "
             "has diverged; refusing to retune neighbor capacities from it")
-    w = box / grid_a
-    xw = x - box * np.floor(x / box)
-    c3 = np.clip((xw / w).astype(np.int64), 0, grid_a - 1)
+    if box.ndim == 2:
+        s = x @ np.linalg.inv(box)
+        s -= np.floor(s)
+        c3 = np.clip((s * grid_a).astype(np.int64), 0, grid_a - 1)
+    else:
+        w = box / grid_a
+        xw = x - box * np.floor(x / box)
+        c3 = np.clip((xw / w).astype(np.int64), 0, grid_a - 1)
     cid = (c3[:, 0] * grid[1] + c3[:, 1]) * grid[2] + c3[:, 2]
     return int(np.bincount(cid, minlength=int(np.prod(grid_a))).max())
 
@@ -256,11 +269,14 @@ def make_neighbor_spec(
     occupancy_floor_from=None,
     device=None,
 ) -> NeighborSpec:
-    """Host-side setup: pick the cell grid and capacity for n atoms in an
-    orthorhombic `box` with the largest relevant cutoff r_cut_max.
+    """Host-side setup: pick the cell grid and capacity for n atoms in
+    `box`, (3,) lengths or a (3, 3) cell matrix, with the largest relevant
+    cutoff r_cut_max.
 
     The grid is the finest one whose cell width still covers
-    r_cut_max + min_skin; the skin is whatever margin the width leaves,
+    r_cut_max + min_skin, on the perpendicular widths of a (3, 3) cell (a
+    sheared cell's faces are closer than its edges suggest); the skin is
+    whatever margin the width leaves,
     capped at `skin`. Capacity is 1.7 x the mean occupancy, raised (never
     lowered) to 1.15 x the measured max occupancy of `occupancy_floor_from`,
     a setup configuration. There is no backend choice: the spec's tensors
@@ -272,18 +288,17 @@ def make_neighbor_spec(
 
     device = resolve_device(device)
     box = np.asarray(_host(box), np.float64)
-    if box.ndim != 1:
-        from ..utils import InputError
-
-        raise InputError("cell lists in atomsmm_tpu_torch take (3,) boxes")
+    triclinic = box.ndim == 2
+    b_eff = host_widths(box)
     target_w = float(r_cut_max) + float(min_skin)
-    grid = tuple(max(1, int(np.floor(b / target_w))) for b in box)
-    w = box / np.array(grid)
+    grid = tuple(max(1, int(np.floor(b / target_w))) for b in b_eff)
+    w = b_eff / np.array(grid)
     skin_eff = min(float(np.min(w)) - float(r_cut_max), float(skin))
     skin_eff = max(skin_eff, float(min_skin))
     r_build = float(r_cut_max) + skin_eff
     reach = tuple(int(np.ceil(r_build / wi)) for wi in w)
-    vol = float(np.prod(box))
+    vol = abs(float(np.linalg.det(box))) if triclinic else float(
+        np.prod(box))
     rho = n / vol
     cell_vol = vol / float(np.prod(grid))
     cap = int(math.ceil(rho * cell_vol * 1.7) + 4)
@@ -329,7 +344,9 @@ def build_cell_buckets(spec: NeighborSpec, x, box):
     ``cid << idx_bits | i`` replaces the argsort. Atoms past a cell's
     capacity are routed to one extra dump slot that is cut off afterwards,
     the counterpart of JAX's ``mode="drop"`` scatter, and raise the returned
-    overflow flag (a device bool: no host sync).
+    overflow flag (a device bool: no host sync). A (3, 3) box bins in
+    fractional coordinates (the cells are parallelepiped slabs of the
+    lattice).
     """
     n = x.shape[0]
     dev = x.device
@@ -337,9 +354,15 @@ def build_cell_buckets(spec: NeighborSpec, x, box):
     ncells = spec.ncells
     cap = spec.cell_capacity
 
-    w = box / grid.to(box.dtype)
-    xw = x - box * torch.floor(x / box)
-    c3 = torch.minimum(torch.clamp((xw / w).to(torch.int32), min=0), grid - 1)
+    if box.ndim == 2:
+        s = torch.matmul(x, _inv(box))
+        s = s - torch.floor(s)
+        c3 = (s * grid.to(s.dtype)).to(torch.int32)
+    else:
+        w = box / grid.to(box.dtype)
+        xw = x - box * torch.floor(x / box)
+        c3 = (xw / w).to(torch.int32)
+    c3 = torch.minimum(torch.clamp(c3, min=0), grid - 1)
     cid = (c3[:, 0] * spec.grid[1] + c3[:, 1]) * spec.grid[2] + c3[:, 2]
 
     iarr = torch.arange(n, dtype=torch.int32, device=dev)
@@ -366,14 +389,15 @@ def build_cell_buckets(spec: NeighborSpec, x, box):
 
 def _covered(spec: NeighborSpec, box):
     """The distance the stencil covers along each dim at `box` (reach cell
-    widths), infinite along a dim where the stencil wraps the whole grid:
-    there every cell pair is a candidate whatever the cell width."""
+    widths, on the perpendicular widths of a (3, 3) cell), infinite along
+    a dim where the stencil wraps the whole grid: there every cell pair is
+    a candidate whatever the cell width."""
     box = torch.as_tensor(box)
     reach = torch.as_tensor(
         [r / g if 2 * r + 1 < g else math.inf
          for g, r in zip(spec.grid, spec.reach)],
         dtype=box.dtype, device=box.device)
-    return box * reach
+    return perp_widths(box) * reach
 
 
 def coverage_deficient(spec: NeighborSpec, box):
@@ -389,7 +413,7 @@ def effective_skin(spec: NeighborSpec, box):
     reach still covers beyond the cutoff (0 at the coverage boundary).
     After an NPT compression the setup skin would overstate it, and the
     rebuild test and the staleness guard would miss pairs in between.
-    Orthorhombic boxes only (triclinic boxes are ROADMAP item 12)."""
+    Either box form (perpendicular widths)."""
     margin = torch.min(_covered(spec, box)) - (spec.r_build - spec.skin)
     return torch.clamp(torch.clamp(margin, min=0.0), max=spec.skin)
 
@@ -568,7 +592,8 @@ def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut):
 def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
     """(energy, forces (N, 3)) with explicit symmetric forces: the Newton
     half-stencil sweep (K1) when half maps exist, else the full-stencil
-    sweep (K2); the CUDA kernel on the card, its plain twin on the CPU."""
+    sweep (K2); the CUDA kernel on the card, its plain twin on the CPU;
+    either box form."""
     return _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut)
 
 

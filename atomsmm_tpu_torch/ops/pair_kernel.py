@@ -24,7 +24,9 @@ real ids first, as ``build_cell_buckets`` lays them out.
 
 Exclusions take the relative-offset bitmask when the spec has one, else the
 exclusion id columns (pairs more than +-14 indices apart); both kernels and
-both twins take either.
+both twins take either. Both take either box form too: given a (3, 3) cell
+matrix, a kernel inverts it per thread and rounds each slot's displacement
+in fractional coordinates, as ``pbc.minimum_image`` does.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
@@ -247,7 +249,8 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     `nbr` on PyTorch's current stream; returns the per-atom (N + 1, 4)
     [fx fy fz e], allocated and zeroed here. Checks device, dtype, shape and
     contiguity first and raises if the launch is refused. A spec without
-    the exclusion bitmask selects the exclusion-column form."""
+    the exclusion bitmask selects the exclusion-column form; the box's
+    shape, (3,) or (3, 3), selects the kernel's minimum image."""
     import ctypes
 
     n = x.shape[0]
@@ -265,6 +268,7 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
             raise ValueError(f"{kernel}: {m} exclusion columns per atom, the "
                              f"kernel takes 1..{MAX_EXC}")
         exc_check = ("exclusions", exc, torch.int32, (n, m))
+    tri = int(box.ndim == 2)
     dev = _checked(kernel,
                    ("x", x, x.dtype, (n, 3)),
                    ("charge", q, x.dtype, (n,)),
@@ -273,13 +277,13 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
                    exc_check,
                    ("bucket", bucket, torch.int32, (ncells, cap)),
                    ("stencil map", nbr, torch.int32, (ncells, s)),
-                   ("box", box, x.dtype, (3,)))
+                   ("box", box, x.dtype, (3, 3) if tri else (3,)))
     out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
     scal, flags = _form_block(form, r_cut, x.dtype)
     _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
             eps.data_ptr(), exc.data_ptr() if m == 0 else None,
             exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
-            box.data_ptr(), ncells, cap, s, n, m,
+            box.data_ptr(), ncells, cap, s, n, m, tri,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     return out
@@ -332,3 +336,4 @@ def full_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
     K2 for a CUDA tensor, its plain twin for a CPU tensor."""
     return _sweep_energy_forces(full_pair_cuda, full_pair_plain, form, x, box,
                                 per_particle, spec, bucket, r_cut, with_forces)
+

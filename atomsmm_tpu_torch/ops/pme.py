@@ -1,5 +1,5 @@
 """Smooth particle-mesh Ewald, the reciprocal sum (counterpart of
-atomsmm_tpu/ops/pme.py), orthorhombic boxes.
+atomsmm_tpu/ops/pme.py), for orthorhombic and triclinic boxes.
 
 The JAX package spreads charges with one-hot matrices on the TPU's matrix
 unit and takes the reciprocal forces with ``jax.value_and_grad``. The port
@@ -13,10 +13,14 @@ J. Chem. Phys. 103, 8577 (1995)):
     F_i    = -q_i sum_g phi(g) d[Wx Wy Wz]_i(g)/dx_i        (gather)
 
 with Q^ = rfftn(Q), B(m) = k_e/(2 pi V) exp(-pi^2 |m~|^2/alpha^2)/|m~|^2
-|b1 b2 b3|^2 (m~ = m/L) and W(m) = B(m) times the half-spectrum weights
+|b1 b2 b3|^2 (m~ = m/L; in a (3, 3) cell H, m~ = inv(H) m, so that
+|m~|^2 = m^T G m with the reciprocal metric G = inv(H)^T inv(H)) and
+W(m) = B(m) times the half-spectrum weights
 (2 for the interior k3 columns, whose conjugate twins rfftn does not
 store). irfftn divides by K1 K2 K3 and rebuilds the Hermitian half itself,
-so phi needs B without those weights. No autograd graph is built over the
+so phi needs B without those weights. The fractional grid coordinates
+are u = x/L K, or x inv(H) K in a (3, 3) cell, whose force gathers the
+u-space gradient back through inv(H)^T. No autograd graph is built over the
 N x order^3 scatter entries. The functions run unchanged on CPU and CUDA
 tensors; there is no hand kernel here (the JAX package's reciprocal sum is
 XLA, not Pallas).
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 
 from ..units import ONE_4PI_EPS0
-from .pbc import _check_orthorhombic, box_volume, minimum_image
+from .pbc import _inv, box_volume, minimum_image
 
 #: reciprocal-sum evaluations so far in this process (energy, or energy and
 #: forces), counted like the pair kernels' launches; reset by callers
@@ -133,13 +137,19 @@ def _bspline_moduli(k: int, order: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
+def _fractional(x, box):
+    """Fractional coordinates: x/L, or x inv(H) in a (3, 3) cell."""
+    return x / box if box.ndim == 1 else torch.matmul(x, _inv(box))
+
+
 def _spline_setup(x, box, grid_shape, order: int, with_derivative: bool):
     """Flat grid indices (N, order^3) of each atom's spline support and the
     weights (N, 3, order) of the three dimensions (and their
     t-derivatives), each computed for all three dimensions at once. Weight
-    j of a dimension sits at grid point floor(u) - j, u = x/L K."""
-    _check_orthorhombic(box)
-    u = x / box * _grid_constants(grid_shape, order, x.dtype, x.device).kvec
+    j of a dimension sits at grid point floor(u) - j, u = x/L K (x inv(H) K
+    in a (3, 3) cell)."""
+    u = _fractional(x, box) * _grid_constants(grid_shape, order, x.dtype,
+                                              x.device).kvec
     m0 = torch.floor(u)
     t = u - m0
     m0 = m0.long()
@@ -192,6 +202,9 @@ class _GridConstants(NamedTuple):
     f1: torch.Tensor    # (K1, 1, 1) squared integer frequencies
     f2: torch.Tensor    # (1, K2, 1)
     f3: torch.Tensor    # (1, 1, K3//2+1), the rfft half
+    m1: torch.Tensor    # (K1, 1, 1) signed integer frequencies
+    m2: torch.Tensor    # (1, K2, 1)
+    m3: torch.Tensor    # (1, 1, K3//2+1)
     b2: torch.Tensor    # |b1 b2 b3|^2 on the half spectrum
     w3: torch.Tensor    # half-spectrum column weights (1 or 2)
     kvec: torch.Tensor  # (K1, K2, K3)
@@ -219,20 +232,28 @@ def _grid_constants(grid_shape, order: int, dtype, device) -> _GridConstants:
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    m1 = freqs(k1)[:, None, None]
+    m2 = freqs(k2)[None, :, None]
+    m3 = np.arange(k3r, dtype=np.float64)[None, None, :]
     return _GridConstants(
-        t(freqs(k1)[:, None, None] ** 2), t(freqs(k2)[None, :, None] ** 2),
-        t(np.arange(k3r, dtype=np.float64)[None, None, :] ** 2), t(b2), t(w3),
+        t(m1 ** 2), t(m2 ** 2), t(m3 ** 2), t(m1), t(m2), t(m3), t(b2), t(w3),
         t(np.asarray(grid_shape)))
 
 
 def _influence_full(box, alpha, grid_shape, order: int):
     """B(m) on the half spectrum (K1, K2, K3//2+1): Gaussian filter, spline
     moduli and the k_e/(2 pi V) prefactor, without the half-spectrum column
-    weights."""
-    _check_orthorhombic(box)
+    weights. In a (3, 3) cell |m~|^2 = m^T G m, G = inv(H)^T inv(H)."""
     c = _grid_constants(tuple(grid_shape), int(order), box.dtype, box.device)
-    inv2 = 1.0 / (box * box)
-    m2 = c.f1 * inv2[0] + c.f2 * inv2[1] + c.f3 * inv2[2]
+    if box.ndim == 1:
+        inv2 = 1.0 / (box * box)
+        m2 = c.f1 * inv2[0] + c.f2 * inv2[1] + c.f3 * inv2[2]
+    else:
+        inv_h = _inv(box)
+        g = torch.matmul(inv_h.T, inv_h)
+        m2 = (g[0, 0] * c.f1 + g[1, 1] * c.f2 + g[2, 2] * c.f3
+              + 2.0 * (g[0, 1] * c.m1 * c.m2 + g[0, 2] * c.m1 * c.m3
+                       + g[1, 2] * c.m2 * c.m3))
     pos = m2 > 0
     safe = torch.where(pos, m2, torch.ones_like(m2))
     filt = torch.where(pos, torch.exp(-(math.pi ** 2 / alpha ** 2) * safe)
@@ -280,16 +301,19 @@ def _grid_potential(bq, grid_shape):
 
 def _gather(phi, idx, w, dw, q, box, grid_shape, order: int):
     """F_i = -q_i (K/L) sum over the support of phi times the weight
-    products with one factor differentiated, per dimension."""
+    products with one factor differentiated, per dimension; in a (3, 3)
+    cell the u-space gradient times K goes back through inv(H)^T."""
     wx, wy, wz = w.unbind(1)
     dx, dy, dz = dw.unbind(1)
     phi_at = phi.reshape(-1)[idx]                        # (N, order^3)
     kvec = _grid_constants(grid_shape, order, q.dtype, q.device).kvec
-    return torch.stack([
+    grad_u = torch.stack([
         (phi_at * _outer3(dx, wy, wz)).sum(-1),
         (phi_at * _outer3(wx, dy, wz)).sum(-1),
-        (phi_at * _outer3(wx, wy, dz)).sum(-1)], -1) * (-q[:, None] * kvec
-                                                        / box)
+        (phi_at * _outer3(wx, wy, dz)).sum(-1)], -1) * kvec
+    if box.ndim == 1:
+        return grad_u * (-q[:, None] / box)
+    return torch.matmul(grad_u, _inv(box).T) * -q[:, None]
 
 
 def pme_reciprocal_energy_forces(x, box, q, alpha, grid_shape,
@@ -413,7 +437,8 @@ def choose_pme_parameters(r_cut, box, tol: float = 5e-4, alpha=None,
     """(alpha, (K1, K2, K3), order) from the cutoff and an error tolerance:
     alpha = sqrt(-log(2 tol))/r_cut (openmm.NonbondedForce), and
     K_d = ceil(f 2 alpha L_d / (3 tol^(1/5))) rounded up to a 2-3-5 size,
-    with f the order's spacing factor (1 at order 4: openmm's rule)."""
+    with f the order's spacing factor (1 at order 4: openmm's rule); a
+    (3, 3) cell sizes each dimension by its lattice vector's length."""
     box = np.asarray(box, np.float64)
     lengths = box if box.ndim == 1 else np.linalg.norm(box, axis=1)
     if alpha is None:
@@ -444,12 +469,13 @@ def pme_validity_lengths(alpha, grid_shape, order, r_cut):
 
 def ewald_reference_energy(x, box, q, alpha, kmax: int = 12):
     """Slow direct Ewald reciprocal sum over plane waves |m_d| <= kmax (no
-    mesh): the test oracle of the PME sum."""
-    _check_orthorhombic(box)
+    mesh): the test oracle of the PME sum. In a (3, 3) cell each wave
+    vector is inv(H) m."""
     r = torch.arange(-kmax, kmax + 1, dtype=x.dtype, device=x.device)
     ms = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
     ms = ms[(ms != 0).any(-1)]
-    m_tilde = ms / box[None, :]
+    m_tilde = (ms / box[None, :] if box.ndim == 1
+               else torch.matmul(ms, _inv(box).T))
     m2 = torch.sum(m_tilde * m_tilde, dim=1)
     phase = 2.0 * math.pi * (x @ m_tilde.T)
     s_re = torch.sum(q[:, None] * torch.cos(phase), dim=0)

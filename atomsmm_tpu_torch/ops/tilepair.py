@@ -82,6 +82,16 @@ class TilePairSpec:
         return self.n_blocks * self.block_size
 
 
+def _check_vector_box(box):
+    """The tile list and K3 take (3,) boxes: the JAX package's tile list
+    has no triclinic form either."""
+    if box.ndim != 1:
+        from ..utils import InputError
+
+        raise InputError("the tile list and K3 take (3,) boxes; a (3, 3) "
+                         "cell runs on the cell lists (make_neighbor_spec)")
+
+
 def make_tilepair_spec(
     box,
     n: int,
@@ -109,6 +119,7 @@ def make_tilepair_spec(
 
     device = resolve_device(device)
     box = np.asarray(_host(box), np.float64)
+    _check_vector_box(box)
     r_build = float(r_cut_max) + float(skin)
     nb = -(-n // block_size)
     rho = n / float(np.prod(box))
@@ -406,6 +417,7 @@ def tile_pair_cuda(fs, ms, hb, cb, wrap, box, form, r_cut):
     refused."""
     import ctypes
 
+    _check_vector_box(box)
     nb1, b, _ = fs.shape
     e = hb.shape[0]
     dev = _checked("tile_pair",

@@ -37,7 +37,8 @@ class State:
     Attributes:
       x:    (N, 3) positions [nm]
       v:    (N, 3) velocities [nm/ps]
-      box:  (3,) orthorhombic box lengths [nm]
+      box:  (3,) orthorhombic box lengths, or the (3, 3) reduced triclinic
+            cell matrix (rows = lattice vectors) [nm], see ops/pbc.py
       rng:  torch.Generator on the device of x
       step: outer-step counter
       extra: dict of named extended variables (tensors)
@@ -49,6 +50,10 @@ class State:
     rng: torch.Generator
     step: int
     extra: Dict[str, Any]
+
+    @property
+    def num_particles(self) -> int:
+        return self.x.shape[0]
 
     def with_extra(self, **kv):
         extra = dict(self.extra)
@@ -66,10 +71,12 @@ def make_state(x, v=None, box=None, seed: int = 0, extra=None) -> State:
     if v is None:
         v = torch.zeros_like(x)
     else:
-        v = torch.as_tensor(v).to(dtype=x.dtype, device=x.device).contiguous()
+        v = torch.as_tensor(v, dtype=x.dtype, device=x.device).contiguous()
     if box is None:
-        raise ValueError("box is required: (3,) orthorhombic lengths")
-    box = torch.as_tensor(box).to(dtype=x.dtype, device=x.device)
+        raise ValueError(
+            "box is required: (3,) orthorhombic lengths or a (3, 3) "
+            "triclinic cell matrix")
+    box = torch.as_tensor(box, dtype=x.dtype, device=x.device)
     rng = torch.Generator(device=x.device)
     rng.manual_seed(seed)
     return State(x=x, v=v, box=box, rng=rng, step=0, extra=dict(extra or {}))

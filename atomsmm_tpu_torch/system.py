@@ -79,6 +79,11 @@ class System:
     def replace_forces(self, forces) -> "System":
         return replace(self, forces=tuple(forces))
 
+    @property
+    def force_groups(self):
+        """The sorted distinct RESPA groups of the forces."""
+        return sorted({f.group for f in self.forces})
+
 
 def molecule_centres(x, molecule, num_molecules, masses):
     """(N, 3): the centre of mass of each atom's molecule, by index_add_

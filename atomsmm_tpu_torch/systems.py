@@ -11,6 +11,8 @@
                 force in the near group.
   HydrogenMassRepartitionedSystem — heavier hydrogens, lighter heavy
                 partners, the same total mass (OpenMM's hydrogenMass=).
+  ComputingSystem — every force in a group of its own, so that each term
+                can be evaluated alone (PressureComputer, reporters).
 
 >>> import torch
 >>> from atomsmm_tpu_torch.models import water_system
@@ -231,6 +233,22 @@ def AlchemicalRespaSystem(system: System, rcut_in, rswitch_in, solute_atoms,
 
 # particles lighter than this (and not massless) are hydrogens [amu]
 HMR_HYDROGEN_MASS = 1.5
+
+
+def ComputingSystem(system: System) -> System:
+    """Rewire so that each force can be evaluated on its own (the
+    PressureComputer and ExtendedStateDataReporter): every force gets its
+    own group, renumbered 0..F-1 in force order.
+
+    >>> import torch
+    >>> from atomsmm_tpu_torch.models import water_system
+    >>> s, _, _ = water_system(n_molecules=8, r_cut=0.3, r_switch=0.25,
+    ...                        device="cpu")
+    >>> ComputingSystem(RESPASystem(s, 0.2, 0.15)).force_groups
+    [0, 1, 2]
+    """
+    return system.replace_forces(
+        replace(f, group=i) for i, f in enumerate(system.forces))
 
 
 def HydrogenMassRepartitionedSystem(

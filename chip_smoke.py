@@ -201,6 +201,44 @@ non-zero:
    K, the attempts exactly the eligible pairs, the acceptance in [0, 1],
    the K1 launches (3 a replica step + 3 a replica a run + 12 an
    eligible pair of a swap) and the rebuilds (1 a run + 1 a group);
+   path (j): the 30k headline under Simulation (app.py), float32:
+   minimize_energy (50 FIRE iterations on the cell lists, K1 on both
+   grids) from the stored state, velocities at 300 K, the reporters
+   (StateDataReporter every 25 steps, ExtendedStateDataReporter with
+   pressures and the Coulomb energy every 50, PDB, XYZ of six atoms,
+   centres of mass and the integrator variables every 100), step(100),
+   save_checkpoint and save_system, step(100); then three times a fresh
+   Simulation from load_system + load_checkpoint with the same
+   reporters, step(100); checks PE and max|F| falling in FIRE, the rows
+   at exactly the due steps, Total = PE + KE, every row's T and PE/atom
+   above FIRE's minimum inside the bands of the witness of that start
+   (J_BANDS, tests/quench_witness.py), finite pressures, every frame,
+   each restored state bitwise equal to the saved one, the uninterrupted
+   run within 3 x the continuations' spread of them (K1's atomics), and
+   K1's launches as derived (2 a FIRE iteration a pass; 3 an outer step
+   + 2 a pass of each step(n); 2 a lite and 6 a full snapshot, 4 an
+   extended row); logs ms per FIRE iteration and per outer step with and
+   without reporters, a full and a lite row in ms and in outer steps,
+   the checkpoint and system I/O, profile_forces and profile_step, and a
+   trace() file; then a resume that is deterministic end to end (216
+   waters on K2 alone, float32, LangevinMiddle, which draws from the
+   CUDA generator every step): the restored states and the continuations
+   bitwise equal to the uninterrupted run;
+   path (k): triclinic (3, 3) cells on K1 and K2, which round each slot
+   in fractional coordinates through inv(H). (k1) the 30k stored state
+   with its box as diag(L, L, L), every spec built for the matrix, on K1
+   against K1 at the (3,) box, per group, float64 (1e-10, 1e-9 max|F|)
+   and float32 (1e-4); (k2) the same state with the molecules' centres
+   mapped affinely into a sheared reduced cell (SHEAR), 10 outer steps
+   through Context.step in float32 and in float64: finite, T 280-320 K,
+   ms per outer step; (k3) 400 waters in the sheared cell at 0.7 nm, RF
+   and PME, 5 outer RESPA steps in float64 on the card against the CPU
+   (1e-9); K1's and K2's launches over (k2) and (k3), counted from 0,
+   equal to the count derived from the code (far 1 an outer step + 1 a
+   pass, near 2 an outer step + 1 a pass); K1 and K2 against their plain
+   twins at (k2)'s and (k3)'s grids, K1's device time at (k2)'s; (k4) PME
+   against the plane-wave Ewald sum on tests/test_triclinic.py's sheared
+   cell on the card (2e-5);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -237,7 +275,9 @@ non-zero:
    evaluation: K1, DrudeForce by autograd, the placement and pull-back;
    SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild).
 
-Then one JSON line of kernel results (with each kernel's bound_ms,
+Then one JSON line of kernel results (its launches_by_path counts each
+kernel over each path's run, path_j and path_k included; with each
+kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
 ms is the kernel's device time in torch.profiler, launch_ms the time of one
 call of its launch wrapper by CUDA events, both of this run), the
@@ -3738,6 +3778,706 @@ def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
                            "from the CPU run")
 
 
+# --------------------------------------------------------------------------
+# Path (j): the headline under Simulation; path (k): triclinic cells
+# --------------------------------------------------------------------------
+
+# the shear of paths (k2) and (k3): b = (sx L, L, 0), c = (cx L, cy L, L),
+# angles 88.2, 88.3 and 87.1 degrees. Mapping an equilibrated liquid's
+# molecules affinely into the cell compresses some close contacts; at this
+# strain that warms 900 waters by 2-3 K over 10 steps (at 0.15 / 0.1 / 0.1,
+# 20 K), so (k2) stays inside the headline's temperature band
+SHEAR = (0.05, 0.03, 0.03)
+# the rows of path (j)'s reporters: StateDataReporter, the extended one,
+# and the four every-100 reporters
+J_INTERVALS = {"state": 25, "extended": 50, "frames": 100}
+# path (j)'s bands for the rows of a run started from FIRE's minimum with
+# velocities at 300 K, set from the witness (tests/quench_witness.py: the
+# JAX package and this port, float64, 216 waters, the same start, agree
+# to 1e-11 over 200 steps): its rows read T 194.6-237.3 K and PE/atom
+# 1.47-1.99 kJ/mol above FIRE's minimum, each band widened by 3 sigma of
+# its own fluctuation there (T 7.1 K, PE/atom 0.12 kJ/mol)
+J_BANDS = {"T": (173.0, 259.0), "pe_rise": (1.1, 2.35)}
+# K1 launches of one snapshot: lite (the total energy: near and far
+# sweeps), full (the per-force split, the forces and the per-group
+# energies: two sweeps each) and the extended row's observables (the
+# virial form of each pair force, then the Coulomb energy: two sweeps each)
+J_SNAPSHOT_LAUNCHES = {"lite": 2, "full": 6, "extended": 4}
+
+
+def shear_cell(box_l, shear=SHEAR):
+    """The sheared reduced cell of edge box_l: a = (L, 0, 0),
+    b = (sx L, L, 0), c = (cx L, cy L, L)."""
+    import numpy as np
+
+    sx, cx, cy = shear
+    return np.array([[box_l, 0.0, 0.0], [sx * box_l, box_l, 0.0],
+                     [cx * box_l, cy * box_l, box_l]])
+
+
+def into_cell(x, molecule, masses, box_l, cell):
+    """numpy float64 positions with each molecule's centre of mass mapped
+    affinely from the cube of edge box_l into `cell` (rows = lattice
+    vectors), each molecule's geometry kept."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    mol = np.asarray(molecule, np.int64)
+    m = np.asarray(masses, np.float64)
+    tot = np.bincount(mol, m)
+    com = np.stack([np.bincount(mol, m * x[:, d]) for d in range(3)], 1) \
+        / tot[:, None]
+    return x + (com @ (np.asarray(cell) / box_l) - com)[mol]
+
+
+def water_in_cell(system, x, box_l, cell, r_cut, device):
+    """A water_system() built without cell lists, with positions `x` in the
+    cube of edge box_l, moved into `cell`: its default box, positions
+    (into_cell), cell list and, under PME, grid all for the cell;
+    (system, positions as float64 numpy)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops.neighbors import make_neighbor_spec
+    from atomsmm_tpu_torch.ops.pme import choose_pme_parameters
+    from atomsmm_tpu_torch.utils import replace
+
+    xs = into_cell(x.detach().cpu().numpy(), system.molecule.cpu().numpy(),
+                   system.masses.cpu().numpy(), box_l, cell)
+    nb = system.forces[0]
+    if nb.method == "pme":
+        _, grid, _ = choose_pme_parameters(r_cut, cell,
+                                           alpha=float(nb.ewald_alpha),
+                                           order=int(nb.spline_order))
+        nb = replace(nb, grid_shape=grid)
+    system = replace(system, forces=(nb,) + tuple(system.forces[1:]),
+                     default_box=torch.as_tensor(
+                         cell, dtype=system.masses.dtype, device=device))
+    return system.with_neighbors(make_neighbor_spec(
+        cell, system.num_particles, r_cut, exclusions=nb.exclusions,
+        occupancy_floor_from=xs, device=device)), xs
+
+
+def headline(dev, eq, dtype, cell=None):
+    """The 30k headline as phase_main builds it (water_system of the
+    stored state's 10,000 waters, RESPASystem(0.5, 0.4), MTS [4, 2, 1] @
+    4 fs + NHC 300 K, both grids' capacities retuned at safety 1.03 from
+    bench_data/eq_water30k.npz) in `dtype`: (system, integrator, state). With `cell`, a (3, 3) matrix,
+    the stored state is moved into it (water_in_cell): every spec is
+    built for the cell and marked triclinic."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    ex, ev, ebox = eq
+    system, _, _ = water_system(n_molecules=len(ex) // 3,
+                                neighbors=cell is None,
+                                dtype=dtype, device=dev)
+    box = torch.as_tensor(ebox, dtype=dtype, device=dev)
+    x = ex
+    if cell is not None:
+        system, x = water_in_cell(system, torch.as_tensor(ex),
+                                  float(ebox[0]), cell, 0.9, dev)
+        box = torch.as_tensor(cell, dtype=dtype, device=dev)
+    respa = amm.RESPASystem(system, rcut_in=0.5, rswitch_in=0.4)
+    respa = retune_neighbor_specs(respa, x, box, safety=1.03)
+    integ = amm.MultipleTimeScaleIntegrator(
+        0.004, [4, 2, 1], temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * system.num_particles - 3)
+    state = amm.make_state(torch.as_tensor(x, dtype=dtype, device=dev),
+                           v=torch.as_tensor(ev, dtype=dtype, device=dev),
+                           box=box)
+    return respa, integ, state
+
+
+def snapshot(state):
+    """Copies of everything a checkpoint holds, on the state's device (the
+    generator advances in place)."""
+    return dict(x=state.x.clone(), v=state.v.clone(), box=state.box.clone(),
+                step=state.step, rng=state.rng.get_state().clone(),
+                rng_device=state.rng.device,
+                extra={k: v.clone() for k, v in state.extra.items()})
+
+
+def equals_snapshot(state, snap):
+    """`state` equals `snap` bit for bit: x, v, box, the step, every extended
+    variable (dtype and value) and the generator (device and state)."""
+    import torch
+
+    same = [state.step == snap["step"],
+            state.rng.device == snap["rng_device"],
+            torch.equal(state.rng.get_state(), snap["rng"]),
+            sorted(state.extra) == sorted(snap["extra"])]
+    for k in ("x", "v", "box"):
+        got = getattr(state, k)
+        same.append(got.dtype == snap[k].dtype and torch.equal(got, snap[k]))
+    for k, want in snap["extra"].items():
+        got = state.extra.get(k)
+        same.append(got is not None and got.dtype == want.dtype
+                    and torch.equal(got, want))
+    return all(same)
+
+
+def counted_context(ctx):
+    """Wrap ctx.step and ctx.get_state to record each step(n) call's n and
+    passes, and the lite and full snapshots; returns the record."""
+    rec = {"calls": [], "lite": 0, "full": 0}
+    step, get_state = ctx.step, ctx.get_state
+
+    def counted_step(n):
+        out = step(n)
+        rec["calls"].append((n, ctx.last_step_passes))
+        return out
+
+    def counted_get_state(lite=False):
+        rec["lite" if lite else "full"] += 1
+        return get_state(lite=lite)
+
+    ctx.step, ctx.get_state = counted_step, counted_get_state
+    return rec
+
+
+def j_reporters(outs):
+    """Path (j)'s reporters, writing into the StringIOs of `outs`."""
+    import atomsmm_tpu_torch as amm
+
+    every = J_INTERVALS
+    return [
+        amm.StateDataReporter(outs["state"], every["state"]),
+        amm.ExtendedStateDataReporter(outs["extended"], every["extended"],
+                                      pressure=True, coulomb_energy=True),
+        amm.PDBReporter(outs["pdb"], every["frames"]),
+        amm.XYZReporter(outs["xyz"], every["frames"], atoms=range(6),
+                        symbols=["O", "H", "H"] * 2),
+        amm.CenterOfMassReporter(outs["com"], every["frames"]),
+        amm.CustomIntegratorReporter(outs["custom"], every["frames"]),
+    ]
+
+
+def csv_rows(text):
+    """(header names, rows as float lists) of a StateDataReporter CSV."""
+    lines = text.strip().splitlines()
+    names = [h.strip('"') for h in lines[0].split(",")]
+    return names, [[float(v) for v in line.split(",")] for line in lines[1:]]
+
+
+def phase_simulation(dev, eq, main_ms, fire_steps=50, half=100,
+                     continuations=3):
+    """Path (j): the 30k headline under Simulation, float32. FIRE
+    (minimize_energy, `fire_steps` iterations on the cell lists, K1 on
+    both grids) from the stored state, then velocities at 300 K (seed 7)
+    and the run from FIRE's minimum: FIRE takes the liquid's thermal
+    potential energy out (3.4 kJ/mol/atom in 50 iterations), and the
+    Nose-Hoover chain puts it back over picoseconds, so the rows are held
+    to J_BANDS, set from the witness of that start. Then the
+    reporters (StateDataReporter every 25, ExtendedStateDataReporter with
+    pressure and the Coulomb energy every 50, PDB, XYZ of six atoms,
+    centres of mass and the integrator variables every 100), step(half),
+    save_checkpoint and save_system, step(half); then `continuations`
+    times a fresh Simulation from load_system + load_checkpoint with the
+    same reporters, step(half). Checks: PE and max|F| fall in FIRE; the
+    rows at exactly the due steps; Total = PE + KE to the printed digits;
+    every row's T and PE/atom above FIRE's minimum inside J_BANDS; finite
+    pressures; every frame written; the restored state
+    bitwise equal to the saved one; the uninterrupted run no farther from
+    the continuations (the largest max|dx| of the run against each) than
+    3 x their spread (the largest max|dx| between two of them): K1's
+    atomics vary the last bits, and chaos grows them to 1e-2 nm in 100
+    steps; a spread of 0 asks for equality; K1's launches as derived (2 a FIRE
+    iteration per pass; 3 an outer step + 2 a pass of each step(n); 2 a
+    lite and 6 a full snapshot; 4 an extended row). Logged: ms per FIRE
+    iteration, per outer step with and without reporters, a full and a
+    lite row in ms and in outer steps, the checkpoint and system I/O,
+    profile_forces and profile_step beside phase_main's step, and a
+    trace() file."""
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import minimize as fire
+    from atomsmm_tpu_torch.checkpoint import load_system, save_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.potential import force_fn
+    from atomsmm_tpu_torch.profiling import profile_forces, profile_step, \
+        trace
+
+    f32 = torch.float32
+    tmp = tempfile.mkdtemp(prefix="path_j_")
+    try:
+        respa, integ, state = headline(dev, eq, f32)
+        n = respa.num_particles
+        sim = amm.Simulation(respa, integ, state)
+        ctx = sim.context
+
+        def pe_fmax(c):
+            s, st = c.system, c.state
+            aux = make_aux(s, all_neighbor_extras(s, st.x, st.box))
+            e, f = force_fn(s)(st.x, st.box, c.parameters, aux)
+            return float(e) / n, float(torch.linalg.norm(f, dim=1).max())
+
+        pe0, f0 = pe_fmax(ctx)
+        passes = []
+        fire_pass = fire._fire_pass
+
+        def counted_pass(*args):
+            passes.append(1)
+            return fire_pass(*args)
+
+        fire._fire_pass = counted_pass
+        try:
+            pk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.minimize_energy(steps=fire_steps)
+            torch.cuda.synchronize()
+            fire_ms = (time.perf_counter() - t0) * 1e3 / fire_steps
+            fire_launches = dict(pk.LAUNCHES)
+        finally:
+            fire._fire_pass = fire_pass
+        pe1, f1 = pe_fmax(ctx)
+        expected_fire = {"half_pair": 2 * fire_steps * len(passes),
+                         "cell_pair": 0, "tile_pair": 0}
+        log(f"path (j) FIRE {fire_steps} iterations on the cell lists: PE/atom "
+            f"{pe0:.4f} -> {pe1:.4f} kJ/mol, max|F| {f0:.1f} -> {f1:.1f} "
+            f"kJ/mol/nm; {fire_ms:.3f} ms per iteration (rebuild, K1 near "
+            f"and far, group 0 by autograd, the FIRE update); passes "
+            f"{len(passes)}; launches {fire_launches} (expected "
+            f"{expected_fire})")
+        sim.set_velocities_to_temperature(300.0, seed=7)
+
+        outs = {k: io.StringIO() for k in ("state", "extended", "pdb", "xyz",
+                                           "com", "custom")}
+        sim.reporters = j_reporters(outs)
+        rec = counted_context(ctx)
+        s0 = sim.current_step
+        pk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step(half)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        ck, sysf = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "sys.npz")
+        t0 = time.perf_counter()
+        sim.save_checkpoint(ck)
+        save_ck_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        save_system(sysf, sim.system)
+        save_sys_ms = (time.perf_counter() - t0) * 1e3
+        saved = snapshot(ctx.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step(half)
+        torch.cuda.synchronize()
+        t_second = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+        x_u = ctx.state.x.clone()
+        rep_ms = (t_first + t_second) * 1e3 / (2 * half)
+
+        ext_rows = outs["extended"].getvalue().count("\n") - 1
+        expected = {"half_pair": sum(
+            p * (3 * k + 2) for k, p in rec["calls"])
+            + J_SNAPSHOT_LAUNCHES["lite"] * rec["lite"]
+            + J_SNAPSHOT_LAUNCHES["full"] * rec["full"]
+            + J_SNAPSHOT_LAUNCHES["extended"] * ext_rows,
+            "cell_pair": 0, "tile_pair": 0}
+
+        names, rows = csv_rows(outs["state"].getvalue())
+        ext_names, ext = csv_rows(outs["extended"].getvalue())
+        col = {k: names.index(k) for k in names}
+
+        def due(kind):
+            return [k for k in range(s0 + 1, s0 + 2 * half + 1)
+                    if k % J_INTERVALS[kind] == 0]
+
+        steps = [int(r[col["Step"]]) for r in rows]
+        temps = [r[col["Temperature (K)"]] for r in rows]
+        pes = [r[col["Potential Energy (kJ/mole)"]] / n for r in rows]
+        total_ok = all(
+            abs(r[col["Total Energy (kJ/mole)"]]
+                - r[col["Potential Energy (kJ/mole)"]]
+                - r[col["Kinetic Energy (kJ/mole)"]])
+            <= 1e-5 * (abs(r[col["Potential Energy (kJ/mole)"]])
+                       + abs(r[col["Kinetic Energy (kJ/mole)"]]))
+            for r in rows)
+        pressures = [r[ext_names.index(k)] for r in ext
+                     for k in ("Atomic Pressure (bar)",
+                               "Molecular Pressure (bar)")]
+        frames = {k: outs[k].getvalue() for k in ("pdb", "xyz", "com",
+                                                  "custom")}
+        log(f"path (j) reporting run: step({half}) twice, {len(rows)} state "
+            f"rows at steps {steps}; T {[round(t, 2) for t in temps]} K; "
+            f"PE/atom {[round(p, 4) for p in pes]} kJ/mol; {ext_rows} extended "
+            f"rows, pressures (atomic, molecular) "
+            f"{[round(p, 1) for p in pressures]} bar; frames: PDB "
+            f"{frames['pdb'].count('ENDMDL')}, XYZ "
+            f"{frames['xyz'].count('step ')}, COM "
+            f"{frames['com'].count('step ')}, integrator "
+            f"{frames['custom'].count('# step')}; PE/atom above FIRE's "
+            f"minimum {[round(p - pe1, 4) for p in pes]} (band "
+            f"{J_BANDS['pe_rise']}), T band {J_BANDS['T']}; step(n) calls "
+            f"{rec['calls']}; snapshots lite {rec['lite']} full "
+            f"{rec['full']}; launches {launches} (expected {expected}); "
+            f"{rep_ms:.3f} ms/step with reporters; checkpoint saved in "
+            f"{save_ck_ms:.3f} ms ({os.path.getsize(ck)} bytes), system in "
+            f"{save_sys_ms:.3f} ms ({os.path.getsize(sysf)} bytes)")
+
+        def restored():
+            t0 = time.perf_counter()
+            system = load_system(sysf, device=dev)
+            torch.cuda.synchronize()
+            load_sys_ms = (time.perf_counter() - t0) * 1e3
+            integ2 = amm.MultipleTimeScaleIntegrator(
+                0.004, [4, 2, 1], temperature=300.0, time_scale=0.1,
+                degrees_of_freedom=3 * n - 3)
+            s = amm.Simulation(system, integ2, amm.make_state(
+                saved["x"], v=saved["v"], box=saved["box"]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.load_checkpoint(ck)
+            torch.cuda.synchronize()
+            load_ck_ms = (time.perf_counter() - t0) * 1e3
+            return s, load_sys_ms, load_ck_ms
+
+        conts, bitwise = [], []
+        for _ in range(continuations):
+            s, load_sys_ms, load_ck_ms = restored()
+            bitwise.append(equals_snapshot(s.context.state, saved))
+            s.reporters = j_reporters({k: io.StringIO() for k in outs})
+            s.step(half)
+            conts.append(s)
+        xs = [s.context.state.x for s in conts]
+        spread = max(float((a - b).abs().max())
+                     for i, a in enumerate(xs) for b in xs[i + 1:])
+        diff = max(float((x_u - a).abs().max()) for a in xs)
+        log(f"path (j) restore: load_system {load_sys_ms:.3f} ms, "
+            f"load_checkpoint {load_ck_ms:.3f} ms; restored state bitwise "
+            f"equal to the saved one (x, v, box, {len(saved['extra'])} "
+            f"extended variables, the generator, the step): {bitwise}; "
+            f"after step({half}): max|x - x_uninterrupted| {diff:.3e} nm, "
+            f"spread of {continuations} continuations {spread:.3e} nm")
+
+        c = conts[0]
+        cctx = c.context
+        c.reporters = []
+        c.step(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.step(50)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3 / 50
+        ext_rep = amm.ExtendedStateDataReporter(
+            io.StringIO(), 50, pressure=True, coulomb_energy=True)
+        sdr = amm.StateDataReporter(io.StringIO(), 25)
+        full_ms = wall_ms(lambda: ext_rep.report(c, cctx.get_state()), 5)
+        snap_ms = wall_ms(lambda: cctx.get_state(), 5)
+        lite_ms = wall_ms(lambda: sdr.report(c, cctx.get_state(lite=True)),
+                          5)
+        lite = cctx.get_state(lite=True)
+        frame_ms = {type(r).__name__: wall_ms(lambda r=r: r.report(c, lite), 2)
+                    for r in j_reporters({k: io.StringIO() for k in outs})[2:]}
+        prof = profile_forces(cctx, reps=10)
+        prof_step = profile_step(cctx, steps=20, tries=2)
+        with trace(os.path.join(tmp, "trace")) as tracer:
+            cctx.step(2)
+        trace_bytes = os.path.getsize(tracer.trace_file)
+        log(f"path (j) times: {bare_ms:.3f} ms/step without reporters, "
+            f"{rep_ms:.3f} with ({rep_ms / bare_ms:.3f}x); a full row "
+            f"(snapshot + extended columns) {full_ms:.3f} ms = "
+            f"{full_ms / bare_ms:.3f} outer steps (the full snapshot alone "
+            f"{snap_ms:.3f} ms), a lite row {lite_ms:.3f} ms = "
+            f"{lite_ms / bare_ms:.3f} outer steps; a frame of each "
+            f"every-100 reporter (ms) "
+            f"{ {k: round(v, 3) for k, v in frame_ms.items()} }; "
+            f"profile_forces "
+            f"{ {k: round(v, 4) for k, v in prof.items()} } ms; profile_step "
+            f"{prof_step:.3f} ms against phase_main's {main_ms:.3f} ms/step; "
+            f"trace() wrote {trace_bytes} bytes")
+        checks = {
+            "fire_pe_falls": pe1 < pe0,
+            "fire_fmax_falls": f1 < f0,
+            "fire_launches": fire_launches == expected_fire,
+            "rows_at_due_steps": steps == due("state"),
+            "extended_rows": [int(r[0]) for r in ext] == due("extended"),
+            "total_is_pe_plus_ke": total_ok,
+            "temperature": all(J_BANDS["T"][0] <= t <= J_BANDS["T"][1]
+                               for t in temps),
+            "pe_per_atom": all(J_BANDS["pe_rise"][0] <= p - pe1
+                               <= J_BANDS["pe_rise"][1] for p in pes),
+            "pressures_finite": all(math.isfinite(p) for p in pressures),
+            "frames": all(frames[k].count(tag) == len(due("frames"))
+                          for k, tag in (("pdb", "ENDMDL"), ("xyz", "step "),
+                                         ("com", "step "),
+                                         ("custom", "# step"))),
+            "launches": launches == expected,
+            "restored_bitwise": all(bitwise),
+            "continuation": diff <= 3.0 * spread if spread > 0
+            else diff == 0.0,
+            "finite": bool(torch.isfinite(x_u).all()),
+            "profile_keys": sorted(prof) == ["group 0", "group 1", "group 2",
+                                             "overhead"],
+            "trace_written": trace_bytes > 0,
+        }
+        require("path (j)", checks)
+        return {"launches": launches, "fire_launches": fire_launches,
+                "fire_ms": fire_ms, "ms_per_step": rep_ms,
+                "bare_ms": bare_ms, "full_row_ms": full_ms,
+                "lite_row_ms": lite_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_simulation_resume(dev, steps=10):
+    """A resume on the card that is deterministic end to end: 216 waters at
+    the default 0.9 nm (one cell: K2 alone, no atomics; group 0 by
+    autograd through a reshape), float32, LangevinMiddleIntegrator(1 fs,
+    300 K, 1/ps), whose every step draws from the CUDA generator. FIRE 20
+    iterations, velocities at seed 3, step(steps), save_checkpoint and
+    save_system, step(steps); twice a fresh Simulation from load_system +
+    load_checkpoint, step(steps). Checks: each restored state bitwise equal
+    to the saved one, the two continuations and the uninterrupted run
+    bitwise equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.checkpoint import load_system, save_system
+    from atomsmm_tpu_torch.models import water_system
+
+    tmp = tempfile.mkdtemp(prefix="resume_")
+    try:
+        system, x, box = water_system(n_molecules=216, neighbors=True,
+                                      dtype=torch.float32, device=dev)
+        if system.neighbors.half_stencil:
+            raise RuntimeError("the resume slice expects one cell (K2)")
+
+        def integrator():
+            return amm.LangevinMiddleIntegrator(0.001, 300.0, 1.0)
+
+        sim = amm.Simulation(system, integrator(),
+                             amm.make_state(x, box=box))
+        sim.minimize_energy(steps=20)
+        sim.set_velocities_to_temperature(300.0, seed=3)
+        sim.step(steps)
+        ck = os.path.join(tmp, "ck.npz")
+        sysf = os.path.join(tmp, "sys.npz")
+        sim.save_checkpoint(ck)
+        save_system(sysf, sim.system)
+        saved = snapshot(sim.context.state)
+        sim.step(steps)
+        ends, bitwise = [], []
+        for _ in range(2):
+            s = amm.Simulation(load_system(sysf, device=dev), integrator(),
+                               amm.make_state(saved["x"], v=saved["v"],
+                                              box=saved["box"]))
+            s.load_checkpoint(ck)
+            bitwise.append(equals_snapshot(s.context.state, saved))
+            s.step(steps)
+            ends.append(s.context.state)
+        same = [torch.equal(e.x, sim.context.state.x)
+                and torch.equal(e.v, sim.context.state.v) for e in ends]
+        log(f"resume water216 K2 float32 LangevinMiddle: restored bitwise "
+            f"{bitwise}; continuations bitwise equal to the uninterrupted "
+            f"run (x and v) {same}; max|dx| "
+            f"{float((ends[0].x - sim.context.state.x).abs().max()):.3e}")
+        require("resume slice", {"restored_bitwise": all(bitwise),
+                                 "continuation_bitwise": all(same)})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sweep_launches(system, calls, per_step):
+    """K1 and K2 launches of Context.step calls [(n, passes), ...] on a
+    RESPA system, derived from the code: each spec's force is evaluated
+    per_step[name] times an outer step and once more at the start of each
+    pass, by K1 where the spec has half maps, else by K2."""
+    want = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    specs = {"far": system.neighbors,
+             "near": system.extra_neighbor_specs["near"]}
+    for name, spec in specs.items():
+        kernel = "half_pair" if spec.half_stencil else "cell_pair"
+        want[kernel] += sum(p * (per_step[name] * n + 1) for n, p in calls)
+    return want
+
+
+def phase_triclinic(dev, eq, k2_steps=10):
+    """Path (k): triclinic (3, 3) cells on K1 and K2, which round each slot
+    in fractional coordinates (pair_forms.cuh::Image). (k1) the 30k
+    headline state with its box given as diag(L, L, L) (every spec built
+    for the matrix, so the whole triclinic route) against K1 at the (3,)
+    box, per group, float64 (energy 1e-10, forces 1e-9 max|F|) and float32
+    (1e-4); (k2) the same state with the molecules' centres mapped into
+    the sheared cell shear_cell(L) (SHEAR), `k2_steps` outer RESPA steps
+    through Context.step in float32 and float64: finite, T 280-320 K, ms
+    per outer step; (k3) 400 waters in the sheared cell at 0.7 nm, RF and
+    PME, RESPA [2, 2, 1] + NHC, 5 outer steps in float64 on the card
+    against the CPU (x, v to 1e-9 relative). The launch counts are set to
+    0 just before (k2) and read after (k3)'s card runs, and must equal the
+    count derived from the code (sweep_launches). Then K1 and K2 against
+    their float64 plain twins at (k2)'s and (k3)'s grids (K2 on (k2)'s far
+    grid without its half maps), K1's device time at (k2)'s grids, and
+    (k4) PME against the plane-wave Ewald sum on tests/test_triclinic.py's
+    sheared cell on the card (2e-5)."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.ops.pbc import max_cutoff, \
+        triclinic_from_lengths_angles
+    from atomsmm_tpu_torch.ops.pme import ewald_reference_energy, \
+        pme_reciprocal_energy
+    from atomsmm_tpu_torch.potential import force_fn
+    from atomsmm_tpu_torch.utils import replace
+
+    f32, f64 = torch.float32, torch.float64
+    box_l = float(eq[2][0])
+    results, k1 = [], []
+    for dtype in (f64, f32):
+        ortho, _, st_o = headline(dev, eq, dtype)
+        tric, _, st_t = headline(dev, eq, dtype, cell=np.diag([box_l] * 3))
+        if not (st_t.box.shape == (3, 3)
+                and tric.neighbors.grid == ortho.neighbors.grid
+                and tric.extra_neighbor_specs["near"].grid
+                == ortho.extra_neighbor_specs["near"].grid):
+            raise RuntimeError("(k1): the diag(L) specs do not have the (3,) "
+                               "specs' grids")
+        aux_o = make_aux(ortho, all_neighbor_extras(ortho, st_o.x, st_o.box))
+        aux_t = make_aux(tric, all_neighbor_extras(tric, st_t.x, st_t.box))
+        for g in (0, 1, 2):
+            e_o, f_o = force_fn(ortho, {g})(st_o.x, st_o.box, {}, aux_o)
+            e_t, f_t = force_fn(tric, {g})(st_t.x, st_t.box, {}, aux_t)
+            k1.append(judge(f"(k1) group {g} K1 at diag(L) (3,3) vs K1 at "
+                            f"(3,) 30k", dtype, e_t, f_t, e_o, f_o))
+        del ortho, tric, aux_o, aux_t
+
+    cell = shear_cell(box_l)
+    k2_ms, expected = {}, {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    pk.reset_launches()
+    for dtype in (f32, f64):
+        respa, integ, state = headline(dev, eq, dtype, cell=cell)
+        ctx = amm.Context(respa, integ, state)
+        rec = counted_context(ctx)
+        ctx.step(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.step(k2_steps)
+        torch.cuda.synchronize()
+        k2_ms[str(dtype)[6:]] = (time.perf_counter() - t0) * 1e3 / k2_steps
+        for k, v in sweep_launches(respa, rec["calls"],
+                                   {"far": 1, "near": 2}).items():
+            expected[k] += v
+        temp = float(ctx.temperature())
+        finite = bool(torch.isfinite(ctx.state.x).all()
+                      and torch.isfinite(ctx.state.v).all())
+        log(f"path (k2) water30k in the sheared cell {np.round(cell, 4).tolist()} "
+            f"(shear {SHEAR}; max_cutoff {max_cutoff(cell):.4f} nm > 0.9), "
+            f"grids far {ctx.system.neighbors.grid} near "
+            f"{ctx.system.extra_neighbor_specs['near'].grid}, "
+            f"{str(dtype)[6:]}: {k2_steps} outer steps at "
+            f"{k2_ms[str(dtype)[6:]]:.3f} ms/step; T {temp:.2f} K; finite "
+            f"{finite}")
+        require(f"path (k2) {str(dtype)[6:]}",
+                {"finite": finite, "temperature": 280.0 <= temp <= 320.0})
+        if dtype == f64:
+            k2_sys, k2_x = respa, ctx.state.x.clone()
+            k2_box = ctx.state.box.clone()
+        del ctx, state
+
+    k3 = {}
+    for method in ("cutoff", "pme"):
+        runs = []
+        for device in ("cpu", dev):
+            system, x, _ = water_system(n_molecules=400, method=method,
+                                        r_cut=0.7, r_switch=0.6, dtype=f64,
+                                        device=device)
+            box3 = float(system.default_box[0])
+            cell3 = shear_cell(box3)
+            system, xs = water_in_cell(system, x, box3, cell3, 0.7, device)
+            respa = amm.RESPASystem(system, rcut_in=0.45, rswitch_in=0.35)
+            m = system.masses.cpu().numpy()
+            v = np.random.RandomState(2).normal(size=xs.shape) * np.sqrt(
+                amm.units.BOLTZMANN * 300.0 / m)[:, None]
+            integ = amm.MultipleTimeScaleIntegrator(
+                0.004, [2, 2, 1], temperature=300.0, time_scale=0.1,
+                degrees_of_freedom=3 * system.num_particles - 3)
+            ctx = amm.Context(respa, integ, amm.make_state(
+                torch.as_tensor(xs, device=device),
+                v=torch.as_tensor(v, device=device),
+                box=torch.as_tensor(cell3, device=device)))
+            rec = counted_context(ctx)
+            ctx.step(5)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                for k, v_ in sweep_launches(respa, rec["calls"],
+                                            {"far": 1, "near": 2}).items():
+                    expected[k] += v_
+                k3[method] = (respa, ctx.state.x.clone(),
+                              ctx.state.box.clone())
+            runs.append((ctx.state.x.cpu(), ctx.state.v.cpu()))
+        (xc, vc), (xg, vg) = runs
+        err = max(float((a - b).abs().max()) / float(a.abs().max())
+                  for a, b in ((xc, xg), (vc, vg)))
+        log(f"path (k3) water400 {method} in the sheared cell, float64 card "
+            f"vs CPU, RESPA [2, 2, 1] + NHC 5 outer steps, grids far "
+            f"{respa.neighbors.grid} (half maps "
+            f"{respa.neighbors.half_stencil}) near "
+            f"{respa.extra_neighbor_specs['near'].grid}: x, v max rel diff "
+            f"{err:.2e}")
+        require(f"path (k3) {method}", {"card_equals_cpu": err < 1e-9})
+    launches = dict(pk.LAUNCHES)
+    log(f"path (k) launches over (k2) and (k3) on the card: {launches} "
+        f"(derived {expected})")
+    require("path (k)", {"launches": launches == expected})
+
+    # K1 and K2 against their plain twins at path (k)'s grids
+    far, near = k2_sys.neighbors, k2_sys.extra_neighbor_specs["near"]
+    compare("water30k sheared far", k2_sys.forces[2], far, k2_x, k2_box, dev,
+            results)
+    compare("water30k sheared near", k2_sys.forces[1], near, k2_x, k2_box,
+            dev, results)
+    compare("water30k sheared far, full stencil", k2_sys.forces[2],
+            replace(far, half_stencil=False), k2_x, k2_box, dev, results)
+    for method, (r3, x3, b3) in k3.items():
+        compare(f"water400 sheared {method} far", r3.forces[2], r3.neighbors,
+                x3, b3, dev, results)
+        compare(f"water400 sheared {method} near", r3.forces[1],
+                r3.extra_neighbor_specs["near"], x3, b3, dev, results)
+    # K1's device time at (k2)'s grids, float32, at the float64 run's end
+    sys32, _, _ = headline(dev, eq, f32, cell=cell)
+    x32, b32 = k2_x.to(f32).contiguous(), k2_box.to(f32)
+    timings = {}
+    for label, force, spec in (
+            ("far", sys32.forces[2], sys32.neighbors),
+            ("near", sys32.forces[1], sys32.extra_neighbor_specs["near"])):
+        timings[label] = time_cells(f"water30k sheared {label}", force, spec,
+                                    x32, b32)
+
+    h = torch.as_tensor(triclinic_from_lengths_angles(
+        2.2, 2.0, 2.4, 90.0, 105.0, 80.0), dtype=f64, device=dev)
+    rs = np.random.RandomState(3)
+    x = torch.as_tensor(rs.uniform(0, 1, (24, 3)), device=dev) @ h
+    q = torch.as_tensor(rs.uniform(-1, 1, (24,)), device=dev)
+    q = q - q.mean()
+    e_pme = float(pme_reciprocal_energy(x, h, q, 3.0, (32, 32, 32), 6))
+    e_ref = float(ewald_reference_energy(x, h, q, 3.0, kmax=14))
+    rel = abs(e_pme - e_ref) / abs(e_ref)
+    log(f"path (k4) PME vs plane-wave Ewald on a sheared cell on the card: "
+        f"{e_pme:.12g} vs {e_ref:.12g}, rel {rel:.2e} (tol 2e-5)")
+    require("path (k4)", {"pme_vs_ewald": rel <= 2e-5})
+    return {"launches": launches, "k2_ms": k2_ms, "k1": k1,
+            "kernel_checks": results, "timings": timings}
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -3803,10 +4543,14 @@ def main():
     h2 = phase_swm4_scf(dev, h1)
     phase_cmap(dev)
     hrex = phase_hrex(dev)
+    sim_run = phase_simulation(dev, eq, main_run["ms_per_step"])
+    phase_simulation_resume(dev)
+    tric = phase_triclinic(dev, eq)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
-                + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"])
+                + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
+                + tric["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
@@ -3846,6 +4590,9 @@ def main():
         "path_h1": h1["launches"],
         "path_h2": h2["launches"],
         "path_i": hrex["launches"],
+        "path_j": sim_run["launches"],
+        "path_j_fire": sim_run["fire_launches"],
+        "path_k": tric["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -3931,6 +4678,21 @@ def main():
                "path_h_bound_by": t["bound"]["by"]})
     # path (i): K1's float32 error against the plain twin at its own bucket
     k1["path_i_max_abs_err"] = f32_err("half_pair", "path (i)")
+    # path (j): the headline under Simulation (FIRE, then the reporting
+    # run), ms per FIRE iteration and per outer step; path (k): K1 at
+    # (k2)'s sheared far and near grids (the fractional minimum image),
+    # float32, and K1's and K2's float32 errors against their plain twins
+    # at (k2)'s and (k3)'s sheared grids
+    k1.update({"path_j_fire_ms": sim_run["fire_ms"],
+               "path_j_ms": sim_run["ms_per_step"]})
+    for label, t in tric["timings"].items():
+        k1.update({f"path_k2_{label}_ms": t["ms"],
+                   f"path_k2_{label}_plain_ms": t["plain_ms"],
+                   f"path_k2_{label}_bound_ms": t["bound"]["ms"],
+                   f"path_k2_{label}_bound_by": t["bound"]["by"]})
+    for entry_, kernel in zip(kernels["kernels"][:2],
+                              ("half_pair", "cell_pair")):
+        entry_["path_k_max_abs_err"] = f32_err(kernel, "sheared")
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ import pytest
 
 MODULES = {
     "alchemy": 5,
+    "app": 10,
+    "checkpoint": 9,
     "computers": 3,
     "forces": 1,
     "integrate.barostat": 3,
@@ -14,19 +16,22 @@ MODULES = {
     "integrate.integrators": 3,
     "integrate.propagators": 3,
     "integrate.sinr": 2,
+    "io.pdb": 7,
+    "minimize": 6,
     "models.water": 12,
     "ops.cmap": 10,
     "ops.constraints": 10,
     "ops.drude": 9,
     "ops.pairfuncs": 1,
-    "ops.pbc": 3,
+    "ops.pbc": 7,
     "ops.pme": 3,
     "parallel.replicas": 6,
+    "profiling": 6,
     "ops.settle": 17,
-    "ops.switching": 3,
+    "ops.switching": 8,
     "state": 4,
     "system": 3,
-    "systems": 17,
+    "systems": 21,
     "utils": 2,
     "ops.virtual_sites": 12,
 }

@@ -205,23 +205,16 @@ def test_interop_refuses_unported_fields():
 
 
 def test_unported_methods_raise():
-    """'nocutoff' has no pair-kernel form (dense path only), an unknown
-    method is refused, and a triclinic box raises in the PME sum; the
-    triple split of a system without PME keeps three groups, as in JAX."""
-    from atomsmm_tpu_torch.ops import pme as tpme
-    from atomsmm_tpu_torch.utils import InputError
-
-    s, x, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
+    """'nocutoff' has no pair-kernel form (dense path only) and an unknown
+    method is refused; the triple split of a system without PME keeps
+    three groups, as in JAX."""
+    s, _, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
                                    method="nocutoff", dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match="dense path"):
         s.forces[0]._pair_form()
     with pytest.raises(ValueError, match="method"):
         tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
                              method="ewald", device="cpu")
-    with pytest.raises(InputError, match="triclinic"):
-        tpme.pme_reciprocal_energy(x, torch.eye(3, dtype=F64) * 2.0,
-                                   torch.ones(192, dtype=F64), 3.0,
-                                   (8, 8, 8), 4)
     s, _, _ = tmodels.water_system(n_molecules=64, r_cut=0.45, r_switch=0.35,
                                    device="cpu")
     r = tsystems.RESPASystem(s, 0.3, 0.25, reciprocal_level=True)
