@@ -25,8 +25,10 @@ mirrors the JAX package's: Simulation (app.py) with its reporters,
 checkpoints and System files (checkpoint.py), FIRE minimization on the
 cell lists (minimize.py), profiling and PDB files (io/pdb.py). A box is
 (3,) edge lengths or a (3, 3) triclinic cell matrix (ops/pbc.py), which
-the cell lists and the pair kernels take too. This package never imports
-JAX.
+the cell lists and the pair kernels take too. Amber prmtop/inpcrd files
+become systems through io/amber.py (amber_system), NBFIX type-pair tables
+and the legacy 10-12 term included, which K1 and K2 evaluate from a
+per-force (T, T, 4) table. This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -125,7 +127,15 @@ from .utils import (
 )
 from .app import Simulation
 from .checkpoint import load_checkpoint, save_checkpoint
-from .io import PDBFile, read_pdb, write_pdb
+from .io import (
+    AmberPrmtop,
+    PDBFile,
+    amber_system,
+    read_inpcrd,
+    read_pdb,
+    read_prmtop,
+    write_pdb,
+)
 from .minimize import fire_minimize, minimize_energy
 from .profiling import profile_forces, profile_step
 from .reporters import (

@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 
 #: argument kinds of every C entry point: p = pointer, i = int
 _SIGNATURES = {
-    "half_pair": "ppppppppp" "iiiiii" "ppp" "p",
-    "cell_pair": "ppppppppp" "iiiiii" "ppp" "p",
+    "half_pair": "ppppppppppp" "iiiiiii" "ppp" "p",
+    "cell_pair": "ppppppppppp" "iiiiiii" "ppp" "p",
     "tile_pair": "pppppp" "iii" "ppp" "p",
 }
 

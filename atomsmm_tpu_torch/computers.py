@@ -96,6 +96,19 @@ def molecular_kinetic_energy(system, v):
     return 0.5 * torch.sum(p * p / m)
 
 
+def _lj_off(f):
+    """A nonbonded force with its LJ epsilon zeroed: the per-particle
+    column, and with NBFIX tables the tables' epsilon and 10-12 terms too
+    (the JAX package zeroes the column only, so its Coulomb energy of a
+    table system keeps the tables' LJ)."""
+    changes = {"epsilon": torch.zeros_like(f.epsilon)}
+    if getattr(f, "pair_epsilon", None) is not None:
+        changes["pair_epsilon"] = torch.zeros_like(f.pair_epsilon)
+    if getattr(f, "pair_a1012", None) is not None:
+        changes.update(pair_a1012=None, pair_b1012=None)
+    return replace(f, **changes)
+
+
 def coulomb_energy(system, x, box, globals=None, aux=None):
     """Electrostatic part of the nonbonded energy (the reference's
     `coulombEnergy` column): the nonbonded forces with every LJ epsilon
@@ -106,16 +119,15 @@ def coulomb_energy(system, x, box, globals=None, aux=None):
     forces = []
     for f in system.forces:
         if hasattr(f, "full"):  # FarNonbondedForce
-            f = replace(f, full=replace(
-                f.full, epsilon=torch.zeros_like(f.full.epsilon),
-                dispersion_coeff=None), minus_near=replace(
-                f.minus_near, epsilon=torch.zeros_like(f.minus_near.epsilon)))
+            f = replace(f, full=replace(_lj_off(f.full),
+                                        dispersion_coeff=None),
+                        minus_near=_lj_off(f.minus_near))
         elif f.name == "NonbondedExceptionsForce":
             f = replace(f, epsilon=torch.zeros_like(f.epsilon))
         elif f.name == "SoftcoreLennardJonesForce":
             continue
         elif hasattr(f, "epsilon") and hasattr(f, "charge"):
-            f = replace(f, epsilon=torch.zeros_like(f.epsilon))
+            f = _lj_off(f)
             if getattr(f, "dispersion_coeff", None) is not None:
                 f = replace(f, dispersion_coeff=None)
         elif not hasattr(f, "charge"):

@@ -43,7 +43,11 @@
 //     about 2,048 warps are in flight; their sums meet in shared memory in
 //     a fixed order.
 // The minimum image rounds by two additions, in fractional coordinates for
-// a (3, 3) cell (TRI; pair_forms.cuh::Image).
+// a (3, 3) cell (TRI; pair_forms.cuh::Image). With a type-pair table
+// (TABLE: NBFIX, the 10-12 term) a staged candidate and a queued hit carry
+// the int32 LJ type in place of (sigma, epsilon), and the evaluation reads
+// the pair's (sigma, epsilon, A, B) row through the read-only cache
+// (pair_forms.cuh::load_pair_row).
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
@@ -60,24 +64,49 @@ constexpr int CHUNK = THREADS;       // candidates staged at a time
 constexpr int TARGET_WARPS = 2048;   // home-atom warps wanted in flight
 
 // A staged candidate: position and atom id, read by the slot test with one
-// 16-byte load in float32; its pair parameters beside it.
+// 16-byte load in float32; its pair parameters beside it: (q, sigma,
+// epsilon), or (q, LJ type) in the TABLE form.
 template <typename T>
 struct alignas(4 * sizeof(T)) Cand {
   T x, y, z;
   int id;
 };
 
-template <typename T>
+template <typename T, bool TABLE>
 struct Par {
   T q, s, e;
 };
 
+template <typename T>
+struct Par<T, true> {
+  T q;
+  int t;
+};
+
 // A queued hit: the displacement and the candidate's pair parameters (the
 // staged chunk it came from may be gone when it is evaluated).
-template <typename T>
+template <typename T, bool TABLE>
 struct alignas(2 * sizeof(T)) Hit {
   T dx, dy, dz, q, s, e;
 };
+
+template <typename T>
+struct alignas(2 * sizeof(T)) Hit<T, true> {
+  T dx, dy, dz, q;
+  int t;
+};
+
+template <typename T>
+__device__ __forceinline__ Hit<T, false> make_hit(T dx, T dy, T dz,
+                                                  const Par<T, false>& p) {
+  return Hit<T, false>{dx, dy, dz, p.q, p.s, p.e};
+}
+
+template <typename T>
+__device__ __forceinline__ Hit<T, true> make_hit(T dx, T dy, T dz,
+                                                 const Par<T, true>& p) {
+  return Hit<T, true>{dx, dy, dz, p.q, p.t};
+}
 
 __device__ __forceinline__ void store_row(float* row, float a, float b,
                                           float c, float d) {
@@ -94,25 +123,28 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 // home slot i0 + w / split and tests the 32-candidate groups
 // w % split, w % split + split, ... of every staged chunk.
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
+//   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
 //   exc (n, m)                     exclusion id columns, -1 padded (COLS)
 //   bucket (ncells, cap)           atom ids, real ids first, then n
 //   nbr (ncells, s)                stencil cells, -1 padded
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (n + 1, 4)                 zeroed; per real atom [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED, bool TRI>
+template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
     cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
+                     const int* __restrict__ types,
+                     const T* __restrict__ table,
                      const int* __restrict__ excbits,
                      const int* __restrict__ exc,
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
-                     int cap, int s, int n, int m, int split, Params<T> p,
-                     T* __restrict__ out) {
+                     int cap, int s, int n, int m, int ntypes, int split,
+                     Params<T> p, T* __restrict__ out) {
   __shared__ Cand<T> cand[CHUNK];
-  __shared__ Par<T> par[CHUNK];
-  __shared__ Hit<T> queue[WARPS][hitqueue::DEPTH];
+  __shared__ Par<T, TABLE> par[CHUNK];
+  __shared__ Hit<T, TABLE> queue[WARPS][hitqueue::DEPTH];
   __shared__ T parts[WARPS][4];
 
   const int t = threadIdx.x;
@@ -130,6 +162,7 @@ __global__ void __launch_bounds__(THREADS)
   const int hid = i < cap ? hrow[i] : n;
   const bool home = hid < n;
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
+  int ti = 0;
   unsigned exc_h = 0u;
   ExcCols cols;
   if (home) {
@@ -137,8 +170,12 @@ __global__ void __launch_bounds__(THREADS)
     yi = x[3 * (size_t)hid + 1];
     zi = x[3 * (size_t)hid + 2];
     qi = q[hid];
-    si = sig[hid];
-    ei = eps[hid];
+    if (TABLE) {
+      ti = types[hid];
+    } else {
+      si = sig[hid];
+      ei = eps[hid];
+    }
     if (!COLS) exc_h = (unsigned)excbits[hid];
   }
   if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
@@ -146,14 +183,20 @@ __global__ void __launch_bounds__(THREADS)
   const Image<T, TRI> image(box);
   const int* nrow = nbr + (size_t)c * s;
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
-  Hit<T>* my_queue = queue[warp];
+  Hit<T, TABLE>* my_queue = queue[warp];
   int queued = 0;
 
-  auto evaluate = [&](const Hit<T>& h) {
+  auto evaluate = [&](const Hit<T, TABLE>& h) {
     const T r2 = h.dx * h.dx + h.dy * h.dy + h.dz * h.dz;
     T u, dudr2;
-    pair_form<T, DAMPED>(p, r2, qi * h.q, T(0.5) * (si + h.s),
-                         sqrt(ei * h.e), u, dudr2);
+    if constexpr (TABLE) {
+      const PairRow<T> row = load_pair_row(table, ntypes, ti, h.t);
+      pair_form<T, DAMPED, true>(p, r2, qi * h.q, row.sig, row.eps, u, dudr2,
+                                 row.a, row.b);
+    } else {
+      pair_form<T, DAMPED>(p, r2, qi * h.q, T(0.5) * (si + h.s),
+                           sqrt(ei * h.e), u, dudr2);
+    }
     const T fm = T(2) * dudr2;
     fx -= fm * h.dx;
     fy -= fm * h.dy;
@@ -185,14 +228,20 @@ __global__ void __launch_bounds__(THREADS)
     return (col < s && j < cap) ? bucket[(size_t)nrow[col] * cap + j] : n;
   };
   Cand<T> atom;
-  Par<T> atom_par;
+  Par<T, TABLE> atom_par;
   auto load_atom = [&](int a) {
     atom.id = a;
     if (a < n) {
       atom.x = x[3 * (size_t)a];
       atom.y = x[3 * (size_t)a + 1];
       atom.z = x[3 * (size_t)a + 2];
-      atom_par = Par<T>{q[a], sig[a], eps[a]};
+      atom_par.q = q[a];
+      if constexpr (TABLE) {
+        atom_par.t = types[a];
+      } else {
+        atom_par.s = sig[a];
+        atom_par.e = eps[a];
+      }
     }
   };
 
@@ -228,14 +277,11 @@ __global__ void __launch_bounds__(THREADS)
                  : excluded_by_bits(exc_h, hid, cj.id);
         const bool hit = (j < cnt) & (r2 < p.rc2) & !excl;
         const int slot = hitqueue::reserve(hit, queued);
-        if (hit) {
-          const Par<T> pj = par[j];
-          my_queue[slot] = Hit<T>{dx, dy, dz, pj.q, pj.s, pj.e};
-        }
+        if (hit) my_queue[slot] = make_hit(dx, dy, dz, par[j]);
         __syncwarp();
         if (queued >= 32) {
           queued -= 32;
-          const Hit<T> h = my_queue[queued + lane];
+          const Hit<T, TABLE> h = my_queue[queued + lane];
           __syncwarp();
           evaluate(h);
         }
@@ -279,68 +325,83 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, bool COLS, bool TRI>
-int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
-                const int* excbits, const int* exc, const int* bucket,
-                const int* nbr, const T* box, int cap, int s, int n, int m,
-                int split, unsigned blocks, const Params<T>& p, T* out,
-                cudaStream_t st) {
-  if (damped(p)) {
-    cell_pair_kernel<T, COLS, true, TRI><<<blocks, THREADS, 0, st>>>(
-        x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
-        p, out);
-  } else {
-    cell_pair_kernel<T, COLS, false, TRI><<<blocks, THREADS, 0, st>>>(
-        x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s, n, m, split,
-        p, out);
-  }
+// The kernel's arguments, as the C entry point receives them.
+template <typename T>
+struct Args {
+  const T *x, *q, *sig, *eps;
+  const int* types;
+  const T* table;
+  const int *excbits, *exc, *bucket, *nbr;
+  const T* box;
+  int ncells, cap, s, n, m, ntypes;
+};
+
+template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
+int launch_form(const Args<T>& a, int split, unsigned blocks,
+                const Params<T>& p, T* out, cudaStream_t st) {
+  cell_pair_kernel<T, COLS, DAMPED, TRI, TABLE><<<blocks, THREADS, 0, st>>>(
+      a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
+      a.nbr, a.box, a.cap, a.s, a.n, a.m, a.ntypes, split, p, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COLS>
-int launch_box(const T* x, const T* q, const T* sig, const T* eps,
-               const int* excbits, const int* exc, const int* bucket,
-               const int* nbr, const T* box, int cap, int s, int n, int m,
-               int tri, int split, unsigned blocks, const Params<T>& p,
-               T* out, cudaStream_t st) {
-  if (tri) {
-    return launch_cols<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
-                                      nbr, box, cap, s, n, m, split, blocks,
-                                      p, out, st);
+// The instantiation of the template axes each launch selects at run time.
+template <typename T, bool COLS, bool DAMPED, bool TRI>
+int launch_table(const Args<T>& a, int split, unsigned blocks,
+                 const Params<T>& p, T* out, cudaStream_t st) {
+  if (a.table != nullptr) {
+    return launch_form<T, COLS, DAMPED, TRI, true>(a, split, blocks, p, out,
+                                                   st);
   }
-  return launch_cols<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
-                                     nbr, box, cap, s, n, m, split, blocks, p,
-                                     out, st);
+  return launch_form<T, COLS, DAMPED, TRI, false>(a, split, blocks, p, out,
+                                                  st);
+}
+
+template <typename T, bool COLS, bool DAMPED>
+int launch_box(const Args<T>& a, int tri, int split, unsigned blocks,
+               const Params<T>& p, T* out, cudaStream_t st) {
+  if (tri) {
+    return launch_table<T, COLS, DAMPED, true>(a, split, blocks, p, out, st);
+  }
+  return launch_table<T, COLS, DAMPED, false>(a, split, blocks, p, out, st);
+}
+
+template <typename T, bool COLS>
+int launch_damped(const Args<T>& a, int tri, int split, unsigned blocks,
+                  const Params<T>& p, T* out, cudaStream_t st) {
+  if (damped(p)) {
+    return launch_box<T, COLS, true>(a, tri, split, blocks, p, out, st);
+  }
+  return launch_box<T, COLS, false>(a, tri, split, blocks, p, out, st);
 }
 
 template <typename T>
-int launch(const T* x, const T* q, const T* sig, const T* eps,
-           const int* excbits, const int* exc, const int* bucket,
-           const int* nbr, const T* box, int ncells, int cap, int s, int n,
-           int m, int tri, const double* scal, const int* flags, T* out,
-           void* stream) {
-  if (cap < 1 || ncells < 1 || s < 1 || n < 0 || m < 0 || m > MAX_EXC ||
-      (exc != nullptr && m < 1) || (exc == nullptr && excbits == nullptr) ||
-      !flags_valid(flags)) {
+int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
+           T* out, void* stream) {
+  const bool has_table = a.table != nullptr;
+  if (a.cap < 1 || a.ncells < 1 || a.s < 1 || a.n < 0 || a.m < 0 ||
+      a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
+      (a.exc == nullptr && a.excbits == nullptr) ||
+      (has_table && (a.types == nullptr || a.ntypes < 1)) ||
+      !flags_valid(flags, has_table)) {
     return (int)cudaErrorInvalidValue;
   }
   // warps that share a home atom: 1 where the atoms alone fill the card
   int split = 1;
-  while (split < WARPS && (long long)n * split < TARGET_WARPS) split *= 2;
+  while (split < WARPS && (long long)a.n * split < TARGET_WARPS) split *= 2;
   const int per_block = WARPS / split;
   const long long blocks =
-      (long long)ncells * ((cap + per_block - 1) / per_block);
+      (long long)a.ncells * ((a.cap + per_block - 1) / per_block);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
-  if (exc != nullptr) {
-    return launch_box<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                               cap, s, n, m, tri, split, (unsigned)blocks, p,
-                               out, st);
+  if (a.exc != nullptr) {
+    return launch_damped<T, true>(a, tri, split, (unsigned)blocks, p, out, st);
   }
-  return launch_box<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                              cap, s, n, 0, tri, split, (unsigned)blocks, p,
-                              out, st);
+  Args<T> bits = a;
+  bits.m = 0;
+  return launch_damped<T, false>(bits, tri, split, (unsigned)blocks, p, out,
+                                 st);
 }
 
 }  // namespace
@@ -348,27 +409,35 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
 // Plain C entry points, bound with ctypes; the arguments of half_pair.cu's.
 // `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
 // one of `excbits` (the bitmask form) and `exc` (the (n, m) exclusion id
-// columns, 1 <= m <= 16) is non-null. `box` holds the (3,) edge lengths
-// when `tri` is 0, else the (3, 3) cell matrix, rows = lattice vectors.
-// Every row of `bucket` holds its real ids first. `out` must be zeroed.
-// Returns cudaGetLastError() after the launch (0 on success).
+// columns, 1 <= m <= 16) is non-null. `table` is null for
+// Lorentz-Berthelot combining, else the (ntypes, ntypes, 4) type-pair table
+// with the (n,) int32 LJ types in `types`. `box` holds the (3,) edge
+// lengths when `tri` is 0, else the (3, 3) cell matrix, rows = lattice
+// vectors. Every row of `bucket` holds its real ids first. `out` must be
+// zeroed. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
-                             const float* eps, const int* excbits,
+                             const float* eps, const int* types,
+                             const float* table, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int cap, int s,
-                             int n, int m, int tri, const double* scal,
-                             const int* flags, float* out, void* stream) {
-  return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
-                       cap, s, n, m, tri, scal, flags, out, stream);
+                             int n, int m, int tri, int ntypes,
+                             const double* scal, const int* flags, float* out,
+                             void* stream) {
+  const Args<float> a{x,   q,      sig, eps, types, table, excbits, exc,
+                      bucket, nbr, box, ncells, cap, s, n, m, ntypes};
+  return launch<float>(a, tri, scal, flags, out, stream);
 }
 
 extern "C" int cell_pair_f64(const double* x, const double* q,
                              const double* sig, const double* eps,
+                             const int* types, const double* table,
                              const int* excbits, const int* exc,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int cap, int s,
-                             int n, int m, int tri, const double* scal,
-                             const int* flags, double* out, void* stream) {
-  return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                        ncells, cap, s, n, m, tri, scal, flags, out, stream);
+                             int n, int m, int tri, int ntypes,
+                             const double* scal, const int* flags,
+                             double* out, void* stream) {
+  const Args<double> a{x,   q,      sig, eps, types, table, excbits, exc,
+                       bucket, nbr, box, ncells, cap, s, n, m, ntypes};
+  return launch<double>(a, tri, scal, flags, out, stream);
 }

@@ -49,7 +49,13 @@
 //     red.global.add.v4.f32 per row in float32). A version that added
 //     every hit's reaction to device memory directly, and staged all
 //     directions at once, was slower at both 30k shapes. Float32 results
-//     vary in their last bits from run to run.
+//     vary in their last bits from run to run;
+//   * NBFIX tables and the 10-12 term (TABLE, a template parameter): the
+//     staged candidate carries its int32 LJ type in place of (sigma,
+//     epsilon), and each hit reads its pair's (sigma, epsilon, A, B) row
+//     of the (T, T, 4) table from global memory through the read-only
+//     cache (pair_forms.cuh::load_pair_row): two gathers a pair more than
+//     Lorentz-Berthelot, from a table of a few KB that stays in L1.
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::half_pair_plain
 // with ops/pairfuncs.py::form_u_dudr2.
@@ -66,16 +72,23 @@ constexpr int CHUNK = 128;  // candidate slots culled into one hit mask
 constexpr int PARTS = 2;    // candidate partitions of a block
 
 // A staged candidate: position and atom id (n = padding), read by the slot
-// test with one 16-byte load in float32; its pair parameters beside it.
+// test with one 16-byte load in float32; its pair parameters beside it:
+// (q, sigma, epsilon), or (q, LJ type) in the TABLE form.
 template <typename T>
 struct alignas(4 * sizeof(T)) Cand {
   T x, y, z;
   int id;
 };
 
-template <typename T>
+template <typename T, bool TABLE>
 struct Par {
   T q, s, e;
+};
+
+template <typename T>
+struct Par<T, true> {
+  T q;
+  int t;
 };
 
 // out[row] += (a, b, c, d) by global atomics
@@ -92,30 +105,45 @@ __device__ __forceinline__ void add_row(double* row, double a, double b,
   if (d != 0.0) atomicAdd(row + 3, d);
 }
 
+// The kernel's arguments, as the C entry point receives them.
+template <typename T>
+struct Args {
+  const T *x, *q, *sig, *eps;
+  const int* types;
+  const T* table;
+  const int *excbits, *exc, *bucket, *nbr;
+  const T* box;
+  int ncells, cap, s_half, n, m, ntypes;
+};
+
 // One block per home cell, threads = round_up(parts * cap, 32): thread
 // t = part * cap + i holds home slot i and tests the candidate slots
 // j = part + parts * s of every direction.
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
+//   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
 //   exc (n, m)                     exclusion id columns, -1 padded (COLS)
 //   bucket (ncells, cap)           atom ids, n = padding
 //   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (n + 1, 4)                 zeroed; per atom [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED, bool TRI, int MAXT>
+template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
+                     const int* __restrict__ types,
+                     const T* __restrict__ table,
                      const int* __restrict__ excbits,
                      const int* __restrict__ exc,
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
-                     int cap, int s_half, int n, int m, int parts, Params<T> p,
-                     T* __restrict__ out) {
+                     int cap, int s_half, int n, int m, int ntypes, int parts,
+                     Params<T> p, T* __restrict__ out) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
-  Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);     // [2][cap]
-  Par<T>* par = reinterpret_cast<Par<T>*>(cand + 2 * cap);  // [2][cap]
-  T* rx = reinterpret_cast<T*>(par + 2 * cap);              // [2][cap] each
+  Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);  // [2][cap]
+  Par<T, TABLE>* par =
+      reinterpret_cast<Par<T, TABLE>*>(cand + 2 * cap);  // [2][cap]
+  T* rx = reinterpret_cast<T*>(par + 2 * cap);           // [2][cap] each
   T* ry = rx + 2 * cap;
   T* rz = ry + 2 * cap;
   T* hs = rz + 2 * cap;  // [parts][cap][4] when parts > 1
@@ -144,13 +172,17 @@ __global__ void __launch_bounds__(MAXT)
       cd.id = id;
       if (id < n) {
         const T* xa = x + 3 * (size_t)id;
-        Par<T>& pr = par[b * cap + t];
+        Par<T, TABLE>& pr = par[b * cap + t];
         __pipeline_memcpy_async(&cd.x, xa, sizeof(T));
         __pipeline_memcpy_async(&cd.y, xa + 1, sizeof(T));
         __pipeline_memcpy_async(&cd.z, xa + 2, sizeof(T));
         __pipeline_memcpy_async(&pr.q, q + id, sizeof(T));
-        __pipeline_memcpy_async(&pr.s, sig + id, sizeof(T));
-        __pipeline_memcpy_async(&pr.e, eps + id, sizeof(T));
+        if constexpr (TABLE) {
+          __pipeline_memcpy_async(&pr.t, types + id, sizeof(int));
+        } else {
+          __pipeline_memcpy_async(&pr.s, sig + id, sizeof(T));
+          __pipeline_memcpy_async(&pr.e, eps + id, sizeof(T));
+        }
         atomicMax(&ext[b], t + 1);
       }
     }
@@ -161,6 +193,7 @@ __global__ void __launch_bounds__(MAXT)
   const int hid = part < parts ? bucket[(size_t)c * cap + i] : n;
   const bool home = hid < n;
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
+  int ti = 0;
   unsigned exc_h = 0u;
   ExcCols cols;
   if (home) {
@@ -168,8 +201,12 @@ __global__ void __launch_bounds__(MAXT)
     yi = x[3 * (size_t)hid + 1];
     zi = x[3 * (size_t)hid + 2];
     qi = q[hid];
-    si = sig[hid];
-    ei = eps[hid];
+    if (TABLE) {
+      ti = types[hid];
+    } else {
+      si = sig[hid];
+      ei = eps[hid];
+    }
     if (!COLS) exc_h = (unsigned)excbits[hid];
   }
   if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
@@ -198,7 +235,7 @@ __global__ void __launch_bounds__(MAXT)
 
     if (home) {
       const Cand<T>* cb = cand + b * cap;
-      const Par<T>* pb = par + b * cap;
+      const Par<T, TABLE>* pb = par + b * cap;
       T* rxb = rx + b * cap;
       T* ryb = ry + b * cap;
       T* rzb = rz + b * cap;
@@ -245,15 +282,21 @@ __global__ void __launch_bounds__(MAXT)
             word &= word - 1u;
             const int j = part + parts * (s0 + 32 * wd + ((bit + rot) & 31));
             const Cand<T> cj = cb[j];
-            const Par<T> pj = pb[j];
+            const Par<T, TABLE> pj = pb[j];
             T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
             image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const T qprod = qi * pj.q;
-            const T sg = T(0.5) * (si + pj.s);
-            const T ep = sqrt(ei * pj.e);
             T u, dudr2;
-            pair_form<T, DAMPED>(p, r2, qprod, sg, ep, u, dudr2);
+            if constexpr (TABLE) {
+              const PairRow<T> row = load_pair_row(table, ntypes, ti, pj.t);
+              pair_form<T, DAMPED, true>(p, r2, qprod, row.sig, row.eps, u,
+                                         dudr2, row.a, row.b);
+            } else {
+              const T sg = T(0.5) * (si + pj.s);
+              const T ep = sqrt(ei * pj.e);
+              pair_form<T, DAMPED>(p, r2, qprod, sg, ep, u, dudr2);
+            }
             const T fm = T(2) * dudr2;
             const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
             fx -= gx;
@@ -309,109 +352,94 @@ __global__ void __launch_bounds__(MAXT)
   if (t < cap && home) add_row(out + 4 * (size_t)hid, fx, fy, fz, e);
 }
 
-template <typename T>
+template <typename T, bool TABLE>
 size_t smem_bytes(int cap, int parts) {
-  return (size_t)2 * cap * (sizeof(Cand<T>) + sizeof(Par<T>) + 3 * sizeof(T)) +
+  return (size_t)2 * cap *
+             (sizeof(Cand<T>) + sizeof(Par<T, TABLE>) + 3 * sizeof(T)) +
          (parts > 1 ? (size_t)parts * cap * 4 * sizeof(T) : 0) +
          2 * sizeof(int);
 }
 
-template <typename T, bool COLS, bool DAMPED, bool TRI, int MAXT>
-int launch_form(const T* x, const T* q, const T* sig, const T* eps,
-                const int* excbits, const int* exc, const int* bucket,
-                const int* nbr, const T* box, int ncells, int cap, int s_half,
-                int n, int m, int parts, int threads, const Params<T>& p,
+template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE, int MAXT>
+int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
                 T* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(cap, parts);
+  auto kernel = half_pair_kernel<T, COLS, DAMPED, TRI, TABLE, MAXT>;
+  const size_t smem = smem_bytes<T, TABLE>(a.cap, parts);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        half_pair_kernel<T, COLS, DAMPED, TRI, MAXT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  half_pair_kernel<T, COLS, DAMPED, TRI, MAXT><<<ncells, threads, smem, stream>>>(
-      x, q, sig, eps, excbits, exc, bucket, nbr, box, cap, s_half, n, m, parts,
-      p, out);
+  kernel<<<a.ncells, threads, smem, stream>>>(
+      a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
+      a.nbr, a.box, a.cap, a.s_half, a.n, a.m, a.ntypes, parts, p, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool COLS, bool DAMPED, bool TRI>
-int launch_size(const T* x, const T* q, const T* sig, const T* eps,
-                const int* excbits, const int* exc, const int* bucket,
-                const int* nbr, const T* box, int ncells, int cap, int s_half,
-                int n, int m, int parts, const Params<T>& p, T* out,
+// The instantiation of the template axes each launch selects at run time:
+// blocks of up to 256 threads take the register budget of 256 threads,
+// larger ones that of 1,024 (64 a thread; a budget of 128 for blocks of up
+// to 512 left the far grid's 343 blocks too few per SM for one wave).
+template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
+int launch_size(const Args<T>& a, int parts, const Params<T>& p, T* out,
                 cudaStream_t stream) {
-  // blocks of up to 256 threads take the register budget of 256 threads,
-  // larger ones that of 1,024 (64 a thread; a budget of 128 for blocks of
-  // up to 512 left the far grid's 343 blocks too few per SM for one wave)
-  const int threads = ((parts * cap + 31) / 32) * 32;
+  const int threads = ((parts * a.cap + 31) / 32) * 32;
   if (threads <= 256) {
-    return launch_form<T, COLS, DAMPED, TRI, 256>(x, q, sig, eps, excbits, exc,
-                                             bucket, nbr, box, ncells, cap,
-                                             s_half, n, m, parts, threads, p,
-                                             out, stream);
+    return launch_form<T, COLS, DAMPED, TRI, TABLE, 256>(a, parts, threads, p,
+                                                         out, stream);
   }
-  return launch_form<T, COLS, DAMPED, TRI, 1024>(x, q, sig, eps, excbits, exc,
-                                            bucket, nbr, box, ncells, cap,
-                                            s_half, n, m, parts, threads, p,
-                                            out, stream);
+  return launch_form<T, COLS, DAMPED, TRI, TABLE, 1024>(a, parts, threads, p,
+                                                        out, stream);
 }
 
-template <typename T, bool COLS, bool TRI>
-int launch_cols(const T* x, const T* q, const T* sig, const T* eps,
-                const int* excbits, const int* exc, const int* bucket,
-                const int* nbr, const T* box, int ncells, int cap, int s_half,
-                int n, int m, int parts, const Params<T>& p, T* out,
-                cudaStream_t stream) {
-  if (damped(p)) {
-    return launch_size<T, COLS, true, TRI>(x, q, sig, eps, excbits, exc, bucket,
-                                      nbr, box, ncells, cap, s_half, n, m,
-                                      parts, p, out, stream);
+template <typename T, bool COLS, bool DAMPED, bool TRI>
+int launch_table(const Args<T>& a, int parts, const Params<T>& p, T* out,
+                 cudaStream_t stream) {
+  if (a.table != nullptr) {
+    return launch_size<T, COLS, DAMPED, TRI, true>(a, parts, p, out, stream);
   }
-  return launch_size<T, COLS, false, TRI>(x, q, sig, eps, excbits, exc, bucket,
-                                     nbr, box, ncells, cap, s_half, n, m,
-                                     parts, p, out, stream);
+  return launch_size<T, COLS, DAMPED, TRI, false>(a, parts, p, out, stream);
+}
+
+template <typename T, bool COLS, bool DAMPED>
+int launch_box(const Args<T>& a, int tri, int parts, const Params<T>& p,
+               T* out, cudaStream_t stream) {
+  if (tri) {
+    return launch_table<T, COLS, DAMPED, true>(a, parts, p, out, stream);
+  }
+  return launch_table<T, COLS, DAMPED, false>(a, parts, p, out, stream);
 }
 
 template <typename T, bool COLS>
-int launch_box(const T* x, const T* q, const T* sig, const T* eps,
-               const int* excbits, const int* exc, const int* bucket,
-               const int* nbr, const T* box, int ncells, int cap, int s_half,
-               int n, int m, int tri, int parts, const Params<T>& p, T* out,
-               cudaStream_t stream) {
-  if (tri) {
-    return launch_cols<T, COLS, true>(x, q, sig, eps, excbits, exc, bucket,
-                                      nbr, box, ncells, cap, s_half, n, m,
-                                      parts, p, out, stream);
+int launch_damped(const Args<T>& a, int tri, int parts, const Params<T>& p,
+                  T* out, cudaStream_t stream) {
+  if (damped(p)) {
+    return launch_box<T, COLS, true>(a, tri, parts, p, out, stream);
   }
-  return launch_cols<T, COLS, false>(x, q, sig, eps, excbits, exc, bucket,
-                                     nbr, box, ncells, cap, s_half, n, m,
-                                     parts, p, out, stream);
+  return launch_box<T, COLS, false>(a, tri, parts, p, out, stream);
 }
 
 template <typename T>
-int launch(const T* x, const T* q, const T* sig, const T* eps,
-           const int* excbits, const int* exc, const int* bucket,
-           const int* nbr, const T* box, int ncells, int cap, int s_half,
-           int n, int m, int tri, const double* scal, const int* flags,
+int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
            T* out, void* stream) {
-  if (cap < 1 || cap > 1024 || ncells < 1 || s_half < 1 || n < 0 || m < 0 ||
-      m > MAX_EXC || (exc != nullptr && m < 1) ||
-      (exc == nullptr && excbits == nullptr) || !flags_valid(flags)) {
+  const bool has_table = a.table != nullptr;
+  if (a.cap < 1 || a.cap > 1024 || a.ncells < 1 || a.s_half < 1 || a.n < 0 ||
+      a.m < 0 || a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
+      (a.exc == nullptr && a.excbits == nullptr) ||
+      (has_table && (a.types == nullptr || a.ntypes < 1)) ||
+      !flags_valid(flags, has_table)) {
     return (int)cudaErrorInvalidValue;
   }
   // one block: at most 1,024 threads
-  const int parts = PARTS * cap <= 1024 ? PARTS : 1024 / cap;
+  const int parts = PARTS * a.cap <= 1024 ? PARTS : 1024 / a.cap;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
-  if (exc != nullptr) {
-    return launch_box<T, true>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                               ncells, cap, s_half, n, m, tri, parts, p, out,
-                               s);
+  if (a.exc != nullptr) {
+    return launch_damped<T, true>(a, tri, parts, p, out, s);
   }
-  return launch_box<T, false>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                              ncells, cap, s_half, n, 0, tri, parts, p, out,
-                              s);
+  Args<T> bits = a;
+  bits.m = 0;
+  return launch_damped<T, false>(bits, tri, parts, p, out, s);
 }
 
 }  // namespace
@@ -419,29 +447,36 @@ int launch(const T* x, const T* q, const T* sig, const T* eps,
 // Plain C entry points, bound with ctypes. `scal` and `flags` are host
 // arrays (pair_forms.cuh::make_params). Exactly one of `excbits` (the
 // bitmask form) and `exc` (the (n, m) exclusion id columns, 1 <= m <= 16)
-// is non-null. `box` holds the (3,) edge lengths when `tri` is 0, else the
-// (3, 3) cell matrix, rows = lattice vectors (pair_forms.cuh::Image).
-// `out` must be zeroed. Returns cudaGetLastError() after the launch (0 on
-// success).
+// is non-null. `table` is null for Lorentz-Berthelot combining (`types`
+// null, `ntypes` 0), else the (ntypes, ntypes, 4) type-pair table
+// [sigma, epsilon, A, B] with the (n,) int32 LJ types in `types`; `sig`
+// and `eps` are then not read. `box` holds the (3,) edge lengths when
+// `tri` is 0, else the (3, 3) cell matrix, rows = lattice vectors
+// (pair_forms.cuh::Image). `out` must be zeroed. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int half_pair_f32(const float* x, const float* q, const float* sig,
-                             const float* eps, const int* excbits,
+                             const float* eps, const int* types,
+                             const float* table, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int cap, int s_half,
-                             int n, int m, int tri, const double* scal,
-                             const int* flags, float* out, void* stream) {
-  return launch<float>(x, q, sig, eps, excbits, exc, bucket, nbr, box, ncells,
-                       cap, s_half, n, m, tri, scal, flags, out, stream);
+                             int n, int m, int tri, int ntypes,
+                             const double* scal, const int* flags, float* out,
+                             void* stream) {
+  const Args<float> a{x,   q,      sig,    eps, types,  table, excbits, exc,
+                      bucket, nbr, box, ncells, cap, s_half, n, m, ntypes};
+  return launch<float>(a, tri, scal, flags, out, stream);
 }
 
 extern "C" int half_pair_f64(const double* x, const double* q,
                              const double* sig, const double* eps,
+                             const int* types, const double* table,
                              const int* excbits, const int* exc,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int cap,
-                             int s_half, int n, int m, int tri,
+                             int s_half, int n, int m, int tri, int ntypes,
                              const double* scal, const int* flags,
                              double* out, void* stream) {
-  return launch<double>(x, q, sig, eps, excbits, exc, bucket, nbr, box,
-                        ncells, cap, s_half, n, m, tri, scal, flags, out,
-                        stream);
+  const Args<double> a{x,   q,      sig,    eps, types,  table, excbits, exc,
+                       bucket, nbr, box, ncells, cap, s_half, n, m, ntypes};
+  return launch<double>(a, tri, scal, flags, out, stream);
 }

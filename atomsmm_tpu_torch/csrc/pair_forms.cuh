@@ -19,8 +19,13 @@
 // the virial flag (any form but the dlambda one) pair_form returns the
 // pair's virial w = -2 r^2 du/dr^2 = d . F in place of u, and the force is
 // unchanged: the energy column then sums to W = -dU(s x, s box)/ds at
-// s = 1. The plain PyTorch twin of pair_form is
-// ops/pairfuncs.py::form_u_dudr2, line for line.
+// s = 1. A kernel given a type-pair table (the TABLE instantiations: NBFIX
+// force fields, and those with the legacy 10-12 term) reads each pair's
+// (sig, eps, A, B) row from it (load_pair_row) instead of combining by
+// Lorentz-Berthelot; under the hbond flag, A/r^12 - B/r^10 joins the full
+// half's LJ term before the switch. The Lorentz-Berthelot instantiations
+// (TABLE = false) carry no table code. The plain PyTorch twin of
+// pair_form is ops/pairfuncs.py::form_u_dudr2, line for line.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,13 +61,14 @@ struct Params {
   int softcore; // Beutler softcore LJ (undamped instantiation only)
   int dlambda;  // softcore: d u / d lambda in place of u, no force
   int smoothed; // full form: the switch multiplies the Coulomb too
+  int hbond;    // full half: + A/r^12 - B/r^10 (TABLE instantiations only)
   int virial;   // -2 r^2 du/dr^2 in place of u, force unchanged
 };
 
 // The kernels' C entry points all take the same host arrays:
 // scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
 // near_sign, alpha, n_ec, n_dec, lamb], flags = [has_full,
-// use_switch, has_near, ewald, softcore, dlambda, smoothed, virial].
+// use_switch, has_near, ewald, softcore, dlambda, smoothed, hbond, virial].
 template <typename T>
 inline Params<T> make_params(const double* scal, const int* flags) {
   Params<T> p;
@@ -87,13 +93,36 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   p.softcore = flags[4];
   p.dlambda = flags[5];
   p.smoothed = flags[6];
-  p.virial = flags[7];
+  p.hbond = flags[7];
+  p.virial = flags[8];
   return p;
 }
 
 // A flag block the kernels take: the virial flag replaces u, which the
-// dlambda flag has already replaced, so the two together are refused.
-inline bool flags_valid(const int* flags) { return !(flags[5] && flags[7]); }
+// dlambda flag has already replaced, so the two together are refused; the
+// 10-12 term reads its coefficients from the table, so hbond without one
+// is refused.
+inline bool flags_valid(const int* flags, bool has_table = false) {
+  return !(flags[5] && flags[8]) && !(flags[7] && !has_table);
+}
+
+// One row of a (ntypes, ntypes, 4) type-pair table: the pair's sigma,
+// epsilon and 10-12 coefficients A, B. The table stays in global memory
+// and is read through the read-only cache: T^2 x 4 values, a few KB for
+// the tens of types real force fields have.
+template <typename T>
+struct PairRow {
+  T sig, eps, a, b;
+};
+
+template <typename T>
+__device__ __forceinline__ PairRow<T> load_pair_row(const T* __restrict__ table,
+                                                    int ntypes, int ti,
+                                                    int tj) {
+  const T* row = table + 4 * ((size_t)ti * ntypes + tj);
+  return PairRow<T>{__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                    __ldg(row + 3)};
+}
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return 1.0 / sqrt(x); }
@@ -199,12 +228,15 @@ __device__ __forceinline__ void switch_quintic(T x, T& s, T& ds_dx) {
 }
 
 // Energy u and du/dr^2 of one pair at squared distance r2, with qq the
-// charge product and (sig, eps) the Lorentz-Berthelot pair parameters;
-// DAMPED must equal p.alpha != 0.
-template <typename T, bool DAMPED>
+// charge product, (sig, eps) the pair parameters (combined, or the table's
+// row) and (a1012, b1012) the row's 10-12 coefficients, read only by a
+// TABLE instantiation under the hbond flag; DAMPED must equal
+// p.alpha != 0.
+template <typename T, bool DAMPED, bool TABLE = false>
 __device__ __forceinline__ void pair_form_energy(const Params<T>& p, T r2,
                                                  T qq, T sig, T eps, T& u,
-                                                 T& dudr2) {
+                                                 T& dudr2, T a1012 = T(0),
+                                                 T b1012 = T(0)) {
   const T kc = T(ONE_4PI_EPS0);
   T rinv = rsqrt_t(r2);
   T r = r2 * rinv;
@@ -254,6 +286,13 @@ __device__ __forceinline__ void pair_form_energy(const Params<T>& p, T r2,
     T s6 = t2 * t2 * t2;
     T ulj = T(4) * eps * s6 * (s6 - T(1));
     T dulj = T(-12) * eps * s6 * (T(2) * s6 - T(1)) * rinv2;
+    if (TABLE && p.hbond) {
+      // A/r^12 - B/r^10 and its -6A/r^14 + 5B/r^12, inside the switch
+      T inv10 = rinv2 * rinv2;
+      inv10 = inv10 * inv10 * rinv2;
+      ulj = ulj + (a1012 * rinv2 - b1012) * inv10;
+      dulj = dulj + (T(5) * b1012 - T(6) * a1012 * rinv2) * inv10 * rinv2;
+    }
     T sw = T(1), dsw = T(0);
     if (p.use_switch) {
       T ds_dx;
@@ -309,10 +348,12 @@ __device__ __forceinline__ void pair_form_energy(const Params<T>& p, T r2,
 
 // pair_form_energy, with the pair's virial -2 r^2 du/dr^2 in place of u
 // under the virial flag: what the kernels call.
-template <typename T, bool DAMPED>
+template <typename T, bool DAMPED, bool TABLE = false>
 __device__ __forceinline__ void pair_form(const Params<T>& p, T r2, T qq,
-                                          T sig, T eps, T& u, T& dudr2) {
-  pair_form_energy<T, DAMPED>(p, r2, qq, sig, eps, u, dudr2);
+                                          T sig, T eps, T& u, T& dudr2,
+                                          T a1012 = T(0), T b1012 = T(0)) {
+  pair_form_energy<T, DAMPED, TABLE>(p, r2, qq, sig, eps, u, dudr2, a1012,
+                                     b1012);
   if (p.virial) u = T(-2) * r2 * dudr2;
 }
 

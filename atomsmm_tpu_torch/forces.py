@@ -30,8 +30,18 @@ the energy is torch operations, as the JAX package takes it with jax.grad,
 and by the pair form's virial flag on the kernels, which return numbers,
 not a graph (a pair's -dU/ds is its d . F).
 
+Force fields whose LJ matrix is not Lorentz-Berthelot (NBFIX ion-pair
+rows, read from an Amber prmtop by io/amber.py) give NonbondedForce and
+NearNonbondedForce per-type-pair tables: the atoms' LJ types `lj_type` and
+(T, T) `pair_sigma` / `pair_epsilon`, and NonbondedForce the legacy 10-12
+coefficients `pair_a1012` / `pair_b1012`. Each such force builds one
+contiguous (T, T, 4) table [sigma, epsilon, A, B] on its device, in the
+dtype of its sigma, which the kernels read a pair's row from (the table
+forms of ops/pairfuncs.py); the dense path gathers from the same tables.
+
 Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
-dense path, with the charge-scale mask of SolvationSystem),
+dense path, with the charge-scale mask of SolvationSystem, NBFIX tables and
+the 10-12 term),
 NearNonbondedForce (damped or not), FarNonbondedForce (fused, or in two
 sweeps under a charge-scale mask), PMEReciprocalForce,
 NonbondedExceptionsForce, DampedSmoothedForce, SoftcoreLennardJonesForce,
@@ -79,6 +89,7 @@ from .ops.pairs import dense_pair_energy, pairlist_energy
 from .ops.pbc import box_volume
 from .ops.switching import switch_quintic
 from .units import ONE_4PI_EPS0
+from .utils import InputError
 
 _METHODS = ("cutoff", "pme", "nocutoff")
 
@@ -91,9 +102,69 @@ def _resolve_neighbors(aux, key: str):
     return aux.get(key) or aux.get("default")
 
 
-def _combine(pi, pj):
-    return pairfuncs.lorentz_berthelot(pi["sigma"], pj["sigma"],
-                                       pi["epsilon"], pj["epsilon"])
+def _lj_combiner(pair_sigma, pair_epsilon):
+    """The LJ combination rule of a pair function: Lorentz-Berthelot from
+    the per-particle (sigma, epsilon), or, with per-type-pair NBFIX
+    tables, a gather on (lj_type_i, lj_type_j)
+    (atomsmm_tpu/forces.py::_lj_combiner)."""
+    if pair_sigma is None:
+        def combine(pi, pj):
+            return pairfuncs.lorentz_berthelot(pi["sigma"], pj["sigma"],
+                                               pi["epsilon"], pj["epsilon"])
+        return combine
+
+    n_types = pair_sigma.shape[0]
+    tab_s = pair_sigma.reshape(-1)
+    tab_e = pair_epsilon.reshape(-1)
+
+    def combine(pi, pj):
+        idx = pi["lj_type"].long() * n_types + pj["lj_type"].long()
+        return tab_s[idx], tab_e[idx]
+
+    return combine
+
+
+_combine = _lj_combiner(None, None)
+
+
+def _pair_table(force, a1012=None, b1012=None):
+    """The (T, T, 4) [sigma, epsilon, A, B] table of a force with NBFIX
+    tables, contiguous, on the device and in the dtype of its sigma; None
+    without tables. The 10-12 coefficients need the tables: the kernels
+    read A and B from the pair's row."""
+    if force.pair_sigma is None:
+        if a1012 is not None:
+            raise InputError(
+                f"{type(force).__name__}: pair_a1012/pair_b1012 need the "
+                "type-pair tables pair_sigma/pair_epsilon and lj_type (the "
+                "kernels read A and B from the pair's table row)")
+        return None
+    if force.lj_type is None or force.pair_epsilon is None:
+        raise InputError(f"{type(force).__name__}: pair_sigma needs "
+                         "pair_epsilon and lj_type")
+    ref = torch.as_tensor(force.pair_sigma if force.sigma is None
+                          else force.sigma)
+    cols = [force.pair_sigma, force.pair_epsilon]
+    cols += [torch.zeros_like(torch.as_tensor(force.pair_sigma))] * 2 \
+        if a1012 is None else [a1012, b1012]
+    return torch.stack([torch.as_tensor(c, device=ref.device).to(ref.dtype)
+                        for c in cols], -1).contiguous()
+
+
+def _with_table(pp, force):
+    """The per-particle dict `pp` with the LJ types and the type-pair table
+    of `force` (a force with NBFIX tables)."""
+    if force._table is not None:
+        pp["lj_type"] = force.lj_type
+        pp["pair_table"] = force._table
+    return pp
+
+
+def _form_with_table(form, force, hbond=False):
+    """`form` reading the type-pair table, when `force` has one."""
+    if force._table is None:
+        return form
+    return pairfuncs.table_form(form, hbond=hbond)
 
 
 def autograd_virial(energy, x, box):
@@ -195,12 +266,15 @@ class _PairForceMixin:
     def _nb_energy(self, x, box, globals, aux, r_cut):
         pp = self._per_particle(globals)
         nbr = self._cell(aux, r_cut)
+        if nbr is not None and hasattr(self, "_pair_form"):
+            return cell_pair_energy(self._pair_form(globals), x, box, pp,
+                                    nbr["spec"], nbr["bucket"], r_cut)
+        # a pair function gathers (N,) columns per pair: the type-pair
+        # table rides its closure (_lj_combiner), not the dict
+        pp = {k: v for k, v in pp.items() if k != "pair_table"}
         if nbr is None:
             return dense_pair_energy(self._pair_fn(globals), x, box, pp,
                                      self.exclusions, r_cut, chunk=self.chunk)
-        if hasattr(self, "_pair_form"):
-            return cell_pair_energy(self._pair_form(globals), x, box, pp,
-                                    nbr["spec"], nbr["bucket"], r_cut)
         return cell_pair_energy_fn(self._pair_fn(globals), x, box, pp,
                                    nbr["spec"], nbr["bucket"], r_cut)
 
@@ -237,8 +311,8 @@ class _PairForceMixin:
 @dataclasses.dataclass
 class NonbondedForce(_PairForceMixin, Force):
     """Full LJ + Coulomb nonbonded force with per-particle (charge, sigma,
-    epsilon), Lorentz-Berthelot combining and exclusions. Cutoff scalars
-    are host floats.
+    epsilon), Lorentz-Berthelot combining (or NBFIX type-pair tables) and
+    exclusions. Cutoff scalars are host floats.
 
     method:
       'nocutoff' - plain LJ + Coulomb over all pairs (dense path only)
@@ -251,7 +325,12 @@ class NonbondedForce(_PairForceMixin, Force):
     fixed volume; compute_dispersion_coefficient). charge_scale_mask (N,)
     {0, 1} scales the masked (solute) charges by globals[charge_scale_name]
     (SolvationSystem); every place the charges reach takes the scaled ones:
-    the pair sweep, the PME corrections and the reciprocal sum."""
+    the pair sweep, the PME corrections and the reciprocal sum.
+
+    With NBFIX tables (lj_type, pair_sigma, pair_epsilon) each pair takes
+    its (sigma, epsilon) from the tables; pair_a1012 / pair_b1012 (which
+    need them) add the legacy 10-12 term A/r^12 - B/r^10 to the LJ term
+    before the switch."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -269,11 +348,17 @@ class NonbondedForce(_PairForceMixin, Force):
     grid_shape: Tuple[int, int, int] = (0, 0, 0)
     spline_order: int = 4
     chunk: int = 256
+    lj_type: torch.Tensor = None       # (N,) int32, set with the tables
+    pair_sigma: torch.Tensor = None    # (T, T) per-type-pair sigma [nm]
+    pair_epsilon: torch.Tensor = None  # (T, T) [kJ/mol]
+    pair_a1012: torch.Tensor = None    # (T, T) 10-12 A [kJ/mol nm^12]
+    pair_b1012: torch.Tensor = None    # (T, T) 10-12 B [kJ/mol nm^10]
 
     def __post_init__(self):
         if self.method not in _METHODS:
             raise ValueError(f"NonbondedForce(method={self.method!r}): "
                              f"expected one of {_METHODS}")
+        self._table = _pair_table(self, self.pair_a1012, self.pair_b1012)
 
     def _effective_charge(self, globals=None):
         """Per-particle charge, the masked (solute) charges scaled by
@@ -282,18 +367,29 @@ class NonbondedForce(_PairForceMixin, Force):
                               self.charge_scale_name, globals)
 
     def _per_particle(self, globals=None):
-        return {"charge": self._effective_charge(globals),
-                "sigma": self.sigma, "epsilon": self.epsilon}
+        return _with_table({"charge": self._effective_charge(globals),
+                            "sigma": self.sigma, "epsilon": self.epsilon},
+                           self)
 
     def _pair_fn(self, globals=None):
         method, use_switch = self.method, self.use_switch
         r_cut, r_switch, eps_rf = self.r_cut, self.r_switch, self.eps_rf
         alpha = float(self.ewald_alpha)
+        combine = _lj_combiner(self.pair_sigma, self.pair_epsilon)
+        hb_a, hb_b = self.pair_a1012, self.pair_b1012
+        if hb_a is not None:
+            n_types_hb = hb_a.shape[0]
+            hb_a_flat, hb_b_flat = hb_a.reshape(-1), hb_b.reshape(-1)
 
         def pair(r, pi, pj):
-            sigma, epsilon = _combine(pi, pj)
+            sigma, epsilon = combine(pi, pj)
             qq = pi["charge"] * pj["charge"]
             u_lj = pairfuncs.lj(r, sigma, epsilon)
+            if hb_a is not None:
+                # the legacy 10-12 term, inside the LJ switch
+                idx = pi["lj_type"].long() * n_types_hb + pj["lj_type"].long()
+                u_lj = u_lj + pairfuncs.hbond_10_12(r, hb_a_flat[idx],
+                                                    hb_b_flat[idx])
             if method == "nocutoff":
                 return u_lj + pairfuncs.coulomb(r, qq)
             if use_switch:
@@ -309,15 +405,17 @@ class NonbondedForce(_PairForceMixin, Force):
 
     def _pair_form(self, globals=None):
         if self.method == "pme":
-            return pairfuncs.lj_sw_ewald_form(self.r_cut, self.r_switch,
+            form = pairfuncs.lj_sw_ewald_form(self.r_cut, self.r_switch,
                                               self.ewald_alpha,
                                               self.use_switch)
-        if self.method == "nocutoff":
+        elif self.method == "nocutoff":
             raise NotImplementedError(
                 "NonbondedForce(method='nocutoff') runs on the dense path "
                 "only: it has no pair-kernel form")
-        return pairfuncs.lj_sw_rf_form(self.r_cut, self.r_switch, self.eps_rf,
-                                       self.use_switch)
+        else:
+            form = pairfuncs.lj_sw_rf_form(self.r_cut, self.r_switch,
+                                           self.eps_rf, self.use_switch)
+        return _form_with_table(form, self, self.pair_a1012 is not None)
 
     @property
     def _pair_cutoff(self):
@@ -397,23 +495,38 @@ def _scaled_charge(charge, mask, name, globals):
     return charge * (1.0 - mask * (1.0 - lam))
 
 
+def _host64(a):
+    return np.asarray(torch.as_tensor(a).detach().cpu(), np.float64)
+
+
 def compute_dispersion_coefficient(sigma, epsilon, r_switch, r_cut,
-                                   use_switch=True, n_quad=512):
+                                   use_switch=True, n_quad=512, lj_type=None,
+                                   pair_sigma=None, pair_epsilon=None):
     """Long-range LJ tail coefficient (openmm's dispersion correction),
     E_tail = coeff / V with coeff = 2 pi sum over pairs of the integral of
     r² (u - u_kept) dr: the full tail beyond r_cut plus what the switch
     removes on [r_switch, r_cut] (trapezoid quadrature), over the unique
-    (sigma, epsilon) types. Host numpy, float64."""
-    sig = np.asarray(torch.as_tensor(sigma).detach().cpu(), np.float64)
-    eps = np.asarray(torch.as_tensor(epsilon).detach().cpu(), np.float64)
-    types, counts = np.unique(np.stack([sig, eps], 1), axis=0,
-                              return_counts=True)
+    (sigma, epsilon) types, or, with NBFIX tables (lj_type, pair_sigma,
+    pair_epsilon), over the LJ types with the tables' pair parameters.
+    Host numpy, float64."""
+    if pair_sigma is not None:
+        t_idx = np.asarray(torch.as_tensor(lj_type).cpu(), np.int64)
+        tab_s, tab_e = _host64(pair_sigma), _host64(pair_epsilon)
+        counts = np.bincount(t_idx, minlength=tab_s.shape[0])
+        types = None
+    else:
+        sig, eps = _host64(sigma), _host64(epsilon)
+        types, counts = np.unique(np.stack([sig, eps], 1), axis=0,
+                                  return_counts=True)
     rc, rs = float(r_cut), float(r_switch)
     total = 0.0
     for a in range(len(counts)):
         for b in range(len(counts)):
-            s_ab = 0.5 * (types[a, 0] + types[b, 0])
-            e_ab = np.sqrt(types[a, 1] * types[b, 1])
+            if types is None:
+                s_ab, e_ab = float(tab_s[a, b]), float(tab_e[a, b])
+            else:
+                s_ab = 0.5 * (types[a, 0] + types[b, 0])
+                e_ab = np.sqrt(types[a, 1] * types[b, 1])
             if e_ab == 0.0:
                 continue
             npairs = counts[a] * counts[b]  # ordered pairs; x1/2 below
@@ -459,7 +572,10 @@ class NearNonbondedForce(_PairForceMixin, Force):
     """Short-range RESPA force (atomsmm/forces.py::NearNonbondedForce):
     shifted-force LJ + shifted-force Coulomb, damped by erfc(alpha r) when
     alpha != 0 (the PME split), switched to zero over [r_switch, r_cut];
-    negated with subtract=True (the "minus near" half of the far force)."""
+    negated with subtract=True (the "minus near" half of the far force).
+    With NBFIX tables (lj_type, pair_sigma, pair_epsilon) its pairs take
+    their (sigma, epsilon) from them; it never takes the 10-12 term, as in
+    the JAX package."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -471,17 +587,24 @@ class NearNonbondedForce(_PairForceMixin, Force):
     subtract: bool = False
     neighbor_key: str = "default"
     chunk: int = 256
+    lj_type: torch.Tensor = None       # (N,) int32, set with the tables
+    pair_sigma: torch.Tensor = None    # (T, T) per-type-pair sigma [nm]
+    pair_epsilon: torch.Tensor = None  # (T, T) [kJ/mol]
+
+    def __post_init__(self):
+        self._table = _pair_table(self)
 
     def _per_particle(self, globals=None):
-        return {"charge": self.charge, "sigma": self.sigma,
-                "epsilon": self.epsilon}
+        return _with_table({"charge": self.charge, "sigma": self.sigma,
+                            "epsilon": self.epsilon}, self)
 
     def _pair_fn(self, globals=None):
         r_cut, r_switch, subtract = self.r_cut, self.r_switch, self.subtract
         alpha = float(self.alpha)
+        combine = _lj_combiner(self.pair_sigma, self.pair_epsilon)
 
         def pair(r, pi, pj):
-            sigma, epsilon = _combine(pi, pj)
+            sigma, epsilon = combine(pi, pj)
             return pairfuncs.near_pair_energy(
                 r, sigma, epsilon, pi["charge"] * pj["charge"], alpha,
                 r_switch, r_cut, subtract=subtract)
@@ -490,8 +613,8 @@ class NearNonbondedForce(_PairForceMixin, Force):
         return pair
 
     def _pair_form(self, globals=None):
-        return pairfuncs.near_form(self.r_cut, self.r_switch, self.alpha,
-                                   self.subtract)
+        return _form_with_table(pairfuncs.near_form(
+            self.r_cut, self.r_switch, self.alpha, self.subtract), self)
 
     def energy(self, x, box, globals, aux=None):
         return self._nb_energy(x, box, globals, aux, self.r_cut)

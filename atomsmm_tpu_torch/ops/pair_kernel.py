@@ -22,6 +22,13 @@ and its result does not change from run to run; the wrapper is a zero fill,
 the launch and the energy sum. It relies on every bucket row holding its
 real ids first, as ``build_cell_buckets`` lays them out.
 
+A table form (NBFIX force fields, the legacy 10-12 term: ``PairForm.table``)
+reads each pair's (sigma, epsilon, A, B) from the force's (T, T, 4) type-pair
+table instead of combining by Lorentz-Berthelot: the per-particle dict then
+carries the LJ types ``lj_type`` (N,) and the table ``pair_table``; the
+kernels stage the type in place of (sigma, epsilon) and gather the pair's
+row from global memory, the twins stage it in feature column 6.
+
 Exclusions take the relative-offset bitmask when the spec has one, else the
 exclusion id columns (pairs more than +-14 indices apart); both kernels and
 both twins take either. Both take either box form too: given a (3, 3) cell
@@ -56,7 +63,8 @@ def reset_launches():
 
 def stage(spec, x, per_particle, bucket):
     """Stage bucket-layout features for the plain twins, one row gather each:
-    hf (ncells, cap, 8) [x y z q sigma eps 0 0] in the dtype of x, and
+    hf (ncells, cap, 8) [x y z q sigma eps type 0] in the dtype of x (type:
+    the LJ type where the dict has ``lj_type``, else 0), and
     hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots (id N)
     read a zero feature row. Without a bitmask (excluded pairs more than
     +-14 indices apart) the exclusion id columns come back as a third item,
@@ -67,6 +75,8 @@ def stage(spec, x, per_particle, bucket):
     feats[:n, 3] = per_particle["charge"]
     feats[:n, 4] = per_particle["sigma"]
     feats[:n, 5] = per_particle["epsilon"]
+    if "lj_type" in per_particle:
+        feats[:n, 6] = per_particle["lj_type"].to(x.dtype)
     idx = bucket.long()
     meta = torch.zeros((n + 1, 2), dtype=torch.int32, device=x.device)
     meta[:, 0] = torch.arange(n + 1, dtype=torch.int32, device=x.device)
@@ -97,16 +107,36 @@ def excluded(hid, cid, exc_h=None, cols=None):
     return (hid == cid) | torch.any(cid[..., None] == cols.long(), dim=-1)
 
 
-def _pair_sums(form, rc2, d, valid, home, cand):
+def pair_table_of(form, per_particle):
+    """The (T, T, 4) type-pair table a table form reads, None for
+    Lorentz-Berthelot combining; raises where the form and the
+    per-particle dict disagree."""
+    has = "lj_type" in per_particle
+    if form.table != has or has != ("pair_table" in per_particle):
+        raise ValueError(
+            f"pair form table={form.table} with per-particle keys "
+            f"{sorted(per_particle)}: a table form needs 'lj_type' and "
+            "'pair_table', a Lorentz-Berthelot form neither")
+    return per_particle["pair_table"] if has else None
+
+
+def _pair_sums(form, rc2, d, valid, home, cand, table=None):
     """Masked (u, 2 du/dr²) of the slots of displacement d, between home
-    rows (..., cap_h, 1, 8) and candidate rows (..., 1, cap_c, 8)."""
+    rows (..., cap_h, 1, 8) and candidate rows (..., 1, cap_c, 8); with a
+    type-pair `table` the pair's (sigma, epsilon, A, B) is its row at the
+    home and candidate types (feature column 6)."""
     r2 = torch.sum(d * d, dim=-1)
     valid = valid & (r2 < rc2)
     r2m = torch.where(valid, r2, torch.ones_like(r2))
     qq = home[..., 3] * cand[..., 3]
-    sig = 0.5 * (home[..., 4] + cand[..., 4])
-    eps = torch.sqrt(home[..., 5] * cand[..., 5])
-    u, dudr2 = form_u_dudr2(form, r2m, qq, sig, eps)
+    if table is None:
+        sig = 0.5 * (home[..., 4] + cand[..., 4])
+        eps = torch.sqrt(home[..., 5] * cand[..., 5])
+        u, dudr2 = form_u_dudr2(form, r2m, qq, sig, eps)
+    else:
+        row = table[home[..., 6].long(), cand[..., 6].long()]
+        u, dudr2 = form_u_dudr2(form, r2m, qq, row[..., 0], row[..., 1],
+                                row[..., 2], row[..., 3])
     zero = torch.zeros_like(u)
     return torch.where(valid, u, zero), torch.where(valid, 2.0 * dudr2, zero)
 
@@ -121,6 +151,7 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     bitmask when the spec has one, else by the id columns. Home cells run
     `spec.cell_chunk` at a time."""
     n = x.shape[0]
+    table = pair_table_of(form, per_particle)
     hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
     nbr_half = spec.nbr_cells_half
     ncells, cap, _ = hf.shape
@@ -143,7 +174,7 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
         valid = (hid < n) & (cid < n) & ~excluded(
             hid, cid, hm[cells][..., 1][:, None, :, None],
             None if exc_cols is None else exc_cols[cells][:, None, :, None, :])
-        u, fm = _pair_sums(form, rc2, d, valid, home, cand)
+        u, fm = _pair_sums(form, rc2, d, valid, home, cand, table)
         oh = hf.new_zeros((len(cells), cap, 4))
         oh[..., 3] = torch.sum(u * w_col[None, :, None, None], dim=(1, 3))
         if with_forces:
@@ -169,6 +200,7 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     `spec.cell_chunk` at a time, fewer where a chunk would exceed 2M pair
     slots."""
     n = x.shape[0]
+    table = pair_table_of(form, per_particle)
     hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
     nbr = spec.nbr_cells
     ncells, cap, _ = hf.shape
@@ -191,7 +223,7 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
         valid = (hid < n) & (cid < n) & ~excluded(
             hid, cid, hm[cells][..., 1][:, :, None],
             None if exc_cols is None else exc_cols[cells][:, :, None, :])
-        u, fm = _pair_sums(form, rc2, d, valid, home, cand)
+        u, fm = _pair_sums(form, rc2, d, valid, home, cand, table)
         rows = hf.new_zeros((b, cap, 4))
         rows[..., 3] = 0.5 * torch.sum(u, dim=-1)
         if with_forces:
@@ -250,7 +282,9 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     [fx fy fz e], allocated and zeroed here. Checks device, dtype, shape and
     contiguity first and raises if the launch is refused. A spec without
     the exclusion bitmask selects the exclusion-column form; the box's
-    shape, (3,) or (3, 3), selects the kernel's minimum image."""
+    shape, (3,) or (3, 3), selects the kernel's minimum image; a table
+    form passes the LJ types (as int32) and the (T, T, 4) table, which
+    must be a contiguous tensor on the device in the dtype of x."""
     import ctypes
 
     n = x.shape[0]
@@ -258,6 +292,13 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     s = nbr.shape[1]
     q, sig, eps = (per_particle[k].contiguous()
                    for k in ("charge", "sigma", "epsilon"))
+    table = pair_table_of(form, per_particle)
+    tables = ()
+    if table is not None:
+        types = per_particle["lj_type"].to(torch.int32).contiguous()
+        ntypes = table.shape[0]
+        tables = (("lj_type", types, torch.int32, (n,)),
+                  ("pair_table", table, x.dtype, (ntypes, ntypes, 4)))
     if spec.excbits is not None:
         exc, m = spec.excbits, 0
         exc_check = ("excbits", exc, torch.int32, (n + 1,))
@@ -277,13 +318,16 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
                    exc_check,
                    ("bucket", bucket, torch.int32, (ncells, cap)),
                    ("stencil map", nbr, torch.int32, (ncells, s)),
-                   ("box", box, x.dtype, (3, 3) if tri else (3,)))
+                   ("box", box, x.dtype, (3, 3) if tri else (3,)), *tables)
     out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
     scal, flags = _form_block(form, r_cut, x.dtype)
     _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
-            eps.data_ptr(), exc.data_ptr() if m == 0 else None,
+            eps.data_ptr(), types.data_ptr() if tables else None,
+            table.data_ptr() if tables else None,
+            exc.data_ptr() if m == 0 else None,
             exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
             box.data_ptr(), ncells, cap, s, n, m, tri,
+            ntypes if tables else 0,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -36,6 +36,15 @@ kernel c(r) = erfc(alpha r)/r, which is 1/r when alpha = 0):
 * ``DAMPED_SMOOTHED``: (LJ + k qq c(r)) S(r; rs, rc), the damped Coulomb
   smoothed by the switch with no shift (DampedSmoothedForce).
 
+The full forms take two more flags. ``table``: the pair's (sigma, epsilon)
+come from a per-type-pair table (NBFIX) instead of Lorentz-Berthelot; the
+per-particle dict then carries the type column ``lj_type`` and the
+(T, T, 4) table ``pair_table`` [sigma, epsilon, A, B] (forces.py), and the
+kernels read the pair's row instead of combining. ``hbond`` (with a
+table): the legacy AMBER 10-12 term A/r^12 - B/r^10 (``hbond_10_12``) joins
+the LJ term of the full half before the switch, as in
+NonbondedForce._pair_fn; the near half never takes it.
+
 Any form but a dlambda one takes the ``virial`` flag (``virial_form``): the
 energy column then carries the pair's virial w = -2 r² du/dr² = d . F in
 place of u, and the force is unchanged. Summed like the energy, it gives
@@ -77,6 +86,27 @@ def lj(r, sigma, epsilon):
     t2 = t * t
     s6 = t2 * t2 * t2
     return 4.0 * epsilon * s6 * (s6 - 1.0)
+
+
+def hbond_10_12(r, a, b):
+    """AMBER legacy 10-12 hydrogen-bond potential A/r^12 - B/r^10
+    (HBOND_ACOEF/HBOND_BCOEF slots of the nonbonded parm table). Its
+    minimum sits at r* = sqrt(6A/5B); with A = 1e-5 kJ nm^12 and
+    B = 1e-3 kJ nm^10:
+
+    >>> import math
+    >>> import torch
+    >>> r_star = math.sqrt(6e-5 / 5e-3)
+    >>> u0, ul, ur = (float(hbond_10_12(torch.tensor(r_star * f,
+    ...     dtype=torch.float64), 1e-5, 1e-3)) for f in (1.0, 0.99, 1.01))
+    >>> u0 < ul and u0 < ur
+    True
+    """
+    _, rinv, _ = rv_parts(r)
+    inv2 = rinv * rinv
+    inv10 = inv2 * inv2
+    inv10 = inv10 * inv10 * inv2  # (1/r^2)^5
+    return (a * inv2 - b) * inv10
 
 
 def coulomb(r, qq):
@@ -226,12 +256,17 @@ class PairForm:
     dlambda: bool = False   # softcore: d u / d lambda in place of u, no force
     lamb: float = 1.0       # softcore: lambda
     smoothed: bool = False  # full form: the switch multiplies the Coulomb too
+    table: bool = False     # (sigma, epsilon) from the type-pair table
+    hbond: bool = False     # full half: + A/r^12 - B/r^10 (needs the table)
     virial: bool = False    # -2 r² du/dr² in place of u, force unchanged
 
     def __post_init__(self):
         if self.virial and self.dlambda:
             raise ValueError("a pair form takes the virial or the dlambda "
                              "flag, not both")
+        if self.hbond and not self.table:
+            raise ValueError("the 10-12 term reads its A and B from the "
+                             "type-pair table: hbond needs table")
 
     def scalars(self):
         """The kernels' scalar block, in the order csrc/pair_forms.cuh reads."""
@@ -240,9 +275,11 @@ class PairForm:
                 self.alpha, self.n_ec, self.n_dec, self.lamb]
 
     def flags(self):
+        """The kernels' flag block. The table flag is not in it: a kernel
+        takes the table form when it is given a table."""
         return [int(self.has_full), int(self.use_switch), int(self.has_near),
                 int(self.ewald), int(self.softcore), int(self.dlambda),
-                int(self.smoothed), int(self.virial)]
+                int(self.smoothed), int(self.hbond), int(self.virial)]
 
 
 def lj_sw_rf_form(r_cut, r_switch, eps_rf, use_switch: bool = True) -> PairForm:
@@ -293,6 +330,12 @@ def damped_smoothed_form(r_cut, r_switch, alpha) -> PairForm:
                     alpha=float(alpha), smoothed=True)
 
 
+def table_form(form: PairForm, hbond: bool = False) -> PairForm:
+    """`form` reading its (sigma, epsilon) from the type-pair table, with
+    the 10-12 term in its full half when `hbond`."""
+    return dataclasses.replace(form, table=True, hbond=bool(hbond))
+
+
 def virial_form(form: PairForm) -> PairForm:
     """`form` with the virial flag: each pair's -2 r² du/dr² (its d . F)
     in the energy column, the force unchanged."""
@@ -304,6 +347,9 @@ def far_form(full: PairForm, minus_near: PairForm) -> PairForm:
     pass bounded by the full cutoff (the near part is zero beyond its own).
     Both halves share one alpha: an Ewald full form takes only a near form
     damped by its own alpha."""
+    if full.table != minus_near.table:
+        raise ValueError("fused far form: both halves read the same "
+                         "parameters, the type-pair table or none")
     if full.ewald and minus_near.alpha != full.alpha:
         raise ValueError(
             f"fused far form: the near half's alpha {minus_near.alpha} differs "
@@ -323,17 +369,21 @@ def _switch_and_slope(x):
     return s, -30.0 * x * x * om * om
 
 
-def form_u_dudr2(form: PairForm, r2, qq, sig, eps):
+def form_u_dudr2(form: PairForm, r2, qq, sig, eps, a1012=None, b1012=None):
     """(u, du/dr²) of `form` at squared distance r2 (mask invalid slots to
     r2 = 1 first); under the virial flag -2 r² du/dr² in place of u.
+    (sig, eps) are the pair's, combined or read from the table; a1012 and
+    b1012 the pair's 10-12 coefficients, which the hbond flag requires.
     Line-for-line twin of pair_form in csrc/pair_forms.cuh."""
-    u, dudr2 = _form_energy(form, r2, qq, sig, eps)
+    if form.hbond and (a1012 is None or b1012 is None):
+        raise ValueError("the hbond form needs the pair's a1012 and b1012")
+    u, dudr2 = _form_energy(form, r2, qq, sig, eps, a1012, b1012)
     if form.virial:
         u = -2.0 * r2 * dudr2
     return u, dudr2
 
 
-def _form_energy(form: PairForm, r2, qq, sig, eps):
+def _form_energy(form: PairForm, r2, qq, sig, eps, a1012=None, b1012=None):
     """(u, du/dr²) of `form`: the twin of pair_form_energy."""
     rinv = make_rv(r2).rinv
     r = r2 * rinv
@@ -369,6 +419,12 @@ def _form_energy(form: PairForm, r2, qq, sig, eps):
         s6 = t2 * t2 * t2
         ulj = 4.0 * eps * s6 * (s6 - 1.0)
         dulj = -12.0 * eps * s6 * (2.0 * s6 - 1.0) * rinv2
+        if form.hbond:
+            # A/r^12 - B/r^10 and its -6A/r^14 + 5B/r^12, inside the switch
+            inv10 = rinv2 * rinv2
+            inv10 = inv10 * inv10 * rinv2
+            ulj = ulj + (a1012 * rinv2 - b1012) * inv10
+            dulj = dulj + (5.0 * b1012 - 6.0 * a1012 * rinv2) * inv10 * rinv2
         if form.use_switch:
             sw, ds_dx = _switch_and_slope((r - form.sw_rs) * form.sw_inv_w)
             dsw = ds_dx * form.sw_inv_w * 0.5 * rinv

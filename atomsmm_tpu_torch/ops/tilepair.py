@@ -92,6 +92,20 @@ def _check_vector_box(box):
                          "cell runs on the cell lists (make_neighbor_spec)")
 
 
+def _check_no_table(form=None, per_particle=None):
+    """The tile list and K3 combine by Lorentz-Berthelot only: no Context
+    path runs them in either package, and their staging has no type
+    column. A table form (NBFIX, the 10-12 term) runs on the cell lists
+    (K1 and K2)."""
+    if (form is not None and form.table) or (
+            per_particle is not None and "lj_type" in per_particle):
+        from ..utils import InputError
+
+        raise InputError("the tile list and K3 take no type-pair table "
+                         "(NBFIX, the 10-12 term); such a system runs on "
+                         "the cell lists (make_neighbor_spec)")
+
+
 def make_tilepair_spec(
     box,
     n: int,
@@ -339,6 +353,7 @@ def _stage(spec, x, box, per_particle, excbits, order, xref=None):
     across faces, exact for displacements < box/2 (the skin/2 reuse window
     is far tighter). xref=None wraps x directly, valid only at the build
     configuration."""
+    _check_no_table(per_particle=per_particle)
     n = x.shape[0]
     b = spec.block_size
     nb = spec.n_blocks
@@ -418,6 +433,7 @@ def tile_pair_cuda(fs, ms, hb, cb, wrap, box, form, r_cut):
     import ctypes
 
     _check_vector_box(box)
+    _check_no_table(form)
     nb1, b, _ = fs.shape
     e = hb.shape[0]
     dev = _checked("tile_pair",

@@ -77,7 +77,9 @@ def RESPASystem(
                 loops list to MultipleTimeScaleIntegrator.
 
     The near force's Coulomb damping follows the full force: the Ewald
-    alpha under PME, else undamped.
+    alpha under PME, else undamped; it takes the full force's NBFIX tables
+    (not its 10-12 term), so that near + far == full holds on the table
+    path too.
     """
     idx = find_nonbonded_force(system)
     nb = system.forces[idx]
@@ -102,6 +104,9 @@ def RESPASystem(
         alpha=alpha,
         subtract=False,
         chunk=nb.chunk,
+        lj_type=nb.lj_type,
+        pair_sigma=nb.pair_sigma,
+        pair_epsilon=nb.pair_epsilon,
     )
     split_recip = bool(reciprocal_level) and nb.method == "pme"
     far = FarNonbondedForce(
@@ -163,7 +168,8 @@ def SolvationSystem(
         lambda_coul², as in the reference).
 
     At lambda_vdw = lambda_coul = 1 the transformed system reproduces the
-    original. NBFIX tables are not ported, so no system here carries one.
+    original. A system with NBFIX tables is refused, as in the JAX
+    package: the softcore force combines per-particle (sigma, epsilon).
     """
     idx = find_nonbonded_force(system)
     nb = system.forces[idx]

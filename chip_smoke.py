@@ -239,6 +239,26 @@ non-zero:
    twins at (k2)'s and (k3)'s grids, K1's device time at (k2)'s; (k4) PME
    against the plane-wave Ewald sum on tests/test_triclinic.py's sheared
    cell on the card (2e-5);
+   path (l): Amber input, BASELINE config 6's state as 0.15 M NaCl: 54
+   waters of bench_data/eq_tip3p30k.npz drawn by
+   numpy.random.default_rng(7), no two closer than 1 nm, replaced by 27
+   Na+ and 27 Cl- (Joung-Cheatham TIP3P ions, the Na+-Cl- row of the LJ
+   table an NBFIX row, Luo & Roux's R_min and epsilon), 29,892 atoms,
+   written as prmtop and inpcrd text by this script's writer
+   (nacl_prmtop, nacl_inpcrd) and read by io.amber_system(method="pme",
+   r_cut=0.9, rigid_water=True, neighbors=True) in float32: 600
+   LangevinMiddle steps at 1 fs settle the ions, then (g1)'s integrator,
+   step(1), a timed step(200), 8 x step(50) with T and PE read; checks
+   lj_type set, every water on SETTLE, finiteness, the SETTLE residual,
+   K1's launches (1 a step + 1 a pass), T 280-320 K, PE/atom inside
+   L_BANDS (from the witness k1_ab/nacl_energy.py), |drift| <= 0.15; then
+   K1 in the table forms against its plain twin at (l)'s grid and state
+   (full PME and RF, near and fused far of RESPASystem(0.6, 0.5), the
+   virial forms), the 10-12 variant (the OW-HW slot a 10-12 pair) on K1
+   and on K2 (the far grid's full stencil), and K1's table form timed
+   beside its Lorentz-Berthelot form on the same bucket; with a float64
+   slice of 200 TIP3P + 2 Na+ + 2 Cl- from the same writer on K2, 10
+   steps card vs CPU (x, v 1e-9, energies 1e-10);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -326,6 +346,12 @@ OPS_SOFTCORE = 50
 SFU_SOFTCORE = 2
 # the virial flag: w = -2 r^2 du/dr^2 in place of u, two multiplies
 OPS_VIRIAL = 2
+# a table form (NBFIX): the pair's row read from the type-pair table (two
+# gathers, of integer index arithmetic and loads) in place of the
+# Lorentz-Berthelot sigma (2 operations) and epsilon (a sqrt on the SFU);
+# the 10-12 term of the full half: r^-10 (3), its energy (4) and du/dr^2 (7)
+OPS_COMBINE = 2
+OPS_HBOND = 14
 
 
 def log(msg):
@@ -440,7 +466,9 @@ def bound(form, pairs, near, slots, nbytes):
     written once; with_slots_ms adds the `slots` slot tests."""
     damped = bool(form.alpha)
     per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0) \
-        + (OPS_VIRIAL if form.virial else 0)
+        + (OPS_VIRIAL if form.virial else 0) \
+        - (OPS_COMBINE if form.table else 0) \
+        + (OPS_HBOND if form.hbond else 0)
     if form.has_full:
         per += OPS_FULL["smoothed" if form.smoothed else
                         "ewald" if form.ewald else "rf"]
@@ -448,7 +476,8 @@ def bound(form, pairs, near, slots, nbytes):
         per += OPS_SOFTCORE
     ops = pairs * per + (near * OPS_NEAR if form.has_near else 0)
     sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0)
-                   + (SFU_SOFTCORE if form.softcore else 0))
+                   + (SFU_SOFTCORE if form.softcore else 0)
+                   - (1 if form.table else 0))
     t = {"ops_ms": ops / PEAK_FP32 * 1e3, "sfu_ms": sfu / PEAK_SFU * 1e3,
          "bytes_ms": nbytes / PEAK_BYTES * 1e3}
     t["ms"] = max(t.values())
@@ -511,7 +540,8 @@ def form_name(form):
     if form.dlambda:
         return name + "_dlambda"
     return name + ("_damped" if form.alpha and form.kind in (pf.NEAR, pf.FAR)
-                   else "") + ("_virial" if form.virial else "")
+                   else "") + ("_table" if form.table else "") \
+        + ("_hbond" if form.hbond else "") + ("_virial" if form.virial else "")
 
 
 def judge(label, dtype, e_k, f_k, e_p, f_p, e_scale=None, f_scale=None):
@@ -1466,24 +1496,28 @@ def time_cells(label, force, spec, x, box, form=None):
     p_ms = time_cuda(lambda: plain(*args), 3)
     k_ms = kernel_device_ms(sweep, kernel)
     # device operations per sweep: the span between two launches of the
-    # kernel among 5 profiled sweeps. The profiler has dropped events at
-    # the start of its window (all of one sweep, two or three), so a read
-    # with fewer than 3 launches of the kernel is taken again
+    # kernel among 8 profiled sweeps. The profiler has dropped events at
+    # the start of its window (all of one sweep, two or three; three reads
+    # in a row kept only 2 of 5 sweeps once), so a read with fewer than 3
+    # launches of the kernel is taken again, up to 5 reads
     seen = [name for name, _ in device_kernels(
-        sweep, reps=5, enough=lambda ev: sum(
+        sweep, reps=8, tries=5, enough=lambda ev: sum(
             f"{kernel}_kernel" in name for name, _ in ev) >= 3)]
     at = [i for i, name in enumerate(seen) if f"{kernel}_kernel" in name]
     spans = {j - i for i, j in zip(at[1:], at[2:])}
     ops = seen[at[1] + 1:at[2] + 1] if len(at) >= 3 else []
     if len(at) < 3 or spans != {len(ops)} or not 1 <= len(ops) <= 4:
         raise RuntimeError(f"{kernel} sweep {label}: kernel launches at "
-                           f"{at} of {len(seen)} device operations in 5 "
+                           f"{at} of {len(seen)} device operations in 8 "
                            f"sweeps, expected 1 to 4 a sweep with one: "
                            f"{seen}")
     c = sweep_counts(spec, form, x, box, pp, bucket)
     exc = spec.excbits if spec.excbits is not None else spec.exclusions
+    # a table form reads the types and the (T, T, 4) table, not sigma, eps
+    lj = ((pp["lj_type"], pp["pair_table"]) if form.table
+          else (pp["sigma"], pp["epsilon"]))
     b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
-        x, pp["charge"], pp["sigma"], pp["epsilon"], exc, bucket, nbr, box)
+        x, pp["charge"], *lj, exc, bucket, nbr, box)
         + (n + 1) * 4 * x.element_size())
     slots_all = spec.ncells * nbr.shape[1] * spec.cell_capacity ** 2
     log(f"timing {kernel} {label} grid {spec.grid} cap "
@@ -4478,6 +4512,424 @@ def phase_triclinic(dev, eq, k2_steps=10):
             "kernel_checks": results, "timings": timings}
 
 
+# --- path (l): Amber input, BASELINE config 6's state as 0.15 M NaCl -------
+
+AMBER_CHARGE = 18.2223  # sqrt(332.0522 kcal A / (mol e^2)): Amber's unit
+KCAL = 4.184
+# TIP3P as models.rigid_water_system builds it, in Amber units (A, kcal/mol)
+TIP3P_AMBER = {"q_o": -0.834, "q_h": 0.417, "r_oh": 0.9572,
+               "theta": 104.52, "sigma_o": 3.1507, "eps_o": 0.6364 / KCAL}
+# Joung & Cheatham (2008) TIP3P ions, (R_min/2 [A], epsilon [kcal/mol])
+ION_NA = (1.369, 0.0874)
+ION_CL = (2.513, 0.0356)
+# the Na+-Cl- row off Lorentz-Berthelot, (R_min [A], epsilon [kcal/mol]):
+# the NBFIX of Luo & Roux (2010), fitted for CHARMM ions; here it only has
+# to be off the combining rule
+NBFIX_NACL = (3.731, 0.0839)
+# the 10-12 variant's O-H slot, (A [kcal A^12], B [kcal A^10]) as in
+# tests/test_amber.py:605
+HBOND_AB = (7500.0, 2300.0)
+N_IONS = 27          # Na+ and as many Cl-: 0.15 M in 10,000 waters' box
+ION_SEPARATION = 1.0  # nm, the least O-O distance of the replaced waters
+# path (l)'s bands. T as (g1), and (g1)'s drift bound. PE per atom from
+# the witness k1_ab/nacl_energy.py (path (l)'s protocol run for 3,000
+# steps on the card: its reads lie in -14.11 ... -13.97, sigma 0.04),
+# +-3 sigma and rounded outward. The band first set here, (g1)'s -15.1 ...
+# -14.3 moved by the ions' -0.7, failed: the settle-in equipartitions the
+# waters, which (g1)'s stored state does not (PERF.md section 6)
+L_BANDS = {"T": (280.0, 320.0), "pe": (-14.25, -13.75), "drift": 0.15}
+
+
+def amber_section(flag, values, kind):
+    """One %FLAG section of a prmtop: integers (10I8), floats (5E16.8) or
+    4-character strings (20a4)."""
+    fmt, per, tok = {
+        "i": ("%FORMAT(10I8)", 10, lambda v: f"{int(v):8d}"),
+        "e": ("%FORMAT(5E16.8)", 5, lambda v: f"{float(v):16.8E}"),
+        "a": ("%FORMAT(20a4)", 20, lambda v: f"{str(v):<4s}")}[kind]
+    lines = [f"%FLAG {flag}", fmt]
+    if not len(values):
+        lines.append("")
+    for i in range(0, len(values), per):
+        lines.append("".join(tok(v) for v in values[i:i + per]))
+    return lines
+
+
+def nacl_prmtop(n_water, n_na, n_cl, hbond=False):
+    """prmtop text of `n_water` TIP3P waters then `n_na` Na+ and `n_cl`
+    Cl- (types OW, HW, Na+, Cl-), the Na+-Cl- row of ACOEF/BCOEF at
+    NBFIX_NACL; with `hbond` the OW-HW slot is a 10-12 pair (HBOND_AB).
+    Same-type and Lorentz-Berthelot rows: A = eps R_min^12,
+    B = 2 eps R_min^6 with R_min = R_min/2_i + R_min/2_j and
+    eps = sqrt(eps_i eps_j)."""
+    import numpy as np
+
+    w = TIP3P_AMBER
+    n = 3 * n_water + n_na + n_cl
+    half = [w["sigma_o"] * 2.0 ** (1.0 / 6.0) / 2.0, 0.0, ION_NA[0],
+            ION_CL[0]]
+    eps = [w["eps_o"], 0.0, ION_NA[1], ION_CL[1]]
+    acoef, bcoef, parm = [], [], [0] * 16
+    for i in range(4):
+        for j in range(i + 1):
+            rmin, e = half[i] + half[j], float(np.sqrt(eps[i] * eps[j]))
+            if (i, j) == (3, 2):
+                rmin, e = NBFIX_NACL
+            acoef.append(e * rmin ** 12)
+            bcoef.append(2.0 * e * rmin ** 6)
+            parm[4 * i + j] = parm[4 * j + i] = len(acoef)
+    if hbond:
+        parm[1] = parm[4] = -1
+    o = 3 * np.arange(n_water)
+    bonds = np.stack([3 * o, 3 * (o + 1), np.ones_like(o), 3 * o,
+                      3 * (o + 2), np.ones_like(o)], 1).reshape(-1)
+    angles = np.stack([3 * (o + 1), 3 * o, 3 * (o + 2), np.ones_like(o)],
+                      1).reshape(-1)
+    pointers = [0] * 31
+    pointers[0], pointers[1] = n, 4              # NATOM, NTYPES
+    pointers[2], pointers[4] = 2 * n_water, n_water  # NBONH, NTHETH
+    pointers[11] = n_water + n_na + n_cl         # NRES
+    pointers[15], pointers[16], pointers[18] = 1, 1, 4
+    pointers[19] = 1 if hbond else 0             # NPHB
+    pointers[20] = 1                             # IFBOX
+    q = [w["q_o"], w["q_h"], w["q_h"]] * n_water + [1.0] * n_na \
+        + [-1.0] * n_cl
+    sections = [
+        ("ATOM_NAME", ["O", "H1", "H2"] * n_water + ["Na+"] * n_na
+         + ["Cl-"] * n_cl, "a"),
+        ("CHARGE", [c * AMBER_CHARGE for c in q], "e"),
+        ("ATOM_TYPE_INDEX", [1, 2, 2] * n_water + [3] * n_na + [4] * n_cl,
+         "i"),
+        ("MASS", [15.9994, 1.008, 1.008] * n_water + [22.99] * n_na
+         + [35.45] * n_cl, "e"),
+        ("NONBONDED_PARM_INDEX", parm, "i"),
+        ("RESIDUE_LABEL", ["WAT"] * n_water + ["Na+"] * n_na
+         + ["Cl-"] * n_cl, "a"),
+        ("RESIDUE_POINTER", list(1 + 3 * np.arange(n_water))
+         + list(1 + 3 * n_water + np.arange(n_na + n_cl)), "i"),
+        ("BOND_FORCE_CONSTANT", [553.0], "e"),
+        ("BOND_EQUIL_VALUE", [w["r_oh"]], "e"),
+        ("ANGLE_FORCE_CONSTANT", [100.0], "e"),
+        ("ANGLE_EQUIL_VALUE", [w["theta"] * np.pi / 180.0], "e"),
+        ("LENNARD_JONES_ACOEF", acoef, "e"),
+        ("LENNARD_JONES_BCOEF", bcoef, "e"),
+        ("BONDS_INC_HYDROGEN", list(bonds), "i"),
+        ("BONDS_WITHOUT_HYDROGEN", [], "i"),
+        ("ANGLES_INC_HYDROGEN", list(angles), "i"),
+        ("ANGLES_WITHOUT_HYDROGEN", [], "i"),
+    ]
+    if hbond:
+        sections += [("HBOND_ACOEF", [HBOND_AB[0]], "e"),
+                     ("HBOND_BCOEF", [HBOND_AB[1]], "e")]
+    lines = ["%VERSION  VERSION_STAMP = V0001.000  DATE = 01/01/26"]
+    lines += amber_section("POINTERS", pointers, "i")
+    for flag, values, kind in sections:
+        lines += amber_section(flag, values, kind)
+    return "\n".join(lines) + "\n"
+
+
+def nacl_inpcrd(x_nm, box_nm):
+    """inpcrd text of positions [nm] and an orthorhombic box [nm]."""
+    vals = (x_nm * 10.0).reshape(-1)
+    lines = ["NaCl in TIP3P", f"{len(x_nm):6d}"]
+    for i in range(0, len(vals), 6):
+        lines.append("".join(f"{v:12.7f}" for v in vals[i:i + 6]))
+    lines.append("".join(f"{v:12.7f}" for v in
+                         [*(10.0 * float(b) for b in box_nm), 90.0, 90.0,
+                          90.0]))
+    return "\n".join(lines) + "\n"
+
+
+def nacl_state(x, v, box_l, n_ions, separation, seed):
+    """Waters of (x, v) (O, H, H each) with 2 n_ions of them, drawn by
+    numpy.random.default_rng(seed) no two O closer than `separation`,
+    replaced by n_ions Na+ and n_ions Cl- at their O sites (the O's
+    velocity): (x, v) as waters then Na+ then Cl-, and the number of
+    waters left."""
+    import numpy as np
+
+    m = len(x) // 3
+    o = x[0::3]
+    chosen = []
+    for i in np.random.default_rng(seed).permutation(m):
+        d = o[chosen] - o[i]
+        d -= box_l * np.round(d / box_l)
+        if not chosen or np.sqrt((d * d).sum(1)).min() >= separation:
+            chosen.append(int(i))
+            if len(chosen) == 2 * n_ions:
+                break
+    if len(chosen) < 2 * n_ions:
+        raise RuntimeError(f"only {len(chosen)} waters {separation} nm apart")
+    keep = np.setdiff1d(np.arange(m), chosen)
+    xs = np.concatenate([x.reshape(m, 3, 3)[keep].reshape(-1, 3), o[chosen]])
+    vs = np.concatenate([v.reshape(m, 3, 3)[keep].reshape(-1, 3),
+                         v[0::3][chosen]])
+    return xs, vs, len(keep)
+
+
+def nacl_system(text, crd, dtype, dev, method="pme"):
+    """io.amber_system on prmtop and inpcrd text as path (l) calls it."""
+    from atomsmm_tpu_torch.io import amber_system
+
+    return amber_system(text, crd, method=method, r_cut=0.9,
+                        rigid_water=True, neighbors=True, dtype=dtype,
+                        device=dev)
+
+
+def phase_amber(dev, eq, seed=7, settle=600, steps=200, chunks=8, chunk=50):
+    """Path (l): BASELINE config 6's state (bench_data/eq_tip3p30k.npz,
+    10,000 TIP3P waters) as 0.15 M NaCl, read from prmtop and inpcrd text
+    through io.amber_system(method="pme", r_cut=0.9, rigid_water=True,
+    neighbors=True) in float32 on the card: 54 waters drawn by
+    numpy.random.default_rng(seed) no two closer than 1 nm replaced by 27
+    Na+ and 27 Cl- (Joung-Cheatham TIP3P ions, the Na+-Cl- row an NBFIX
+    row): 9,946 waters + 54 ions = 29,892 atoms. The ions settle in under
+    LangevinMiddle at 1 fs (10/ps, 300 K) for `settle` steps, then (g1)'s
+    integrator (VV @ 2 fs + NHC 300 K): step(1), a timed step(steps) (CUDA
+    events; the conserved energy before and after), `chunks` x
+    step(chunk) with T and PE read. Checks: lj_type set and the table
+    form on K1, every water on SETTLE, finiteness, the SETTLE residual,
+    the K1 launches of the timed call (1 a step + 1 a pass), L_BANDS."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f32 = torch.float32
+    ex, ev, ebox = eq
+    box_l = float(ebox[0])
+    x, v, n_water = nacl_state(ex, ev, box_l, N_IONS, ION_SEPARATION, seed)
+    na_cl = (ION_NA, ION_CL, NBFIX_NACL)
+    log(f"path (l) parameters: TIP3P {TIP3P_AMBER}; Na+ R_min/2 "
+        f"{na_cl[0][0]} A eps {na_cl[0][1]} kcal/mol; Cl- R_min/2 "
+        f"{na_cl[1][0]} A eps {na_cl[1][1]} kcal/mol; NBFIX Na+-Cl- R_min "
+        f"{na_cl[2][0]} A eps {na_cl[2][1]} kcal/mol (Lorentz-Berthelot "
+        f"would give {na_cl[0][0] + na_cl[1][0]:.3f} A, "
+        f"{np.sqrt(na_cl[0][1] * na_cl[1][1]):.4f} kcal/mol)")
+    t0 = time.perf_counter()
+    text = nacl_prmtop(n_water, N_IONS, N_IONS)
+    crd = nacl_inpcrd(x, ebox)
+    t1 = time.perf_counter()
+    system, xt, box = nacl_system(text, crd, f32, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nb = system.forces[0]
+    n = system.num_particles
+    form = nb._pair_form()
+    log(f"path (l) files: prmtop {len(text) / 1e6:.2f} MB, inpcrd "
+        f"{len(crd) / 1e6:.2f} MB written in {t1 - t0:.2f} s; amber_system "
+        f"{t2 - t1:.2f} s: {n} atoms ({n_water} waters, {N_IONS} Na+, "
+        f"{N_IONS} Cl-), {nb.pair_sigma.shape[0]} LJ types, form table "
+        f"{form.table} hbond {form.hbond}, grid {system.neighbors.grid} cap "
+        f"{system.neighbors.cell_capacity}, PME grid {nb.grid_shape} alpha "
+        f"{nb.ewald_alpha:.5f}")
+    require("path (l) system", {
+        "atoms": n == 29892, "lj_type": nb.lj_type is not None,
+        "table_form": form.table and not form.hbond,
+        "nbfix_row": abs(float(nb.pair_sigma[2, 3]) - NBFIX_NACL[0] / 10.0
+                         / 2.0 ** (1.0 / 6.0)) < 1e-6,
+        "settle": (system.settle is not None
+                   and system.settle.size == n_water
+                   and system.constraints is None),
+        "k1": system.neighbors.half_stencil})
+    dof = amm.count_degrees_of_freedom(system)
+    vt = torch.as_tensor(v, dtype=f32, device=dev)
+    ctx = amm.Context(system, amm.LangevinMiddleIntegrator(
+        0.001, 300.0, friction=10.0), amm.make_state(xt, v=vt, box=box))
+    t0 = time.perf_counter()
+    ctx.step(settle)
+    temp_settled = float(ctx.temperature())
+    log(f"path (l) settle-in: {settle} LangevinMiddle steps at 1 fs, 10/ps, "
+        f"300 K in {time.perf_counter() - t0:.2f} s; T {temp_settled:.2f} K")
+    st = ctx.state
+    ctx = amm.Context(system, amm.GlobalThermostatIntegrator(
+        0.002, amm.NoseHooverChainPropagator(300.0, dof, 0.1)),
+        amm.make_state(st.x, v=st.v, box=st.box))
+    ctx.step(1)
+    torch.cuda.synchronize()
+    e0 = float(ctx.conserved_energy())
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / steps
+    launches = dict(pk.LAUNCHES)
+    passes = ctx.last_step_passes
+    e1 = float(ctx.conserved_energy())
+    drift = (e1 - e0) / (n * steps * 0.002)
+    xs, vs = ctx.state.x, ctx.state.v
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(vs).all())
+    residual = geometry_residual(system, xs)
+    temps, pes = [], []
+    for _ in range(chunks):
+        ctx.step(chunk)
+        temps.append(float(ctx.temperature()))
+        pes.append(float(ctx.get_state(lite=True).potential_energy) / n)
+    temp, pe = sum(temps) / chunks, sum(pes) / chunks
+    expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
+                "tile_pair": 0}
+    ns_day = 0.002 * 1e-3 * 86400.0 / (ms * 1e-3)
+    bands = L_BANDS
+    log(f"path (l) nacl30k from prmtop/inpcrd, PME, SETTLE, VV@2fs NHC "
+        f"float32: {ms:.3f} ms/step by CUDA events ({wall / steps * 1e3:.3f} "
+        f"by the host clock), {ns_day:.3f} ns/day; launches {launches} "
+        f"(expected {expected}, passes {passes}); T {temp:.2f} K (band "
+        f"{bands['T']}; reads {', '.join(f'{t:.2f}' for t in temps)}); "
+        f"PE/atom {pe:.4f} kJ/mol (band {bands['pe']}; reads "
+        f"{', '.join(f'{e:.4f}' for e in pes)}); drift {drift:.5f} "
+        f"kJ/mol/atom/ps (bound {bands['drift']}); SETTLE residual "
+        f"{residual:.2e}; finite {finite}")
+    require("path (l)", {
+        "finite": finite,
+        "launches": launches == expected,
+        "settle_residual": residual <= 1e-4,
+        "temperature": bands["T"][0] <= temp <= bands["T"][1],
+        "pe_per_atom": bands["pe"][0] <= pe <= bands["pe"][1],
+        "drift": abs(drift) <= bands["drift"],
+    })
+    return {"ctx": ctx, "launches": launches, "ms_per_step": ms,
+            "ns_day": ns_day, "T": temp, "pe": pe, "drift": drift,
+            "residual": residual, "n_water": n_water}
+
+
+def phase_kernels_amber(dev, run):
+    """K1 against its plain twin at path (l)'s grid and state, float64 and
+    float32, in the table forms: the full PME (Ewald direct space) and
+    reaction-field forms, the near and fused far forms of
+    RESPASystem(0.6, 0.5) (near on its own grid) and the virial forms of
+    the full and far ones; then the 10-12 variant (the same files with the
+    OW-HW slot a 10-12 pair, HBOND_AB): K1 in the full and fused far forms
+    and K2 on a full-stencil spec of the far grid. Then K1's table form
+    timed beside its Lorentz-Berthelot form (the same force without the
+    tables, each pair combining per-particle sigma and epsilon) on the same
+    grid and bucket, float32."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops.pairfuncs import virial_form
+    from atomsmm_tpu_torch.utils import replace
+
+    f32 = torch.float32
+    ctx = run["ctx"]
+    system = ctx.system
+    x = ctx.state.x.detach().cpu().double()
+    box = ctx.state.box.detach().cpu().double()
+    nb, spec = system.forces[0], system.neighbors
+    results = []
+    compare("nacl30k table pme", nb, spec, x, box, dev, results)
+    rf = replace(nb, method="cutoff", grid_shape=(0, 0, 0))
+    compare("nacl30k table cutoff-RF", rf, spec, x, box, dev, results)
+    compare("nacl30k table pme virial", nb, spec, x, box, dev, results,
+            form=virial_form(nb._pair_form()))
+    respa = amm.RESPASystem(system, rcut_in=0.6, rswitch_in=0.5)
+    near, far = pair_forces(respa)
+    compare("nacl30k table near", near, respa.extra_neighbor_specs["near"],
+            x, box, dev, results)
+    compare("nacl30k table far", far, spec, x, box, dev, results,
+            unsplit=far.full)
+    compare("nacl30k table far virial", far, spec, x, box, dev, results,
+            unsplit=far.full, form=virial_form(far._pair_form()))
+    # the 10-12 variant, K1 and K2
+    hb_sys, _, _ = nacl_system(nacl_prmtop(run["n_water"], N_IONS, N_IONS,
+                                           hbond=True),
+                               nacl_inpcrd(x.numpy(), box.numpy()), f32, dev)
+    hb = hb_sys.forces[0]
+    if not (hb._pair_form().table and hb._pair_form().hbond
+            and hb.pair_a1012 is not None):
+        raise RuntimeError("the 10-12 variant lost its term")
+    hb_far = pair_forces(amm.RESPASystem(hb_sys, rcut_in=0.6,
+                                         rswitch_in=0.5))[1]
+    full_stencil = replace(hb_sys.neighbors, half_stencil=False)
+    compare("nacl30k hbond pme", hb, hb_sys.neighbors, x, box, dev, results)
+    compare("nacl30k hbond far", hb_far, hb_sys.neighbors, x, box, dev,
+            results, unsplit=hb_far.full)
+    compare("nacl30k hbond pme K2", hb, full_stencil, x, box, dev, results)
+    compare("nacl30k hbond far K2", hb_far, full_stencil, x, box, dev,
+            results, unsplit=hb_far.full)
+    x32, b32 = x.to(dev, f32).contiguous(), box.to(dev, f32)
+    lb = replace(nb, lj_type=None, pair_sigma=None, pair_epsilon=None)
+    timings = {"table": time_cells("nacl30k table pme", nb, spec, x32, b32),
+               "lb": time_cells("nacl30k Lorentz-Berthelot pme", lb, spec,
+                                x32, b32)}
+    t, l_ = timings["table"], timings["lb"]
+    log(f"path (l) K1 table form {t['ms']:.4f} ms vs Lorentz-Berthelot "
+        f"{l_['ms']:.4f} ms of device time on the same grid and bucket "
+        f"({t['ms'] / l_['ms']:.3f}x)")
+    return results, timings
+
+
+def phase_slice_amber(dev, n_water=200, n_ions=2, steps=10, seed=3):
+    """Path (l)'s slice, float64, card against CPU (the plain twins there):
+    204 TIP3P waters on the lattice of models.rigid_water_system, 4 of them
+    (drawn by numpy.random.default_rng(seed), no two O closer than 0.7 nm)
+    replaced by 2 Na+ and 2 Cl-, written as prmtop and inpcrd text by the
+    path (l) writer and read through io.amber_system (PME, 0.9 nm, rigid
+    water; a 1^3 grid: K2 with the table form), `steps` steps of VV @ 2 fs
+    + NHC with velocities from one numpy draw: x and v to 1e-9 relative,
+    the per-force energies at the CPU's final positions to 1e-10 of the
+    largest, K2 launched and K1 not."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import rigid_water_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.potential import split_potential_energy
+
+    f64 = torch.float64
+    m = n_water + 2 * n_ions
+    _, x, box = rigid_water_system(n_molecules=m, r_cut=0.9, dtype=f64,
+                                   seed=5, device="cpu")
+    box_l = float(box[0])
+    x = x.numpy()
+    xs, vs, kept = nacl_state(x, np.zeros_like(x), box_l, n_ions, 0.7, seed)
+    text = nacl_prmtop(kept, n_ions, n_ions)
+    crd = nacl_inpcrd(xs, np.full(3, box_l))
+    runs = []
+    for device in ("cpu", dev):
+        system, xt, bt = nacl_system(text, crd, f64, device)
+        mass = system.masses.cpu().numpy()
+        v = np.random.RandomState(9).normal(size=xt.shape) * np.sqrt(
+            amm.units.BOLTZMANN * 300.0 / mass)[:, None]
+        dof = amm.count_degrees_of_freedom(system)
+        ctx = amm.Context(system, amm.GlobalThermostatIntegrator(
+            0.002, amm.NoseHooverChainPropagator(300.0, dof, 0.1)),
+            amm.make_state(xt, v=torch.as_tensor(v, device=device), box=bt))
+        pk.reset_launches()
+        ctx.step(steps)
+        launches = dict(pk.LAUNCHES)
+        runs.append((system, ctx, launches))
+    (cs, cpu, _), (gs, gpu, launches) = runs
+    worst = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
+                for a, b in ((cpu.state.x, gpu.state.x),
+                             (cpu.state.v, gpu.state.v)))
+    xe, be = cpu.state.x, cpu.state.box
+    e_c = split_potential_energy(cs, xe, be, aux=make_aux(
+        cs, all_neighbor_extras(cs, xe, be)))
+    xg, bg = xe.to(dev), be.to(dev)
+    e_g = split_potential_energy(gs, xg, bg, aux=make_aux(
+        gs, all_neighbor_extras(gs, xg, bg)))
+    scale = max(abs(float(v)) for v in e_c.values())
+    e_err = max(abs(float(e_g[k]) - float(e_c[k])) for k in e_c) / scale
+    log(f"slice (l) {gs.num_particles} atoms ({kept} TIP3P, {n_ions} Na+, "
+        f"{n_ions} Cl-) from prmtop/inpcrd, PME, float64, grid "
+        f"{gs.neighbors.grid} (half maps {gs.neighbors.half_stencil}), "
+        f"table form {gs.forces[0]._pair_form().table}, {steps} VV+NHC "
+        f"steps card vs CPU: x, v max rel diff {worst:.2e}; energies max "
+        f"rel diff {e_err:.2e} of the largest term; launches {launches}")
+    require("slice (l)", {
+        "card_equals_cpu": worst < 1e-9, "energies": e_err <= 1e-10,
+        "k2": launches["cell_pair"] > 0 and launches["half_pair"] == 0,
+        "table": gs.forces[0]._pair_form().table})
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -4526,6 +4978,7 @@ def main():
     phase_slice_npt(dev)
     phase_slice_rigid(dev)
     phase_slice_hrex(dev)
+    phase_slice_amber(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
@@ -4546,11 +4999,13 @@ def main():
     sim_run = phase_simulation(dev, eq, main_run["ms_per_step"])
     phase_simulation_resume(dev)
     tric = phase_triclinic(dev, eq)
+    amber = phase_amber(dev, eq_tip3p)
+    amber_checks, amber_timings = phase_kernels_amber(dev, amber)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
                 + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
-                + tric["kernel_checks"])
+                + tric["kernel_checks"] + amber_checks)
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
@@ -4593,6 +5048,7 @@ def main():
         "path_j": sim_run["launches"],
         "path_j_fire": sim_run["fire_launches"],
         "path_k": tric["launches"],
+        "path_l": amber["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -4693,6 +5149,19 @@ def main():
     for entry_, kernel in zip(kernels["kernels"][:2],
                               ("half_pair", "cell_pair")):
         entry_["path_k_max_abs_err"] = f32_err(kernel, "sheared")
+    # path (l): K1's table form at (l)'s grid (PME, NBFIX tables), float32,
+    # beside its Lorentz-Berthelot form on the same bucket; K1's and K2's
+    # float32 errors against their plain twins in the table forms (K2 on
+    # the 10-12 variant's full stencil)
+    t, t_lb = amber_timings["table"], amber_timings["lb"]
+    k1.update({"path_l_ms": t["ms"], "path_l_plain_ms": t["plain_ms"],
+               "path_l_bound_ms": t["bound"]["ms"],
+               "path_l_bound_by": t["bound"]["by"],
+               "path_l_lorentz_berthelot_ms": t_lb["ms"],
+               "path_l_step_ms": amber["ms_per_step"]})
+    for entry_, kernel in zip(kernels["kernels"][:2],
+                              ("half_pair", "cell_pair")):
+        entry_["path_l_max_abs_err"] = f32_err(kernel, "nacl30k")
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,14 @@ MODULES = {
     "integrate.integrators": 3,
     "integrate.propagators": 3,
     "integrate.sinr": 2,
+    "io.amber": 11,
     "io.pdb": 7,
     "minimize": 6,
     "models.water": 12,
     "ops.cmap": 10,
     "ops.constraints": 10,
     "ops.drude": 9,
-    "ops.pairfuncs": 1,
+    "ops.pairfuncs": 12,
     "ops.pbc": 7,
     "ops.pme": 3,
     "parallel.replicas": 6,

@@ -176,9 +176,10 @@ def test_interop_system_equals_port_model(model):
 
 
 def test_interop_refuses_unported_fields():
-    """NBFIX per-type-pair tables have no counterpart yet; the dispersion
-    tail (ported with PME) and the charge-scale mask of the alchemical
-    systems (ported with them) cross over."""
+    """The dispersion tail (ported with PME), the charge-scale mask of the
+    alchemical systems (ported with them) and the NBFIX per-type-pair
+    tables with the 10-12 coefficients (ported with the Amber reader)
+    cross over, equal."""
     import jax.numpy as jnp
 
     from atomsmm_tpu.utils import replace as jreplace
@@ -196,12 +197,21 @@ def test_interop_refuses_unported_fields():
                                 device="cpu")
     assert carried.forces[0].charge_scale_name == "lambda_q"
     assert carried.forces[0].charge_scale_mask.tolist() == [1.0] * 192
+    lj_type = np.tile([0, 1, 1], 64).astype(np.int32)
+    tables = {k: np.random.RandomState(i).uniform(0.1, 0.5, (2, 2))
+              for i, k in enumerate(("pair_sigma", "pair_epsilon",
+                                     "pair_a1012", "pair_b1012"))}
     nbfix = js.replace_forces(
-        (jreplace(js.forces[0], lj_type=jnp.zeros(192, jnp.int32),
-                  pair_sigma=jnp.ones((1, 1)),
-                  pair_epsilon=jnp.ones((1, 1))),) + tuple(js.forces[1:]))
-    with pytest.raises(NotImplementedError, match="lj_type|pair_sigma"):
-        system_from_numpy(describe_reference(nbfix), dtype=F64, device="cpu")
+        (jreplace(js.forces[0], lj_type=jnp.asarray(lj_type),
+                  **{k: jnp.asarray(v) for k, v in tables.items()}),)
+        + tuple(js.forces[1:]))
+    carried = system_from_numpy(describe_reference(nbfix), dtype=F64,
+                                device="cpu").forces[0]
+    assert carried.lj_type.dtype == torch.int32
+    assert carried.lj_type.tolist() == lj_type.tolist()
+    for k, v in tables.items():
+        assert torch.equal(getattr(carried, k), torch.as_tensor(v)), k
+    assert carried._pair_form().table and carried._pair_form().hbond
 
 
 def test_unported_methods_raise():

@@ -122,7 +122,7 @@ def _permuted(force, x, box, r_cut):
 
 
 def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
-                 form=None):
+                 form=None, terms_scale=False):
     """One sweep through the wrapper on the card, launching `kernel` once,
     against the same wrapper on the CPU (the plain twin) in float64 on the
     same inputs. With `unsplit` (the full force a fused far force was split
@@ -133,7 +133,8 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
     twin, the virial flag). Under the virial flag the summed energy column
     is held to the tolerance of sum |e_i| over the atoms (the virial, a sum
     of terms of both signs), of the unsplit form's in float32 with
-    `unsplit`."""
+    `unsplit`; so is a float32 energy with `terms_scale` (a total that
+    nearly cancels)."""
     dt = getattr(torch, dtype)
     spec = _to(spec, dev)
     form = force._pair_form() if form is None else form
@@ -155,7 +156,7 @@ def _check_sweep(force, spec, x, box, dev, dtype, kernel, unsplit=None,
     plain_sweep = {"half_pair": pk.half_pair_plain,
                    "cell_pair": pk.full_pair_plain}[kernel]
     xc, bc, ppc, spec_c, bucket_c, _ = args
-    if form.virial:
+    if form.virial or (terms_scale and dtype == "float32"):
         e_scale = float(plain_sweep(xc, ppc, bucket_c, spec_c, bc, form,
                                     form.r_cut)[:, 3].abs().sum())
     if unsplit is not None and dtype == "float32":
@@ -690,6 +691,146 @@ def test_float32_energy_rounds_as_the_plain_twin(config5_grids, group,
     form = force._pair_form()
     pp = {k: v.to(x.device, torch.float32)
           for k, v in force._per_particle().items()}
+    bucket, overflow = nb.build_cell_buckets(spec, x, box)
+    assert not bool(overflow)
+    run = {"half_pair": pk.half_pair_cuda, "cell_pair": pk.full_pair_cuda}[
+        kernel]
+    e_k = float(run(x, pp, bucket, spec, box, form, form.r_cut)[:, 3]
+                .double().sum())
+    e_twin = float(pk.half_pair_plain(x, pp, bucket, spec, box, form,
+                                      form.r_cut, with_forces=False)[:, 3]
+                   .double().sum())
+    assert abs(e_k - e_twin) <= 1e-7 * abs(e_twin)
+
+
+# --- NBFIX type-pair tables and the 10-12 term (the Amber slice) -----------
+
+# q-SPC/Fw water with an LJ site on H and the O-H row of the LJ table off
+# Lorentz-Berthelot (an NBFIX row); with hbond, the O-H slot also carries
+# the legacy 10-12 term at tests/test_amber.py's A = 7500 kcal A^12 and
+# B = 2300 kcal A^10 (in kJ/mol nm^12 and nm^10 here)
+TABLE_SIGMA = np.array([[0.3165492, 0.2], [0.2, 0.1]])
+TABLE_EPSILON = np.array([[0.650299, 0.2092], [0.2092, 0.04184]])
+A1012, B1012 = 7500 * 4.184e-12, 2300 * 4.184e-10
+
+
+def _tabled(force, hbond):
+    """`force` (a NonbondedForce, NearNonbondedForce or FarNonbondedForce
+    of a water system) with the O/H type-pair tables; with `hbond` the
+    full force carries the 10-12 term on the O-H pair."""
+    if force.name == "FarNonbondedForce":
+        return dataclasses.replace(
+            force, full=_tabled(force.full, hbond),
+            minus_near=_tabled(force.minus_near, hbond))
+    n = force.charge.shape[0]
+    dt = force.charge.dtype
+    tabs = {"lj_type": torch.as_tensor(np.tile([0, 1, 1], n // 3),
+                                       dtype=torch.int32),
+            "pair_sigma": torch.as_tensor(TABLE_SIGMA, dtype=dt),
+            "pair_epsilon": torch.as_tensor(TABLE_EPSILON, dtype=dt)}
+    if hbond and force.name == "NonbondedForce":
+        hb = np.array([[0.0, 1.0], [1.0, 0.0]])
+        tabs.update(pair_a1012=torch.as_tensor(A1012 * hb, dtype=dt),
+                    pair_b1012=torch.as_tensor(B1012 * hb, dtype=dt))
+    return dataclasses.replace(force, **tabs)
+
+
+def _sheared(force, spec, x, box):
+    """The same water mapped into a sheared (3, 3) cell of the same
+    edges (beta 100 degrees), with a spec built for the cell."""
+    from atomsmm_tpu_torch.ops.pbc import triclinic_from_lengths_angles
+
+    lengths = [float(b) for b in box]
+    h = triclinic_from_lengths_angles(*lengths, 90.0, 100.0, 90.0)
+    xs = (x.numpy() / np.array(lengths)) @ h
+    n = x.shape[0]
+    r_cut = force._pair_form().r_cut
+    spec = nb.make_neighbor_spec(h, n, r_cut, exclusions=force.exclusions,
+                                 occupancy_floor_from=xs, device="cpu")
+    return spec, torch.as_tensor(xs), torch.as_tensor(h)
+
+
+TABLE_CASES = [
+    ("water_rf", "half_pair"), ("water_near", "half_pair"),
+    ("water_far", "half_pair"), ("pme_water_rf", "half_pair"),
+    ("pme_water_near", "half_pair"), ("pme_water_far", "half_pair"),
+    ("tri_water_rf", "half_pair"), ("small_400", "cell_pair"),
+    ("small_400_far", "cell_pair"), ("pme_small_400", "cell_pair"),
+    ("pme_small_400_far", "cell_pair"), ("tri_small_400", "cell_pair")]
+UNSPLIT = {"water_far": "water_rf", "pme_water_far": "pme_water_rf",
+           "small_400_far": "small_400", "pme_small_400_far": "pme_small_400"}
+
+
+def _table_case(case, hbond):
+    """(force, spec, x, box, unsplit full force or None) of a TABLE_CASES
+    entry with the type-pair tables; 'tri_' maps it into a sheared cell."""
+    tri = case.startswith("tri_")
+    name = case[4:] if tri else case
+    force, spec, x, box = _case(name)
+    force = _tabled(force, hbond)
+    if tri:
+        spec, x, box = _sheared(force, spec, x, box)
+    unsplit = UNSPLIT.get(case)
+    return force, spec, x, box, unsplit and _tabled(_case(unsplit)[0], hbond)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("virial", [False, True])
+@pytest.mark.parametrize("hbond", [False, True])
+@pytest.mark.parametrize("case,kernel", TABLE_CASES)
+def test_table_forms_match_plain_on_card(cuda, case, kernel, hbond, virial,
+                                         dtype):
+    """K1 and K2 with NBFIX type-pair tables (each hit reads its pair's
+    row), with and without the 10-12 term, in the reaction-field, PME,
+    near, fused far and virial forms and on a (3, 3) box, one launch each,
+    against the float64 plain twin. The float32 energies are held to 1e-4
+    of sum |e_i|: on the lattice the 10-12 term's thousands of kJ/mol
+    cancel against the rest to a total of about -140 (water_rf)."""
+    force, spec, x, box, unsplit = _table_case(case, hbond)
+    form = force._pair_form()
+    assert form.table and form.hbond == (hbond and "near" not in case)
+    assert spec.half_stencil == (kernel == "half_pair")
+    _check_sweep(force, spec, x, box, cuda, dtype, kernel, unsplit,
+                 pf.virial_form(form) if virial else None, terms_scale=True)
+
+
+@pytest.mark.cuda
+def test_table_form_refusals_on_card(cuda):
+    """A table form raises where its inputs disagree, and on K3; the 10-12
+    flag without a table is refused by the kernels themselves."""
+    from atomsmm_tpu_torch.utils import InputError
+
+    force, spec, x, box = _case("water_rf")
+    tabled = _tabled(force, True)
+    spec = _to(spec, cuda)
+    x, box = x.to(cuda), box.to(cuda)
+    pp = {k: v.to(cuda) for k, v in tabled._per_particle().items()}
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    lb = {k: v for k, v in pp.items() if k not in ("lj_type", "pair_table")}
+    with pytest.raises(ValueError, match="table"):
+        pk.half_pair_cuda(x, lb, bucket, spec, box, tabled._pair_form(), 0.7)
+    with pytest.raises(ValueError, match="table"):
+        pk.half_pair_cuda(x, pp, bucket, spec, box, force._pair_form(), 0.7)
+    with pytest.raises(InputError, match="table"):
+        tp.tile_pair_cuda(*([None] * 5), box, tabled._pair_form(), 0.7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["half_pair", "cell_pair"])
+@pytest.mark.parametrize("group", ["near", "far"])
+def test_float32_table_energy_rounds_as_the_plain_twin(config5_grids, group,
+                                                        kernel):
+    """The table forms (with the 10-12 term in the far form) at config 5's
+    near and far grids: K1's and K2's float32 energies summed in float64
+    equal the float32 twin's to 1e-7 of |E|, as the Lorentz-Berthelot
+    forms do (test_float32_energy_rounds_as_the_plain_twin)."""
+    forces, x, box = config5_grids
+    force, spec = forces[group]
+    force = _tabled(force, True)
+    form = force._pair_form()
+    assert form.table
+    pp = {k: v.to(x.device) for k, v in force._per_particle().items()}
     bucket, overflow = nb.build_cell_buckets(spec, x, box)
     assert not bool(overflow)
     run = {"half_pair": pk.half_pair_cuda, "cell_pair": pk.full_pair_cuda}[

@@ -188,6 +188,95 @@ def test_damped_near_raises():
         tpf.far_form(ewald, tpf.near_form(0.5, 0.4, subtract=True))
 
 
+def _table_forces(pkg_forces, replace, asarray):
+    """The full, near, fused far forms (reaction field and PME) of forces
+    with 2-type NBFIX tables and the 10-12 term, the tables drawn from a
+    seed."""
+    rs = np.random.RandomState(21)
+    tab = {"pair_sigma": rs.uniform(0.25, 0.4, (2, 2)),
+           "pair_epsilon": rs.uniform(0.1, 1.0, (2, 2)),
+           "pair_a1012": rs.uniform(0.5, 1.5, (2, 2)) * 7500 * 4.184e-12,
+           "pair_b1012": rs.uniform(0.5, 1.5, (2, 2)) * 2300 * 4.184e-10}
+    tab = {k: asarray((v + v.T) / 2) for k, v in tab.items()}
+    lj_type = asarray(np.array([0, 1], np.int32))
+    near_tab = {k: tab[k] for k in ("pair_sigma", "pair_epsilon")}
+    out = {}
+    for method, alpha in (("cutoff", 0.0), ("pme", ALPHA)):
+        full = pkg_forces.NonbondedForce(r_cut=0.9, r_switch=0.8,
+                                         method=method, ewald_alpha=alpha,
+                                         lj_type=lj_type, **tab)
+        near = pkg_forces.NearNonbondedForce(r_cut=0.5, r_switch=0.4,
+                                             alpha=alpha, lj_type=lj_type,
+                                             **near_tab)
+        minus = replace(near, subtract=True)
+        tag = "" if method == "cutoff" else "_pme"
+        out["full" + tag] = full
+        out["near" + tag] = near
+        out["far" + tag] = pkg_forces.FarNonbondedForce(full=full,
+                                                        minus_near=minus)
+    return out
+
+
+TABLE_NAMES = ["full", "near", "far", "full_pme", "near_pme", "far_pme"]
+
+
+def _table_samples(seed=17, n=4000):
+    r2, pi, pj = _samples(seed, n)
+    rs = np.random.RandomState(seed + 1)
+    pi["lj_type"] = rs.randint(0, 2, n)
+    pj["lj_type"] = rs.randint(0, 2, n)
+    return r2, pi, pj
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES)
+def test_table_form_matches_torch_autograd_and_jax(name):
+    """The table forms (NBFIX type-pair rows, the 10-12 term in the full
+    half) by hand (form_u_dudr2 with the pair's table row) against torch
+    autograd of the port's pair function and jax.jvp of the JAX
+    package's, in float64."""
+    import jax.numpy as jnp
+
+    tforce = _table_forces(tforces, treplace,
+                           lambda a: torch.as_tensor(a))[name]
+    jforce = _table_forces(jforces, jreplace, jnp.asarray)[name]
+    form = tforce._pair_form()
+    assert form.table and form.hbond == (not name.startswith("near"))
+    r2, pi, pj = _table_samples()
+    ti = {k: torch.as_tensor(v, dtype=torch.int64 if k == "lj_type" else F64)
+          for k, v in pi.items()}
+    tj = {k: torch.as_tensor(v, dtype=torch.int64 if k == "lj_type" else F64)
+          for k, v in pj.items()}
+    table = tforce._per_particle()["pair_table"]
+    row = table[ti["lj_type"], tj["lj_type"]]
+    u_h, du_h = tpf.form_u_dudr2(form, torch.as_tensor(r2, dtype=F64),
+                                 ti["charge"] * tj["charge"], row[:, 0],
+                                 row[:, 1], row[:, 2], row[:, 3])
+    u_a, du_a = trv.pair_eval(tforce._pair_fn(), torch.as_tensor(r2, dtype=F64),
+                              ti, tj, True)
+    rtol = DAMPED_RTOL if name.endswith("_pme") else RTOL
+    _close(u_h, u_a, rtol)
+    _close(du_h, du_a, rtol)
+    ji = {k: jnp.asarray(v) for k, v in pi.items()}
+    jj = {k: jnp.asarray(v) for k, v in pj.items()}
+    u_j, du_j = jrv.pair_eval(jforce._pair_fn({}), jnp.asarray(r2), ji, jj,
+                              True)
+    _close(u_h, u_j, rtol)
+    _close(du_h, du_j, rtol)
+
+
+def test_hbond_form_needs_the_table():
+    """The 10-12 term reads A and B from the table row: the flag without
+    the table is refused, and so is the form without the coefficients."""
+    with pytest.raises(ValueError, match="hbond"):
+        tpf.PairForm(tpf.LJ_SW_RF, 0.9, has_full=True, hbond=True)
+    form = tpf.table_form(tpf.lj_sw_rf_form(0.9, 0.8, 1e15), hbond=True)
+    one = torch.ones(3, dtype=F64)
+    with pytest.raises(ValueError, match="a1012"):
+        tpf.form_u_dudr2(form, one, one, one, one)
+    with pytest.raises(ValueError, match="table"):
+        tpf.far_form(form, tpf.near_form(0.5, 0.4, subtract=True))
+
+
 def test_kernel_scalar_block_layout():
     """The scalar block handed to the CUDA kernel, in its documented order."""
     fs = _forces(tforces, treplace)
@@ -196,25 +285,30 @@ def test_kernel_scalar_block_layout():
     assert far.scalars() == [0.8, 1.0 / (0.9 - 0.8), k_rf, c_rf, 0.4,
                              1.0 / (0.5 - 0.4), 0.5, 1.0 / 0.5, -1.0, 0.0,
                              1.0 / 0.5, -1.0 / 0.5 ** 2, 1.0]
-    assert far.flags() == [1, 1, 1, 0, 0, 0, 0, 0]
+    assert far.flags() == [1, 1, 1, 0, 0, 0, 0, 0, 0]
     assert far.kind == tpf.FAR and far.r_cut == 0.9
     pme = fs["far_pme"]._pair_form()
     ec, dec = tpf.coulomb_kernel_at(0.5, ALPHA)
     assert pme.scalars() == [0.8, 1.0 / (0.9 - 0.8), 0.0, 0.0, 0.4,
                              1.0 / (0.5 - 0.4), 0.5, 1.0 / 0.5, -1.0, ALPHA,
                              ec, dec, 1.0]
-    assert pme.flags() == [1, 1, 1, 1, 0, 0, 0, 0]
+    assert pme.flags() == [1, 1, 1, 1, 0, 0, 0, 0, 0]
     assert pme.kind == tpf.FAR and pme.r_cut == 0.9
     # the softcore forms: lambda, no charge kernel; the
     # damped-smoothed form: the full half with the switch on the Coulomb
     soft = tpf.softcore_form(0.75, 0.65, 0.3, dlambda=True)
     assert soft.scalars() == [0.65, 1.0 / (0.75 - 0.65)] + [0.0] * 6 \
         + [1.0, 0.0, 0.0, 0.0, 0.3]
-    assert soft.flags() == [0, 1, 0, 0, 1, 1, 0, 0]
+    assert soft.flags() == [0, 1, 0, 0, 1, 1, 0, 0, 0]
     assert soft.kind == tpf.SOFTCORE and soft.alpha == 0.0
     ds = tpf.damped_smoothed_form(0.9, 0.8, ALPHA)
-    assert ds.flags() == [1, 1, 0, 1, 0, 0, 1, 0] and ds.alpha == ALPHA
+    assert ds.flags() == [1, 1, 0, 1, 0, 0, 1, 0, 0] and ds.alpha == ALPHA
     # the virial flag: the last one, the scalars unchanged
     vir = tpf.virial_form(far)
     assert vir.flags() == far.flags()[:-1] + [1]
     assert vir.scalars() == far.scalars()
+    # the 10-12 flag: the one before the virial flag; the table flag is not
+    # in the block (a kernel takes the table form when given a table)
+    hb = tpf.table_form(far, hbond=True)
+    assert hb.flags() == far.flags()[:7] + [1, 0]
+    assert hb.scalars() == far.scalars() and hb.table
