@@ -19,8 +19,11 @@ oscillators (ops/drude.py, integrate/drude.py: extended-Lagrangian and
 SCF dynamics); CMAP (ops/cmap.py) and harmonic impropers complete the
 CHARMM bonded terms. Context(neighbor_update_every=K) rebuilds the cell
 lists every K steps under a staleness guard, and parallel/ runs lambda (or
-temperature) replicas with neighbor-swap exchange on one card
-(HREXSampler, solvation_free_energy(hrex=True)). The application layer
+temperature) replicas with neighbor-swap exchange (HREXSampler,
+solvation_free_energy(hrex=True)), on one card or over the ranks of a
+torch.distributed device mesh, and splits a Context's pair sweeps (K2 over
+each rank's home cells) and PME reciprocal sum (slab FFT or atom-sharded)
+over a mesh's ranks (parallel/mesh.py::SpatialContext). The application layer
 mirrors the JAX package's: Simulation (app.py) with its reporters,
 checkpoints and System files (checkpoint.py), FIRE minimization on the
 cell lists (minimize.py), profiling and PDB files (io/pdb.py). A box is

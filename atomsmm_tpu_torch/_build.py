@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 #: argument kinds of every C entry point: p = pointer, i = int
 _SIGNATURES = {
     "half_pair": "ppppppppppp" "iiiiiii" "ppp" "p",
-    "cell_pair": "ppppppppppp" "iiiiiii" "ppp" "p",
+    "cell_pair": "ppppppppppp" "iiiiiiiii" "ppp" "p",  # + c0, c1
     "tile_pair": "pppppp" "iii" "ppp" "p",
 }
 

@@ -236,43 +236,57 @@ def solvation_free_energy(system, x0, box, schedule, temperature,
     n_samples_total. With hrex=True the K states run as replicas with
     neighbor-swap exchange every `swap_every` sampling chunks
     (parallel.hrex.hrex_sample_lambda_states), and the dict also holds
-    swap_acceptance and swap_attempts. A device mesh is not ported
-    (ROADMAP item 14b) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solvation_free_energy(mesh=...): a device mesh is not ported "
-            "(ROADMAP item 14b, more than one GPU); hrex=True runs the "
-            "replicas on one card")
+    swap_acceptance and swap_attempts. A `mesh` (a 1-D DeviceMesh, as the
+    JAX package takes it, implying hrex) runs the replicas over its ranks;
+    each rank then evaluates the reduced energies and dU/dlambda of its own
+    states' samples, and the rows are gathered (one all_reduce each)
+    before MBAR and TI, so every rank returns the same dict."""
     schedule = torch.as_tensor(schedule, dtype=torch.float64)
     k_states = schedule.shape[0]
     lambdas = dict(lambdas) if lambdas is not None else coupling_path(schedule)
     values = _host_lambdas(lambdas)
     swap_info = None
-    if hrex:
+    if hrex or mesh is not None:
         from .parallel.hrex import hrex_sample_lambda_states
 
         xs, n_k, swap_info = hrex_sample_lambda_states(
-            system, x0, box, lambdas, temperature, swap_every=swap_every,
-            **sample_kwargs)
+            system, x0, box, lambdas, temperature, mesh=mesh,
+            swap_every=swap_every, **sample_kwargs)
     else:
         xs, n_k = sample_lambda_states(system, x0, box, lambdas, temperature,
                                        **sample_kwargs)
     kT = BOLTZMANN * temperature
-    u_kn = reduced_energy_matrix(system, xs, box, lambdas, temperature,
-                                 aux=aux).to("cpu", torch.float64)
     n_samples = int(n_k[0])
+    # the states whose samples this rank evaluates: all, or its block
+    lo, hi = 0, k_states
+    if mesh is not None:
+        from .parallel.replicas import gather_rows, replica_block
+
+        lo, hi = replica_block(k_states, mesh)
+    mine = xs[lo * n_samples:hi * n_samples]
+    u_kn = reduced_energy_matrix(system, mine, box, lambdas, temperature,
+                                 aux=aux)
 
     # per-name dU/dlambda over each state's own samples, (K, n_samples)
     dudl = {}
     for name in values:
         rows = []
-        for k in range(k_states):
+        for k in range(lo, hi):
             g = {nm: v[k] for nm, v in values.items()}
             own = xs[k * n_samples:(k + 1) * n_samples]
             rows.append(torch.stack([
                 ti_gradient(system, x, box, name, values[name][k], g, aux)
                 for x in own]))
-        dudl[name] = torch.stack(rows).to("cpu", torch.float64)
+        dudl[name] = torch.stack(rows)
+    if mesh is not None:
+        # (K, K n) from each rank's (K, n) column blocks, state-major
+        u_kn = gather_rows(u_kn.reshape(k_states, hi - lo, n_samples)
+                           .transpose(0, 1).contiguous(), k_states, mesh
+                           ).transpose(0, 1).reshape(k_states, -1)
+        dudl = {name: gather_rows(d, k_states, mesh)
+                for name, d in dudl.items()}
+    u_kn = u_kn.to("cpu", torch.float64)
+    dudl = {name: d.to("cpu", torch.float64) for name, d in dudl.items()}
     grids = {name: torch.tensor(v, dtype=torch.float64)
              for name, v in values.items()}
 

@@ -79,7 +79,13 @@ def refresh_force_caches(system, state, globals):
 
 def update_neighbor_lists(system, state):
     """`state` with every cell list of `system` rebuilt
-    (ops.neighbors.update_all_neighbors, forced)."""
+    (ops.neighbors.update_all_neighbors, forced). Under a spatial mesh of
+    more than one rank the state is first broadcast from the first rank
+    (parallel/mesh.py::synchronize_state), so that every rank bins the
+    same positions and the ranks' states stay bitwise equal."""
+    from .parallel.mesh import synchronize_state
+
+    state = synchronize_state(state)
     if system.neighbors is None:
         return state
     return state.with_extra(**update_all_neighbors(

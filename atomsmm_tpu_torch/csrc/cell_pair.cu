@@ -119,9 +119,10 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
   *reinterpret_cast<double2*>(row + 2) = make_double2(c, d);
 }
 
-// One block per (home cell, group of WARPS / split home slots); warp w holds
-// home slot i0 + w / split and tests the 32-candidate groups
-// w % split, w % split + split, ... of every staged chunk.
+// One block per (home cell, group of WARPS / split home slots) of the home
+// cells c0 ... c0 + gridDim.x / blocks_per_cell - 1; warp w holds home slot
+// i0 + w / split and tests the 32-candidate groups w % split,
+// w % split + split, ... of every staged chunk.
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
 //   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
@@ -140,8 +141,8 @@ __global__ void __launch_bounds__(THREADS)
                      const int* __restrict__ exc,
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
-                     int cap, int s, int n, int m, int ntypes, int split,
-                     Params<T> p, T* __restrict__ out) {
+                     int c0, int cap, int s, int n, int m, int ntypes,
+                     int split, Params<T> p, T* __restrict__ out) {
   __shared__ Cand<T> cand[CHUNK];
   __shared__ Par<T, TABLE> par[CHUNK];
   __shared__ Hit<T, TABLE> queue[WARPS][hitqueue::DEPTH];
@@ -152,8 +153,9 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = t >> 5;
   const int per_block = WARPS / split;  // home slots of a block
   const int blocks_per_cell = (cap + per_block - 1) / per_block;
-  const int c = blockIdx.x / blocks_per_cell;
-  const int i0 = (blockIdx.x - c * blocks_per_cell) * per_block;
+  const int local = blockIdx.x / blocks_per_cell;
+  const int c = c0 + local;
+  const int i0 = (blockIdx.x - local * blocks_per_cell) * per_block;
   const int* hrow = bucket + (size_t)c * cap;
   if (hrow[i0] >= n) return;  // only padding from here on: the block leaves
 
@@ -333,7 +335,7 @@ struct Args {
   const T* table;
   const int *excbits, *exc, *bucket, *nbr;
   const T* box;
-  int ncells, cap, s, n, m, ntypes;
+  int ncells, c0, c1, cap, s, n, m, ntypes;
 };
 
 template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
@@ -341,7 +343,7 @@ int launch_form(const Args<T>& a, int split, unsigned blocks,
                 const Params<T>& p, T* out, cudaStream_t st) {
   cell_pair_kernel<T, COLS, DAMPED, TRI, TABLE><<<blocks, THREADS, 0, st>>>(
       a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
-      a.nbr, a.box, a.cap, a.s, a.n, a.m, a.ntypes, split, p, out);
+      a.nbr, a.box, a.c0, a.cap, a.s, a.n, a.m, a.ntypes, split, p, out);
   return (int)cudaGetLastError();
 }
 
@@ -379,19 +381,23 @@ template <typename T>
 int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
            T* out, void* stream) {
   const bool has_table = a.table != nullptr;
-  if (a.cap < 1 || a.ncells < 1 || a.s < 1 || a.n < 0 || a.m < 0 ||
+  if (a.cap < 1 || a.ncells < 1 || a.c0 < 0 || a.c1 < a.c0 ||
+      a.c1 > a.ncells || a.s < 1 || a.n < 0 || a.m < 0 ||
       a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
       (a.exc == nullptr && a.excbits == nullptr) ||
       (has_table && (a.types == nullptr || a.ntypes < 1)) ||
       !flags_valid(flags, has_table)) {
     return (int)cudaErrorInvalidValue;
   }
-  // warps that share a home atom: 1 where the atoms alone fill the card
+  if (a.c1 == a.c0) return 0;  // an empty home range: nothing to launch
+  // warps that share a home atom: 1 where the atoms alone fill the card (a
+  // function of n alone, so that a row is summed in the same order whatever
+  // the home range)
   int split = 1;
   while (split < WARPS && (long long)a.n * split < TARGET_WARPS) split *= 2;
   const int per_block = WARPS / split;
   const long long blocks =
-      (long long)a.ncells * ((a.cap + per_block - 1) / per_block);
+      (long long)(a.c1 - a.c0) * ((a.cap + per_block - 1) / per_block);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
@@ -406,8 +412,13 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes; the arguments of half_pair.cu's.
-// `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
+// Plain C entry points, bound with ctypes; the arguments of half_pair.cu's
+// and the home-cell range [c0, c1) after `ncells`: only the atoms of those
+// cells get their rows (0 <= c0 <= c1 <= ncells; c0 = 0, c1 = ncells sweeps
+// every cell, and an empty range launches nothing). The stencil cells of a
+// home cell are read wherever they lie, so the rows of disjoint ranges sum
+// to the rows of the whole sweep, bit for bit: force decomposition over
+// home cells (parallel/spatial.py). `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
 // one of `excbits` (the bitmask form) and `exc` (the (n, m) exclusion id
 // columns, 1 <= m <= 16) is non-null. `table` is null for
 // Lorentz-Berthelot combining, else the (ntypes, ntypes, 4) type-pair table
@@ -419,12 +430,14 @@ extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* types,
                              const float* table, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
-                             const float* box, int ncells, int cap, int s,
-                             int n, int m, int tri, int ntypes,
+                             const float* box, int ncells, int c0, int c1,
+                             int cap, int s, int n, int m, int tri,
+                             int ntypes,
                              const double* scal, const int* flags, float* out,
                              void* stream) {
-  const Args<float> a{x,   q,      sig, eps, types, table, excbits, exc,
-                      bucket, nbr, box, ncells, cap, s, n, m, ntypes};
+  const Args<float> a{x,   q,      sig, eps,    types, table, excbits,
+                      exc, bucket, nbr, box, ncells, c0,  c1,
+                      cap, s,      n,   m,   ntypes};
   return launch<float>(a, tri, scal, flags, out, stream);
 }
 
@@ -433,11 +446,13 @@ extern "C" int cell_pair_f64(const double* x, const double* q,
                              const int* types, const double* table,
                              const int* excbits, const int* exc,
                              const int* bucket, const int* nbr,
-                             const double* box, int ncells, int cap, int s,
-                             int n, int m, int tri, int ntypes,
+                             const double* box, int ncells, int c0, int c1,
+                             int cap, int s, int n, int m, int tri,
+                             int ntypes,
                              const double* scal, const int* flags,
                              double* out, void* stream) {
-  const Args<double> a{x,   q,      sig, eps, types, table, excbits, exc,
-                       bucket, nbr, box, ncells, cap, s, n, m, ntypes};
+  const Args<double> a{x,   q,      sig, eps,    types, table, excbits,
+                       exc, bucket, nbr, box, ncells, c0,  c1,
+                       cap, s,      n,   m,   ntypes};
   return launch<double>(a, tri, scal, flags, out, stream);
 }

@@ -102,6 +102,42 @@ def _resolve_neighbors(aux, key: str):
     return aux.get(key) or aux.get("default")
 
 
+# the reciprocal path the most recent PME evaluation took (_pme_reciprocal)
+_RECIPROCAL_DISPATCH = {"path": None}
+
+
+def last_reciprocal_dispatch():
+    """'slab_fft' | 'atom_sharded_psum' | 'single_device' | None: the
+    reciprocal-space path the most recent PME evaluation took."""
+    return _RECIPROCAL_DISPATCH["path"]
+
+
+def _pme_reciprocal(x, box, q, alpha, grid_shape, order, with_forces=True):
+    """(E, forces or None) of the reciprocal PME sum, sharded over the
+    active spatial mesh when one is set (parallel/spatial.py), else on
+    this device (ops/pme.py). On a mesh the slab FFT runs whenever the
+    rank count divides K1 and K2, else the atom-sharded sum with one grid
+    all_reduce (atomsmm_tpu/forces.py::_pme_reciprocal)."""
+    active = _spatial()
+    if active is not None:
+        from .parallel import spatial
+        from .parallel.mesh import mesh_group
+
+        d = mesh_group(*active)[1]
+        slab = grid_shape[0] % d == 0 and grid_shape[1] % d == 0
+        _RECIPROCAL_DISPATCH["path"] = "slab_fft" if slab \
+            else "atom_sharded_psum"
+        fn = (spatial.sharded_pme_reciprocal_energy_fft if slab
+              else spatial.sharded_pme_reciprocal_energy)
+        return fn(x, box, q, alpha, grid_shape, *active, order=order,
+                  with_forces=with_forces)
+    _RECIPROCAL_DISPATCH["path"] = "single_device"
+    if with_forces:
+        return pme.pme_reciprocal_energy_forces(x, box, q, alpha, grid_shape,
+                                                order)
+    return pme.pme_reciprocal_energy(x, box, q, alpha, grid_shape, order), None
+
+
 def _lj_combiner(pair_sigma, pair_epsilon):
     """The LJ combination rule of a pair function: Lorentz-Berthelot from
     the per-particle (sigma, epsilon), or, with per-type-pair NBFIX
@@ -247,6 +283,30 @@ def _charge_scaled_dlambda(force, scaled, x, box, globals, name, aux):
     return b + 2.0 * c * torch.as_tensor(lam, dtype=x.dtype, device=x.device)
 
 
+def _spatial():
+    """The active spatial mesh (parallel/mesh.py) as (mesh, axis), or
+    None."""
+    from .parallel.mesh import active_spatial_mesh
+
+    return active_spatial_mesh()
+
+
+def _cell_energy(pair, x, box, pp, nbr, r_cut):
+    """The energy of `pair` (a built-in PairForm, or a pair function) over
+    the cell list: sharded over the active spatial mesh when one is set
+    (parallel/spatial.py), else K1 or K2 as the spec selects, or the
+    callable sweep."""
+    mesh = _spatial()
+    if mesh is not None:
+        from .parallel.spatial import sharded_cell_pair_energy
+
+        return sharded_cell_pair_energy(pair, x, box, pp, nbr["spec"],
+                                        nbr["bucket"], r_cut, *mesh)
+    sweep = (cell_pair_energy if isinstance(pair, pairfuncs.PairForm)
+             else cell_pair_energy_fn)
+    return sweep(pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut)
+
+
 class _PairForceMixin:
     """Shared dense/cell dispatch for pair forces. Subclasses provide
     _pair_fn(globals) -> (r, pi, pj) -> energy (dense path, and the
@@ -254,7 +314,9 @@ class _PairForceMixin:
     kernels, _pair_form(globals) -> PairForm (cell path). A force without
     _pair_form evaluates its pair function over the cell list as torch
     operations (ops/neighbors.py::cell_pair_energy_fn), forces by
-    autograd."""
+    autograd. Under an active spatial mesh (parallel/mesh.py) every cell
+    path runs sharded over the mesh's ranks, on the full stencil
+    (parallel/spatial.py)."""
 
     neighbor_key = "default"
 
@@ -263,23 +325,36 @@ class _PairForceMixin:
         nbr = _resolve_neighbors(aux, self.neighbor_key)
         return nbr if nbr is not None and math.isfinite(r_cut) else None
 
-    def _nb_energy(self, x, box, globals, aux, r_cut):
+    def _cell_pair(self, globals):
+        """(the pair the cell path sweeps: the built-in form or the pair
+        function, its per-particle columns)."""
         pp = self._per_particle(globals)
-        nbr = self._cell(aux, r_cut)
-        if nbr is not None and hasattr(self, "_pair_form"):
-            return cell_pair_energy(self._pair_form(globals), x, box, pp,
-                                    nbr["spec"], nbr["bucket"], r_cut)
+        if hasattr(self, "_pair_form"):
+            return self._pair_form(globals), pp
         # a pair function gathers (N,) columns per pair: the type-pair
         # table rides its closure (_lj_combiner), not the dict
-        pp = {k: v for k, v in pp.items() if k != "pair_table"}
+        return (self._pair_fn(globals),
+                {k: v for k, v in pp.items() if k != "pair_table"})
+
+    def _nb_energy(self, x, box, globals, aux, r_cut):
+        nbr = self._cell(aux, r_cut)
         if nbr is None:
+            pp = {k: v for k, v in self._per_particle(globals).items()
+                  if k != "pair_table"}
             return dense_pair_energy(self._pair_fn(globals), x, box, pp,
                                      self.exclusions, r_cut, chunk=self.chunk)
-        return cell_pair_energy_fn(self._pair_fn(globals), x, box, pp,
-                                   nbr["spec"], nbr["bucket"], r_cut)
+        pair, pp = self._cell_pair(globals)
+        return _cell_energy(pair, x, box, pp, nbr, r_cut)
 
     def _nb_energy_forces(self, x, box, globals, aux, r_cut):
         nbr = self._cell(aux, r_cut)
+        mesh = _spatial() if nbr is not None else None
+        if mesh is not None:
+            from .parallel.spatial import sharded_cell_pair_energy_forces
+
+            pair, pp = self._cell_pair(globals)
+            return sharded_cell_pair_energy_forces(
+                pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut, *mesh)
         if nbr is not None and hasattr(self, "_pair_form"):
             return cell_pair_energy_forces(
                 self._pair_form(globals), x, box, self._per_particle(globals),
@@ -295,6 +370,13 @@ class _PairForceMixin:
         form one sweep of its virial form (the energy column carries each
         pair's d . F), else by autograd."""
         nbr = self._cell(aux, r_cut)
+        mesh = _spatial() if nbr is not None else None
+        if mesh is not None:
+            from .parallel.spatial import sharded_cell_pair_virial
+
+            pair, pp = self._cell_pair(globals)
+            return sharded_cell_pair_virial(
+                pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut, *mesh)
         if nbr is not None and hasattr(self, "_pair_form"):
             return cell_pair_energy_forces(
                 pairfuncs.virial_form(self._pair_form(globals)), x, box,
@@ -430,19 +512,27 @@ class NonbondedForce(_PairForceMixin, Force):
         q = self._effective_charge(globals)
         e, f = pme.pme_corrections_forces(x, box, q, self.exclusions, alpha)
         if include_reciprocal:
-            er, fr = pme.pme_reciprocal_energy_forces(
-                x, box, q, alpha, self.grid_shape, self.spline_order)
+            er, fr = _pme_reciprocal(x, box, q, alpha, self.grid_shape,
+                                     self.spline_order)
             e, f = e + er, f + fr
         return e, f
 
-    def _recip_energy(self, x, box, globals=None, include_reciprocal=True):
+    def _recip_energy(self, x, box, globals=None, include_reciprocal=True,
+                      differentiable=False):
+        """The PME terms' energy; `differentiable` keeps the reciprocal sum
+        on this rank as one autograd graph (the virial's), never sharded."""
         alpha = float(self.ewald_alpha)
         q = self._effective_charge(globals)
         e = pme.pme_corrections(x, box, q, self.exclusions, alpha)
         if include_reciprocal:
-            e = e + pme.pme_reciprocal_energy(x, box, q, alpha,
-                                              self.grid_shape,
-                                              self.spline_order)
+            if differentiable:
+                er = pme.pme_reciprocal_energy(x, box, q, alpha,
+                                               self.grid_shape,
+                                               self.spline_order)
+            else:
+                er, _ = _pme_reciprocal(x, box, q, alpha, self.grid_shape,
+                                        self.spline_order, with_forces=False)
+            e = e + er
         return e
 
     def _dispersion(self, box):
@@ -456,7 +546,8 @@ class NonbondedForce(_PairForceMixin, Force):
         def energy(xx, bb):
             e = self._dispersion(bb)
             if self.method == "pme":
-                e = e + self._recip_energy(xx, bb, globals, include_reciprocal)
+                e = e + self._recip_energy(xx, bb, globals, include_reciprocal,
+                                           differentiable=True)
             return e
 
         return autograd_virial(energy, x, box)
@@ -742,12 +833,12 @@ class PMEReciprocalForce(Force):
                               self.charge_scale_name, globals)
 
     def energy(self, x, box, globals, aux=None):
-        return pme.pme_reciprocal_energy(x, box, self._effective_charge(
-            globals), float(self.ewald_alpha), self.grid_shape,
-            self.spline_order)
+        return _pme_reciprocal(x, box, self._effective_charge(globals),
+                               float(self.ewald_alpha), self.grid_shape,
+                               self.spline_order, with_forces=False)[0]
 
     def energy_and_forces(self, x, box, globals, aux=None):
-        return pme.pme_reciprocal_energy_forces(
+        return _pme_reciprocal(
             x, box, self._effective_charge(globals), float(self.ewald_alpha),
             self.grid_shape, self.spline_order)
 
@@ -866,9 +957,8 @@ class SoftcoreLennardJonesForce(_PairForceMixin, Force):
         nbr = self._cell(aux, self.r_cut)
         if nbr is None:  # dense path: autograd through the pair function
             return super().denergy_dlambda(x, box, globals, name, aux)
-        return cell_pair_energy(self._pair_form(globals, dlambda=True), x,
-                                box, self._per_particle(globals),
-                                nbr["spec"], nbr["bucket"], self.r_cut)
+        return _cell_energy(self._pair_form(globals, dlambda=True), x, box,
+                            self._per_particle(globals), nbr, self.r_cut)
 
 
 @dataclasses.dataclass

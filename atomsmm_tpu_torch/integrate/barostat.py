@@ -95,6 +95,7 @@ class MonteCarloBarostatPropagator(Propagator):
     def _attempt(self, ctx, state):
         from ..context import refresh_force_caches
         from ..ops.neighbors import make_aux, update_all_neighbors
+        from ..parallel.mesh import broadcast_from_first
 
         system = ctx.system
         kT = BOLTZMANN * self.temperature
@@ -104,8 +105,11 @@ class MonteCarloBarostatPropagator(Propagator):
         dv = u_dv * dv_max
         v_new = v_old + dv
         s = (v_new / v_old) ** (1.0 / 3.0)
-        x_new = molecular_scale(state.x, system.molecule,
-                                system.num_molecules, system.masses, s)
+        # the centres of mass sum with atomics on the card: under a spatial
+        # mesh every rank takes the first rank's trial, so that all bin
+        # and price the same positions (parallel/mesh.py)
+        x_new, = broadcast_from_first([molecular_scale(
+            state.x, system.molecule, system.num_molecules, system.masses, s)])
         box_new = state.box * s
 
         # the step loop keeps the buckets of State.extra valid for the

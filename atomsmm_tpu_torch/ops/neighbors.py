@@ -600,19 +600,21 @@ def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
 _FN_SLOTS = 1 << 21  # pair slots per chunk of the callable sweep
 
 
-def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut):
+def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
+                        cells=None):
     """Sum of a Python pair function pair_fn(r, pi, pj) over the cell list,
     as torch operations on the device of x: every home atom meets every
     slot of its full stencil (spec.nbr_cells), both orderings of a pair,
     each at weight 1/2; slots past r_cut, excluded pairs (the bitmask, or
     the exclusion id columns) and padding are masked. per_particle holds
     any (N,) tensors, gathered into pi / pj. Differentiable in x, so forces
-    come by autograd.
+    come by autograd. `cells` = (c0, c1) sums over the home atoms of those
+    cells only (force decomposition, parallel/spatial.py).
 
     This is the path for user expressions, which no hand-written kernel can
     take; it evaluates every slot of the stencil, so its cost grows with
     the whole cell list, however few pairs the function leaves nonzero."""
-    from .pair_kernel import _rc2, excluded
+    from .pair_kernel import _rc2, excluded, home_range
     from .rv import pair_eval
 
     n = x.shape[0]
@@ -632,9 +634,10 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut):
         exc = spec.exclusions
         exc_cols = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])
     chunk = max(1, min(ncells, _FN_SLOTS // (cap * s * cap)))
+    c0, c1 = home_range(cells, ncells)
     total = torch.zeros((), dtype=x.dtype, device=dev)
-    for lo in range(0, ncells, chunk):
-        cells = torch.arange(lo, min(lo + chunk, ncells), device=dev)
+    for lo in range(c0, c1, chunk):
+        cells = torch.arange(lo, min(lo + chunk, c1), device=dev)
         b = len(cells)
         hid = ids_s[cells][:, :, None]                        # (B, cap, 1)
         cid = ids_s[ncid_all[cells]].reshape(b, 1, s * cap)   # (B, 1, S cap)

@@ -35,6 +35,11 @@ both twins take either. Both take either box form too: given a (3, 3) cell
 matrix, a kernel inverts it per thread and rounds each slot's displacement
 in fractional coordinates, as ``pbc.minimum_image`` does.
 
+K2 and its twin take a home-cell range ``cells=(c0, c1)``: only the atoms
+of the cells c0 ... c1 - 1 get their rows, the others stay zero, so the rows
+of disjoint ranges sum to the rows of the whole sweep bit for bit (force
+decomposition over home cells, parallel/spatial.py).
+
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
 the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
@@ -189,8 +194,20 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     return out
 
 
+def home_range(cells, ncells):
+    """(c0, c1) of a home-cell range, all cells for None; raises
+    ValueError unless 0 <= c0 <= c1 <= ncells."""
+    if cells is None:
+        return 0, ncells
+    c0, c1 = (int(c) for c in cells)
+    if not 0 <= c0 <= c1 <= ncells:
+        raise ValueError(f"home-cell range [{c0}, {c1}) outside the "
+                         f"{ncells} cells of the grid")
+    return c0, c1
+
+
 def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
-                    with_forces: bool = True):
+                    with_forces: bool = True, cells=None):
     """Plain PyTorch twin of K2: the same inputs and the same output, the
     per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
     atom takes the force and half the energy of its slots over the full
@@ -198,7 +215,10 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     Padding columns of the stencil (-1) read the sentinel cell, whose slots
     are all masked. Exclusions as in half_pair_plain. Home cells run
     `spec.cell_chunk` at a time, fewer where a chunk would exceed 2M pair
-    slots."""
+    slots. `cells` = (c0, c1) gives rows to the atoms of those home cells
+    only; the chunks stay where the whole sweep puts them (a chunk that
+    the range cuts is computed whole and its rows outside the range
+    dropped), so every row is the whole sweep's, bit for bit."""
     n = x.shape[0]
     table = pair_table_of(form, per_particle)
     hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
@@ -207,12 +227,14 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     s = nbr.shape[1]
     chunk = max(1, min(spec.cell_chunk, _PLAIN_SLOTS // (cap * s * cap)))
     rc2 = _rc2(r_cut, hf.dtype)
+    c0, c1 = home_range(cells, ncells)
     out = x.new_zeros((n + 1, 4))
     hf_s = torch.cat([hf, hf.new_zeros((1, cap, 8))])
     ids_s = torch.cat([hm[..., 0], hm.new_full((1, cap), n)])
     ncid_all = torch.where(nbr >= 0, nbr, ncells).long()
-    for lo in range(0, ncells, chunk):
-        cells = torch.arange(lo, min(lo + chunk, ncells), device=hf.device)
+    for lo in range(c0 - c0 % chunk, c1, chunk):
+        hi = min(lo + chunk, ncells)
+        cells = torch.arange(lo, hi, device=hf.device)
         b = len(cells)
         home = hf[cells][:, :, None, :]                      # (B, cap, 1, 8)
         hid = hm[cells][..., 0][:, :, None]                  # (B, cap, 1)
@@ -228,7 +250,9 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
         rows[..., 3] = 0.5 * torch.sum(u, dim=-1)
         if with_forces:
             rows[..., :3] = -torch.sum(fm[..., None] * d, dim=2)
-        out.index_add_(0, hid.reshape(-1).long(), rows.reshape(-1, 4))
+        keep = slice(max(c0 - lo, 0), min(c1, hi) - lo)
+        out.index_add_(0, hid[keep].reshape(-1).long(),
+                       rows[keep].reshape(-1, 4))
     return out
 
 
@@ -276,10 +300,12 @@ def _launch(kernel, dtype, *args):
 
 
 def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
-                     r_cut):
-    """Launch K1 or K2 (they take the same arguments) over the stencil map
-    `nbr` on PyTorch's current stream; returns the per-atom (N + 1, 4)
-    [fx fy fz e], allocated and zeroed here. Checks device, dtype, shape and
+                     r_cut, cells=()):
+    """Launch K1 or K2 (they take the same arguments, and K2 the home-cell
+    range `cells` = (c0, c1) after ncells) over the stencil map `nbr` on
+    PyTorch's current stream; returns the per-atom (N + 1, 4)
+    [fx fy fz e], allocated and zeroed here (an empty range launches
+    nothing). Checks device, dtype, shape and
     contiguity first and raises if the launch is refused. A spec without
     the exclusion bitmask selects the exclusion-column form; the box's
     shape, (3,) or (3, 3), selects the kernel's minimum image; a table
@@ -320,13 +346,15 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
                    ("stencil map", nbr, torch.int32, (ncells, s)),
                    ("box", box, x.dtype, (3, 3) if tri else (3,)), *tables)
     out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
+    if cells and cells[0] == cells[1]:
+        return out
     scal, flags = _form_block(form, r_cut, x.dtype)
     _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
             eps.data_ptr(), types.data_ptr() if tables else None,
             table.data_ptr() if tables else None,
             exc.data_ptr() if m == 0 else None,
             exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
-            box.data_ptr(), ncells, cap, s, n, m, tri,
+            box.data_ptr(), ncells, *cells, cap, s, n, m, tri,
             ntypes if tables else 0,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -343,25 +371,46 @@ def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
                             bucket, spec, box, form, r_cut)
 
 
-def full_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
+def full_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,
+                   cells=None):
     """Launch K2 (see _cell_sweep_cuda) over the full stencil; any cell
-    capacity. Every row of `bucket` must hold its real ids first, in any
+    capacity. `cells` = (c0, c1) sweeps the home cells c0 ... c1 - 1 only
+    (None: all); a range outside [0, ncells] raises ValueError before the
+    launch. Every row of `bucket` must hold its real ids first, in any
     order, and the sentinel N after them, as build_cell_buckets lays them
     out: K2 ends a row's walk at its first sentinel, so atoms behind one are
     left out. This is not checked (only a read of the bucket on the host
     could); full_pair_plain takes any layout."""
     return _cell_sweep_cuda("cell_pair", spec.nbr_cells, x, per_particle,
-                            bucket, spec, box, form, r_cut)
+                            bucket, spec, box, form, r_cut,
+                            home_range(cells, bucket.shape[0]))
+
+
+def _sweep_rows(cuda, plain, form, x, box, per_particle, spec, bucket, r_cut,
+                with_forces, **kw):
+    """The per-atom (N + 1, 4) rows: the kernel for a CUDA tensor, the
+    plain twin for a CPU tensor."""
+    if x.is_cuda:
+        return cuda(x.contiguous(), per_particle, bucket, spec,
+                    box.contiguous(), form, r_cut, **kw)
+    return plain(x, per_particle, bucket, spec, box, form, r_cut,
+                 with_forces, **kw)
+
+
+def full_pair_rows(form, x, box, per_particle, spec, bucket, r_cut,
+                   with_forces: bool = True, cells=None):
+    """K2's per-atom (N + 1, 4) [fx fy fz e] over the home cells `cells`
+    (None: all): the kernel for a CUDA tensor, its plain twin for a CPU
+    tensor."""
+    return _sweep_rows(full_pair_cuda, full_pair_plain, form, x, box,
+                       per_particle, spec, bucket, r_cut, with_forces,
+                       cells=cells)
 
 
 def _sweep_energy_forces(cuda, plain, form, x, box, per_particle, spec,
                          bucket, r_cut, with_forces):
-    if x.is_cuda:
-        out = cuda(x.contiguous(), per_particle, bucket, spec,
-                   box.contiguous(), form, r_cut)
-    else:
-        out = plain(x, per_particle, bucket, spec, box, form, r_cut,
-                    with_forces)
+    out = _sweep_rows(cuda, plain, form, x, box, per_particle, spec, bucket,
+                      r_cut, with_forces)
     energy = out[:, 3].sum()
     return energy, (out[:-1, :3] if with_forces else None)
 

@@ -240,34 +240,42 @@ def _grid_constants(grid_shape, order: int, dtype, device) -> _GridConstants:
         t(np.asarray(grid_shape)))
 
 
-def _influence_full(box, alpha, grid_shape, order: int):
+def _influence_full(box, alpha, grid_shape, order: int, k2_indices=None):
     """B(m) on the half spectrum (K1, K2, K3//2+1): Gaussian filter, spline
     moduli and the k_e/(2 pi V) prefactor, without the half-spectrum column
-    weights. In a (3, 3) cell |m~|^2 = m^T G m, G = inv(H)^T inv(H)."""
+    weights. In a (3, 3) cell |m~|^2 = m^T G m, G = inv(H)^T inv(H).
+    k2_indices (an index of the K2 axis: a slice or an integer tensor)
+    gives the rows of that K2 block only, (K1, B, K3//2+1)."""
     c = _grid_constants(tuple(grid_shape), int(order), box.dtype, box.device)
+    f2, n2, b2 = c.f2, c.m2, c.b2
+    if k2_indices is not None:
+        f2, n2, b2 = f2[:, k2_indices], n2[:, k2_indices], b2[:, k2_indices]
     if box.ndim == 1:
         inv2 = 1.0 / (box * box)
-        m2 = c.f1 * inv2[0] + c.f2 * inv2[1] + c.f3 * inv2[2]
+        m2 = c.f1 * inv2[0] + f2 * inv2[1] + c.f3 * inv2[2]
     else:
         inv_h = _inv(box)
         g = torch.matmul(inv_h.T, inv_h)
-        m2 = (g[0, 0] * c.f1 + g[1, 1] * c.f2 + g[2, 2] * c.f3
-              + 2.0 * (g[0, 1] * c.m1 * c.m2 + g[0, 2] * c.m1 * c.m3
-                       + g[1, 2] * c.m2 * c.m3))
+        m2 = (g[0, 0] * c.f1 + g[1, 1] * f2 + g[2, 2] * c.f3
+              + 2.0 * (g[0, 1] * c.m1 * n2 + g[0, 2] * c.m1 * c.m3
+                       + g[1, 2] * n2 * c.m3))
     pos = m2 > 0
     safe = torch.where(pos, m2, torch.ones_like(m2))
     filt = torch.where(pos, torch.exp(-(math.pi ** 2 / alpha ** 2) * safe)
                        / safe, torch.zeros_like(m2))
-    return ONE_4PI_EPS0 / (2.0 * math.pi * box_volume(box)) * filt * c.b2
+    return ONE_4PI_EPS0 / (2.0 * math.pi * box_volume(box)) * filt * b2
 
 
-def pme_influence(box, alpha, grid_shape, order: int):
+def pme_influence(box, alpha, grid_shape, order: int, k2_indices=None):
     """W(m) with E = sum_m W(m) |Q^(m)|^2 over the rfft half spectrum:
     the Gaussian filter, the B-spline moduli, the k_e/(2 pi V) prefactor
-    and the double-count weights of the interior k3 columns."""
+    and the double-count weights of the interior k3 columns. k2_indices
+    (a slice or an integer tensor of the K2 axis) gives that K2 block
+    only: a rank of the slab FFT holds one such block of the spectrum
+    (parallel/spatial.py)."""
     w3 = _grid_constants(tuple(grid_shape), int(order), box.dtype,
                          box.device).w3
-    return _influence_full(box, alpha, grid_shape, order) * w3
+    return _influence_full(box, alpha, grid_shape, order, k2_indices) * w3
 
 
 def pme_reciprocal_from_grid(Q, box, alpha, grid_shape, order: int = 4):
@@ -284,10 +292,12 @@ def pme_reciprocal_energy(x, box, q, alpha, grid_shape, order: int = 4):
     return pme_reciprocal_from_grid(Q, box, alpha, grid_shape, order)
 
 
-def _convolve(qhat, box, alpha, grid_shape, order: int):
+def convolve(qhat, box, alpha, grid_shape, order: int, k2_indices=None):
     """(E, B(m) Q^(m)): the energy on the half spectrum and the convolved
-    spectrum whose inverse transform is the grid potential."""
-    b = _influence_full(box, alpha, grid_shape, order)
+    spectrum whose inverse transform is the grid potential. With
+    k2_indices, qhat is that K2 block of the spectrum (a rank's block in
+    the slab FFT) and E its share of the energy."""
+    b = _influence_full(box, alpha, grid_shape, order, k2_indices)
     w3 = _grid_constants(grid_shape, int(order), box.dtype, box.device).w3
     energy = torch.sum(b * w3 * (qhat.real ** 2 + qhat.imag ** 2))
     return energy, b * qhat
@@ -316,22 +326,51 @@ def _gather(phi, idx, w, dw, q, box, grid_shape, order: int):
     return torch.matmul(grad_u, _inv(box).T) * -q[:, None]
 
 
+def spline_setup(x, box, grid_shape, order: int):
+    """The spline support of atoms x for spreading and gathering: (flat
+    grid indices (N, order^3), weights (N, 3, order), their
+    t-derivatives). The parts of the reciprocal sum run apart on a shard
+    of the atoms: spread_setup, reciprocal_potential on the whole grid,
+    gather_forces (parallel/spatial.py)."""
+    if order < 3:
+        raise ValueError(f"PME spline_order must be >= 3, got {order}")
+    return _spline_setup(x.detach(), box, tuple(grid_shape), int(order), True)
+
+
+def spread_setup(setup, q, grid_shape):
+    """The (K1, K2, K3) charge grid of the atoms of `setup`
+    (spline_setup) with charges q."""
+    idx, w, _ = setup
+    return _spread(idx, w, q.detach(), tuple(grid_shape))
+
+
+def reciprocal_potential(Q, box, alpha, grid_shape, order: int = 4):
+    """(E, phi) of a whole spread grid Q: the energy and the grid
+    potential phi = dE/dQ (rfftn, convolution with B(m), irfftn)."""
+    grid_shape, order = tuple(grid_shape), int(order)
+    energy, bq = convolve(torch.fft.rfftn(Q), box, alpha, grid_shape, order)
+    return energy, _grid_potential(bq, grid_shape)
+
+
+def gather_forces(phi, setup, q, box, grid_shape, order: int = 4):
+    """(N, 3) reciprocal forces on the atoms of `setup` (spline_setup)
+    with charges q from the grid potential phi."""
+    idx, w, dw = setup
+    return _gather(phi, idx, w, dw, q.detach(), box, tuple(grid_shape),
+                   int(order))
+
+
 def pme_reciprocal_energy_forces(x, box, q, alpha, grid_shape,
                                  order: int = 4):
     """(E, forces (N, 3)) of the reciprocal sum, forces explicit: spline
     weights, spread, rfftn, convolution with B(m), irfftn to the grid
     potential phi = dE/dQ, and a gather with the spline-derivative
     weights."""
-    if order < 3:
-        raise ValueError(f"PME spline_order must be >= 3, got {order}")
+    setup = spline_setup(x, box, grid_shape, order)
     EVALUATIONS["reciprocal"] += 1
-    grid_shape, order = tuple(grid_shape), int(order)
-    x, q = x.detach(), q.detach()
-    idx, w, dw = _spline_setup(x, box, grid_shape, order, True)
-    qhat = torch.fft.rfftn(_spread(idx, w, q, grid_shape))
-    energy, bq = _convolve(qhat, box, alpha, grid_shape, order)
-    phi = _grid_potential(bq, grid_shape)
-    return energy, _gather(phi, idx, w, dw, q, box, grid_shape, order)
+    energy, phi = reciprocal_potential(spread_setup(setup, q, grid_shape),
+                                       box, alpha, grid_shape, order)
+    return energy, gather_forces(phi, setup, q, box, grid_shape, order)
 
 
 # --------------------------------------------------------------------------

@@ -5,9 +5,12 @@ The sequential workflow (alchemy.sample_lambda_states) visits K lambda
 states one after another in one Context. Here the K states run as replicas,
 each with its own globals row (lambda_k) and its own torch.Generator. The
 JAX package steps them as one vmapped batch, sharded over a device mesh
-when one is given; the port steps them one after another on one card (K1
-takes one system per launch: a replica axis in the kernels waits for
-ROADMAP item 4d, a mesh for item 14b).
+when one is given; the port steps them one after another (K1 takes one
+system per launch: a replica axis in the kernels waits for ROADMAP item
+4d). Over a device mesh (a 1-D torch.distributed DeviceMesh, one process
+per rank) rank r owns the contiguous block of K / D rows
+(replicas.replica_block) and steps those only; every rank holds the
+shared exchange generator and the ladder.
 
 Between sampling chunks, neighbor-swap exchange over alternating even/odd
 pairs (k, k+1):
@@ -18,9 +21,15 @@ pairs (k, k+1):
 The energies and the Metropolis test run on the device; the accept mask is
 read to the host once per attempt (the counters need it), and an accepted
 swap exchanges the configurations (x, v, box and the `nbr*` / `fcache*`
-extras) between the two rows of the Python list. lambda stays with its row
-and so does the generator, so row k always samples state k and the MBAR
-bookkeeping is unchanged: the swaps only decorrelate the chain.
+extras) between the two rows of the Python list. Over a mesh the attempt
+is the same move: the rows are gathered (replicas.gather_replicas), the
+owner of row k evaluates U_k at both configurations of its pair, one
+all_reduce shares the (P, 4) energies, every rank draws the same uniforms
+from the shared generator and so reads the same accept mask, and each
+rank takes its own rows' new configurations, across a rank boundary too.
+lambda stays with its row and so does the generator, so row k always
+samples state k and the MBAR bookkeeping is unchanged: the swaps only
+decorrelate the chain.
 """
 from __future__ import annotations
 
@@ -38,7 +47,12 @@ from ..potential import potential_energy
 from ..state import make_state, maxwell_boltzmann_velocities
 from ..units import BOLTZMANN
 from ..utils import replace
-from .replicas import _no_mesh, replicate_state
+from .replicas import (
+    gather_replicas,
+    gather_rows,
+    replica_block,
+    replicate_state,
+)
 
 # State.extra keys that travel with the configuration on an accepted swap:
 # the neighbor lists describe x; the force caches depend on x and the row's
@@ -72,11 +86,12 @@ class HREXSwap:
     sqrt(T_k / T_j), so that the exchanged configuration lands with a
     kinetic energy canonical at its new temperature."""
 
-    def __init__(self, system, temperature):
+    def __init__(self, system, temperature, mesh=None, axis: str = "dp"):
         t = torch.as_tensor(temperature, dtype=torch.float64)
         self.ladder = t.reshape(-1).tolist() if t.ndim else None
         self.temperature = None if t.ndim else float(t)
         self._energy = _energy_fn(system)
+        self.mesh, self.axis = mesh, axis
 
     def _beta(self, k):
         t = self.temperature if self.ladder is None else self.ladder[k]
@@ -95,16 +110,32 @@ class HREXSwap:
         U_{i+1}(x_{i+1}), U_{i+1}(x_i)], four energy evaluations a pair,
         and delta (P,) = b_i (U_i(x_{i+1}) - U_i(x_i))
         + b_{i+1} (U_{i+1}(x_i) - U_{i+1}(x_{i+1})), on the device."""
+        return self._deltas(states, globalss, parity, 0, len(states))
+
+    def _deltas(self, states, globalss, parity, lo, hi):
+        """deltas, the energies U_k evaluated only for the rows k in
+        [lo, hi) (zero for the others) and, over a mesh, summed over the
+        ranks in one all_reduce."""
         pairs = [(i, i + 1) for i in range(parity, len(states) - 1, 2)]
         if not pairs:
             return pairs, None, None
+        zero = states[0].x.new_zeros(())
 
         def u(row, k):  # U_row(x_k): row's globals at replica k's state
+            if not lo <= row < hi:
+                return zero
             s = states[k]
             return self._energy(s.x, s.box, s.extra, _row(globalss, row))
 
         energies = torch.stack([torch.stack([u(i, i), u(i, j), u(j, j),
                                              u(j, i)]) for i, j in pairs])
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            from .mesh import mesh_group
+
+            dist.all_reduce(energies,
+                            group=mesh_group(self.mesh, self.axis)[0])
         b_lo = energies.new_tensor([self._beta(i) for i, _ in pairs])
         b_hi = energies.new_tensor([self._beta(j) for _, j in pairs])
         delta = (b_lo * (energies[:, 1] - energies[:, 0])
@@ -125,25 +156,37 @@ class HREXSwap:
         return replace(dst, x=src.x, v=v, box=src.box, extra=extra)
 
     def __call__(self, states, globalss, key, parity):
+        """Over a mesh `states` are this rank's rows (replica_block) and so
+        is the list returned."""
+        if self.mesh is None:
+            lo, hi = 0, len(states)
+        else:
+            from .mesh import mesh_group
+
+            k_all = len(states) * mesh_group(self.mesh, self.axis)[1]
+            lo, hi = replica_block(k_all, self.mesh, self.axis)
+            states = gather_replicas(
+                [states[k - lo] if lo <= k < hi else states[0]
+                 for k in range(k_all)], self.mesh, self.axis)
         k_states = len(states)
-        pairs, _, delta = self.deltas(states, globalss, parity)
+        pairs, _, delta = self._deltas(states, globalss, parity, lo, hi)
         r = self._uniforms(key, k_states, states[0].x)
         if not pairs:
-            return list(states), 0, 0
+            return list(states[lo:hi]), 0, 0
         lead = torch.tensor([i for i, _ in pairs], device=r.device)
         accepted = (torch.log(r[lead]) < -delta).tolist()  # one host read
         perm = list(range(k_states))
         for (i, j), ok in zip(pairs, accepted):
             if ok:
                 perm[i], perm[j] = j, i
-        return ([self._take(states, k, perm[k]) for k in range(k_states)],
+        return ([self._take(states, k, perm[k]) for k in range(lo, hi)],
                 sum(accepted), len(pairs))
 
 
-def make_hrex_swap(system, temperature):
+def make_hrex_swap(system, temperature, mesh=None, axis: str = "dp"):
     """swap(states, globalss, key, parity) -> (states, n_accept,
     n_eligible): see HREXSwap."""
-    return HREXSwap(system, temperature)
+    return HREXSwap(system, temperature, mesh, axis)
 
 
 def make_replica_run(system_template, integrator, update_every: int = 1):
@@ -156,8 +199,10 @@ def make_replica_run(system_template, integrator, update_every: int = 1):
     step_fn = integrator.make_step()
     k_update = max(int(update_every), 1)
 
-    def run(system, states, globalss, n):
-        return [advance(system, step_fn, s, _row(globalss, k), n, k_update)
+    def run(system, states, globalss, n, first: int = 0):
+        """`first`: the row of states[0] (a rank's block over a mesh)."""
+        return [advance(system, step_fn, s, _row(globalss, first + k), n,
+                        k_update)
                 for k, s in enumerate(states)]
 
     return run
@@ -167,8 +212,11 @@ class HREXSampler:
     """K lambda states stepping as replicas with periodic exchange moves.
 
     lambdas: {name: K values}. Velocity Verlet with an Ornstein-Uhlenbeck
-    bath (temperature, friction). mesh: a device mesh is not ported
-    (ROADMAP item 14b) and raises."""
+    bath (temperature, friction). mesh: a 1-D DeviceMesh whose D ranks
+    split the K rows in blocks of K / D (ValueError unless D divides K,
+    TypeError for another mesh); every rank constructs the sampler with
+    the same arguments, `states` holds its own rows and positions() all
+    K."""
 
     def __init__(self, system, x0, box, lambdas, temperature, mesh=None,
                  axis: str = "dp", dt=0.001, friction=5.0, seed: int = 0,
@@ -186,7 +234,6 @@ class HREXSampler:
             VelocityVerletPropagator,
         )
 
-        _no_mesh(mesh)
         self.system = system
         self.temperature = float(temperature)
         self.lambdas = _host_lambdas(lambdas)
@@ -195,6 +242,8 @@ class HREXSampler:
         self.k_states = (len(next(iter(self.lambdas.values())))
                          if self.lambdas else len(self.temperatures))
         self.mesh, self.axis = mesh, axis
+        self._block = ((0, self.k_states) if mesh is None else
+                       replica_block(self.k_states, mesh, axis))
         integ = GlobalThermostatIntegrator(
             dt, VelocityVerletPropagator(),
             OrnsteinUhlenbeckPropagator(
@@ -221,12 +270,12 @@ class HREXSampler:
 
                 v = zero_virtual_velocities(vs, v)
             states[k] = replace(states[k], v=v)
-        self.states = states
+        self.states = states[slice(*self._block)]
         self._run = make_replica_run(
             system, integ, update_every=self.neighbor_update_every)
         self._swap = make_hrex_swap(
             system, self.temperature if temperatures is None
-            else self.temperatures)
+            else self.temperatures, mesh, axis)
         self._rng = torch.Generator(device=state.x.device)
         self._rng.manual_seed(seed + 2)
         self._last_globalss = None
@@ -246,14 +295,19 @@ class HREXSampler:
         flag, all read in one sync: replicas have no overflow replay."""
         g = self._globals(globalss if globalss is not None else self.lambdas)
         self._last_globalss = g
-        self.states = self._run(self.system, self.states, g, n_steps)
-        flags = [(k, key, v) for k, s in enumerate(self.states)
-                 for key, v in {**overflow_flags(s.extra),
-                                **stale_flags(s.extra)}.items()]
-        if not flags:
+        self.states = self._run(self.system, self.states, g, n_steps,
+                                self._block[0])
+        keys = list({**overflow_flags(self.states[0].extra),
+                     **stale_flags(self.states[0].extra)})
+        if not keys:
             return
-        values = torch.stack([v.reshape(()) for *_, v in flags]).tolist()
-        bad = [(k, key) for (k, key, _), v in zip(flags, values) if v]
+        values = torch.stack([torch.stack([
+            s.extra[key].reshape(()).to(torch.int32) for key in keys])
+            for s in self.states])
+        if self.mesh is not None:  # every rank raises on every rank's flag
+            values = gather_rows(values, self.k_states, self.mesh, self.axis)
+        bad = [(k, key) for k, row in enumerate(values.tolist())
+               for key, v in zip(keys, row) if v]
         for k, key in bad:
             if key.endswith("overflow"):
                 raise RuntimeError(
@@ -301,8 +355,12 @@ class HREXSampler:
                 if self.swap_attempts else float("nan"))
 
     def positions(self):
-        """(K, N, 3) positions of the replicas, row k at state k."""
-        return torch.stack([s.x for s in self.states])
+        """(K, N, 3) positions of the replicas, row k at state k (over a
+        mesh gathered from every rank's rows)."""
+        x = torch.stack([s.x for s in self.states])
+        if self.mesh is None:
+            return x
+        return gather_rows(x, self.k_states, self.mesh, self.axis)
 
 
 def hrex_sample_lambda_states(system, x0, box, lambdas, temperature,
@@ -317,11 +375,11 @@ def hrex_sample_lambda_states(system, x0, box, lambdas, temperature,
     ladder, then takes n_samples samples sample_interval steps apart.
 
     swap_every: attempt swaps every `swap_every` sampling chunks (0: none).
-    Returns (xs, n_k, info), info holding swap_attempts, swap_accepts and
-    acceptance."""
-    _no_mesh(mesh)
-    sampler = HREXSampler(system, x0, box, lambdas, temperature, dt=dt,
-                          friction=friction, seed=seed,
+    mesh: a 1-D DeviceMesh over whose ranks the replicas run (HREXSampler);
+    every rank returns all samples. Returns (xs, n_k, info), info holding
+    swap_attempts, swap_accepts and acceptance."""
+    sampler = HREXSampler(system, x0, box, lambdas, temperature, mesh=mesh,
+                          dt=dt, friction=friction, seed=seed,
                           neighbor_update_every=neighbor_update_every)
     sampler.run(2 * n_equil, {name: [v[-1]] * sampler.k_states
                               for name, v in sampler.lambdas.items()})

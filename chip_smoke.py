@@ -259,6 +259,28 @@ non-zero:
    beside its Lorentz-Berthelot form on the same bucket; with a float64
    slice of 200 TIP3P + 2 Na+ + 2 Cl- from the same writer on K2, 10
    steps card vs CPU (x, v 1e-9, energies 1e-10);
+   path (m): more than one rank (parallel/mesh.py, parallel/spatial.py,
+   a mesh of replicas), through torch.distributed. (m1) path (f)'s system
+   and integrator with PME under SpatialContext on a 1-rank DeviceMesh
+   over NCCL: step(1), a timed step(100); checks the reciprocal path
+   (the slab FFT: a real NCCL reduce_scatter and all_to_all on one rank),
+   K2's exact launches over the rank's home cells (3 per outer step + 2
+   per pass + 6 per volume move) and no K1 launch, the reciprocal
+   evaluations, the attempts, no invalid trial, T 280-320 K, PE/atom
+   -14.6 ... -13.8, |dV/V| < 3%; logs ms per outer step beside path (f)'s
+   PME step of the same call; then K2 against its plain twin and timed on
+   the full stencils of (m1)'s far (10^3 cap 136) and near (14^3 cap 60)
+   grids. (m2) two gloo ranks spawned on this card (NCCL refuses two ranks
+   on one GPU): the sharded far and near RF sweeps of config 5 equal the
+   one-process K2 rows bit for bit in float32 and float64, 10 outer RF
+   steps under SpatialContext leave the ranks' x, v and box bitwise equal
+   and within M2_X_TOL / M2_V_TOL of a one-process full-stencil Context,
+   and the atom-sharded reciprocal sum on a grid whose K1 two ranks do not
+   divide agrees with the one-process sum (M2_PME_RTOL / M2_PME_FTOL).
+   (m3) path (i)'s 16 replicas over two gloo ranks (8 a rank), a chunk of
+   25 steps and a swap, against the one-process sampler at the same
+   seeds: the same swap attempts, acceptance in [0, 1], each row's T
+   260-340 K, state-steps/s of both;
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -296,7 +318,8 @@ non-zero:
    SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild).
 
 Then one JSON line of kernel results (its launches_by_path counts each
-kernel over each path's run, path_j and path_k included; with each
+kernel over each path's run, path_j, path_k and path_m included; K2's
+entry carries its time, plain time and bound at (m1)'s grids; with each
 kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
 ms is the kernel's device time in torch.profiler, launch_ms the time of one
@@ -1464,7 +1487,7 @@ def wall_ms(fn, reps=20):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def time_cells(label, force, spec, x, box, form=None):
+def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     """K1 or K2 (the kernel the spec selects) at one shape: the kernel's
     device time inside the sweep (torch.profiler), the launch wrapper, the
     whole sweep and the plain twin by CUDA events; the sweep's device
@@ -1493,7 +1516,7 @@ def time_cells(label, force, spec, x, box, form=None):
                                           form.r_cut)
 
     sweep_ms = time_cuda(sweep, 20)
-    p_ms = time_cuda(lambda: plain(*args), 3)
+    p_ms = time_cuda(lambda: plain(*args), plain_reps)
     k_ms = kernel_device_ms(sweep, kernel)
     # device operations per sweep: the span between two launches of the
     # kernel among 8 profiled sweeps. The profiler has dropped events at
@@ -1669,14 +1692,14 @@ def phase_pme_timings(dev, pme_run, small, eq):
     idx, w, dw = pme._spline_setup(x, box, grid, order, True)
     Q = pme._spread(idx, w, q, grid)
     qhat = torch.fft.rfftn(Q)
-    _, bq = pme._convolve(qhat, box, alpha, grid, order)
+    _, bq = pme.convolve(qhat, box, alpha, grid, order)
     phi = pme._grid_potential(bq, grid)
     stages = {
         "spline weights": lambda: pme._spline_setup(x, box, grid, order,
                                                     True),
         "spread": lambda: pme._spread(idx, w, q, grid),
         "rfftn": lambda: torch.fft.rfftn(Q),
-        "convolution": lambda: pme._convolve(qhat, box, alpha, grid, order),
+        "convolution": lambda: pme.convolve(qhat, box, alpha, grid, order),
         "irfftn": lambda: pme._grid_potential(bq, grid),
         "gather": lambda: pme._gather(phi, idx, w, dw, q, box, grid, order),
         "corrections": lambda: pme.pme_corrections_forces(
@@ -3744,7 +3767,7 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
                 run_sys.neighbors, st.x, st.box, dev, kernel_checks,
                 terms_scale=True)
     return {"launches": launches, "kernel_checks": kernel_checks,
-            "state_steps_per_s": batch,
+            "x0": xw, "box": box, "state_steps_per_s": batch,
             "seq_steps_per_s": seq, "swap_ms": sum(swap_ms) / reps,
             "step_ms": step_ms, "rebuild_ms": rebuild_ms,
             "acceptance": acc / att, "t_rows": t_mean}
@@ -4930,6 +4953,424 @@ def phase_slice_amber(dev, n_water=200, n_ions=2, steps=10, seed=3):
         "table": gs.forces[0]._pair_form().table})
 
 
+# --- path (m): more than one rank (SpatialContext, replicas over a mesh) ---
+
+# (m2): the 2-rank float32 RF trajectory against the one-process
+# full-stencil Context after M2_STEPS outer steps: positions to M2_X_TOL nm,
+# velocities to M2_V_TOL of max|v| (the ranks sum the bonded forces with
+# atomics, so float32 last bits differ from the one-process run)
+M2_STEPS = 10
+M2_X_TOL, M2_V_TOL = 1e-4, 1e-2
+# (m2)'s atom-sharded reciprocal sum against the one-process sum on the same
+# float32 inputs (the spread adds in another order): energy and forces
+M2_PME_RTOL, M2_PME_FTOL = 1e-5, 1e-4
+
+
+def full_stencil(system):
+    """`system` with every cell list on its full stencil: the one-process
+    counterpart of a sharded sweep (K2 on both grids)."""
+    import dataclasses
+
+    from atomsmm_tpu_torch.utils import replace
+
+    extra = {name: dataclasses.replace(s, half_stencil=False)
+             for name, s in (system.extra_neighbor_specs or {}).items()}
+    return replace(system, neighbors=dataclasses.replace(
+        system.neighbors, half_stencil=False),
+        extra_neighbor_specs=extra or None)
+
+
+def npt_integrator(loops=(4, 2, 1)):
+    import atomsmm_tpu_torch as amm
+
+    return amm.MultipleTimeScaleIntegrator(
+        0.004, list(loops), temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * 3 * NPT_N_MOLECULES - 3)
+
+
+def phase_spatial_one_rank(dev, eq100, path_f_pme_ms, steps=100):
+    """(m1): config 5 with PME (path (f)'s system and integrator) under
+    SpatialContext on a 1-rank DeviceMesh over NCCL: step(1), then a timed
+    step(100). The reciprocal sum must take the slab FFT (a real NCCL
+    reduce_scatter and all_to_all on one rank), every pair sweep K2 over
+    the rank's home cells (exact count, no K1 launch), and T, PE/atom,
+    |dV/V| and the invalid trials must stay inside path (f)'s bands. Then
+    K2 against its plain twin and timed at (m1)'s far and near grids on
+    their full stencils."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.forces import last_reciprocal_dispatch
+    from atomsmm_tpu_torch.integrate import barostat as baro
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import pme
+    from atomsmm_tpu_torch.parallel import SpatialContext
+
+    loops = [4, 2, 1]
+    respa, x, v, box = npt_water(dev, "pme", eq100)
+    n = respa.num_particles
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+            ctx = SpatialContext(respa, npt_integrator(loops),
+                                 amm.make_state(x, v=v, box=box), mesh=mesh)
+            ctx.step(1)
+            torch.cuda.synchronize()
+            box0 = ctx.state.box.clone()
+            ext0 = {k: int(ctx.state.extra[k])
+                    for k in (baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD)}
+            a = attempts_due(ctx.state.step, steps, NPT_FREQUENCY)
+            pk.reset_launches()
+            pme.reset_evaluations()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            ctx.step(steps)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / steps
+            launches, recip = dict(pk.LAUNCHES), pme.EVALUATIONS["reciprocal"]
+            passes = ctx.last_step_passes
+            dispatch = last_reciprocal_dispatch()
+            temp = float(ctx.temperature())
+            pe = float(ctx.get_state(lite=True).potential_energy) / n
+            att, acc, bad = (int(ctx.state.extra[k]) - ext0[k] for k in (
+                baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD))
+            dv = float(torch.prod(ctx.state.box) / torch.prod(box0)) - 1.0
+            finite = bool(torch.isfinite(ctx.state.x).all()
+                          and torch.isfinite(ctx.state.v).all())
+            xs, boxs, run_sys = ctx.state.x.clone(), ctx.state.box.clone(), \
+                ctx.system
+        finally:
+            dist.destroy_process_group()
+    # per pass: near loops[1] and far once a step, one of each for the
+    # force-cache refresh, and e_old, e_new and the refresh of each move
+    expected = {"half_pair": 0, "tile_pair": 0, "cell_pair": passes * (
+        (loops[1] + 1) * steps + 2 + 6 * a)}
+    expected_recip = passes * (steps + 1 + 3 * a)
+    far_f = pair_forces(run_sys)[1].full
+    log(f"path (m1) water100k ({n} atoms) PME NPT RESPA{loops}@4fs NHC 300 "
+        f"K, MC barostat every {NPT_FREQUENCY} steps, float32, under "
+        f"SpatialContext on a 1-rank DeviceMesh (NCCL): grid "
+        f"{far_f.grid_shape}, reciprocal path {dispatch}; far grid "
+        f"{run_sys.neighbors.grid} cap {run_sys.neighbors.cell_capacity}, "
+        f"near grid {run_sys.extra_neighbor_specs['near'].grid} cap "
+        f"{run_sys.extra_neighbor_specs['near'].cell_capacity}, both swept "
+        f"by K2 on the full stencil; step({steps}) {ms:.3f} ms per outer "
+        f"step by CUDA events (path (f) PME on K1, same call: "
+        f"{path_f_pme_ms:.3f} ms, ratio {ms / path_f_pme_ms:.3f}) on "
+        f"{smi_line()}; launches {launches} (expected {expected}, passes "
+        f"{passes}); reciprocal evaluations {recip} (expected "
+        f"{expected_recip}); T {temp:.2f} K; PE/atom {pe:.4f} kJ/mol; "
+        f"attempts {att} (expected {a}), accepted {acc}, invalid {bad}; "
+        f"dV/V {dv:+.4%}; finite {finite}")
+    require("path (m1)", {
+        "finite": finite,
+        "dispatch": dispatch == "slab_fft",
+        "launches": launches == expected,
+        "reciprocal_evaluations": recip == expected_recip,
+        "attempts": att == a,
+        "invalid_trials": bad == 0,
+        "temperature": 280.0 <= temp <= 320.0,
+        "pe_per_atom": -14.6 <= pe <= -13.8,
+        "volume": abs(dv) < 0.03,
+    })
+    # K2 at (m1)'s own grids and state: against its plain twin, then timed
+    kernel_checks, timings = [], {}
+    near, far = pair_forces(run_sys)
+    for label, force, spec in (
+            ("far", far, run_sys.neighbors),
+            ("near", near, run_sys.extra_neighbor_specs["near"])):
+        full = dataclasses.replace(spec, half_stencil=False)
+        compare(f"path (m1) water100k pme {label} grid {spec.grid[0]}^3 cap "
+                f"{spec.cell_capacity} full stencil", force, full, xs, boxs,
+                dev, kernel_checks,
+                unsplit=far.full if label == "far" else None)
+        timings[label] = time_cells(f"path (m1) water100k pme {label} full "
+                                    "stencil", force, full, xs, boxs,
+                                    plain_reps=1)
+    return {"launches": launches, "ms_per_step": ms, "dispatch": dispatch,
+            "kernel_checks": kernel_checks, "timings": timings}
+
+
+def m2_rank(rank, world, store, out_dir):
+    """(m2), one gloo rank of two sharing the card: the sharded far and
+    near RF sweeps in float32 and float64 against the one-process K2 rows
+    of this rank, M2_STEPS outer RF steps under SpatialContext in float32,
+    and the atom-sharded reciprocal sum on a grid that two ranks do not
+    divide against the one-process sum; saves what it got."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import build_cell_buckets
+    from atomsmm_tpu_torch.ops.pme import (
+        _good_fft_size,
+        pme_reciprocal_energy_forces,
+    )
+    from atomsmm_tpu_torch.parallel import SpatialContext, spatial
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    d = np.load(os.path.join(HERE, "bench_data", "eq_water100k.npz"))
+    eq100 = (d["x"], d["v"], d["box"])
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("dp",))
+        for dtype in (torch.float64, torch.float32):
+            respa, x, v, box = npt_water(dev, "cutoff", eq100, dtype)
+            near, far = pair_forces(respa)
+            for label, force, spec in (
+                    ("far", far, respa.neighbors),
+                    ("near", near, respa.extra_neighbor_specs["near"])):
+                bucket, _ = build_cell_buckets(spec, x, box)
+                form, pp = force._pair_form(), force._per_particle()
+                rows = spatial.sharded_cell_pair_rows(
+                    form, x, box, pp, spec, bucket, form.r_cut, mesh)
+                whole = pk.full_pair_rows(form, x, box, pp, spec, bucket,
+                                          form.r_cut)
+                out[f"{label} {str(dtype)[6:]}"] = bool(
+                    torch.equal(rows, whole))
+        pk.reset_launches()
+        ctx = SpatialContext(respa, npt_integrator(),
+                             amm.make_state(x, v=v, box=box), mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.step(M2_STEPS)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) / M2_STEPS * 1e3
+        out["launches"] = dict(pk.LAUNCHES)
+        out["x"], out["v"], out["box"] = (t.cpu() for t in (
+            ctx.state.x, ctx.state.v, ctx.state.box))
+        pme_sys, xp, _, boxp = npt_water(dev, "pme", eq100)
+        full = pair_forces(pme_sys)[1].full
+        grid = tuple(full.grid_shape)
+        while grid[0] % world == 0:
+            grid = (_good_fft_size(grid[0] + 1),) + grid[1:]
+        args = (xp, boxp, full.charge, float(full.ewald_alpha), grid)
+        e_s, f_s = spatial.sharded_pme_reciprocal_energy(
+            *args, mesh, order=full.spline_order)
+        e_1, f_1 = pme_reciprocal_energy_forces(*args, full.spline_order)
+        out["pme"] = (grid, float(e_s), float(e_1),
+                      float((f_s - f_1).abs().max()),
+                      float(f_1.abs().max()))
+        torch.save(out, os.path.join(out_dir, f"m2_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, *args):
+    """Run fn(rank, world, store, out_dir, *args) in `world` spawned
+    processes (gloo ranks on this card) and return each rank's saved
+    results; raises with a rank's traceback when one fails."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(fn, args=(world, os.path.join(tmp, "store"), tmp)
+                           + args, nprocs=world, join=True,
+                           start_method="spawn")
+        name = fn.__name__.split("_")[0]
+        return [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def phase_spatial_two_ranks(dev, eq100, world=2):
+    """(m2): two gloo ranks sharing the card (NCCL refuses two ranks on one
+    GPU; gloo takes CUDA tensors for all_reduce and broadcast, which is
+    all the sweeps, the state's synchronisation and the atom-sharded sum
+    use). Checks: the sharded far and near RF sweeps equal the one-process
+    K2 rows bit for bit (float32 and float64), the two ranks' x, v and box
+    bitwise equal after step(M2_STEPS) under SpatialContext, within
+    M2_X_TOL / M2_V_TOL of a one-process full-stencil Context from the
+    same state, and the atom-sharded reciprocal sum on a grid whose K1 two
+    ranks do not divide within M2_PME_RTOL / M2_PME_FTOL of the one-process
+    sum."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(m2_rank, world)
+    spawn_s = time.perf_counter() - t0
+    respa, x, v, box = npt_water(dev, "cutoff", eq100)
+    pk.reset_launches()
+    ref = amm.Context(full_stencil(respa), npt_integrator(),
+                      amm.make_state(x, v=v, box=box))
+    ref.step(M2_STEPS)
+    ref_launches = dict(pk.LAUNCHES)
+    r0 = outs[0]
+    dx = float((r0["x"] - ref.state.x.cpu()).abs().max())
+    dvel = float((r0["v"] - ref.state.v.cpu()).abs().max())
+    vmax = float(ref.state.v.abs().max())
+    grid, e_s, e_1, df, fmax = r0["pme"]
+    sweeps = {k: all(o[k] for o in outs) for k in r0
+              if k.startswith(("far", "near"))}
+    same = all(torch.equal(o[k], r0[k]) for o in outs[1:]
+               for k in ("x", "v", "box"))
+    log(f"path (m2) water100k RF on {world} gloo ranks sharing "
+        f"{smi_line()} ({spawn_s:.1f} s with the spawn): sharded sweeps "
+        f"equal to the one-process K2 rows bit for bit {sweeps}; "
+        f"step({M2_STEPS}) under SpatialContext {r0['step_ms']:.3f} ms per "
+        f"outer step on rank 0 (host clock), launches on rank 0 "
+        f"{r0['launches']} (one-process full-stencil Context {ref_launches});"
+        f" ranks bitwise equal {same}; rank 0 against the one-process "
+        f"Context max|dx| {dx:.3e} nm (tol {M2_X_TOL:g}), max|dv| {dvel:.3e} "
+        f"of max|v| {vmax:.4g} nm/ps (tol {M2_V_TOL:g}x); atom-sharded PME "
+        f"on grid {grid}: E {e_s:.8g} vs {e_1:.8g} (rel "
+        f"{abs(e_s - e_1) / abs(e_1):.2e}), max|dF| {df:.3e} of max|F| "
+        f"{fmax:.4g}")
+    require("path (m2)", {
+        **{f"sweep {k}": ok for k, ok in sweeps.items()},
+        "ranks_bitwise_equal": same,
+        "x": dx <= M2_X_TOL, "v": dvel <= M2_V_TOL * vmax,
+        "k2_only": r0["launches"]["half_pair"] == 0
+        and r0["launches"]["cell_pair"] > 0,
+        "pme_indivisible": grid[0] % world != 0,
+        "pme_energy": abs(e_s - e_1) <= M2_PME_RTOL * abs(e_1),
+        "pme_forces": df <= M2_PME_FTOL * fmax,
+    })
+    return {"launches": r0["launches"], "step_ms": r0["step_ms"]}
+
+
+def m3_rank(rank, world, store, out_dir, x0_path, chunk):
+    """(m3), one gloo rank of two sharing the card: path (i)'s 16 replicas
+    over a 2-rank DeviceMesh (8 a rank), one chunk of `chunk` steps and a
+    swap, timed; saves the swap counts and each row's T."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from atomsmm_tpu_torch.parallel import HREXSampler
+    from atomsmm_tpu_torch.parallel.replicas import gather_rows
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("dp",))
+        run_sys, xw, box, lams = hrex_inputs(dev, x0_path)
+        sampler = HREXSampler(run_sys, xw, box, lams, 300.0, mesh=mesh,
+                              dt=0.001, seed=3, neighbor_update_every=5)
+        out = run_hrex_chunk(sampler, run_sys, chunk)
+        t_rows = gather_rows(out.pop("t_local"), sampler.k_states, mesh)
+        out["t_rows"] = t_rows.tolist()
+        torch.save(out, os.path.join(out_dir, f"m3_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def hrex_inputs(dev, x0_path):
+    """Path (i)'s system retuned at its melted state, that state and the
+    16-state ladder, from the file phase_hrex_mesh writes."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.alchemy import coupling_path
+    from atomsmm_tpu_torch.models import phenol_in_water
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    saved = torch.load(x0_path, weights_only=False)
+    base, _, _, solute = phenol_in_water(n_water=1000, neighbors=True,
+                                         skin=0.2, dtype=torch.float32,
+                                         device=dev)
+    xw, box = saved["x"].to(dev), saved["box"].to(dev)
+    run_sys = retune_neighbor_specs(amm.SolvationSystem(base, solute), xw,
+                                    box)
+    lams = coupling_path(torch.linspace(0.0, 1.0, saved["k_states"],
+                                        dtype=torch.float64))
+    return run_sys, xw, box, lams
+
+
+def run_hrex_chunk(sampler, run_sys, chunk):
+    """One chunk of `chunk` steps and a swap attempt, timed by CUDA events:
+    {ms, attempts, accepts, t_local (each own row's T)}."""
+    import torch
+
+    from atomsmm_tpu_torch.state import kinetic_energy
+    from atomsmm_tpu_torch.units import BOLTZMANN
+    from atomsmm_tpu_torch.utils import count_degrees_of_freedom
+
+    sampler.run(1)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    sampler.run(chunk)
+    sampler.attempt_swaps()
+    ev[1].record()
+    torch.cuda.synchronize()
+    dof = count_degrees_of_freedom(run_sys)
+    t_local = torch.stack([2.0 * kinetic_energy(run_sys.masses, s.v)
+                           / (dof * BOLTZMANN) for s in sampler.states])
+    return {"ms": ev[0].elapsed_time(ev[1]),
+            "attempts": sampler.swap_attempts,
+            "accepts": sampler.swap_accepts, "t_local": t_local}
+
+
+def phase_hrex_mesh(dev, hrex, world=2, chunk=25):
+    """(m3): BASELINE config 3b over a mesh: path (i)'s 16 replicas (its
+    melted state, retuned capacities, seed 3, neighbor_update_every=5) on
+    two gloo ranks sharing the card, 8 a rank, one chunk of `chunk` steps
+    and a swap, against the one-process sampler at the same seeds in this
+    process: the same number of swap attempts, the acceptance in [0, 1]
+    on both, each row's T 260-340 K; state-steps/s of both."""
+    import tempfile
+
+    import torch
+
+    from atomsmm_tpu_torch.parallel import HREXSampler
+
+    k_states = 16
+    with tempfile.TemporaryDirectory() as tmp:
+        x0_path = os.path.join(tmp, "x0.pt")
+        torch.save({"x": hrex["x0"].cpu(), "box": hrex["box"].cpu(),
+                    "k_states": k_states}, x0_path)
+        t0 = time.perf_counter()
+        outs = spawn_ranks(m3_rank, world, x0_path, chunk)
+        spawn_s = time.perf_counter() - t0
+        run_sys, xw, box, lams = hrex_inputs(dev, x0_path)
+    one = run_hrex_chunk(HREXSampler(run_sys, xw, box, lams, 300.0, dt=0.001,
+                                     seed=3, neighbor_update_every=5),
+                         run_sys, chunk)
+    r0 = outs[0]
+    rate = k_states * chunk / (max(o["ms"] for o in outs) / 1e3)
+    rate_one = k_states * chunk / (one["ms"] / 1e3)
+    t_rows = r0["t_rows"]
+    log(f"path (m3) config 3b ({run_sys.num_particles} atoms) x {k_states} "
+        f"states over {world} gloo ranks sharing {smi_line()} "
+        f"({spawn_s:.1f} s with the spawn): {chunk} steps + a swap "
+        f"{max(o['ms'] for o in outs):.1f} ms (CUDA events, slower rank) = "
+        f"{rate:.2f} state-steps/s; one process {one['ms']:.1f} ms = "
+        f"{rate_one:.2f} state-steps/s; swaps: mesh {r0['accepts']} of "
+        f"{r0['attempts']}, one process {one['accepts']} of "
+        f"{one['attempts']}; T per row {[round(t, 1) for t in t_rows]} K")
+    require("path (m3)", {
+        "same_attempts": all(o["attempts"] == one["attempts"] for o in outs),
+        "ranks_agree": all(o["accepts"] == r0["accepts"] for o in outs),
+        "acceptance": all(0 <= a <= one["attempts"]
+                          for a in (r0["accepts"], one["accepts"])),
+        "temperature": all(260.0 <= t <= 340.0 for t in t_rows),
+    })
+    return {"state_steps_per_s": rate, "one_process_state_steps_per_s":
+            rate_one}
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -5001,11 +5442,14 @@ def main():
     tric = phase_triclinic(dev, eq)
     amber = phase_amber(dev, eq_tip3p)
     amber_checks, amber_timings = phase_kernels_amber(dev, amber)
+    m1 = phase_spatial_one_rank(dev, eq100, npt_pme["ms_per_step"])
+    m2 = phase_spatial_two_ranks(dev, eq100)
+    m3 = phase_hrex_mesh(dev, hrex)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
                 + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
-                + tric["kernel_checks"] + amber_checks)
+                + tric["kernel_checks"] + amber_checks + m1["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
@@ -5049,6 +5493,8 @@ def main():
         "path_j_fire": sim_run["fire_launches"],
         "path_k": tric["launches"],
         "path_l": amber["launches"],
+        "path_m": m1["launches"],
+        "path_m2_rank0": m2["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -5162,6 +5608,20 @@ def main():
     for entry_, kernel in zip(kernels["kernels"][:2],
                               ("half_pair", "cell_pair")):
         entry_["path_l_max_abs_err"] = f32_err(kernel, "nacl30k")
+    # path (m): K2 on the full stencil of (m1)'s far and near grids (config
+    # 5 with PME under SpatialContext on one NCCL rank), float32, its
+    # float32 error against the plain twin there, and the steps of (m1),
+    # (m2) and (m3)
+    k2 = kernels["kernels"][1]
+    k2["path_m_max_abs_err"] = f32_err("cell_pair", "path (m1)")
+    for label, t in m1["timings"].items():
+        k2.update({f"path_m_{label}_ms": t["ms"],
+                   f"path_m_{label}_plain_ms": t["plain_ms"],
+                   f"path_m_{label}_bound_ms": t["bound"]["ms"],
+                   f"path_m_{label}_bound_by": t["bound"]["by"]})
+    k2.update({"path_m1_step_ms": m1["ms_per_step"],
+               "path_m2_step_ms": m2["step_ms"],
+               "path_m3_state_steps_per_s": m3["state_steps_per_s"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

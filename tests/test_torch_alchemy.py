@@ -566,11 +566,12 @@ def test_custom_bond_force_matches_jax():
     np.testing.assert_allclose(float(d), float(d_j), rtol=1e-9)
 
 
-def test_hrex_is_not_ported(solvated):
-    """Replica exchange on one card is ported (tests/test_torch_hrex.py);
-    its device mesh is not, and raises naming the item."""
+def test_solvation_free_energy_mesh_must_be_a_device_mesh(solvated):
+    """solvation_free_energy(mesh=...) runs the replicas over a 1-D
+    torch.distributed DeviceMesh (tests/test_torch_parallel.py); anything
+    else raises TypeError naming it."""
     _, tsv, _, tx, _, tb, _, _ = solvated
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         talch.solvation_free_energy(tsv, tx, tb, [0.0, 1.0], 300.0,
                                     hrex=True, mesh=object())
 

@@ -432,6 +432,9 @@ def test_solvation_free_energy_hrex_returns_swap_fields(solvated):
 
 
 def test_mesh_raises(solvated):
+    """A mesh that is not a 1-D torch.distributed DeviceMesh raises
+    TypeError naming it (runs over a real mesh, and a rank count that does
+    not divide the replicas, are in tests/test_torch_parallel.py)."""
     solv, x, box = solvated
     step, _, _ = _argon_nve()
     lams = {"lambda_vdw": [0.0, 1.0]}
@@ -440,7 +443,7 @@ def test_mesh_raises(solvated):
             lambda: HREXSampler(solv, x, box, lams, 300.0, mesh=object()),
             lambda: hrex_sample_lambda_states(solv, x, box, lams, 300.0,
                                               mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
 
 

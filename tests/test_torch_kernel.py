@@ -841,3 +841,87 @@ def test_float32_table_energy_rounds_as_the_plain_twin(config5_grids, group,
                                       form.r_cut, with_forces=False)[:, 3]
                    .double().sum())
     assert abs(e_k - e_twin) <= 1e-7 * abs(e_twin)
+
+
+# --- K2 over a home-cell range (force decomposition, parallel/spatial.py) --
+
+
+def _range_case(name):
+    """(force, full-stencil spec, x, box, form) for K2's range cases, float64
+    on the CPU: water 400 at 0.7 nm in the reaction-field, PME and fused
+    damped far forms (swept on its full map, as under a mesh), phenol + 200
+    waters in the softcore form at lambda 0.5, water 400 at 0.9 nm (2^3)
+    with the NBFIX tables and the 10-12 term, and in a sheared (3, 3)
+    cell."""
+    if name == "softcore":
+        solv, spec, x, box = _phenol_case("200")
+        soft, = (f for f in solv.forces
+                 if isinstance(f, amm.SoftcoreLennardJonesForce))
+        return soft, spec, x, box, soft._pair_form({"lambda_vdw": 0.5})
+    if name in ("table", "tri"):
+        force, spec, x, box = _case("small_400")
+        if name == "table":
+            force = _tabled(force, True)
+        else:
+            spec, x, box = _sheared(force, spec, x, box)
+    else:
+        force, spec, x, box = _case({"rf": "water_rf", "pme": "pme_water_rf",
+                                     "far": "pme_water_far"}[name])
+    return (force, dataclasses.replace(spec, half_stencil=False), x, box,
+            force._pair_form())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLS))
+@pytest.mark.parametrize("virial", [False, True])
+@pytest.mark.parametrize("parts", [2, 5])
+@pytest.mark.parametrize("case", ["rf", "pme", "far", "softcore", "table",
+                                  "tri"])
+def test_full_stencil_ranges_sum_to_the_whole_sweep_on_card(cuda, case,
+                                                            parts, virial,
+                                                            dtype):
+    """K2 over `parts` disjoint home-cell ranges (one launch each): the rows
+    add up to the whole sweep's bit for bit, each atom's row on exactly one
+    range, in the energy and virial forms, float32 and float64."""
+    force, spec, x, box, form = _range_case(case)
+    if virial:
+        form = pf.virial_form(form)
+    dt = getattr(torch, dtype)
+    spec = _to(spec, cuda)
+    x, box = x.to(cuda, dt), box.to(cuda, dt)
+    pp = {k: (v.to(cuda, dt) if v.is_floating_point() else v.to(cuda))
+          for k, v in force._per_particle({"lambda_vdw": 0.5}).items()}
+    bucket, overflow = nb.build_cell_buckets(spec, x, box)
+    assert not bool(overflow)
+    whole = pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut)
+    edges = np.linspace(0, spec.ncells, parts + 1).astype(int)
+    before = pk.LAUNCHES["cell_pair"]
+    pieces = [pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut,
+                                cells=(int(a), int(b)))
+              for a, b in zip(edges[:-1], edges[1:])]
+    assert pk.LAUNCHES["cell_pair"] - before == sum(
+        1 for a, b in zip(edges[:-1], edges[1:]) if b > a)
+    assert torch.equal(sum(pieces), whole)
+    # a row is written by one range only (the softcore form leaves the
+    # rows of atoms with no solute in range at zero everywhere)
+    rows = torch.stack([(p[:-1] != 0).any(1) for p in pieces])
+    assert bool((rows.sum(0) <= 1).all())
+
+
+@pytest.mark.cuda
+def test_full_stencil_range_refusals_and_empty_range_on_card(cuda):
+    """A range outside [0, ncells] raises ValueError before any launch; an
+    empty range launches nothing and gives zero rows."""
+    force, spec, x, box, form = _range_case("rf")
+    spec = _to(spec, cuda)
+    x, box = x.to(cuda), box.to(cuda)
+    pp = {k: v.to(cuda) for k, v in force._per_particle().items()}
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    before = dict(pk.LAUNCHES)
+    for bad in ((-1, 2), (3, 2), (0, spec.ncells + 1)):
+        with pytest.raises(ValueError, match="home-cell range"):
+            pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut,
+                              cells=bad)
+    out = pk.full_pair_cuda(x, pp, bucket, spec, box, form, form.r_cut,
+                            cells=(2, 2))
+    assert pk.LAUNCHES == before and not bool(out.any())
