@@ -37,8 +37,9 @@ NVCC_FLAGS = (
 
 #: argument kinds of every C entry point: p = pointer, i = int
 _SIGNATURES = {
-    "half_pair": "ppppppppppp" "iiiiiii" "ppp" "p",
-    "cell_pair": "ppppppppppp" "iiiiiiiii" "ppp" "p",  # + c0, c1
+    # + k_rows, then the row strides and the rows' lambda table
+    "half_pair": "ppppppppppp" "iiiiiii" "i" "ppppp" "p",
+    "cell_pair": "ppppppppppp" "iiiiiiiii" "i" "ppppp" "p",  # + c0, c1
     "tile_pair": "pppppp" "iii" "ppp" "p",
 }
 

@@ -7,10 +7,12 @@ evaluate every sample at every state to build the K x N reduced-energy
 matrix, then solve MBAR; TI integrates the mean dU/dlambda on the same
 samples.
 
-Where the JAX package evaluates the K states in one vmap over the globals
-dict, the port loops over them, one potential evaluation each: on the card
-every cell-list force runs its pair kernel once per state (a kernel batched
-over lambda is later work). dU/dlambda comes from each force's own
+As in the JAX package, which evaluates the K states in one vmap over the
+globals dict, the K states are one batched evaluation: the configuration
+becomes a stack of K rows that share x, the box and the cell buckets
+(expanded tensors, stride 0 along the rows), the globals (K,) tensors on
+the device, and every cell-list force sweeps all K states in one launch of
+its pair kernel (forces.py, potential.py). dU/dlambda comes from each force's own
 `denergy_dlambda` (forces.py), not from differentiating through a kernel.
 Without an explicit `aux`, each configuration gets fresh cell buckets when
 the system has a NeighborSpec (the JAX package falls back to its dense
@@ -33,7 +35,7 @@ Examples:
 (3,)
 >>> e_mid = potential_energy(solv, x, box,
 ...                          {"lambda_vdw": 0.5, "lambda_coul": 0.5})
->>> bool(abs(es[1] - e_mid) < 1e-10)             # loop == scalar evaluation
+>>> bool(abs(es[1] - e_mid) < 1e-10)             # batch == scalar evaluation
 True
 
 MBAR on an analytically solvable case: two identical states have zero
@@ -81,22 +83,38 @@ def _host_lambdas(lambdas) -> Dict[str, list]:
             for name, values in lambdas.items()}
 
 
+def device_globals(globalss, like):
+    """{name: (K,) tensor of the dtype and on the device of `like`} from
+    {name: K values} (lists, arrays or tensors): the per-row globals of a
+    stack."""
+    def rows(values):
+        if isinstance(values, torch.Tensor):
+            return values.to(like.device, like.dtype).reshape(-1)
+        return torch.as_tensor(np.asarray(values, np.float64).reshape(-1),
+                               dtype=like.dtype, device=like.device)
+
+    return {name: rows(values) for name, values in globalss.items()}
+
+
 def multistate_energies(system, x, box, lambdas, aux=None):
     """Potential energy of configuration x at every lambda state: `lambdas`
-    maps parameter name -> (K,) values; returns (K,) energies, one
-    evaluation per state."""
+    maps parameter name -> (K,) values; returns (K,) energies from one
+    batched evaluation of K rows that share x, the box and the buckets
+    (stride 0), each row with its own lambdas."""
     aux = _aux_for(system, x, box, aux)
-    values = _host_lambdas(lambdas)
-    k_states = len(next(iter(values.values())))
-    return torch.stack([
-        potential_energy(system, x, box,
-                         {name: v[k] for name, v in values.items()}, aux=aux)
-        for k in range(k_states)])
+    g = device_globals(lambdas, x)
+    k = next(iter(g.values())).shape[0]
+    if aux is not None:
+        aux = {name: {**a, "bucket": a["bucket"].expand(k, *a["bucket"].shape)}
+               for name, a in aux.items()}
+    return potential_energy(system, x.expand(k, *x.shape),
+                            box.expand(k, *box.shape), g, aux=aux)
 
 
 def reduced_energy_matrix(system, xs, box, lambdas, temperature, aux=None):
     """u[k, n] = beta U(x_n; lambda_k) for configurations xs (N, n_atoms, 3):
-    the MBAR input, (K, N)."""
+    the MBAR input, (K, N); each sample's K states in one batched
+    evaluation (multistate_energies)."""
     beta = 1.0 / (BOLTZMANN * temperature)
     return torch.stack([beta * multistate_energies(system, x, box, lambdas,
                                                    aux) for x in xs], dim=1)

@@ -102,7 +102,8 @@ def with_neighbor_lists(system, state, k_update: int = 1):
     extras = all_neighbor_extras(system, state.x, state.box)
     if k_update > 1:
         extras.update({
-            stale_key(name): torch.zeros((), dtype=torch.bool,
+            stale_key(name): torch.zeros(state.x.shape[:-2],
+                                         dtype=torch.bool,
                                          device=state.x.device)
             for name, _ in iter_specs(system)})
     return state.with_extra(**extras)
@@ -141,7 +142,14 @@ def advance(system, step_fn, state, globals, n: int, k_update: int = 1,
     conditional skin/2 rebuild would race the two-displacement staleness
     bound and trip the guard on thermal motion); the n % K remainder steps
     run singly, each followed by a rebuild. Context.step and the replica
-    runner (parallel/hrex.py) both step through here."""
+    runner (parallel/hrex.py) both step through here.
+
+    A stacked State (state.py) advances as one batch: every step evaluates
+    the forces of all K rows together (potential.force_fn), each rebuild
+    bins every row in one sort, and the staleness flags are (K,), one per
+    row, each row grouped as it would be alone; `globals` may hold (K,)
+    tensors, one value per row. The caller reads the flags of all rows in
+    one sync (HREXSampler.run)."""
     s = refresh_force_caches(system, update_neighbor_lists(system, state),
                              globals)
     if k_update == 1 or system.neighbors is None:

@@ -42,6 +42,13 @@
 //     home atom and divide each chunk's candidates between them, so that
 //     about 2,048 warps are in flight; their sums meet in shared memory in
 //     a fixed order.
+// A replica axis: the grid's second dimension runs over K rows (replicas or
+// lambda states); a block offsets its inputs by its row's strides (0 where
+// the rows share an array), takes its row's lambda
+// (pair_forms.cuh::Rows) and stores into its row's (n + 1, 4) slice of the
+// output. A row's blocks are those of the single-row launch and sum in the
+// same order, so each row of a batched launch equals its single-row launch
+// bit for bit, over any home-cell range.
 // The minimum image rounds by two additions, in fractional coordinates for
 // a (3, 3) cell (TRI; pair_forms.cuh::Image). With a type-pair table
 // (TABLE: NBFIX, the 10-12 term) a staged candidate and a queued hit carry
@@ -120,9 +127,11 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 }
 
 // One block per (home cell, group of WARPS / split home slots) of the home
-// cells c0 ... c0 + gridDim.x / blocks_per_cell - 1; warp w holds home slot
-// i0 + w / split and tests the 32-candidate groups w % split,
-// w % split + split, ... of every staged chunk.
+// cells c0 ... c0 + gridDim.x / blocks_per_cell - 1, and per row
+// (blockIdx.y); warp w holds home slot i0 + w / split and tests the
+// 32-candidate groups w % split, w % split + split, ... of every staged
+// chunk. The arrays below are row 0's; block (b, k) offsets each by k
+// times its stride in `rows`, and `out` by k (n + 1) 4.
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
 //   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
@@ -130,7 +139,8 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 //   bucket (ncells, cap)           atom ids, real ids first, then n
 //   nbr (ncells, s)                stencil cells, -1 padded
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
-//   out (n + 1, 4)                 zeroed; per real atom [fx fy fz e]
+//   out (K, n + 1, 4)              zeroed; per row and real atom
+//                                  [fx fy fz e]
 template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
     cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
@@ -142,12 +152,23 @@ __global__ void __launch_bounds__(THREADS)
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
                      int c0, int cap, int s, int n, int m, int ntypes,
-                     int split, Params<T> p, T* __restrict__ out) {
+                     int split, Params<T> p0, Rows<T> rows,
+                     T* __restrict__ out) {
   __shared__ Cand<T> cand[CHUNK];
   __shared__ Par<T, TABLE> par[CHUNK];
   __shared__ Hit<T, TABLE> queue[WARPS][hitqueue::DEPTH];
   __shared__ T parts[WARPS][4];
 
+  const int row = blockIdx.y;
+  x += row * rows.x;
+  q += row * rows.q;
+  sig += row * rows.sig;
+  eps += row * rows.eps;
+  if (TABLE) types += row * rows.types;
+  bucket += row * rows.bucket;
+  box += row * rows.box;
+  out += (size_t)row * (n + 1) * 4;
+  const Params<T> p = row_params(p0, rows, row);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -335,15 +356,18 @@ struct Args {
   const T* table;
   const int *excbits, *exc, *bucket, *nbr;
   const T* box;
-  int ncells, c0, c1, cap, s, n, m, ntypes;
+  int ncells, c0, c1, cap, s, n, m, ntypes, k_rows;
+  Rows<T> rows;
 };
 
 template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
 int launch_form(const Args<T>& a, int split, unsigned blocks,
                 const Params<T>& p, T* out, cudaStream_t st) {
-  cell_pair_kernel<T, COLS, DAMPED, TRI, TABLE><<<blocks, THREADS, 0, st>>>(
-      a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
-      a.nbr, a.box, a.c0, a.cap, a.s, a.n, a.m, a.ntypes, split, p, out);
+  cell_pair_kernel<T, COLS, DAMPED, TRI, TABLE>
+      <<<dim3(blocks, a.k_rows), THREADS, 0, st>>>(
+          a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc,
+          a.bucket, a.nbr, a.box, a.c0, a.cap, a.s, a.n, a.m, a.ntypes, split,
+          p, a.rows, out);
   return (int)cudaGetLastError();
 }
 
@@ -386,7 +410,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
       a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
       (a.exc == nullptr && a.excbits == nullptr) ||
       (has_table && (a.types == nullptr || a.ntypes < 1)) ||
-      !flags_valid(flags, has_table)) {
+      !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
     return (int)cudaErrorInvalidValue;
   }
   if (a.c1 == a.c0) return 0;  // an empty home range: nothing to launch
@@ -424,20 +448,24 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 // Lorentz-Berthelot combining, else the (ntypes, ntypes, 4) type-pair table
 // with the (n,) int32 LJ types in `types`. `box` holds the (3,) edge
 // lengths when `tri` is 0, else the (3, 3) cell matrix, rows = lattice
-// vectors. Every row of `bucket` holds its real ids first. `out` must be
-// zeroed. Returns cudaGetLastError() after the launch (0 on success).
+// vectors. Every row of `bucket` holds its real ids first. `k_rows`,
+// `strides` and `lamb_rows` give the replica axis as in half_pair.cu, and
+// `out` holds k_rows zeroed (n + 1, 4) slices. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* types,
                              const float* table, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int c0, int c1,
                              int cap, int s, int n, int m, int tri,
-                             int ntypes,
-                             const double* scal, const int* flags, float* out,
-                             void* stream) {
+                             int ntypes, int k_rows, const long long* strides,
+                             const float* lamb_rows, const double* scal,
+                             const int* flags, float* out, void* stream) {
+  const Rows<float> rows{strides[0], strides[1], strides[2], strides[3],
+                         strides[4], strides[5], strides[6], lamb_rows};
   const Args<float> a{x,   q,      sig, eps,    types, table, excbits,
                       exc, bucket, nbr, box, ncells, c0,  c1,
-                      cap, s,      n,   m,   ntypes};
+                      cap, s,      n,   m,   ntypes, k_rows, rows};
   return launch<float>(a, tri, scal, flags, out, stream);
 }
 
@@ -448,11 +476,13 @@ extern "C" int cell_pair_f64(const double* x, const double* q,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int c0, int c1,
                              int cap, int s, int n, int m, int tri,
-                             int ntypes,
-                             const double* scal, const int* flags,
-                             double* out, void* stream) {
+                             int ntypes, int k_rows, const long long* strides,
+                             const double* lamb_rows, const double* scal,
+                             const int* flags, double* out, void* stream) {
+  const Rows<double> rows{strides[0], strides[1], strides[2], strides[3],
+                          strides[4], strides[5], strides[6], lamb_rows};
   const Args<double> a{x,   q,      sig, eps,    types, table, excbits,
                        exc, bucket, nbr, box, ncells, c0,  c1,
-                       cap, s,      n,   m,   ntypes};
+                       cap, s,      n,   m,   ntypes, k_rows, rows};
   return launch<double>(a, tri, scal, flags, out, stream);
 }

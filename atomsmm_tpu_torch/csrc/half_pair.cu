@@ -50,6 +50,15 @@
 //     every hit's reaction to device memory directly, and staged all
 //     directions at once, was slower at both 30k shapes. Float32 results
 //     vary in their last bits from run to run;
+//   * a replica axis: the grid is (ncells, K), and block (c, k) sweeps home
+//     cell c of row k, its inputs offset by the row's strides (0 where the
+//     rows share one, as the lambda states of one configuration share x
+//     and the bucket), its lambda the row's (pair_forms.cuh::Rows),
+//     its reactions and home sums added to the row's own (n + 1, 4) slice
+//     of the output. K replicas or lambda states take one launch; a row of
+//     it computes what the single-row launch computes (the same blocks, the
+//     same order within each; float32 last bits vary by the atomics as
+//     they do between two single-row launches);
 //   * NBFIX tables and the 10-12 term (TABLE, a template parameter): the
 //     staged candidate carries its int32 LJ type in place of (sigma,
 //     epsilon), and each hit reads its pair's (sigma, epsilon, A, B) row
@@ -113,12 +122,15 @@ struct Args {
   const T* table;
   const int *excbits, *exc, *bucket, *nbr;
   const T* box;
-  int ncells, cap, s_half, n, m, ntypes;
+  int ncells, cap, s_half, n, m, ntypes, k_rows;
+  Rows<T> rows;
 };
 
-// One block per home cell, threads = round_up(parts * cap, 32): thread
-// t = part * cap + i holds home slot i and tests the candidate slots
-// j = part + parts * s of every direction.
+// One block per (home cell, row), threads = round_up(parts * cap, 32):
+// thread t = part * cap + i holds home slot i and tests the candidate slots
+// j = part + parts * s of every direction. The arrays below are row 0's;
+// block (c, k) offsets each by k times its stride in `rows`, and `out` by
+// k (n + 1) 4.
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
 //   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
@@ -126,7 +138,7 @@ struct Args {
 //   bucket (ncells, cap)           atom ids, n = padding
 //   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
-//   out (n + 1, 4)                 zeroed; per atom [fx fy fz e]
+//   out (K, n + 1, 4)              zeroed; per row and atom [fx fy fz e]
 template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
@@ -138,7 +150,7 @@ __global__ void __launch_bounds__(MAXT)
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
                      int cap, int s_half, int n, int m, int ntypes, int parts,
-                     Params<T> p, T* __restrict__ out) {
+                     Params<T> p0, Rows<T> rows, T* __restrict__ out) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
   Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);  // [2][cap]
   Par<T, TABLE>* par =
@@ -150,6 +162,16 @@ __global__ void __launch_bounds__(MAXT)
   int* ext = reinterpret_cast<int*>(hs + (parts > 1 ? parts * cap * 4 : 0));
 
   const int c = blockIdx.x;
+  const int row = blockIdx.y;
+  x += row * rows.x;
+  q += row * rows.q;
+  sig += row * rows.sig;
+  eps += row * rows.eps;
+  if (TABLE) types += row * rows.types;
+  bucket += row * rows.bucket;
+  box += row * rows.box;
+  out += (size_t)row * (n + 1) * 4;
+  const Params<T> p = row_params(p0, rows, row);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int part = t / cap;
@@ -370,9 +392,10 @@ int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<a.ncells, threads, smem, stream>>>(
+  kernel<<<dim3(a.ncells, a.k_rows), threads, smem, stream>>>(
       a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
-      a.nbr, a.box, a.cap, a.s_half, a.n, a.m, a.ntypes, parts, p, out);
+      a.nbr, a.box, a.cap, a.s_half, a.n, a.m, a.ntypes, parts, p, a.rows,
+      out);
   return (int)cudaGetLastError();
 }
 
@@ -427,7 +450,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
       a.m < 0 || a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
       (a.exc == nullptr && a.excbits == nullptr) ||
       (has_table && (a.types == nullptr || a.ntypes < 1)) ||
-      !flags_valid(flags, has_table)) {
+      !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
     return (int)cudaErrorInvalidValue;
   }
   // one block: at most 1,024 threads
@@ -452,18 +475,27 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 // [sigma, epsilon, A, B] with the (n,) int32 LJ types in `types`; `sig`
 // and `eps` are then not read. `box` holds the (3,) edge lengths when
 // `tri` is 0, else the (3, 3) cell matrix, rows = lattice vectors
-// (pair_forms.cuh::Image). `out` must be zeroed. Returns
-// cudaGetLastError() after the launch (0 on success).
+// (pair_forms.cuh::Image). `k_rows` rows (replicas or lambda states) run
+// in one launch: `strides` is a host array of seven element strides
+// between rows (x, q, sig, eps, types, bucket, box; 0 where the rows
+// share the array), `lamb_rows` null or a device table of the rows'
+// softcore lambdas, (k_rows,) of the working type, and `out` holds k_rows
+// zeroed (n + 1, 4) slices. Returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int half_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* types,
                              const float* table, const int* excbits,
                              const int* exc, const int* bucket, const int* nbr,
                              const float* box, int ncells, int cap, int s_half,
-                             int n, int m, int tri, int ntypes,
-                             const double* scal, const int* flags, float* out,
-                             void* stream) {
-  const Args<float> a{x,   q,      sig,    eps, types,  table, excbits, exc,
-                      bucket, nbr, box, ncells, cap, s_half, n, m, ntypes};
+                             int n, int m, int tri, int ntypes, int k_rows,
+                             const long long* strides,
+                             const float* lamb_rows, const double* scal,
+                             const int* flags, float* out, void* stream) {
+  const Rows<float> rows{strides[0], strides[1], strides[2], strides[3],
+                         strides[4], strides[5], strides[6], lamb_rows};
+  const Args<float> a{x,      q,   sig, eps,    types, table,  excbits,
+                      exc,    bucket, nbr, box, ncells, cap, s_half,
+                      n,      m,   ntypes, k_rows, rows};
   return launch<float>(a, tri, scal, flags, out, stream);
 }
 
@@ -474,9 +506,13 @@ extern "C" int half_pair_f64(const double* x, const double* q,
                              const int* bucket, const int* nbr,
                              const double* box, int ncells, int cap,
                              int s_half, int n, int m, int tri, int ntypes,
-                             const double* scal, const int* flags,
-                             double* out, void* stream) {
-  const Args<double> a{x,   q,      sig,    eps, types,  table, excbits, exc,
-                       bucket, nbr, box, ncells, cap, s_half, n, m, ntypes};
+                             int k_rows, const long long* strides,
+                             const double* lamb_rows, const double* scal,
+                             const int* flags, double* out, void* stream) {
+  const Rows<double> rows{strides[0], strides[1], strides[2], strides[3],
+                          strides[4], strides[5], strides[6], lamb_rows};
+  const Args<double> a{x,      q,   sig, eps,    types, table,  excbits,
+                       exc,    bucket, nbr, box, ncells, cap, s_half,
+                       n,      m,   ntypes, k_rows, rows};
   return launch<double>(a, tri, scal, flags, out, stream);
 }

@@ -98,6 +98,43 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   return p;
 }
 
+// The replica axis of a launch (grid dimension y, one row per replica or
+// lambda state): the element strides between consecutive rows of each
+// per-row input (0: every row reads the same array, as the lambda states
+// of one configuration share x and the bucket) and, where the rows' forms
+// differ in their softcore lambda, a device table of the rows' lambdas,
+// (K,) in the working type, which replaces the host block's lambda row by
+// row. Every other scalar and every flag is the host block's: the rows of
+// a launch share their form. Each row writes its own (n + 1, 4) slice of
+// the output.
+template <typename T>
+struct Rows {
+  long long x, q, sig, eps, types, bucket, box;
+  const T* lamb;  // (K,) on the device, or null
+};
+
+// The host-side checks of a launch's rows: 1..65,535 rows (the grid's y
+// limit) and no negative stride.
+template <typename T>
+inline bool rows_valid(int k_rows, const Rows<T>& r) {
+  return k_rows >= 1 && k_rows <= 65535 && r.x >= 0 && r.q >= 0 &&
+         r.sig >= 0 && r.eps >= 0 && r.types >= 0 && r.bucket >= 0 &&
+         r.box >= 0;
+}
+
+// Row `row`'s parameter block: p, its lambda read from the table where
+// there is one. A lambda of the working type is the value that
+// make_params casts from the host block's double, so a row equals a
+// single-row launch whose host block holds the same lambda; every other
+// field stays the kernel parameter's.
+template <typename T>
+__device__ __forceinline__ Params<T> row_params(const Params<T>& p,
+                                                const Rows<T>& rows, int row) {
+  Params<T> r = p;
+  if (rows.lamb != nullptr) r.lamb = rows.lamb[row];
+  return r;
+}
+
 // A flag block the kernels take: the virial flag replaces u, which the
 // dlambda flag has already replaced, so the two together are refused; the
 // 10-12 term reads its coefficients from the table, so hbond without one

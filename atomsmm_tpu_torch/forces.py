@@ -30,6 +30,24 @@ the energy is torch operations, as the JAX package takes it with jax.grad,
 and by the pair form's virial flag on the kernels, which return numbers,
 not a graph (a pair's -dU/ds is its d . F).
 
+A stack of K systems (replicas or lambda states: x (K, N, 3), box (K, 3)
+or (K, 3, 3), each global either shared or a (K,) tensor of per-row
+values, the neighbor buckets (K, ncells, cap)) is evaluated by
+`energy_rows` -> (K,) and `energy_and_forces_rows` -> ((K,), (K, N, 3)).
+The forces that config 3b and the multistate rows build do it in one
+batched evaluation: the pair forces with a built-in form (NonbondedForce,
+with per-row scaled charges, NearNonbondedForce, DampedSmoothedForce,
+SoftcoreLennardJonesForce, with per-row lambdas) in one launch of their
+kernel over every row, the bonded terms (HarmonicBondForce,
+HarmonicAngleForce, PeriodicTorsionForce, HarmonicImproperForce,
+NonbondedExceptionsForce) as torch operations over the stack, forces by
+autograd of the rows' sum (the rows are independent, so each row's
+gradient is its own force). Every other force evaluates the rows one
+after another (the base class's `energy_rows`): the PME reciprocal sum
+and corrections, FarNonbondedForce, CustomNonbondedForce,
+CustomBondForce, TemplateBondedForce, CMAPTorsionForce, DrudeForce;
+those rows still run on the kernels, one launch each.
+
 Force fields whose LJ matrix is not Lorentz-Berthelot (NBFIX ion-pair
 rows, read from an Amber prmtop by io/amber.py) give NonbondedForce and
 NearNonbondedForce per-type-pair tables: the atoms' LJ types `lj_type` and
@@ -92,6 +110,55 @@ from .units import ONE_4PI_EPS0
 from .utils import InputError
 
 _METHODS = ("cutoff", "pme", "nocutoff")
+
+
+def globals_row(globals, k: int):
+    """Row k's globals from a stack's: each (K,) tensor at row k, every
+    other value (a float, a 0-d tensor) shared as it is."""
+    return {name: v[k] if isinstance(v, torch.Tensor) and v.ndim == 1
+            else v for name, v in (globals or {}).items()}
+
+
+def aux_row(aux, k: int):
+    """Row k's aux from a stack's: each entry's (K, ncells, cap) bucket
+    at row k."""
+    if not aux:
+        return aux
+    return {name: {**a, "bucket": a["bucket"][k]} for name, a in aux.items()}
+
+
+def _in_turn(fn, x, box, globals, aux, *args):
+    """fn(x, box, globals, aux, *args) -> energy or (energy, forces) of one
+    system, over the rows of a stack one after another: ((K,) energies,
+    (K, N, 3) forces or None)."""
+    outs = [fn(x[k], box[k], globals_row(globals, k), aux_row(aux, k), *args)
+            for k in range(x.shape[0])]
+    if isinstance(outs[0], tuple):
+        return torch.stack([o[0] for o in outs]), torch.stack(
+            [o[1] for o in outs])
+    return torch.stack(outs), None
+
+
+def _row_by_row(force, x, box, globals, aux, with_forces):
+    """(energies (K,), forces (K, N, 3) or None) of a stack, one row after
+    another through the force's single-system evaluators."""
+    from .potential import _energy_and_forces
+
+    fn = (lambda *a: _energy_and_forces(force, *a)) if with_forces \
+        else force.energy
+    return _in_turn(fn, x, box, globals, aux)
+
+
+def _rows_by_autograd(energy_rows, x):
+    """((K,) energies, (K, N, 3) forces) of a stack whose energies are
+    torch operations of x: one backward pass of the rows' sum."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        e = energy_rows(xx)
+        if not e.requires_grad:
+            return e.detach(), torch.zeros_like(x)
+        (g,) = torch.autograd.grad(e.sum(), xx)
+    return e.detach(), -g
 
 
 def _resolve_neighbors(aux, key: str):
@@ -265,6 +332,29 @@ class Force:
         return autograd_virial(
             lambda xx, bb: self.energy(xx, bb, globals, aux), x, box)
 
+    def energy_rows(self, x, box, globals, aux=None):
+        """(K,) energies of a stack (module docstring). The default runs
+        the rows one after another through energy()."""
+        return _row_by_row(self, x, box, globals, aux, False)[0]
+
+    def energy_and_forces_rows(self, x, box, globals, aux=None):
+        """((K,) energies, (K, N, 3) forces) of a stack. The default runs
+        the rows one after another."""
+        return _row_by_row(self, x, box, globals, aux, True)
+
+
+class _StackedTerms:
+    """A force whose energy() is torch operations that take a stack as
+    they take one system (gathers along the atom axis, sums over the
+    last): the rows in one evaluation, forces by autograd of their sum."""
+
+    def energy_rows(self, x, box, globals, aux=None):
+        return self.energy(x, box, globals, aux)
+
+    def energy_and_forces_rows(self, x, box, globals, aux=None):
+        return _rows_by_autograd(
+            lambda xx: self.energy(xx, box, globals, aux), x)
+
 
 def _charge_scaled_dlambda(force, scaled, x, box, globals, name, aux):
     """dU/dlambda of a charge-scaled force (`scaled` holds its mask and the
@@ -388,6 +478,37 @@ class _PairForceMixin:
 
     def virial(self, x, box, globals, aux=None):
         return self._nb_virial(x, box, globals, aux, self.r_cut)
+
+    def _rows_form(self, globals):
+        """(the built-in form of a sweep over a stack, the rows' softcore
+        lambdas (K,) or None)."""
+        return self._pair_form(globals), None
+
+    def _nb_rows(self, x, box, globals, aux, r_cut, with_forces):
+        """(energies (K,), forces (K, N, 3) or None) of the pair term of a
+        stack from one sweep over every row (per-particle columns (N,) or,
+        where a global scales them per row, (K, N)); the pair term of one
+        row after another where no kernel takes the stack (the dense path,
+        a pair function, a spatial mesh)."""
+        nbr = self._cell(aux, r_cut)
+        if nbr is None or not hasattr(self, "_pair_form") \
+                or _spatial() is not None:
+            return _in_turn(self._nb_energy_forces if with_forces
+                            else self._nb_energy, x, box, globals, aux, r_cut)
+        form, lamb = self._rows_form(globals)
+        if lamb is not None:  # the kernels read it in the dtype of x
+            lamb = lamb.to(device=x.device, dtype=x.dtype)
+        args = (form, x, box, self._per_particle(globals), nbr["spec"],
+                nbr["bucket"], r_cut)
+        if with_forces:
+            return cell_pair_energy_forces(*args, lamb=lamb)
+        return cell_pair_energy(*args, lamb=lamb), None
+
+    def energy_rows(self, x, box, globals, aux=None):
+        return self._nb_rows(x, box, globals, aux, self.r_cut, False)[0]
+
+    def energy_and_forces_rows(self, x, box, globals, aux=None):
+        return self._nb_rows(x, box, globals, aux, self.r_cut, True)
 
 
 @dataclasses.dataclass
@@ -573,16 +694,45 @@ class NonbondedForce(_PairForceMixin, Force):
     def denergy_dlambda(self, x, box, globals, name, aux=None):
         return _charge_scaled_dlambda(self, self, x, box, globals, name, aux)
 
+    def _rows(self, x, box, globals, aux, with_forces):
+        if self._cell(aux, self._pair_cutoff) is None:
+            return _row_by_row(self, x, box, globals, aux, with_forces)
+        e, f = self._nb_rows(x, box, globals, aux, self._pair_cutoff,
+                             with_forces)
+        if self.method == "pme":  # the reciprocal terms, row by row
+            rows = [(self._recip_energy_forces if with_forces
+                     else self._recip_energy)(x[k], box[k],
+                                              globals_row(globals, k))
+                    for k in range(x.shape[0])]
+            if with_forces:
+                e = e + torch.stack([r[0] for r in rows])
+                f = f + torch.stack([r[1] for r in rows])
+            else:
+                e = e + torch.stack(rows)
+        if self.dispersion_coeff is not None:
+            e = e + self.dispersion_coeff / box_volume(box, rows=True)
+        return e, f
+
+    def energy_rows(self, x, box, globals, aux=None):
+        return self._rows(x, box, globals, aux, False)[0]
+
+    def energy_and_forces_rows(self, x, box, globals, aux=None):
+        return self._rows(x, box, globals, aux, True)
+
     def uses_neighbors(self) -> bool:
         return self.method != "nocutoff"
 
 
 def _scaled_charge(charge, mask, name, globals):
     """q (1 - m (1 - lambda)) with lambda = globals[name] (1.0 when
-    missing): the charge scaling of SolvationSystem."""
+    missing): the charge scaling of SolvationSystem. A (K,) lambda, one per
+    row of a stack, gives (K, N) charges, computed on the device from the
+    tensor (no host read)."""
     if mask is None:
         return charge
     lam = (globals or {}).get(name, 1.0)
+    if isinstance(lam, torch.Tensor) and lam.ndim == 1:
+        lam = lam.to(charge.dtype)[:, None]
     return charge * (1.0 - mask * (1.0 - lam))
 
 
@@ -634,7 +784,7 @@ def compute_dispersion_coefficient(sigma, epsilon, r_switch, r_cut,
 
 
 @dataclasses.dataclass
-class NonbondedExceptionsForce(Force):
+class NonbondedExceptionsForce(_StackedTerms, Force):
     """1-4 exception pairs as a bond-like force, so they can live in the
     innermost RESPA group (atomsmm/forces.py::NonbondedExceptionsForce).
 
@@ -655,7 +805,8 @@ class NonbondedExceptionsForce(Force):
 
         params = {"chargeprod": self.chargeprod, "sigma": self.sigma,
                   "epsilon": self.epsilon}
-        return pairlist_energy(pair, x, box, self.pairs, params, self.valid)
+        return pairlist_energy(pair, x, box, self.pairs, params, self.valid,
+                               rows=x.ndim == 3)
 
 
 @dataclasses.dataclass
@@ -813,6 +964,10 @@ class FarNonbondedForce(_PairForceMixin, Force):
         return _charge_scaled_dlambda(self, self.full, x, box, globals, name,
                                       aux)
 
+    # no batched form yet: the rows one after another (Force's)
+    energy_rows = Force.energy_rows
+    energy_and_forces_rows = Force.energy_and_forces_rows
+
 
 @dataclasses.dataclass
 class PMEReciprocalForce(Force):
@@ -945,6 +1100,15 @@ class SoftcoreLennardJonesForce(_PairForceMixin, Force):
         return pairfuncs.softcore_form(self.r_cut, self.r_switch, lamb,
                                        self.use_switch, dlambda=dlambda)
 
+    def _rows_form(self, globals):
+        lamb = (globals or {}).get(self.lambda_name, 1.0)
+        if isinstance(lamb, torch.Tensor) and lamb.ndim == 1:
+            # each row's lambda goes to the kernel's device table of the
+            # rows' lambdas, cast from the tensor on the device
+            return pairfuncs.softcore_form(self.r_cut, self.r_switch, 1.0,
+                                           self.use_switch), lamb
+        return self._pair_form(globals), None
+
     def energy(self, x, box, globals, aux=None):
         return self._nb_energy(x, box, globals, aux, self.r_cut)
 
@@ -998,6 +1162,10 @@ class CustomNonbondedForce(_PairForceMixin, Force):
 
     def energy_and_forces(self, x, box, globals, aux=None):
         return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
+
+    # a pair function takes no kernel: the rows one after another (Force's)
+    energy_rows = Force.energy_rows
+    energy_and_forces_rows = Force.energy_and_forces_rows
 
 
 @dataclasses.dataclass
@@ -1113,7 +1281,7 @@ class TemplateBondedForce(Force):
 
 
 @dataclasses.dataclass
-class HarmonicBondForce(Force):
+class HarmonicBondForce(_StackedTerms, Force):
     """E = sum 0.5 k (r - r0)^2 (openmm.HarmonicBondForce; pad with k = 0)."""
 
     idx: torch.Tensor = None  # (B, 2)
@@ -1125,7 +1293,7 @@ class HarmonicBondForce(Force):
 
 
 @dataclasses.dataclass
-class HarmonicAngleForce(Force):
+class HarmonicAngleForce(_StackedTerms, Force):
     """E = sum 0.5 k (theta - theta0)^2 (openmm.HarmonicAngleForce)."""
 
     idx: torch.Tensor = None  # (A, 3)
@@ -1137,7 +1305,7 @@ class HarmonicAngleForce(Force):
 
 
 @dataclasses.dataclass
-class PeriodicTorsionForce(Force):
+class PeriodicTorsionForce(_StackedTerms, Force):
     """E = sum k (1 + cos(n phi - phase)) (openmm.PeriodicTorsionForce)."""
 
     idx: torch.Tensor = None  # (T, 4)
@@ -1174,7 +1342,7 @@ class CMAPTorsionForce(Force):
 
 
 @dataclasses.dataclass
-class HarmonicImproperForce(Force):
+class HarmonicImproperForce(_StackedTerms, Force):
     """CHARMM-style harmonic improper torsion E = k (phi - phi0)^2 with the
     difference wrapped to (-pi, pi]: the CHAMBER prmtop improper term (k
     carries no 1/2, the CHARMM convention)."""

@@ -31,7 +31,7 @@ from ..potential import potential_energy
 from ..system import molecular_scale
 from ..units import BOLTZMANN, PRESSURE_IN_BAR
 from ..utils import replace
-from .propagators import Propagator
+from .propagators import Propagator, refuse_stack
 
 BARO_DV = "baro_dv"             # current volume-move size [nm^3]
 BARO_NACC = "baro_naccepted"
@@ -51,6 +51,7 @@ class MonteCarloBarostatPropagator(Propagator):
         self.dv0 = float(initial_dv_fraction)
 
     def extra_variables(self, system, state):
+        refuse_stack(self, state)
         if state.box.ndim != 1:
             from ..utils import InputError
 
@@ -97,6 +98,7 @@ class MonteCarloBarostatPropagator(Propagator):
         from ..ops.neighbors import make_aux, update_all_neighbors
         from ..parallel.mesh import broadcast_from_first
 
+        refuse_stack(self, state)
         system = ctx.system
         kT = BOLTZMANN * self.temperature
         u_dv, u_acc = self._uniforms(state)

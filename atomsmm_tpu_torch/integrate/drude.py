@@ -58,6 +58,7 @@ from .propagators import (
     VelocityVerletPropagator,
     _normal,
     _project_velocities,
+    refuse_stack,
 )
 
 
@@ -95,6 +96,7 @@ class DrudeOrnsteinUhlenbeckPropagator(Propagator):
         self.drude_friction = float(drude_friction)
 
     def apply(self, ctx, state, fraction):
+        refuse_stack(self, state)
         t = fraction * ctx.dt
         kt = BOLTZMANN * self.temperature
         kt_d = BOLTZMANN * self.drude_temperature
@@ -186,6 +188,8 @@ class DrudeSCFPlacementPropagator(Propagator):
         self.n_iter = n_iter
 
     def apply(self, ctx, state, fraction):
+        refuse_stack(self, state)
+
         def forces(xx):
             return ctx.forces(replace(state, x=xx))
 

@@ -16,6 +16,19 @@ Stochastic propagators (OrnsteinUhlenbeck, VelocityRescaling) draw from
 the state's torch.Generator, which advances in place: the same seed gives
 the same trajectory, and another stream than the JAX package's.
 
+A stacked State (state.py: K replicas or lambda states, x (K, N, 3)) steps
+through the same propagators: the forces come from one batched evaluation
+over the rows (potential.force_fn), the kicks and translations are
+elementwise over the stack, and the Ornstein-Uhlenbeck step draws row k's
+noise from row k's own generator into one (K, N, 3) tensor (K generator
+launches a step) and reads a per-row bath temperature from a (K,) global.
+The Nose-Hoover chain keeps one chain a row, and CSVR rescales each row
+by its own kinetic energy and draws. The constraints (SETTLE,
+SHAKE/RATTLE) and the virtual sites take the rows one after another. The
+SIN(R) and NHL-R thermostats act on each degree of freedom alone, so they
+take a stack elementwise. The barostat and the Drude propagators take one
+system and raise on a stack (refuse_stack).
+
 >>> vv = VelocityVerletPropagator()
 >>> for line in vv.describe(1.0):
 ...     print(line)
@@ -47,7 +60,7 @@ from ..ops.constraints import rattle_velocities, shake_positions
 from ..ops.settle import settle_positions, settle_velocities
 from ..ops.virtual_sites import place_virtual_sites, zero_virtual_velocities
 from ..potential import force_fn
-from ..state import State
+from ..state import State, kinetic_energy
 from ..units import BOLTZMANN
 from ..utils import replace
 
@@ -80,6 +93,16 @@ class StepContext:
 
     def kT(self, temperature):
         return BOLTZMANN * temperature
+
+
+def refuse_stack(propagator, state):
+    """Raise InputError when `state` is a stack: `propagator` takes one
+    system."""
+    if state.x.ndim == 3:
+        from ..utils import InputError
+
+        raise InputError(f"{type(propagator).__name__} takes one system, "
+                         f"not a stack of {state.x.shape[0]} rows")
 
 
 class Propagator:
@@ -255,6 +278,12 @@ class TranslationPropagator(Propagator):
         cons = getattr(system, "constraints", None)
         sset = getattr(system, "settle", None)
         vsites = getattr(system, "virtual_sites", None)
+        if state.x.ndim == 3 and (cons is not None or sset is not None
+                                  or vsites is not None):
+            rows = [self.apply(ctx, state.row(k), fraction)
+                    for k in range(state.rows)]
+            return replace(state, x=torch.stack([r.x for r in rows]),
+                           v=torch.stack([r.v for r in rows]))
         x_unc = state.x + state.v * t
         if cons is None and sset is None:
             if vsites is not None:
@@ -281,8 +310,13 @@ def _project_velocities(ctx, x, v):
     """Project velocities onto the constraint tangent space: closed-form
     SETTLE for the 3-site molecules, iterative RATTLE for the remaining
     constraints; the virtual sites' rows are pinned to zero. A system with
-    none of these gets v back as it is, with no device operation."""
+    none of these gets v back as it is, with no device operation. A stack
+    (x (K, N, 3)) is projected row by row."""
     system = ctx.system
+    if x.ndim == 3 and any(getattr(system, a, None) is not None for a in (
+            "settle", "constraints", "virtual_sites")):
+        return torch.stack([_project_velocities(ctx, x[k], v[k])
+                            for k in range(x.shape[0])])
     sset = getattr(system, "settle", None)
     if sset is not None:
         v = settle_velocities(sset, x, v, ctx.masses)
@@ -488,8 +522,10 @@ class NoseHooverChainPropagator(Propagator):
     (Martyna-Tuckerman-Klein).
 
     Extended variables (State.extra): {tag}_v (nchain,) chain velocities;
-    {tag}_eta (nchain,) chain positions. The chain runs as scalar tensor
-    operations on the device of the velocities (no host synchronisation).
+    {tag}_eta (nchain,) chain positions; (K, nchain) over a stack, one
+    chain a row, each driven by its own row's kinetic energy. The chain
+    runs as tensor operations on the device of the velocities (no host
+    synchronisation).
     """
 
     is_thermostat = True
@@ -520,11 +556,13 @@ class NoseHooverChainPropagator(Propagator):
         kT = BOLTZMANN * self.temperature
         q = self._q()
         nc = self.nchain
-        v_eta = list(state.extra[f"{self.tag}_v"].unbind(0))
+        # a stack's chains are (K, nchain): every chain variable, the
+        # kinetic energy and the scale below are (K,), one chain a row
+        v_eta = list(state.extra[f"{self.tag}_v"].unbind(-1))
         eta = state.extra[f"{self.tag}_eta"]
         v = state.v
-        twok = torch.sum(ctx.masses[:, None] * v * v)  # 2 * kinetic energy
-        scale = torch.ones((), dtype=v.dtype, device=v.device)
+        twok = 2.0 * kinetic_energy(ctx.masses, v)
+        scale = torch.ones_like(twok)
 
         def update(j, dt_w, h):
             if j == 0:
@@ -544,22 +582,23 @@ class NoseHooverChainPropagator(Propagator):
             for j in range(nc - 1, -1, -1):   # chain tail -> head
                 update(j, dt_w, h)
             scale = scale * torch.exp(-dt_w * v_eta[0])
-            eta = eta + dt_w * torch.stack(v_eta)
+            eta = eta + dt_w * torch.stack(v_eta, dim=-1)
             for j in range(nc):               # chain head -> tail
                 update(j, dt_w, h)
-        state = replace(state, v=v * scale)
-        return state.with_extra(**{f"{self.tag}_v": torch.stack(v_eta),
+        state = replace(state, v=v * scale[..., None, None])
+        return state.with_extra(**{f"{self.tag}_v": torch.stack(v_eta, dim=-1),
                                    f"{self.tag}_eta": eta})
 
     def conserved_extra(self, state):
-        """Thermostat contribution to the conserved quantity."""
+        """Thermostat contribution to the conserved quantity ((K,) over a
+        stack)."""
         kT = BOLTZMANN * self.temperature
         v_eta = state.extra[f"{self.tag}_v"]
         eta = state.extra[f"{self.tag}_eta"]
         q = torch.tensor(self._q(), dtype=v_eta.dtype, device=v_eta.device)
-        e = torch.sum(0.5 * q * v_eta**2) + self.dof * kT * eta[0]
+        e = torch.sum(0.5 * q * v_eta**2, dim=-1) + self.dof * kT * eta[..., 0]
         if self.nchain > 1:
-            e = e + kT * torch.sum(eta[1:])
+            e = e + kT * torch.sum(eta[..., 1:], dim=-1)
         return e
 
     def describe(self, fraction=1.0):
@@ -570,11 +609,20 @@ class NoseHooverChainPropagator(Propagator):
 
 
 
-def _normal(rng: torch.Generator, like: torch.Tensor, shape=None):
+def _normal(rng, like: torch.Tensor, shape=None):
     """Standard normal draws of `like`'s dtype on its device from `rng`
-    (which lives on that device and advances in place)."""
-    return torch.randn(like.shape if shape is None else shape, generator=rng,
-                       dtype=like.dtype, device=like.device)
+    (which lives on that device and advances in place). A stacked State's
+    tuple of K generators fills row k of one (K, ...) tensor from rng[k],
+    one generator launch a row, so that a row's stream does not depend on
+    K."""
+    shape = like.shape if shape is None else shape
+    if not isinstance(rng, tuple):
+        return torch.randn(shape, generator=rng, dtype=like.dtype,
+                           device=like.device)
+    out = torch.empty(shape, dtype=like.dtype, device=like.device)
+    for k, g in enumerate(rng):
+        torch.randn(shape[1:], generator=g, out=out[k])
+    return out
 
 
 class OrnsteinUhlenbeckPropagator(Propagator):
@@ -583,9 +631,11 @@ class OrnsteinUhlenbeckPropagator(Propagator):
     (atomsmm/propagators.py::OrnsteinUhlenbeckPropagator). Setting
     `variable` updates a named extra tensor with effective mass `mass`
     instead. With `temperature_global` the bath temperature is read from
-    that global parameter at step time (falling back to `temperature`).
-    R is drawn from the state's torch.Generator. The particle velocities
-    are projected onto the constraints afterwards."""
+    that global parameter at step time (falling back to `temperature`);
+    over a stack it may be a (K,) tensor, each row's bath at its own
+    setpoint. R is drawn from the state's torch.Generator (row k's from
+    its own over a stack). The particle velocities are projected onto the
+    constraints afterwards."""
 
     is_thermostat = True
 
@@ -603,6 +653,8 @@ class OrnsteinUhlenbeckPropagator(Propagator):
         if self.temperature_global is not None:
             t_set = (ctx.globals or {}).get(self.temperature_global, t_set)
         kT = BOLTZMANN * t_set
+        if isinstance(kT, torch.Tensor) and kT.ndim == 1:
+            kT = kT[:, None, None]  # one setpoint per row of a stack
         decay = math.exp(-self.friction * t)
         noise = math.sqrt(max(1.0 - decay * decay, 0.0))
         if self.variable is None:
@@ -638,7 +690,8 @@ class VelocityRescalingPropagator(Propagator):
     dof - 1 squared standard normals drawn from the state's
     torch.Generator (torch's gamma sampler takes no generator): exact, no
     rejection loop and so no host synchronisation, at dof - 1 draws per
-    application."""
+    application. Over a stack each row rescales by its own kinetic energy
+    and its own generator's draws (two generator launches a row)."""
 
     is_thermostat = True
 
@@ -650,12 +703,15 @@ class VelocityRescalingPropagator(Propagator):
     def apply(self, ctx, state, fraction):
         t = fraction * ctx.dt
         kT = BOLTZMANN * self.temperature
-        m = ctx.masses[:, None]
-        ke = 0.5 * torch.sum(m * state.v * state.v)
+        ke = kinetic_energy(ctx.masses, state.v)
         ke_bar = 0.5 * self.dof * kT
         c = math.exp(-t / self.tau)
-        r1 = _normal(state.rng, state.v, ())
-        rsum = torch.sum(_normal(state.rng, state.v, (self.dof - 1,)) ** 2)
+        # over a stack ke is (K,), and row k draws r1 and then the dof - 1
+        # normals from its own generator, as a single system draws them
+        rows = ke.shape
+        r1 = _normal(state.rng, ke, rows)
+        rsum = torch.sum(_normal(state.rng, ke, rows + (self.dof - 1,)) ** 2,
+                         dim=-1)
         ratio = ke_bar / (self.dof * ke)
         alpha2 = (
             c
@@ -668,7 +724,7 @@ class VelocityRescalingPropagator(Propagator):
         sign = torch.sign(r1 + torch.sqrt(c / ((1.0 - c) * ratio)))
         alpha = torch.where(sign == 0, torch.ones_like(sign), sign) \
             * torch.sqrt(alpha2)
-        return replace(state, v=state.v * alpha)
+        return replace(state, v=state.v * alpha[..., None, None])
 
     def describe(self, fraction=1.0):
         return [

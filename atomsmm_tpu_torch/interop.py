@@ -157,12 +157,21 @@ def state_from_numpy(desc, dtype=None, device=None, seed: int = 0) -> State:
     """This package's State from a `describe_reference` dict (or a plain
     dict with x, v, box and optionally step and extra). The JAX key is not
     carried over: the state gets a torch.Generator seeded with `seed`. On
-    `device` (default: the CUDA card)."""
+    `device` (default: the CUDA card).
+
+    A JAX stacked state (replicate_state's, x (K, N, 3) and a leading K on
+    every array) gives the stacked State, its K generators seeded from
+    (seed, k) as parallel.replicas.replicate_state seeds them."""
     device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
     x = _tensor(np.asarray(desc["x"]), dtype, device)
-    rng = torch.Generator(device=x.device)
-    rng.manual_seed(seed)
+    if x.ndim == 3:
+        from .parallel.replicas import replica_generators
+
+        rng = replica_generators(x.shape[0], seed, x.device)
+    else:
+        rng = torch.Generator(device=x.device)
+        rng.manual_seed(seed)
     extra = {k: _tensor(np.asarray(v), dtype, device)
              for k, v in (desc.get("extra") or {}).items()}
     return State(
@@ -170,6 +179,6 @@ def state_from_numpy(desc, dtype=None, device=None, seed: int = 0) -> State:
         v=_tensor(np.asarray(desc["v"]), dtype, device),
         box=_tensor(np.asarray(desc["box"]), dtype, device),
         rng=rng,
-        step=int(np.asarray(desc.get("step", 0))),
+        step=int(np.asarray(desc.get("step", 0)).reshape(-1)[0]),
         extra=extra,
     )

@@ -27,6 +27,13 @@ covers the cutoff would drop pairs, so `coverage_deficient` is tested on
 each barostat trial (an uncovered trial is rejected), at every box a
 Context is given, and at the box each Context.step ends with.
 
+A stack of K systems (replicas or lambda states, x (K, N, 3), box (K, 3)
+or (K, 3, 3): a stacked State, state.py) shares one spec, grid and
+capacity: its buckets are (K, ncells, cap), its overflow, coverage and
+staleness flags (K,), one per row, and row k of each equals what the
+single system of row k gets. A retune on any row's overflow resizes the
+shared spec for every row.
+
 Each build stores the positions and box it binned (``nbr_xref``,
 ``nbr_boxref``) and whether the stencil covers the cutoff there
 (``nbr_undercover``). Context rebuilds at every outer step by default
@@ -203,9 +210,13 @@ def _host(a) -> np.ndarray:
 def _max_cell_occupancy(x, box, grid) -> int:
     """Host-side: max atoms in any cell of `grid` for configuration x
     (either box form; a matrix box bins fractionally, as
-    build_cell_buckets does)."""
+    build_cell_buckets does); the max over the rows of a stack
+    (x (K, N, 3))."""
     x = _host(x)
     box = np.asarray(_host(box), np.float64)
+    if x.ndim == 3:
+        return max(_max_cell_occupancy(xk, bk, grid)
+                   for xk, bk in zip(x, box))
     grid_a = np.asarray(grid)
     if not np.isfinite(x).all():
         bad = int((~np.isfinite(x).all(axis=-1)).sum())
@@ -340,99 +351,119 @@ def make_neighbor_spec(
 def build_cell_buckets(spec: NeighborSpec, x, box):
     """Bin atoms into (ncells, cap) id buckets (sentinel N) with one sort.
 
-    When cell id and atom index pack into 31 bits, a value sort of
-    ``cid << idx_bits | i`` replaces the argsort. Atoms past a cell's
-    capacity are routed to one extra dump slot that is cut off afterwards,
-    the counterpart of JAX's ``mode="drop"`` scatter, and raise the returned
-    overflow flag (a device bool: no host sync). A (3, 3) box bins in
-    fractional coordinates (the cells are parallelepiped slabs of the
-    lattice).
+    A value sort of ``(row ncells + cid) << idx_bits | i`` replaces the
+    argsort, on int32 keys where they pack into 31 bits, else int64. Atoms
+    past a cell's capacity are routed to one extra dump slot that is cut
+    off afterwards, the counterpart of JAX's ``mode="drop"`` scatter, and
+    raise the returned overflow flag (a device bool: no host sync). A
+    (3, 3) box bins in fractional coordinates (the cells are
+    parallelepiped slabs of the lattice). Over a stack (x (K, N, 3), box
+    (K, 3) or (K, 3, 3)) the buckets are (K, ncells, cap) and the flags
+    (K,), row k what row k alone gets: the keys sort row by row, so one
+    sort bins every row.
     """
-    n = x.shape[0]
+    rows = x.ndim == 3
+    if not rows:
+        x, box = x[None], box[None]
+    k, n = x.shape[0], x.shape[1]
     dev = x.device
     grid = torch.as_tensor(spec.grid, dtype=torch.int32, device=dev)
     ncells = spec.ncells
     cap = spec.cell_capacity
-
-    if box.ndim == 2:
+    if box.ndim == 3:
         s = torch.matmul(x, _inv(box))
         s = s - torch.floor(s)
         c3 = (s * grid.to(s.dtype)).to(torch.int32)
     else:
-        w = box / grid.to(box.dtype)
-        xw = x - box * torch.floor(x / box)
+        b = box[:, None, :]
+        w = b / grid.to(box.dtype)
+        xw = x - b * torch.floor(x / b)
         c3 = (xw / w).to(torch.int32)
     c3 = torch.minimum(torch.clamp(c3, min=0), grid - 1)
-    cid = (c3[:, 0] * spec.grid[1] + c3[:, 1]) * spec.grid[2] + c3[:, 2]
+    cid = (c3[..., 0] * spec.grid[1] + c3[..., 1]) * spec.grid[2] + c3[..., 2]
 
-    iarr = torch.arange(n, dtype=torch.int32, device=dev)
     idx_bits = max(n - 1, 1).bit_length()
-    if (ncells << idx_bits) < 2**31:
-        packed = torch.sort((cid << idx_bits) | iarr).values
-        order = packed & ((1 << idx_bits) - 1)
-        sorted_cid = packed >> idx_bits
-    else:  # > ~2B combined keys: fall back to a stable argsort
-        order = torch.argsort(cid, stable=True).to(torch.int32)
-        sorted_cid = cid[order]
-    first = torch.ones(n, dtype=torch.bool, device=dev)
-    first[1:] = sorted_cid[1:] != sorted_cid[:-1]
-    seg_start = torch.cummax(torch.where(first, iarr, torch.zeros_like(iarr)),
+    key = torch.int32 if (k * ncells << idx_bits) < 2**31 else torch.int64
+    cell = cid.to(key) + ncells * torch.arange(k, dtype=key,
+                                               device=dev)[:, None]
+    iarr = torch.arange(n, dtype=key, device=dev)
+    packed = torch.sort(((cell << idx_bits) | iarr).reshape(-1)).values
+    order = (packed & ((1 << idx_bits) - 1)).to(torch.int32)
+    sorted_cell = packed >> idx_bits
+    pos = torch.arange(k * n, dtype=key, device=dev)
+    first = torch.ones(k * n, dtype=torch.bool, device=dev)
+    first[1:] = sorted_cell[1:] != sorted_cell[:-1]
+    seg_start = torch.cummax(torch.where(first, pos, torch.zeros_like(pos)),
                              dim=0).values
-    rank = iarr - seg_start
+    rank = pos - seg_start
     ok = rank < cap
-    slot = torch.where(ok, sorted_cid * cap + rank,
-                       torch.full_like(rank, ncells * cap))
-    bucket = torch.full((ncells * cap + 1,), n, dtype=torch.int32, device=dev)
-    bucket[slot.long()] = order
-    return bucket[:-1].reshape(ncells, cap), torch.any(~ok)
+    slot = torch.where(ok, sorted_cell.long() * cap + rank,
+                       k * ncells * cap)
+    bucket = torch.full((k * ncells * cap + 1,), n, dtype=torch.int32,
+                        device=dev)
+    bucket[slot] = order
+    bucket = bucket[:-1].reshape(k, ncells, cap)
+    overflow = torch.any(~ok.reshape(k, n), dim=1)
+    return (bucket, overflow) if rows else (bucket[0], overflow[0])
 
 
-def _covered(spec: NeighborSpec, box):
+def _covered(spec: NeighborSpec, box, rows: bool = False):
     """The distance the stencil covers along each dim at `box` (reach cell
     widths, on the perpendicular widths of a (3, 3) cell), infinite along
     a dim where the stencil wraps the whole grid: there every cell pair is
-    a candidate whatever the cell width."""
+    a candidate whatever the cell width. (K, 3) for a stack of boxes."""
     box = torch.as_tensor(box)
     reach = torch.as_tensor(
         [r / g if 2 * r + 1 < g else math.inf
          for g, r in zip(spec.grid, spec.reach)],
         dtype=box.dtype, device=box.device)
-    return perp_widths(box) * reach
+    return perp_widths(box, rows) * reach
 
 
-def coverage_deficient(spec: NeighborSpec, box):
+def coverage_deficient(spec: NeighborSpec, box, rows: bool = False):
     """The stencil reach does not cover the cutoff at `box`: a bool tensor
-    on the device of `box`, read without a sync. Only dims where the
-    stencil does not wrap the whole grid count."""
-    return torch.any(_covered(spec, box) < spec.r_build - spec.skin)
+    on the device of `box`, read without a sync ((K,) for a stack). Only
+    dims where the stencil does not wrap the whole grid count."""
+    return torch.any(_covered(spec, box, rows) < spec.r_build - spec.skin,
+                     dim=-1)
 
 
-def effective_skin(spec: NeighborSpec, box):
-    """The displacement margin the grid leaves at `box` (a 0-d tensor):
-    spec.skin, the margin at the setup box, shrunk to what the stencil's
-    reach still covers beyond the cutoff (0 at the coverage boundary).
-    After an NPT compression the setup skin would overstate it, and the
-    rebuild test and the staleness guard would miss pairs in between.
-    Either box form (perpendicular widths)."""
-    margin = torch.min(_covered(spec, box)) - (spec.r_build - spec.skin)
+def effective_skin(spec: NeighborSpec, box, rows: bool = False):
+    """The displacement margin the grid leaves at `box` (a 0-d tensor, (K,)
+    for a stack): spec.skin, the margin at the setup box, shrunk to what
+    the stencil's reach still covers beyond the cutoff (0 at the coverage
+    boundary). After an NPT compression the setup skin would overstate it,
+    and the rebuild test and the staleness guard would miss pairs in
+    between. Either box form (perpendicular widths)."""
+    margin = torch.min(_covered(spec, box, rows), dim=-1).values \
+        - (spec.r_build - spec.skin)
     return torch.clamp(torch.clamp(margin, min=0.0), max=spec.skin)
+
+
+def _box_changed(box, boxref, rows: bool = False):
+    """The box differs from the reference box, per row of a stack."""
+    changed = box != boxref
+    return changed.reshape(changed.shape[0], -1).any(dim=1) if rows \
+        else torch.any(changed)
 
 
 def moved_beyond_half_skin(skin, xref, boxref, x, box, fraction=0.5):
     """Some atom moved more than `fraction` * skin since the reference
-    build xref, or the box changed (a device bool): the rebuild predicate
-    shared by the cell lists (needs_rebuild) and the tile-pair list."""
-    disp = minimum_image(x - xref, box)
-    moved = torch.max(torch.sum(disp * disp, dim=-1)) > (
+    build xref, or the box changed (a device bool; (K,) for a stack, x
+    (K, N, 3)): the rebuild predicate shared by the cell lists
+    (needs_rebuild) and the tile-pair list."""
+    rows = x.ndim == 3
+    disp = minimum_image(x - xref, box, rows)
+    moved = torch.max(torch.sum(disp * disp, dim=-1), dim=-1).values > (
         fraction * torch.as_tensor(skin, dtype=x.dtype)) ** 2
-    return moved | torch.any(box != boxref)
+    return moved | _box_changed(box, boxref, rows)
 
 
 def neighbor_list_extras(spec, x, box, name: str = "default") -> Dict[str, torch.Tensor]:
     kb, kx, kbox, kov = _keys(name)
     bucket, overflow = build_cell_buckets(spec, x, box)
     return {kb: bucket, kx: x, kbox: box, kov: overflow,
-            _cover_key(name): coverage_deficient(spec, box)}
+            _cover_key(name): coverage_deficient(spec, box, x.ndim == 3)}
 
 
 def all_neighbor_extras(system, x, box) -> Dict[str, torch.Tensor]:
@@ -474,7 +505,7 @@ def assert_neighbor_health(extras: Dict[str, torch.Tensor]) -> None:
     the flags."""
     keys = [k for k in extras
             if k.endswith("overflow") or k.endswith("undercover")]
-    values = (torch.stack([extras[k].reshape(()) for k in keys]).tolist()
+    values = (torch.stack([extras[k].any() for k in keys]).tolist()
               if keys else [])
     bad = [k for k, v in zip(keys, values) if v]
     if bad:
@@ -504,34 +535,37 @@ def staleness_flags(system, extra, x, box):
     A pair absent at the build can have closed by at most d_i + d_j, so
     none can have entered the cutoff while the two largest displacements
     of distinct atoms sum to no more than the effective skin; a single
-    atom falls back to 2 max d. A changed box is stale too."""
+    atom falls back to 2 max d. A changed box is stale too. Over a stack
+    (x (K, N, 3)) each flag is (K,), one per row."""
+    rows = x.ndim == 3
     out = {}
     for name, spec in iter_specs(system):
         _, kx, kbox, _ = _keys(name)
         if kx not in extra:
             continue
         key = stale_key(name)
-        prev = extra.get(key, torch.zeros((), dtype=torch.bool,
-                                          device=x.device))
-        disp = minimum_image(x - extra[kx], box)
+        prev = extra.get(key, torch.zeros(x.shape[:1] if rows else (),
+                                          dtype=torch.bool, device=x.device))
+        disp = minimum_image(x - extra[kx], box, rows)
         d2 = torch.sum(disp * disp, dim=-1)
-        if d2.shape[0] >= 2:
+        if d2.shape[-1] >= 2:
             top2 = torch.sqrt(torch.topk(d2, 2).values)
-            pair_close = top2[0] + top2[1]
+            pair_close = top2[..., 0] + top2[..., 1]
         else:
-            pair_close = 2.0 * torch.sqrt(torch.max(d2))
-        stale = (pair_close > effective_skin(spec, box).to(x.dtype)) \
-            | torch.any(box != extra[kbox])
+            pair_close = 2.0 * torch.sqrt(torch.max(d2, dim=-1).values)
+        stale = (pair_close > effective_skin(spec, box, rows).to(x.dtype)) \
+            | _box_changed(box, extra[kbox], rows)
         out[key] = prev | stale
     return out
 
 
 def needs_rebuild(spec: NeighborSpec, extra, x, box, name: str = "default"):
     """Some atom moved more than half the effective skin since the
-    reference build, or the box changed (a device bool)."""
+    reference build, or the box changed (a device bool; (K,) for a
+    stack)."""
     _, kx, kbox, _ = _keys(name)
-    return moved_beyond_half_skin(effective_skin(spec, box), extra[kx],
-                                  extra[kbox], x, box)
+    return moved_beyond_half_skin(effective_skin(spec, box, x.ndim == 3),
+                                  extra[kx], extra[kbox], x, box)
 
 
 def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default",
@@ -541,19 +575,24 @@ def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default",
     at the boundaries of grouped updates; otherwise the rebuilt entries
     replace the kept ones where needs_rebuild holds, chosen by torch.where
     on the device (no host sync: the rebuild is paid either way). The
-    overflow and coverage flags are sticky: they OR across rebuilds."""
+    overflow and coverage flags are sticky: they OR across rebuilds. Over a
+    stack (x (K, N, 3)) the choice and the flags are per row."""
+    rows = x.ndim == 3
     keys = _keys(name) + (_cover_key(name),)
     kb, kx, kbox, kov, kcv = keys
-    cover_prev = extra.get(kcv, torch.zeros((), dtype=torch.bool,
+    cover_prev = extra.get(kcv, torch.zeros(x.shape[:1] if rows else (),
+                                            dtype=torch.bool,
                                             device=x.device))
     bucket, overflow = build_cell_buckets(spec, x, box)
     rebuilt = (bucket, x, box, extra[kov] | overflow,
-               cover_prev | coverage_deficient(spec, box))
+               cover_prev | coverage_deficient(spec, box, rows))
     if force:
         return dict(zip(keys, rebuilt))
     need = needs_rebuild(spec, extra, x, box, name)
     kept = (extra[kb], extra[kx], extra[kbox], extra[kov], cover_prev)
-    return {k: torch.where(need, new, old)
+    return {k: torch.where(need.reshape(need.shape + (1,) * (new.ndim
+                                                             - need.ndim)),
+                           new, old)
             for k, new, old in zip(keys, rebuilt, kept)}
 
 
@@ -582,19 +621,26 @@ def _sweep(spec):
             else pair_kernel.full_pair_energy_forces)
 
 
-def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut):
-    """Pair energy over the cell buckets (the sweep's energy column)."""
+def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut,
+                     lamb=None):
+    """Pair energy over the cell buckets (the sweep's energy column); (K,)
+    over a stack (x (K, N, 3), `lamb` the rows' softcore lambdas or
+    None)."""
     e, _ = _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut,
-                        with_forces=False)
+                        with_forces=False, lamb=lamb)
     return e
 
 
-def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut):
+def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
+                            lamb=None):
     """(energy, forces (N, 3)) with explicit symmetric forces: the Newton
     half-stencil sweep (K1) when half maps exist, else the full-stencil
     sweep (K2); the CUDA kernel on the card, its plain twin on the CPU;
-    either box form."""
-    return _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut)
+    either box form. Over a stack (x (K, N, 3), a (K, ncells, cap) bucket,
+    a (K, 3) or (K, 3, 3) box, any of them expanded where the rows share
+    it) one sweep gives (K,) energies and (K, N, 3) forces."""
+    return _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut,
+                        lamb=lamb)
 
 
 _FN_SLOTS = 1 << 21  # pair slots per chunk of the callable sweep

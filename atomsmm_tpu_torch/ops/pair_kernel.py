@@ -40,11 +40,24 @@ of the cells c0 ... c1 - 1 get their rows, the others stay zero, so the rows
 of disjoint ranges sum to the rows of the whole sweep bit for bit (force
 decomposition over home cells, parallel/spatial.py).
 
+Both kernels take a replica axis, as the JAX package's vmapped sweep
+reaches ``pallas_call`` through its batching rule: given a stack of K rows
+(x (K, N, 3), the bucket (K, ncells, cap), the box (K, 3) or (K, 3, 3),
+each per-particle column (N,) or (K, N), and the rows' softcore lambdas
+(K,) or None) one launch over a (blocks, K) grid sweeps every row into a
+(K, N + 1, 4) output. An input the rows share may be an expanded tensor
+(stride 0): the K lambda states of one configuration pass x and the
+bucket once. Row k of the launch computes what the single-row launch of
+row k computes: K2's bit for bit, K1's to its atomics' last bits. The
+plain twins take the same stack, with the same per-row arithmetic.
+
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
 the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -54,7 +67,8 @@ from .pairfuncs import form_u_dudr2
 from .pbc import minimum_image
 
 #: kernel launches so far in this process, one plain integer per kernel
-#: (half_pair = K1, cell_pair = K2, tile_pair = K3); reset by callers
+#: (half_pair = K1, cell_pair = K2, tile_pair = K3; a launch over K rows
+#: counts one); reset by callers
 LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
 
 MAX_EXC = 16      # csrc/pair_forms.cuh: exclusion columns a kernel takes
@@ -66,23 +80,47 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def stage(spec, x, per_particle, bucket):
-    """Stage bucket-layout features for the plain twins, one row gather each:
-    hf (ncells, cap, 8) [x y z q sigma eps type 0] in the dtype of x (type:
-    the LJ type where the dict has ``lj_type``, else 0), and
-    hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots (id N)
-    read a zero feature row. Without a bitmask (excluded pairs more than
-    +-14 indices apart) the exclusion id columns come back as a third item,
-    (ncells, cap, M), -1 padded; else None."""
-    n = x.shape[0]
-    feats = x.new_zeros((n + 1, 8))
-    feats[:n, :3] = x
-    feats[:n, 3] = per_particle["charge"]
-    feats[:n, 4] = per_particle["sigma"]
-    feats[:n, 5] = per_particle["epsilon"]
+def _rows(x, per_particle, bucket, box, lamb=None):
+    """The inputs of a sweep over a leading row axis (replicas or lambda
+    states): x (K, N, 3) as given, or a single system's (N, 3) as one row,
+    with the bucket and the box the same way; the per-particle columns stay
+    (N,), shared by every row, or (K, N). Returns (single, x, bucket, box,
+    lamb) with `lamb` (K,) or None."""
+    single = x.ndim == 2
+    if single:
+        if lamb is not None:
+            raise ValueError("a per-row lambda needs a (K, N, 3) stack of "
+                             "positions")
+        return True, x[None], bucket[None], box[None], None
+    k = x.shape[0]
+    if bucket.ndim != 3 or bucket.shape[0] != k or box.shape[0] != k \
+            or box.ndim not in (2, 3):
+        raise ValueError(
+            f"a sweep over {k} rows takes a (K, ncells, cap) bucket and a "
+            f"(K, 3) or (K, 3, 3) box, got {tuple(bucket.shape)} and "
+            f"{tuple(box.shape)}")
+    if lamb is not None:
+        lamb = torch.as_tensor(lamb, device=x.device).reshape(-1)
+        if lamb.shape[0] != k:
+            raise ValueError(f"{lamb.shape[0]} lambdas for {k} rows")
+    return False, x, bucket, box, lamb
+
+
+def stage_rows(spec, x, per_particle, bucket):
+    """stage over a row axis: x (K, N, 3), bucket (K, ncells, cap), each
+    per-particle column (N,) or (K, N); hf (K, ncells, cap, 8), hm
+    (K, ncells, cap, 2) and the exclusion id columns (K, ncells, cap, M) or
+    None. Row k is what stage gives for row k alone."""
+    k, n = x.shape[0], x.shape[1]
+    feats = x.new_zeros((k, n + 1, 8))
+    feats[:, :n, :3] = x
+    feats[:, :n, 3] = per_particle["charge"]
+    feats[:, :n, 4] = per_particle["sigma"]
+    feats[:, :n, 5] = per_particle["epsilon"]
     if "lj_type" in per_particle:
-        feats[:n, 6] = per_particle["lj_type"].to(x.dtype)
+        feats[:, :n, 6] = per_particle["lj_type"].to(x.dtype)
     idx = bucket.long()
+    rows = torch.arange(k, device=x.device)[:, None, None]
     meta = torch.zeros((n + 1, 2), dtype=torch.int32, device=x.device)
     meta[:, 0] = torch.arange(n + 1, dtype=torch.int32, device=x.device)
     exc_cols = None
@@ -91,7 +129,19 @@ def stage(spec, x, per_particle, bucket):
     else:
         exc = spec.exclusions
         exc_cols = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])[idx]
-    return feats[idx].contiguous(), meta[idx].contiguous(), exc_cols
+    return feats[rows, idx], meta[idx], exc_cols
+
+
+def stage(spec, x, per_particle, bucket):
+    """Stage bucket-layout features for the plain twins, one row gather each:
+    hf (ncells, cap, 8) [x y z q sigma eps type 0] in the dtype of x (type:
+    the LJ type where the dict has ``lj_type``, else 0), and
+    hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots (id N)
+    read a zero feature row. Without a bitmask (excluded pairs more than
+    +-14 indices apart) the exclusion id columns come back as a third item,
+    (ncells, cap, M), -1 padded; else None."""
+    hf, hm, exc_cols = stage_rows(spec, x[None], per_particle, bucket[None])
+    return hf[0], hm[0], None if exc_cols is None else exc_cols[0]
 
 
 def _rc2(r_cut, dtype) -> float:
@@ -146,52 +196,79 @@ def _pair_sums(form, rc2, d, valid, home, cand, table=None):
     return torch.where(valid, u, zero), torch.where(valid, 2.0 * dudr2, zero)
 
 
+def _row_form(form, lamb, d):
+    """`form` with each row's lambda, as a tensor that broadcasts over the
+    slots of the displacements d (rows first, a trailing xyz axis), in
+    their dtype: the kernels cast a row's lambda to the working type too.
+    The form itself for lamb None."""
+    if lamb is None:
+        return form
+    shape = (lamb.shape[0],) + (1,) * (d.ndim - 2)
+    return dataclasses.replace(form, lamb=lamb.to(d.dtype).reshape(shape))
+
+
+def _flat_ids(ids, n, k):
+    """(K, ...) atom ids as flat rows of a (K (N + 1), 4) output."""
+    off = torch.arange(k, device=ids.device) * (n + 1)
+    return (ids.reshape(k, -1).long() + off[:, None]).reshape(-1)
+
+
 def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
-                    with_forces: bool = True):
+                    with_forces: bool = True, lamb=None):
     """Plain PyTorch twin of K1: the same inputs and the same output, the
     per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
     atom takes the force and the energy of its slots (the self direction's
     energy at weight 1/2, both orderings being inside it), each candidate
     of the other directions the reaction. Exclusions by the relative-offset
     bitmask when the spec has one, else by the id columns. Home cells run
-    `spec.cell_chunk` at a time."""
-    n = x.shape[0]
+    `spec.cell_chunk` at a time.
+
+    Over a row axis (x (K, N, 3), bucket (K, ncells, cap), box (K, 3) or
+    (K, 3, 3), each per-particle column (N,) or (K, N), `lamb` None or the
+    rows' softcore lambdas (K,)) it gives (K, N + 1, 4), row k the sweep of
+    row k alone, with spec.cell_chunk // K home cells a chunk."""
+    single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
+    k, n = x.shape[0], x.shape[1]
     table = pair_table_of(form, per_particle)
-    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
+    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket)
     nbr_half = spec.nbr_cells_half
-    ncells, cap, _ = hf.shape
+    _, ncells, cap, _ = hf.shape
     s_half = nbr_half.shape[1]
     rc2 = _rc2(r_cut, hf.dtype)
-    out = x.new_zeros((n + 1, 4))
+    out = x.new_zeros((k, n + 1, 4))
+    flat = out.view(-1, 4)
     w_col = hf.new_ones(s_half)
     w_col[0] = 0.5                 # self column: both orderings inside
     j_col = hf.new_ones(s_half)
     j_col[0] = 0.0                 # self column: no reaction
-    for lo in range(0, ncells, spec.cell_chunk):
-        cells = torch.arange(lo, min(lo + spec.cell_chunk, ncells),
-                             device=hf.device)
-        home = hf[cells][:, None, :, None, :]          # (B, 1, cap, 1, 8)
-        hid = hm[cells][..., 0][:, None, :, None]      # (B, 1, cap, 1)
-        ncid = nbr_half[cells].long()                  # (B, S)
-        cand = hf[ncid][:, :, None, :, :]              # (B, S, 1, cap, 8)
-        cid = hm[ncid][..., 0][:, :, None, :]          # (B, S, 1, cap)
-        d = minimum_image(home[..., :3] - cand[..., :3], box)
+    chunk = max(1, spec.cell_chunk // k)
+    for lo in range(0, ncells, chunk):
+        cells = torch.arange(lo, min(lo + chunk, ncells), device=hf.device)
+        home = hf[:, cells][:, :, None, :, None, :]       # (K, B, 1, cap, 1, 8)
+        hid = hm[:, cells][..., 0][:, :, None, :, None]   # (K, B, 1, cap, 1)
+        ncid = nbr_half[cells].long()                     # (B, S)
+        cand = hf[:, ncid][:, :, :, None, :, :]           # (K, B, S, 1, cap, 8)
+        cid = hm[:, ncid][..., 0][:, :, :, None, :]       # (K, B, S, 1, cap)
+        d = minimum_image(home[..., :3] - cand[..., :3], box, rows=True)
         valid = (hid < n) & (cid < n) & ~excluded(
-            hid, cid, hm[cells][..., 1][:, None, :, None],
-            None if exc_cols is None else exc_cols[cells][:, None, :, None, :])
-        u, fm = _pair_sums(form, rc2, d, valid, home, cand, table)
-        oh = hf.new_zeros((len(cells), cap, 4))
-        oh[..., 3] = torch.sum(u * w_col[None, :, None, None], dim=(1, 3))
+            hid, cid, hm[:, cells][..., 1][:, :, None, :, None],
+            None if exc_cols is None
+            else exc_cols[:, cells][:, :, None, :, None, :])
+        u, fm = _pair_sums(_row_form(form, lamb, d), rc2, d, valid, home,
+                           cand, table)
+        oh = hf.new_zeros((k, len(cells), cap, 4))
+        oh[..., 3] = torch.sum(u * w_col[None, None, :, None, None],
+                               dim=(2, 4))
         if with_forces:
             g = fm[..., None] * d
-            oh[..., :3] = -torch.sum(g, dim=(1, 3))
-            react = torch.sum(g, dim=2) * j_col[None, :, None, None]
-            out.index_add_(0, cid.reshape(-1).long(),
-                           torch.nn.functional.pad(react, (0, 1))
-                           .reshape(-1, 4))
-        out.index_add_(0, hm[cells][..., 0].reshape(-1).long(),
-                       oh.reshape(-1, 4))
-    return out
+            oh[..., :3] = -torch.sum(g, dim=(2, 4))
+            react = torch.sum(g, dim=3) * j_col[None, None, :, None, None]
+            flat.index_add_(0, _flat_ids(cid, n, k),
+                            torch.nn.functional.pad(react, (0, 1))
+                            .reshape(-1, 4))
+        flat.index_add_(0, _flat_ids(hm[:, cells][..., 0], n, k),
+                        oh.reshape(-1, 4))
+    return out[0] if single else out
 
 
 def home_range(cells, ncells):
@@ -207,7 +284,7 @@ def home_range(cells, ncells):
 
 
 def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
-                    with_forces: bool = True, cells=None):
+                    with_forces: bool = True, cells=None, lamb=None):
     """Plain PyTorch twin of K2: the same inputs and the same output, the
     per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
     atom takes the force and half the energy of its slots over the full
@@ -218,42 +295,52 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     slots. `cells` = (c0, c1) gives rows to the atoms of those home cells
     only; the chunks stay where the whole sweep puts them (a chunk that
     the range cuts is computed whole and its rows outside the range
-    dropped), so every row is the whole sweep's, bit for bit."""
-    n = x.shape[0]
+    dropped), so every row is the whole sweep's, bit for bit.
+
+    Over a row axis (as half_pair_plain takes it) it gives (K, N + 1, 4),
+    a chunk holding 2M pair slots over all rows. Each atom's row is summed
+    whole inside one chunk, so row k equals the sweep of row k alone bit
+    for bit, whatever the chunks."""
+    single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
+    k, n = x.shape[0], x.shape[1]
     table = pair_table_of(form, per_particle)
-    hf, hm, exc_cols = stage(spec, x, per_particle, bucket)
+    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket)
     nbr = spec.nbr_cells
-    ncells, cap, _ = hf.shape
+    _, ncells, cap, _ = hf.shape
     s = nbr.shape[1]
-    chunk = max(1, min(spec.cell_chunk, _PLAIN_SLOTS // (cap * s * cap)))
+    chunk = max(1, min(spec.cell_chunk,
+                       _PLAIN_SLOTS // (k * cap * s * cap)))
     rc2 = _rc2(r_cut, hf.dtype)
     c0, c1 = home_range(cells, ncells)
-    out = x.new_zeros((n + 1, 4))
-    hf_s = torch.cat([hf, hf.new_zeros((1, cap, 8))])
-    ids_s = torch.cat([hm[..., 0], hm.new_full((1, cap), n)])
+    out = x.new_zeros((k, n + 1, 4))
+    flat = out.view(-1, 4)
+    hf_s = torch.cat([hf, hf.new_zeros((k, 1, cap, 8))], dim=1)
+    ids_s = torch.cat([hm[..., 0], hm.new_full((k, 1, cap), n)], dim=1)
     ncid_all = torch.where(nbr >= 0, nbr, ncells).long()
     for lo in range(c0 - c0 % chunk, c1, chunk):
         hi = min(lo + chunk, ncells)
-        cells = torch.arange(lo, hi, device=hf.device)
-        b = len(cells)
-        home = hf[cells][:, :, None, :]                      # (B, cap, 1, 8)
-        hid = hm[cells][..., 0][:, :, None]                  # (B, cap, 1)
-        ncid = ncid_all[cells]                               # (B, S)
-        cand = hf_s[ncid].reshape(b, 1, s * cap, 8)
-        cid = ids_s[ncid].reshape(b, 1, s * cap)
-        d = minimum_image(home[..., :3] - cand[..., :3], box)
+        home_cells = torch.arange(lo, hi, device=hf.device)
+        b = len(home_cells)
+        home = hf[:, home_cells][:, :, :, None, :]        # (K, B, cap, 1, 8)
+        hid = hm[:, home_cells][..., 0][:, :, :, None]    # (K, B, cap, 1)
+        ncid = ncid_all[home_cells]                       # (B, S)
+        cand = hf_s[:, ncid].reshape(k, b, 1, s * cap, 8)
+        cid = ids_s[:, ncid].reshape(k, b, 1, s * cap)
+        d = minimum_image(home[..., :3] - cand[..., :3], box, rows=True)
         valid = (hid < n) & (cid < n) & ~excluded(
-            hid, cid, hm[cells][..., 1][:, :, None],
-            None if exc_cols is None else exc_cols[cells][:, :, None, :])
-        u, fm = _pair_sums(form, rc2, d, valid, home, cand, table)
-        rows = hf.new_zeros((b, cap, 4))
+            hid, cid, hm[:, home_cells][..., 1][:, :, :, None],
+            None if exc_cols is None
+            else exc_cols[:, home_cells][:, :, :, None, :])
+        u, fm = _pair_sums(_row_form(form, lamb, d), rc2, d, valid, home,
+                           cand, table)
+        rows = hf.new_zeros((k, b, cap, 4))
         rows[..., 3] = 0.5 * torch.sum(u, dim=-1)
         if with_forces:
-            rows[..., :3] = -torch.sum(fm[..., None] * d, dim=2)
+            rows[..., :3] = -torch.sum(fm[..., None] * d, dim=3)
         keep = slice(max(c0 - lo, 0), min(c1, hi) - lo)
-        out.index_add_(0, hid[keep].reshape(-1).long(),
-                       rows[keep].reshape(-1, 4))
-    return out
+        flat.index_add_(0, _flat_ids(hid[:, keep], n, k),
+                        rows[:, keep].reshape(-1, 4))
+    return out[0] if single else out
 
 
 def _checked(kernel, *tensors):
@@ -299,8 +386,31 @@ def _launch(kernel, dtype, *args):
     LAUNCHES[kernel] += 1
 
 
+def _row_stride(kernel, name, t, k, shape, dtype, dev):
+    """The element stride between the K rows of `t` (K, *shape): 0 where
+    the rows share one array (an expanded tensor) or K is 1, else one
+    row's size. Each row must be a contiguous CUDA tensor of `dtype` on
+    `dev`; raises otherwise."""
+    if t.device != dev or not t.is_cuda:
+        raise ValueError(f"{kernel}: {name} must lie on a CUDA device with "
+                         f"the others ({dev}), found {t.device}")
+    row = t[0] if t.ndim else t
+    if t.dtype != dtype or tuple(t.shape) != (k, *shape) \
+            or not row.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name}: expected {k} contiguous rows of {dtype} "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    stride = t.stride(0)
+    if k == 1 or stride == 0:
+        return 0
+    if stride != row.numel():
+        raise ValueError(f"{kernel}: {name}: rows {stride} elements apart, "
+                         f"expected {row.numel()} (packed) or 0 (shared)")
+    return stride
+
+
 def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
-                     r_cut, cells=()):
+                     r_cut, cells=(), lamb=None):
     """Launch K1 or K2 (they take the same arguments, and K2 the home-cell
     range `cells` = (c0, c1) after ncells) over the stencil map `nbr` on
     PyTorch's current stream; returns the per-atom (N + 1, 4)
@@ -310,21 +420,35 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     the exclusion bitmask selects the exclusion-column form; the box's
     shape, (3,) or (3, 3), selects the kernel's minimum image; a table
     form passes the LJ types (as int32) and the (T, T, 4) table, which
-    must be a contiguous tensor on the device in the dtype of x."""
+    must be a contiguous tensor on the device in the dtype of x.
+
+    Over a row axis (x (K, N, 3); see half_pair_plain) one launch sweeps
+    every row on a (blocks, K) grid and returns (K, N + 1, 4). x, the
+    bucket, the box and each per-particle column pass with their row
+    strides: packed rows, or stride 0 where the rows share one array (a
+    (N,) column, or an expanded tensor: the lambda states of one
+    configuration share x and the bucket). The softcore lambda of each
+    row, `lamb` (K,), goes as a device table, a contiguous tensor on the
+    device in the dtype of x; the rest of the parameter block is the
+    host's, shared by the rows."""
     import ctypes
 
-    n = x.shape[0]
-    ncells, cap = bucket.shape
+    single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
+    k, n = x.shape[0], x.shape[1]
+    _, ncells, cap = bucket.shape
     s = nbr.shape[1]
-    q, sig, eps = (per_particle[k].contiguous()
-                   for k in ("charge", "sigma", "epsilon"))
+
+    def rows_of(col):
+        return col.contiguous().expand(k, n) if col.ndim == 1 else col
+
+    q, sig, eps = (rows_of(per_particle[key]) for key in
+                   ("charge", "sigma", "epsilon"))
     table = pair_table_of(form, per_particle)
-    tables = ()
+    types, tables = None, ()
     if table is not None:
-        types = per_particle["lj_type"].to(torch.int32).contiguous()
+        types = rows_of(per_particle["lj_type"].to(torch.int32))
         ntypes = table.shape[0]
-        tables = (("lj_type", types, torch.int32, (n,)),
-                  ("pair_table", table, x.dtype, (ntypes, ntypes, 4)))
+        tables = (("pair_table", table, x.dtype, (ntypes, ntypes, 4)),)
     if spec.excbits is not None:
         exc, m = spec.excbits, 0
         exc_check = ("excbits", exc, torch.int32, (n + 1,))
@@ -335,44 +459,50 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
             raise ValueError(f"{kernel}: {m} exclusion columns per atom, the "
                              f"kernel takes 1..{MAX_EXC}")
         exc_check = ("exclusions", exc, torch.int32, (n, m))
-    tri = int(box.ndim == 2)
-    dev = _checked(kernel,
-                   ("x", x, x.dtype, (n, 3)),
-                   ("charge", q, x.dtype, (n,)),
-                   ("sigma", sig, x.dtype, (n,)),
-                   ("epsilon", eps, x.dtype, (n,)),
-                   exc_check,
-                   ("bucket", bucket, torch.int32, (ncells, cap)),
-                   ("stencil map", nbr, torch.int32, (ncells, s)),
-                   ("box", box, x.dtype, (3, 3) if tri else (3,)), *tables)
-    out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
+    tri = int(box.ndim == 3)
+    lambs = () if lamb is None else (("lamb", lamb, x.dtype, (k,)),)
+    dev = _checked(kernel, ("x", x[0], x.dtype, (n, 3)), exc_check,
+                   ("stencil map", nbr, torch.int32, (ncells, s)), *tables,
+                   *lambs)
+    strides = (ctypes.c_longlong * 7)(*(
+        _row_stride(kernel, name, t, k, shape, dtype, dev)
+        if t is not None else 0 for name, t, shape, dtype in (
+            ("x", x, (n, 3), x.dtype), ("charge", q, (n,), x.dtype),
+            ("sigma", sig, (n,), x.dtype), ("epsilon", eps, (n,), x.dtype),
+            ("lj_type", types, (n,), torch.int32),
+            ("bucket", bucket, (ncells, cap), torch.int32),
+            ("box", box, (3, 3) if tri else (3,), x.dtype))))
+    out = torch.zeros((k, n + 1, 4), dtype=x.dtype, device=dev)
+    _row_stride(kernel, "out", out, k, (n + 1, 4), x.dtype, dev)
     if cells and cells[0] == cells[1]:
-        return out
+        return out[0] if single else out
     scal, flags = _form_block(form, r_cut, x.dtype)
     _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
-            eps.data_ptr(), types.data_ptr() if tables else None,
-            table.data_ptr() if tables else None,
+            eps.data_ptr(), types.data_ptr() if table is not None else None,
+            table.data_ptr() if table is not None else None,
             exc.data_ptr() if m == 0 else None,
             exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
             box.data_ptr(), ncells, *cells, cap, s, n, m, tri,
-            ntypes if tables else 0,
+            ntypes if table is not None else 0, k, ctypes.addressof(strides),
+            None if lamb is None else lamb.data_ptr(),
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    return out[0] if single else out
 
 
-def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut):
+def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,
+                   lamb=None):
     """Launch K1 (see _cell_sweep_cuda) over the half stencil."""
-    cap = bucket.shape[1]
+    cap = bucket.shape[-1]
     if not 1 <= cap <= 1024:
         raise ValueError(f"half_pair: cell capacity {cap} outside the "
                          "kernel's 1..1024 (one thread per home atom)")
     return _cell_sweep_cuda("half_pair", spec.nbr_cells_half, x, per_particle,
-                            bucket, spec, box, form, r_cut)
+                            bucket, spec, box, form, r_cut, lamb=lamb)
 
 
 def full_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,
-                   cells=None):
+                   cells=None, lamb=None):
     """Launch K2 (see _cell_sweep_cuda) over the full stencil; any cell
     capacity. `cells` = (c0, c1) sweeps the home cells c0 ... c1 - 1 only
     (None: all); a range outside [0, ncells] raises ValueError before the
@@ -383,16 +513,17 @@ def full_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,
     could); full_pair_plain takes any layout."""
     return _cell_sweep_cuda("cell_pair", spec.nbr_cells, x, per_particle,
                             bucket, spec, box, form, r_cut,
-                            home_range(cells, bucket.shape[0]))
+                            home_range(cells, bucket.shape[-2]), lamb=lamb)
 
 
 def _sweep_rows(cuda, plain, form, x, box, per_particle, spec, bucket, r_cut,
                 with_forces, **kw):
-    """The per-atom (N + 1, 4) rows: the kernel for a CUDA tensor, the
-    plain twin for a CPU tensor."""
+    """The per-atom (N + 1, 4) rows ((K, N + 1, 4) over a row axis): the
+    kernel for a CUDA tensor, the plain twin for a CPU tensor."""
     if x.is_cuda:
-        return cuda(x.contiguous(), per_particle, bucket, spec,
-                    box.contiguous(), form, r_cut, **kw)
+        if x.ndim == 2:
+            x, box = x.contiguous(), box.contiguous()
+        return cuda(x, per_particle, bucket, spec, box, form, r_cut, **kw)
     return plain(x, per_particle, bucket, spec, box, form, r_cut,
                  with_forces, **kw)
 
@@ -408,25 +539,28 @@ def full_pair_rows(form, x, box, per_particle, spec, bucket, r_cut,
 
 
 def _sweep_energy_forces(cuda, plain, form, x, box, per_particle, spec,
-                         bucket, r_cut, with_forces):
+                         bucket, r_cut, with_forces, lamb):
     out = _sweep_rows(cuda, plain, form, x, box, per_particle, spec, bucket,
-                      r_cut, with_forces)
-    energy = out[:, 3].sum()
-    return energy, (out[:-1, :3] if with_forces else None)
+                      r_cut, with_forces, lamb=lamb)
+    energy = out[..., 3].sum(-1)
+    return energy, (out[..., :-1, :3] if with_forces else None)
 
 
 def half_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
-                            with_forces: bool = True):
+                            with_forces: bool = True, lamb=None):
     """(energy, forces (N, 3) or None) over the half-stencil cell pairs:
-    K1 for a CUDA tensor, its plain twin for a CPU tensor."""
+    K1 for a CUDA tensor, its plain twin for a CPU tensor. Over a row axis
+    (K, N, 3): (K,) energies and (K, N, 3) forces from one launch."""
     return _sweep_energy_forces(half_pair_cuda, half_pair_plain, form, x, box,
-                                per_particle, spec, bucket, r_cut, with_forces)
+                                per_particle, spec, bucket, r_cut, with_forces,
+                                lamb)
 
 
 def full_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
-                            with_forces: bool = True):
+                            with_forces: bool = True, lamb=None):
     """(energy, forces (N, 3) or None) over the full-stencil cell pairs:
-    K2 for a CUDA tensor, its plain twin for a CPU tensor."""
+    K2 for a CUDA tensor, its plain twin for a CPU tensor. Over a row axis
+    (K, N, 3): (K,) energies and (K, N, 3) forces from one launch."""
     return _sweep_energy_forces(full_pair_cuda, full_pair_plain, form, x, box,
-                                per_particle, spec, bucket, r_cut, with_forces)
-
+                                per_particle, spec, bucket, r_cut, with_forces,
+                                lamb)

@@ -63,21 +63,23 @@ def pairlist_energy(
     pairs: torch.Tensor,
     pair_params: Dict[str, torch.Tensor],
     mask: torch.Tensor | None = None,
+    rows: bool = False,
 ) -> torch.Tensor:
     """Sum pair_fn(r, params) over an explicit (P, 2) pair list with
     per-pair parameters, at the minimum image and with no cutoff.
 
     Used for exceptions (atomsmm/forces.py::NonbondedExceptionsForce).
     Padded entries are masked (mask False): pad indices with 0 and
-    parameters with benign values.
+    parameters with benign values. With `rows`, x is a stack (K, N, 3) and
+    box (K, 3) or (K, 3, 3), and the result (K,).
     """
     pairs = pairs.long()
     # index_select: its backward pass is one index_add_
-    dx = minimum_image(torch.index_select(x, 0, pairs[:, 0])
-                       - torch.index_select(x, 0, pairs[:, 1]), box)
+    dx = minimum_image(torch.index_select(x, -2, pairs[:, 0])
+                       - torch.index_select(x, -2, pairs[:, 1]), box, rows)
     r2 = torch.sum(dx * dx, dim=-1)
     if mask is None:
-        return torch.sum(pair_fn(torch.sqrt(r2), pair_params))
+        return torch.sum(pair_fn(torch.sqrt(r2), pair_params), dim=-1)
     r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
     e = pair_fn(r, pair_params)
-    return torch.sum(torch.where(mask, e, torch.zeros_like(e)))
+    return torch.sum(torch.where(mask, e, torch.zeros_like(e)), dim=-1)

@@ -12,6 +12,12 @@ A box is one of two tensors, told apart by its shape:
   exact for reduced cells while the cutoff is at most half the smallest
   perpendicular width (``max_cutoff``).
 
+A stack of K boxes, one per replica or lambda state (a stacked State,
+state.py), is ``(K, 3)`` or ``(K, 3, 3)``; the functions that take one say
+so with ``rows=True``, and broadcast row k's box over row k's entries (the
+leading axis of ``dx`` or ``x``). Row k of such a call is the call on row
+k alone.
+
 Every consumer takes both forms: the dense pair path, bonded terms,
 SETTLE and virtual sites, PME, virials, the cell lists (the grid and
 stencil sized from perpendicular widths, fractional binning) and the cell
@@ -61,31 +67,58 @@ def _inv(box: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(box).inverse
 
 
-def box_volume(box: torch.Tensor) -> torch.Tensor:
-    """Cell volume [nm^3] for either box form."""
-    if box.ndim == 1:
-        return torch.prod(box)
+def _orthorhombic(box: torch.Tensor, rows: bool) -> bool:
+    """The box (a stack of them under `rows`) holds edge lengths."""
+    return box.ndim == (2 if rows else 1)
+
+
+def _over(box: torch.Tensor, like: torch.Tensor, rows: bool):
+    """Edge lengths shaped to broadcast over `like`: under `rows`, row k's
+    (3,) over the entries of row k (like's leading axis)."""
+    if not rows:
+        return box
+    return box.reshape(box.shape[:1] + (1,) * (like.ndim - 2) + (3,))
+
+
+def _fractional(v, box, rows, rounding):
+    """v - rounding(v inv(H)) H for a (3, 3) cell, or under `rows` for
+    row k's cell over row k's entries."""
+    if not rows:
+        return v - torch.matmul(rounding(torch.matmul(v, _inv(box))), box)
+    flat = v.reshape(v.shape[0], -1, 3)
+    s = torch.matmul(flat, _inv(box))
+    return (flat - torch.matmul(rounding(s), box)).reshape(v.shape)
+
+
+def box_volume(box: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """Cell volume [nm^3] for either box form; (K,) for a stack."""
+    if _orthorhombic(box, rows):
+        return torch.prod(box, dim=-1)
     return torch.abs(torch.linalg.det(box))
 
 
-def minimum_image(dx: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
-    """Minimum-image displacement; dx (..., 3), box (3,) or (3, 3).
+def minimum_image(dx: torch.Tensor, box: torch.Tensor,
+                  rows: bool = False) -> torch.Tensor:
+    """Minimum-image displacement; dx (..., 3), box (3,) or (3, 3), or with
+    `rows` a stack (K, 3) or (K, 3, 3) and dx (K, ..., 3).
 
     Orthorhombic: rounds half to even (``torch.round``, like
     ``jnp.round``) and multiplies by the reciprocal box, as the JAX package
     does. Triclinic: rounds in fractional coordinates."""
-    if box.ndim == 1:
-        return dx - box * torch.round(dx * (1.0 / box))
-    s = torch.matmul(dx, _inv(box))
-    return dx - torch.matmul(torch.round(s), box)
+    if _orthorhombic(box, rows):
+        b = _over(box, dx, rows)
+        return dx - b * torch.round(dx * (1.0 / b))
+    return _fractional(dx, box, rows, torch.round)
 
 
-def wrap_positions(x: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
-    """Wrap positions into the primary cell."""
-    if box.ndim == 1:
-        return x - box * torch.floor(x / box)
-    s = torch.matmul(x, _inv(box))
-    return x - torch.matmul(torch.floor(s), box)
+def wrap_positions(x: torch.Tensor, box: torch.Tensor,
+                   rows: bool = False) -> torch.Tensor:
+    """Wrap positions into the primary cell (each row into its own box
+    under `rows`)."""
+    if _orthorhombic(box, rows):
+        b = _over(box, x, rows)
+        return x - b * torch.floor(x / b)
+    return _fractional(x, box, rows, torch.floor)
 
 
 def pair_displacement(xi: torch.Tensor, xj: torch.Tensor, box: torch.Tensor):
@@ -93,20 +126,22 @@ def pair_displacement(xi: torch.Tensor, xj: torch.Tensor, box: torch.Tensor):
     return minimum_image(xi - xj, box)
 
 
-def perp_widths(box: torch.Tensor) -> torch.Tensor:
-    """(3,) perpendicular widths of the cell along each lattice direction.
-    For a vector box these are the edge lengths; for a matrix box
-    d_i = V / |a_j x a_k|, the distance between the two cell faces spanned
-    by the other two lattice vectors. Cell-list sizing and the coverage
-    guards use these: a sheared cell's faces are closer than its edges."""
-    if box.ndim == 1:
+def perp_widths(box: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """(3,) perpendicular widths of the cell along each lattice direction
+    ((K, 3) for a stack). For a vector box these are the edge lengths; for
+    a matrix box d_i = V / |a_j x a_k|, the distance between the two cell
+    faces spanned by the other two lattice vectors. Cell-list sizing and
+    the coverage guards use these: a sheared cell's faces are closer than
+    its edges."""
+    if _orthorhombic(box, rows):
         return box
+    a, b, c = box[..., 0, :], box[..., 1, :], box[..., 2, :]
     areas = torch.stack([
-        torch.linalg.norm(torch.linalg.cross(box[1], box[2])),
-        torch.linalg.norm(torch.linalg.cross(box[2], box[0])),
-        torch.linalg.norm(torch.linalg.cross(box[0], box[1])),
-    ])
-    return box_volume(box) / areas
+        torch.linalg.norm(torch.linalg.cross(b, c), dim=-1),
+        torch.linalg.norm(torch.linalg.cross(c, a), dim=-1),
+        torch.linalg.norm(torch.linalg.cross(a, b), dim=-1),
+    ], dim=-1)
+    return box_volume(box, rows)[..., None] / areas
 
 
 def host_widths(box) -> np.ndarray:

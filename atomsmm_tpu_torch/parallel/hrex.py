@@ -2,15 +2,16 @@
 (HREX) (counterpart of atomsmm_tpu/parallel/hrex.py).
 
 The sequential workflow (alchemy.sample_lambda_states) visits K lambda
-states one after another in one Context. Here the K states run as replicas,
-each with its own globals row (lambda_k) and its own torch.Generator. The
-JAX package steps them as one vmapped batch, sharded over a device mesh
-when one is given; the port steps them one after another (K1 takes one
-system per launch: a replica axis in the kernels waits for ROADMAP item
-4d). Over a device mesh (a 1-D torch.distributed DeviceMesh, one process
-per rank) rank r owns the contiguous block of K / D rows
-(replicas.replica_block) and steps those only; every rank holds the
-shared exchange generator and the ladder.
+states one after another in one Context. Here the K states run as one
+stacked State (state.py), each row with its own globals (lambda_k, a (K,)
+tensor on the device per name) and its own torch.Generator. As in the JAX
+package, where all K step in one vmapped call, a step of the stack is one
+batched step: each pair kernel sweeps every row in one launch over a
+(cells, K) grid (ops/pair_kernel.py). Over a device mesh (a 1-D
+torch.distributed DeviceMesh, one process per rank) rank r owns the
+contiguous block of K / D rows (replicas.replica_block) and steps that
+block in one batched call; every rank holds the shared exchange generator
+and the ladder.
 
 Between sampling chunks, neighbor-swap exchange over alternating even/odd
 pairs (k, k+1):
@@ -18,18 +19,21 @@ pairs (k, k+1):
     P_acc = min(1, exp(-[b_k (U_k(x_{k+1}) - U_k(x_k))
                          + b_{k+1} (U_{k+1}(x_k) - U_{k+1}(x_{k+1}))])).
 
-The energies and the Metropolis test run on the device; the accept mask is
+As in the JAX package the criterion takes three batched energy
+evaluations of K rows each, at the stack and at the stack rolled up and
+down by one row (each row's own globals: U_k(x_k), U_k(x_{k+1}),
+U_k(x_{k-1})); the Metropolis test runs on the device, the accept mask is
 read to the host once per attempt (the counters need it), and an accepted
-swap exchanges the configurations (x, v, box and the `nbr*` / `fcache*`
-extras) between the two rows of the Python list. Over a mesh the attempt
-is the same move: the rows are gathered (replicas.gather_replicas), the
-owner of row k evaluates U_k at both configurations of its pair, one
-all_reduce shares the (P, 4) energies, every rank draws the same uniforms
-from the shared generator and so reads the same accept mask, and each
-rank takes its own rows' new configurations, across a rank boundary too.
-lambda stays with its row and so does the generator, so row k always
-samples state k and the MBAR bookkeeping is unchanged: the swaps only
-decorrelate the chain.
+pair exchanges its configurations (x, v, box and the `nbr*` / `fcache*`
+extras) by one gather of the stack along a permutation. Only the eligible
+pairs of the attempt's parity can accept. Over a mesh the attempt is the
+same move: the block is gathered (replicas.gather_replicas), each rank
+evaluates the three energies of its own rows, one all_reduce shares the
+(3, K) energies, every rank draws the same uniforms from the shared
+generator and so reads the same accept mask, and each rank takes its own
+rows of the permuted stack, across a rank boundary too. lambda stays with
+its row and so does the generator, so row k always samples state k and the
+MBAR bookkeeping is unchanged: the swaps only decorrelate the chain.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..alchemy import _host_lambdas
+from ..alchemy import _host_lambdas, device_globals
 from ..context import advance, raise_on_stale, stale_flags, \
     with_neighbor_lists
 from ..ops.neighbors import make_aux, overflow_flags
@@ -50,6 +54,7 @@ from ..utils import replace
 from .replicas import (
     gather_replicas,
     gather_rows,
+    globals_block,
     replica_block,
     replicate_state,
 )
@@ -68,16 +73,24 @@ def _energy_fn(system):
     return energy_one
 
 
-def _row(globalss, k):
-    """Replica k's globals: {name: its value} from {name: K values}."""
-    return {name: values[k] for name, values in globalss.items()}
+def _take(state, idx):
+    """The stacked State's rows in the order `idx` (a (K,) index tensor):
+    x, v, box and the configuration extras; the other extras stay with
+    their rows."""
+    def take(t):
+        return t.index_select(0, idx)
+
+    extra = {key: take(v) if key.startswith(_CONFIG_PREFIXES) else v
+             for key, v in state.extra.items()}
+    return replace(state, x=take(state.x), v=take(state.v),
+                   box=take(state.box), extra=extra)
 
 
 class HREXSwap:
     """One exchange attempt (make_hrex_swap): call it as
     swap(states, globalss, key, parity) -> (states, n_accept, n_eligible),
-    `states` a list of K States, `globalss` {name: K host values}, `key` a
-    torch.Generator on the states' device and parity 0 for the pairs (0,
+    `states` a stacked State of K rows, `globalss` {name: K values}, `key`
+    a torch.Generator on the states' device and parity 0 for the pairs (0,
     1), (2, 3), ..., 1 for (1, 2), (3, 4), ...
 
     `temperature` is a scalar (Hamiltonian exchange at one T) or a K-long
@@ -93,9 +106,11 @@ class HREXSwap:
         self._energy = _energy_fn(system)
         self.mesh, self.axis = mesh, axis
 
-    def _beta(self, k):
-        t = self.temperature if self.ladder is None else self.ladder[k]
-        return 1.0 / (BOLTZMANN * t)
+    def _betas(self, k, like):
+        """(K,) beta of every row, of like's dtype on its device."""
+        t = ([self.temperature] * k if self.ladder is None
+             else self.ladder)
+        return like.new_tensor([1.0 / (BOLTZMANN * tk) for tk in t])
 
     def _uniforms(self, key, k, like):
         """The attempt's K uniforms in [0, 1), from the generator `key`, of
@@ -104,83 +119,84 @@ class HREXSwap:
         return torch.rand(k, generator=key, dtype=like.dtype,
                           device=like.device)
 
-    def deltas(self, states, globalss, parity):
-        """(pairs, energies, delta) of the eligible pairs (i, i + 1) of this
-        parity: energies (P, 4) rows [U_i(x_i), U_i(x_{i+1}),
-        U_{i+1}(x_{i+1}), U_{i+1}(x_i)], four energy evaluations a pair,
-        and delta (P,) = b_i (U_i(x_{i+1}) - U_i(x_i))
-        + b_{i+1} (U_{i+1}(x_i) - U_{i+1}(x_{i+1})), on the device."""
-        return self._deltas(states, globalss, parity, 0, len(states))
-
-    def _deltas(self, states, globalss, parity, lo, hi):
-        """deltas, the energies U_k evaluated only for the rows k in
-        [lo, hi) (zero for the others) and, over a mesh, summed over the
-        ranks in one all_reduce."""
-        pairs = [(i, i + 1) for i in range(parity, len(states) - 1, 2)]
-        if not pairs:
-            return pairs, None, None
-        zero = states[0].x.new_zeros(())
-
-        def u(row, k):  # U_row(x_k): row's globals at replica k's state
-            if not lo <= row < hi:
-                return zero
-            s = states[k]
-            return self._energy(s.x, s.box, s.extra, _row(globalss, row))
-
-        energies = torch.stack([torch.stack([u(i, i), u(i, j), u(j, j),
-                                             u(j, i)]) for i, j in pairs])
+    def energies(self, states, globalss, lo=0, hi=None):
+        """(3, K) energies of the stacked State `states` under each row's
+        globals: [U_k(x_k), U_k(x_{k+1}), U_k(x_{k-1})] (row indices
+        periodic), three batched evaluations of the rows [lo, hi) (zero
+        outside them) and, over a mesh, summed over the ranks in one
+        all_reduce."""
+        k_states = states.rows
+        hi = k_states if hi is None else hi
+        g = globals_block(device_globals(globalss, states.x), lo, hi)
+        out = states.x.new_zeros((3, k_states))
+        rows = torch.arange(lo, hi, device=states.x.device)
+        for i, shift in enumerate((0, 1, -1)):
+            moved = _take(states, (rows + shift) % k_states)
+            out[i, lo:hi] = self._energy(moved.x, moved.box, moved.extra, g)
         if self.mesh is not None:
             import torch.distributed as dist
 
             from .mesh import mesh_group
 
-            dist.all_reduce(energies,
-                            group=mesh_group(self.mesh, self.axis)[0])
-        b_lo = energies.new_tensor([self._beta(i) for i, _ in pairs])
-        b_hi = energies.new_tensor([self._beta(j) for _, j in pairs])
-        delta = (b_lo * (energies[:, 1] - energies[:, 0])
-                 + b_hi * (energies[:, 3] - energies[:, 2]))
-        return pairs, energies, delta
+            dist.all_reduce(out, group=mesh_group(self.mesh, self.axis)[0])
+        return out
 
-    def _take(self, states, k, j):
-        """Row k (its lambda, generator and other extras) with replica j's
-        configuration."""
-        dst, src = states[k], states[j]
-        if j == k:
-            return dst
-        v = src.v
-        if self.ladder is not None:
-            v = v * math.sqrt(self.ladder[k] / self.ladder[j])
-        extra = {key: src.extra[key] if key.startswith(_CONFIG_PREFIXES)
-                 else value for key, value in dst.extra.items()}
-        return replace(dst, x=src.x, v=v, box=src.box, extra=extra)
+    def _delta(self, energies):
+        """(K,) delta_k = b_k (U_k(x_{k+1}) - U_k(x_k))
+        + b_{k+1} (U_{k+1}(x_k) - U_{k+1}(x_{k+1})) (the last row's wraps
+        and is never eligible)."""
+        e_own, e_up, e_dn = energies
+        beta = self._betas(e_own.shape[0], e_own)
+        return beta * (e_up - e_own) + torch.roll(beta * (e_dn - e_own), -1)
+
+    def deltas(self, states, globalss, parity):
+        """(pairs, energies, delta) of the eligible pairs (i, i + 1) of this
+        parity: energies (P, 4) rows [U_i(x_i), U_i(x_{i+1}),
+        U_{i+1}(x_{i+1}), U_{i+1}(x_i)] and delta (P,), on the device, from
+        the three batched evaluations of `energies`."""
+        pairs = [(i, i + 1) for i in range(parity, states.rows - 1, 2)]
+        if not pairs:
+            return pairs, None, None
+        e = self.energies(states, globalss)
+        lead = torch.tensor([i for i, _ in pairs], device=e.device)
+        energies = torch.stack([e[0, lead], e[1, lead], e[0, lead + 1],
+                                e[2, lead + 1]], dim=1)
+        return pairs, energies, self._delta(e)[lead]
 
     def __call__(self, states, globalss, key, parity):
         """Over a mesh `states` are this rank's rows (replica_block) and so
-        is the list returned."""
+        are the states returned."""
         if self.mesh is None:
-            lo, hi = 0, len(states)
+            full, lo, hi = states, 0, states.rows
         else:
             from .mesh import mesh_group
 
-            k_all = len(states) * mesh_group(self.mesh, self.axis)[1]
+            k_all = states.rows * mesh_group(self.mesh, self.axis)[1]
             lo, hi = replica_block(k_all, self.mesh, self.axis)
-            states = gather_replicas(
-                [states[k - lo] if lo <= k < hi else states[0]
-                 for k in range(k_all)], self.mesh, self.axis)
-        k_states = len(states)
-        pairs, _, delta = self._deltas(states, globalss, parity, lo, hi)
-        r = self._uniforms(key, k_states, states[0].x)
-        if not pairs:
-            return list(states[lo:hi]), 0, 0
-        lead = torch.tensor([i for i, _ in pairs], device=r.device)
-        accepted = (torch.log(r[lead]) < -delta).tolist()  # one host read
+            full = gather_replicas(states, k_all, self.mesh, self.axis)
+        k_states = full.rows
+        eligible = [i for i in range(parity, k_states - 1, 2)]
+        r = self._uniforms(key, k_states, full.x)
+        if not eligible:
+            return states, 0, 0
+        delta = self._delta(self.energies(full, globalss, lo, hi))
+        mask = torch.zeros(k_states, dtype=torch.bool, device=r.device)
+        mask[eligible] = True
+        accepted = (mask & (torch.log(r) < -delta)).tolist()  # one host read
         perm = list(range(k_states))
-        for (i, j), ok in zip(pairs, accepted):
-            if ok:
-                perm[i], perm[j] = j, i
-        return ([self._take(states, k, perm[k]) for k in range(lo, hi)],
-                sum(accepted), len(pairs))
+        for i in eligible:
+            if accepted[i]:
+                perm[i], perm[i + 1] = i + 1, i
+        out = _take(full, torch.tensor(perm, device=r.device))
+        if self.ladder is not None:
+            scale = full.v.new_tensor([math.sqrt(self.ladder[k]
+                                                 / self.ladder[perm[k]])
+                                       for k in range(k_states)])
+            out = replace(out, v=out.v * scale[:, None, None])
+        if self.mesh is not None:
+            out = out.block(lo, hi)
+        return (replace(out, rng=states.rng), sum(accepted),
+                len(eligible))
 
 
 def make_hrex_swap(system, temperature, mesh=None, axis: str = "dp"):
@@ -190,26 +206,26 @@ def make_hrex_swap(system, temperature, mesh=None, axis: str = "dp"):
 
 
 def make_replica_run(system_template, integrator, update_every: int = 1):
-    """run(system, states, globalss, n) -> states: every replica advances n
-    steps under its own globals row, one after another, each through
-    context.advance (a rebuild and a refresh of its force caches under its
-    row, then the steps). update_every = K > 1 groups the rebuilds as
-    Context(neighbor_update_every=K) does, with the sticky staleness flags
-    sampled after every step; HREXSampler.run raises on a tripped flag."""
+    """run(system, states, globalss, n) -> states: the stacked State
+    advances n steps, each row under its own globals ({name: (K,) tensor}),
+    in one batched context.advance (a rebuild of every row's lists and a
+    refresh of the force caches under the rows' globals, then the steps).
+    update_every = K > 1 groups the rebuilds as
+    Context(neighbor_update_every=K) does, with the sticky per-row
+    staleness flags sampled after every step; HREXSampler.run raises on a
+    tripped flag."""
     step_fn = integrator.make_step()
     k_update = max(int(update_every), 1)
 
-    def run(system, states, globalss, n, first: int = 0):
-        """`first`: the row of states[0] (a rank's block over a mesh)."""
-        return [advance(system, step_fn, s, _row(globalss, first + k), n,
-                        k_update)
-                for k, s in enumerate(states)]
+    def run(system, states, globalss, n):
+        return advance(system, step_fn, states, globalss, n, k_update)
 
     return run
 
 
 class HREXSampler:
-    """K lambda states stepping as replicas with periodic exchange moves.
+    """K lambda states stepping as one stacked State with periodic exchange
+    moves.
 
     lambdas: {name: K values}. Velocity Verlet with an Ornstein-Uhlenbeck
     bath (temperature, friction). mesh: a 1-D DeviceMesh whose D ranks
@@ -251,26 +267,28 @@ class HREXSampler:
                 temperature_global=("bath_T" if temperatures is not None
                                     else None)))
         self.neighbor_update_every = max(int(neighbor_update_every), 1)
-        state = with_neighbor_lists(system, make_state(x0, box=box, seed=seed),
-                                    self.neighbor_update_every)
-        state = integ.initialize(system, state)
-        states = replicate_state(state, self.k_states, seed)
+        state = make_state(x0, box=box, seed=seed)
         # an independent Maxwell-Boltzmann draw per replica: one draw tiled
         # over the rows would start the ladder perfectly correlated
         rng = torch.Generator(device=state.x.device)
         rng.manual_seed(seed + 1)
         vs = system.virtual_sites
+        v = []
         for k in range(self.k_states):
-            v = maxwell_boltzmann_velocities(rng, system.masses,
-                                             self.temperature, state.x.dtype)
+            vk = maxwell_boltzmann_velocities(rng, system.masses,
+                                              self.temperature, state.x.dtype)
             if self.temperatures is not None:  # the row's own temperature
-                v = v * math.sqrt(self.temperatures[k] / self.temperature)
+                vk = vk * math.sqrt(self.temperatures[k] / self.temperature)
             if vs is not None:
                 from ..ops.virtual_sites import zero_virtual_velocities
 
-                v = zero_virtual_velocities(vs, v)
-            states[k] = replace(states[k], v=v)
-        self.states = states[slice(*self._block)]
+                vk = zero_virtual_velocities(vs, vk)
+            v.append(vk)
+        states = replace(replicate_state(state, self.k_states, seed),
+                         v=torch.stack(v))
+        states = with_neighbor_lists(system, states,
+                                     self.neighbor_update_every)
+        self.states = integ.initialize(system, states).block(*self._block)
         self._run = make_replica_run(
             system, integ, update_every=self.neighbor_update_every)
         self._swap = make_hrex_swap(
@@ -278,32 +296,47 @@ class HREXSampler:
             else self.temperatures, mesh, axis)
         self._rng = torch.Generator(device=state.x.device)
         self._rng.manual_seed(seed + 2)
+        self._device = {}
         self._last_globalss = None
         self._parity = 0
         self.swap_attempts = 0
         self.swap_accepts = 0
 
     def _globals(self, values: Dict[str, list]):
+        """{name: K host values} of the rows, bath_T included on a
+        temperature ladder."""
         g = _host_lambdas(values)
         if self.temperatures is not None:
             g.setdefault("bath_T", self.temperatures)
         return g
 
+    def _on_device(self, g):
+        """The (K,) device tensors of the host globals `g` in the states'
+        dtype, made once per set of values: a run under the ladder copies
+        nothing to the card, and the kernels read a lambda tensor as their
+        table of the rows' lambdas as it is."""
+        key = tuple((name, tuple(v)) for name, v in sorted(g.items()))
+        if key not in self._device:
+            if len(self._device) > 16:
+                self._device.clear()
+            self._device[key] = device_globals(g, self.states.x)
+        return self._device[key]
+
     def run(self, n_steps: int, globalss=None):
-        """n_steps for every replica under its row of `globalss` (default:
-        the ladder). Raises on any replica's bucket overflow or staleness
-        flag, all read in one sync: replicas have no overflow replay."""
+        """n_steps of every replica under its row of `globalss` (default:
+        the ladder), the stack in one batched advance. Raises on any
+        replica's bucket overflow or staleness flag, all read in one sync:
+        replicas have no overflow replay."""
         g = self._globals(globalss if globalss is not None else self.lambdas)
         self._last_globalss = g
-        self.states = self._run(self.system, self.states, g, n_steps,
-                                self._block[0])
-        keys = list({**overflow_flags(self.states[0].extra),
-                     **stale_flags(self.states[0].extra)})
+        self.states = self._run(self.system, self.states, globals_block(
+            self._on_device(g), *self._block), n_steps)
+        keys = list({**overflow_flags(self.states.extra),
+                     **stale_flags(self.states.extra)})
         if not keys:
             return
-        values = torch.stack([torch.stack([
-            s.extra[key].reshape(()).to(torch.int32) for key in keys])
-            for s in self.states])
+        values = torch.stack([self.states.extra[key].to(torch.int32)
+                              for key in keys], dim=1)   # (rows, keys)
         if self.mesh is not None:  # every rank raises on every rank's flag
             values = gather_rows(values, self.k_states, self.mesh, self.axis)
         bad = [(k, key) for k, row in enumerate(values.tolist())
@@ -334,8 +367,9 @@ class HREXSampler:
         while the replicas were last propagated under other globals than
         the ladder (mid-anneal): the criterion evaluates U at the ladder,
         and the acceptance test would bias the ensemble."""
+        ladder = self._globals(self.lambdas)
         if self._last_globalss is not None:
-            for k, v in self._globals(self.lambdas).items():
+            for k, v in ladder.items():
                 last = self._last_globalss.get(k)
                 if last is None or not np.allclose(last, v):
                     raise RuntimeError(
@@ -344,7 +378,7 @@ class HREXSampler:
                         "anneal (or run at the ladder) before exchanging, or "
                         "the acceptance test biases the sampled ensemble")
         self.states, acc, att = self._swap(
-            self.states, self._globals(self.lambdas), self._rng, self._parity)
+            self.states, self._on_device(ladder), self._rng, self._parity)
         self._parity ^= 1
         self.swap_attempts += att
         self.swap_accepts += acc
@@ -357,10 +391,10 @@ class HREXSampler:
     def positions(self):
         """(K, N, 3) positions of the replicas, row k at state k (over a
         mesh gathered from every rank's rows)."""
-        x = torch.stack([s.x for s in self.states])
         if self.mesh is None:
-            return x
-        return gather_rows(x, self.k_states, self.mesh, self.axis)
+            return self.states.x
+        return gather_rows(self.states.x, self.k_states, self.mesh,
+                           self.axis)
 
 
 def hrex_sample_lambda_states(system, x0, box, lambdas, temperature,

@@ -1,13 +1,16 @@
 """Independent replicas of one system (counterpart of
 atomsmm_tpu/parallel/replicas.py).
 
-The JAX package stacks K states along a leading replica axis and vmaps the
-step over it, sharded over a device mesh. K1 takes one system per launch,
-so here the replicas are a list of States stepped one after another on one
-card (a replica axis in the kernels waits for ROADMAP item 4d). Over a
-device mesh (a 1-D torch.distributed DeviceMesh, one process per rank) rank
-r of D owns the contiguous block of K / D replicas [r K / D, (r + 1) K / D)
-and steps those only; `gather_replicas` fills the other ranks' rows in with
+As in the JAX package the K replicas are one stacked State (state.py):
+x and v (K, N, 3), box (K, 3) or (K, 3, 3), every extra with a leading K,
+and one torch.Generator per row. A replica step is one batched step of the
+whole stack: the forces of all K rows come from one launch of each pair
+kernel over a (cells, K) grid (ops/pair_kernel.py), where the JAX package
+vmaps its step. Row k's generator is seeded from (seed, k), so its stream
+does not depend on K or on the ranks. Over a device mesh (a 1-D
+torch.distributed DeviceMesh, one process per rank) rank r of D owns the
+contiguous block of K / D rows [r K / D, (r + 1) K / D) and steps that block
+in one batched call; `gather_replicas` fills the other ranks' rows in with
 one all_reduce per dtype of the zero-padded stack (all_reduce, which gloo
 takes for CUDA tensors too, where it refuses all_gather).
 
@@ -15,15 +18,13 @@ takes for CUDA tensors too, where it refuses all_gather).
 >>> from atomsmm_tpu_torch.state import make_state
 >>> reps = replicate_state(make_state(torch.zeros(2, 3),
 ...                                   box=torch.ones(3)), 3, seed=5)
->>> len(reps), reps[0].x is reps[1].x
-(3, False)
->>> a, b = (torch.rand(2, generator=r.rng) for r in reps[:2])
+>>> reps.rows, tuple(reps.x.shape), tuple(reps.box.shape)
+(3, (3, 2, 3), (3, 3))
+>>> a, b = (torch.rand(2, generator=g) for g in reps.rng[:2])
 >>> bool((a != b).all())                        # distinct streams
 True
 """
 from __future__ import annotations
-
-from typing import List
 
 import numpy as np
 import torch
@@ -59,53 +60,55 @@ def gather_rows(local, k_states: int, mesh, axis: str = "dp"):
     return full
 
 
+def globals_block(globals, lo: int, hi: int):
+    """The globals of the rows [lo, hi): each (K,) tensor cut to them (the
+    tensor itself where they are all its rows), every other value shared
+    as it is."""
+    def cut(v):
+        if not (isinstance(v, torch.Tensor) and v.ndim == 1):
+            return v
+        return v if (lo, hi) == (0, v.shape[0]) else v[lo:hi]
+
+    return {name: cut(v) for name, v in (globals or {}).items()}
+
+
 def _fields(state):
-    """The tensors of a replica, by name: x, v, box and each extra."""
+    """The tensors of a stacked State, by name: x, v, box and each extra."""
     return {"x": state.x, "v": state.v, "box": state.box,
             **{("extra", k): v for k, v in state.extra.items()}}
 
 
-def gather_replicas(states, mesh, axis: str = "dp"):
-    """The K replicas of `states` with every rank's own block (replica_block)
-    taken from its owner: every tensor of rows outside this rank's block
-    is replaced by the owner's, in one all_reduce per dtype of a zero-padded
-    (K, ...) stack (bool tensors travel as uint8). Each row keeps its own
-    generator, which only its owner advances. Every rank must hold States
-    of the same structure in every row."""
+def gather_replicas(block: State, k_states: int, mesh, axis: str = "dp"):
+    """The K-row stacked State whose rows [lo, hi) (this rank's,
+    replica_block) are `block` and whose other rows are their owners':
+    every tensor gathered in one all_reduce per dtype of a zero-padded
+    (K, ...) stack (bool tensors travel as uint8). It keeps the block's
+    generators and step counter. Every rank must hold a block of the same
+    structure."""
     import torch.distributed as dist
 
     from .mesh import mesh_group
 
     group = mesh_group(mesh, axis)[0]
-    k = len(states)
-    lo, hi = replica_block(k, mesh, axis)
-    template = _fields(states[lo])
+    lo, hi = replica_block(k_states, mesh, axis)
+    fields = _fields(block)
     by_wire = {}
-    for name, t in template.items():
+    for name, t in fields.items():
         wire = torch.uint8 if t.dtype == torch.bool else t.dtype
         by_wire.setdefault(wire, []).append(name)
-    rows = [dict() for _ in range(k)]
-    dev = states[lo].x.device
+    full = {}
     for wire, names in by_wire.items():
-        sizes = [template[nm].numel() for nm in names]
-        buf = torch.zeros((k, sum(sizes)), dtype=wire, device=dev)
-        for i in range(lo, hi):
-            f = _fields(states[i])
-            buf[i] = torch.cat([f[nm].reshape(-1).to(wire) for nm in names])
+        sizes = [fields[nm][0].numel() for nm in names]
+        buf = torch.zeros((k_states, sum(sizes)), dtype=wire,
+                          device=block.x.device)
+        buf[lo:hi] = torch.cat([fields[nm].reshape(hi - lo, -1).to(wire)
+                                for nm in names], dim=1)
         dist.all_reduce(buf, group=group)
-        for i in range(k):
-            for nm, piece in zip(names, buf[i].split(sizes)):
-                rows[i][nm] = piece.view(template[nm].shape).to(
-                    template[nm].dtype)
-    out = []
-    for i, s in enumerate(states):
-        if lo <= i < hi:
-            out.append(s)
-            continue
-        f = rows[i]
-        out.append(replace(s, x=f["x"], v=f["v"], box=f["box"], extra={
-            key: f[("extra", key)] for key in states[lo].extra}))
-    return out
+        for nm, piece in zip(names, buf.split(sizes, dim=1)):
+            t = fields[nm]
+            full[nm] = piece.reshape(k_states, *t.shape[1:]).to(t.dtype)
+    return replace(block, x=full["x"], v=full["v"], box=full["box"],
+                   extra={key: full[("extra", key)] for key in block.extra})
 
 
 def _replica_seed(seed: int, k: int) -> int:
@@ -114,29 +117,39 @@ def _replica_seed(seed: int, k: int) -> int:
         1, np.uint64)[0])
 
 
-def replicate_state(state: State, n: int, seed: int = 0) -> List[State]:
-    """n copies of `state`, each with its own tensors and its own
-    torch.Generator on the state's device, seeded from (seed, k) (where the
-    JAX package folds k into the state's key)."""
+def replica_generators(n: int, seed: int, device):
+    """The n generators of a stack on `device`, row k's seeded from
+    (seed, k) (where the JAX package folds k into the state's key)."""
     out = []
     for k in range(n):
-        rng = torch.Generator(device=state.x.device)
+        rng = torch.Generator(device=device)
         rng.manual_seed(_replica_seed(seed, k))
-        out.append(replace(state, x=state.x.clone(), v=state.v.clone(),
-                           box=state.box.clone(), rng=rng,
-                           extra={key: v.clone()
-                                  for key, v in state.extra.items()}))
-    return out
+        out.append(rng)
+    return tuple(out)
+
+
+def replicate_state(state: State, n: int, seed: int = 0) -> State:
+    """One stacked State of n copies of `state` (JAX's replicate_state):
+    each tensor repeated along a new leading axis, and n generators on the
+    state's device (replica_generators)."""
+    def rep(t):
+        return t.unsqueeze(0).repeat((n,) + (1,) * t.ndim)
+
+    return replace(state, x=rep(state.x), v=rep(state.v), box=rep(state.box),
+                   rng=replica_generators(n, seed, state.x.device),
+                   extra={key: rep(v) for key, v in state.extra.items()})
 
 
 def make_replicated_step(step_fn, mesh=None, axis: str = "dp"):
     """Wrap a single-box step (system, state, globals) -> state into a
-    replica step (system, states, globals) -> states that steps each
-    replica of the list in turn. Over a 1-D DeviceMesh every rank passes
-    the same K replicas, steps its own block of K / D (ValueError unless D
-    divides K; TypeError for another mesh) and returns the list the
-    one-process call returns, the other ranks' rows gathered
-    (gather_replicas)."""
+    replica step (system, states, globals) -> states over a stacked State:
+    one batched call of step_fn on the whole stack (the integrators step a
+    stack as they step one system; globals may hold (K,) per-row values).
+    Over a 1-D DeviceMesh every rank passes the same K replicas, steps its
+    own block of K / D in one call (ValueError unless D divides K;
+    TypeError for another mesh) and returns the stack the one-process call
+    returns, the other ranks' rows gathered (gather_replicas). Each row
+    keeps its own generator, which only its owner advances."""
     if mesh is not None:
         from .mesh import mesh_group
 
@@ -144,10 +157,11 @@ def make_replicated_step(step_fn, mesh=None, axis: str = "dp"):
 
     def step(system, states, globals=None):
         if mesh is None:
-            return [step_fn(system, s, globals) for s in states]
-        lo, hi = replica_block(len(states), mesh, axis)
-        mine = [step_fn(system, s, globals) if lo <= i < hi else s
-                for i, s in enumerate(states)]
-        return gather_replicas(mine, mesh, axis)
+            return step_fn(system, states, globals)
+        lo, hi = replica_block(states.rows, mesh, axis)
+        mine = step_fn(system, states.block(lo, hi),
+                       globals_block(globals, lo, hi))
+        return replace(gather_replicas(mine, states.rows, mesh, axis),
+                       rng=states.rng)
 
     return step

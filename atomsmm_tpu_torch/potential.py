@@ -8,6 +8,14 @@ autograd. A marker force (`inert`, the MonteCarloBarostat) adds nothing and
 is skipped by the evaluators a step runs. A system with virtual sites is
 evaluated at the placed coordinates (ops/virtual_sites.py), and its forces
 are pulled back onto the parent atoms.
+
+`potential_energy` and `force_fn` take a stack of K systems as well (x
+(K, N, 3), box (K, 3) or (K, 3, 3), globals shared or (K,) per row, aux
+with (K, ncells, cap) buckets; any of them may be an expanded tensor whose
+rows share one array): they return (K,) energies and (K, N, 3) forces, each
+force's rows from its `energy_rows` / `energy_and_forces_rows`
+(forces.py), one batched evaluation where the force has one. A system with
+virtual sites evaluates a stack row by row.
 """
 from __future__ import annotations
 
@@ -28,8 +36,20 @@ def _resolve_x(system, x):
 
 def potential_energy(system, x, box, globals=None,
                      groups: Optional[Iterable[int]] = None, aux=None):
-    """Total potential energy, optionally restricted to a set of force groups."""
+    """Total potential energy, optionally restricted to a set of force
+    groups; (K,) over a stack (x (K, N, 3))."""
     globals = globals or {}
+    if x.ndim == 3:
+        if getattr(system, "virtual_sites", None) is not None:
+            from .forces import _in_turn
+
+            return _in_turn(lambda *a: potential_energy(
+                system, *a[:3], groups, a[3]), x, box, globals, aux)[0]
+        total = x.new_zeros(x.shape[:1])
+        for f in system.forces:
+            if not f.inert and (groups is None or f.group in groups):
+                total = total + f.energy_rows(x, box, globals, aux)
+        return total
     x = _resolve_x(system, x)
     total = torch.zeros((), dtype=x.dtype, device=x.device)
     for f in system.forces:
@@ -55,7 +75,8 @@ def force_fn(system, groups: Optional[Iterable[int]] = None):
     and pulled back through the placement's vector-Jacobian product: the
     chain-rule redistribution onto the parent atoms, with the virtual rows
     exactly zero. A group set that holds no force gives zero energy and
-    zero forces.
+    zero forces. Over a stack (x (K, N, 3)) it returns (K,) energies and
+    (K, N, 3) forces, each force's rows from energy_and_forces_rows.
     """
     groups = None if groups is None else frozenset(groups)
     selected = [f for f in system.forces
@@ -64,6 +85,18 @@ def force_fn(system, groups: Optional[Iterable[int]] = None):
 
     def f(x, box, globals=None, aux=None):
         globals = globals or {}
+        if x.ndim == 3:
+            if vs is not None:
+                from .forces import _in_turn
+
+                return _in_turn(f, x, box, globals, aux)
+            e_total = x.new_zeros(x.shape[:1])
+            f_total = torch.zeros_like(x)
+            for force in selected:
+                e, fr = force.energy_and_forces_rows(x, box, globals, aux)
+                e_total = e_total + e
+                f_total = f_total + fr
+            return e_total, f_total
         x_eval = _resolve_x(system, x)
         e_total = torch.zeros((), dtype=x.dtype, device=x.device)
         f_total = torch.zeros_like(x)

@@ -6,6 +6,13 @@ held a key), the outer-step counter and a dict of extended variables
 (thermostat chains, force caches, neighbor buckets). Tensors live on the
 device of the positions.
 
+A stacked State holds K systems along a leading axis, as the JAX package
+stacks its replicas: x and v (K, N, 3), box (K, 3) or (K, 3, 3), every
+extra with a leading K (a neighbor bucket (K, ncells, cap), a flag (K,)),
+and `rng` a tuple of K generators, one per row. `stack_states` builds one
+from K single States and `State.row(k)` takes row k back; the step counter
+is shared.
+
 Examples:
 
 >>> import torch
@@ -18,6 +25,13 @@ Examples:
 >>> v = maxwell_boltzmann_velocities(torch.Generator().manual_seed(0), masses, 300.0)
 >>> tuple(v.shape)
 (4, 3)
+>>> stack_states([s, s.with_extra(nhc_v=torch.zeros(2))])
+Traceback (most recent call last):
+...
+ValueError: stack_states: the rows hold different extras
+>>> st = stack_states([s, s])
+>>> st.rows, tuple(st.x.shape), tuple(st.row(1).box.shape)
+(2, (2, 4, 3), (3,))
 """
 from __future__ import annotations
 
@@ -39,9 +53,11 @@ class State:
       v:    (N, 3) velocities [nm/ps]
       box:  (3,) orthorhombic box lengths, or the (3, 3) reduced triclinic
             cell matrix (rows = lattice vectors) [nm], see ops/pbc.py
-      rng:  torch.Generator on the device of x
+      rng:  torch.Generator on the device of x (a tuple of K for a stack)
       step: outer-step counter
       extra: dict of named extended variables (tensors)
+
+    A stacked State (module docstring) has x (K, N, 3).
     """
 
     x: torch.Tensor
@@ -53,7 +69,26 @@ class State:
 
     @property
     def num_particles(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
+
+    @property
+    def rows(self):
+        """K for a stacked State, None for a single system."""
+        return self.x.shape[0] if self.x.ndim == 3 else None
+
+    def block(self, lo: int, hi: int) -> "State":
+        """The rows [lo, hi) of a stacked State, a stacked State that
+        shares their tensors (views) and their generators."""
+        return State(x=self.x[lo:hi], v=self.v[lo:hi], box=self.box[lo:hi],
+                     rng=tuple(self.rng[lo:hi]), step=self.step,
+                     extra={key: v[lo:hi] for key, v in self.extra.items()})
+
+    def row(self, k: int) -> "State":
+        """Row k of a stacked State, a single-system State that shares its
+        tensors (views) and its generator."""
+        return State(x=self.x[k], v=self.v[k], box=self.box[k],
+                     rng=self.rng[k], step=self.step,
+                     extra={key: v[k] for key, v in self.extra.items()})
 
     def with_extra(self, **kv):
         extra = dict(self.extra)
@@ -82,9 +117,27 @@ def make_state(x, v=None, box=None, seed: int = 0, extra=None) -> State:
     return State(x=x, v=v, box=box, rng=rng, step=0, extra=dict(extra or {}))
 
 
+def stack_states(states) -> State:
+    """One stacked State from K single States of one system: their
+    tensors stacked along a new leading axis, their generators as the
+    tuple `rng`, the first one's step counter. Raises ValueError unless
+    every row holds the same extras."""
+    states = list(states)
+    keys = list(states[0].extra)
+    if any(list(s.extra) != keys for s in states):
+        raise ValueError("stack_states: the rows hold different extras")
+    return State(x=torch.stack([s.x for s in states]),
+                 v=torch.stack([s.v for s in states]),
+                 box=torch.stack([s.box for s in states]),
+                 rng=tuple(s.rng for s in states), step=states[0].step,
+                 extra={key: torch.stack([s.extra[key] for s in states])
+                        for key in keys})
+
+
 def kinetic_energy(masses: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Total kinetic energy [kJ/mol]; masses (N,) [amu], v (N,3) [nm/ps]."""
-    return 0.5 * torch.sum(masses[:, None] * v * v)
+    """Total kinetic energy [kJ/mol]; masses (N,) [amu], v (N,3) [nm/ps];
+    (K,) for a stack of velocities (K, N, 3)."""
+    return 0.5 * torch.sum(masses[:, None] * v * v, dim=(-2, -1))
 
 
 def instantaneous_temperature(masses, v, dof: int) -> torch.Tensor:

@@ -1983,8 +1983,11 @@ def phase_slice_alchemy(dev):
 
 def phase_alchemy(dev, evals=50, k_states=16):
     """Path (e): BASELINE config 3 at bench_alchemy's shape, float32. The
-    multi-state evaluation (16 states, lambda_vdw = lambda_coul), timed
-    over `evals` rows; then a short solvation free energy on
+    multi-state evaluation (16 states, lambda_vdw = lambda_coul, one
+    batched evaluation of 16 rows that share x and the bucket: one K1
+    launch per pair force a row of states), timed over `evals` rows, then
+    K1 and K2 over those 16 stride-0 rows against their twin and their
+    single-row launches, and timed; then a short solvation free energy on
     coupling_path(linspace(0, 1, 4)) (n_equil 100, 8 samples 10 steps
     apart, velocity Verlet + OU at 300 K, 5/ps) from a configuration
     melted at the coupled state, with the temperature of each state, MBAR
@@ -2020,19 +2023,30 @@ def phase_alchemy(dev, evals=50, k_states=16):
     wall = time.perf_counter() - t0
     row_launches = dict(pk.LAUNCHES)
     rows_per_s = evals / wall
-    expected = {"half_pair": 3 * k_states * evals, "cell_pair": 0,
-                "tile_pair": 0}
+    expected = {"half_pair": 3 * evals, "cell_pair": 0, "tile_pair": 0}
     log(f"path (e) phenol+1000w ({n} atoms, box {float(box[0]):.3f} nm, grid "
         f"{spec.grid} cap {spec.cell_capacity}) x {k_states} states float32 "
         f"multistate_energies: {rows_per_s:.3f} K-state rows/s "
         f"({rows_per_s * k_states:.1f} state-energies/s, "
         f"{wall / evals * 1e3:.3f} ms a row) on {smi_line()}; launches "
         f"{row_launches} (expected {expected}: the scaled NonbondedForce, "
-        f"the softcore force and the solute-solute term, one K1 sweep each "
-        f"per state); energies "
+        f"the softcore force and the solute-solute term, one batched K1 "
+        f"launch each over the {k_states} states of a row); energies "
         f"{float(rows[0]):.4f} .. {float(rows[-1]):.4f} kJ/mol")
     if not (row_launches == expected and bool(torch.isfinite(rows).all())):
         raise RuntimeError("path (e) multi-state evaluation failed")
+    # K1 and K2 over the 16 lambda rows of one configuration: x, the box
+    # and the bucket shared (stride 0), the lambdas and charge columns per
+    # row; not counted on any path
+    g_rows = alchemy.device_globals(lambdas, x)
+    shared = (x.expand(k_states, *x.shape), box.expand(k_states, 3),
+              aux["default"]["bucket"].expand(k_states,
+                                              *aux["default"]["bucket"].shape))
+    kernel_checks = phase_kernels_replica(
+        dev, f"path (e) 16 lambda states, x shared, grid 3^3 cap "
+        f"{spec.cell_capacity}", solv, *shared, g_rows)
+    row_timings = time_rows(f"path (e) 16 lambda states x shared cap "
+                            f"{spec.cell_capacity}", solv, *shared, g_rows)
 
     # melt the builder lattice at the coupled state (velocity Verlet + OU,
     # the sampler's integrator), rescaling to 300 K after each chunk; the
@@ -2147,6 +2161,7 @@ def phase_alchemy(dev, evals=50, k_states=16):
         f"{abs(d32 - d64):.5f} kJ/mol; block error of TI "
         f"{out['err_ti']:.4f} kJ/mol")
     return {"rows_per_s": rows_per_s, "row_launches": row_launches,
+            "kernel_checks": kernel_checks, "row_timings": row_timings,
             "md_launches": md_launches, "md_ms": md_ms, "solv": run,
             "x": x_melt, "box": box, "sampled0": sampled[0], "parts": parts,
             "out": out, "temps": t_mean, "ti_f32_err": abs(d32 - d64)}
@@ -3579,6 +3594,279 @@ def phase_swm4_timings(dev, h1, h2):
     return out
 
 
+# --------------------------------------------------------------------------
+# The replica axis: K1 and K2 over a stack of rows (paths (i) and (e))
+# --------------------------------------------------------------------------
+
+
+def rows_pair_forces(system):
+    """The forces of `system` that sweep a built-in pair form on the cells
+    (for a SolvationSystem: the scaled NonbondedForce, the softcore force
+    and the solute-solute term), in force order."""
+    return [f for f in system.forces
+            if hasattr(f, "_rows_form") and hasattr(f, "_pair_form")]
+
+
+def row_of(pp, k_rows, r):
+    """Row r's per-particle columns: (K, N) columns cut to row r."""
+    return {key: v[r] if v.ndim == 2 and v.shape[0] == k_rows
+            and key != "pair_table" else v for key, v in pp.items()}
+
+
+def cast_rows(t, dtype):
+    """t in dtype, a stride-0 (shared) stack kept shared."""
+    if t.dtype == dtype:
+        return t
+    if t.ndim and t.stride(0) == 0:
+        return t[0].to(dtype).expand_as(t)
+    return t.to(dtype)
+
+
+def judge_rows(label, kernel, dtype, out, ref, terms, results, name):
+    """Every row of a batched kernel output (K, N + 1, 4) against the
+    float64 twin's rows at the tolerances of `dtype`: the energy relative
+    to |E| of the row (to sum |e_i| with `terms`), the forces to max|F|
+    of the row. Logs the worst row, raises on any row out of tolerance,
+    appends one result."""
+    import torch
+
+    rtol, ftol = ((F64_RTOL, F64_FTOL) if dtype == torch.float64
+                  else (F32_RTOL, F32_FTOL))
+    worst, score = (0.0, 0.0, 0.0, 0), -1.0
+    ok = bool(torch.isfinite(out).all())
+    for r in range(out.shape[0]):
+        e_p = float(ref[r, :, 3].sum())
+        scale = float(ref[r, :, 3].abs().sum()) if terms else abs(e_p)
+        e_err = abs(float(out[r, :, 3].double().sum()) - e_p) \
+            / max(scale, 1e-300)
+        f_max = float(ref[r, :-1, :3].abs().max())
+        f_err = float((out[r, :-1, :3].double() - ref[r, :-1, :3]).abs()
+                      .max())
+        ok &= e_err <= rtol and f_err <= ftol * f_max
+        row_score = e_err / rtol + f_err / (ftol * max(f_max, 1e-300))
+        if row_score > score:
+            worst, score = (e_err, f_err, f_max, r), row_score
+    log(f"kernel {kernel} {label} {str(dtype)[6:]}, {out.shape[0]} rows in "
+        f"one launch: worst row {worst[3]}: E rel {worst[0]:.2e} (tol "
+        f"{rtol:g}{' of sum|e_i|' if terms else ''}), max|dF| "
+        f"{worst[1]:.3e} of max|F| {worst[2]:.4g} (tol {ftol:g}x)")
+    if not ok:
+        raise RuntimeError(f"batched kernel disagrees with its twin: "
+                           f"{kernel} {label}")
+    results.append((kernel, label, str(dtype)[6:], worst[0], worst[1],
+                    worst[2], name))
+
+
+def phase_kernels_replica(dev, tag, system, xs, boxes, buckets, globals):
+    """K1 and K2 over the K rows of a stack, at one grid: for each pair
+    force of `system` (rows_pair_forces) one batched launch of each kernel
+    (K2 on the same grid's full stencil) in float64 and float32 against
+    the batched float64 plain twin (judge_rows), and each row of the
+    launch against the single-row launch of that row: K2's bit for bit,
+    K1's within the same tolerances (its atomics add in another order from
+    launch to launch). xs, boxes and buckets may be stride-0 stacks (the
+    lambda states of one configuration); `globals` holds the rows' (K,)
+    lambdas. The launches here are not counted on any path. Returns the
+    results."""
+    import dataclasses
+
+    import torch
+
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    results = []
+    k_rows = xs.shape[0]
+    half = system.neighbors
+    full = dataclasses.replace(half, half_stencil=False)
+    f64 = torch.float64
+    for force in rows_pair_forces(system):
+        form, lamb = force._rows_form(globals)
+        pp = force._per_particle(globals)
+        terms = force is not system.forces[0]
+        what = f"{tag} {type(force).__name__}" \
+            f"{'#2' if terms and not form.softcore else ''}"
+        for spec, kernel, cuda_fn, plain in (
+                (half, "half_pair", pk.half_pair_cuda, pk.half_pair_plain),
+                (full, "cell_pair", pk.full_pair_cuda, pk.full_pair_plain)):
+            ref = plain(cast_rows(xs, f64), {
+                key: cast_rows(v, f64) if v.is_floating_point() else v
+                for key, v in pp.items()}, buckets, spec,
+                cast_rows(boxes, f64), form, form.r_cut,
+                lamb=None if lamb is None else lamb.to(f64))
+            for dtype in (f64, torch.float32):
+                xd, bd = cast_rows(xs, dtype), cast_rows(boxes, dtype)
+                ppd = {key: cast_rows(v, dtype) if v.is_floating_point()
+                       else v for key, v in pp.items()}
+                out = cuda_fn(xd, ppd, buckets, spec, bd, form, form.r_cut,
+                              lamb=None if lamb is None else lamb.to(dtype))
+                torch.cuda.synchronize()
+                judge_rows(what, kernel, dtype, out, ref, terms, results,
+                           form_name(form))
+                rtol, ftol = ((F64_RTOL, F64_FTOL) if dtype == f64
+                              else (F32_RTOL, F32_FTOL))
+                for r in range(k_rows):
+                    form_r = form if lamb is None else dataclasses.replace(
+                        form, lamb=float(lamb[r]))
+                    one = cuda_fn(xd[r].contiguous(), row_of(ppd, k_rows, r),
+                                  buckets[r].contiguous(), spec,
+                                  bd[r].contiguous(), form_r, form.r_cut)
+                    if kernel == "cell_pair":
+                        same = torch.equal(out[r], one)
+                    else:
+                        e_scale = float(one[:, 3].abs().sum()) if terms \
+                            else abs(float(one[:, 3].sum()))
+                        same = (abs(float(out[r, :, 3].double().sum()
+                                          - one[:, 3].double().sum()))
+                                <= rtol * max(e_scale, 1e-300)
+                                and float((out[r, :-1, :3] - one[:-1, :3])
+                                          .abs().max()) <= ftol * float(
+                                    one[:-1, :3].abs().max()))
+                    if not same:
+                        raise RuntimeError(
+                            f"{kernel} {what} {str(dtype)[6:]}: row {r} of "
+                            f"the batched launch departs from its "
+                            f"single-row launch")
+                log(f"kernel {kernel} {what} {str(dtype)[6:]}: each of the "
+                    f"{k_rows} rows equals its single-row launch "
+                    f"{'bit for bit' if kernel == 'cell_pair' else 'within the tolerances'}")
+    return results
+
+
+def phase_rows_at_headline(dev, eq, k_rows=2):
+    """The K = 1 launch (the single-system path every Context takes)
+    against the rows of a batched launch at the 30k headline's far grid
+    (7^3 cap 112, the fused far form, float32): K rows of the same state,
+    x and the bucket shared (stride 0). K2 (on the grid's full stencil):
+    each row bit for bit the K = 1 launch. K1: each row within 4 times
+    the K = 1 launch's own run-to-run spread (its atomics; three launches,
+    floored at 1e-7 of max|F| and of sum|e_i|). `k1_ab/k1_outputs.py`
+    holds the same K = 1 rows against another version of the package."""
+    import dataclasses
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f32 = torch.float32
+    ex, _, ebox = eq
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=f32, device=dev)
+    s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f32,
+                           device=dev)
+    r = nb.retune_neighbor_specs(amm.RESPASystem(s, 0.5, 0.4), ex, ebox,
+                                 safety=1.03)
+    force, spec = r.forces[2], r.neighbors
+    form, pp = force._pair_form(), force._per_particle()
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    rows = (x.expand(k_rows, *x.shape), pp, bucket.expand(k_rows,
+                                                          *bucket.shape))
+    report = {}
+    for kernel, cuda_fn, kspec in (
+            ("half_pair", pk.half_pair_cuda, spec),
+            ("cell_pair", pk.full_pair_cuda,
+             dataclasses.replace(spec, half_stencil=False))):
+        singles = [cuda_fn(x, pp, bucket, kspec, box, form, form.r_cut)
+                   for _ in range(3)]
+        out = cuda_fn(rows[0], pp, rows[2], kspec, box.expand(k_rows, 3),
+                      form, form.r_cut)
+        torch.cuda.synchronize()
+        f_max = float(singles[0][:-1, :3].abs().max())
+        e_terms = float(singles[0][:, 3].abs().sum())
+
+        def gap(a, b):
+            return (float((a[:-1, :3] - b[:-1, :3]).abs().max()) / f_max,
+                    abs(float(a[:, 3].double().sum() - b[:, 3].double()
+                              .sum())) / e_terms)
+
+        spread = [max(gap(a, b)[i] for a in singles for b in singles)
+                  for i in (0, 1)]
+        worst = [max(gap(out[k], singles[0])[i] for k in range(k_rows))
+                 for i in (0, 1)]
+        if kernel == "cell_pair":
+            ok = all(torch.equal(out[k], singles[0]) for k in range(k_rows))
+        else:
+            ok = all(w <= 4.0 * max(sp, 1e-7) for w, sp in zip(worst, spread))
+        log(f"K = 1 vs batched rows, {kernel} water30k far grid "
+            f"{spec.grid} cap {spec.cell_capacity} float32: {k_rows} "
+            f"stride-0 rows against the K = 1 launch, forces "
+            f"{worst[0]:.3e} of max|F|, energy {worst[1]:.3e} of sum|e_i|; "
+            f"the K = 1 launch's own spread over 3 launches {spread[0]:.3e}, "
+            f"{spread[1]:.3e}; "
+            f"{'bit for bit' if kernel == 'cell_pair' and ok else ''}")
+        if not ok:
+            raise RuntimeError(f"{kernel}: the batched rows depart from the "
+                               "K = 1 launch at the headline's far grid")
+        report[kernel] = {"rows_vs_k1": worst, "k1_spread": spread}
+    return report
+
+
+def time_rows(label, system, xs, boxes, buckets, globals, plain_reps=2):
+    """The batched launch of K1 and K2 (the same grid's full stencil) over
+    the K rows of a stack, in the form of the scaled NonbondedForce (the
+    first force): the launch wrapper (zero fill and kernel) by CUDA events
+    over 20 calls, the plain float32 twin by CUDA events, the single-row
+    launch of row 0 (the kernel at K = 1) beside it, and the bound: K
+    times each row's distinct in-range pairs (sweep_counts), the bytes each
+    input is read (a stride-0 input once) and the (K, N + 1, 4) output
+    written. CUDA events, not torch.profiler: with these reads added, the
+    profiler lost most device events of path (k)'s later reads in two runs
+    out of two (PERF.md §6)."""
+    import dataclasses
+
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    force = system.forces[0]
+    form, lamb = force._rows_form(globals)
+    if lamb is not None:  # the kernels' table of lambdas: the dtype of x
+        lamb = lamb.to(xs.dtype)
+    pp = force._per_particle(globals)
+    k_rows, n = xs.shape[0], xs.shape[1]
+    out = {}
+    half = system.neighbors
+    for spec, kernel, cuda_fn, plain, nbr in (
+            (half, "half_pair", pk.half_pair_cuda, pk.half_pair_plain,
+             half.nbr_cells_half),
+            (dataclasses.replace(half, half_stencil=False), "cell_pair",
+             pk.full_pair_cuda, pk.full_pair_plain, half.nbr_cells)):
+        args = (xs, pp, buckets, spec, boxes, form, form.r_cut)
+        k_ms = time_cuda(lambda: cuda_fn(*args, lamb=lamb), 20)
+        one = (xs[0].contiguous(), row_of(pp, k_rows, 0),
+               buckets[0].contiguous(), spec, boxes[0].contiguous(), form,
+               form.r_cut)
+        k1_ms = time_cuda(lambda: cuda_fn(*one), 20)
+        p_ms = time_cuda(lambda: plain(*args, lamb=lamb), plain_reps)
+        pairs = near = slots = 0
+        for r in range(k_rows):
+            c = sweep_counts(spec, form, xs[r], boxes[r], row_of(pp, k_rows,
+                                                                 r),
+                             buckets[r])
+            pairs, near, slots = (pairs + c["pairs"], near + c["near_pairs"],
+                                  slots + c["slots"])
+
+        def once(t):
+            return t[0] if t.ndim and t.stride(0) == 0 else t
+
+        exc = spec.excbits if spec.excbits is not None else spec.exclusions
+        b = bound(form, pairs, near, slots, nbytes(
+            once(xs), once(pp["charge"]), pp["sigma"], pp["epsilon"], exc,
+            once(buckets), nbr, once(boxes))
+            + k_rows * (n + 1) * 4 * xs.element_size())
+        log(f"timing {kernel} {label} grid {spec.grid} cap "
+            f"{spec.cell_capacity}, {k_rows} rows in one launch "
+            f"({form_name(form)}, float32): launch {k_ms:.4f} ms by CUDA "
+            f"events ({k_ms / k_rows:.4f} ms a row); the single-row launch "
+            f"of row 0 {k1_ms:.4f} ms; plain float32 twin over the rows "
+            f"{p_ms:.3f} ms; {pairs} distinct in-range pairs over the rows; "
+            f"bound {b['ms'] * 1e3:.2f} us by {b['by']} ({b['ms'] / k_ms:.1%} "
+            f"of the bound)")
+        out[kernel] = {"ms": k_ms, "k1_ms": k1_ms, "plain_ms": p_ms,
+                       "bound": b, "rows": k_rows, "pairs": pairs}
+    return out
+
+
 def swap_eligible(k_states, parity):
     """Pairs (i, i + 1) an exchange attempt of this parity tries."""
     return len(range(parity, k_states - 1, 2))
@@ -3595,20 +3883,24 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
     steps; then HREXSampler(neighbor_update_every=5, seed=3) runs one warm
     chunk and swap, then `reps` chunks of `chunk` steps, each followed by
     attempt_swaps(), timed with CUDA events (replica steps and swaps
-    apart). Checks: no staleness or overflow flag in any replica (run()
-    raises), each row's mean T 260-340 K, the attempts exactly the
+    apart). The 16 replicas are one stacked State: a step of the stack is
+    one batched step. Checks: no staleness or overflow flag in any replica
+    (run() raises), each row's mean T 260-340 K, the attempts exactly the
     eligible pairs, the acceptance in [0, 1], K1's launches exactly as
-    derived: 3 a replica step (the scaled NonbondedForce, the softcore
-    force, the solute-solute term), 3 a replica at each run() (its force
-    caches under its row), 3 for each of the 4 energies of an eligible
-    pair in a swap. Then K1 is held against its plain twin (compare) at
-    path (i)'s own bucket, at the replicas of lambda 0 and 1 and those
-    of the lambda_vdw and the lambda_coul nearest 0.5, in the three forms
-    a replica step sweeps."""
+    derived: 3 a step of the whole stack (one batched launch each for the
+    scaled NonbondedForce, the softcore force and the solute-solute term),
+    3 at each run() (the force caches under the rows' globals), 9 a swap
+    (three batched energies of the stack, as the JAX package takes them),
+    and one bucket build a rebuild of the stack. The batched step is split
+    by part (the sweeps, group 0, the OU draws, the rebuild; the rest the
+    integrator's own operations), each timed alone with a synchronise
+    after every call. Then K1 and K2 over the 16 rows at (i)'s own bucket
+    (phase_kernels_replica) and their batched times (time_rows)."""
     import torch
 
     import atomsmm_tpu_torch as amm
     from atomsmm_tpu_torch.alchemy import coupling_path
+    from atomsmm_tpu_torch.integrate.propagators import _normal
     from atomsmm_tpu_torch.models import phenol_in_water
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
@@ -3665,6 +3957,9 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
 
     sampler = HREXSampler(run_sys, xw, box, lams, temp, dt=0.001, seed=3,
                           neighbor_update_every=update_every)
+    if sampler.states.rows != k_states:
+        raise RuntimeError("path (i): the sampler's states are not one "
+                           f"stack of {k_states} rows")
     sampler.run(chunk)
     sampler.attempt_swaps()
     torch.cuda.synchronize()
@@ -3693,24 +3988,39 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
             torch.cuda.synchronize()
             run_ms.append(ev[0].elapsed_time(ev[1]))
             swap_ms.append(ev[1].elapsed_time(ev[2]))
-            t_rows.append(torch.stack([
-                2.0 * kinetic_energy(masses, s.v) / (dof * BOLTZMANN)
-                for s in sampler.states]))
+            t_rows.append(2.0 * kinetic_energy(masses, sampler.states.v)
+                          / (dof * BOLTZMANN))
     finally:
         nb.build_cell_buckets = real_build
     launches = dict(pk.LAUNCHES)
-    expected = {"half_pair": reps * k_states * 3 * (chunk + 1)
-                + 3 * 4 * eligible, "cell_pair": 0, "tile_pair": 0}
-    rebuilds_derived = reps * k_states * (1 + chunk // update_every
-                                          + chunk % update_every)
+    expected = {"half_pair": reps * (3 * (chunk + 1) + 9), "cell_pair": 0,
+                "tile_pair": 0}
+    rebuilds_derived = reps * (1 + chunk // update_every
+                               + chunk % update_every)
     t_mean = torch.stack(t_rows).mean(0).tolist()
     total_s = (sum(run_ms) + sum(swap_ms)) / 1e3
     batch = k_states * steps / total_s
     att, acc = sampler.swap_attempts - att0, sampler.swap_accepts - acc0
-    step_ms = sum(run_ms) / (reps * k_states * chunk)
+    step_ms = sum(run_ms) / (reps * chunk)  # a batched step of all rows
+    st = sampler.states
+    g = sampler._on_device(sampler._globals(sampler.lambdas))
+    aux = nb.make_aux(run_sys, st.extra)
+    pair = rows_pair_forces(run_sys)
+    group0 = [f for f in run_sys.forces
+              if not f.inert and not any(f is p for p in pair)]
+    split = {
+        "K1 sweeps (3 batched launches)": wall_ms(lambda: [
+            f.energy_and_forces_rows(st.x, st.box, g, aux) for f in pair]),
+        "group 0 (bonded, exceptions; autograd over the stack)": wall_ms(
+            lambda: [f.energy_and_forces_rows(st.x, st.box, g, aux)
+                     for f in group0]),
+        f"OU draws ({k_states} generator launches)": wall_ms(
+            lambda: _normal(st.rng, st.v)),
+    }
     rebuild_ms = wall_ms(lambda: nb.update_all_neighbors(
-        run_sys, sampler.states[0].extra, sampler.states[0].x, box,
-        force=True))
+        run_sys, st.extra, st.x, st.box, force=True))
+    split[f"rebuild of the stack / {update_every}"] = \
+        rebuild_ms / update_every
     log(f"path (i) HREX phenol+1000w ({run_sys.num_particles} atoms, grid "
         f"{spec.grid} cap {run_sys.neighbors.cell_capacity}, skin "
         f"{spec.skin:.3f} nm) x {k_states} states, neighbor_update_every "
@@ -3721,15 +4031,22 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
         f"{seq[1]:.2f} at K = 1 (host clock, {steps} steps); batch / "
         f"sequential {batch / seq[update_every]:.4f} (K = {update_every}), "
         f"K = {update_every} / K = 1 {seq[update_every] / seq[1]:.4f}")
-    log(f"path (i) split: replica steps {sum(run_ms):.3f} ms "
-        f"({step_ms:.4f} ms a replica step, {run_ms}), swaps "
+    log(f"path (i) split: batched steps {sum(run_ms):.3f} ms "
+        f"({step_ms:.4f} ms a step of the {k_states}-row stack, "
+        f"{step_ms / k_states:.4f} ms a replica step, {run_ms}), swaps "
         f"{sum(swap_ms):.3f} ms ({sum(swap_ms) / reps:.3f} ms an attempt, "
         f"{swap_ms}; {100 * sum(swap_ms) / (sum(run_ms) + sum(swap_ms)):.2f}"
-        f"% of the run), rebuilds {rebuilds[0] / k_states:.1f} a replica "
-        f"(derived {rebuilds_derived / k_states:.1f}) at {rebuild_ms:.4f} "
-        f"ms each (one synchronised, host clock) = "
+        f"% of the run), stack rebuilds {rebuilds[0]} (derived "
+        f"{rebuilds_derived}) at {rebuild_ms:.4f} ms each (one synchronised, "
+        f"host clock) = "
         f"{100 * rebuilds[0] * rebuild_ms / (sum(run_ms) + sum(swap_ms)):.2f}"
         f"% of the run")
+    log("path (i) batched step split ({:.4f} ms a step of the stack, CUDA "
+        "events; parts synchronised, host clock): {}; rest (the "
+        "integrator's kicks, drift and OU arithmetic, the staleness flags, "
+        "Python) {:.4f} ms; swap {:.4f} ms an attempt".format(
+            step_ms, ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()),
+            step_ms - sum(split.values()), sum(swap_ms) / reps))
     log(f"path (i) swaps: {att} attempts ({eligible} eligible pairs), {acc} "
         f"accepted, acceptance {acc / att:.4f} (all: "
         f"{sampler.acceptance_rate:.4f} of {sampler.swap_attempts}); mean T "
@@ -3744,33 +4061,20 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
         "rebuilds": rebuilds[0] == rebuilds_derived,
     }
     require("path (i)", checks)
-    # K1 against its plain twin at path (i)'s own bucket (the cap the melt
-    # retuned to), at the replicas of lambda 0, of the lambda_vdw and the
-    # lambda_coul nearest 0.5, and of lambda 1, in the three forms a
-    # replica step sweeps; these launches are not counted
-    kernel_checks = []
+    # K1 and K2 over the 16 rows at path (i)'s own bucket (the cap the melt
+    # retuned to), each row its own x, lambdas and charge column, in the
+    # three forms a step sweeps; these launches are not counted
     cap = run_sys.neighbors.cell_capacity
-    soft = softcore_of(run_sys)
-    ladder = sampler._globals(sampler.lambdas)
-    mids = [min(range(k_states), key=lambda k: abs(ladder[n][k] - 0.5))
-            for n in ("lambda_vdw", "lambda_coul")]
-    for k in sorted({0, *mids, k_states - 1}):
-        st, row = sampler.states[k], {n: v[k] for n, v in ladder.items()}
-        tag = (f"path (i) replica {k} (lambda_vdw {row['lambda_vdw']:.4g}, "
-               f"lambda_coul {row['lambda_coul']:.4g}) grid 3^3 cap {cap}")
-        compare(f"{tag} cutoff-RF scaled", run_sys.forces[0],
-                run_sys.neighbors, st.x, st.box, dev, kernel_checks,
-                globals=row)
-        compare_softcore(tag, soft, run_sys.neighbors, st.x, st.box, dev,
-                         kernel_checks, lambdas=(row["lambda_vdw"],))
-        compare(f"{tag} solute-solute LJ", run_sys.forces[-1],
-                run_sys.neighbors, st.x, st.box, dev, kernel_checks,
-                terms_scale=True)
+    kernel_checks = phase_kernels_replica(
+        dev, f"path (i) 16 replicas grid 3^3 cap {cap}", run_sys, st.x,
+        st.box, st.extra["nbr_bucket"], g)
+    timings = time_rows(f"path (i) 16 replicas cap {cap}", run_sys, st.x,
+                        st.box, st.extra["nbr_bucket"], g)
     return {"launches": launches, "kernel_checks": kernel_checks,
             "x0": xw, "box": box, "state_steps_per_s": batch,
             "seq_steps_per_s": seq, "swap_ms": sum(swap_ms) / reps,
-            "step_ms": step_ms, "rebuild_ms": rebuild_ms,
-            "acceptance": acc / att, "t_rows": t_mean}
+            "step_ms": step_ms, "rebuild_ms": rebuild_ms, "split": split,
+            "acceptance": acc / att, "t_rows": t_mean, "timings": timings}
 
 
 def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
@@ -3780,7 +4084,8 @@ def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
     velocities from numpy (no draw enters), neighbor_update_every=4, 12
     steps, then one exchange attempt with the uniforms pinned from numpy:
     x, v and box to 1e-9 relative, the swap energies to 1e-10 relative,
-    the same accept mask."""
+    the same accept mask. The replicas are one stacked State: on the card
+    each step is one batched K2 launch per force over the 4 rows."""
     import numpy as np
     import torch
 
@@ -3806,8 +4111,8 @@ def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
                                                        dtype=f64)),
             300.0, dt=0.0005, friction=0.0, seed=3,
             neighbor_update_every=update_every)
-        sampler.states = [replace(s, v=torch.as_tensor(v[i], device=device))
-                          for i, s in enumerate(sampler.states)]
+        sampler.states = replace(sampler.states,
+                                 v=torch.as_tensor(v, device=device))
         sampler.run(steps)
         before = sampler.positions().clone()
         _, energies, _ = sampler._swap.deltas(
@@ -3817,10 +4122,9 @@ def phase_slice_hrex(dev, k_states=4, steps=12, update_every=4):
         sampler.attempt_swaps()
         moved = [not torch.equal(a, b)
                  for a, b in zip(before, sampler.positions())]
-        runs.append((sampler.positions().cpu(),
-                     torch.stack([s.v for s in sampler.states]).cpu(),
-                     torch.stack([s.box for s in sampler.states]).cpu(),
-                     energies.cpu(), moved, solv.neighbors.grid))
+        runs.append((sampler.positions().cpu(), sampler.states.v.cpu(),
+                     sampler.states.box.cpu(), energies.cpu(), moved,
+                     solv.neighbors.grid))
     (xc, vc, bc, ec, mc, grid), (xg, vg, bg, eg, mg, _) = runs
     md_err = max(float((a - b).abs().max()) / float(a.abs().max())
                  for a, b in ((xc, xg), (vc, vg), (bc, bg)))
@@ -5316,8 +5620,8 @@ def run_hrex_chunk(sampler, run_sys, chunk):
     ev[1].record()
     torch.cuda.synchronize()
     dof = count_degrees_of_freedom(run_sys)
-    t_local = torch.stack([2.0 * kinetic_energy(run_sys.masses, s.v)
-                           / (dof * BOLTZMANN) for s in sampler.states])
+    t_local = 2.0 * kinetic_energy(run_sys.masses, sampler.states.v) \
+        / (dof * BOLTZMANN)
     return {"ms": ev[0].elapsed_time(ev[1]),
             "attempts": sampler.swap_attempts,
             "accepts": sampler.swap_accepts, "t_local": t_local}
@@ -5408,6 +5712,7 @@ def main():
     eq = (d["x"], d["v"], d["box"])
     d = np.load(os.path.join(HERE, "bench_data", "eq_water100k.npz"))
     eq100 = (d["x"], d["v"], d["box"])
+    headline_rows = phase_rows_at_headline(dev, eq)
     results = (phase_kernels(dev, eq) + phase_kernels_ionic(dev)
                + phase_kernels_alchemy(dev) + phase_tile_kernel(dev, eq)
                + phase_kernels_virial(dev, eq))
@@ -5449,6 +5754,7 @@ def main():
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
                 + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
+                + alch["kernel_checks"]
                 + tric["kernel_checks"] + amber_checks + m1["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
@@ -5578,8 +5884,26 @@ def main():
     k1.update({"path_h_ms": t["ms"], "path_h_plain_ms": t["plain_ms"],
                "path_h_bound_ms": t["bound"]["ms"],
                "path_h_bound_by": t["bound"]["by"]})
-    # path (i): K1's float32 error against the plain twin at its own bucket
-    k1["path_i_max_abs_err"] = f32_err("half_pair", "path (i)")
+    # paths (i) and (e): K1 and K2 over 16 rows in one launch (16 replicas
+    # at (i)'s own bucket; 16 lambda states of one configuration, x and the
+    # bucket shared, at (e)'s), the scaled NonbondedForce's form, float32:
+    # the batched kernel, its single-row launch (K = 1), the batched plain
+    # twin, the bound (16 rows' distinct pairs), and the worst row's
+    # float32 error against the batched twin
+    for entry_, kernel in zip(kernels["kernels"][:2],
+                              ("half_pair", "cell_pair")):
+        entry_["path_i_max_abs_err"] = f32_err(kernel, "path (i)")
+        entry_["path_e_rows_max_abs_err"] = f32_err(kernel, "path (e)")
+        entry_["rows_vs_k1_at_30k_far"] = headline_rows[kernel]["rows_vs_k1"]
+        for path, t in (("i", hrex["timings"][kernel]),
+                        ("e", alch["row_timings"][kernel])):
+            entry_.update({
+                f"rows_path_{path}_ms": t["ms"],
+                f"rows_path_{path}_k1_ms": t["k1_ms"],
+                f"rows_path_{path}_plain_ms": t["plain_ms"],
+                f"rows_path_{path}_bound_ms": t["bound"]["ms"],
+                f"rows_path_{path}_bound_by": t["bound"]["by"],
+                f"rows_path_{path}_rows": t["rows"]})
     # path (j): the headline under Simulation (FIRE, then the reporting
     # run), ms per FIRE iteration and per outer step; path (k): K1 at
     # (k2)'s sheared far and near grids (the fractional minimum image),

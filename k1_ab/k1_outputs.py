@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""K1's float32 output in two versions of the package, beside its own run-to-
-run spread (K1 adds by atomics, so its float32 last bits vary between
-launches of one build).
+"""K1's and K2's float32 output in two versions of the package, beside each
+one's own run-to-run spread (K1 adds by atomics, so its float32 last bits
+vary between launches of one build; K2 stores each row once, so its rows
+should not vary at all).
 
     python3 k1_ab/k1_outputs.py save TREE OUT.pt    # one tree
     python3 k1_ab/k1_outputs.py compare A.pt B.pt   # two saved trees
 
 `save` imports the ``atomsmm_tpu_torch`` package under TREE, builds its
 kernels, and stores K1's per-atom (N + 1, 4) output (half_pair_cuda) three
-times at each of the 30k-water headline's far and near grids, from
+times at each of the 30k-water headline's far and near grids, and K2's
+(full_pair_cuda) on the far grid's full stencil ("cell_far"), from
 bench_data/eq_water30k.npz. `compare` prints one JSON line per shape: the
 largest |A - B| between the two trees' first launches and the largest
 difference between launches of one tree, each over the largest |value|
@@ -51,6 +53,10 @@ def save(tree, out):
         result[label] = [pk.half_pair_cuda(x, force._per_particle(), bucket,
                                            spec, box, form, form.r_cut).cpu()
                          for _ in range(3)]
+        if label == "far":
+            result["cell_far"] = [pk.full_pair_cuda(
+                x, force._per_particle(), bucket, spec, box, form,
+                form.r_cut).cpu() for _ in range(3)]
     torch.save(result, out)
 
 

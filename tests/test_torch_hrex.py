@@ -89,21 +89,22 @@ def _close(got, want, tol=TOL):
                                atol=tol * max(np.abs(want).max(), 1e-300))
 
 
-def _states(system, x, box, k, jitter=0.0, v=None, seed=0):
-    """k replicas of x on the cell lists: x jittered per replica from
-    numpy (the same draws as _jax_states), v (k, N, 3) from numpy."""
+def _states(system, x, box, k, jitter=0.0, v=None, seed=0, edit=None):
+    """k replicas of x on the cell lists, one stacked State: x jittered
+    per replica from numpy (the same draws as _jax_states) and then
+    `edit(xs)`, v (k, N, 3) from numpy."""
     base = tamm.make_state(x, box=box, seed=seed)
     states = replicate_state(base, k, seed)
     xs = np.repeat(x.cpu().numpy()[None], k, axis=0)
     if jitter:
         xs = xs + np.random.RandomState(seed + 1).normal(0, jitter, xs.shape)
-    out = []
-    for i, s in enumerate(states):
-        xi = torch.as_tensor(xs[i], device=x.device)
-        s = replace(s, x=xi) if v is None else replace(
-            s, x=xi, v=torch.as_tensor(v[i], device=x.device))
-        out.append(s.with_extra(**all_neighbor_extras(system, xi, box)))
-    return out, xs
+    if edit is not None:
+        edit(xs)
+    xt = torch.as_tensor(xs, device=x.device)
+    states = replace(states, x=xt) if v is None else replace(
+        states, x=xt, v=torch.as_tensor(v, device=x.device))
+    return states.with_extra(**all_neighbor_extras(
+        system, xt, states.box)), xs
 
 
 def _jax_states(x, box, xs, v=None):
@@ -134,28 +135,28 @@ def test_identical_states_always_swap(solvated):
     out, acc, att = swap(states, lams, torch.Generator().manual_seed(0), 0)
     assert (att, acc) == (3, 3)
     for a, b in [(0, 1), (2, 3), (4, 5)]:
-        np.testing.assert_array_equal(out[a].x.numpy(), xs[b])
-        np.testing.assert_array_equal(out[b].x.numpy(), xs[a])
+        np.testing.assert_array_equal(out.x[a].numpy(), xs[b])
+        np.testing.assert_array_equal(out.x[b].numpy(), xs[a])
         # the neighbor lists travel with the configuration, the generator
         # stays with the row
-        assert out[a].extra["nbr_xref"] is states[b].extra["nbr_xref"]
-        assert out[a].rng is states[a].rng
+        for key in ("nbr_xref", "nbr_bucket"):
+            assert torch.equal(out.extra[key][a], states.extra[key][b])
+        assert out.rng[a] is states.rng[a]
     out2, acc2, att2 = swap(states, lams, torch.Generator().manual_seed(1), 1)
     assert (att2, acc2) == (2, 2)
-    np.testing.assert_array_equal(out2[0].x.numpy(), xs[0])
-    np.testing.assert_array_equal(out2[5].x.numpy(), xs[5])
+    np.testing.assert_array_equal(out2.x[0].numpy(), xs[0])
+    np.testing.assert_array_equal(out2.x[5].numpy(), xs[5])
 
 
 def test_hopeless_swaps_rejected(solvated):
     """The solute pushed onto a water in replica 0 (decoupled) against a
     coupled neighbor: beta delta is astronomically positive, no swap."""
     solv, x, box = solvated
-    x0 = x.clone()
-    x0[0:3] = x[15:18] + 0.01
-    states = [s.with_extra(**all_neighbor_extras(solv, xi, box)) for s, xi
-              in zip(replicate_state(tamm.make_state(x, box=box), 2),
-                     (x0, x))]
-    states[0] = replace(states[0], x=x0)
+
+    def onto_water(xs):
+        xs[0, 0:3] = xs[0, 15:18] + 0.01
+
+    states, _ = _states(solv, x, box, 2, edit=onto_water)
     lams = {"lambda_vdw": [0.0, 1.0], "lambda_coul": [0.0, 1.0]}
     swap = make_hrex_swap(solv, 300.0)
     accepts = 0
@@ -186,11 +187,11 @@ def test_swap_matches_jax(solvated, jax_solvated):
             "lambda_coul": [0.0, 0.0, 1.0, 1.0]}
     rs = np.random.RandomState(3)
     v = rs.normal(size=(k,) + tuple(x.shape))
-    states, xs = _states(solv, x, box, k, jitter=0.004, v=v)
-    xs[0, 0:3] = xs[0, 15:18] + 0.01
-    x0 = torch.as_tensor(xs[0])
-    states[0] = replace(states[0], x=x0).with_extra(
-        **all_neighbor_extras(solv, x0, box))
+
+    def onto_water(xs):
+        xs[0, 0:3] = xs[0, 15:18] + 0.01
+
+    states, xs = _states(solv, x, box, k, jitter=0.004, v=v, edit=onto_water)
     jstates = _jax_states(jx, jbox, xs, v)
     jlams = {n: jnp.asarray(val) for n, val in lams.items()}
     swap = make_hrex_swap(solv, 300.0)
@@ -217,14 +218,14 @@ def test_swap_matches_jax(solvated, jax_solvated):
             out, acc, att = swap(states, lams, None, parity)
             assert (acc, att) == (int(jacc), int(jatt))
             for r in range(k):
-                np.testing.assert_array_equal(out[r].x.numpy(),
+                np.testing.assert_array_equal(out.x[r].numpy(),
                                               np.asarray(jout.x[r]))
-                np.testing.assert_array_equal(out[r].v.numpy(),
+                np.testing.assert_array_equal(out.v[r].numpy(),
                                               np.asarray(jout.v[r]))
-                np.testing.assert_array_equal(out[r].box.numpy(),
+                np.testing.assert_array_equal(out.box[r].numpy(),
                                               np.asarray(jout.box[r]))
-                assert torch.equal(out[r].extra["nbr_xref"], out[r].x)
-            seen.add(tuple(not np.array_equal(out[i].x.numpy(), xs[i])
+                assert torch.equal(out.extra["nbr_xref"][r], out.x[r])
+            seen.add(tuple(not np.array_equal(out.x[i].numpy(), xs[i])
                            for i, _ in pairs))
     # the pinned draws took both decisions
     assert any(any(m) for m in seen) and any(not all(m) for m in seen)
@@ -241,9 +242,9 @@ def test_tremd_zero_delta_swaps_and_velocity_rescale(solvated):
     swap = make_hrex_swap(solv, torch.tensor([300.0, 450.0]))
     out, acc, att = swap(states, lams, torch.Generator().manual_seed(0), 0)
     assert (att, acc) == (1, 1)
-    np.testing.assert_allclose(out[0].v.numpy(), v[1] * np.sqrt(300 / 450),
+    np.testing.assert_allclose(out.v[0].numpy(), v[1] * np.sqrt(300 / 450),
                                rtol=1e-12)
-    np.testing.assert_allclose(out[1].v.numpy(), v[0] * np.sqrt(450 / 300),
+    np.testing.assert_allclose(out.v[1].numpy(), v[0] * np.sqrt(450 / 300),
                                rtol=1e-12)
 
 
@@ -251,11 +252,12 @@ def test_replicas_start_with_independent_velocities(solvated):
     solv, x, box = solvated
     sampler = HREXSampler(solv, x, box, {"lambda_vdw": [0.0, 0.5, 1.0]},
                           300.0, dt=0.001, seed=3)
-    v = sampler.states
-    assert float((v[0].v - v[1].v).abs().max()) > 1e-3
-    assert float((v[1].v - v[2].v).abs().max()) > 1e-3
+    v = sampler.states.v
+    assert float((v[0] - v[1]).abs().max()) > 1e-3
+    assert float((v[1] - v[2]).abs().max()) > 1e-3
     # distinct generators too
-    draws = [torch.rand(3, generator=s.rng, dtype=F64) for s in v]
+    draws = [torch.rand(3, generator=g, dtype=F64)
+             for g in sampler.states.rng]
     assert not torch.equal(draws[0], draws[1])
 
 
@@ -292,8 +294,7 @@ def test_sampler_run_and_swap_match_jax(solvated, jax_solvated):
         np.sqrt(BOLTZMANN * 300.0 / solv.masses.numpy())[None, :, None]
     kw = dict(dt=0.0005, friction=0.0, seed=7, neighbor_update_every=4)
     sampler = HREXSampler(solv, x, box, lams, 300.0, **kw)
-    sampler.states = [replace(s, v=torch.as_tensor(v[i]))
-                      for i, s in enumerate(sampler.states)]
+    sampler.states = replace(sampler.states, v=torch.as_tensor(v))
     jsampler = JSampler(jsolv, jx, jbox,
                         {n: jnp.asarray(val.numpy())
                          for n, val in lams.items()}, 300.0, **kw)
@@ -301,8 +302,7 @@ def test_sampler_run_and_swap_match_jax(solvated, jax_solvated):
     sampler.run(12)
     jsampler.run(12)
     _close(sampler.positions(), np.asarray(jsampler.states.x))
-    _close(torch.stack([s.v for s in sampler.states]),
-           np.asarray(jsampler.states.v))
+    _close(sampler.states.v, np.asarray(jsampler.states.v))
     _, sub = jax.random.split(jsampler._key)
     _pinned(sampler._swap, jax.random.uniform(sub, (k,)))
     sampler.attempt_swaps()
@@ -367,8 +367,10 @@ def test_replicated_step_matches_single():
     for _ in range(5):
         states = run(system, states, {})
         single = step(system, single, {})
-    for s in states:
-        assert torch.equal(s.x, single.x) and torch.equal(s.v, single.v)
+    assert states.rows == 8
+    for k in range(8):
+        row = states.row(k)
+        assert torch.equal(row.x, single.x) and torch.equal(row.v, single.v)
 
     js, jx, jb = jargon(n=64, jitter=0.05, seed=1, r_cut=0.5, r_switch=0.4)
     jinteg = JVV(0.002)
@@ -381,7 +383,7 @@ def test_replicated_step_matches_single():
     for _ in range(5):
         jstates = jrun(js, jstates, {})
     for k in range(8):
-        _close(states[k].x, np.asarray(jstates.x[k]), 1e-12)
+        _close(states.x[k], np.asarray(jstates.x[k]), 1e-12)
 
 
 def test_replicas_diverge_with_stochastic_dynamics():
@@ -398,8 +400,8 @@ def test_replicas_diverge_with_stochastic_dynamics():
     run = make_replicated_step(integ.make_step())
     for _ in range(20):
         states = run(system, states, {})
-    assert not torch.allclose(states[0].v, states[1].v)
-    assert not torch.allclose(states[1].v, states[2].v)
+    assert not torch.allclose(states.v[0], states.v[1])
+    assert not torch.allclose(states.v[1], states.v[2])
 
 
 def test_parallel_sampling_without_exchange(solvated):
@@ -503,7 +505,7 @@ def test_tremd_rows_hold_their_setpoints():
         sampler.attempt_swaps()
         for k in range(4):
             ke = float(tamm.kinetic_energy(system.masses,
-                                           sampler.states[k].v))
+                                           sampler.states.v[k]))
             t_rows[k] += 2.0 * ke / (3 * 216 * BOLTZMANN)
     t_rows /= n_samp
     assert sampler.swap_accepts > 0
@@ -545,15 +547,14 @@ def test_replica_batch_on_the_card_matches_the_cpu(cuda):
                 None, :, None]
         sampler = HREXSampler(solv, x, box, _ladder(2), 300.0, dt=0.0005,
                               friction=0.0, seed=3, neighbor_update_every=2)
-        sampler.states = [replace(s, v=torch.as_tensor(v[i], device=x.device))
-                          for i, s in enumerate(sampler.states)]
+        sampler.states = replace(sampler.states,
+                                 v=torch.as_tensor(v, device=x.device))
         sampler.run(6)
         _, energies, _ = sampler._swap.deltas(
             sampler.states, sampler._globals(sampler.lambdas), 0)
         _pinned(sampler._swap, [0.3, 0.7])
         sampler.attempt_swaps()
-        rows.append((sampler.positions().cpu(),
-                     torch.stack([s.v for s in sampler.states]).cpu(),
+        rows.append((sampler.positions().cpu(), sampler.states.v.cpu(),
                      energies.cpu(), sampler.swap_accepts))
     (x_c, v_c, e_c, a_c), (x_g, v_g, e_g, a_g) = rows
     _close(x_g, x_c.numpy())

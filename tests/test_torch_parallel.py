@@ -26,9 +26,9 @@ import torch_parallel_ranks as ranks
 
 F64 = torch.float64
 ALL = ("sweep", "pme", "slab", "argon_ctx", "water_ctx", "pme_ctx",
-       "npt_ctx", "replicas", "hrex", "sfe")
+       "npt_ctx", "replicas", "hrex", "sfe", "stack_pme")
 RUNS = {2: ALL,
-        3: ("sweep", "pme", "pme_ctx", "replicas"),
+        3: ("sweep", "pme", "pme_ctx", "replicas", "stack_pme"),
         4: ("sweep", "pme", "slab", "argon_ctx", "water_ctx", "pme_ctx",
             "hrex")}
 JOIN_S = 600
@@ -400,7 +400,7 @@ def test_spatial_context_under_the_barostat(spawned, d):
 @pytest.mark.parametrize("d", _runs_with("replicas"))
 def test_replicated_step_over_the_mesh(spawned, d):
     """2 D argon replicas under an OU bath, 5 steps of make_replicated_step
-    over the mesh: every rank returns the one-process list bit for bit;
+    over the mesh: every rank returns the one-process stack bit for bit;
     2 D + 1 replicas raise."""
     outs = outputs(spawned, d)
     assert all(o["replicas"]["equal"] for o in outs)
@@ -423,6 +423,28 @@ def test_hrex_over_the_mesh(spawned, d):
         assert h["mesh"]["attempts"] == h["one"]["attempts"]
         assert torch.equal(h["mesh"]["x"], h["one"]["x"])
         assert "do not divide" in h["ragged"]
+
+
+@pytest.mark.parametrize("d", _runs_with("stack_pme"))
+def test_stacked_pme_rows_over_the_mesh(spawned, d):
+    """A stack of 3 PME water rows under spatial_mesh (the pair term
+    sharded row by row, the reciprocal sum, its corrections and the
+    dispersion tail once a row): the stack's energies and forces equal
+    each row's single-system evaluation over the mesh, 1e-12, and the
+    one-process rows, 1e-11; every rank equal."""
+    outs = outputs(spawned, d)
+    out = outs[0]["stack_pme"]
+    e_stack, (e_ef, f_ef) = out["e_stack"], out["ef_stack"]
+    assert tuple(e_stack.shape) == (3,) and tuple(f_ef.shape)[0] == 3
+    for e in (e_stack, e_ef):
+        _close(e, out["e_rows"].numpy(), 1e-12)
+        _close(e, out["e_one"].numpy(), 1e-11)
+    scale = float(out["f_one"].abs().max())
+    _close(f_ef, out["f_rows"].numpy(), 0, 1e-12 * scale)
+    _close(f_ef, out["f_one"].numpy(), 0, 1e-11 * scale)
+    for o in outs[1:]:
+        assert torch.equal(o["stack_pme"]["e_stack"], e_stack)
+        assert torch.equal(o["stack_pme"]["ef_stack"][1], f_ef)
 
 
 @pytest.mark.parametrize("d", _runs_with("sfe"))

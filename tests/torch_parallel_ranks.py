@@ -191,7 +191,7 @@ def case_npt_ctx(mesh, d, rank):
 
 
 def case_replicas(mesh, d, rank):
-    """make_replicated_step over the mesh against the one-process list:
+    """make_replicated_step over the mesh against the one-process stack:
     2 D argon replicas under an OU bath (each row's own generator)."""
     import atomsmm_tpu_torch as tamm
     from atomsmm_tpu_torch.context import refresh_force_caches
@@ -221,9 +221,59 @@ def case_replicas(mesh, d, rank):
         ragged = "no error"
     except ValueError as err:
         ragged = str(err)
-    return {"equal": all(torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
-                         for a, b in zip(runs["mesh"], runs["one"])),
-            "x": torch.stack([s.x for s in runs["mesh"]]), "ragged": ragged}
+    mesh_run, one = runs["mesh"], runs["one"]
+    return {"equal": mesh_run.rows == one.rows == k
+            and torch.equal(mesh_run.x, one.x)
+            and torch.equal(mesh_run.v, one.v),
+            "x": mesh_run.x, "ragged": ragged}
+
+
+def case_stack_pme(mesh, d, rank):
+    """3 rows of 40 PME waters (a dispersion tail, one water's charges
+    scaled by a per-row lambda_coul) under spatial_mesh: the stack's
+    energies and forces and each row's single-system evaluation, over the
+    mesh, and the rows on one process."""
+    import dataclasses
+
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.parallel import spatial_mesh
+    from atomsmm_tpu_torch.potential import force_fn, potential_energy
+    from atomsmm_tpu_torch.utils import replace
+
+    system, x, box = water_system(n_molecules=40, method="pme", r_cut=0.5,
+                                  r_switch=0.45, neighbors=True,
+                                  dispersion_correction=True, dtype=F64,
+                                  device="cpu")
+    mask = torch.zeros(x.shape[0], dtype=F64)
+    mask[:3] = 1.0
+    system = replace(system, forces=[dataclasses.replace(
+        system.forces[0], charge_scale_mask=mask)] + list(system.forces[1:]))
+    rs = np.random.RandomState(7)
+    xs = x[None] + torch.as_tensor(rs.normal(0.0, 0.005, (3,) + x.shape))
+    boxes = box.expand(3, 3).contiguous()
+    lam = torch.tensor([0.2, 0.6, 1.0], dtype=F64)
+    aux = make_aux(system, all_neighbor_extras(system, xs, boxes))
+    energy_forces = force_fn(system)
+
+    def rows():
+        out = []
+        for k in range(3):
+            aux_k = make_aux(system, all_neighbor_extras(system, xs[k], box))
+            g = {"lambda_coul": float(lam[k])}
+            out.append((potential_energy(system, xs[k], box, g, aux=aux_k),
+                        energy_forces(xs[k], box, g, aux_k)[1]))
+        return (torch.stack([e for e, _ in out]),
+                torch.stack([f for _, f in out]))
+
+    with spatial_mesh(mesh):
+        e_stack = potential_energy(system, xs, boxes, {"lambda_coul": lam},
+                                   aux=aux)
+        ef_stack = energy_forces(xs, boxes, {"lambda_coul": lam}, aux)
+        e_rows, f_rows = rows()
+    e_one, f_one = rows()
+    return {"e_stack": e_stack, "ef_stack": ef_stack, "e_rows": e_rows,
+            "f_rows": f_rows, "e_one": e_one, "f_one": f_one}
 
 
 def _solvated():
@@ -258,7 +308,9 @@ def case_hrex(mesh, d, rank):
             log.append(sampler.swap_accepts - before)
         out[name] = {"x": sampler.positions(), "accepts": log,
                      "attempts": sampler.swap_attempts,
-                     "rows": [(s.x, s.v, s.box) for s in sampler.states]}
+                     "rows": [(sampler.states.x[i], sampler.states.v[i],
+                               sampler.states.box[i])
+                              for i in range(sampler.states.rows)]}
     lo = rank * (k // d)
     mine = out["one"]["rows"][lo:lo + k // d]
     out["rows_equal"] = all(
