@@ -54,7 +54,12 @@
 // (TABLE: NBFIX, the 10-12 term) a staged candidate and a queued hit carry
 // the int32 LJ type in place of (sigma, epsilon), and the evaluation reads
 // the pair's (sigma, epsilon, A, B) row through the read-only cache
-// (pair_forms.cuh::load_pair_row).
+// (pair_forms.cuh::load_pair_row). Exclusions take the three forms of
+// pair_forms.cuh (EXC): the bitmask, at most 16 id columns in registers,
+// or the split form (the bitmask within +-14 indices, the home atom's far
+// ids folded into a 64-bit filter and scanned from global memory for a
+// slot in range outside that window whose filter bit is set, before the
+// hit is queued).
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
@@ -135,13 +140,14 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
 //   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
-//   exc (n, m)                     exclusion id columns, -1 padded (COLS)
+//   exc (n, m)                     far ids, sorted ascending, -1
+//                                  padded (EXC_SPLIT; else null)
 //   bucket (ncells, cap)           atom ids, real ids first, then n
 //   nbr (ncells, s)                stencil cells, -1 padded
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (K, n + 1, 4)              zeroed; per row and real atom
 //                                  [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
     cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -187,7 +193,6 @@ __global__ void __launch_bounds__(THREADS)
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
   int ti = 0;
   unsigned exc_h = 0u;
-  ExcCols cols;
   if (home) {
     xi = x[3 * (size_t)hid];
     yi = x[3 * (size_t)hid + 1];
@@ -199,9 +204,12 @@ __global__ void __launch_bounds__(THREADS)
       si = sig[hid];
       ei = eps[hid];
     }
-    if (!COLS) exc_h = (unsigned)excbits[hid];
+    exc_h = (unsigned)excbits[hid];
   }
-  if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
+  const int* far_row =
+      (EXC == EXC_SPLIT && home) ? exc + (size_t)hid * m : nullptr;
+  FarFilter far_bits{0u, 0u};
+  if (EXC == EXC_SPLIT) far_bits = far_filter(far_row, m);
 
   const Image<T, TRI> image(box);
   const int* nrow = nbr + (size_t)c * s;
@@ -295,10 +303,11 @@ __global__ void __launch_bounds__(THREADS)
         T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
         image.apply(dx, dy, dz);
         const T r2 = dx * dx + dy * dy + dz * dz;
-        const bool excl =
-            COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
-                 : excluded_by_bits(exc_h, hid, cj.id);
-        const bool hit = (j < cnt) & (r2 < p.rc2) & !excl;
+        const bool excl = excluded_by_bits(exc_h, hid, cj.id);
+        bool hit = (j < cnt) & (r2 < p.rc2) & !excl;
+        if (EXC == EXC_SPLIT && hit) {
+          hit = !excluded_far(far_bits, far_row, m, hid, cj.id);
+        }
         const int slot = hitqueue::reserve(hit, queued);
         if (hit) my_queue[slot] = make_hit(dx, dy, dz, par[j]);
         __syncwarp();
@@ -360,10 +369,10 @@ struct Args {
   Rows<T> rows;
 };
 
-template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
 int launch_form(const Args<T>& a, int split, unsigned blocks,
                 const Params<T>& p, T* out, cudaStream_t st) {
-  cell_pair_kernel<T, COLS, DAMPED, TRI, TABLE>
+  cell_pair_kernel<T, EXC, DAMPED, TRI, TABLE>
       <<<dim3(blocks, a.k_rows), THREADS, 0, st>>>(
           a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc,
           a.bucket, a.nbr, a.box, a.c0, a.cap, a.s, a.n, a.m, a.ntypes, split,
@@ -372,33 +381,33 @@ int launch_form(const Args<T>& a, int split, unsigned blocks,
 }
 
 // The instantiation of the template axes each launch selects at run time.
-template <typename T, bool COLS, bool DAMPED, bool TRI>
+template <typename T, int EXC, bool DAMPED, bool TRI>
 int launch_table(const Args<T>& a, int split, unsigned blocks,
                  const Params<T>& p, T* out, cudaStream_t st) {
   if (a.table != nullptr) {
-    return launch_form<T, COLS, DAMPED, TRI, true>(a, split, blocks, p, out,
-                                                   st);
-  }
-  return launch_form<T, COLS, DAMPED, TRI, false>(a, split, blocks, p, out,
+    return launch_form<T, EXC, DAMPED, TRI, true>(a, split, blocks, p, out,
                                                   st);
+  }
+  return launch_form<T, EXC, DAMPED, TRI, false>(a, split, blocks, p, out,
+                                                 st);
 }
 
-template <typename T, bool COLS, bool DAMPED>
+template <typename T, int EXC, bool DAMPED>
 int launch_box(const Args<T>& a, int tri, int split, unsigned blocks,
                const Params<T>& p, T* out, cudaStream_t st) {
   if (tri) {
-    return launch_table<T, COLS, DAMPED, true>(a, split, blocks, p, out, st);
+    return launch_table<T, EXC, DAMPED, true>(a, split, blocks, p, out, st);
   }
-  return launch_table<T, COLS, DAMPED, false>(a, split, blocks, p, out, st);
+  return launch_table<T, EXC, DAMPED, false>(a, split, blocks, p, out, st);
 }
 
-template <typename T, bool COLS>
+template <typename T, int EXC>
 int launch_damped(const Args<T>& a, int tri, int split, unsigned blocks,
                   const Params<T>& p, T* out, cudaStream_t st) {
   if (damped(p)) {
-    return launch_box<T, COLS, true>(a, tri, split, blocks, p, out, st);
+    return launch_box<T, EXC, true>(a, tri, split, blocks, p, out, st);
   }
-  return launch_box<T, COLS, false>(a, tri, split, blocks, p, out, st);
+  return launch_box<T, EXC, false>(a, tri, split, blocks, p, out, st);
 }
 
 template <typename T>
@@ -407,8 +416,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
   const bool has_table = a.table != nullptr;
   if (a.cap < 1 || a.ncells < 1 || a.c0 < 0 || a.c1 < a.c0 ||
       a.c1 > a.ncells || a.s < 1 || a.n < 0 || a.m < 0 ||
-      a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
-      (a.exc == nullptr && a.excbits == nullptr) ||
+      (a.exc != nullptr && a.m < 1) || a.excbits == nullptr ||
       (has_table && (a.types == nullptr || a.ntypes < 1)) ||
       !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
     return (int)cudaErrorInvalidValue;
@@ -426,12 +434,13 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
   if (a.exc != nullptr) {
-    return launch_damped<T, true>(a, tri, split, (unsigned)blocks, p, out, st);
+    return launch_damped<T, EXC_SPLIT>(a, tri, split, (unsigned)blocks, p,
+                                       out, st);
   }
   Args<T> bits = a;
   bits.m = 0;
-  return launch_damped<T, false>(bits, tri, split, (unsigned)blocks, p, out,
-                                 st);
+  return launch_damped<T, EXC_BITS>(bits, tri, split, (unsigned)blocks, p,
+                                    out, st);
 }
 
 }  // namespace
@@ -442,9 +451,10 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 // every cell, and an empty range launches nothing). The stencil cells of a
 // home cell are read wherever they lie, so the rows of disjoint ranges sum
 // to the rows of the whole sweep, bit for bit: force decomposition over
-// home cells (parallel/spatial.py). `scal` and `flags` are host arrays (pair_forms.cuh::make_params). Exactly
-// one of `excbits` (the bitmask form) and `exc` (the (n, m) exclusion id
-// columns, 1 <= m <= 16) is non-null. `table` is null for
+// home cells (parallel/spatial.py). `scal` and `flags` are host arrays
+// (pair_forms.cuh::make_params). `excbits` and `exc` give the exclusions
+// as in half_pair.cu: the bitmask alone, or with the far ids, the split
+// form (sorted ascending, -1 padded, any m >= 1). `table` is null for
 // Lorentz-Berthelot combining, else the (ntypes, ntypes, 4) type-pair table
 // with the (n,) int32 LJ types in `types`. `box` holds the (3,) edge
 // lengths when `tri` is 0, else the (3, 3) cell matrix, rows = lattice

@@ -6,11 +6,15 @@
 // slot it applies the per-slot minimum image, the cutoff test, the
 // exclusions and one of the built-in pair forms (pair_forms.cuh), and adds
 // the force -2 du/dr^2 dx to the home atom and its reaction to the
-// candidate. Exclusions take one of two forms, a template parameter: the
-// relative-offset bitmask (one shift per slot), or, for systems whose
-// excluded pairs lie more than +-14 atom indices apart, a compare of the
-// candidate id with the home atom's exclusion id columns, held in
-// registers, plus the self test hid != cid.
+// candidate. Exclusions take one of three forms, a template parameter
+// (pair_forms.cuh, EXC): the relative-offset bitmask (one shift per slot);
+// for systems whose excluded pairs lie more than +-14 atom indices apart, a
+// compare of the candidate id with the home atom's exclusion id columns
+// (at most 16), held in registers, plus the self test hid != cid; or, for
+// wider tables, the bitmask for the pairs within +-14 indices and the home
+// atom's row of far ids in global memory, folded into a 64-bit filter in
+// registers and scanned for a hit outside that window whose filter bit is
+// set (the split form: the test runs in the walk, on hits only).
 //
 // What bounds it: the slot tests and the latency of each block's chain of
 // directions. On the 30k water headline the far sweep has 343 cells x 14
@@ -134,12 +138,13 @@ struct Args {
 //   x (n, 3); q, sig, eps (n,)     atoms, gathered through the ids
 //   types (n,); table (T, T, 4)    LJ types and type-pair rows (TABLE)
 //   excbits (n + 1,)               exclusion bits (bitmask form)
-//   exc (n, m)                     exclusion id columns, -1 padded (COLS)
+//   exc (n, m)                     far ids, sorted ascending, -1
+//                                  padded (EXC_SPLIT; else null)
 //   bucket (ncells, cap)           atom ids, n = padding
 //   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
 //   out (K, n + 1, 4)              zeroed; per row and atom [fx fy fz e]
-template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE, int MAXT>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -217,7 +222,6 @@ __global__ void __launch_bounds__(MAXT)
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
   int ti = 0;
   unsigned exc_h = 0u;
-  ExcCols cols;
   if (home) {
     xi = x[3 * (size_t)hid];
     yi = x[3 * (size_t)hid + 1];
@@ -229,9 +233,12 @@ __global__ void __launch_bounds__(MAXT)
       si = sig[hid];
       ei = eps[hid];
     }
-    if (!COLS) exc_h = (unsigned)excbits[hid];
+    exc_h = (unsigned)excbits[hid];
   }
-  if (COLS) load_exc_cols(home ? exc + (size_t)hid * m : nullptr, m, cols);
+  const int* far_row =
+      (EXC == EXC_SPLIT && home) ? exc + (size_t)hid * m : nullptr;
+  FarFilter far_bits{0u, 0u};
+  if (EXC == EXC_SPLIT) far_bits = far_filter(far_row, m);
 
   const Image<T, TRI> image(box);
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
@@ -278,9 +285,7 @@ __global__ void __launch_bounds__(MAXT)
             T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
             image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
-            const bool excl =
-                COLS ? (cj.id == hid || excluded_by_cols(cols, m, cj.id))
-                     : excluded_by_bits(exc_h, hid, cj.id);
+            const bool excl = excluded_by_bits(exc_h, hid, cj.id);
             const bool hit = (cj.id < n) & (r2 < p.rc2) & !excl;
             word |= (unsigned)hit << bb;
           }
@@ -304,6 +309,10 @@ __global__ void __launch_bounds__(MAXT)
             word &= word - 1u;
             const int j = part + parts * (s0 + 32 * wd + ((bit + rot) & 31));
             const Cand<T> cj = cb[j];
+            if (EXC == EXC_SPLIT &&
+                excluded_far(far_bits, far_row, m, hid, cj.id)) {
+              continue;
+            }
             const Par<T, TABLE> pj = pb[j];
             T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
             image.apply(dx, dy, dz);
@@ -382,10 +391,10 @@ size_t smem_bytes(int cap, int parts) {
          2 * sizeof(int);
 }
 
-template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE, int MAXT>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT>
 int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
                 T* out, cudaStream_t stream) {
-  auto kernel = half_pair_kernel<T, COLS, DAMPED, TRI, TABLE, MAXT>;
+  auto kernel = half_pair_kernel<T, EXC, DAMPED, TRI, TABLE, MAXT>;
   const size_t smem = smem_bytes<T, TABLE>(a.cap, parts);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -403,43 +412,43 @@ int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
 // blocks of up to 256 threads take the register budget of 256 threads,
 // larger ones that of 1,024 (64 a thread; a budget of 128 for blocks of up
 // to 512 left the far grid's 343 blocks too few per SM for one wave).
-template <typename T, bool COLS, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
 int launch_size(const Args<T>& a, int parts, const Params<T>& p, T* out,
                 cudaStream_t stream) {
   const int threads = ((parts * a.cap + 31) / 32) * 32;
   if (threads <= 256) {
-    return launch_form<T, COLS, DAMPED, TRI, TABLE, 256>(a, parts, threads, p,
-                                                         out, stream);
-  }
-  return launch_form<T, COLS, DAMPED, TRI, TABLE, 1024>(a, parts, threads, p,
+    return launch_form<T, EXC, DAMPED, TRI, TABLE, 256>(a, parts, threads, p,
                                                         out, stream);
+  }
+  return launch_form<T, EXC, DAMPED, TRI, TABLE, 1024>(a, parts, threads, p,
+                                                       out, stream);
 }
 
-template <typename T, bool COLS, bool DAMPED, bool TRI>
+template <typename T, int EXC, bool DAMPED, bool TRI>
 int launch_table(const Args<T>& a, int parts, const Params<T>& p, T* out,
                  cudaStream_t stream) {
   if (a.table != nullptr) {
-    return launch_size<T, COLS, DAMPED, TRI, true>(a, parts, p, out, stream);
+    return launch_size<T, EXC, DAMPED, TRI, true>(a, parts, p, out, stream);
   }
-  return launch_size<T, COLS, DAMPED, TRI, false>(a, parts, p, out, stream);
+  return launch_size<T, EXC, DAMPED, TRI, false>(a, parts, p, out, stream);
 }
 
-template <typename T, bool COLS, bool DAMPED>
+template <typename T, int EXC, bool DAMPED>
 int launch_box(const Args<T>& a, int tri, int parts, const Params<T>& p,
                T* out, cudaStream_t stream) {
   if (tri) {
-    return launch_table<T, COLS, DAMPED, true>(a, parts, p, out, stream);
+    return launch_table<T, EXC, DAMPED, true>(a, parts, p, out, stream);
   }
-  return launch_table<T, COLS, DAMPED, false>(a, parts, p, out, stream);
+  return launch_table<T, EXC, DAMPED, false>(a, parts, p, out, stream);
 }
 
-template <typename T, bool COLS>
+template <typename T, int EXC>
 int launch_damped(const Args<T>& a, int tri, int parts, const Params<T>& p,
                   T* out, cudaStream_t stream) {
   if (damped(p)) {
-    return launch_box<T, COLS, true>(a, tri, parts, p, out, stream);
+    return launch_box<T, EXC, true>(a, tri, parts, p, out, stream);
   }
-  return launch_box<T, COLS, false>(a, tri, parts, p, out, stream);
+  return launch_box<T, EXC, false>(a, tri, parts, p, out, stream);
 }
 
 template <typename T>
@@ -447,8 +456,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
            T* out, void* stream) {
   const bool has_table = a.table != nullptr;
   if (a.cap < 1 || a.cap > 1024 || a.ncells < 1 || a.s_half < 1 || a.n < 0 ||
-      a.m < 0 || a.m > MAX_EXC || (a.exc != nullptr && a.m < 1) ||
-      (a.exc == nullptr && a.excbits == nullptr) ||
+      a.m < 0 || (a.exc != nullptr && a.m < 1) || a.excbits == nullptr ||
       (has_table && (a.types == nullptr || a.ntypes < 1)) ||
       !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
     return (int)cudaErrorInvalidValue;
@@ -458,19 +466,20 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
   if (a.exc != nullptr) {
-    return launch_damped<T, true>(a, tri, parts, p, out, s);
+    return launch_damped<T, EXC_SPLIT>(a, tri, parts, p, out, s);
   }
   Args<T> bits = a;
   bits.m = 0;
-  return launch_damped<T, false>(bits, tri, parts, p, out, s);
+  return launch_damped<T, EXC_BITS>(bits, tri, parts, p, out, s);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. `scal` and `flags` are host
-// arrays (pair_forms.cuh::make_params). Exactly one of `excbits` (the
-// bitmask form) and `exc` (the (n, m) exclusion id columns, 1 <= m <= 16)
-// is non-null. `table` is null for Lorentz-Berthelot combining (`types`
+// arrays (pair_forms.cuh::make_params). `excbits` (never null) alone gives the
+// bitmask form; with `exc` the split form: the bitmask of the pairs within
+// +-14 indices and in `exc` each atom's (n, m) far ids, sorted ascending
+// and -1 padded, any m >= 1. `table` is null for Lorentz-Berthelot combining (`types`
 // null, `ntypes` 0), else the (ntypes, ntypes, 4) type-pair table
 // [sigma, epsilon, A, B] with the (n,) int32 LJ types in `types`; `sig`
 // and `eps` are then not read. `box` holds the (3,) edge lengths when

@@ -400,26 +400,64 @@ inline bool damped(const Params<T>& p) {
   return p.alpha != T(0);
 }
 
-// Exclusion id columns of one home atom, held in registers. MAX_EXC bounds
-// the columns a kernel takes; the wrapper pads with -1 and refuses more.
-constexpr int MAX_EXC = 16;
+// The exclusion forms of K1 and K2, a template axis of both (EXC):
+//   EXC_BITS   the relative-offset bitmask alone (every excluded pair lies
+//              within +-EXC_WINDOW atom indices);
+//   EXC_SPLIT  the bitmask for the pairs within +-EXC_WINDOW and, for the
+//              rest, a row of far ids per atom of any width, sorted
+//              ascending and -1 padded. Each home atom folds its row once
+//              into a 64-bit filter (bit id mod 64, FarFilter) held in two
+//              registers; a slot that passed the cutoff and the bitmask,
+//              lies outside the window and finds its filter bit set scans
+//              the row from global memory through the read-only cache
+//              (excluded_far). A row of a few ids (an Amber protein's)
+//              sets few bits, so most slots skip the scan, and a home
+//              atom's row stays in L1 over its walk.
+constexpr int EXC_BITS = 0;
+constexpr int EXC_SPLIT = 1;
+constexpr int EXC_WINDOW = 14;  // ops/neighbors.py::EXC_WINDOW
 
-struct ExcCols {
-  int c[MAX_EXC];
+// EXC_SPLIT: a home atom's far ids folded into 64 bits, bit (id mod 64);
+// zero for a null row (a thread without a home atom).
+struct FarFilter {
+  unsigned lo, hi;
 };
 
-__device__ __forceinline__ void load_exc_cols(const int* __restrict__ row,
-                                              int m, ExcCols& e) {
-#pragma unroll
-  for (int k = 0; k < MAX_EXC; ++k) e.c[k] = (row != nullptr && k < m) ? row[k] : -1;
+__device__ __forceinline__ FarFilter far_filter(const int* __restrict__ row,
+                                                int m) {
+  FarFilter f{0u, 0u};
+  if (row == nullptr) return f;
+  for (int k = 0; k < m; ++k) {
+    const int c = __ldg(row + k);
+    if (c < 0) break;
+    const unsigned bit = 1u << (c & 31);
+    if (c & 32) {
+      f.hi |= bit;
+    } else {
+      f.lo |= bit;
+    }
+  }
+  return f;
 }
 
-__device__ __forceinline__ bool excluded_by_cols(const ExcCols& e, int m,
-                                                 int cid) {
-  bool hit = false;
-#pragma unroll
-  for (int k = 0; k < MAX_EXC; ++k) hit |= (k < m) & (e.c[k] == cid);
-  return hit;
+// EXC_SPLIT: whether candidate `cid` is one of the far ids of the home atom
+// `hid`, whose row of m ids (sorted ascending, -1 padded) starts at `row`
+// and folds into `f`. Candidates within +-EXC_WINDOW are the bitmask's and
+// are not looked up, nor are those whose filter bit is clear; the scan
+// stops at the first padding entry or the first id above cid.
+__device__ __forceinline__ bool excluded_far(const FarFilter& f,
+                                             const int* __restrict__ row,
+                                             int m, int hid, int cid) {
+  const int d = cid - hid;
+  if (d >= -EXC_WINDOW && d <= EXC_WINDOW) return false;
+  const unsigned word = (cid & 32) ? f.hi : f.lo;
+  if (((word >> (cid & 31)) & 1u) == 0u) return false;
+  for (int k = 0; k < m; ++k) {
+    const int c = __ldg(row + k);
+    if (c < 0 || c > cid) return false;
+    if (c == cid) return true;
+  }
+  return false;
 }
 
 }  // namespace pairforms

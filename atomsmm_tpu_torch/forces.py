@@ -4,8 +4,9 @@ Each force is a dataclass whose `energy(x, box, globals, aux)` method is a
 PyTorch function of the positions; the `group` integer drives the RESPA
 split exactly as in the JAX package. Nonbonded forces have two paths:
 
-  * dense — the chunked O(N²) oracle (ops/pairs.py), CPU only, forces by
-    autograd; used for goldens and when no neighbor list is attached;
+  * dense — the chunked O(N²) sum (ops/pairs.py), on any device, forces
+    by autograd; used for goldens, for 'nocutoff' and when no neighbor
+    list is attached;
   * cell list — the half- or full-stencil sweep (ops/neighbors.py), with
     explicit forces from `energy_and_forces`; on the card it runs a CUDA
     kernel, which takes a built-in pair form (`_pair_form`) instead of a
@@ -230,25 +231,52 @@ def _lj_combiner(pair_sigma, pair_epsilon):
 _combine = _lj_combiner(None, None)
 
 
+def _type_lorentz_berthelot(force, n_types):
+    """(T, T) sigma and epsilon tables combined by Lorentz-Berthelot from
+    the per-atom (sigma, epsilon) of each LJ type, in the dtype of sigma,
+    as the kernels combine a pair: 0.5 (s_i + s_j) and sqrt(e_i e_j).
+    None where two atoms of one type differ in sigma or epsilon (no
+    per-type table holds them). One host read of the columns."""
+    t = torch.as_tensor(force.lj_type).long().cpu()
+    sig = torch.as_tensor(force.sigma).cpu()
+    eps = torch.as_tensor(force.epsilon).cpu().to(sig.dtype)
+    sig_t = sig.new_zeros(n_types).index_copy_(0, t, sig)
+    eps_t = sig.new_zeros(n_types).index_copy_(0, t, eps)
+    if not (torch.equal(sig_t[t], sig) and torch.equal(eps_t[t], eps)):
+        return None
+    return (0.5 * (sig_t[:, None] + sig_t[None, :]),
+            torch.sqrt(eps_t[:, None] * eps_t[None, :]))
+
+
 def _pair_table(force, a1012=None, b1012=None):
     """The (T, T, 4) [sigma, epsilon, A, B] table of a force with NBFIX
     tables, contiguous, on the device and in the dtype of its sigma; None
-    without tables. The 10-12 coefficients need the tables: the kernels
-    read A and B from the pair's row."""
+    without tables. The 10-12 coefficients without NBFIX tables (the JAX
+    package combines sigma and epsilon by Lorentz-Berthelot and reads A
+    and B by type) take a table whose sigma and epsilon are combined from
+    each type's atoms where every atom of a type shares them; else None,
+    and the force runs on the dense path of the CPU only
+    (NonbondedForce._dense_only)."""
     if force.pair_sigma is None:
-        if a1012 is not None:
+        if a1012 is None:
+            return None
+        if force.lj_type is None:
             raise InputError(
                 f"{type(force).__name__}: pair_a1012/pair_b1012 need the "
-                "type-pair tables pair_sigma/pair_epsilon and lj_type (the "
-                "kernels read A and B from the pair's table row)")
-        return None
-    if force.lj_type is None or force.pair_epsilon is None:
-        raise InputError(f"{type(force).__name__}: pair_sigma needs "
-                         "pair_epsilon and lj_type")
-    ref = torch.as_tensor(force.pair_sigma if force.sigma is None
+                "LJ types lj_type (A and B are per type pair)")
+        combined = _type_lorentz_berthelot(force, a1012.shape[0])
+        if combined is None:
+            return None
+        pair_sigma, pair_epsilon = combined
+    else:
+        if force.lj_type is None or force.pair_epsilon is None:
+            raise InputError(f"{type(force).__name__}: pair_sigma needs "
+                             "pair_epsilon and lj_type")
+        pair_sigma, pair_epsilon = force.pair_sigma, force.pair_epsilon
+    ref = torch.as_tensor(pair_sigma if force.sigma is None
                           else force.sigma)
-    cols = [force.pair_sigma, force.pair_epsilon]
-    cols += [torch.zeros_like(torch.as_tensor(force.pair_sigma))] * 2 \
+    cols = [pair_sigma, pair_epsilon]
+    cols += [torch.zeros_like(torch.as_tensor(pair_sigma))] * 2 \
         if a1012 is None else [a1012, b1012]
     return torch.stack([torch.as_tensor(c, device=ref.device).to(ref.dtype)
                         for c in cols], -1).contiguous()
@@ -410,10 +438,15 @@ class _PairForceMixin:
 
     neighbor_key = "default"
 
+    #: no built-in form and no cell path: the dense path, on the CPU only
+    #: (NonbondedForce's 10-12 term without a per-type table)
+    _dense_only = False
+
     def _cell(self, aux, r_cut):
         """The neighbor entry the cell path takes, or None (dense)."""
         nbr = _resolve_neighbors(aux, self.neighbor_key)
-        return nbr if nbr is not None and math.isfinite(r_cut) else None
+        return nbr if nbr is not None and math.isfinite(r_cut) \
+            and not self._dense_only else None
 
     def _cell_pair(self, globals):
         """(the pair the cell path sweeps: the built-in form or the pair
@@ -429,6 +462,13 @@ class _PairForceMixin:
     def _nb_energy(self, x, box, globals, aux, r_cut):
         nbr = self._cell(aux, r_cut)
         if nbr is None:
+            if self._dense_only and x.is_cuda:
+                raise InputError(
+                    f"{type(self).__name__}: the 10-12 term with atoms of "
+                    "one LJ type that differ in sigma or epsilon has no "
+                    "type-pair table for the kernels; it runs on the dense "
+                    "path of the CPU only (give every atom of a type the "
+                    "same sigma and epsilon, or pass NBFIX tables)")
             pp = {k: v for k, v in self._per_particle(globals).items()
                   if k != "pair_table"}
             return dense_pair_energy(self._pair_fn(globals), x, box, pp,
@@ -531,9 +571,12 @@ class NonbondedForce(_PairForceMixin, Force):
     the pair sweep, the PME corrections and the reciprocal sum.
 
     With NBFIX tables (lj_type, pair_sigma, pair_epsilon) each pair takes
-    its (sigma, epsilon) from the tables; pair_a1012 / pair_b1012 (which
-    need them) add the legacy 10-12 term A/r^12 - B/r^10 to the LJ term
-    before the switch."""
+    its (sigma, epsilon) from the tables; pair_a1012 / pair_b1012 add the
+    legacy 10-12 term A/r^12 - B/r^10 to the LJ term before the switch.
+    Without NBFIX tables the 10-12 term reads A and B by lj_type and
+    combines sigma and epsilon by Lorentz-Berthelot, through a table built
+    from the types where every atom of a type shares them; otherwise
+    through the dense path on the CPU, and it raises on the card."""
 
     charge: torch.Tensor = None
     sigma: torch.Tensor = None
@@ -562,6 +605,7 @@ class NonbondedForce(_PairForceMixin, Force):
             raise ValueError(f"NonbondedForce(method={self.method!r}): "
                              f"expected one of {_METHODS}")
         self._table = _pair_table(self, self.pair_a1012, self.pair_b1012)
+        self._dense_only = self.pair_a1012 is not None and self._table is None
 
     def _effective_charge(self, globals=None):
         """Per-particle charge, the masked (solute) charges scaled by
@@ -570,9 +614,11 @@ class NonbondedForce(_PairForceMixin, Force):
                               self.charge_scale_name, globals)
 
     def _per_particle(self, globals=None):
-        return _with_table({"charge": self._effective_charge(globals),
-                            "sigma": self.sigma, "epsilon": self.epsilon},
-                           self)
+        pp = _with_table({"charge": self._effective_charge(globals),
+                          "sigma": self.sigma, "epsilon": self.epsilon}, self)
+        if self._dense_only:  # the pair function reads A and B by type
+            pp["lj_type"] = self.lj_type
+        return pp
 
     def _pair_fn(self, globals=None):
         method, use_switch = self.method, self.use_switch
@@ -607,6 +653,11 @@ class NonbondedForce(_PairForceMixin, Force):
         return pair
 
     def _pair_form(self, globals=None):
+        if self._dense_only:
+            raise InputError(
+                "NonbondedForce: the 10-12 term with atoms of one LJ type "
+                "that differ in sigma or epsilon has no kernel form (no "
+                "type-pair table holds it)")
         if self.method == "pme":
             form = pairfuncs.lj_sw_ewald_form(self.r_cut, self.r_switch,
                                               self.ewald_alpha,

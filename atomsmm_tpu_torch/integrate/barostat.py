@@ -1,13 +1,16 @@
 """Monte Carlo barostat (counterpart of atomsmm_tpu/integrate/barostat.py,
 openmm.MonteCarloBarostat): isotropic MC volume moves with molecular (COM)
 scaling, Metropolis acceptance on dU + P dV - N_mol kT ln(V'/V) and an
-adaptive move size.
+adaptive move size. A (3, 3) cell scales as the JAX propagator scales it:
+H and the molecules' centres by one factor, so the cell keeps its shape;
+the trial buckets bin fractionally on the cell's own grid.
 
 Context runs an attempt after every step whose post-increment counter
 satisfies step % frequency == frequency - 1 (the JAX package's host
 segmentation), as a call of `_attempt`. The trial energy is taken on cell
 buckets built afresh at the trial box; a trial whose bucket overflowed or
-whose box the stencil no longer covers is rejected, never priced on a
+whose box the stencil no longer covers (on the perpendicular widths of a
+(3, 3) cell) is rejected and counted (BARO_NBAD), never priced on a
 truncated pair list. The decision stays on the device (`torch.where`): an
 attempt reads nothing back to the host. On the way out the buckets are
 rebuilt and the force caches refreshed, so the next RESPA kick never sees
@@ -52,13 +55,6 @@ class MonteCarloBarostatPropagator(Propagator):
 
     def extra_variables(self, system, state):
         refuse_stack(self, state)
-        if state.box.ndim != 1:
-            from ..utils import InputError
-
-            # no test of the JAX package covers a volume move of a (3, 3)
-            # cell, so the port does not offer one
-            raise InputError("the Monte Carlo barostat takes (3,) boxes; a "
-                             "(3, 3) cell runs at constant volume")
         dev = state.x.device
         return {
             BARO_DV: (self.dv0 * box_volume(state.box)).to(state.x.dtype),

@@ -10,7 +10,7 @@ torch.where selects, so nothing is read back to the host inside the loop.
 Where the JAX package evaluates the forces on the dense pair path, a system
 with a NeighborSpec here rebuilds its cell buckets at every iteration and
 passes them as aux, so that the forces come from the cell-pair kernels on
-the card (the dense oracle runs on the CPU only, and is O(N^2)). The forces
+the card (the dense sum is O(N^2)). The forces
 do not depend on which valid bucket is used. The buckets' overflow flags
 are read once, after the loop; on an overflow the specs are retuned from
 the starting configuration and the iterations run again, as

@@ -459,8 +459,8 @@ def swm4_water_system(
     drude_mass > 0 (default 0.4 amu, debited from O) suits the
     extended-Lagrangian DrudeLangevinIntegrator; drude_mass = 0 makes the
     Drude rows massless state for DrudeSCFIntegrator. Atom order per
-    molecule: [O, D, H1, H2, M]. On the card pass neighbors=True (the
-    dense path is the CPU oracle). Returns (System, positions, box).
+    molecule: [O, D, H1, H2, M]. At production size pass neighbors=True
+    (the dense path is O(N^2)). Returns (System, positions, box).
 
     >>> import torch
     >>> system, x, box = swm4_water_system(n_molecules=8, r_cut=0.3,

@@ -7,7 +7,9 @@ the production nonbonded path.
   * evaluation: each home cell meets its stencil cells. With Newton
     half-stencil maps (every grid dimension >= 2*reach + 1) the sweep visits
     each cell pair once (K1, csrc/half_pair.cu); grids too small for half
-    maps take the full-stencil sweep (K2, csrc/cell_pair.cu). On the card
+    maps take the full-stencil sweep (K2, csrc/cell_pair.cu), and so do
+    grids whose cells hold more atoms than K1 takes (1,024, one thread a
+    home atom: a long cutoff in a box of a few cells). On the card
     each runs its hand-written CUDA kernel, on the CPU its plain PyTorch
     twin (ops/pair_kernel.py). A user pair function (CustomNonbondedForce)
     takes the callable sweep, cell_pair_energy_fn: the full stencil's
@@ -105,9 +107,16 @@ class NeighborSpec:
     nbr_cells is the (ncells, S) map of neighboring cell ids, -1-padded after
     deduplication. The half-stencil maps have column 0 = the cell itself and
     then the lexicographically positive directions; inv[c, k] = c - d_k.
-    They are None when the grid is too small. excbits is the relative-offset
-    exclusion bitmask (bit j - i + 16 per atom, bit 16 = self), None when an
-    excluded pair spans more than +-14 atom indices.
+    They are None when the grid is too small.
+
+    `exclusions` is the whole (N, M) table; the sweeps read it in one of
+    two forms (exclusion_form): 'bits', the relative-offset bitmask
+    excbits (bit j - i + 16 per atom, bit 16 = self) where every excluded
+    pair lies within +-14 atom indices; 'split' where some lie farther
+    apart, excbits for the pairs within the window and exclusions_far,
+    each atom's ids outside it (sorted ascending, -1 padded), for the
+    rest. A spec given a table and no excbits (dataclasses.replace,
+    interop) derives both from the table (split_exclusions).
     """
 
     nbr_cells: torch.Tensor = None         # (ncells, S) int32, -1 padded
@@ -117,15 +126,29 @@ class NeighborSpec:
     nbr_cells_half: torch.Tensor = None    # (ncells, S_half) int32
     inv_cells_half: torch.Tensor = None    # (ncells, S_half) int32
     excbits: torch.Tensor = None           # (N + 1,) int32
+    exclusions_far: torch.Tensor = None    # (N, R) int32, 'split' form
     grid: Tuple[int, int, int] = (1, 1, 1)
     reach: Tuple[int, int, int] = (1, 1, 1)
     cell_capacity: int = 64
     cell_chunk: int = 4                    # home cells per plain-sweep chunk
     half_stencil: bool = False
 
+    def __post_init__(self):
+        if self.excbits is None and self.exclusions is not None:
+            exc = self.exclusions
+            bits, far = split_exclusions(exc.shape[0], exc.cpu().numpy())
+            self.excbits = torch.as_tensor(bits, device=exc.device)
+            self.exclusions_far = (None if far is None else
+                                   torch.as_tensor(far, device=exc.device))
+
     @property
     def ncells(self) -> int:
         return int(np.prod(self.grid))
+
+    @property
+    def exclusion_form(self) -> str:
+        """'bits' or 'split' (the class docstring)."""
+        return "bits" if self.exclusions_far is None else "split"
 
 
 def _neighbor_cell_map(grid, reach=(1, 1, 1)) -> np.ndarray:
@@ -180,25 +203,51 @@ def _half_stencil_maps(grid, reach):
     return nbr, inv
 
 
+def split_exclusions(n: int, exclusions):
+    """The exclusion table split at the bitmask's window: ((N+1,) int32
+    bits, bit (j - i + EXC_OFF) set for every excluded pair within
+    +-EXC_WINDOW atom indices and for offset 0 (self), row N (the sentinel)
+    carrying the self bit only; the far ids, (N, R) int32, each row the
+    atom's excluded ids more than EXC_WINDOW apart, sorted ascending and -1
+    padded, or None where there are none). exclusions: (N, M) int32
+    j-lists padded with -1."""
+    exc = np.asarray(exclusions)
+    bits = np.full(n + 1, np.int64(1) << EXC_OFF, dtype=np.int64)
+    if not exc.size:
+        return bits.astype(np.int32), None
+    ii = np.repeat(np.arange(n), exc.shape[1])
+    jj = exc.reshape(-1).astype(np.int64)
+    ok = jj >= 0
+    ii, jj = ii[ok], jj[ok]
+    d = jj - ii
+    near = np.abs(d) <= EXC_WINDOW
+    np.bitwise_or.at(bits, ii[near], np.int64(1) << (d[near] + EXC_OFF))
+    if near.all():
+        return bits.astype(np.int32), None
+    fi, fj = ii[~near], jj[~near]
+    order = np.lexsort((fj, fi))
+    fi, fj = fi[order], fj[order]
+    counts = np.bincount(fi, minlength=n)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    far = np.full((n, int(counts.max())), -1, np.int32)
+    far[fi, np.arange(fi.size) - start[fi]] = fj
+    return bits.astype(np.int32), far
+
+
 def make_exclusion_bits(n: int, exclusions) -> np.ndarray:
     """(N+1,) int32: bit (j - i + EXC_OFF) set for every excluded pair and
     for offset 0 (self); row N (the sentinel) carries the self bit only.
     exclusions: (N, M) int32 j-lists padded with -1. Raises ValueError when
     an excluded pair spans more than +-EXC_WINDOW atom indices."""
-    exc = np.asarray(exclusions)
-    bits = np.full(n + 1, np.int64(1) << EXC_OFF, dtype=np.int64)
-    if exc.size:
-        ii = np.repeat(np.arange(n), exc.shape[1])
-        jj = exc.reshape(-1)
-        ok = jj >= 0
-        ii, jj = ii[ok], jj[ok]
-        d = jj - ii
-        if d.size and np.abs(d).max() > EXC_WINDOW:
-            raise ValueError(
-                f"the exclusion bitmask holds excluded pairs within "
-                f"+-{EXC_WINDOW} atom indices (got {np.abs(d).max()})")
-        np.bitwise_or.at(bits, ii, np.int64(1) << (d + EXC_OFF))
-    return bits.astype(np.int32)
+    bits, far = split_exclusions(n, exclusions)
+    if far is not None:
+        exc = np.asarray(exclusions)
+        span = int(np.abs(np.where(exc >= 0, exc - np.arange(n)[:, None],
+                                   0)).max())
+        raise ValueError(
+            f"the exclusion bitmask holds excluded pairs within "
+            f"+-{EXC_WINDOW} atom indices (got {span})")
+    return bits
 
 
 def _host(a) -> np.ndarray:
@@ -290,7 +339,9 @@ def make_neighbor_spec(
     whatever margin the width leaves,
     capped at `skin`. Capacity is 1.7 x the mean occupancy, raised (never
     lowered) to 1.15 x the measured max occupancy of `occupancy_floor_from`,
-    a setup configuration. There is no backend choice: the spec's tensors
+    a setup configuration. The exclusions take the bitmask where every
+    excluded pair lies within +-14 indices, else the split form
+    (NeighborSpec). There is no backend choice: the spec's tensors
     lie on `device` (default: the CUDA card; without one pass
     device="cpu"), and the device of the tensors decides where the sweep
     runs.
@@ -323,11 +374,7 @@ def make_neighbor_spec(
     s = min((2 * reach[0] + 1) * (2 * reach[1] + 1) * (2 * reach[2] + 1),
             ncells)
     nbr_half, inv_half = _half_stencil_maps(grid, reach)
-    try:
-        excbits = torch.as_tensor(make_exclusion_bits(n, exclusions),
-                                  device=device)
-    except ValueError:  # excluded pair outside the +-14 index window
-        excbits = None
+    excbits, far = split_exclusions(n, exclusions)
 
     def dev(a):
         return None if a is None else torch.as_tensor(a, device=device)
@@ -339,7 +386,8 @@ def make_neighbor_spec(
         skin=skin_eff,
         nbr_cells_half=dev(nbr_half),
         inv_cells_half=dev(inv_half),
-        excbits=excbits,
+        excbits=dev(excbits),
+        exclusions_far=dev(far),
         grid=grid,
         reach=reach,
         cell_capacity=cap,
@@ -614,10 +662,20 @@ def update_all_neighbors(system, extra, x, box, force: bool = False):
 # --------------------------------------------------------------------------
 
 
+def takes_half_stencil(spec: NeighborSpec) -> bool:
+    """Whether K1 (or its twin) sweeps this spec's grid: it has half maps
+    and cells of at most pair_kernel.K1_MAX_CAP atoms (one thread a home
+    atom). Otherwise K2 sweeps the full stencil, which gives the same
+    result and takes any capacity."""
+    from .pair_kernel import K1_MAX_CAP
+
+    return spec.half_stencil and spec.cell_capacity <= K1_MAX_CAP
+
+
 def _sweep(spec):
     from . import pair_kernel
 
-    return (pair_kernel.half_pair_energy_forces if spec.half_stencil
+    return (pair_kernel.half_pair_energy_forces if takes_half_stencil(spec)
             else pair_kernel.full_pair_energy_forces)
 
 
@@ -634,8 +692,9 @@ def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut,
 def cell_pair_energy_forces(form, x, box, per_particle, spec, bucket, r_cut,
                             lamb=None):
     """(energy, forces (N, 3)) with explicit symmetric forces: the Newton
-    half-stencil sweep (K1) when half maps exist, else the full-stencil
-    sweep (K2); the CUDA kernel on the card, its plain twin on the CPU;
+    half-stencil sweep (K1) when half maps exist and K1 takes the cell
+    capacity (takes_half_stencil), else the full-stencil sweep (K2); the
+    CUDA kernel on the card, its plain twin on the CPU;
     either box form. Over a stack (x (K, N, 3), a (K, ncells, cap) bucket,
     a (K, 3) or (K, 3, 3) box, any of them expanded where the rows share
     it) one sweep gives (K,) energies and (K, N, 3) forces."""
@@ -651,8 +710,9 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
     """Sum of a Python pair function pair_fn(r, pi, pj) over the cell list,
     as torch operations on the device of x: every home atom meets every
     slot of its full stencil (spec.nbr_cells), both orderings of a pair,
-    each at weight 1/2; slots past r_cut, excluded pairs (the bitmask, or
-    the exclusion id columns) and padding are masked. per_particle holds
+    each at weight 1/2; slots past r_cut, excluded pairs (the bitmask, the
+    exclusion id columns, or both in the split form) and padding are
+    masked. per_particle holds
     any (N,) tensors, gathered into pi / pj. Differentiable in x, so forces
     come by autograd. `cells` = (c0, c1) sums over the home atoms of those
     cells only (force decomposition, parallel/spatial.py).
@@ -673,12 +733,10 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
     ncid_all = torch.where(nbr >= 0, nbr, ncells).long()
     xp = torch.cat([x, x.new_zeros((1, 3))])
     pp = {k: torch.cat([v, v.new_zeros((1,))]) for k, v in per_particle.items()}
-    exc_bits = exc_cols = None
-    if spec.excbits is not None:
-        exc_bits = spec.excbits
-    else:
-        exc = spec.exclusions
-        exc_cols = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])
+    exc_bits, exc_cols = spec.excbits, spec.exclusions_far
+    if exc_cols is not None:
+        exc_cols = torch.cat([exc_cols,
+                              exc_cols.new_full((1, exc_cols.shape[1]), -1)])
     chunk = max(1, min(ncells, _FN_SLOTS // (cap * s * cap)))
     c0, c1 = home_range(cells, ncells)
     total = torch.zeros((), dtype=x.dtype, device=dev)
@@ -690,7 +748,7 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
         d = minimum_image(xp[hid] - xp[cid], box)
         r2 = torch.sum(d * d, dim=-1)
         valid = (hid < n) & (cid < n) & (r2 < rc2) & ~excluded(
-            hid, cid, None if exc_bits is None else exc_bits[hid],
+            hid, cid, exc_bits[hid],
             None if exc_cols is None else exc_cols[hid])
         r2m = torch.where(valid, r2, torch.ones_like(r2))
         pi = {k: v[hid] for k, v in pp.items()}

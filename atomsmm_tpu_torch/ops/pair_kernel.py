@@ -29,9 +29,11 @@ carries the LJ types ``lj_type`` (N,) and the table ``pair_table``; the
 kernels stage the type in place of (sigma, epsilon) and gather the pair's
 row from global memory, the twins stage it in feature column 6.
 
-Exclusions take the relative-offset bitmask when the spec has one, else the
-exclusion id columns (pairs more than +-14 indices apart); both kernels and
-both twins take either. Both take either box form too: given a (3, 3) cell
+Exclusions take the spec's form (NeighborSpec.exclusion_form): the
+relative-offset bitmask alone, or the split form where some excluded pairs
+lie more than +-14 indices apart (the bitmask within the window, each
+atom's far ids beside it, a row of any width); both kernels and both twins
+take each. Both take either box form too: given a (3, 3) cell
 matrix, a kernel inverts it per thread and rounds each slot's displacement
 in fractional coordinates, as ``pbc.minimum_image`` does.
 
@@ -71,7 +73,7 @@ from .pbc import minimum_image
 #: counts one); reset by callers
 LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
 
-MAX_EXC = 16      # csrc/pair_forms.cuh: exclusion columns a kernel takes
+K1_MAX_CAP = 1024  # K1's cell capacity: one thread a home atom
 _PLAIN_SLOTS = 1 << 21  # pair slots per chunk of the full-stencil plain twin
 
 
@@ -109,7 +111,7 @@ def _rows(x, per_particle, bucket, box, lamb=None):
 def stage_rows(spec, x, per_particle, bucket):
     """stage over a row axis: x (K, N, 3), bucket (K, ncells, cap), each
     per-particle column (N,) or (K, N); hf (K, ncells, cap, 8), hm
-    (K, ncells, cap, 2) and the exclusion id columns (K, ncells, cap, M) or
+    (K, ncells, cap, 2) and the far exclusion ids (K, ncells, cap, R) or
     None. Row k is what stage gives for row k alone."""
     k, n = x.shape[0], x.shape[1]
     feats = x.new_zeros((k, n + 1, 8))
@@ -123,12 +125,11 @@ def stage_rows(spec, x, per_particle, bucket):
     rows = torch.arange(k, device=x.device)[:, None, None]
     meta = torch.zeros((n + 1, 2), dtype=torch.int32, device=x.device)
     meta[:, 0] = torch.arange(n + 1, dtype=torch.int32, device=x.device)
-    exc_cols = None
-    if spec.excbits is not None:
-        meta[:, 1] = spec.excbits
-    else:
-        exc = spec.exclusions
-        exc_cols = torch.cat([exc, exc.new_full((1, exc.shape[1]), -1)])[idx]
+    meta[:, 1] = spec.excbits
+    exc_cols = spec.exclusions_far
+    if exc_cols is not None:
+        exc_cols = torch.cat(
+            [exc_cols, exc_cols.new_full((1, exc_cols.shape[1]), -1)])[idx]
     return feats[rows, idx], meta[idx], exc_cols
 
 
@@ -136,10 +137,10 @@ def stage(spec, x, per_particle, bucket):
     """Stage bucket-layout features for the plain twins, one row gather each:
     hf (ncells, cap, 8) [x y z q sigma eps type 0] in the dtype of x (type:
     the LJ type where the dict has ``lj_type``, else 0), and
-    hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots (id N)
-    read a zero feature row. Without a bitmask (excluded pairs more than
-    +-14 indices apart) the exclusion id columns come back as a third item,
-    (ncells, cap, M), -1 padded; else None."""
+    hm (ncells, cap, 2) int32 [atom id, exclusion bits]. Padding slots
+    (id N) read a zero feature row. The spec's far exclusion ids (the
+    split form) come back as a third item, (ncells, cap, R), -1 padded;
+    None in the bitmask form."""
     hf, hm, exc_cols = stage_rows(spec, x[None], per_particle, bucket[None])
     return hf[0], hm[0], None if exc_cols is None else exc_cols[0]
 
@@ -155,11 +156,18 @@ def excluded(hid, cid, exc_h=None, cols=None):
     `hid` and candidate ids `cid`: bit (cid - hid + 16) of the home atoms'
     bitmask `exc_h`, or, given the home atoms' exclusion id columns `cols`
     (shaped like hid with a trailing column axis), hid == cid or any column
-    equal to cid. The kernels test exactly this per slot."""
-    if cols is None:
+    equal to cid; given both (the split form: the far ids in `cols`), a
+    slot either excludes. The kernels test exactly this per slot, in the
+    bitmask and the split forms."""
+    out = None
+    if exc_h is not None:
         off = torch.clamp(cid - hid + EXC_OFF, 0, 31).long()
-        return ((exc_h.long() & 0xFFFFFFFF) >> off) & 1 == 1
-    return (hid == cid) | torch.any(cid[..., None] == cols.long(), dim=-1)
+        out = ((exc_h.long() & 0xFFFFFFFF) >> off) & 1 == 1
+    if cols is not None:
+        by_cols = (hid == cid) | torch.any(cid[..., None] == cols.long(),
+                                           dim=-1)
+        out = by_cols if out is None else out | by_cols
+    return out
 
 
 def pair_table_of(form, per_particle):
@@ -219,9 +227,9 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     per-atom (N + 1, 4) [fx fy fz e] (row N: the padding, zero). Each home
     atom takes the force and the energy of its slots (the self direction's
     energy at weight 1/2, both orderings being inside it), each candidate
-    of the other directions the reaction. Exclusions by the relative-offset
-    bitmask when the spec has one, else by the id columns. Home cells run
-    `spec.cell_chunk` at a time.
+    of the other directions the reaction. Exclusions in the spec's form
+    (the bitmask, and the far ids in the split form). Home cells
+    run `spec.cell_chunk` at a time.
 
     Over a row axis (x (K, N, 3), bucket (K, ncells, cap), box (K, 3) or
     (K, 3, 3), each per-particle column (N,) or (K, N), `lamb` None or the
@@ -416,8 +424,9 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     PyTorch's current stream; returns the per-atom (N + 1, 4)
     [fx fy fz e], allocated and zeroed here (an empty range launches
     nothing). Checks device, dtype, shape and
-    contiguity first and raises if the launch is refused. A spec without
-    the exclusion bitmask selects the exclusion-column form; the box's
+    contiguity first and raises if the launch is refused. The spec's
+    exclusion form selects the kernel's (the bitmask alone, or the split
+    form: the bitmask and the far ids); the box's
     shape, (3,) or (3, 3), selects the kernel's minimum image; a table
     form passes the LJ types (as int32) and the (T, T, 4) table, which
     must be a contiguous tensor on the device in the dtype of x.
@@ -449,19 +458,16 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
         types = rows_of(per_particle["lj_type"].to(torch.int32))
         ntypes = table.shape[0]
         tables = (("pair_table", table, x.dtype, (ntypes, ntypes, 4)),)
-    if spec.excbits is not None:
-        exc, m = spec.excbits, 0
-        exc_check = ("excbits", exc, torch.int32, (n + 1,))
-    else:
-        exc = spec.exclusions
-        m = exc.shape[1]
-        if not 1 <= m <= MAX_EXC:
-            raise ValueError(f"{kernel}: {m} exclusion columns per atom, the "
-                             f"kernel takes 1..{MAX_EXC}")
-        exc_check = ("exclusions", exc, torch.int32, (n, m))
+    bits, cols = spec.excbits, spec.exclusions_far
+    m = 0 if cols is None else cols.shape[1]
+    if bits is None:
+        raise ValueError(f"{kernel}: the spec holds no exclusion table")
+    exc_checks = [("excbits", bits, torch.int32, (n + 1,))]
+    if cols is not None:
+        exc_checks.append(("far exclusions", cols, torch.int32, (n, m)))
     tri = int(box.ndim == 3)
     lambs = () if lamb is None else (("lamb", lamb, x.dtype, (k,)),)
-    dev = _checked(kernel, ("x", x[0], x.dtype, (n, 3)), exc_check,
+    dev = _checked(kernel, ("x", x[0], x.dtype, (n, 3)), *exc_checks,
                    ("stencil map", nbr, torch.int32, (ncells, s)), *tables,
                    *lambs)
     strides = (ctypes.c_longlong * 7)(*(
@@ -480,8 +486,9 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     _launch(kernel, x.dtype, x.data_ptr(), q.data_ptr(), sig.data_ptr(),
             eps.data_ptr(), types.data_ptr() if table is not None else None,
             table.data_ptr() if table is not None else None,
-            exc.data_ptr() if m == 0 else None,
-            exc.data_ptr() if m else None, bucket.data_ptr(), nbr.data_ptr(),
+            None if bits is None else bits.data_ptr(),
+            None if cols is None else cols.data_ptr(), bucket.data_ptr(),
+            nbr.data_ptr(),
             box.data_ptr(), ncells, *cells, cap, s, n, m, tri,
             ntypes if table is not None else 0, k, ctypes.addressof(strides),
             None if lamb is None else lamb.data_ptr(),
@@ -492,11 +499,14 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
 
 def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,
                    lamb=None):
-    """Launch K1 (see _cell_sweep_cuda) over the half stencil."""
+    """Launch K1 (see _cell_sweep_cuda) over the half stencil. A cell
+    capacity above K1_MAX_CAP raises ValueError (the sweeps of
+    ops/neighbors.py send such grids to K2)."""
     cap = bucket.shape[-1]
-    if not 1 <= cap <= 1024:
+    if not 1 <= cap <= K1_MAX_CAP:
         raise ValueError(f"half_pair: cell capacity {cap} outside the "
-                         "kernel's 1..1024 (one thread per home atom)")
+                         f"kernel's 1..{K1_MAX_CAP} (one thread per home "
+                         "atom)")
     return _cell_sweep_cuda("half_pair", spec.nbr_cells_half, x, per_particle,
                             bucket, spec, box, form, r_cut, lamb=lamb)
 

@@ -1,12 +1,15 @@
 """Dense (all-pairs) nonbonded evaluator (counterpart of
-atomsmm_tpu/ops/pairs.py) — the O(N²) oracle — and the explicit pair-list
-sum that the exception force uses (any device).
+atomsmm_tpu/ops/pairs.py) and the explicit pair-list sum that the exception
+force uses, both torch operations on any device.
 
 Chunked, masked evaluation of an arbitrary pair energy function with
-exclusions; forces come from autograd. It is the deterministic reference
-that the golden energies and the cell-list path are checked against, and it
-runs on the CPU only: on the card every nonbonded force goes through the
-cell-pair kernel.
+exclusions; forces come from autograd. It is the path of a System without
+a NeighborSpec and of NonbondedForce(method='nocutoff') (the JAX package
+runs it under XLA on its device, so here PyTorch operations on the card
+are its port), and the deterministic reference that the golden energies
+and the cell-list path are checked against. A chunk of `chunk` rows holds
+(chunk, N) intermediates (a few tens of MB at N = 4,096), and the autograd
+graph keeps every chunk's until the backward pass.
 """
 from __future__ import annotations
 
@@ -31,10 +34,6 @@ def dense_pair_energy(
     pair_fn(r, pi, pj) -> energy; per_particle maps names to (N,) parameter
     tensors; exclusions is the (N, M) symmetric table padded with -1.
     """
-    if x.is_cuda:
-        raise RuntimeError(
-            "dense_pair_energy is the CPU oracle; attach a NeighborSpec to "
-            "run nonbonded forces on the card")
     n = x.shape[0]
     j_ids = torch.arange(n, device=x.device)[None, :]
     rc2 = torch.as_tensor(float(r_cut), dtype=x.dtype) ** 2

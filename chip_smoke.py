@@ -21,9 +21,9 @@ non-zero:
    - K1: argon 864, water 400 (full cutoff-RF, RESPA near and fused far),
      the 30k equilibrated state's near and far grids, an atom crossing the
      periodic face between rebuilds, water 400 renumbered so that no
-     exclusion bitmask fits (the exclusion-column form), and water 2744 at
-     1.4 nm (cells above 256 atoms: blocks above 256 threads, several
-     128-slot chunks per candidate partition);
+     exclusion bitmask fits the whole table (the split form), and water
+     2744 at 1.4 nm (cells above 256 atoms: blocks above 256 threads,
+     several 128-slot chunks per candidate partition);
    - K2: water 216 (one cell of 1,112 slots), the water 400 and water 700
      far grids at 0.9 nm (full cutoff-RF and fused far forms), the
      renumbered water 400, and a face crossing. Water 216's lattice energy
@@ -245,7 +245,7 @@ non-zero:
    Na+ and 27 Cl- (Joung-Cheatham TIP3P ions, the Na+-Cl- row of the LJ
    table an NBFIX row, Luo & Roux's R_min and epsilon), 29,892 atoms,
    written as prmtop and inpcrd text by this script's writer
-   (nacl_prmtop, nacl_inpcrd) and read by io.amber_system(method="pme",
+   (nacl_prmtop, models.peptide.inpcrd_text) and read by io.amber_system(method="pme",
    r_cut=0.9, rigid_water=True, neighbors=True) in float32: 600
    LangevinMiddle steps at 1 fs settle the ions, then (g1)'s integrator,
    step(1), a timed step(200), 8 x step(50) with T and PE read; checks
@@ -281,6 +281,35 @@ non-zero:
    25 steps and a swap, against the one-process sampler at the same
    seeds: the same swap attempts, acceptance in [0, 1], each row's T
    260-340 K, state-steps/s of both;
+   path (n): what the port ran on the CPU only, or raised on. (n1) path
+   (f) (RF) with the 100,002-atom state's molecules moved into the
+   sheared cell shear_cell(L) (SHEAR, as path (k) shears the 30k state):
+   step(100), 12 timed x step(25), one volume move timed alone; path
+   (f)'s bands, at least one acceptance and no invalid trial among the 12
+   timed attempts, the cell's shape H / V^(1/3) kept to N1_SHAPE_TOL, K1
+   launches 3 an outer step + 2 a pass + 6 a move; ms per outer step and
+   per move beside path (f)'s RF of this call, (f)'s Context also timed
+   over the same calls just before (n1)'s, and (n1)'s step and move
+   split as path (f)'s. (n2) the exclusion table of nearest_neighbour_table
+   (water's O-H bonds plus each oxygen's bond to its nearest oxygen,
+   closed to 1-4: 17-64 columns, most excluded pairs far beyond +-14
+   indices) at the 30k headline's far and near grids: K1, and K2 on the
+   same grids' full stencils, in the split form against their float64
+   plain twins (the tolerances above), then timed beside the bitmask
+   form on the same bucket; and a float64 slice of a
+   peptide-like chain (models.peptide: 36 atoms, 24 excluded partners
+   a backbone carbon) in 201 TIP3P waters written as prmtop and inpcrd
+   text and read by io.amber_system (PME 0.5 nm, a 3^3 grid, K1 in the
+   split form), 10 steps card vs CPU (x, v 1e-9, energies 1e-10). (n3)
+   the 30k state at a 2.0 nm cutoff: a 3^3 grid with half maps whose
+   cells pass K1's 1,024 atoms, so the sweep takes K2 on the full
+   stencil: K2 against its twin, 5 VV + NHC steps with the launches
+   counted (K2 only), K2 timed. (n4) BASELINE config 1 (argon 4,096,
+   float32, VV @ 2 fs, bench.py's melt) without a NeighborSpec, on the
+   dense path (no kernel launched, |drift| <= N4_DRIFT), beside the same
+   run on its cell list; the goldens' argon 864 and 27 waters under
+   NonbondedForce(method='nocutoff'), float64, card against CPU (each
+   force's energy and the forces to 1e-9);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -318,8 +347,10 @@ non-zero:
    SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild).
 
 Then one JSON line of kernel results (its launches_by_path counts each
-kernel over each path's run, path_j, path_k and path_m included; K2's
-entry carries its time, plain time and bound at (m1)'s grids; with each
+kernel over each path's run, path_j, path_k, path_m and path_n
+included; K2's entry carries its time, plain time and bound at (m1)'s
+grids and at (n3)'s, K1's and K2's their split exclusion form's beside
+the bitmask form at (n2)'s grids; with each
 kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps;
 ms is the kernel's device time in torch.profiler, launch_ms the time of one
@@ -396,13 +427,15 @@ def smi_line():
 
 
 def to_device(spec, dev):
+    """A cell spec with every tensor field on `dev`."""
     import dataclasses
 
-    fields = ("nbr_cells", "exclusions", "nbr_cells_half", "inv_cells_half",
-              "excbits")
+    import torch
+
     return dataclasses.replace(spec, **{
-        k: getattr(spec, k).to(dev) for k in fields
-        if getattr(spec, k) is not None})
+        f.name: getattr(spec, f.name).to(dev)
+        for f in dataclasses.fields(spec)
+        if isinstance(getattr(spec, f.name), torch.Tensor)})
 
 
 def plain_sweep(spec, form, x, box, pp, bucket):
@@ -411,11 +444,13 @@ def plain_sweep(spec, form, x, box, pp, bucket):
     import torch
 
     from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import takes_half_stencil
 
     f64 = torch.float64
     x, box = x.to(f64), box.to(f64)
     pp = {k: v.to(f64) for k, v in pp.items()}
-    plain = pk.half_pair_plain if spec.half_stencil else pk.full_pair_plain
+    plain = (pk.half_pair_plain if takes_half_stencil(spec)
+             else pk.full_pair_plain)
     out = plain(x, pp, bucket, spec, box, form, form.r_cut)
     return (out[:, 3].sum(), out[:-1, :3], float(out[:, 3].abs().sum()))
 
@@ -434,9 +469,10 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     import torch
 
     from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import takes_half_stencil
     from atomsmm_tpu_torch.ops.pbc import minimum_image
 
-    half = spec.half_stencil if half is None else half
+    half = takes_half_stencil(spec) if half is None else half
     n = x.shape[0]
     hf, hm, cols = pk.stage(spec, x, pp, bucket)
     ncells, cap, _ = hf.shape
@@ -614,7 +650,7 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
     from atomsmm_tpu_torch.ops.pairfuncs import virial_form
 
     spec = to_device(spec, dev)
-    kernel = "half_pair" if spec.half_stencil else "cell_pair"
+    kernel = "half_pair" if nb.takes_half_stencil(spec) else "cell_pair"
     form = force._pair_form(globals) if form is None else form
     virial = form.virial
     unsplit_form = None if unsplit is None else unsplit._pair_form()
@@ -709,8 +745,8 @@ def rf_rows(label, force, spec, x, box, dev):
 def permuted(force, x, box, r_cut):
     """The nonbonded force, its spec and positions with the atoms renumbered
     by a fixed permutation: excluded pairs lie far more than +-14 indices
-    apart, so no exclusion bitmask fits and the sweeps take the id
-    columns."""
+    apart, so no exclusion bitmask fits the whole table and the sweeps
+    take the split form."""
     import dataclasses
 
     import numpy as np
@@ -729,7 +765,7 @@ def permuted(force, x, box, r_cut):
         **{k: v[pt] for k, v in force._per_particle().items()})
     spec = nb.make_neighbor_spec(box, n, r_cut, exclusions=exc,
                                  occupancy_floor_from=x[pt], device="cpu")
-    if spec.excbits is not None:
+    if spec.exclusion_form != "split":
         raise RuntimeError("the renumbered water still fits the bitmask")
     return force, spec, x[pt]
 
@@ -779,7 +815,7 @@ def phase_kernels(dev, eq):
             box, dev, results)
     compare("water400 far", r.forces[2], r.neighbors, x, box, dev, results)
     pf, pspec, px = permuted(s.forces[0], x, box, 0.7)
-    compare("water400 renumbered (exclusion columns)", pf, pspec, px, box,
+    compare("water400 renumbered (split exclusions)", pf, pspec, px, box,
             dev, results)
     ex, ev, ebox = eq
     s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f64,
@@ -840,7 +876,7 @@ def phase_kernels(dev, eq):
                 results, unsplit=s.forces[0] if method == "pme" else None)
         if m == 400:
             pf, pspec, px = permuted(s.forces[0], x, box, 0.9)
-            compare("water400 renumbered (exclusion columns)", pf, pspec, px,
+            compare("water400 renumbered (split exclusions)", pf, pspec, px,
                     box, dev, results)
             face_crossing("cell_pair water400", s, x, box, dev)
     return results
@@ -1502,7 +1538,7 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     form = force._pair_form() if form is None else form
     pp = force._per_particle()
     bucket, _ = nb.build_cell_buckets(spec, x, box)
-    if spec.half_stencil:
+    if nb.takes_half_stencil(spec):
         kernel, cuda, plain = "half_pair", pk.half_pair_cuda, pk.half_pair_plain
         nbr = spec.nbr_cells_half
     else:
@@ -1535,13 +1571,15 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
                            f"sweeps, expected 1 to 4 a sweep with one: "
                            f"{seen}")
     c = sweep_counts(spec, form, x, box, pp, bucket)
-    exc = spec.excbits if spec.excbits is not None else spec.exclusions
+    # the split form's far ids are read up to a row's first -1 padding
+    far = spec.exclusions_far
+    far_bytes = 0 if far is None else int((far >= 0).sum()) * 4
     # a table form reads the types and the (T, T, 4) table, not sigma, eps
     lj = ((pp["lj_type"], pp["pair_table"]) if form.table
           else (pp["sigma"], pp["epsilon"]))
     b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
-        x, pp["charge"], *lj, exc, bucket, nbr, box)
-        + (n + 1) * 4 * x.element_size())
+        x, pp["charge"], *lj, spec.excbits, bucket, nbr, box)
+        + far_bytes + (n + 1) * 4 * x.element_size())
     slots_all = spec.ncells * nbr.shape[1] * spec.cell_capacity ** 2
     log(f"timing {kernel} {label} grid {spec.grid} cap "
         f"{spec.cell_capacity}: kernel {k_ms:.4f} ms of device time "
@@ -3849,9 +3887,9 @@ def time_rows(label, system, xs, boxes, buckets, globals, plain_reps=2):
         def once(t):
             return t[0] if t.ndim and t.stride(0) == 0 else t
 
-        exc = spec.excbits if spec.excbits is not None else spec.exclusions
         b = bound(form, pairs, near, slots, nbytes(
-            once(xs), once(pp["charge"]), pp["sigma"], pp["epsilon"], exc,
+            once(xs), once(pp["charge"]), pp["sigma"], pp["epsilon"],
+            spec.excbits,
             once(buckets), nbr, once(boxes))
             + k_rows * (n + 1) * 4 * xs.element_size())
         log(f"timing {kernel} {label} grid {spec.grid} cap "
@@ -4841,11 +4879,6 @@ def phase_triclinic(dev, eq, k2_steps=10):
 
 # --- path (l): Amber input, BASELINE config 6's state as 0.15 M NaCl -------
 
-AMBER_CHARGE = 18.2223  # sqrt(332.0522 kcal A / (mol e^2)): Amber's unit
-KCAL = 4.184
-# TIP3P as models.rigid_water_system builds it, in Amber units (A, kcal/mol)
-TIP3P_AMBER = {"q_o": -0.834, "q_h": 0.417, "r_oh": 0.9572,
-               "theta": 104.52, "sigma_o": 3.1507, "eps_o": 0.6364 / KCAL}
 # Joung & Cheatham (2008) TIP3P ions, (R_min/2 [A], epsilon [kcal/mol])
 ION_NA = (1.369, 0.0874)
 ION_CL = (2.513, 0.0356)
@@ -4867,21 +4900,6 @@ ION_SEPARATION = 1.0  # nm, the least O-O distance of the replaced waters
 L_BANDS = {"T": (280.0, 320.0), "pe": (-14.25, -13.75), "drift": 0.15}
 
 
-def amber_section(flag, values, kind):
-    """One %FLAG section of a prmtop: integers (10I8), floats (5E16.8) or
-    4-character strings (20a4)."""
-    fmt, per, tok = {
-        "i": ("%FORMAT(10I8)", 10, lambda v: f"{int(v):8d}"),
-        "e": ("%FORMAT(5E16.8)", 5, lambda v: f"{float(v):16.8E}"),
-        "a": ("%FORMAT(20a4)", 20, lambda v: f"{str(v):<4s}")}[kind]
-    lines = [f"%FLAG {flag}", fmt]
-    if not len(values):
-        lines.append("")
-    for i in range(0, len(values), per):
-        lines.append("".join(tok(v) for v in values[i:i + per]))
-    return lines
-
-
 def nacl_prmtop(n_water, n_na, n_cl, hbond=False):
     """prmtop text of `n_water` TIP3P waters then `n_na` Na+ and `n_cl`
     Cl- (types OW, HW, Na+, Cl-), the Na+-Cl- row of ACOEF/BCOEF at
@@ -4890,6 +4908,9 @@ def nacl_prmtop(n_water, n_na, n_cl, hbond=False):
     B = 2 eps R_min^6 with R_min = R_min/2_i + R_min/2_j and
     eps = sqrt(eps_i eps_j)."""
     import numpy as np
+
+    from atomsmm_tpu_torch.models.peptide import (AMBER_CHARGE, TIP3P_AMBER,
+                                                  prmtop_text)
 
     w = TIP3P_AMBER
     n = 3 * n_water + n_na + n_cl
@@ -4948,23 +4969,7 @@ def nacl_prmtop(n_water, n_na, n_cl, hbond=False):
     if hbond:
         sections += [("HBOND_ACOEF", [HBOND_AB[0]], "e"),
                      ("HBOND_BCOEF", [HBOND_AB[1]], "e")]
-    lines = ["%VERSION  VERSION_STAMP = V0001.000  DATE = 01/01/26"]
-    lines += amber_section("POINTERS", pointers, "i")
-    for flag, values, kind in sections:
-        lines += amber_section(flag, values, kind)
-    return "\n".join(lines) + "\n"
-
-
-def nacl_inpcrd(x_nm, box_nm):
-    """inpcrd text of positions [nm] and an orthorhombic box [nm]."""
-    vals = (x_nm * 10.0).reshape(-1)
-    lines = ["NaCl in TIP3P", f"{len(x_nm):6d}"]
-    for i in range(0, len(vals), 6):
-        lines.append("".join(f"{v:12.7f}" for v in vals[i:i + 6]))
-    lines.append("".join(f"{v:12.7f}" for v in
-                         [*(10.0 * float(b) for b in box_nm), 90.0, 90.0,
-                          90.0]))
-    return "\n".join(lines) + "\n"
+    return prmtop_text(pointers, sections)
 
 
 def nacl_state(x, v, box_l, n_ions, separation, seed):
@@ -5021,6 +5026,7 @@ def phase_amber(dev, eq, seed=7, settle=600, steps=200, chunks=8, chunk=50):
     import torch
 
     import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models.peptide import TIP3P_AMBER, inpcrd_text
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
     f32 = torch.float32
@@ -5036,7 +5042,7 @@ def phase_amber(dev, eq, seed=7, settle=600, steps=200, chunks=8, chunk=50):
         f"{np.sqrt(na_cl[0][1] * na_cl[1][1]):.4f} kcal/mol)")
     t0 = time.perf_counter()
     text = nacl_prmtop(n_water, N_IONS, N_IONS)
-    crd = nacl_inpcrd(x, ebox)
+    crd = inpcrd_text(x, ebox)
     t1 = time.perf_counter()
     system, xt, box = nacl_system(text, crd, f32, dev)
     torch.cuda.synchronize()
@@ -5139,6 +5145,7 @@ def phase_kernels_amber(dev, run):
     import torch
 
     import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models.peptide import inpcrd_text
     from atomsmm_tpu_torch.ops.pairfuncs import virial_form
     from atomsmm_tpu_torch.utils import replace
 
@@ -5165,7 +5172,7 @@ def phase_kernels_amber(dev, run):
     # the 10-12 variant, K1 and K2
     hb_sys, _, _ = nacl_system(nacl_prmtop(run["n_water"], N_IONS, N_IONS,
                                            hbond=True),
-                               nacl_inpcrd(x.numpy(), box.numpy()), f32, dev)
+                               inpcrd_text(x.numpy(), box.numpy()), f32, dev)
     hb = hb_sys.forces[0]
     if not (hb._pair_form().table and hb._pair_form().hbond
             and hb.pair_a1012 is not None):
@@ -5206,6 +5213,7 @@ def phase_slice_amber(dev, n_water=200, n_ions=2, steps=10, seed=3):
 
     import atomsmm_tpu_torch as amm
     from atomsmm_tpu_torch.models import rigid_water_system
+    from atomsmm_tpu_torch.models.peptide import inpcrd_text
     from atomsmm_tpu_torch.ops import pair_kernel as pk
     from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
     from atomsmm_tpu_torch.potential import split_potential_energy
@@ -5218,7 +5226,7 @@ def phase_slice_amber(dev, n_water=200, n_ions=2, steps=10, seed=3):
     x = x.numpy()
     xs, vs, kept = nacl_state(x, np.zeros_like(x), box_l, n_ions, 0.7, seed)
     text = nacl_prmtop(kept, n_ions, n_ions)
-    crd = nacl_inpcrd(xs, np.full(3, box_l))
+    crd = inpcrd_text(xs, np.full(3, box_l))
     runs = []
     for device in ("cpu", dev):
         system, xt, bt = nacl_system(text, crd, f64, device)
@@ -5675,6 +5683,496 @@ def phase_hrex_mesh(dev, hrex, world=2, chunk=25):
             rate_one}
 
 
+
+# --- path (n): what the port ran on the CPU only, or raised on -------------
+
+# (n1)'s cell shape: H / V^(1/3) held to this after the volume moves (the
+# float32 box scaled by s at each accepted move rounds by ~6e-8 a move)
+N1_SHAPE_TOL = 1e-6
+# (n4): BASELINE config 1, argon NVE; its conserved-energy drift bound
+N4_DRIFT = 0.1  # kJ/mol/atom/ps
+
+
+def npt_water_in_cell(dev, eq100):
+    """Path (f)'s system (npt_water, RF) with the equilibrated state's
+    molecules' centres mapped into the sheared cell shear_cell(L) of the
+    cube's edge L (water_in_cell: the far and near cell lists built for
+    the cell), capacities retuned there; (respa, x, v, cell) on the card,
+    float32."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    f32 = torch.float32
+    ex, ev, ebox = eq100
+    box_l = float(ebox[0])
+    cell = shear_cell(box_l)
+    system, _, _ = water_system(n_molecules=NPT_N_MOLECULES, neighbors=False,
+                                dtype=f32, device=dev)
+    system, xs = water_in_cell(system, torch.as_tensor(ex), box_l, cell,
+                               float(system.forces[0].r_cut), dev)
+    system = system.add_force(amm.MonteCarloBarostat(
+        pressure=1.0, temperature=300.0, frequency=NPT_FREQUENCY))
+    respa = amm.RESPASystem(system, rcut_in=0.6, rswitch_in=0.5)
+    respa = retune_neighbor_specs(respa, xs, cell)
+    return (respa, torch.as_tensor(xs, dtype=f32, device=dev),
+            torch.as_tensor(ev, dtype=f32, device=dev),
+            torch.as_tensor(cell, dtype=f32, device=dev))
+
+
+def cell_shape(box):
+    """H / V^(1/3): the cell's shape, blind to its volume."""
+    import torch
+
+    b = box.double()
+    return b / torch.linalg.det(b).abs() ** (1.0 / 3.0)
+
+
+def phase_npt_sheared(dev, eq100, f_run, f_move_ms, settle=100, calls=12,
+                      per_call=25):
+    """(n1): path (f) (config 5, RF, MTS [4, 2, 1] @ 4 fs + NHC 300 K, MC
+    barostat at 1 bar every 25 steps, float32) with the 100,002-atom state
+    sheared into the (3, 3) cell shear_cell(L) as path (k) shears the 30k
+    state: step(settle), then `calls` timed calls of step(per_call) (300
+    outer steps, 12 volume moves), the temperature read after each; then
+    one volume move timed alone (host clock, synchronised). Path (f)'s own
+    Context (`f_run`) runs the same calls again just before, so that the
+    two are timed side by side in one state of the process (path (f)'s
+    phase runs long before this one). Checks path (f)'s bands (T 280-320
+    K, PE/atom -14.6 ... -13.8 kJ/mol, |dV/V| < 3% over the timed steps),
+    at least one acceptance and no invalid trial among the timed attempts
+    (12: a move of the adaptive size is accepted about one time in four,
+    so 8 would see none about one run in ten), the cell's shape
+    (H / V^(1/3) to N1_SHAPE_TOL from the start) and the exact K1
+    launches of the timed steps (3 an outer step + 2 a pass + 6 a move).
+    `f_move_ms` is path (f)'s volume move (phase_npt_split) of this call.
+    Returns the run as phase_npt does, for phase_npt_split."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.integrate import barostat as baro
+    from atomsmm_tpu_torch.integrate.propagators import StepContext
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import takes_half_stencil
+
+    loops = [4, 2, 1]
+    respa, x, v, cell = npt_water_in_cell(dev, eq100)
+    n = respa.num_particles
+    far, near = respa.neighbors, respa.extra_neighbor_specs["near"]
+    if not (takes_half_stencil(far) and takes_half_stencil(near)):
+        raise RuntimeError("(n1): both sheared grids should take K1")
+    ctx = amm.Context(respa, npt_integrator(loops),
+                      amm.make_state(x, v=v, box=cell))
+    ctx.step(settle)
+    torch.cuda.synchronize()
+
+    def timed(context, record):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(calls):
+            record(context)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (calls * per_call)
+
+    f_beside_ms = timed(f_run["ctx"], lambda c: c.step(per_call))
+    box0, shape0 = ctx.state.box.clone(), cell_shape(cell)
+    ext0 = {k: int(ctx.state.extra[k]) for k in (
+        baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD)}
+    pk.reset_launches()
+    expected_att, runs, temps = 0, [], []
+
+    def record(c):
+        nonlocal expected_att
+        a = attempts_due(c.state.step, per_call, NPT_FREQUENCY)
+        c.step(per_call)
+        expected_att += a
+        runs.append((per_call, a, c.last_step_passes))
+        temps.append(float(c.temperature()))
+
+    ms = timed(ctx, record)
+    steps = calls * per_call
+    launches = dict(pk.LAUNCHES)
+    expected = {"half_pair": sum(p * ((loops[1] + 1) * k + 2 + 6 * a)
+                                 for k, a, p in runs),
+                "cell_pair": 0, "tile_pair": 0}
+    att, acc, bad = (int(ctx.state.extra[k]) - ext0[k] for k in (
+        baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD))
+    box1 = ctx.state.box
+    dv = float(torch.linalg.det(box1.double())
+               / torch.linalg.det(box0.double())) - 1.0
+    shape_err = float((cell_shape(box1) - shape0).abs().max())
+    pe = float(ctx.get_state(lite=True).potential_energy) / n
+    finite = bool(torch.isfinite(ctx.state.x).all()
+                  and torch.isfinite(ctx.state.v).all())
+    t_mean = sum(temps) / len(temps)
+    st = ctx.state
+    move_ms = wall_ms(lambda: ctx._barostat._attempt(
+        StepContext(ctx.system, ctx.parameters, 0.0), st), reps=10)
+    f_ms = f_run["ms_per_step"]
+    log(f"path (n1) water100k ({n} atoms) RF NPT RESPA{loops}@4fs NHC 300 "
+        f"K, MC barostat 1 bar every {NPT_FREQUENCY} steps, float32, in the "
+        f"sheared cell (shear {SHEAR}) of edge {float(cell[0, 0]):.5f} nm: "
+        f"far grid {far.grid} cap {ctx.system.neighbors.cell_capacity}, near "
+        f"grid {near.grid} cap "
+        f"{ctx.system.extra_neighbor_specs['near'].cell_capacity} (K1); "
+        f"{steps} timed outer steps as {calls} x step({per_call}) after "
+        f"step({settle}): {ms:.3f} ms per outer step by CUDA events; path "
+        f"(f) RF at (3,) in the same call: {f_ms:.3f} ms in its own phase "
+        f"(ratio {ms / f_ms:.3f}), {f_beside_ms:.3f} ms over the same "
+        f"calls just before this run (ratio {ms / f_beside_ms:.3f}); one "
+        f"volume move {move_ms:.3f} ms by the host clock (path (f) RF: "
+        f"{f_move_ms:.3f} ms) on {smi_line()}; attempts {att} (expected "
+        f"{expected_att}), accepted {acc}, invalid trials {bad}; dV/V "
+        f"{dv:+.4%}; cell shape H/V^(1/3) max change {shape_err:.2e} (tol "
+        f"{N1_SHAPE_TOL:g}); launches {launches} (expected {expected}); T "
+        f"mean {t_mean:.2f} K over {len(temps)} readings; PE/atom {pe:.4f} "
+        f"kJ/mol; finite {finite}")
+    require("path (n1)", {
+        "finite": finite, "attempts": att == expected_att,
+        "accepted": acc >= 1, "invalid_trials": bad == 0,
+        "launches": launches == expected,
+        "temperature": 280.0 <= t_mean <= 320.0,
+        "pe_per_atom": -14.6 <= pe <= -13.8, "volume": abs(dv) < 0.03,
+        "shape": shape_err <= N1_SHAPE_TOL,
+        "box": tuple(box1.shape) == (3, 3)})
+    return {"launches": launches, "ms_per_step": ms, "move_ms": move_ms,
+            "f_ms": f_ms, "f_beside_ms": f_beside_ms,
+            "f_move_ms": f_move_ms, "ctx": ctx, "loops": loops}
+
+
+def nearest_neighbour_table(x, box, dev):
+    """The exclusion table of (n2): the 1-2/1-3/1-4 closure of water's own
+    bonds (O-H) plus one O-O bond from each molecule's oxygen to its
+    nearest oxygen (minimum image, found on the card), so that excluded
+    pairs lie at contact distance and mostly far beyond +-14 indices;
+    (N, M) int32, -1 padded, M its widest row."""
+    import numpy as np
+    import torch
+
+    from atomsmm_tpu_torch.models.peptide import bond_closure
+
+    n = len(x)
+    o = torch.as_tensor(x[0::3], dtype=torch.float64, device=dev)
+    b = torch.as_tensor(box, dtype=torch.float64, device=dev)
+    nearest = []
+    for lo in range(0, len(o), 2000):
+        d = o[lo:lo + 2000, None] - o[None]
+        d = d - b * torch.round(d / b)
+        r2 = (d * d).sum(-1)
+        r2[torch.arange(len(r2)), torch.arange(lo, lo + len(r2))] = np.inf
+        nearest.append(r2.argmin(1))
+    nearest = torch.cat(nearest).cpu().numpy()
+    bonds = [(i, j) for i in range(0, n, 3)
+             for j in (i + 1, i + 2, 3 * int(nearest[i // 3]))]
+    return bond_closure(n, bonds)
+
+
+def with_table(spec, table):
+    """`spec` (grid, capacity, maps kept) with the exclusion table
+    `table`, in the form the spec derives from it (NeighborSpec)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(
+        spec, exclusions=torch.as_tensor(table, device=spec.nbr_cells.device),
+        excbits=None)
+
+
+def phase_kernels_wide(dev, eq):
+    """(n2), the kernels: K1 and K2 (on the full stencil of the same grid)
+    against their float64 plain twins at the 30k headline's far and near
+    grids (phase_kernels' RF specs) with nearest_neighbour_table's
+    exclusion table (17-64 columns, the split form); then K1 and K2 timed
+    there in the split form beside the same bucket's bitmask form (water's
+    own exclusions)."""
+    import dataclasses
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    f64, f32 = torch.float64, torch.float32
+    ex, _, ebox = eq
+    table = nearest_neighbour_table(ex, ebox, dev)
+    s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f64,
+                           device="cpu")
+    r = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4)
+    r = retune_neighbor_specs(r, ex, ebox, safety=1.03)
+    xe, be = torch.as_tensor(ex, dtype=f64), torch.as_tensor(ebox, dtype=f64)
+    grids = {"far": (r.forces[2], r.neighbors),
+             "near": (r.forces[1], r.extra_neighbor_specs["near"])}
+    wide = {g: with_table(spec, table) for g, (_, spec) in grids.items()}
+    far_ids = wide["far"].exclusions_far
+    m, m_far = table.shape[1], far_ids.shape[1]
+    log(f"path (n2) table: water30k's O-H bonds + each oxygen's bond to its "
+        f"nearest oxygen, closed to 1-4: {m} columns, {m_far} of them outside "
+        f"+-14 indices (form {wide['far'].exclusion_form})")
+    require("path (n2) table", {
+        "width": 17 <= m <= 64, "split": all(
+            w.exclusion_form == "split" for w in wide.values()),
+        "far_wider_than_16": m_far > 16})
+    results = []
+    for g, (force, _) in grids.items():
+        for stencil, sp in (("", wide[g]), (", full stencil",
+                                            dataclasses.replace(
+                                                wide[g], half_stencil=False))):
+            compare(f"water30k wide table ({m} columns) {g}{stencil}",
+                    force, sp, xe, be, dev, results)
+    # K1 and K2 timed on one bucket in the split form, beside the bitmask
+    # form (water's own exclusions); K2 on the full stencil of the far grid
+    s32, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f32,
+                             device=dev)
+    r32 = retune_neighbor_specs(
+        amm.RESPASystem(s32, rcut_in=0.5, rswitch_in=0.4), ex, ebox,
+        safety=1.03)
+    x32, b32 = xe.to(dev, f32).contiguous(), be.to(dev, f32)
+    timings = {}
+    for g, force, spec, stencils in (
+            ("far", r32.forces[2], r32.neighbors, (True, False)),
+            ("near", r32.forces[1], r32.extra_neighbor_specs["near"],
+             (True,))):
+        forms = {"split": with_table(spec, table), "bits": spec}
+        for half in stencils:
+            kernel = "half_pair" if half else "cell_pair"
+            for name, sp in forms.items():
+                timings[(kernel, g, name)] = time_cells(
+                    f"water30k {g} exclusions {name}"
+                    + ("" if half else " full stencil"), force,
+                    dataclasses.replace(sp, half_stencil=half), x32, b32,
+                    plain_reps=1)
+    return results, timings
+
+
+def phase_slice_peptide(dev, steps=10):
+    """(n2), the slice: peptide_in_water's chain (36 atoms, 24 excluded
+    partners a backbone carbon, 1-4 pairs 20 indices apart) in about 200
+    TIP3P waters, written as prmtop and inpcrd text and read by
+    io.amber_system (PME at 0.5 nm: a 3^3 grid with half maps, K1 in the
+    split exclusion form; rigid water), `steps` steps of VV @ 1 fs + NHC
+    with velocities from one numpy draw, float64, card against CPU: x and
+    v to 1e-9 relative, the per-force energies at the CPU's final
+    positions to 1e-10 of the largest, K1 launched and K2 not."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.io import amber_system
+    from atomsmm_tpu_torch.models.peptide import peptide_in_water
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import all_neighbor_extras, make_aux
+    from atomsmm_tpu_torch.potential import split_potential_energy
+
+    f64 = torch.float64
+    text, crd, kept = peptide_in_water()
+    runs = []
+    for device in ("cpu", dev):
+        system, xt, bt = amber_system(text, crd, method="pme", r_cut=0.5,
+                                      rigid_water=True, neighbors=True,
+                                      dtype=f64, device=device)
+        mass = system.masses.cpu().numpy()
+        v = np.random.RandomState(9).normal(size=xt.shape) * np.sqrt(
+            amm.units.BOLTZMANN * 300.0 / mass)[:, None]
+        dof = amm.count_degrees_of_freedom(system)
+        ctx = amm.Context(system, amm.GlobalThermostatIntegrator(
+            0.001, amm.NoseHooverChainPropagator(300.0, dof, 0.1)),
+            amm.make_state(xt, v=torch.as_tensor(v, device=device), box=bt))
+        pk.reset_launches()
+        ctx.step(steps)
+        launches = dict(pk.LAUNCHES)
+        runs.append((system, ctx, launches))
+    (cs, cpu, _), (gs, gpu, launches) = runs
+    worst = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
+                for a, b in ((cpu.state.x, gpu.state.x),
+                             (cpu.state.v, gpu.state.v)))
+    xe, be = cpu.state.x, cpu.state.box
+    e_c = split_potential_energy(cs, xe, be, aux=make_aux(
+        cs, all_neighbor_extras(cs, xe, be)))
+    xg, bg = xe.to(dev), be.to(dev)
+    e_g = split_potential_energy(gs, xg, bg, aux=make_aux(
+        gs, all_neighbor_extras(gs, xg, bg)))
+    scale = max(abs(float(v)) for v in e_c.values())
+    e_err = max(abs(float(e_g[k]) - float(e_c[k])) for k in e_c) / scale
+    spec = gs.neighbors
+    m = spec.exclusions.shape[1]
+    log(f"slice (n2) {gs.num_particles} atoms (a 36-atom chain, {kept} TIP3P) "
+        f"from prmtop/inpcrd, PME 0.5 nm, float64, grid {spec.grid} (half "
+        f"maps {spec.half_stencil}), exclusions {m} columns, "
+        f"{spec.exclusions_far.shape[1]} far (form {spec.exclusion_form}), "
+        f"{steps} VV+NHC steps at 1 fs card vs CPU: x, v max rel diff "
+        f"{worst:.2e}; energies max rel diff {e_err:.2e} of the largest "
+        f"term; launches {launches}")
+    require("slice (n2)", {
+        "card_equals_cpu": worst < 1e-9, "energies": e_err <= 1e-10,
+        "split": spec.exclusion_form == "split" and m > 16,
+        "k1": launches["half_pair"] > 0 and launches["cell_pair"] == 0})
+    return {"launches": launches}
+
+
+def phase_k2_past_1024(dev, eq, r_cut=2.0, steps=5):
+    """(n3): the 30k state at a 2.0 nm cutoff, a 3^3 grid with half maps
+    and cells of about 1,100 atoms: the spec's capacity passes K1's 1,024,
+    so the sweep goes to K2 on the full stencil. K2 against its float64
+    plain twin there (f64 1e-10 and 1e-9 max|F|, f32 1e-4), `steps` VV
+    steps at 0.5 fs through Context in float32 with the launches counted
+    (K2 only), and K2 timed there."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.neighbors import (make_neighbor_spec,
+                                                 takes_half_stencil)
+
+    f64, f32 = torch.float64, torch.float32
+    ex, ev, ebox = eq
+    results = []
+    for dtype, device in ((f64, "cpu"), (f32, dev)):
+        s, _, _ = water_system(n_molecules=len(ex) // 3, r_cut=r_cut,
+                               r_switch=r_cut - 0.1, dtype=dtype,
+                               device=device)
+        spec = make_neighbor_spec(ebox, s.num_particles, r_cut,
+                                  exclusions=s.forces[0].exclusions,
+                                  occupancy_floor_from=ex, device=device)
+        if not (spec.grid == (3, 3, 3) and spec.half_stencil
+                and spec.cell_capacity > pk.K1_MAX_CAP
+                and not takes_half_stencil(spec)):
+            raise RuntimeError(f"(n3): grid {spec.grid} cap "
+                               f"{spec.cell_capacity}: expected a 3^3 half-"
+                               "stencil grid past K1's capacity")
+        if dtype == f64:
+            compare(f"water30k rc {r_cut} grid 3^3 cap {spec.cell_capacity} "
+                    "(half maps, past K1's capacity)", s.forces[0], spec,
+                    torch.as_tensor(ex, dtype=f64),
+                    torch.as_tensor(ebox, dtype=f64), dev, results)
+    system = s.with_neighbors(spec)
+    dof = 3 * system.num_particles - 3
+    ctx = amm.Context(system, amm.GlobalThermostatIntegrator(
+        0.0005, amm.NoseHooverChainPropagator(300.0, dof, 0.1)),
+        amm.make_state(torch.as_tensor(ex, dtype=f32, device=dev),
+                       v=torch.as_tensor(ev, dtype=f32, device=dev),
+                       box=torch.as_tensor(ebox, dtype=f32, device=dev)))
+    ctx.step(1)
+    pk.reset_launches()
+    ctx.step(steps)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    expected = {"half_pair": 0, "cell_pair": ctx.last_step_passes
+                * (steps + 1), "tile_pair": 0}
+    temp = float(ctx.temperature())
+    finite = bool(torch.isfinite(ctx.state.x).all())
+    log(f"path (n3) water30k rc {r_cut}: grid {spec.grid} cap "
+        f"{spec.cell_capacity} (half maps; K1 takes at most "
+        f"{pk.K1_MAX_CAP}), {steps} VV+NHC steps at 0.5 fs float32 on the "
+        f"card: launches {launches} (expected {expected}); T {temp:.2f} K; "
+        f"finite {finite}")
+    require("path (n3)", {"launches": launches == expected,
+                          "finite": finite})
+    x32 = ctx.state.x.contiguous()
+    timing = time_cells(f"water30k rc {r_cut} past K1's capacity",
+                        system.forces[0], spec, x32, ctx.state.box,
+                        plain_reps=1)
+    return {"launches": launches, "kernel_checks": results,
+            "timing": timing}
+
+
+def nve_run(system, x, box, steps, melt=4, melt_steps=50):
+    """Config 1's protocol (bench.py::bench_argon_nve): VV @ 2 fs,
+    velocities at 120 K (seed 3), `melt` x step(melt_steps) with a rescale
+    to 120 K after each, step(1); then `steps` timed steps: (ms per step
+    by CUDA events, |conserved-energy drift| per atom per ps, launches
+    of the timed steps)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    ctx = amm.Context(system, amm.VelocityVerletIntegrator(dt=0.002),
+                      amm.make_state(x, box=box))
+    ctx.set_velocities_to_temperature(120.0, seed=3)
+    for _ in range(melt):
+        ctx.step(melt_steps)
+        ctx.set_velocities((120.0 / float(ctx.temperature())) ** 0.5
+                           * ctx.state.v)
+    ctx.step(1)
+    e0 = float(ctx.conserved_energy())
+    pk.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    ctx.step(steps)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    drift = abs(float(ctx.conserved_energy()) - e0) / x.shape[0] \
+        / (steps * 0.002)
+    return start.elapsed_time(end) / steps, drift, launches, float(
+        ctx.temperature())
+
+
+def phase_dense(dev, n=4096, steps=100):
+    """(n4): the dense path on the card. Config 1 (argon_system(n=4096,
+    jitter 0.1, seed 1), float32) without a NeighborSpec (forces by
+    autograd of the chunked O(N^2) sum) and with one (K1), nve_run each:
+    the dense run launches no kernel, its drift within N4_DRIFT; then the
+    goldens' argon 864 (tests/test_goldens.py) and 27 waters under
+    NonbondedForce(method='nocutoff'), float64, card against CPU: each
+    force's energy and the forces to 1e-9."""
+    import torch
+
+    from atomsmm_tpu_torch.models import argon_system, water_system
+    from atomsmm_tpu_torch.potential import force_fn, split_potential_energy
+
+    out = {}
+    for label, neighbors in (("dense", False), ("cells", True)):
+        system, x, box = argon_system(n=n, jitter=0.1, seed=1,
+                                      neighbors=neighbors,
+                                      dtype=torch.float32, device=dev)
+        out[label] = nve_run(system, x, box, steps)
+    (d_ms, d_drift, d_l, d_t), (c_ms, c_drift, c_l, c_t) = (out["dense"],
+                                                          out["cells"])
+    log(f"path (n4) argon {n} NVE VV @ 2 fs float32 (config 1), {steps} "
+        f"timed steps after the melt: dense path {d_ms:.3f} ms/step, "
+        f"|drift| {d_drift:.3e} kJ/mol/atom/ps (bound {N4_DRIFT}), T "
+        f"{d_t:.2f} K, launches {d_l}; cell lists {c_ms:.3f} ms/step, "
+        f"|drift| {c_drift:.3e}, T {c_t:.2f} K, launches {c_l}; dense/cells "
+        f"{d_ms / c_ms:.2f} on {smi_line()}")
+    checks = {"dense_no_kernel": not any(d_l.values()),
+              "dense_drift": d_drift <= N4_DRIFT,
+              "cells_k1": c_l["half_pair"] > 0}
+    f64 = torch.float64
+    for label in ("argon864", "water27 nocutoff"):
+        got = []
+        for device in ("cpu", dev):
+            if label == "argon864":
+                s, x, box = argon_system(n=864, jitter=0.1, seed=7,
+                                         dtype=f64, device=device)
+            else:
+                s, x, box = water_system(n_molecules=27, method="nocutoff",
+                                         r_cut=0.45, r_switch=0.35, seed=2,
+                                         dtype=f64, device=device)
+            e = split_potential_energy(s, x, box)
+            got.append(({k: float(v) for k, v in e.items()},
+                        force_fn(s)(x, box, {}, None)[1].cpu()))
+        (e_c, f_c), (e_g, f_g) = got
+        scale = max(abs(v) for v in e_c.values())
+        e_err = max(abs(e_g[k] - e_c[k]) for k in e_c) / scale
+        f_err = float((f_g - f_c).abs().max()) / float(f_c.abs().max())
+        log(f"path (n4) {label} dense float64 card vs CPU: energies max rel "
+            f"diff {e_err:.2e} of the largest term (Total "
+            f"{e_c['Total']:.10g}), forces {f_err:.2e} of max|F|")
+        checks[f"{label} card_equals_cpu"] = e_err <= 1e-9 and f_err <= 1e-9
+    require("path (n4)", checks)
+    return {"dense_ms": d_ms, "cells_ms": c_ms, "drift": d_drift,
+            "cells_drift": c_drift}
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -5725,6 +6223,7 @@ def main():
     phase_slice_rigid(dev)
     phase_slice_hrex(dev)
     phase_slice_amber(dev)
+    peptide = phase_slice_peptide(dev)
     main_run = phase_main(dev, eq)
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
@@ -5750,12 +6249,16 @@ def main():
     m1 = phase_spatial_one_rank(dev, eq100, npt_pme["ms_per_step"])
     m2 = phase_spatial_two_ranks(dev, eq100)
     m3 = phase_hrex_mesh(dev, hrex)
+    wide_checks, wide_timings = phase_kernels_wide(dev, eq)
+    n3 = phase_k2_past_1024(dev, eq)
+    n4 = phase_dense(dev)
     results += (phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
                 + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
                 + alch["kernel_checks"]
-                + tric["kernel_checks"] + amber_checks + m1["kernel_checks"])
+                + tric["kernel_checks"] + amber_checks + m1["kernel_checks"]
+                + wide_checks + n3["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
     timings.update(phase_ionic_timings(dev, ionic))
@@ -5765,8 +6268,10 @@ def main():
     timings.update(phase_swm4_timings(dev, h1, h2))
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
-    phase_npt_split(dev, npt, "path (f)")
+    _, f_move = phase_npt_split(dev, npt, "path (f)")
     phase_npt_split(dev, npt_pme, "path (f) pme")
+    n1 = phase_npt_sheared(dev, eq100, npt, f_move["whole attempt"])
+    phase_npt_split(dev, n1, "path (n1)")
 
     def f32_err(kernel, prefix):
         return max(r[4] for r in results if r[0] == kernel
@@ -5801,6 +6306,9 @@ def main():
         "path_l": amber["launches"],
         "path_m": m1["launches"],
         "path_m2_rank0": m2["launches"],
+        "path_n1": n1["launches"],
+        "path_n2_slice": peptide["launches"],
+        "path_n3": n3["launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -5946,6 +6454,40 @@ def main():
     k2.update({"path_m1_step_ms": m1["ms_per_step"],
                "path_m2_step_ms": m2["step_ms"],
                "path_m3_state_steps_per_s": m3["state_steps_per_s"]})
+    # path (n): K1 and K2 in the split exclusion form (the bitmask within
+    # +-14 indices, each atom's far ids scanned from global memory) at the
+    # 30k headline's grids with (n2)'s table, beside the bitmask form on
+    # the same bucket (K2 on the far grid's full stencil), float32, their float32 errors against the plain twins, and
+    # the split form's launches in (n2)'s slice; K2 past K1's capacity
+    # (n3's 2.0 nm, 3^3 grid); (n1)'s sheared NPT step and volume move
+    # beside path (f)'s; (n4)'s dense argon step beside its cell list
+    for entry_, kernel in zip(kernels["kernels"][:2],
+                              ("half_pair", "cell_pair")):
+        entry_["exclusion_forms"] = ["bits", "split"]
+        entry_["path_n2_max_abs_err"] = f32_err(kernel, "wide table")
+        entry_["path_n2_slice_launches"] = peptide["launches"][kernel]
+        for (kern, g, form), t in wide_timings.items():
+            if kern != kernel:
+                continue
+            tag = f"path_n2_{g}_{form}"
+            entry_.update({f"{tag}_ms": t["ms"],
+                           f"{tag}_plain_ms": t["plain_ms"],
+                           f"{tag}_bound_ms": t["bound"]["ms"],
+                           f"{tag}_bound_by": t["bound"]["by"]})
+    t = n3["timing"]
+    k2.update({"path_n3_ms": t["ms"], "path_n3_plain_ms": t["plain_ms"],
+               "path_n3_bound_ms": t["bound"]["ms"],
+               "path_n3_bound_by": t["bound"]["by"],
+               "path_n3_launches": n3["launches"]["cell_pair"],
+               "path_n3_max_abs_err": f32_err("cell_pair",
+                                              "past K1's capacity")})
+    k1.update({"path_n1_step_ms": n1["ms_per_step"],
+               "path_n1_move_ms": n1["move_ms"],
+               "path_n1_f_step_ms": n1["f_ms"],
+               "path_n1_f_beside_step_ms": n1["f_beside_ms"],
+               "path_n1_f_move_ms": n1["f_move_ms"],
+               "path_n4_dense_step_ms": n4["dense_ms"],
+               "path_n4_cells_step_ms": n4["cells_ms"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

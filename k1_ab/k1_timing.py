@@ -18,9 +18,9 @@ kernel inside it by the device time of its events in torch.profiler
 versions with different kernel interfaces are timed alike. To compare
 versions, run each tree in turns (A, B, B, A) in one sitting on one card.
 Each tree melts its own 700 waters, so K2's states are equivalent, not
-equal. A tree can also be this package with a source replaced, for instance
-``csrc/half_pair.cu`` by ``half_pair_per_direction.cu`` beside this file
-(K1's earlier body behind its present interface). Prints one JSON line: the
+equal. A tree can also be this package with a source edited (K1's
+earlier per-direction body, ``half_pair_per_direction.cu`` beside this
+file, no longer matches the present entry points and header). Prints one JSON line: the
 card, the tree, and for each shape the kernel's and the sweep's milliseconds
 per call and the sweep's device operations, and the device operations of
 one outer step of the 700-water RESPA path

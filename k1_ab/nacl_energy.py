@@ -105,6 +105,7 @@ def main():
 
     import chip_smoke as cs
     from atomsmm_tpu_torch.models import rigid_water_system
+    from atomsmm_tpu_torch.models.peptide import inpcrd_text
 
     if not torch.cuda.is_available():
         raise SystemExit("nacl_energy.py needs a CUDA card")
@@ -130,13 +131,13 @@ def main():
                 "water_native_langevin", native, t(ex), t(ev), t(ebox),
                 reads, cs.log, langevin=True)
     text = cs.nacl_prmtop(len(ex) // 3, 0, 0)
-    system, x, box = cs.nacl_system(text, cs.nacl_inpcrd(ex, ebox), f32, dev)
+    system, x, box = cs.nacl_system(text, inpcrd_text(ex, ebox), f32, dev)
     out["water_amber"] = run("water_amber", system, x, t(ev), box, reads,
                              cs.log)
     xs, vs, nw = cs.nacl_state(ex, ev, float(ebox[0]), cs.N_IONS,
                                cs.ION_SEPARATION, 7)
     text = cs.nacl_prmtop(nw, cs.N_IONS, cs.N_IONS)
-    crd = cs.nacl_inpcrd(xs, ebox)
+    crd = inpcrd_text(xs, ebox)
     for name, method in (("nacl_amber", "pme"), ("nacl_amber_rf", "cutoff")):
         system, x, box = cs.nacl_system(text, crd, f32, dev, method=method)
         out[name] = run(name, system, x, t(vs), box, reads, cs.log)

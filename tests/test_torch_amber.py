@@ -314,8 +314,8 @@ def _chain_positions(n_chains, box_l, seed=4):
 def test_chain_exclusion_columns_on_the_cells(box_l, kernel):
     """Interleaved chains: the exclusions lie beyond the +-14 bitmask, so
     the cell sweep (K1's twin on the 3^3 grid, K2's on the 2^3 one) takes
-    the exclusion id columns; energies and forces against JAX's cell
-    sweep."""
+    the split form (the bitmask within the window, the far ids as id
+    columns); energies and forces against JAX's cell sweep."""
     n_chains = 30
     x = _chain_positions(n_chains, box_l)
     box = np.full(3, box_l)
@@ -324,7 +324,7 @@ def test_chain_exclusion_columns_on_the_cells(box_l, kernel):
                          method="cutoff", r_cut=0.9, r_switch=0.8,
                          neighbors=True)
     spec = ts.neighbors
-    assert spec.excbits is None
+    assert spec.exclusion_form == "split"
     assert spec.half_stencil == (kernel == "half_pair")
     x = tam.read_inpcrd(ja._inpcrd_text(x * 10.0, box_ang=box * 10.0))[0]
     _check_energies(js, ts, x, box, cells=True)

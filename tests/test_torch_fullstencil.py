@@ -11,9 +11,10 @@ float64). Cases: water 216 (one cell, capacity 1,112), water 400 at 0.9 nm
 split), argon 256 (2.33 nm box at r_cut 0.851 nm: a 2^3 grid).
 
 Water renumbered by a fixed permutation has excluded pairs far more than
-+-14 indices apart, so it has no exclusion bitmask (excbits is None) and
-both sweeps take the exclusion id columns; it runs through K1's column
-form (half stencil, 0.7 nm) and K2's (full stencil, 0.9 nm).
++-14 indices apart, so the JAX spec has no exclusion bitmask (excbits is
+None) and the port's takes the split form (the bitmask within the window,
+the far ids as id columns); it runs through K1's split form (half stencil,
+0.7 nm) and K2's (full stencil, 0.9 nm).
 
 The twin's per-atom output is also held against the JAX sweep in every pair
 form (reaction field, near, fused far and their damped PME forms), with the
@@ -121,8 +122,10 @@ def test_bitmask_and_columns_give_the_same_mask():
     bucket, _ = tnb.build_cell_buckets(spec, tx, tb)
     hf, hm, cols = tpk.stage(spec, tx, ts.forces[0]._per_particle(), bucket)
     assert cols is None
-    _, _, cols = tpk.stage(dataclasses.replace(spec, excbits=None), tx,
-                           ts.forces[0]._per_particle(), bucket)
+    # the whole table staged as the id columns
+    _, _, cols = tpk.stage(dataclasses.replace(
+        spec, exclusions_far=spec.exclusions), tx,
+        ts.forces[0]._per_particle(), bucket)
     ids = torch.cat([hm[..., 0], hm.new_full((1, hm.shape[1]), tx.shape[0])])
     nbr = torch.where(spec.nbr_cells >= 0, spec.nbr_cells,
                       spec.ncells).long()
@@ -133,6 +136,14 @@ def test_bitmask_and_columns_give_the_same_mask():
     real = (hid < tx.shape[0]) & (cid < tx.shape[0])
     assert torch.equal(by_bits & real, by_cols & real)
     assert int((by_cols & real).sum()) == 3 * tx.shape[0]   # self + 2 partners
+
+
+def _by_columns(spec):
+    """The spec with every exclusion tested by id column: the whole table
+    as the split form's far ids, the bitmask holding the self bit alone."""
+    return dataclasses.replace(
+        spec, excbits=torch.full_like(spec.excbits, 1 << tnb.EXC_OFF),
+        exclusions_far=spec.exclusions)
 
 
 def _permuted(pkg, force, x, box, r_cut, seed=3):
@@ -169,7 +180,7 @@ def test_permuted_water_column_form_matches_jax(r_cut):
                                           device="cpu")
     jf, jxp, jspec = _permuted(jamm, js.forces[0], jx, jb, r_cut)
     tf, txp, tspec = _permuted(tamm, ts.forces[0], tx, tb, r_cut)
-    assert jspec.excbits is None and tspec.excbits is None
+    assert jspec.excbits is None and tspec.exclusion_form == "split"
     assert tspec.half_stencil == (r_cut == 0.7) == jspec.half_stencil
     jbucket, _ = jnb.build_cell_buckets(jspec, jxp, jb)
     tbucket, _ = tnb.build_cell_buckets(tspec, txp, tb)
@@ -281,7 +292,7 @@ def test_full_pair_plain_matches_jax(grid, form, exc):
     e_want, f_want = jnb.cell_pair_energy_forces(
         jf._pair_fn({}), jx, jb, jf._per_particle({}), jspec, jbucket, r_cut)
     if exc == "columns":
-        tspec = dataclasses.replace(tspec, excbits=None)
+        tspec = _by_columns(tspec)
     args = (tx, tf._per_particle(), tbucket, tspec, tb, tf._pair_form(),
             r_cut)
     out = tpk.full_pair_plain(*args)

@@ -100,12 +100,13 @@ def _to(spec, dev):
     return dataclasses.replace(spec, **{
         k: getattr(spec, k).to(dev) for k in (
             "nbr_cells", "exclusions", "nbr_cells_half", "inv_cells_half",
-            "excbits") if getattr(spec, k) is not None})
+            "excbits", "exclusions_far") if getattr(spec, k) is not None})
 
 
 def _permuted(force, x, box, r_cut):
-    """Atoms renumbered by a fixed permutation: no exclusion bitmask fits,
-    so the sweeps take the exclusion id columns."""
+    """Atoms renumbered by a fixed permutation: no exclusion bitmask fits
+    the whole table, so the sweeps take the split form (the bitmask within
+    +-14 indices, the far ids beside it)."""
     n = x.shape[0]
     p = np.random.RandomState(3).permutation(n)
     inv = np.argsort(p)
@@ -117,7 +118,7 @@ def _permuted(force, x, box, r_cut):
         **{k: v[pt] for k, v in force._per_particle().items()})
     spec = nb.make_neighbor_spec(box, n, r_cut, exclusions=exc,
                                  occupancy_floor_from=x[pt], device="cpu")
-    assert spec.excbits is None
+    assert spec.exclusion_form == "split"
     return force, spec, x[pt]
 
 
@@ -612,8 +613,9 @@ def test_energy_only_path_runs_the_kernel(cuda):
 
 @pytest.mark.cuda
 def test_former_unported_configurations_launch_on_card(cuda):
-    """A spec without the exclusion bitmask launches K1's column form, and
-    a spec without half maps launches K2: neither raises on the card."""
+    """A spec given without its exclusion bitmask derives it from its
+    table and launches K1, and a spec without half maps launches K2:
+    neither raises on the card."""
     force, spec, x, box = _case("water_near")
     form = force._pair_form()
     pp = {k: v.to(cuda) for k, v in force._per_particle().items()}

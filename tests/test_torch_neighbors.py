@@ -147,15 +147,18 @@ def test_full_sweep_matches_jax(systems, case):
 
 
 def test_column_exclusions_match_bitmask(systems):
-    """Without the bitmask (excluded pairs more than +-14 indices apart) the
-    plain sweep masks exclusions by id columns: same result."""
+    """Exclusions tested by id column (the split form's far ids; here the
+    whole table, the bitmask holding the self bit alone) give the
+    bitmask's result."""
     (js, jx, jb), (ts, tx, tb) = systems["water"]
     spec = _spec(ts, "near")
     f = _force(ts, "NearNonbondedForce")
     bucket, _ = tnb.build_cell_buckets(spec, tx, tb)
     args = (f._pair_form(), tx, tb, f._per_particle())
     e1, f1 = tnb.cell_pair_energy_forces(*args, spec, bucket, f.r_cut)
-    cols = dataclasses.replace(spec, excbits=None)
+    cols = dataclasses.replace(
+        spec, excbits=torch.full_like(spec.excbits, 1 << tnb.EXC_OFF),
+        exclusions_far=spec.exclusions)
     e2, f2 = tnb.cell_pair_energy_forces(*args, cols, bucket, f.r_cut)
     np.testing.assert_allclose(float(e2), float(e1), rtol=RTOL)
     np.testing.assert_allclose(f2.numpy(), f1.numpy(), rtol=RTOL,
@@ -268,7 +271,9 @@ def _renumbered(pkg_models, pkg_nb, **kw):
                                 **{k: conv(v) for k, v in pp.items()})
     spec = pkg_nb.make_neighbor_spec(np.asarray(box), n, 0.7, exclusions=exc,
                                      occupancy_floor_from=xp, **spec_kw)
-    assert spec.excbits is None and spec.half_stencil
+    assert spec.half_stencil and (spec.excbits is None
+                                  if pkg_models is jmodels
+                                  else spec.exclusion_form == "split")
     return force, conv(xp), box, spec
 
 
