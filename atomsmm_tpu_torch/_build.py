@@ -21,7 +21,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 #: kernel name -> source; each becomes lib<name>_<hash>.so
 KERNELS = {name: CSRC / f"{name}.cu"
-           for name in ("half_pair", "cell_pair", "tile_pair")}
+           for name in ("half_pair", "cell_pair", "tile_pair", "block_pair")}
 HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = _HERE / "_build"
 # --fmad=false: the kernels round every product and sum as their plain
@@ -41,6 +41,7 @@ _SIGNATURES = {
     "half_pair": "ppppppppppp" "iiiiiii" "i" "ppppp" "p",
     "cell_pair": "ppppppppppp" "iiiiiiiii" "i" "ppppp" "p",  # + c0, c1
     "tile_pair": "pppppp" "iii" "ppp" "p",
+    "block_pair": "ppppppppp" "iiiii" "ppp" "p",
 }
 
 _LIBS = {}

@@ -60,6 +60,7 @@ from .ops.neighbors import (
     overflow_flags,
     retune_neighbor_specs,
 )
+from .forces import aux_rows
 from .potential import potential_energy
 from .units import BOLTZMANN
 
@@ -104,9 +105,7 @@ def multistate_energies(system, x, box, lambdas, aux=None):
     aux = _aux_for(system, x, box, aux)
     g = device_globals(lambdas, x)
     k = next(iter(g.values())).shape[0]
-    if aux is not None:
-        aux = {name: {**a, "bucket": a["bucket"].expand(k, *a["bucket"].shape)}
-               for name, a in aux.items()}
+    aux = aux_rows(aux, k)
     return potential_energy(system, x.expand(k, *x.shape),
                             box.expand(k, *box.shape), g, aux=aux)
 

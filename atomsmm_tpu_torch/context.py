@@ -499,9 +499,11 @@ class Context:
         return self
 
     def retune_neighbors(self, safety: float = 1.15, grow_only: bool = False):
-        """Resize every neighbor spec's cell capacity to the measured max
-        occupancy of the current configuration (ops.neighbors.retune_spec);
-        grow_only floors each capacity at its current value + 4."""
+        """Resize every neighbor spec to the current configuration: a cell
+        list's capacity to the measured max occupancy
+        (ops.neighbors.retune_spec), a block list's K to the measured max
+        candidate count (ops.blocks.retune_block_spec, safety at least
+        1.15); grow_only floors each capacity at its current value + 4."""
         if self.system.neighbors is None:
             return self
         self.system = retune_neighbor_specs(

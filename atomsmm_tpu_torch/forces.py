@@ -2,7 +2,7 @@
 
 Each force is a dataclass whose `energy(x, box, globals, aux)` method is a
 PyTorch function of the positions; the `group` integer drives the RESPA
-split exactly as in the JAX package. Nonbonded forces have two paths:
+split exactly as in the JAX package. Nonbonded forces have three paths:
 
   * dense — the chunked O(N²) sum (ops/pairs.py), on any device, forces
     by autograd; used for goldens, for 'nocutoff' and when no neighbor
@@ -12,7 +12,11 @@ split exactly as in the JAX package. Nonbonded forces have two paths:
     kernel, which takes a built-in pair form (`_pair_form`) instead of a
     traced Python pair function. A force with no built-in form (the user
     pair function of CustomNonbondedForce) runs through the callable cell
-    sweep instead: the same slots as torch operations, forces by autograd.
+    sweep instead: the same slots as torch operations, forces by autograd;
+  * block list — an aux entry with candidate blocks ("cand", a System
+    with a BlockNeighborSpec) sends the sweep to ops/blocks.py: K4 on the
+    card for a built-in form, the callable block sweep for a pair
+    function; a spatial mesh takes no block list (InputError).
 
 PME (method 'pme') splits each Coulomb pair into the damped direct-space
 term, which the pair kernels evaluate (ops/pairfuncs.py, LJ_SW_EWALD), and
@@ -62,7 +66,7 @@ Ported: NonbondedForce (methods 'cutoff', 'pme', and 'nocutoff' on the
 dense path, with the charge-scale mask of SolvationSystem, NBFIX tables and
 the 10-12 term),
 NearNonbondedForce (damped or not), FarNonbondedForce (fused, or in two
-sweeps under a charge-scale mask), PMEReciprocalForce,
+sweeps where its halves cannot fuse), PMEReciprocalForce,
 NonbondedExceptionsForce, DampedSmoothedForce, SoftcoreLennardJonesForce,
 CustomNonbondedForce, CustomBondForce, TemplateBondedForce,
 HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
@@ -122,16 +126,32 @@ def globals_row(globals, k: int):
 
 def aux_row(aux, k: int):
     """Row k's aux from a stack's: each entry's (K, ncells, cap) bucket
-    at row k."""
+    at row k (a block list's (K, NB B) order and (K, NB, K_c) candidate
+    blocks)."""
     if not aux:
         return aux
-    return {name: {**a, "bucket": a["bucket"][k]} for name, a in aux.items()}
+    return {name: {key: v[k] if key in _ROW_KEYS else v
+                   for key, v in a.items()} for name, a in aux.items()}
+
+
+def aux_rows(aux, k: int):
+    """A single system's aux for a stack of k rows that share its lists:
+    each entry's lists expanded to a leading row axis (stride 0)."""
+    if not aux:
+        return aux
+    return {name: {key: v.expand(k, *v.shape) if key in _ROW_KEYS else v
+                   for key, v in a.items()} for name, a in aux.items()}
+
+
+#: the per-row entries of an aux entry (the rest, the spec, is shared)
+_ROW_KEYS = ("bucket", "cand")
 
 
 def _in_turn(fn, x, box, globals, aux, *args):
     """fn(x, box, globals, aux, *args) -> energy or (energy, forces) of one
     system, over the rows of a stack one after another: ((K,) energies,
-    (K, N, 3) forces or None)."""
+    (K, N, 3) forces or None). A stack on block lists (ops/blocks.py) takes
+    this path for its pair forces: K4 sweeps one row a launch."""
     outs = [fn(x[k], box[k], globals_row(globals, k), aux_row(aux, k), *args)
             for k in range(x.shape[0])]
     if isinstance(outs[0], tuple):
@@ -333,6 +353,10 @@ class Force:
     def energy(self, x, box, globals, aux=None):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def uses_neighbors(self) -> bool:
+        """Whether the force reads a neighbor list from aux."""
+        return False
+
     def denergy_dlambda(self, x, box, globals, name, aux=None):
         """d energy / d globals[name] at this configuration (a missing
         parameter reads as 1.0). The default differentiates energy() by
@@ -409,11 +433,34 @@ def _spatial():
     return active_spatial_mesh()
 
 
+def _blocks(nbr) -> bool:
+    """Whether an aux entry is a block list (ops/blocks.py), which no
+    spatial mesh takes."""
+    if "cand" not in nbr:
+        return False
+    if _spatial() is not None:
+        raise InputError(
+            "a block list (BlockNeighborSpec) cannot run under a spatial "
+            "mesh: the sharded sweep takes cell buckets (the JAX package "
+            "sends the block order to its cell-sharded sweep); attach a "
+            "NeighborSpec for SpatialContext")
+    return True
+
+
 def _cell_energy(pair, x, box, pp, nbr, r_cut):
     """The energy of `pair` (a built-in PairForm, or a pair function) over
-    the cell list: sharded over the active spatial mesh when one is set
+    the neighbor list: the block sweep (K4, or the callable block sweep)
+    for a block list, sharded over the active spatial mesh when one is set
     (parallel/spatial.py), else K1 or K2 as the spec selects, or the
     callable sweep."""
+    if _blocks(nbr):
+        from .ops import blocks
+
+        sweep = (blocks.block_pair_energy
+                 if isinstance(pair, pairfuncs.PairForm)
+                 else blocks.block_pair_energy_fn)
+        return sweep(pair, x, box, pp, nbr["spec"], nbr["bucket"],
+                     nbr["cand"], r_cut)
     mesh = _spatial()
     if mesh is not None:
         from .parallel.spatial import sharded_cell_pair_energy
@@ -478,7 +525,14 @@ class _PairForceMixin:
 
     def _nb_energy_forces(self, x, box, globals, aux, r_cut):
         nbr = self._cell(aux, r_cut)
-        mesh = _spatial() if nbr is not None else None
+        blocks = nbr is not None and _blocks(nbr)
+        if blocks and hasattr(self, "_pair_form"):
+            from .ops.blocks import block_pair_energy_forces
+
+            return block_pair_energy_forces(
+                self._pair_form(globals), x, box, self._per_particle(globals),
+                nbr["spec"], nbr["bucket"], nbr["cand"], r_cut)
+        mesh = _spatial() if nbr is not None and not blocks else None
         if mesh is not None:
             from .parallel.spatial import sharded_cell_pair_energy_forces
 
@@ -500,7 +554,15 @@ class _PairForceMixin:
         form one sweep of its virial form (the energy column carries each
         pair's d . F), else by autograd."""
         nbr = self._cell(aux, r_cut)
-        mesh = _spatial() if nbr is not None else None
+        blocks = nbr is not None and _blocks(nbr)
+        if blocks and hasattr(self, "_pair_form"):
+            from .ops.blocks import block_pair_energy_forces
+
+            return block_pair_energy_forces(
+                pairfuncs.virial_form(self._pair_form(globals)), x, box,
+                self._per_particle(globals), nbr["spec"], nbr["bucket"],
+                nbr["cand"], r_cut)
+        mesh = _spatial() if nbr is not None and not blocks else None
         if mesh is not None:
             from .parallel.spatial import sharded_cell_pair_virial
 
@@ -529,10 +591,11 @@ class _PairForceMixin:
         stack from one sweep over every row (per-particle columns (N,) or,
         where a global scales them per row, (K, N)); the pair term of one
         row after another where no kernel takes the stack (the dense path,
-        a pair function, a spatial mesh)."""
+        a pair function, a spatial mesh, a block list: K4 has no row
+        axis)."""
         nbr = self._cell(aux, r_cut)
         if nbr is None or not hasattr(self, "_pair_form") \
-                or _spatial() is not None:
+                or _spatial() is not None or "cand" in nbr:
             return _in_turn(self._nb_energy_forces if with_forces
                             else self._nb_energy, x, box, globals, aux, r_cut)
         form, lamb = self._rows_form(globals)
@@ -549,6 +612,9 @@ class _PairForceMixin:
 
     def energy_and_forces_rows(self, x, box, globals, aux=None):
         return self._nb_rows(x, box, globals, aux, self.r_cut, True)
+
+    def uses_neighbors(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass
@@ -925,11 +991,14 @@ class FarNonbondedForce(_PairForceMixin, Force):
     include_reciprocal is False because a PMEReciprocalForce carries it at
     its own level) and the dispersion tail are added here.
 
-    Under a charge-scale mask (AlchemicalRespaSystem) the two halves no
-    longer share their charges: the full force takes the scaled ones and
-    the near force the raw ones, so the pass cannot be fused. The far force
-    is then the full force plus the negated near force in two sweeps, and
-    near + far == full still holds at every lambda."""
+    Where the halves cannot share one pair form the far force is the full
+    force plus the near force in two sweeps (`_fusable`): under a
+    charge-scale mask (AlchemicalRespaSystem: the full force takes the
+    scaled charges, the near force the raw ones), with a PME full force
+    whose near half is damped by another alpha (or not at all), and where
+    the halves read different type-pair tables. near + far == full holds
+    either way. `minus_near.subtract=False` adds the near force instead of
+    subtracting it, as in the JAX package (the form's near sign)."""
 
     full: NonbondedForce = None
     minus_near: NearNonbondedForce = None
@@ -938,10 +1007,13 @@ class FarNonbondedForce(_PairForceMixin, Force):
     def __post_init__(self):
         if self.full is None or self.minus_near is None:
             raise ValueError("FarNonbondedForce needs `full` and `minus_near`")
-        if not self.minus_near.subtract:
-            raise NotImplementedError(
-                "FarNonbondedForce fuses full + negated near; an unfusable "
-                "pair (minus_near.subtract=False) is not ported")
+        # one host read here, none per evaluation
+        ft, nt = self.full._table, self.minus_near._table
+        self._same_tables = (ft is None and nt is None) or (
+            ft is not None and nt is not None
+            and torch.equal(ft[..., :2], nt[..., :2].to(ft))
+            and torch.equal(self.full.lj_type,
+                            self.minus_near.lj_type.to(self.full.lj_type)))
 
     @property
     def chunk(self):
@@ -952,7 +1024,15 @@ class FarNonbondedForce(_PairForceMixin, Force):
         return self.full.exclusions
 
     def _fusable(self) -> bool:
-        return self.full.charge_scale_mask is None
+        """Whether one sweep of the fused far form (pairfuncs.far_form)
+        computes full + near: the halves share their charges, a PME full
+        force's near half is damped by its alpha, and both read the same
+        (sigma, epsilon), from one type-pair table or from none."""
+        full = self.full
+        return (full.charge_scale_mask is None and self._same_tables
+                and (full.method != "pme"
+                     or float(self.minus_near.alpha)
+                     == float(full.ewald_alpha)))
 
     def _per_particle(self, globals=None):
         return self.full._per_particle(globals)
@@ -1014,6 +1094,9 @@ class FarNonbondedForce(_PairForceMixin, Force):
     def denergy_dlambda(self, x, box, globals, name, aux=None):
         return _charge_scaled_dlambda(self, self.full, x, box, globals, name,
                                       aux)
+
+    def uses_neighbors(self) -> bool:
+        return True
 
     # no batched form yet: the rows one after another (Force's)
     energy_rows = Force.energy_rows
@@ -1186,10 +1269,11 @@ class CustomNonbondedForce(_PairForceMixin, Force):
     A hand-written kernel cannot take a Python function, so this is the
     port's path for user expressions, not a fallback: on a cell list the
     function runs as torch operations over the full stencil's slots
-    (ops/neighbors.py::cell_pair_energy_fn), on whatever device the tensors
-    lie on, with forces and lambda derivatives by autograd. It walks every
-    slot of the cell list, so it suits solute-sized work (a few dozen
-    pairs in a few thousand atoms), not a solvent-wide force."""
+    (ops/neighbors.py::cell_pair_energy_fn), on a block list over the
+    list's slots (ops/blocks.py::block_pair_energy_fn), on whatever device
+    the tensors lie on, with forces and lambda derivatives by autograd. It
+    walks every slot of the list, so it suits solute-sized work (a few
+    dozen pairs in a few thousand atoms), not a solvent-wide force."""
 
     per_particle: Dict[str, torch.Tensor] = None
     exclusions: torch.Tensor = None

@@ -73,7 +73,8 @@ class MonteCarloBarostatPropagator(Propagator):
 
     def _trial(self, system, x, box, globals):
         """(energy, overflow, undercover) at a trial configuration, on
-        buckets built for it; the two flags are device bools."""
+        neighbor lists built for it (cell buckets or block lists); the two
+        flags are device bools."""
         from ..ops.neighbors import (
             all_neighbor_extras,
             make_aux,

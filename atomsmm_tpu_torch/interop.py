@@ -46,6 +46,7 @@ from .forces import (
     SoftcoreLennardJonesForce,
     TemplateBondedForce,
 )
+from .ops.blocks import BlockNeighborSpec
 from .ops.constraints import ConstraintSet
 from .ops.drude import DrudeSet
 from .ops.neighbors import NeighborSpec
@@ -60,8 +61,9 @@ _CLASSES = {c.__name__: c for c in (
     PMEReciprocalForce, NonbondedExceptionsForce, TemplateBondedForce,
     HarmonicBondForce, HarmonicAngleForce, PeriodicTorsionForce,
     DampedSmoothedForce, SoftcoreLennardJonesForce, MonteCarloBarostat,
-    NeighborSpec, ConstraintSet, SettleSet, VirtualSiteSet, DrudeSet,
-    DrudeForce, CMAPTorsionForce, HarmonicImproperForce)}
+    NeighborSpec, BlockNeighborSpec, ConstraintSet, SettleSet,
+    VirtualSiteSet, DrudeSet, DrudeForce, CMAPTorsionForce,
+    HarmonicImproperForce)}
 
 # JAX-package fields with no counterpart here, and the values at which they
 # change nothing on the ported path

@@ -8,10 +8,10 @@ tensor operations; the uphill reset and the dt / alpha schedule are
 torch.where selects, so nothing is read back to the host inside the loop.
 
 Where the JAX package evaluates the forces on the dense pair path, a system
-with a NeighborSpec here rebuilds its cell buckets at every iteration and
-passes them as aux, so that the forces come from the cell-pair kernels on
-the card (the dense sum is O(N^2)). The forces
-do not depend on which valid bucket is used. The buckets' overflow flags
+with neighbor lists here (cell buckets or block lists) rebuilds them at
+every iteration and passes them as aux, so that the forces come from the
+pair kernels on the card (the dense sum is O(N^2)). The forces
+do not depend on which valid list is used. The lists' overflow flags
 are read once, after the loop; on an overflow the specs are retuned from
 the starting configuration and the iterations run again, as
 Context.__init__ retunes a cold start.
@@ -29,8 +29,12 @@ from __future__ import annotations
 
 import torch
 
-from .ops.neighbors import build_cell_buckets, iter_specs, \
-    retune_neighbor_specs
+from .ops.neighbors import (
+    all_neighbor_extras,
+    make_aux,
+    retune_neighbor_specs,
+    unhealthy_flags,
+)
 from .potential import force_fn
 from .utils import replace
 
@@ -44,7 +48,6 @@ def _fire_pass(system, x, box, globals, steps, dt_start, dt_max, f_inc,
     # virtual sites are massless and forceless: kick 0, not nan
     inv_m = torch.where(m > 0, 1.0 / torch.where(m > 0, m, torch.ones_like(m)),
                         torch.zeros_like(m))[:, None].to(x.dtype)
-    specs = list(iter_specs(system))
     overflow = torch.zeros((), dtype=torch.bool, device=x.device)
     v = torch.zeros_like(x)
     dt = torch.as_tensor(dt_start, dtype=x.dtype, device=x.device)
@@ -52,12 +55,10 @@ def _fire_pass(system, x, box, globals, steps, dt_start, dt_max, f_inc,
     n_pos = torch.zeros((), dtype=torch.int32, device=x.device)
     for _ in range(steps):
         aux = None
-        if specs:
-            aux = {}
-            for name, spec in specs:
-                bucket, ov = build_cell_buckets(spec, x, box)
-                aux[name] = {"spec": spec, "bucket": bucket}
-                overflow = overflow | ov
+        if system.neighbors is not None:
+            extras = all_neighbor_extras(system, x, box)
+            aux = make_aux(system, extras)
+            overflow = overflow | unhealthy_flags(extras, ("overflow",))[0]
         _, F = f(x, box, globals, aux)
         v = v + dt * F * inv_m
         power = torch.sum(F * v)

@@ -94,7 +94,7 @@ def water_system(
     chunk: int = 256,
     pme_grid=None,
     pme_alpha: float | None = None,
-    neighbors: bool = False,
+    neighbors: bool | str = False,
     skin: float = 0.1,
     dispersion_correction: bool = False,
     template_bonded: bool = True,
@@ -102,7 +102,9 @@ def water_system(
 ):
     """Build (System, positions, box) for n_molecules of q-SPC/Fw water on
     `device` (default: the CUDA card; without one pass device="cpu") in
-    `dtype` (default: torch's default dtype).
+    `dtype` (default: torch's default dtype). neighbors=True attaches cell
+    lists (NeighborSpec), neighbors="blocks" block lists
+    (BlockNeighborSpec, K measured at the lattice start).
 
     Atom order: [O, H, H] per molecule; every force in group 0 (use
     systems.RESPASystem to split). Under method 'pme' the Ewald alpha, grid
@@ -188,7 +190,13 @@ def water_system(
         default_box=box,
         num_molecules=m,
     )
-    if neighbors:
+    if neighbors == "blocks":
+        from ..ops.blocks import make_block_spec
+
+        system = system.with_neighbors(make_block_spec(
+            np.full(3, box_l), n, r_cut, skin=skin, exclusions=exclusions,
+            occupancy_from=x, device=device))
+    elif neighbors:
         from ..ops.neighbors import make_neighbor_spec
 
         spec = make_neighbor_spec(np.full(3, box_l), n, r_cut, skin=skin,

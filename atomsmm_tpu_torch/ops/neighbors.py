@@ -36,6 +36,13 @@ staleness flags (K,), one per row, and row k of each equals what the
 single system of row k gets. A retune on any row's overflow resizes the
 shared spec for every row.
 
+A System may carry block lists instead (ops/blocks.py: BlockNeighborSpec,
+as default spec, near spec or both): every function here that takes a
+spec takes one, and dispatches to that module; their extras hold the
+sorted order and the candidate blocks (``nbr_order``, ``nbr_cand``) in
+place of the bucket, and make_aux hands a force both (``"cand"`` beside
+``"bucket"`` = the order), which sends its sweep to the block kernel.
+
 Each build stores the positions and box it binned (``nbr_xref``,
 ``nbr_boxref``) and whether the stencil covers the cutoff there
 (``nbr_undercover``). Context rebuilds at every outer step by default
@@ -82,20 +89,28 @@ def stale_key(name: str) -> str:
     return "nbr_stale" if name == "default" else f"nbr_{name}_stale"
 
 
+def _is_block(spec) -> bool:
+    from .blocks import BlockNeighborSpec
+
+    return isinstance(spec, BlockNeighborSpec)
+
+
 def iter_specs(system):
-    """(name, spec) pairs for every neighbor spec attached to a system.
-    Only cell lists drive a Context: any other spec raises."""
+    """(name, spec) pairs for every neighbor spec attached to a system:
+    cell lists (NeighborSpec) and block lists (BlockNeighborSpec); any
+    other spec raises."""
     specs = {}
     if getattr(system, "neighbors", None) is not None:
         specs["default"] = system.neighbors
     specs.update(getattr(system, "extra_neighbor_specs", None) or {})
     for name, spec in specs.items():
-        if not isinstance(spec, NeighborSpec):
+        if not (isinstance(spec, NeighborSpec) or _is_block(spec)):
             raise NotImplementedError(
                 f"{type(spec).__name__} ({name!r}) cannot be attached to a "
                 "System: the TilePairSpec is a standalone entry point "
                 "(build_tile_pairs + tile_pair_energy_forces in "
-                "ops/tilepair.py); attach a NeighborSpec instead")
+                "ops/tilepair.py); attach a NeighborSpec or a "
+                "BlockNeighborSpec instead")
         yield name, spec
 
 
@@ -302,14 +317,21 @@ def retune_spec(spec: NeighborSpec, x, box, safety: float = 1.15,
 
 def retune_neighbor_specs(system, x, box, safety: float = 1.15,
                           grow_only: bool = False):
-    """Retune every neighbor spec attached to a system (see retune_spec).
-    grow_only floors each capacity at its current value + 4."""
+    """Retune every neighbor spec attached to a system (see retune_spec;
+    a block list's K by blocks.retune_block_spec, at a safety of at least
+    1.15). grow_only floors each cell capacity, and each K, at its current
+    value + 4."""
     from ..utils import replace
+    from .blocks import retune_block_spec
 
     if getattr(system, "neighbors", None) is None:
         return system
 
     def one(spec):
+        if _is_block(spec):
+            return retune_block_spec(spec, x, box, max(safety, 1.15),
+                                     floor=spec.max_cand + 4 if grow_only
+                                     else 0)
         floor = spec.cell_capacity + 4 if grow_only else 0
         return retune_spec(spec, x, box, safety, floor=floor)
 
@@ -471,7 +493,12 @@ def _covered(spec: NeighborSpec, box, rows: bool = False):
 def coverage_deficient(spec: NeighborSpec, box, rows: bool = False):
     """The stencil reach does not cover the cutoff at `box`: a bool tensor
     on the device of `box`, read without a sync ((K,) for a stack). Only
-    dims where the stencil does not wrap the whole grid count."""
+    dims where the stencil does not wrap the whole grid count. Never for a
+    block list, which holds no stencil."""
+    if _is_block(spec):
+        box = torch.as_tensor(box)
+        return torch.zeros(box.shape[:1] if rows else (), dtype=torch.bool,
+                           device=box.device)
     return torch.any(_covered(spec, box, rows) < spec.r_build - spec.skin,
                      dim=-1)
 
@@ -482,7 +509,12 @@ def effective_skin(spec: NeighborSpec, box, rows: bool = False):
     the stencil's reach still covers beyond the cutoff (0 at the coverage
     boundary). After an NPT compression the setup skin would overstate it,
     and the rebuild test and the staleness guard would miss pairs in
-    between. Either box form (perpendicular widths)."""
+    between. Either box form (perpendicular widths). A block list's
+    margin is its skin at any box."""
+    if _is_block(spec):
+        box = torch.as_tensor(box)
+        return torch.full(box.shape[:1] if rows else (), spec.skin,
+                          dtype=box.dtype, device=box.device)
     margin = torch.min(_covered(spec, box, rows), dim=-1).values \
         - (spec.r_build - spec.skin)
     return torch.clamp(torch.clamp(margin, min=0.0), max=spec.skin)
@@ -508,6 +540,10 @@ def moved_beyond_half_skin(skin, xref, boxref, x, box, fraction=0.5):
 
 
 def neighbor_list_extras(spec, x, box, name: str = "default") -> Dict[str, torch.Tensor]:
+    if _is_block(spec):
+        from .blocks import block_list_extras
+
+        return block_list_extras(spec, x, box, name)
     kb, kx, kbox, kov = _keys(name)
     bucket, overflow = build_cell_buckets(spec, x, box)
     return {kb: bucket, kx: x, kbox: box, kov: overflow,
@@ -566,9 +602,19 @@ def assert_neighbor_health(extras: Dict[str, torch.Tensor]) -> None:
 
 def make_aux(system, extra):
     """The aux dict passed to force evaluations: for each attached neighbor
-    spec, its spec and current bucket. None when no neighbor path exists."""
+    spec, its spec and current bucket (cell lists) or its order as
+    "bucket" and its candidate blocks as "cand" (block lists). None when
+    no neighbor path exists."""
+    from . import blocks
+
     aux = {}
     for name, spec in iter_specs(system):
+        if _is_block(spec):
+            ko, kc = blocks._keys(name)[:2]
+            if ko in extra:
+                aux[name] = {"spec": spec, "bucket": extra[ko],
+                             "cand": extra[kc]}
+            continue
         kb = _keys(name)[0]
         if kb in extra:
             aux[name] = {"spec": spec, "bucket": extra[kb]}
@@ -610,7 +656,7 @@ def staleness_flags(system, extra, x, box):
 def needs_rebuild(spec: NeighborSpec, extra, x, box, name: str = "default"):
     """Some atom moved more than half the effective skin since the
     reference build, or the box changed (a device bool; (K,) for a
-    stack)."""
+    stack). Either kind of spec: a block list's margin is its skin."""
     _, kx, kbox, _ = _keys(name)
     return moved_beyond_half_skin(effective_skin(spec, box, x.ndim == 3),
                                   extra[kx], extra[kbox], x, box)
@@ -645,12 +691,20 @@ def update_neighbors(spec: NeighborSpec, extra, x, box, name: str = "default",
 
 
 def update_all_neighbors(system, extra, x, box, force: bool = False):
-    """update_neighbors for every spec of `system` whose bucket `extra`
-    holds. The signature is the JAX package's; every caller in the port
-    (Context's loops, the barostat) passes force=True, and force=False,
-    the device-side select, has no production caller yet."""
+    """update_neighbors (blocks.update_blocks for a block list) for every
+    spec of `system` whose list `extra` holds. The signature is the JAX
+    package's; every caller in the port (Context's loops, the barostat)
+    passes force=True, and force=False, the device-side select, has no
+    production caller yet."""
+    from . import blocks
+
     out = {}
     for name, spec in iter_specs(system):
+        if _is_block(spec):
+            if blocks._keys(name)[0] in extra:
+                out.update(blocks.update_blocks(spec, extra, x, box, name,
+                                                force=force))
+            continue
         if _keys(name)[0] in extra:
             out.update(update_neighbors(spec, extra, x, box, name,
                                         force=force))

@@ -69,9 +69,9 @@ from .pairfuncs import form_u_dudr2
 from .pbc import minimum_image
 
 #: kernel launches so far in this process, one plain integer per kernel
-#: (half_pair = K1, cell_pair = K2, tile_pair = K3; a launch over K rows
-#: counts one); reset by callers
-LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+#: (half_pair = K1, cell_pair = K2, tile_pair = K3, block_pair = K4 in
+#: ops/blocks.py; a launch over K rows counts one); reset by callers
+LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
 
 K1_MAX_CAP = 1024  # K1's cell capacity: one thread a home atom
 _PLAIN_SLOTS = 1 << 21  # pair slots per chunk of the full-stencil plain twin

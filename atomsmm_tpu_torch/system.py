@@ -26,8 +26,10 @@ class System:
       forces: tuple of Force objects.
       molecule: (N,) molecule id per atom.
       default_box: (3,) box lengths used when building the initial State.
-      neighbors: the default NeighborSpec, or None (dense pair path).
-      extra_neighbor_specs: name -> NeighborSpec (e.g. 'near').
+      neighbors: the default NeighborSpec or BlockNeighborSpec
+        (ops/blocks.py), or None (dense pair path).
+      extra_neighbor_specs: name -> NeighborSpec or BlockNeighborSpec
+        (e.g. 'near').
       constraints: the iterative distance constraints
         (ops.constraints.ConstraintSet), or None.
       settle: the rigid 3-site molecules on closed-form SETTLE
@@ -53,9 +55,10 @@ class System:
     remove_com_motion: bool = True
 
     def with_neighbors(self, spec, **named) -> "System":
-        """Attach the default NeighborSpec (and optionally named ones, e.g.
-        near=<finer spec>): Contexts built from this system use the cell-list
-        path for nonbonded forces."""
+        """Attach the default neighbor spec, a NeighborSpec or a
+        BlockNeighborSpec (and optionally named ones, e.g. near=<finer
+        spec>): Contexts built from this system use the neighbor-list path
+        for nonbonded forces."""
         extra = dict(self.extra_neighbor_specs or {})
         extra.update(named)
         return replace(self, neighbors=spec, extra_neighbor_specs=extra or None)

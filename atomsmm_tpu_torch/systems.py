@@ -126,17 +126,22 @@ def RESPASystem(
     out = system.replace_forces(new_forces)
     if near_grid and system.neighbors is not None:
         # the near force integrates most often: give it its own finer cell
-        # grid; min_skin 0.09 keeps ~0.1 nm of skin (atomsmm_tpu/systems.py)
+        # grid (min_skin 0.09 keeps ~0.1 nm of skin) or, on block lists, its
+        # own list at the near cutoff (atomsmm_tpu/systems.py)
+        from .ops.blocks import BlockNeighborSpec, make_block_spec
         from .ops.neighbors import make_neighbor_spec
 
-        near_spec = make_neighbor_spec(
-            np.asarray(system.default_box.detach().cpu()),
-            system.num_particles,
-            float(rcut_in),
-            min_skin=0.09,
-            exclusions=nb.exclusions,
-            device=nb.charge.device,
-        )
+        box = np.asarray(system.default_box.detach().cpu())
+        if isinstance(system.neighbors, BlockNeighborSpec):
+            near_spec = make_block_spec(
+                box, system.num_particles, float(rcut_in),
+                exclusions=nb.exclusions,
+                block_size=system.neighbors.block_size,
+                device=nb.charge.device)
+        else:
+            near_spec = make_neighbor_spec(
+                box, system.num_particles, float(rcut_in), min_skin=0.09,
+                exclusions=nb.exclusions, device=nb.charge.device)
         out = out.with_neighbors(system.neighbors, near=near_spec)
         out = out.replace_forces(
             replace(f, neighbor_key="near")

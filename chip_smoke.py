@@ -8,9 +8,9 @@ non-zero:
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
-2. build: compiles csrc/half_pair.cu (K1), csrc/cell_pair.cu (K2) and
-   csrc/tile_pair.cu (K3) with nvcc (sm_90a) from the checkout, one nvcc
-   per source, all at once;
+2. build: compiles csrc/half_pair.cu (K1), csrc/cell_pair.cu (K2),
+   csrc/tile_pair.cu (K3) and csrc/block_pair.cu (K4) with nvcc (sm_90a)
+   from the checkout, one nvcc per source, all at once;
 3. kernels against their plain PyTorch twins on the card. float64 kernel
    vs float64 plain: energy rtol 1e-10, forces atol 1e-9 x max|F| (the
    logic). float32 kernel vs float64 plain on the same f32 inputs: energy
@@ -124,9 +124,9 @@ non-zero:
    path (d): the emim/BF4 ionic liquid at full size (400 ion pairs, 5,200
    atoms, 4.934 nm box) with a PME far force, RESPASystem(0.7, 0.6) and
    SIN_R_Integrator(30 fs, [4, 10, 1], 353 K, tau 0.05 ps, gamma 10/ps)
-   from bench_data/eq_emim.npz in float32: step(50) to settle, then 100
-   timed outer steps as 10 calls of step(10) with the kinetic temperature
-   read after each; checks finiteness, the launch counts (11 sweeps per
+   from bench_data/eq_emim.npz in float32: step(30) to settle, then 60
+   timed outer steps as 6 calls of step(10) with the kinetic temperature
+   read after each (50 and 10 calls before path (o) joined the script); checks finiteness, the launch counts (11 sweeps per
    outer step, 10 near and 1 far, + 2 per pass of step(), on the kernel
    each grid takes), the reciprocal evaluations (one per outer step + 1
    per pass), the isokinetic constraint residual
@@ -310,6 +310,22 @@ non-zero:
    run on its cell list; the goldens' argon 864 and 27 waters under
    NonbondedForce(method='nocutoff'), float64, card against CPU (each
    force's energy and the forces to 1e-9);
+   path (o): the 30k headline on block lists (ops/blocks.py):
+   water_system(n_molecules=10000, neighbors="blocks"), RESPASystem(0.5,
+   0.4) with the near force on its own block list, each list's K retuned
+   at the stored state (retune_block_spec, safety 1.15), RF at 0.9 nm,
+   RESPA [4, 2, 1] @ 4 fs + NHC at 300 K from bench_data/eq_water30k.npz,
+   float32, no cut: the two list builds timed beside the cell buckets';
+   K4 (csrc/block_pair.cu) against its plain twin at (o)'s own far and
+   near lists in the RF forms and in path (c)'s damped PME forms (float64
+   1e-10 / 1e-9 max|F|, float32 1e-4, the damped far form's float32 force
+   tolerance of the unsplit max|F|); at step 0 the far and near sweeps on
+   K4 against K1's on the headline's cell grids (float64) and the whole
+   force of the step in float32; then step(1) and a timed step(100)
+   against the headline's bands (T 280-320 K, PE/atom -14.6 ... -13.8,
+   |drift| <= 0.1), with K4's launches counted (near 2 and far 1 an outer
+   step, 2 a pass, no K1) and the ms per outer step beside the headline's
+   of the same call (its ratio logged, no target);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -344,15 +360,20 @@ non-zero:
    by part (K1 sweep, SETTLE's stages, the bucket rebuild), (g2)'s
    outer step by group, and (h1)'s and (h2)'s steps by part (the force
    evaluation: K1, DrudeForce by autograd, the placement and pull-back;
-   SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild).
+   SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild); K4, its
+   launch wrapper, its sweep and its plain twin at path (o)'s far and
+   near lists at the stored 30k state (RF, and the damped far form),
+   bounded by the distinct pairs K1 counts on the same state.
 
 Then one JSON line of kernel results (its launches_by_path counts each
-kernel over each path's run, path_j, path_k, path_m and path_n
-included; K2's entry carries its time, plain time and bound at (m1)'s
+kernel over each path's run, path_j, path_k, path_m, path_n and path_o
+included; K4's entry carries path (o)'s step time and its ratio to the
+headline's, and the list builds; K2's entry carries its time, plain time and bound at (m1)'s
 grids and at (n3)'s, K1's and K2's their split exclusion form's beside
 the bitmask form at (n2)'s grids; with each
 kernel's bound_ms,
-bound_by, library_ms = null: no single PyTorch call computes these sweeps;
+bound_by, library_ms = null: no single PyTorch call computes these sweeps
+(a cutoff pair sweep over cell buckets, a tile list or a block list);
 ms is the kernel's device time in torch.profiler, launch_ms the time of one
 call of its launch wrapper by CUDA events, both of this run), the
 nvidia-smi line again, and last {"ok": true, "device": {...}}.
@@ -1247,7 +1268,7 @@ def phase_main(dev, eq, steps=100, method="cutoff"):
     drift = (e1 - e0) / (n * steps * dt)
     passes = ctx.last_step_passes
     expected = {"half_pair": passes * (3 * steps + 2),
-                "cell_pair": 0, "tile_pair": 0}
+                "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
     # the far force (and with it the reciprocal sum) once per outer step,
     # once more for the force-cache refresh of each pass
     expected_recip = passes * (steps + 1) if method == "pme" else 0
@@ -1331,7 +1352,8 @@ def phase_small_box(dev, steps=100, melt_steps=200):
     # per pass: the far force once per outer step, the near force twice
     # (loops [4, 2, 1]), each once more for the force-cache refresh
     expected = {"half_pair": passes * (2 * steps + 1),
-                "cell_pair": passes * (steps + 1), "tile_pair": 0}
+                "cell_pair": passes * (steps + 1), "tile_pair": 0,
+                "block_pair": 0}
     xs, vs = ctx.state.x, ctx.state.v
     finite = bool(torch.isfinite(xs).all() and torch.isfinite(vs).all())
     temp = float(ctx.temperature())
@@ -1361,7 +1383,7 @@ def phase_small_box(dev, steps=100, melt_steps=200):
             "respa": ctx.system, "state": ctx.state}
 
 
-def phase_ionic(dev, settle=50, calls=10, steps_per_call=10):
+def phase_ionic(dev, settle=30, calls=6, steps_per_call=10):
     """Path (d): BASELINE config 4, the emim/BF4 ionic liquid with a PME
     far force under SIN(R) at a 30 fs outer step, through Context.step."""
     import torch
@@ -1401,7 +1423,8 @@ def phase_ionic(dev, settle=50, calls=10, steps_per_call=10):
     # per pass of step(k): loops[1] near sweeps and one far sweep per outer
     # step, and one of each for the force-cache refresh
     kernel = {True: "half_pair", False: "cell_pair"}
-    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                "block_pair": 0}
     expected[kernel[near.half_stencil]] += passes * (
         loops[1] * steps_per_call + 1)
     expected[kernel[far.half_stencil]] += passes * (steps_per_call + 1)
@@ -1490,7 +1513,8 @@ def phase_tile_path(dev, eq):
                 raise RuntimeError(f"path (b) {label}: bad forces")
     torch.cuda.synchronize()
     launches = dict(pk.LAUNCHES)
-    if launches != {"half_pair": 0, "cell_pair": 0, "tile_pair": runs}:
+    if launches != {"half_pair": 0, "cell_pair": 0, "tile_pair": runs,
+                    "block_pair": 0}:
         raise RuntimeError(f"path (b) launches {launches}, expected {runs} K3")
     return launches["tile_pair"]
 
@@ -1997,7 +2021,7 @@ def phase_slice_alchemy(dev):
                 "cell_pair": passes * (2 * (per_outer[2] * steps + 1)
                                        + per_outer[1] * steps + 1
                                        + per_outer[0] * steps + 1),
-                "tile_pair": 0}
+                "tile_pair": 0, "block_pair": 0}
     e_err = float((es_g.cpu() - es_c).abs().max() / es_c.abs().max())
     ti_err = float(((ti_g.cpu() - ti_c).abs() / ti_c.abs()).max())
     md_err = max(float((a - b.cpu()).abs().max()) / float(a.abs().max())
@@ -2061,7 +2085,8 @@ def phase_alchemy(dev, evals=50, k_states=16):
     wall = time.perf_counter() - t0
     row_launches = dict(pk.LAUNCHES)
     rows_per_s = evals / wall
-    expected = {"half_pair": 3 * evals, "cell_pair": 0, "tile_pair": 0}
+    expected = {"half_pair": 3 * evals, "cell_pair": 0, "tile_pair": 0,
+                "block_pair": 0}
     log(f"path (e) phenol+1000w ({n} atoms, box {float(box[0]):.3f} nm, grid "
         f"{spec.grid} cap {spec.cell_capacity}) x {k_states} states float32 "
         f"multistate_energies: {rows_per_s:.3f} K-state rows/s "
@@ -2113,7 +2138,7 @@ def phase_alchemy(dev, evals=50, k_states=16):
     md_launches = dict(pk.LAUNCHES)
     passes = ctx.last_step_passes
     md_expected = {"half_pair": passes * 3 * (md_steps + 1), "cell_pair": 0,
-                   "tile_pair": 0}
+                   "tile_pair": 0, "block_pair": 0}
     x_melt = ctx.state.x.clone()
     log(f"path (e) MD phenol+1000w VV+OU 1 fs float32 at the coupled state: "
         f"{md_ms:.3f} ms/step ({0.001 * 86400 / md_ms:.3f} ns/day); launches "
@@ -2378,7 +2403,8 @@ def phase_npt(dev, eq100, method="cutoff", settle=100, calls=8,
     # one of each for the force-cache refresh, and per volume move e_old,
     # e_new and the refresh (one sweep of each grid each)
     kernel = {True: "half_pair", False: "cell_pair"}
-    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                "block_pair": 0}
     expected_recip = 0
     for k, a, passes in per_call_runs:
         expected[kernel[near.half_stencil]] += passes * (
@@ -2388,7 +2414,8 @@ def phase_npt(dev, eq100, method="cutoff", settle=100, calls=8,
             expected_recip += passes * (k + 1 + 3 * a)
     # the pressures at the end, on the virial form (outside the count): one
     # sweep of each grid
-    virial_expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    virial_expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                       "block_pair": 0}
     for spec in (near, far):
         virial_expected[kernel[spec.half_stencil]] += 1
     before = dict(pk.LAUNCHES)
@@ -2942,7 +2969,7 @@ def phase_rigid(dev, eq, hmr_respa=False, settle=250, steps=200, chunks=8,
     # step (group 0 holds no force); one more of each for the cache refresh
     per_step, refresh = (5, 2) if hmr_respa else (1, 1)
     expected = {"half_pair": passes * (per_step * steps + refresh),
-                "cell_pair": 0, "tile_pair": 0}
+                "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
     grids = ", ".join(
         f"{k} {spec.grid} cap {spec.cell_capacity}" for k, spec in
         {"far": ctx.system.neighbors,
@@ -3033,7 +3060,7 @@ def phase_tip4p(dev, n_molecules=2000, melt_steps=1600, steps=100, chunks=4,
     launches = dict(pk.LAUNCHES)
     passes = ctx.last_step_passes
     expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
-                "tile_pair": 0}
+                "tile_pair": 0, "block_pair": 0}
     e1 = float(ctx.conserved_energy())
     drift = (e1 - e0) / (atoms * steps * dt)
     xs, vs = ctx.state.x, ctx.state.v
@@ -3307,7 +3334,7 @@ def phase_swm4(dev, melt=800, steps=150, reads=4, chunk=250):
     launches = dict(pk.LAUNCHES)
     passes = ctx.last_step_passes
     expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
-                "tile_pair": 0}
+                "tile_pair": 0, "block_pair": 0}
     temps, pes = [], []
     for _ in range(reads):
         ctx.step(chunk)
@@ -3388,7 +3415,7 @@ def phase_swm4_scf(dev, h1, steps=20, n_iter=12):
     launches = dict(pk.LAUNCHES)
     passes = ctx.last_step_passes
     expected = {"half_pair": passes * ((n_iter + 1) * steps + 1),
-                "cell_pair": 0, "tile_pair": 0}
+                "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
     c = drude_checks(system, ctx.state)
     d_still = bool((ctx.state.v[1::5] == 0).all())
     f = ctx.get_state().forces
@@ -4032,7 +4059,7 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
         nb.build_cell_buckets = real_build
     launches = dict(pk.LAUNCHES)
     expected = {"half_pair": reps * (3 * (chunk + 1) + 9), "cell_pair": 0,
-                "tile_pair": 0}
+                "tile_pair": 0, "block_pair": 0}
     rebuilds_derived = reps * (1 + chunk // update_every
                                + chunk % update_every)
     t_mean = torch.stack(t_rows).mean(0).tolist()
@@ -4441,7 +4468,7 @@ def phase_simulation(dev, eq, main_ms, fire_steps=50, half=100,
             fire._fire_pass = fire_pass
         pe1, f1 = pe_fmax(ctx)
         expected_fire = {"half_pair": 2 * fire_steps * len(passes),
-                         "cell_pair": 0, "tile_pair": 0}
+                         "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
         log(f"path (j) FIRE {fire_steps} iterations on the cell lists: PE/atom "
             f"{pe0:.4f} -> {pe1:.4f} kJ/mol, max|F| {f0:.1f} -> {f1:.1f} "
             f"kJ/mol/nm; {fire_ms:.3f} ms per iteration (rebuild, K1 near "
@@ -4484,7 +4511,7 @@ def phase_simulation(dev, eq, main_ms, fire_steps=50, half=100,
             + J_SNAPSHOT_LAUNCHES["lite"] * rec["lite"]
             + J_SNAPSHOT_LAUNCHES["full"] * rec["full"]
             + J_SNAPSHOT_LAUNCHES["extended"] * ext_rows,
-            "cell_pair": 0, "tile_pair": 0}
+            "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
 
         names, rows = csv_rows(outs["state"].getvalue())
         ext_names, ext = csv_rows(outs["extended"].getvalue())
@@ -4697,7 +4724,7 @@ def sweep_launches(system, calls, per_step):
     RESPA system, derived from the code: each spec's force is evaluated
     per_step[name] times an outer step and once more at the start of each
     pass, by K1 where the spec has half maps, else by K2."""
-    want = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    want = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
     specs = {"far": system.neighbors,
              "near": system.extra_neighbor_specs["near"]}
     for name, spec in specs.items():
@@ -4760,7 +4787,8 @@ def phase_triclinic(dev, eq, k2_steps=10):
         del ortho, tric, aux_o, aux_t
 
     cell = shear_cell(box_l)
-    k2_ms, expected = {}, {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+    k2_ms, expected = {}, {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                           "block_pair": 0}
     pk.reset_launches()
     for dtype in (f32, f64):
         respa, integ, state = headline(dev, eq, dtype, cell=cell)
@@ -5106,7 +5134,7 @@ def phase_amber(dev, eq, seed=7, settle=600, steps=200, chunks=8, chunk=50):
         pes.append(float(ctx.get_state(lite=True).potential_energy) / n)
     temp, pe = sum(temps) / chunks, sum(pes) / chunks
     expected = {"half_pair": passes * (steps + 1), "cell_pair": 0,
-                "tile_pair": 0}
+                "tile_pair": 0, "block_pair": 0}
     ns_day = 0.002 * 1e-3 * 86400.0 / (ms * 1e-3)
     bands = L_BANDS
     log(f"path (l) nacl30k from prmtop/inpcrd, PME, SETTLE, VV@2fs NHC "
@@ -5364,7 +5392,8 @@ def phase_spatial_one_rank(dev, eq100, path_f_pme_ms, steps=100):
             dist.destroy_process_group()
     # per pass: near loops[1] and far once a step, one of each for the
     # force-cache refresh, and e_old, e_new and the refresh of each move
-    expected = {"half_pair": 0, "tile_pair": 0, "cell_pair": passes * (
+    expected = {"half_pair": 0, "tile_pair": 0, "block_pair": 0,
+                "cell_pair": passes * (
         (loops[1] + 1) * steps + 2 + 6 * a)}
     expected_recip = passes * (steps + 1 + 3 * a)
     far_f = pair_forces(run_sys)[1].full
@@ -5798,7 +5827,7 @@ def phase_npt_sheared(dev, eq100, f_run, f_move_ms, settle=100, calls=12,
     launches = dict(pk.LAUNCHES)
     expected = {"half_pair": sum(p * ((loops[1] + 1) * k + 2 + 6 * a)
                                  for k, a, p in runs),
-                "cell_pair": 0, "tile_pair": 0}
+                "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
     att, acc, bad = (int(ctx.state.extra[k]) - ext0[k] for k in (
         baro.BARO_NATT, baro.BARO_NACC, baro.BARO_NBAD))
     box1 = ctx.state.box
@@ -6064,7 +6093,7 @@ def phase_k2_past_1024(dev, eq, r_cut=2.0, steps=5):
     torch.cuda.synchronize()
     launches = dict(pk.LAUNCHES)
     expected = {"half_pair": 0, "cell_pair": ctx.last_step_passes
-                * (steps + 1), "tile_pair": 0}
+                * (steps + 1), "tile_pair": 0, "block_pair": 0}
     temp = float(ctx.temperature())
     finite = bool(torch.isfinite(ctx.state.x).all())
     log(f"path (n3) water30k rc {r_cut}: grid {spec.grid} cap "
@@ -6173,6 +6202,267 @@ def phase_dense(dev, n=4096, steps=100):
             "cells_drift": c_drift}
 
 
+# path (o)'s bands: the headline's (PERF.md section 2)
+O_BANDS = {"T": (280.0, 320.0), "pe": (-14.6, -13.8), "drift": 0.1}
+
+
+def block_headline(dev, eq):
+    """The headline's system on block lists: water_system(n_molecules=
+    10000, neighbors="blocks") in float32 on the card, split by
+    RESPASystem(0.5, 0.4) (the near force on its own block list), each
+    list's K retuned at the stored state (retune_block_spec through
+    retune_neighbor_specs, safety 1.15)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    ex, _, ebox = eq
+    system, _, _ = water_system(n_molecules=10000, neighbors="blocks",
+                                dtype=torch.float32, device=dev)
+    respa = amm.RESPASystem(system, rcut_in=0.5, rswitch_in=0.4)
+    return retune_neighbor_specs(respa, ex, ebox)
+
+
+def compare_blocks(label, force, spec, lists, x, box, results,
+                   unsplit=None):
+    """K4 in float64 and float32 against its float64 plain twin on the card
+    at one block list (`lists` = (order, cand), the same list for both
+    dtypes); with `unsplit` (the full force a damped far force was split
+    from) the float32 force tolerance scales with the unsplit form's
+    max|F| (see compare). Returns the twin's (energy, forces)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import blocks as blk
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f64 = torch.float64
+    form = force._pair_form()
+    order, cand = lists
+    pp64 = {k: v.to(x.device, f64) for k, v in force._per_particle().items()}
+    x64, box64 = x.to(f64), box.to(f64)
+    ref = blk.block_pair_plain(x64, pp64, order, cand, spec, box64, form,
+                               form.r_cut)
+    e_p, f_p = ref[:, 3].sum(), ref[:-1, :3]
+    f_unsplit = None
+    if unsplit is not None:
+        f_unsplit = float(blk.block_pair_plain(
+            x64, pp64, order, cand, spec, box64, unsplit._pair_form(),
+            form.r_cut)[:-1, :3].abs().max())
+    for dtype in (f64, torch.float32):
+        before = pk.LAUNCHES["block_pair"]
+        out = blk.block_pair_cuda(
+            x.to(dtype).contiguous(), {k: v.to(dtype) for k, v in
+                                       pp64.items()},
+            order, cand, spec, box.to(dtype), form, form.r_cut)
+        torch.cuda.synchronize()
+        if pk.LAUNCHES["block_pair"] != before + 1:
+            raise RuntimeError(f"{label}: block_pair_cuda did not launch K4")
+        results.append(("block_pair",) + judge(
+            f"block_pair {label}", dtype, out[:, 3].sum(), out[:-1, :3], e_p,
+            f_p, f_scale=f_unsplit if dtype != f64 else None)
+            + (form_name(form),))
+    return e_p, f_p
+
+
+def phase_blocks(dev, eq, main, pme_run, steps=100):
+    """Path (o): the 30k headline on block lists through Context.step, K4
+    held against its plain twin at the run's own lists and against K1 at
+    step 0 (the module docstring)."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import blocks as blk
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.potential import force_fn
+
+    f32, f64 = torch.float32, torch.float64
+    ex, ev, ebox = eq
+    t0 = time.perf_counter()
+    respa = block_headline(dev, eq)
+    setup_s = time.perf_counter() - t0
+    specs = {"far": respa.neighbors,
+             "near": respa.extra_neighbor_specs["near"]}
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=f32, device=dev)
+    lists, build_ms = {}, {}
+    for label, spec in specs.items():
+        order, cand, overflow = blk.build_block_lists(spec, x, box)
+        if bool(overflow):
+            raise RuntimeError(f"path (o) {label} list: overflow at the "
+                               "state it was retuned at")
+        lists[label] = (order, cand)
+        build_ms[label] = time_cuda(
+            lambda: blk.build_block_lists(spec, x, box), 10)
+    cells = {"far": main["respa"].neighbors,
+             "near": main["respa"].extra_neighbor_specs["near"]}
+    cell_ms = {label: time_cuda(lambda: nb.build_cell_buckets(c, x, box), 10)
+               for label, c in cells.items()}
+    for label, spec in specs.items():
+        per_row = (lists[label][1] >= 0).sum(dim=1).double()
+        log(f"path (o) {label} block list: r_build {spec.r_build:.3f} nm, "
+            f"{spec.n_blocks} blocks of {spec.block_size}, K "
+            f"{spec.max_cand}, candidates per block mean "
+            f"{float(per_row.mean()):.2f} max {int(per_row.max())}, "
+            f"{int(per_row.sum())} block pairs "
+            f"({int(per_row.sum()) * spec.block_size ** 2 / 1e6:.1f} M "
+            f"slots); build_block_lists {build_ms[label]:.4f} ms beside "
+            f"build_cell_buckets {cell_ms[label]:.4f} ms (CUDA events)")
+
+    # K4 against its plain twin at (o)'s own lists, RF and damped PME
+    results = []
+    for method, run in (("rf", main), ("pme", pme_run)):
+        far_f, near_f = run["respa"].forces[2], run["respa"].forces[1]
+        for label, force in (("far", far_f), ("near", near_f)):
+            compare_blocks(
+                f"path (o) water30k {method} {label}", force, specs[label],
+                lists[label], x, box, results,
+                unsplit=far_f.full if (method, label) == ("pme", "far")
+                else None)
+    # step 0: the block path against K1's cell path on the same state
+    main_forces = main["respa"].forces
+    x64, box64 = x.double(), box.double()
+    for label, force in (("far", main_forces[2]), ("near", main_forces[1])):
+        form = force._pair_form()
+        pp = {k: v.to(dev, f64) for k, v in force._per_particle().items()}
+        e_b, f_b = blk.block_pair_energy_forces(
+            form, x64, box64, pp, specs[label], *lists[label], form.r_cut)
+        cspec = cells[label]
+        bucket, _ = nb.build_cell_buckets(cspec, x64, box64)
+        e_c, f_c = nb.cell_pair_energy_forces(form, x64, box64, pp, cspec,
+                                              bucket, form.r_cut)
+        judge(f"block_pair vs half_pair path (o) water30k {label} step 0",
+              f64, e_b, f_b, e_c, f_c)
+    aux_b = nb.make_aux(respa, nb.all_neighbor_extras(respa, x, box))
+    aux_c = nb.make_aux(main["respa"],
+                        nb.all_neighbor_extras(main["respa"], x, box))
+    (e_b, f_b), (e_c, f_c) = (force_fn(s)(x, box, {}, a) for s, a in (
+        (respa, aux_b), (main["respa"], aux_c)))
+    judge("path (o) whole force at step 0 (block lists vs cell lists)",
+          f32, e_b, f_b, e_c, f_c)
+
+    # the run
+    dt, loops = 0.004, [4, 2, 1]
+    n = respa.num_particles
+    integ = amm.MultipleTimeScaleIntegrator(
+        dt, loops, temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * n - 3)
+    state = amm.make_state(x, v=torch.as_tensor(ev, dtype=f32, device=dev),
+                           box=box)
+    ctx = amm.Context(respa, integ, state)
+    ctx.step(1)
+    torch.cuda.synchronize()
+    e0 = float(ctx.conserved_energy())
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    ctx.step(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    e1 = float(ctx.conserved_energy())
+    xs, vs = ctx.state.x, ctx.state.v
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(vs).all())
+    temp = float(ctx.temperature())
+    pe = float(ctx.get_state(lite=True).potential_energy) / n
+    drift = (e1 - e0) / (n * steps * dt)
+    passes = ctx.last_step_passes
+    # near loops[1] and far once an outer step, one of each for the
+    # force-cache refresh of each pass
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                "block_pair": passes * (3 * steps + 2)}
+    ms = wall / steps * 1e3
+    ratio = ms / main["ms_per_step"]
+    log(f"path (o) water30k cutoff on block lists RESPA{loops}@"
+        f"{dt * 1e3:.0f}fs NVT float32: set-up {setup_s:.2f} s; K far/near "
+        f"{specs['far'].max_cand}/{specs['near'].max_cand} -> "
+        f"{ctx.system.neighbors.max_cand}/"
+        f"{ctx.system.extra_neighbor_specs['near'].max_cand}; {ms:.3f} "
+        f"ms/step ({ratio:.3f}x the headline's {main['ms_per_step']:.3f} on "
+        f"cell lists in this run), "
+        f"{dt * 1e-3 * steps / wall * 86400.0:.3f} ns/day; launches "
+        f"{launches} (expected {expected}, passes {passes}); T {temp:.2f} "
+        f"K; PE/atom {pe:.4f} kJ/mol; drift {drift:.5f} kJ/mol/atom/ps; "
+        f"finite {finite}")
+    checks = {
+        "finite": finite,
+        "launches": launches == expected,
+        "temperature": O_BANDS["T"][0] <= temp <= O_BANDS["T"][1],
+        "pe_per_atom": O_BANDS["pe"][0] <= pe <= O_BANDS["pe"][1],
+        "drift": abs(drift) <= O_BANDS["drift"],
+        "shape": tuple(xs.shape) == (n, 3) and tuple(vs.shape) == (n, 3),
+    }
+    require("path (o)", checks)
+    return {"launches": launches["block_pair"], "ms_per_step": ms,
+            "ratio": ratio, "respa": ctx.system, "results": results,
+            "build_ms": build_ms, "cell_build_ms": cell_ms}
+
+
+def phase_block_timings(dev, blocks, timings, eq, pme_run):
+    """K4 at path (o)'s far and near lists at the stored 30k state (the
+    state K1 and K3 are timed at in phase_timings), RF, and the damped far
+    form: its device time (torch.profiler), its launch wrapper, its sweep
+    and its plain twin (CUDA events), and its bound over the distinct pairs
+    K1 counted on the same state."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import blocks as blk
+
+    f32 = torch.float32
+    ex, _, ebox = eq
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=f32, device=dev)
+    system = blocks["respa"]
+    specs = {"far": system.neighbors,
+             "near": system.extra_neighbor_specs["near"]}
+    forces = blocks["respa"].forces
+    out = {}
+    for key, force, spec, k1_key in (
+            ("far", forces[2], specs["far"], "far"),
+            ("near", forces[1], specs["near"], "near"),
+            ("pme far", pme_run["respa"].forces[2], specs["far"],
+             "pme far")):
+        form = force._pair_form()
+        pp = {k: v.to(dev, f32).contiguous()
+              for k, v in force._per_particle().items()}
+        order, cand, _ = blk.build_block_lists(spec, x, box)
+        args = (x, pp, order, cand, spec, box, form, form.r_cut)
+
+        def sweep():
+            return blk.block_pair_energy_forces(form, x, box, pp, spec,
+                                                order, cand, form.r_cut)
+
+        k_ms = kernel_device_ms(sweep, "block_pair")
+        launch_ms = time_cuda(lambda: blk.block_pair_cuda(*args), 20)
+        sweep_ms = time_cuda(sweep, 20)
+        p_ms = time_cuda(lambda: blk.block_pair_plain(*args), 3)
+        live = int((cand >= 0).sum())
+        slots = live * spec.block_size ** 2
+        k1 = timings[("half_pair", k1_key)]
+        k3 = timings.get(("tile_pair", k1_key))
+        c = k1["counts"]
+        rows = blk.block_pair_cuda(*args)
+        b = bound(form, c["pairs"], c["near_pairs"], slots, nbytes(
+            x, pp["charge"], pp["sigma"], pp["epsilon"], spec.excbits,
+            order, cand, box, rows))
+        log(f"timing block_pair path (o) {key} list ({live} block pairs, "
+            f"K {spec.max_cand}): kernel {k_ms:.4f} ms of device time "
+            f"({launch_ms:.4f} ms by CUDA events around its wrapper; "
+            f"{slots / 1e6:.1f} M slots, {slots / k_ms / 1e6:.2f} Gslot/s) "
+            f"vs half_pair {k1['ms']:.4f} ms"
+            + (f", tile_pair {k3['ms']:.4f} ms" if k3 else "")
+            + f" on the same state; sweep {sweep_ms:.4f} ms; plain float32 "
+            f"{p_ms:.4f} ms; bound {b['ms'] * 1e3:.2f} us by {b['by']} for "
+            f"{c['pairs'] / 1e6:.3f} M distinct pairs (with the slot tests "
+            f"{b['with_slots_ms'] * 1e3:.2f} us): {b['ms'] / k_ms:.1%} of "
+            "it")
+        out[("block_pair", key)] = {"ms": k_ms, "launch_ms": launch_ms,
+                                    "plain_ms": p_ms, "sweep_ms": sweep_ms,
+                                    "slots": slots, "bound": b}
+    return out
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -6228,6 +6518,7 @@ def main():
     pme_run = phase_main(dev, eq, method="pme")
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
+    blocks = phase_blocks(dev, eq, main_run, pme_run)
     ionic = phase_ionic(dev)
     alch = phase_alchemy(dev)
     npt = phase_npt(dev, eq100)
@@ -6252,7 +6543,8 @@ def main():
     wide_checks, wide_timings = phase_kernels_wide(dev, eq)
     n3 = phase_k2_past_1024(dev, eq)
     n4 = phase_dense(dev)
-    results += (phase_kernels_sampled(dev, alch["sampled0"])
+    results += (blocks["results"]
+                + phase_kernels_sampled(dev, alch["sampled0"])
                 + npt["kernel_checks"] + npt_pme["kernel_checks"]
                 + phase_kernels_rigid(dev, g1, g2, g3)
                 + phase_kernels_swm4(dev, h1) + hrex["kernel_checks"]
@@ -6261,6 +6553,7 @@ def main():
                 + wide_checks + n3["kernel_checks"])
     timings = phase_timings(dev, main_run, small, eq)
     timings.update(phase_pme_timings(dev, pme_run, small, eq))
+    timings.update(phase_block_timings(dev, blocks, timings, eq, pme_run))
     timings.update(phase_ionic_timings(dev, ionic))
     timings.update(phase_alchemy_timings(dev, alch))
     timings.update(phase_npt_timings(dev, npt, small, eq, timings))
@@ -6309,11 +6602,12 @@ def main():
         "path_n1": n1["launches"],
         "path_n2_slice": peptide["launches"],
         "path_n3": n3["launches"],
+        "path_o": {"block_pair": blocks["launches"]},
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
         # no single PyTorch call computes a cutoff pair sweep over cell
-        # buckets or a tile list: library_ms is null
+        # buckets, a tile list or a block list: library_ms is null
         t, tp_ = timings[key], timings[pme_key]
         return {"name": kernel, "route": "cuda",
                 "launches_by_path": {path: counts.get(kernel, 0)
@@ -6343,7 +6637,26 @@ def main():
               tile_launches, f32_err("tile_pair", "far"),
               ("tile_pair", "far"), "30k water 0.9 nm tile list, f32",
               ("tile_pair", "pme far")),
+        entry("block_pair", "block_pair.cu",
+              "atomsmm_tpu/ops/blocks.py:182 (XLA, no pallas_call)",
+              blocks["launches"], f32_err("block_pair", "far"),
+              ("block_pair", "far"), "30k water far block list (o), 0.9 nm "
+              "+ 0.1 skin, f32; launches: path (o)",
+              ("block_pair", "pme far")),
     ]}
+    # path (o): K4 at its near list, the run's outer step beside the
+    # headline's of this run, and the list builds
+    k4 = kernels["kernels"][3]
+    t = timings[("block_pair", "near")]
+    k4.update({"near_ms": t["ms"], "near_plain_ms": t["plain_ms"],
+               "near_bound_ms": t["bound"]["ms"],
+               "near_bound_by": t["bound"]["by"],
+               "path_o_step_ms": blocks["ms_per_step"],
+               "path_o_step_over_headline": blocks["ratio"],
+               "path_o_build_far_ms": blocks["build_ms"]["far"],
+               "path_o_build_near_ms": blocks["build_ms"]["near"],
+               "cell_build_far_ms": blocks["cell_build_ms"]["far"],
+               "cell_build_near_ms": blocks["cell_build_ms"]["near"]})
     # K1 at path (d)'s two shapes (5,200 atoms, fused damped far form on the
     # 5^3 grid, damped near form on the 6^3 grid), float32
     kernels["kernels"][0].update(emim)

@@ -523,7 +523,7 @@ def test_kernels_take_a_triclinic_box(cuda, half, dtype):
     out = launch(x, pp, bucket, spec, hb, form, 0.7)
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"half_pair": int(half), "cell_pair": int(not half),
-                           "tile_pair": 0}
+                           "tile_pair": 0, "block_pair": 0}
     ref = plain(x.double(), {k: v.double() for k, v in pp.items()}, bucket,
                 spec, hb.double(), form, 0.7)
     tol_e, tol_f = (1e-10, 1e-9) if dtype == torch.float64 else (1e-4, 1e-4)
@@ -576,7 +576,8 @@ def test_triclinic_sweep_on_the_card_matches_the_cpu(cuda):
         pk.reset_launches()
         out.append(force_fn(system)(x, hb, {}, aux))
     assert system.neighbors.half_stencil
-    assert pk.LAUNCHES == {"half_pair": 1, "cell_pair": 0, "tile_pair": 0}
+    assert pk.LAUNCHES == {"half_pair": 1, "cell_pair": 0, "tile_pair": 0,
+                           "block_pair": 0}
     (e, f), (eg, fg) = out
     assert float(eg) == pytest.approx(float(e), rel=1e-10)
     np.testing.assert_allclose(fg.cpu().numpy(), f.numpy(),
