@@ -41,7 +41,8 @@ _SIGNATURES = {
     "half_pair": "ppppppppppp" "iiiiiii" "i" "ppppp" "p",
     "cell_pair": "ppppppppppp" "iiiiiiiii" "i" "ppppp" "p",  # + c0, c1
     "tile_pair": "pppppp" "iii" "ppp" "p",
-    "block_pair": "ppppppppp" "iiiii" "ppp" "p",
+    # + the packed copy and the work scratch
+    "block_pair": "ppppppppp" "iiiii" "ppp" "pp" "p",
 }
 
 _LIBS = {}

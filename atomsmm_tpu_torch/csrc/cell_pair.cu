@@ -5,9 +5,10 @@
 // 2 * reach + 1): small solvated boxes, down to one cell. Each home cell c
 // meets every deduplicated stencil cell nbr[c, s] (-1 padded), both
 // orderings of each pair: on every (home atom, candidate) slot it applies the
-// per-slot minimum image, the cutoff test, the exclusions and one of the
-// built-in pair forms (pair_forms.cuh), and sums on the home atom
-// F_i = -sum 2 du/dr^2 dx and E_i = 1/2 sum u. It writes no reactions.
+// per-slot minimum image, the cutoff test (in float32, a hit near r_c is
+// decided again in float64: pair_forms.cuh::keeps_hit), the exclusions
+// and one of the built-in pair forms (pair_forms.cuh), and sums on the home
+// atom F_i = -sum 2 du/dr^2 dx and E_i = 1/2 sum u. It writes no reactions.
 //
 // What bounds it: instruction slots and latency, not operations or bytes. The
 // work is small (700 waters: 2,100 home atoms against 2,100 candidates
@@ -304,10 +305,11 @@ __global__ void __launch_bounds__(THREADS)
         image.apply(dx, dy, dz);
         const T r2 = dx * dx + dy * dy + dz * dz;
         const bool excl = excluded_by_bits(exc_h, hid, cj.id);
-        bool hit = (j < cnt) & (r2 < p.rc2) & !excl;
+        bool hit = (j < cnt) & (r2 < p.rc2_hi) & !excl;
         if (EXC == EXC_SPLIT && hit) {
           hit = !excluded_far(far_bits, far_row, m, hid, cj.id);
         }
+        if (hit) hit = keeps_hit<T, TRI>(p, r2, x, box, hid, cj.id);
         const int slot = hitqueue::reserve(hit, queued);
         if (hit) my_queue[slot] = make_hit(dx, dy, dz, par[j]);
         __syncwarp();

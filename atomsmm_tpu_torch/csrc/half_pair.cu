@@ -3,8 +3,10 @@
 // Replaces atomsmm_tpu/ops/pallas_pair.py::_half_kernel. Each home cell c
 // meets the half-stencil cells nbr[c, k] (k = 0 is c itself, then the
 // lexicographically positive directions). On every (home atom, candidate)
-// slot it applies the per-slot minimum image, the cutoff test, the
-// exclusions and one of the built-in pair forms (pair_forms.cuh), and adds
+// slot it applies the per-slot minimum image, the cutoff test (in
+// float32, a hit near r_c is decided again in float64:
+// pair_forms.cuh::keeps_hit), the exclusions and one of the built-in
+// pair forms (pair_forms.cuh), and adds
 // the force -2 du/dr^2 dx to the home atom and its reaction to the
 // candidate. Exclusions take one of three forms, a template parameter
 // (pair_forms.cuh, EXC): the relative-offset bitmask (one shift per slot);
@@ -286,7 +288,7 @@ __global__ void __launch_bounds__(MAXT)
             image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             const bool excl = excluded_by_bits(exc_h, hid, cj.id);
-            const bool hit = (cj.id < n) & (r2 < p.rc2) & !excl;
+            const bool hit = (cj.id < n) & (r2 < p.rc2_hi) & !excl;
             word |= (unsigned)hit << bb;
           }
           if (wd == 0) b0 = word;
@@ -317,6 +319,7 @@ __global__ void __launch_bounds__(MAXT)
             T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
             image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
+            if (!keeps_hit<T, TRI>(p, r2, x, box, hid, cj.id)) continue;
             const T qprod = qi * pj.q;
             T u, dudr2;
             if constexpr (TABLE) {

@@ -1,6 +1,6 @@
-// Built-in pair forms shared by the three pair kernels (half_pair.cu,
-// cell_pair.cu, tile_pair.cu): the kernels' scalar block, the quintic
-// switch and (u, du/dr^2) of one pair.
+// Built-in pair forms shared by the pair kernels (half_pair.cu,
+// cell_pair.cu, tile_pair.cu, block_pair.cu): the kernels' scalar block,
+// the float32 cutoff band, the quintic switch and (u, du/dr^2) of one pair.
 //
 // A hand kernel cannot trace a Python pair function the way Pallas did, so
 // each kernel takes one of the built-in forms, selected by flags, with
@@ -38,9 +38,16 @@ constexpr double TWO_OVER_SQRT_PI = 1.1283791670955126;
 constexpr int EXC_OFF = 16;  // exclusion bit of relative offset 0 (self)
 constexpr double ALPHA_SC = 0.5;  // softcore alpha (pairfuncs.py::ALPHA_SC)
 
+// The half-width of the band about the cutoff, relative to r_cut^2, in
+// which a float32 hit is decided again in float64 (keeps_hit).
+constexpr double CUT_BAND = 1.0 / 16384.0;
+
 template <typename T>
 struct Params {
   T rc2;       // mask cutoff squared
+  T rc2_lo;    // r_cut^2 (1 - CUT_BAND): below it a hit is in range
+  T rc2_hi;    // r_cut^2 (1 + CUT_BAND): the slot test's threshold
+  double rc2_exact;  // r_cut^2 in float64, the reference's threshold
   T sw_rs;     // full form: switch start
   T sw_inv_w;  // full form: 1 / (r_cut - r_switch)
   T k_rf;      // reaction field
@@ -67,7 +74,7 @@ struct Params {
 
 // The kernels' C entry points all take the same host arrays:
 // scal = [rc2, sw_rs, sw_inv_w, k_rf, c_rf, n_rs, n_inv_w, n_rc, n_rcinv,
-// near_sign, alpha, n_ec, n_dec, lamb], flags = [has_full,
+// near_sign, alpha, n_ec, n_dec, lamb, rc2 in float64], flags = [has_full,
 // use_switch, has_near, ewald, softcore, dlambda, smoothed, hbond, virial].
 template <typename T>
 inline Params<T> make_params(const double* scal, const int* flags) {
@@ -86,6 +93,10 @@ inline Params<T> make_params(const double* scal, const int* flags) {
   p.n_ec = (T)scal[11];
   p.n_dec = (T)scal[12];
   p.lamb = (T)scal[13];
+  p.rc2_exact = scal[14];
+  p.rc2_lo = (T)(scal[14] * (1.0 - CUT_BAND));
+  p.rc2_hi = (T)(scal[14] * (1.0 + CUT_BAND));
+  if (sizeof(T) == sizeof(double)) p.rc2_lo = p.rc2_hi = p.rc2;
   p.has_full = flags[0];
   p.use_switch = flags[1];
   p.has_near = flags[2];
@@ -202,10 +213,11 @@ struct Image;
 template <typename T>
 struct Image<T, false> {
   T b[3], ib[3];
-  __device__ explicit Image(const T* __restrict__ box) {
+  template <typename S>
+  __device__ explicit Image(const S* __restrict__ box) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      b[k] = box[k];
+      b[k] = (T)box[k];
       ib[k] = T(1) / b[k];
     }
   }
@@ -219,9 +231,10 @@ struct Image<T, false> {
 template <typename T>
 struct Image<T, true> {
   T h[9], hi[9];
-  __device__ explicit Image(const T* __restrict__ box) {
+  template <typename S>
+  __device__ explicit Image(const S* __restrict__ box) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) h[k] = box[k];
+    for (int k = 0; k < 9; ++k) h[k] = (T)box[k];
     hi[0] = h[4] * h[8] - h[5] * h[7];
     hi[1] = h[2] * h[7] - h[1] * h[8];
     hi[2] = h[1] * h[5] - h[2] * h[4];
@@ -244,6 +257,44 @@ struct Image<T, true> {
     dz -= s0 * h[2] + s1 * h[5] + s2 * h[8];
   }
 };
+
+// The cutoff test, decided as the float64 reference decides it. A float32
+// r2 carries the rounding of the coordinates' difference, of the image
+// shift and of a staged frame, up to about ulp(L) per component for
+// coordinates of size L, so a pair within that of r_cut could fall on
+// either side of it. The truncated Ewald force jumps there by k |qq|
+// [erfc(a rc)/rc^2 + (2a / sqrt(pi)) exp(-a^2 rc^2)/rc] (0.38 kJ/mol/nm for
+// an O-O pair of TIP3P at 0.9 nm and a = 2.92/nm), more than 1e-4 of the
+// largest force. So the slot test takes r2 < rc2_hi, and a hit whose r2
+// lies in the band [rc2_lo, rc2_hi), CUT_BAND of r_cut^2 either side (2^-14
+// relative: more than that rounding for coordinates below about 60 nm at a
+// 0.9 nm cutoff), is kept only where within_cutoff_f64 says so: the
+// displacement again in float64 from the stored float32 coordinates of
+// both atoms, by the minimum image ops/pbc.py takes, against r_cut^2 in
+// float64. The band holds a few thousand of the 10^8 slots of a 30k-atom
+// sweep, and the test is made on hits only, outside the slot loop. In
+// float64 rc2_lo = rc2_hi = rc2 and every hit is kept.
+template <typename T, bool TRI>
+__device__ __noinline__ bool within_cutoff_f64(double rc2,
+                                               const T* __restrict__ x,
+                                               const T* __restrict__ box,
+                                               int i, int j) {
+  const Image<double, TRI> img(box);
+  double dx = (double)x[3 * (size_t)i] - (double)x[3 * (size_t)j];
+  double dy = (double)x[3 * (size_t)i + 1] - (double)x[3 * (size_t)j + 1];
+  double dz = (double)x[3 * (size_t)i + 2] - (double)x[3 * (size_t)j + 2];
+  img.apply(dx, dy, dz);
+  return dx * dx + dy * dy + dz * dz < rc2;
+}
+
+template <typename T, bool TRI>
+__device__ __forceinline__ bool keeps_hit(const Params<T>& p, T r2,
+                                          const T* __restrict__ x,
+                                          const T* __restrict__ box, int i,
+                                          int j) {
+  if (sizeof(T) == sizeof(double) || r2 < p.rc2_lo) return true;
+  return within_cutoff_f64<T, TRI>(p.rc2_exact, x, box, i, j);
+}
 
 // Relative-offset exclusion bitmask: bit (cid - hid + 16) of the home atom's
 // bits, clamped to [0, 31] (offsets beyond +-14 are never set).

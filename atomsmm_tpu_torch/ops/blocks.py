@@ -444,6 +444,71 @@ def block_pair_energy_fn(pair_fn, x, box, per_particle, spec, order, cand,
     return total
 
 
+#: K4's frame test: a home block's frame needs no per-slot image where
+#: E_d + r_c < (1/2 - FRAME_MARGIN) L_d in every dimension
+FRAME_MARGIN = 1e-4
+
+
+def packed_order(x, box, order, block_size):
+    """The atom order of K4's packed copy (csrc/block_pair.cu, the pack
+    kernel), in plain PyTorch: `order` (NB*B,) with each block's atoms
+    ordered by a serpentine walk of a 4^3 grid over the block's own box
+    (the atoms imaged next to the block's first atom), padding last, ties
+    in list order, so that 8 consecutive atoms are compact. The kernel
+    computes the same keys in its working type; a key that rounds the
+    other way at a cell boundary moves an atom to a neighbouring group,
+    which changes no sum."""
+    n = x.shape[0]
+    ids = order.reshape(-1, block_size).long()
+    real = ids < n
+    xp = torch.cat([x, x.new_zeros((1, 3))])
+    ref = xp[ids[:, :1]]
+    local = ref + minimum_image(xp[ids] - ref, box)
+    big = torch.as_tensor(1e30, dtype=x.dtype, device=x.device)
+    lo = torch.where(real[..., None], local, big).amin(dim=1, keepdim=True)
+    hi = torch.where(real[..., None], local, -big).amax(dim=1, keepdim=True)
+    span = hi - lo
+    scale = torch.where(span > 0, 4.0 / torch.where(span > 0, span, 1.0),
+                        torch.zeros_like(span))
+    c = torch.clamp(((local - lo) * scale).to(torch.int64), 0, 3)
+    cx, cy, cz = c[..., 0], c[..., 1], c[..., 2]
+    ey = torch.where(cx % 2 == 1, 3 - cy, cy)
+    row = cx * 4 + ey
+    ez = torch.where(row % 2 == 1, 3 - cz, cz)
+    key = torch.where(real, row * 4 + ez, torch.full_like(row, 64))
+    perm = torch.argsort(key, dim=1, stable=True)
+    return torch.gather(ids, 1, perm).reshape(-1).to(order.dtype)
+
+
+def block_frames(x, box, ids, r_cut):
+    """K4's frame of each home block, in plain PyTorch: (ctr (NB, 3),
+    staged (NB, B, 3), exact (NB,)). A block's atoms `ids` (NB, B), in list
+    order as the pack kernel reads them (sentinel N for padding), are
+    imaged next to the first, the frame's centre `ctr` is the middle of
+    their box, and every atom the block meets is staged at
+    ctr + minimum_image(x - ctr). With
+    E_d the largest |staged - ctr|_d over the block's atoms, `exact` holds
+    where E_d + r_cut < (1/2 - FRAME_MARGIN) L_d in every dimension: a
+    pair within r_cut of a home atom then lies within L_d / 2 of ctr, so
+    its staged displacement is the minimum image, and a pair out of range
+    stays out. K4 then tests slots and group boxes without an image."""
+    n = x.shape[0]
+    real = ids < n
+    xp = torch.cat([x, x.new_zeros((1, 3))])
+    xs = xp[ids.long()]
+    ref = xs[:, :1]
+    local = ref + minimum_image(xs - ref, box)
+    big = torch.as_tensor(1e30, dtype=x.dtype, device=x.device)
+    lo = torch.where(real[..., None], local, big).amin(dim=1)
+    hi = torch.where(real[..., None], local, -big).amax(dim=1)
+    ctr = 0.5 * (lo + hi)
+    staged = ctr[:, None] + minimum_image(xs - ctr[:, None], box)
+    ext = torch.where(real[..., None], (staged - ctr[:, None]).abs(),
+                      torch.zeros_like(staged)).amax(dim=1)
+    exact = torch.all(ext + r_cut < (0.5 - FRAME_MARGIN) * box, dim=1)
+    return ctr, staged, exact
+
+
 def block_pair_cuda(x, per_particle, order, cand, spec, box, form, r_cut):
     """Launch K4 on PyTorch's current stream over the (NB, K) candidate
     list; returns the per-atom (N + 1, 4) [fx fy fz e], allocated and
@@ -451,7 +516,11 @@ def block_pair_cuda(x, per_particle, order, cand, spec, box, form, r_cut):
     block takes each pair once, with its reaction). Checks device, dtype,
     shape and contiguity first and raises if the launch is refused. The
     spec's exclusion form selects the kernel's (the bitmask, or the
-    bitmask and the far ids)."""
+    bitmask and the far ids). The C entry point runs the pack kernel and
+    K4: the output's zero fill also zeroes their counters (a row past the
+    (N + 1, 4) rows returned, read by k4_tested_pairs), and the packed copy
+    and the work list are scratch, so a sweep is the fill, the two kernels
+    and the caller's energy sum."""
     import ctypes
 
     _vector_box(box)
@@ -476,15 +545,28 @@ def block_pair_cuda(x, per_particle, order, cand, spec, box, form, r_cut):
     if not 1 <= b <= 128:
         raise ValueError(f"block_pair: block size {b} outside the kernel's "
                          "1..128 (one thread per home atom)")
-    out = torch.zeros((n + 1, 4), dtype=x.dtype, device=dev)
+    out = torch.zeros((n + 2, 4), dtype=x.dtype, device=dev)
+    packed = torch.empty((nb, 2 * b + 2, 4), dtype=x.dtype, device=dev)
+    work = torch.empty((2 * nb * k + nb + 1,), dtype=torch.int32, device=dev)
     scal, flags = _form_block(form, r_cut, x.dtype)
     _launch("block_pair", x.dtype, x.data_ptr(), q.data_ptr(),
             sig.data_ptr(), eps.data_ptr(), bits.data_ptr(),
             None if far is None else far.data_ptr(), order.data_ptr(),
             cand.data_ptr(), box.data_ptr(), n, nb, b, k, m,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
+            packed.data_ptr(), work.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    return out[:n + 1]
+
+
+def k4_tested_pairs(rows) -> int:
+    """The (home atom, 8-atom group) pairs that K4 tested in the sweep
+    whose rows block_pair_cuda returned: its third counter, in the row
+    past those rows. A host read, for measurements."""
+    full = rows.new_empty(0).set_(rows.untyped_storage(),
+                                  rows.storage_offset(),
+                                  (rows.shape[0] + 1, 4))
+    return int(full[-1].view(torch.int32)[2])
 
 
 def block_pair_rows(form, x, box, per_particle, spec, order, cand, r_cut,

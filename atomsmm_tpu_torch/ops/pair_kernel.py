@@ -378,7 +378,10 @@ def _form_block(form, r_cut, dtype):
     import ctypes
 
     scalars, flags = form.scalars(), form.flags()
-    scal = (ctypes.c_double * (1 + len(scalars)))(_rc2(r_cut, dtype), *scalars)
+    # last, r_cut^2 in float64: a float32 kernel decides the slots within
+    # pair_forms.cuh::CUT_BAND of the cutoff against it, in float64
+    scal = (ctypes.c_double * (2 + len(scalars)))(
+        _rc2(r_cut, dtype), *scalars, _rc2(r_cut, torch.float64))
     flags = (ctypes.c_int * len(flags))(*flags)
     return scal, flags
 

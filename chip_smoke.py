@@ -360,15 +360,20 @@ non-zero:
    by part (K1 sweep, SETTLE's stages, the bucket rebuild), (g2)'s
    outer step by group, and (h1)'s and (h2)'s steps by part (the force
    evaluation: K1, DrudeForce by autograd, the placement and pull-back;
-   SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild); K4, its
-   launch wrapper, its sweep and its plain twin at path (o)'s far and
+   SETTLE's stages; the baths; (h2)'s SCF loop; the rebuild); K4 (its
+   device time with the pack kernel its C entry point launches first),
+   its launch wrapper, its sweep and its plain twin at path (o)'s far and
    near lists at the stored 30k state (RF, and the damped far form),
-   bounded by the distinct pairs K1 counts on the same state.
+   bounded by the distinct pairs K1 counts on the same state, its sweep
+   at most 4 device operations with one K4 launch (else the phase
+   fails), and the slots it tested (its own count) logged as a share of
+   the list's.
 
 Then one JSON line of kernel results (its launches_by_path counts each
 kernel over each path's run, path_j, path_k, path_m, path_n and path_o
 included; K4's entry carries path (o)'s step time and its ratio to the
-headline's, and the list builds; K2's entry carries its time, plain time and bound at (m1)'s
+headline's, the list builds, its pack and K4 parts and its device
+operations a sweep; K2's entry carries its time, plain time and bound at (m1)'s
 grids and at (n3)'s, K1's and K2's their split exclusion form's beside
 the bitmask form at (n2)'s grids; with each
 kernel's bound_ms,
@@ -575,16 +580,20 @@ def device_kernels(fn, reps=1, tries=3, enough=bool):
     """(name, device microseconds) of each device operation (kernel, fill,
     copy) that `reps` calls of fn run, from torch.profiler. A profile that
     `enough` refuses (by default one with no device event) is taken again,
-    up to `tries` profiles in all; the last is returned. (A profile of work
-    that launched kernels has come back with no device event at all, or
-    without the events of its first calls, on the card's machine.)"""
+    after a pause of half a second, up to `tries` profiles in all; the last
+    is returned. (A profile of work that launched kernels has come back
+    with no device event at all, or without the events of its first calls,
+    on the card's machine; once five profiles in a row kept only 7 of a
+    sweep read's 24 events.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1581,10 +1590,11 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     # device operations per sweep: the span between two launches of the
     # kernel among 8 profiled sweeps. The profiler has dropped events at
     # the start of its window (all of one sweep, two or three; three reads
-    # in a row kept only 2 of 5 sweeps once), so a read with fewer than 3
-    # launches of the kernel is taken again, up to 5 reads
+    # in a row kept only 2 of 5 sweeps once, and five reads in a row 7 of
+    # 24 events), so a read with fewer than 3 launches of the kernel is
+    # taken again, up to 10 reads
     seen = [name for name, _ in device_kernels(
-        sweep, reps=8, tries=5, enough=lambda ev: sum(
+        sweep, reps=8, tries=10, enough=lambda ev: sum(
             f"{kernel}_kernel" in name for name, _ in ev) >= 3)]
     at = [i for i, name in enumerate(seen) if f"{kernel}_kernel" in name]
     spans = {j - i for i, j in zip(at[1:], at[2:])}
@@ -6399,12 +6409,17 @@ def phase_blocks(dev, eq, main, pme_run, steps=100):
             "build_ms": build_ms, "cell_build_ms": cell_ms}
 
 
-def phase_block_timings(dev, blocks, timings, eq, pme_run):
+def phase_block_timings(dev, blocks, timings, eq, pme_run, reps=20):
     """K4 at path (o)'s far and near lists at the stored 30k state (the
     state K1 and K3 are timed at in phase_timings), RF, and the damped far
-    form: its device time (torch.profiler), its launch wrapper, its sweep
+    form: its device time (torch.profiler: K4 and the pack kernel its C
+    entry point launches before it, summed), its launch wrapper, its sweep
     and its plain twin (CUDA events), and its bound over the distinct pairs
-    K1 counted on the same state."""
+    K1 counted on the same state. A sweep must be at most 4 device
+    operations, one of them K4; the slots K4 tested (its own count of the
+    (home atom, 8-atom group) pairs its groups' reach left, 8 slots each)
+    are logged as a share of the list's, and the home blocks whose frame
+    is exact by the plain twin of K4's test (blocks.block_frames)."""
     import torch
 
     from atomsmm_tpu_torch.ops import blocks as blk
@@ -6433,12 +6448,29 @@ def phase_block_timings(dev, blocks, timings, eq, pme_run):
             return blk.block_pair_energy_forces(form, x, box, pp, spec,
                                                 order, cand, form.r_cut)
 
-        k_ms = kernel_device_ms(sweep, "block_pair")
+        k4_ms = kernel_device_ms(sweep, "block_pair", reps)
+        pack_ms = kernel_device_ms(sweep, "block_pair_pack", reps)
+        k_ms = k4_ms + pack_ms
+        # device operations per sweep: the span between two K4 launches
+        # among 8 profiled sweeps, read again where the profiler dropped
+        # events (as time_cells reads them)
+        seen = [name for name, _ in device_kernels(
+            sweep, reps=8, tries=10, enough=lambda ev: sum(
+                "block_pair_kernel" in name for name, _ in ev) >= 3)]
+        at = [i for i, name in enumerate(seen) if "block_pair_kernel" in name]
+        spans = {j - i for i, j in zip(at[1:], at[2:])}
+        ops_per_sweep = len(seen[at[1] + 1:at[2] + 1]) if len(at) >= 3 else 0
+        require(f"path (o) {key} sweep", {
+            "k4_launches_seen": len(at) >= 3,
+            "one_k4_a_sweep": spans == {ops_per_sweep},
+            "device_ops_at_most_4": 1 <= ops_per_sweep <= 4})
         launch_ms = time_cuda(lambda: blk.block_pair_cuda(*args), 20)
         sweep_ms = time_cuda(sweep, 20)
         p_ms = time_cuda(lambda: blk.block_pair_plain(*args), 3)
         live = int((cand >= 0).sum())
         slots = live * spec.block_size ** 2
+        exact = int(blk.block_frames(x, box, order.reshape(
+            -1, spec.block_size), form.r_cut)[2].sum())
         k1 = timings[("half_pair", k1_key)]
         k3 = timings.get(("tile_pair", k1_key))
         c = k1["counts"]
@@ -6446,10 +6478,15 @@ def phase_block_timings(dev, blocks, timings, eq, pme_run):
         b = bound(form, c["pairs"], c["near_pairs"], slots, nbytes(
             x, pp["charge"], pp["sigma"], pp["epsilon"], spec.excbits,
             order, cand, box, rows))
+        n_tested = 8 * blk.k4_tested_pairs(rows)
         log(f"timing block_pair path (o) {key} list ({live} block pairs, "
-            f"K {spec.max_cand}): kernel {k_ms:.4f} ms of device time "
-            f"({launch_ms:.4f} ms by CUDA events around its wrapper; "
-            f"{slots / 1e6:.1f} M slots, {slots / k_ms / 1e6:.2f} Gslot/s) "
+            f"K {spec.max_cand}): kernel {k_ms:.4f} ms of device time (K4 "
+            f"{k4_ms:.4f} + pack {pack_ms:.4f}; {ops_per_sweep:g} device "
+            f"operations a sweep; {launch_ms:.4f} ms by CUDA events around "
+            f"its wrapper; {slots / 1e6:.1f} M slots, {slots / k_ms / 1e6:.2f}"
+            f" Gslot/s; {n_tested / 1e6:.2f} M tested by K4's count, "
+            f"{n_tested / slots:.1%} of them; {exact} of {spec.n_blocks} "
+            "frames exact by block_frames) "
             f"vs half_pair {k1['ms']:.4f} ms"
             + (f", tile_pair {k3['ms']:.4f} ms" if k3 else "")
             + f" on the same state; sweep {sweep_ms:.4f} ms; plain float32 "
@@ -6459,7 +6496,9 @@ def phase_block_timings(dev, blocks, timings, eq, pme_run):
             "it")
         out[("block_pair", key)] = {"ms": k_ms, "launch_ms": launch_ms,
                                     "plain_ms": p_ms, "sweep_ms": sweep_ms,
-                                    "slots": slots, "bound": b}
+                                    "slots": slots, "bound": b,
+                                    "k4_ms": k4_ms, "pack_ms": pack_ms,
+                                    "ops_per_sweep": ops_per_sweep}
     return out
 
 
@@ -6648,7 +6687,10 @@ def main():
     # headline's of this run, and the list builds
     k4 = kernels["kernels"][3]
     t = timings[("block_pair", "near")]
-    k4.update({"near_ms": t["ms"], "near_plain_ms": t["plain_ms"],
+    far_t = timings[("block_pair", "far")]
+    k4.update({"k4_ms": far_t["k4_ms"], "pack_ms": far_t["pack_ms"],
+               "ops_per_sweep": far_t["ops_per_sweep"],
+               "near_ms": t["ms"], "near_plain_ms": t["plain_ms"],
                "near_bound_ms": t["bound"]["ms"],
                "near_bound_by": t["bound"]["by"],
                "path_o_step_ms": blocks["ms_per_step"],

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time the three pair kernels and their whole sweeps on one NVIDIA GPU, in
+"""Time the four pair kernels and their whole sweeps on one NVIDIA GPU, in
 the reaction-field and the damped PME forms, float32: K1
 (csrc/half_pair.cu) at the 30k-water RESPA headline's far and near grids, K2
 (csrc/cell_pair.cu) on the far grid of 700 waters at the state
-``chip_smoke.py::phase_small_box`` reaches, and K3 (csrc/tile_pair.cu) at
-the 30k far and near tile lists.
+``chip_smoke.py::phase_small_box`` reaches, K3 (csrc/tile_pair.cu) at
+the 30k far and near tile lists, and K4 (csrc/block_pair.cu) at path (o)'s
+far (RF and PME) and near block lists at the stored 30k state.
 
-    python3 k1_ab/k1_timing.py [TREE]
+    python3 k1_ab/k1_timing.py [TREE] [KERNELS]
 
 TREE (default: the checkout holding this file) is a directory holding an
 ``atomsmm_tpu_torch`` package, which is imported in place of this
-checkout's. The sweeps are ``cell_pair_energy_forces`` and
-``tile_pair_energy_forces``, the same calls in every version of the
+checkout's; KERNELS (default ``K1,K2,K3,K4``) picks the kernels to time.
+The sweeps are ``cell_pair_energy_forces``, ``tile_pair_energy_forces``
+and ``block_pair_energy_forces``, the same calls in every version of the
 package: each is timed with ``chip_smoke.py``'s CUDA-event loop, and the
 kernel inside it by the device time of its events in torch.profiler
-(``half_pair_kernel``, ``cell_pair_kernel``, ``tile_pair_kernel``), so
-versions with different kernel interfaces are timed alike. To compare
+(``half_pair_kernel``, ``cell_pair_kernel``, ``tile_pair_kernel``; for K4
+``block_pair_kernel`` and, where the tree has one, the pack kernel
+``block_pair_pack_kernel``, summed and each on its own), so versions with
+different kernel interfaces are timed alike. To compare
 versions, run each tree in turns (A, B, B, A) in one sitting on one card.
 Each tree melts its own 700 waters, so K2's states are equivalent, not
 equal. A tree can also be this package with a source edited (K1's
@@ -37,6 +41,7 @@ REPS = 50
 
 def main():
     tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ROOT)
+    kernels = (sys.argv[2] if len(sys.argv) > 2 else "K1,K2,K3,K4").split(",")
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
@@ -67,6 +72,16 @@ def main():
                              if f"{kernel}_kernel" in name) / REPS / 1e3,
             "sweep_ms": cs.time_cuda(sweep, REPS),
             "ops_per_sweep": len(ops) / REPS}
+        if kernel == "block_pair":
+            mine = {}
+            for name, us in ops:
+                part = ("block_pair_pack_kernel" if "block_pair_pack_kernel"
+                        in name else "block_pair_kernel"
+                        if "block_pair_kernel" in name else None)
+                if part:
+                    mine[part] = mine.get(part, 0.0) + us / REPS / 1e3
+            result[key]["kernel_ms"] = sum(mine.values())
+            result[key]["parts_ms"] = mine
 
     def measure_cells(key, kernel, force, spec, xs, bs):
         form, pp = force._pair_form(), force._per_particle()
@@ -76,6 +91,31 @@ def main():
                                                    bucket, form.r_cut),
                 grid=list(spec.grid), cap=spec.cell_capacity)
 
+    path_a_ops = None
+    if "K4" in kernels:
+        from atomsmm_tpu_torch.ops import blocks as blk
+
+        respa = cs.block_headline(dev, eq)
+        s, _, _ = water_system(n_molecules=10000, method="pme",
+                               neighbors="blocks", dtype=f32, device=dev)
+        pme_far = amm.RESPASystem(s, rcut_in=0.5, rswitch_in=0.4).forces[2]
+        for label, force, spec in (
+                ("far", respa.forces[2], respa.neighbors),
+                ("pme far", pme_far, respa.neighbors),
+                ("near", respa.forces[1],
+                 respa.extra_neighbor_specs["near"])):
+            form = force._pair_form()
+            pp = {k: v.to(dev, f32).contiguous()
+                  for k, v in force._per_particle().items()}
+            order, cand, _ = blk.build_block_lists(spec, x, box)
+            measure(f"K4 {label}", "block_pair",
+                    lambda: blk.block_pair_energy_forces(
+                        form, x, box, pp, spec, order, cand, form.r_cut),
+                    block_pairs=int((cand >= 0).sum()), K=spec.max_cand)
+    if not {"K1", "K2", "K3"} & set(kernels):
+        print(json.dumps({"card": cs.smi_line(), "tree": tree, "reps": REPS,
+                          "times": result}), flush=True)
+        return
     small = cs.phase_small_box(dev)
     path_a_ops = cs.step_device_ops(small)
     for method in ("cutoff", "pme"):

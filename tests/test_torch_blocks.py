@@ -25,10 +25,15 @@ plain twin on the card.
     full with the undamped near half;
   * the three refusals raise InputError: a (3, 3) box, a type-pair table
     and a spatial mesh;
+  * K4's frame (ops/blocks.py::block_frames): where a home block's frame
+    is exact, staging about its centre gives the minimum image's pairs and
+    displacements (1e-12), float64;
   * `cuda` cases hold K4 against the plain twin on the card in every
-    form and both exclusion forms, the block path against K1's cell path
-    on one state, and the unfusable far force on the card against the
-    CPU.
+    form and both exclusion forms, at 32 and 128 atoms a block, with more
+    work items than its grid holds at once, rows of one candidate, a padded last
+    block of one atom and the per-slot image of a small box; the block
+    path against K1's cell path on one state, and the unfusable far force
+    on the card against the CPU.
 
 The JAX package is imported inside the JAX tests only, so that the card
 runs the `cuda` cases with PyTorch alone:
@@ -45,6 +50,7 @@ from atomsmm_tpu_torch import models as tmodels
 from atomsmm_tpu_torch.ops import blocks as tblocks
 from atomsmm_tpu_torch.ops import neighbors as tnb
 from atomsmm_tpu_torch.ops import pairfuncs as pf
+from atomsmm_tpu_torch.ops.pbc import minimum_image
 from atomsmm_tpu_torch.potential import force_fn as tforce_fn
 from atomsmm_tpu_torch.utils import InputError
 
@@ -531,6 +537,56 @@ def test_refusals_raise_input_error(monkeypatch):
         list(tnb.iter_specs(system.with_neighbors(tile)))
 
 
+FRAME_CASES = ["argon500", "water64_b32", "water64_b64", "water400",
+               "water400_near"]
+
+
+@pytest.mark.parametrize("name", FRAME_CASES)
+def test_block_frame_needs_no_slot_image(name):
+    """K4's frame (ops/blocks.py::block_frames; packed_order only permutes
+    atoms inside their block): where a home block's frame is exact,
+    every atom of the system staged about its centre gives each home atom
+    the pairs in range that the minimum image gives, with the same
+    displacements, float64. The 64-water box at 32 atoms a block has home
+    blocks whose frame is not exact, so that K4's per-slot path runs; 400
+    waters at the near form's 0.5 nm have exact ones."""
+    if name.startswith("water400"):
+        near = name.endswith("near")
+        system, x, box = tmodels.water_system(
+            n_molecules=400, r_cut=0.5 if near else 0.9,
+            r_switch=0.4 if near else 0.8, dtype=F64, device="cpu")
+        kw = {}
+    else:
+        system, x, box = _build(tmodels, name, dtype=F64, device="cpu")
+        kw = CASES[name]
+    r_cut = system.forces[0].r_cut
+    spec = tblocks.make_block_spec(box, x.shape[0], r_cut,
+                                   exclusions=system.forces[0].exclusions,
+                                   occupancy_from=x, device="cpu", **kw)
+    order, _, _ = tblocks.build_block_lists(spec, x, box)
+    b, n = spec.block_size, x.shape[0]
+    packed = tblocks.packed_order(x, box, order, b).reshape(-1, b)
+    assert torch.equal(torch.sort(packed, dim=1).values,
+                       torch.sort(order.reshape(-1, b), dim=1).values)
+    ids = order.reshape(-1, b)
+    ctr, staged, exact = tblocks.block_frames(x, box, ids, r_cut)
+    rc2 = r_cut ** 2
+    for i in torch.nonzero(exact).reshape(-1).tolist():
+        real = ids[i] < n
+        hid = ids[i][real].long()
+        others = ctr[i] + minimum_image(x - ctr[i], box)
+        d_frame = staged[i][real][:, None] - others[None]
+        d_ref = minimum_image(x[hid][:, None] - x[None], box)
+        in_frame = (d_frame * d_frame).sum(-1) < rc2
+        in_ref = (d_ref * d_ref).sum(-1) < rc2
+        assert torch.equal(in_frame, in_ref), (name, i)
+        assert float((d_frame - d_ref)[in_ref].abs().max()) <= 1e-12
+    if name == "water64_b32":
+        assert bool((~exact).any())
+    if name == "water400_near":
+        assert bool(exact.any())
+
+
 # --------------------------------------------------------------------------
 # K4 on the card
 # --------------------------------------------------------------------------
@@ -543,11 +599,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_case(dev, form_name, exc_form="bits"):
+def _card_case(dev, form_name, exc_form="bits", block_size=64,
+               n_molecules=400):
     """(form, x, box, per-particle, spec, order, cand) on the card, float64,
-    of water 400 (0.9 nm, or 0.5 nm for the near forms) or, for the
-    softcore forms, phenol in 200 waters; exc_form 'split' renumbers the
-    waters so that the bitmask cannot hold every exclusion."""
+    of water 400 (0.9 nm, or 0.5 nm for the near forms; `n_molecules`
+    waters) or, for the softcore forms, phenol in 200 waters; exc_form
+    'split' renumbers the waters so that the bitmask cannot hold every
+    exclusion."""
     r_cut = 0.5 if form_name.startswith("near") else 0.9
     if form_name.startswith("softcore"):
         system, x, box, solute = tmodels.phenol_in_water(
@@ -561,7 +619,7 @@ def _card_case(dev, form_name, exc_form="bits"):
         exclusions, r_cut = force.exclusions, force.r_cut
     else:
         system, x, box = tmodels.water_system(
-            n_molecules=400, r_cut=0.9, r_switch=0.8,
+            n_molecules=n_molecules, r_cut=0.9, r_switch=0.8,
             method="pme" if "damped" in form_name or form_name == "ewald"
             else "cutoff", dtype=F64, device="cpu")
         full = system.forces[0]
@@ -591,7 +649,7 @@ def _card_case(dev, form_name, exc_form="bits"):
         exclusions = torch.as_tensor(exc.astype(np.int32))
     spec = tblocks.make_block_spec(box, x.shape[0], r_cut, skin=0.1,
                                    exclusions=exclusions, occupancy_from=x,
-                                   device="cpu")
+                                   block_size=block_size, device="cpu")
     assert spec.exclusion_form == exc_form
     spec = dataclasses.replace(spec, **{
         f.name: getattr(spec, f.name).to(dev)
@@ -608,15 +666,12 @@ FORMS = ["rf", "ewald", "near", "near_damped", "far", "far_damped",
          "rf_virial", "smoothed", "softcore", "softcore_dlambda"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("exc_form", ["bits", "split"])
-@pytest.mark.parametrize("form_name", FORMS)
-def test_k4_matches_plain_twin_on_card(cuda, form_name, exc_form, dtype):
+def _hold_k4(form, x, box, pp, spec, order, cand, dtype):
+    """K4 in `dtype` against the float64 plain twin on the same list: f64
+    energy 1e-10 and forces 1e-9 max|F|, f32 1e-4 (the fused far form
+    against the unsplit form's max|F|), one launch counted."""
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
-    form, x, box, pp, spec, order, cand = _card_case(cuda, form_name,
-                                                     exc_form)
     ref = tblocks.block_pair_plain(x, pp, order, cand, spec, box, form,
                                    form.r_cut)
     before = pk.LAUNCHES["block_pair"]
@@ -625,6 +680,7 @@ def test_k4_matches_plain_twin_on_card(cuda, form_name, exc_form, dtype):
         order, cand, spec, box.to(dtype), form, form.r_cut)
     torch.cuda.synchronize()
     assert pk.LAUNCHES["block_pair"] == before + 1
+    assert out.shape == (x.shape[0] + 1, 4)
     rtol, ftol = (1e-10, 1e-9) if dtype == F64 else (1e-4, 1e-4)
     e, e_ref = float(out[:, 3].double().sum()), float(ref[:, 3].sum())
     # a summed column of both signs (virial, softcore) holds to sum |e_i|
@@ -641,6 +697,90 @@ def test_k4_matches_plain_twin_on_card(cuda, form_name, exc_form, dtype):
             .abs().max())
     err = float((out[:-1, :3].double() - f_ref).abs().max())
     assert err <= ftol * max(f_scale, 1e-300), (err, f_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("exc_form", ["bits", "split"])
+@pytest.mark.parametrize("form_name", FORMS)
+def test_k4_matches_plain_twin_on_card(cuda, form_name, exc_form, dtype):
+    _hold_k4(*_card_case(cuda, form_name, exc_form), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("block_size", [32, 128])
+def test_k4_block_sizes_on_card(cuda, block_size, dtype):
+    """Blocks of 32 atoms (4 groups a block, 4 lanes a home atom in the
+    reach test) and of 128 (16 groups, a lane a home atom, two rounds of
+    slots an item; float64's smaller ring, four buffers of 8.3 KB, still
+    takes K4 past 48 KB of shared memory), in the damped far form."""
+    _hold_k4(*_card_case(cuda, "far_damped", "split", block_size), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_more_items_than_its_grid_on_card(cuda, dtype):
+    """3,000 waters at 32 atoms a block: more live items (home block, two
+    candidate blocks) than K4's persistent grid can hold at once (its
+    thread blocks of 128 threads, at most a full SM's threads each SM), so
+    its thread blocks take many items in turn through their rings; and
+    K4's count of the (home atom, 8-atom group) pairs it tested is
+    positive and below the list's (its groups' boxes cull some)."""
+    form, x, box, pp, spec, order, cand = _card_case(
+        cuda, "rf", block_size=32, n_molecules=3000)
+    props = torch.cuda.get_device_properties(cuda)
+    resident = (props.multi_processor_count
+                * props.max_threads_per_multi_processor // 128)
+    nc = (cand >= 0).sum(dim=1)
+    assert int(((nc + 1) // 2).sum()) > resident
+    _hold_k4(form, x, box, pp, spec, order, cand, dtype)
+    rows = tblocks.block_pair_cuda(x.to(dtype).contiguous(),
+                                   {k: v.to(dtype) for k, v in pp.items()},
+                                   order, cand, spec, box.to(dtype), form,
+                                   form.r_cut)
+    pairs = int(nc.sum()) * spec.block_size * (spec.block_size // 8)
+    assert 0 < tblocks.k4_tested_pairs(rows) < pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_single_candidate_rows_on_card(cuda, dtype):
+    """Every row cut to its first candidate, the home block itself: items
+    of one candidate, the self block alone."""
+    form, x, box, pp, spec, order, cand = _card_case(cuda, "ewald")
+    _hold_k4(form, x, box, pp, spec, order, cand[:, :1].contiguous(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_padded_last_block_on_card(cuda, dtype):
+    """427 waters, 1,281 atoms: the last of 21 blocks holds one atom and
+    63 padding rows."""
+    form, x, box, pp, spec, order, cand = _card_case(
+        cuda, "near", n_molecules=427)
+    assert int((order[-64:] < x.shape[0]).sum()) == 1
+    _hold_k4(form, x, box, pp, spec, order, cand, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_per_slot_frames_on_card(cuda, dtype):
+    """64 waters at 32 atoms a block (0.55 nm in a 1.24 nm box): home
+    blocks whose frame is not exact take the per-slot image."""
+    system, x, box = _build(tmodels, "water64_b32", dtype=F64, device="cpu")
+    force = system.forces[0]
+    spec = tblocks.make_block_spec(box, x.shape[0], force.r_cut,
+                                   exclusions=force.exclusions,
+                                   occupancy_from=x, device=cuda,
+                                   **CASES["water64_b32"])
+    x, box = x.to(cuda), box.to(cuda)
+    pp = {k: v.to(cuda) for k, v in force._per_particle().items()}
+    order, cand, _ = tblocks.build_block_lists(spec, x, box)
+    _, _, exact = tblocks.block_frames(x, box, order.reshape(
+        -1, spec.block_size), force.r_cut)
+    assert bool((~exact).any())
+    _hold_k4(force._pair_form(), x, box, pp, spec, order, cand, dtype)
 
 
 @pytest.mark.cuda
