@@ -61,6 +61,15 @@
 // ids folded into a 64-bit filter and scanned from global memory for a
 // slot in range outside that window whose filter bit is set, before the
 // hit is queued).
+// A user pair function (the form axis U, pair_forms.cuh::user_pair): the
+// home warp holds the function's P <= 5 per-atom columns and its runtime
+// constants in registers, a queued hit carries the candidate's id in place
+// of its pair parameters, and the evaluation reads the candidate's columns
+// through the read-only cache and calls the generated UserPair::eval where
+// a built-in form calls pair_form. Such a kernel is built alone, for one
+// (dtype, exclusion form, image), by _build.build_user (the wrapper
+// source defines ATOMSMM_USER_EXC and ATOMSMM_USER_TRI and includes the
+// generated header and this file), with the entry point cell_pair_user.
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
@@ -121,6 +130,21 @@ __device__ __forceinline__ Hit<T, true> make_hit(T dx, T dy, T dz,
   return Hit<T, true>{dx, dy, dz, p.q, p.t};
 }
 
+// A user form stages no pair parameters; its queued hit carries the
+// candidate's id, whose columns the evaluation reads.
+struct NoPar {};
+
+template <typename T>
+struct alignas(2 * sizeof(T)) UserHit {
+  T dx, dy, dz;
+  int id;
+};
+
+template <typename T, bool TABLE, class U>
+using ParOf = std::conditional_t<U::USER, NoPar, Par<T, TABLE>>;
+template <typename T, bool TABLE, class U>
+using HitOf = std::conditional_t<U::USER, UserHit<T>, Hit<T, TABLE>>;
+
 __device__ __forceinline__ void store_row(float* row, float a, float b,
                                           float c, float d) {
   *reinterpret_cast<float4*>(row) = make_float4(a, b, c, d);
@@ -146,9 +170,12 @@ __device__ __forceinline__ void store_row(double* row, double a, double b,
 //   bucket (ncells, cap)           atom ids, real ids first, then n
 //   nbr (ncells, s)                stencil cells, -1 padded
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
+//   cols (n + 1, P); consts (C,)   a user form's columns and constants
+//                                  (U::USER; else null)
 //   out (K, n + 1, 4)              zeroed; per row and real atom
 //                                  [fx fy fz e]
-template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE,
+          class U = BuiltIn>
 __global__ void __launch_bounds__(THREADS)
     cell_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -160,10 +187,14 @@ __global__ void __launch_bounds__(THREADS)
                      const int* __restrict__ nbr, const T* __restrict__ box,
                      int c0, int cap, int s, int n, int m, int ntypes,
                      int split, Params<T> p0, Rows<T> rows,
+                     const T* __restrict__ cols,
+                     const T* __restrict__ consts, int dconst,
                      T* __restrict__ out) {
+  using PT = ParOf<T, TABLE, U>;
+  using HT = HitOf<T, TABLE, U>;
   __shared__ Cand<T> cand[CHUNK];
-  __shared__ Par<T, TABLE> par[CHUNK];
-  __shared__ Hit<T, TABLE> queue[WARPS][hitqueue::DEPTH];
+  __shared__ PT par[CHUNK];
+  __shared__ HT queue[WARPS][hitqueue::DEPTH];
   __shared__ T parts[WARPS][4];
 
   const int row = blockIdx.y;
@@ -194,14 +225,21 @@ __global__ void __launch_bounds__(THREADS)
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
   int ti = 0;
   unsigned exc_h = 0u;
+  T hc[U::NCOLS];  // a user form's home columns
   if (home) {
     xi = x[3 * (size_t)hid];
     yi = x[3 * (size_t)hid + 1];
     zi = x[3 * (size_t)hid + 2];
-    qi = q[hid];
-    if (TABLE) {
+    if constexpr (U::USER) {
+#pragma unroll
+      for (int kc = 0; kc < U::NCOLS; ++kc) {
+        hc[kc] = cols[(size_t)hid * U::NCOLS + kc];
+      }
+    } else if (TABLE) {
+      qi = q[hid];
       ti = types[hid];
     } else {
+      qi = q[hid];
       si = sig[hid];
       ei = eps[hid];
     }
@@ -211,17 +249,29 @@ __global__ void __launch_bounds__(THREADS)
       (EXC == EXC_SPLIT && home) ? exc + (size_t)hid * m : nullptr;
   FarFilter far_bits{0u, 0u};
   if (EXC == EXC_SPLIT) far_bits = far_filter(far_row, m);
+  T cs[U::NCONSTS > 0 ? U::NCONSTS : 1];  // a user form's constants
+  if constexpr (U::USER) {
+#pragma unroll
+    for (int kc = 0; kc < U::NCONSTS; ++kc) cs[kc] = consts[kc];
+  }
 
   const Image<T, TRI> image(box);
   const int* nrow = nbr + (size_t)c * s;
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
-  Hit<T, TABLE>* my_queue = queue[warp];
+  HT* my_queue = queue[warp];
   int queued = 0;
 
-  auto evaluate = [&](const Hit<T, TABLE>& h) {
+  auto evaluate = [&](const HT& h) {
     const T r2 = h.dx * h.dx + h.dy * h.dy + h.dz * h.dz;
     T u, dudr2;
-    if constexpr (TABLE) {
+    if constexpr (U::USER) {
+      T cj[U::NCOLS];
+#pragma unroll
+      for (int kc = 0; kc < U::NCOLS; ++kc) {
+        cj[kc] = __ldg(cols + (size_t)h.id * U::NCOLS + kc);
+      }
+      user_pair<U>(p, cs, dconst, r2, hc, cj, u, dudr2);
+    } else if constexpr (TABLE) {
       const PairRow<T> row = load_pair_row(table, ntypes, ti, h.t);
       pair_form<T, DAMPED, true>(p, r2, qi * h.q, row.sig, row.eps, u, dudr2,
                                  row.a, row.b);
@@ -260,17 +310,19 @@ __global__ void __launch_bounds__(THREADS)
     return (col < s && j < cap) ? bucket[(size_t)nrow[col] * cap + j] : n;
   };
   Cand<T> atom;
-  Par<T, TABLE> atom_par;
+  PT atom_par;
   auto load_atom = [&](int a) {
     atom.id = a;
     if (a < n) {
       atom.x = x[3 * (size_t)a];
       atom.y = x[3 * (size_t)a + 1];
       atom.z = x[3 * (size_t)a + 2];
-      atom_par.q = q[a];
-      if constexpr (TABLE) {
+      if constexpr (U::USER) {
+      } else if constexpr (TABLE) {
+        atom_par.q = q[a];
         atom_par.t = types[a];
       } else {
+        atom_par.q = q[a];
         atom_par.s = sig[a];
         atom_par.e = eps[a];
       }
@@ -311,11 +363,15 @@ __global__ void __launch_bounds__(THREADS)
         }
         if (hit) hit = keeps_hit<T, TRI>(p, r2, x, box, hid, cj.id);
         const int slot = hitqueue::reserve(hit, queued);
-        if (hit) my_queue[slot] = make_hit(dx, dy, dz, par[j]);
+        if constexpr (U::USER) {
+          if (hit) my_queue[slot] = HT{dx, dy, dz, cj.id};
+        } else {
+          if (hit) my_queue[slot] = make_hit(dx, dy, dz, par[j]);
+        }
         __syncwarp();
         if (queued >= 32) {
           queued -= 32;
-          const Hit<T, TABLE> h = my_queue[queued + lane];
+          const HT h = my_queue[queued + lane];
           __syncwarp();
           evaluate(h);
         }
@@ -369,19 +425,23 @@ struct Args {
   const T* box;
   int ncells, c0, c1, cap, s, n, m, ntypes, k_rows;
   Rows<T> rows;
+  const T *cols, *consts;  // a user form's (n + 1, P) columns, constants
+  int dconst;              // the constant the dlambda flag seeds
 };
 
-template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE,
+          class U = BuiltIn>
 int launch_form(const Args<T>& a, int split, unsigned blocks,
                 const Params<T>& p, T* out, cudaStream_t st) {
-  cell_pair_kernel<T, EXC, DAMPED, TRI, TABLE>
+  cell_pair_kernel<T, EXC, DAMPED, TRI, TABLE, U>
       <<<dim3(blocks, a.k_rows), THREADS, 0, st>>>(
           a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc,
           a.bucket, a.nbr, a.box, a.c0, a.cap, a.s, a.n, a.m, a.ntypes, split,
-          p, a.rows, out);
+          p, a.rows, a.cols, a.consts, a.dconst, out);
   return (int)cudaGetLastError();
 }
 
+#ifndef ATOMSMM_USER_EXC
 // The instantiation of the template axes each launch selects at run time.
 template <typename T, int EXC, bool DAMPED, bool TRI>
 int launch_table(const Args<T>& a, int split, unsigned blocks,
@@ -412,27 +472,45 @@ int launch_damped(const Args<T>& a, int tri, int split, unsigned blocks,
   return launch_box<T, EXC, false>(a, tri, split, blocks, p, out, st);
 }
 
+#endif
+
+// The checks of a launch's arguments both kinds of entry point share.
 template <typename T>
-int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
-           T* out, void* stream) {
+bool args_valid(const Args<T>& a, const int* flags) {
   const bool has_table = a.table != nullptr;
-  if (a.cap < 1 || a.ncells < 1 || a.c0 < 0 || a.c1 < a.c0 ||
-      a.c1 > a.ncells || a.s < 1 || a.n < 0 || a.m < 0 ||
-      (a.exc != nullptr && a.m < 1) || a.excbits == nullptr ||
-      (has_table && (a.types == nullptr || a.ntypes < 1)) ||
-      !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (a.c1 == a.c0) return 0;  // an empty home range: nothing to launch
-  // warps that share a home atom: 1 where the atoms alone fill the card (a
-  // function of n alone, so that a row is summed in the same order whatever
-  // the home range)
+  return !(a.cap < 1 || a.ncells < 1 || a.c0 < 0 || a.c1 < a.c0 ||
+           a.c1 > a.ncells || a.s < 1 || a.n < 0 || a.m < 0 ||
+           (a.exc != nullptr && a.m < 1) || a.excbits == nullptr ||
+           (has_table && (a.types == nullptr || a.ntypes < 1)) ||
+           !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows));
+}
+
+// Warps that share a home atom: 1 where the atoms alone fill the card (a
+// function of n alone, so that a row is summed in the same order whatever
+// the home range); and the blocks of the launch (-1 past the grid's limit).
+inline int split_of(int n) {
   int split = 1;
-  while (split < WARPS && (long long)a.n * split < TARGET_WARPS) split *= 2;
+  while (split < WARPS && (long long)n * split < TARGET_WARPS) split *= 2;
+  return split;
+}
+
+template <typename T>
+long long blocks_of(const Args<T>& a, int split) {
   const int per_block = WARPS / split;
   const long long blocks =
       (long long)(a.c1 - a.c0) * ((a.cap + per_block - 1) / per_block);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+#ifndef ATOMSMM_USER_EXC
+template <typename T>
+int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
+           T* out, void* stream) {
+  if (!args_valid(a, flags)) return (int)cudaErrorInvalidValue;
+  if (a.c1 == a.c0) return 0;  // an empty home range: nothing to launch
+  const int split = split_of(a.n);
+  const long long blocks = blocks_of(a, split);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
   if (a.exc != nullptr) {
@@ -444,6 +522,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
   return launch_damped<T, EXC_BITS>(bits, tri, split, (unsigned)blocks, p,
                                     out, st);
 }
+#endif
 
 }  // namespace
 
@@ -464,6 +543,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 // `strides` and `lamb_rows` give the replica axis as in half_pair.cu, and
 // `out` holds k_rows zeroed (n + 1, 4) slices. Returns cudaGetLastError()
 // after the launch (0 on success).
+#ifndef ATOMSMM_USER_EXC
 extern "C" int cell_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* types,
                              const float* table, const int* excbits,
@@ -498,3 +578,46 @@ extern "C" int cell_pair_f64(const double* x, const double* q,
                        cap, s,      n,   m,   ntypes, k_rows, rows};
   return launch<double>(a, tri, scal, flags, out, stream);
 }
+#else
+// The entry point of a user form's build (_build.build_user): the
+// generated UserPair in its working type UserPair::T, the exclusion form
+// ATOMSMM_USER_EXC and the image ATOMSMM_USER_TRI, one row, over the home
+// cells [c0, c1) as cell_pair_f32 takes them. `cols` is the (n + 1,
+// ncols) block of the function's per-atom columns, row n zero; `consts`
+// the (nconsts,) runtime constants on the device; `dconst` the constant
+// the dlambda flag seeds. `ncols` and `nconsts` must equal the header's,
+// `exc` is null exactly in the bitmask form, and `box` holds the image's
+// (3,) or (3, 3) values. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the build does not take.
+extern "C" int cell_pair_user(const UserPair::T* x, const UserPair::T* cols,
+                              const int* excbits, const int* exc,
+                              const int* bucket, const int* nbr,
+                              const UserPair::T* box, int ncells, int c0,
+                              int c1, int cap, int s, int n, int m,
+                              int ncols, int nconsts,
+                              const UserPair::T* consts, int dconst,
+                              const double* scal, const int* flags,
+                              UserPair::T* out, void* stream) {
+  using T = UserPair::T;
+  constexpr int EXC = ATOMSMM_USER_EXC;
+  constexpr bool TRI = ATOMSMM_USER_TRI != 0;
+  const Rows<T> rows{0, 0, 0, 0, 0, 0, 0, nullptr};
+  const Args<T> a{x,       nullptr, nullptr, nullptr, nullptr, nullptr,
+                  excbits, exc,     bucket,  nbr,     box,     ncells,
+                  c0,      c1,      cap,     s,       n,       m,
+                  0,       1,       rows,    cols,    consts,  dconst};
+  if (!args_valid(a, flags) || ncols != UserPair::NCOLS ||
+      nconsts != UserPair::NCONSTS || (EXC == EXC_SPLIT) != (exc != nullptr) ||
+      (flags[5] && (dconst < 0 || dconst >= nconsts)) || flags[0] ||
+      flags[2] || flags[4] || flags[7]) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (c1 == c0) return 0;
+  const int split = split_of(n);
+  const long long blocks = blocks_of(a, split);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  return launch_form<T, EXC, false, TRI, false, UserPair>(
+      a, split, (unsigned)blocks, make_params<T>(scal, flags), out,
+      (cudaStream_t)stream);
+}
+#endif

@@ -70,7 +70,17 @@
 //     epsilon), and each hit reads its pair's (sigma, epsilon, A, B) row
 //     of the (T, T, 4) table from global memory through the read-only
 //     cache (pair_forms.cuh::load_pair_row): two gathers a pair more than
-//     Lorentz-Berthelot, from a table of a few KB that stays in L1.
+//     Lorentz-Berthelot, from a table of a few KB that stays in L1;
+//   * a user pair function (the form axis U, pair_forms.cuh::user_pair):
+//     the staged candidate carries the function's P <= 5 per-atom columns
+//     (one cp.async each) in place of (q, sigma, epsilon), the home atom
+//     holds its own in registers, each thread reads the runtime constants
+//     into registers once, and each hit calls the generated UserPair::eval
+//     where a built-in form calls pair_form. Such a kernel is built alone,
+//     for one (dtype, exclusion form, image), by _build.build_user: a
+//     wrapper source defines ATOMSMM_USER_EXC and ATOMSMM_USER_TRI,
+//     includes the generated header and this file, and gets the entry
+//     point half_pair_user in place of the built-in ones.
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::half_pair_plain
 // with ops/pairfuncs.py::form_u_dudr2.
@@ -106,6 +116,12 @@ struct Par<T, true> {
   int t;
 };
 
+// what a candidate stages beside its position: a built-in form's Par, or
+// a user form's columns
+template <typename T, bool TABLE, class U>
+using ParOf =
+    std::conditional_t<U::USER, Cols<T, U::NCOLS>, Par<T, TABLE>>;
+
 // out[row] += (a, b, c, d) by global atomics
 __device__ __forceinline__ void add_row(float* row, float a, float b, float c,
                                         float d) {
@@ -130,6 +146,8 @@ struct Args {
   const T* box;
   int ncells, cap, s_half, n, m, ntypes, k_rows;
   Rows<T> rows;
+  const T *cols, *consts;  // a user form's (n + 1, P) columns, constants
+  int dconst;              // the constant the dlambda flag seeds
 };
 
 // One block per (home cell, row), threads = round_up(parts * cap, 32):
@@ -145,8 +163,11 @@ struct Args {
 //   bucket (ncells, cap)           atom ids, n = padding
 //   nbr (ncells, s_half)           half-stencil cell map, column 0 = c
 //   box (3,) or (3, 3)             edge lengths, or the cell matrix (TRI)
+//   cols (n + 1, P); consts (C,)   a user form's columns and constants
+//                                  (U::USER; else null)
 //   out (K, n + 1, 4)              zeroed; per row and atom [fx fy fz e]
-template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT,
+          class U = BuiltIn>
 __global__ void __launch_bounds__(MAXT)
     half_pair_kernel(const T* __restrict__ x, const T* __restrict__ q,
                      const T* __restrict__ sig, const T* __restrict__ eps,
@@ -157,11 +178,14 @@ __global__ void __launch_bounds__(MAXT)
                      const int* __restrict__ bucket,
                      const int* __restrict__ nbr, const T* __restrict__ box,
                      int cap, int s_half, int n, int m, int ntypes, int parts,
-                     Params<T> p0, Rows<T> rows, T* __restrict__ out) {
+                     Params<T> p0, Rows<T> rows,
+                     const T* __restrict__ cols,
+                     const T* __restrict__ consts, int dconst,
+                     T* __restrict__ out) {
+  using PT = ParOf<T, TABLE, U>;
   extern __shared__ __align__(32) unsigned char smem_raw[];
   Cand<T>* cand = reinterpret_cast<Cand<T>*>(smem_raw);  // [2][cap]
-  Par<T, TABLE>* par =
-      reinterpret_cast<Par<T, TABLE>*>(cand + 2 * cap);  // [2][cap]
+  PT* par = reinterpret_cast<PT*>(cand + 2 * cap);       // [2][cap]
   T* rx = reinterpret_cast<T*>(par + 2 * cap);           // [2][cap] each
   T* ry = rx + 2 * cap;
   T* rz = ry + 2 * cap;
@@ -201,14 +225,21 @@ __global__ void __launch_bounds__(MAXT)
       cd.id = id;
       if (id < n) {
         const T* xa = x + 3 * (size_t)id;
-        Par<T, TABLE>& pr = par[b * cap + t];
+        PT& pr = par[b * cap + t];
         __pipeline_memcpy_async(&cd.x, xa, sizeof(T));
         __pipeline_memcpy_async(&cd.y, xa + 1, sizeof(T));
         __pipeline_memcpy_async(&cd.z, xa + 2, sizeof(T));
-        __pipeline_memcpy_async(&pr.q, q + id, sizeof(T));
-        if constexpr (TABLE) {
+        if constexpr (U::USER) {
+          const T* ca = cols + (size_t)id * U::NCOLS;
+#pragma unroll
+          for (int kc = 0; kc < U::NCOLS; ++kc) {
+            __pipeline_memcpy_async(&pr.c[kc], ca + kc, sizeof(T));
+          }
+        } else if constexpr (TABLE) {
+          __pipeline_memcpy_async(&pr.q, q + id, sizeof(T));
           __pipeline_memcpy_async(&pr.t, types + id, sizeof(int));
         } else {
+          __pipeline_memcpy_async(&pr.q, q + id, sizeof(T));
           __pipeline_memcpy_async(&pr.s, sig + id, sizeof(T));
           __pipeline_memcpy_async(&pr.e, eps + id, sizeof(T));
         }
@@ -224,14 +255,21 @@ __global__ void __launch_bounds__(MAXT)
   T xi = T(0), yi = T(0), zi = T(0), qi = T(0), si = T(0), ei = T(0);
   int ti = 0;
   unsigned exc_h = 0u;
+  T hc[U::NCOLS];  // a user form's home columns
   if (home) {
     xi = x[3 * (size_t)hid];
     yi = x[3 * (size_t)hid + 1];
     zi = x[3 * (size_t)hid + 2];
-    qi = q[hid];
-    if (TABLE) {
+    if constexpr (U::USER) {
+#pragma unroll
+      for (int kc = 0; kc < U::NCOLS; ++kc) {
+        hc[kc] = cols[(size_t)hid * U::NCOLS + kc];
+      }
+    } else if (TABLE) {
+      qi = q[hid];
       ti = types[hid];
     } else {
+      qi = q[hid];
       si = sig[hid];
       ei = eps[hid];
     }
@@ -241,6 +279,11 @@ __global__ void __launch_bounds__(MAXT)
       (EXC == EXC_SPLIT && home) ? exc + (size_t)hid * m : nullptr;
   FarFilter far_bits{0u, 0u};
   if (EXC == EXC_SPLIT) far_bits = far_filter(far_row, m);
+  T cs[U::NCONSTS > 0 ? U::NCONSTS : 1];  // a user form's constants
+  if constexpr (U::USER) {
+#pragma unroll
+    for (int kc = 0; kc < U::NCONSTS; ++kc) cs[kc] = consts[kc];
+  }
 
   const Image<T, TRI> image(box);
   T fx = T(0), fy = T(0), fz = T(0), e = T(0);
@@ -266,7 +309,7 @@ __global__ void __launch_bounds__(MAXT)
 
     if (home) {
       const Cand<T>* cb = cand + b * cap;
-      const Par<T, TABLE>* pb = par + b * cap;
+      const PT* pb = par + b * cap;
       T* rxb = rx + b * cap;
       T* ryb = ry + b * cap;
       T* rzb = rz + b * cap;
@@ -315,18 +358,20 @@ __global__ void __launch_bounds__(MAXT)
                 excluded_far(far_bits, far_row, m, hid, cj.id)) {
               continue;
             }
-            const Par<T, TABLE> pj = pb[j];
+            const PT pj = pb[j];
             T dx = xi - cj.x, dy = yi - cj.y, dz = zi - cj.z;
             image.apply(dx, dy, dz);
             const T r2 = dx * dx + dy * dy + dz * dz;
             if (!keeps_hit<T, TRI>(p, r2, x, box, hid, cj.id)) continue;
-            const T qprod = qi * pj.q;
             T u, dudr2;
-            if constexpr (TABLE) {
+            if constexpr (U::USER) {
+              user_pair<U>(p, cs, dconst, r2, hc, pj.c, u, dudr2);
+            } else if constexpr (TABLE) {
               const PairRow<T> row = load_pair_row(table, ntypes, ti, pj.t);
-              pair_form<T, DAMPED, true>(p, r2, qprod, row.sig, row.eps, u,
-                                         dudr2, row.a, row.b);
+              pair_form<T, DAMPED, true>(p, r2, qi * pj.q, row.sig, row.eps,
+                                         u, dudr2, row.a, row.b);
             } else {
+              const T qprod = qi * pj.q;
               const T sg = T(0.5) * (si + pj.s);
               const T ep = sqrt(ei * pj.e);
               pair_form<T, DAMPED>(p, r2, qprod, sg, ep, u, dudr2);
@@ -386,19 +431,20 @@ __global__ void __launch_bounds__(MAXT)
   if (t < cap && home) add_row(out + 4 * (size_t)hid, fx, fy, fz, e);
 }
 
-template <typename T, bool TABLE>
+template <typename T, bool TABLE, class U>
 size_t smem_bytes(int cap, int parts) {
   return (size_t)2 * cap *
-             (sizeof(Cand<T>) + sizeof(Par<T, TABLE>) + 3 * sizeof(T)) +
+             (sizeof(Cand<T>) + sizeof(ParOf<T, TABLE, U>) + 3 * sizeof(T)) +
          (parts > 1 ? (size_t)parts * cap * 4 * sizeof(T) : 0) +
          2 * sizeof(int);
 }
 
-template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE, int MAXT,
+          class U>
 int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
                 T* out, cudaStream_t stream) {
-  auto kernel = half_pair_kernel<T, EXC, DAMPED, TRI, TABLE, MAXT>;
-  const size_t smem = smem_bytes<T, TABLE>(a.cap, parts);
+  auto kernel = half_pair_kernel<T, EXC, DAMPED, TRI, TABLE, MAXT, U>;
+  const size_t smem = smem_bytes<T, TABLE, U>(a.cap, parts);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -407,7 +453,7 @@ int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
   kernel<<<dim3(a.ncells, a.k_rows), threads, smem, stream>>>(
       a.x, a.q, a.sig, a.eps, a.types, a.table, a.excbits, a.exc, a.bucket,
       a.nbr, a.box, a.cap, a.s_half, a.n, a.m, a.ntypes, parts, p, a.rows,
-      out);
+      a.cols, a.consts, a.dconst, out);
   return (int)cudaGetLastError();
 }
 
@@ -415,16 +461,17 @@ int launch_form(const Args<T>& a, int parts, int threads, const Params<T>& p,
 // blocks of up to 256 threads take the register budget of 256 threads,
 // larger ones that of 1,024 (64 a thread; a budget of 128 for blocks of up
 // to 512 left the far grid's 343 blocks too few per SM for one wave).
-template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE>
+template <typename T, int EXC, bool DAMPED, bool TRI, bool TABLE,
+          class U = BuiltIn>
 int launch_size(const Args<T>& a, int parts, const Params<T>& p, T* out,
                 cudaStream_t stream) {
   const int threads = ((parts * a.cap + 31) / 32) * 32;
   if (threads <= 256) {
-    return launch_form<T, EXC, DAMPED, TRI, TABLE, 256>(a, parts, threads, p,
-                                                        out, stream);
+    return launch_form<T, EXC, DAMPED, TRI, TABLE, 256, U>(a, parts, threads,
+                                                           p, out, stream);
   }
-  return launch_form<T, EXC, DAMPED, TRI, TABLE, 1024>(a, parts, threads, p,
-                                                       out, stream);
+  return launch_form<T, EXC, DAMPED, TRI, TABLE, 1024, U>(a, parts, threads,
+                                                          p, out, stream);
 }
 
 template <typename T, int EXC, bool DAMPED, bool TRI>
@@ -454,18 +501,28 @@ int launch_damped(const Args<T>& a, int tri, int parts, const Params<T>& p,
   return launch_box<T, EXC, false>(a, tri, parts, p, out, stream);
 }
 
+// The checks of a launch's arguments both kinds of entry point share.
+template <typename T>
+bool args_valid(const Args<T>& a, const int* flags) {
+  const bool has_table = a.table != nullptr;
+  return !(a.cap < 1 || a.cap > 1024 || a.ncells < 1 || a.s_half < 1 ||
+           a.n < 0 || a.m < 0 || (a.exc != nullptr && a.m < 1) ||
+           a.excbits == nullptr ||
+           (has_table && (a.types == nullptr || a.ntypes < 1)) ||
+           !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows));
+}
+
+// Candidate partitions of a block: at most 1,024 threads.
+inline int parts_of(int cap) {
+  return PARTS * cap <= 1024 ? PARTS : 1024 / cap;
+}
+
+#ifndef ATOMSMM_USER_EXC
 template <typename T>
 int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
            T* out, void* stream) {
-  const bool has_table = a.table != nullptr;
-  if (a.cap < 1 || a.cap > 1024 || a.ncells < 1 || a.s_half < 1 || a.n < 0 ||
-      a.m < 0 || (a.exc != nullptr && a.m < 1) || a.excbits == nullptr ||
-      (has_table && (a.types == nullptr || a.ntypes < 1)) ||
-      !flags_valid(flags, has_table) || !rows_valid(a.k_rows, a.rows)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // one block: at most 1,024 threads
-  const int parts = PARTS * a.cap <= 1024 ? PARTS : 1024 / a.cap;
+  if (!args_valid(a, flags)) return (int)cudaErrorInvalidValue;
+  const int parts = parts_of(a.cap);
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t s = (cudaStream_t)stream;
   if (a.exc != nullptr) {
@@ -475,6 +532,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
   bits.m = 0;
   return launch_damped<T, EXC_BITS>(bits, tri, parts, p, out, s);
 }
+#endif
 
 }  // namespace
 
@@ -494,6 +552,7 @@ int launch(const Args<T>& a, int tri, const double* scal, const int* flags,
 // softcore lambdas, (k_rows,) of the working type, and `out` holds k_rows
 // zeroed (n + 1, 4) slices. Returns cudaGetLastError() after the launch (0
 // on success).
+#ifndef ATOMSMM_USER_EXC
 extern "C" int half_pair_f32(const float* x, const float* q, const float* sig,
                              const float* eps, const int* types,
                              const float* table, const int* excbits,
@@ -528,3 +587,41 @@ extern "C" int half_pair_f64(const double* x, const double* q,
                        n,      m,   ntypes, k_rows, rows};
   return launch<double>(a, tri, scal, flags, out, stream);
 }
+#else
+// The entry point of a user form's build (_build.build_user): the
+// generated UserPair in its working type UserPair::T, the exclusion form
+// ATOMSMM_USER_EXC and the image ATOMSMM_USER_TRI, one row. `cols` is the
+// (n + 1, ncols) block of the function's per-atom columns, row n zero;
+// `consts` the (nconsts,) runtime constants on the device; `dconst` the
+// constant the dlambda flag seeds. `ncols` and `nconsts` must equal the
+// header's, `exc` is null exactly in the bitmask form, and `box` holds
+// the image's (3,) or (3, 3) values. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the build does not take.
+extern "C" int half_pair_user(const UserPair::T* x, const UserPair::T* cols,
+                              const int* excbits, const int* exc,
+                              const int* bucket, const int* nbr,
+                              const UserPair::T* box, int ncells, int cap,
+                              int s_half, int n, int m, int ncols,
+                              int nconsts, const UserPair::T* consts,
+                              int dconst, const double* scal,
+                              const int* flags, UserPair::T* out,
+                              void* stream) {
+  using T = UserPair::T;
+  constexpr int EXC = ATOMSMM_USER_EXC;
+  constexpr bool TRI = ATOMSMM_USER_TRI != 0;
+  const Rows<T> rows{0, 0, 0, 0, 0, 0, 0, nullptr};
+  const Args<T> a{x,      nullptr, nullptr, nullptr, nullptr, nullptr,
+                  excbits, exc,    bucket,  nbr,     box,     ncells,
+                  cap,    s_half,  n,       m,       0,       1,
+                  rows,   cols,    consts,  dconst};
+  if (!args_valid(a, flags) || ncols != UserPair::NCOLS ||
+      nconsts != UserPair::NCONSTS || (EXC == EXC_SPLIT) != (exc != nullptr) ||
+      (flags[5] && (dconst < 0 || dconst >= nconsts)) || flags[0] ||
+      flags[2] || flags[4] || flags[7]) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_size<T, EXC, false, TRI, false, UserPair>(
+      a, parts_of(cap), make_params<T>(scal, flags), out,
+      (cudaStream_t)stream);
+}
+#endif

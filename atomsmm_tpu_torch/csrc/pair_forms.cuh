@@ -2,8 +2,7 @@
 // cell_pair.cu, tile_pair.cu, block_pair.cu): the kernels' scalar block,
 // the float32 cutoff band, the quintic switch and (u, du/dr^2) of one pair.
 //
-// A hand kernel cannot trace a Python pair function the way Pallas did, so
-// each kernel takes one of the built-in forms, selected by flags, with
+// Each kernel takes one of the built-in forms, selected by flags, with
 // host-computed f64 scalars (ops/pairfuncs.py::PairForm): the full form
 // (switched LJ + reaction-field or Ewald direct-space Coulomb, or the damped
 // Coulomb smoothed by the switch), the RESPA near form (shifted-force LJ +
@@ -26,10 +25,22 @@
 // half's LJ term before the switch. The Lorentz-Berthelot instantiations
 // (TABLE = false) carry no table code. The plain PyTorch twin of
 // pair_form is ops/pairfuncs.py::form_u_dudr2, line for line.
+//
+// K1 and K2 take a user pair function too (CustomNonbondedForce): its form
+// axis U is BuiltIn for the forms above, or the struct UserPair that
+// ops/pairtrace.py generates from the traced function and _build.py
+// compiles into a library of its own (user_pair below). A user form stages
+// up to five per-atom columns (Cols) where a built-in form stages (q,
+// sigma, epsilon), reads its runtime constants (the force's globals and
+// captured scalars) from a device array once per thread, and keeps the
+// slot test, the cutoff band, the exclusions, the images and the virial
+// flag of the built-in forms.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace pairforms {
 
@@ -509,6 +520,44 @@ __device__ __forceinline__ bool excluded_far(const FarFilter& f,
     if (c == cid) return true;
   }
   return false;
+}
+
+// The form axis of K1 and K2: BuiltIn selects pair_form above; a
+// generated UserPair (USER = true, NCOLS columns, NCONSTS constants, eval
+// and eval_dconst) selects user_pair.
+struct BuiltIn {
+  static constexpr bool USER = false;
+  static constexpr int NCOLS = 1;
+  static constexpr int NCONSTS = 1;
+};
+
+// A user form's per-atom columns, staged where a built-in form stages its
+// (q, sigma, epsilon).
+template <typename T, int P>
+struct Cols {
+  T c[P];
+};
+
+// (u, du/dr^2) of a user form U at r2 between the columns ci and cj, its
+// runtime constants in cs: U::eval, with the pair's virial -2 r^2 du/dr^2
+// in place of u under the virial flag; under the dlambda flag u is
+// du/d cs[dconst] (U::eval_dconst, the tangent seeded on that constant)
+// and there is no force, as the softcore form's dlambda flag gives dU/dλ.
+template <class U, typename T>
+__device__ __forceinline__ void user_pair(const Params<T>& p,
+                                          const T* __restrict__ cs,
+                                          int dconst, T r2,
+                                          const T* __restrict__ ci,
+                                          const T* __restrict__ cj, T& u,
+                                          T& dudr2) {
+  if (p.dlambda) {
+    T value;
+    U::eval_dconst(r2, ci, cj, cs, dconst, value, u);
+    dudr2 = T(0);
+    return;
+  }
+  U::eval(r2, ci, cj, cs, u, dudr2);
+  if (p.virial) u = T(-2) * r2 * dudr2;
 }
 
 }  // namespace pairforms

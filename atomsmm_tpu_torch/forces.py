@@ -9,10 +9,12 @@ split exactly as in the JAX package. Nonbonded forces have three paths:
     list is attached;
   * cell list — the half- or full-stencil sweep (ops/neighbors.py), with
     explicit forces from `energy_and_forces`; on the card it runs a CUDA
-    kernel, which takes a built-in pair form (`_pair_form`) instead of a
-    traced Python pair function. A force with no built-in form (the user
-    pair function of CustomNonbondedForce) runs through the callable cell
-    sweep instead: the same slots as torch operations, forces by autograd;
+    kernel, which takes a built-in pair form (`_pair_form`) or the user
+    pair function of CustomNonbondedForce traced and lowered to device
+    code (ops/pairtrace.py), as the JAX package's Pallas kernels take any
+    pair function. A user function that cannot be lowered raises
+    InputError on the card and runs through the callable cell sweep on
+    the CPU: the same slots as torch operations, forces by autograd;
   * block list — an aux entry with candidate blocks ("cand", a System
     with a BlockNeighborSpec) sends the sweep to ops/blocks.py: K4 on the
     card for a built-in form, the callable block sweep for a pair
@@ -32,8 +34,8 @@ by an exact quadratic rule for the charge-scaled forces.
 Each force also gives its virial, `virial` -> (W, forces) with
 W = -dU(s x, s box)/ds at s = 1 (computers.py): by one autograd pass where
 the energy is torch operations, as the JAX package takes it with jax.grad,
-and by the pair form's virial flag on the kernels, which return numbers,
-not a graph (a pair's -dU/ds is its d . F).
+and by the pair form's virial flag on the kernels (a user form's too),
+which return numbers, not a graph (a pair's -dU/ds is its d . F).
 
 A stack of K systems (replicas or lambda states: x (K, N, 3), box (K, 3)
 or (K, 3, 3), each global either shared or a (K,) tensor of per-row
@@ -108,6 +110,7 @@ from .ops.neighbors import (
     cell_pair_energy_fn,
     cell_pair_energy_forces,
 )
+from .ops.pair_kernel import kernel_form
 from .ops.pairs import dense_pair_energy, pairlist_energy
 from .ops.pbc import box_volume
 from .ops.switching import switch_quintic
@@ -448,11 +451,12 @@ def _blocks(nbr) -> bool:
 
 
 def _cell_energy(pair, x, box, pp, nbr, r_cut):
-    """The energy of `pair` (a built-in PairForm, or a pair function) over
-    the neighbor list: the block sweep (K4, or the callable block sweep)
-    for a block list, sharded over the active spatial mesh when one is set
+    """The energy of `pair` (a form the kernels take: a built-in PairForm
+    or a lowered UserForm; or a pair function) over the neighbor list: the
+    block sweep (K4, or the callable block sweep) for a block list,
+    sharded over the active spatial mesh when one is set
     (parallel/spatial.py), else K1 or K2 as the spec selects, or the
-    callable sweep."""
+    callable sweep for a pair function."""
     if _blocks(nbr):
         from .ops import blocks
 
@@ -467,21 +471,21 @@ def _cell_energy(pair, x, box, pp, nbr, r_cut):
 
         return sharded_cell_pair_energy(pair, x, box, pp, nbr["spec"],
                                         nbr["bucket"], r_cut, *mesh)
-    sweep = (cell_pair_energy if isinstance(pair, pairfuncs.PairForm)
-             else cell_pair_energy_fn)
+    sweep = cell_pair_energy if kernel_form(pair) else cell_pair_energy_fn
     return sweep(pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut)
 
 
 class _PairForceMixin:
     """Shared dense/cell dispatch for pair forces. Subclasses provide
-    _pair_fn(globals) -> (r, pi, pj) -> energy (dense path, and the
-    callable cell sweep), _per_particle() and, for a built-in form of the
-    kernels, _pair_form(globals) -> PairForm (cell path). A force without
-    _pair_form evaluates its pair function over the cell list as torch
-    operations (ops/neighbors.py::cell_pair_energy_fn), forces by
-    autograd. Under an active spatial mesh (parallel/mesh.py) every cell
-    path runs sharded over the mesh's ranks, on the full stencil
-    (parallel/spatial.py)."""
+    _pair_fn(globals) -> (r, pi, pj) -> energy (the dense path, and the
+    callable sweeps), _per_particle() and, for a built-in form of the
+    kernels, _pair_form(globals) -> PairForm. The form the kernels take
+    comes from _kernel_form (the built-in form; CustomNonbondedForce's
+    lowered user form); where there is none the pair function runs as
+    torch operations over the list (ops/neighbors.py::cell_pair_energy_fn,
+    ops/blocks.py::block_pair_energy_fn), forces by autograd. Under an
+    active spatial mesh (parallel/mesh.py) every cell path runs sharded
+    over the mesh's ranks, on the full stencil (parallel/spatial.py)."""
 
     neighbor_key = "default"
 
@@ -495,12 +499,19 @@ class _PairForceMixin:
         return nbr if nbr is not None and math.isfinite(r_cut) \
             and not self._dense_only else None
 
-    def _cell_pair(self, globals):
-        """(the pair the cell path sweeps: the built-in form or the pair
-        function, its per-particle columns)."""
+    def _kernel_form(self, globals, x, nbr):
+        """The form the kernels take over the list `nbr` (the built-in
+        form), or None: the callable sweeps."""
+        return self._pair_form(globals) if hasattr(self, "_pair_form") \
+            else None
+
+    def _cell_pair(self, globals, x, nbr):
+        """(the pair the sweep over `nbr` takes: the kernels' form or the
+        pair function, its per-particle columns)."""
         pp = self._per_particle(globals)
-        if hasattr(self, "_pair_form"):
-            return self._pair_form(globals), pp
+        form = self._kernel_form(globals, x, nbr)
+        if form is not None:
+            return form, pp
         # a pair function gathers (N,) columns per pair: the type-pair
         # table rides its closure (_lj_combiner), not the dict
         return (self._pair_fn(globals),
@@ -520,29 +531,41 @@ class _PairForceMixin:
                   if k != "pair_table"}
             return dense_pair_energy(self._pair_fn(globals), x, box, pp,
                                      self.exclusions, r_cut, chunk=self.chunk)
-        pair, pp = self._cell_pair(globals)
+        pair, pp = self._cell_pair(globals, x, nbr)
         return _cell_energy(pair, x, box, pp, nbr, r_cut)
 
-    def _nb_energy_forces(self, x, box, globals, aux, r_cut):
-        nbr = self._cell(aux, r_cut)
-        blocks = nbr is not None and _blocks(nbr)
-        if blocks and hasattr(self, "_pair_form"):
+    def _form_sweep(self, form, x, box, pp, nbr, r_cut):
+        """(E, forces) of one sweep of the kernels' `form` over `nbr`: K4
+        on a block list, K2 over the rank's home cells under a spatial
+        mesh, else K1 or K2 (their plain twins on the CPU)."""
+        if _blocks(nbr):
             from .ops.blocks import block_pair_energy_forces
 
-            return block_pair_energy_forces(
-                self._pair_form(globals), x, box, self._per_particle(globals),
-                nbr["spec"], nbr["bucket"], nbr["cand"], r_cut)
-        mesh = _spatial() if nbr is not None and not blocks else None
+            return block_pair_energy_forces(form, x, box, pp, nbr["spec"],
+                                            nbr["bucket"], nbr["cand"],
+                                            r_cut)
+        mesh = _spatial()
         if mesh is not None:
             from .parallel.spatial import sharded_cell_pair_energy_forces
 
-            pair, pp = self._cell_pair(globals)
             return sharded_cell_pair_energy_forces(
-                pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut, *mesh)
-        if nbr is not None and hasattr(self, "_pair_form"):
-            return cell_pair_energy_forces(
-                self._pair_form(globals), x, box, self._per_particle(globals),
-                nbr["spec"], nbr["bucket"], r_cut)
+                form, x, box, pp, nbr["spec"], nbr["bucket"], r_cut, *mesh)
+        return cell_pair_energy_forces(form, x, box, pp, nbr["spec"],
+                                       nbr["bucket"], r_cut)
+
+    def _nb_energy_forces(self, x, box, globals, aux, r_cut):
+        nbr = self._cell(aux, r_cut)
+        if nbr is not None:
+            pair, pp = self._cell_pair(globals, x, nbr)
+            if kernel_form(pair):
+                return self._form_sweep(pair, x, box, pp, nbr, r_cut)
+            mesh = None if _blocks(nbr) else _spatial()
+            if mesh is not None:
+                from .parallel.spatial import sharded_cell_pair_energy_forces
+
+                return sharded_cell_pair_energy_forces(
+                    pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut,
+                    *mesh)
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             e = self._nb_energy(xx, box, globals, aux, r_cut)
@@ -550,30 +573,22 @@ class _PairForceMixin:
         return e.detach(), -g
 
     def _nb_virial(self, x, box, globals, aux, r_cut):
-        """(W, forces) of the pair term: on the cell path with a built-in
-        form one sweep of its virial form (the energy column carries each
+        """(W, forces) of the pair term: where the kernels take the form,
+        one sweep of its virial form (the energy column carries each
         pair's d . F), else by autograd."""
         nbr = self._cell(aux, r_cut)
-        blocks = nbr is not None and _blocks(nbr)
-        if blocks and hasattr(self, "_pair_form"):
-            from .ops.blocks import block_pair_energy_forces
+        if nbr is not None:
+            pair, pp = self._cell_pair(globals, x, nbr)
+            if kernel_form(pair):
+                return self._form_sweep(pairfuncs.virial_form(pair), x, box,
+                                        pp, nbr, r_cut)
+            mesh = None if _blocks(nbr) else _spatial()
+            if mesh is not None:
+                from .parallel.spatial import sharded_cell_pair_virial
 
-            return block_pair_energy_forces(
-                pairfuncs.virial_form(self._pair_form(globals)), x, box,
-                self._per_particle(globals), nbr["spec"], nbr["bucket"],
-                nbr["cand"], r_cut)
-        mesh = _spatial() if nbr is not None and not blocks else None
-        if mesh is not None:
-            from .parallel.spatial import sharded_cell_pair_virial
-
-            pair, pp = self._cell_pair(globals)
-            return sharded_cell_pair_virial(
-                pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut, *mesh)
-        if nbr is not None and hasattr(self, "_pair_form"):
-            return cell_pair_energy_forces(
-                pairfuncs.virial_form(self._pair_form(globals)), x, box,
-                self._per_particle(globals), nbr["spec"], nbr["bucket"],
-                r_cut)
+                return sharded_cell_pair_virial(
+                    pair, x, box, pp, nbr["spec"], nbr["bucket"], r_cut,
+                    *mesh)
         return autograd_virial(
             lambda xx, bb: self._nb_energy(xx, bb, globals, aux, r_cut), x,
             box)
@@ -1264,16 +1279,25 @@ class CustomNonbondedForce(_PairForceMixin, Force):
     """Arbitrary pair potential: `energy_function(r, pi, pj, globals)` plays
     the role of an openmm.CustomNonbondedForce Lepton string
     (atomsmm_tpu/forces.py::CustomNonbondedForce). per_particle maps
-    parameter name to an (N,) tensor, gathered into pi/pj per pair.
+    parameter name to an (N,) tensor (at most five on the kernels),
+    gathered into pi/pj per pair.
 
-    A hand-written kernel cannot take a Python function, so this is the
-    port's path for user expressions, not a fallback: on a cell list the
-    function runs as torch operations over the full stencil's slots
-    (ops/neighbors.py::cell_pair_energy_fn), on a block list over the
-    list's slots (ops/blocks.py::block_pair_energy_fn), on whatever device
-    the tensors lie on, with forces and lambda derivatives by autograd. It
-    walks every slot of the list, so it suits solute-sized work (a few
-    dozen pairs in a few thousand atoms), not a solvent-wide force."""
+    On a cell list the function runs on K1 or K2, as the JAX package runs
+    it on its Pallas kernels: at its first use in a dtype it is traced and
+    lowered (ops/pairtrace.py: the whitelisted torch operations, its
+    globals and captured scalars as runtime constants), and on the card
+    the generated device code is compiled into the kernel (one nvcc build
+    per function, exclusion form and image, cached under _build/). Energy,
+    forces, the virial (the form's virial flag) and denergy_dlambda (the
+    tangent seeded on the global) all take one sweep, as a built-in form
+    does; on the CPU the kernels' plain twins run the same lowered
+    operations. A function that cannot be lowered raises InputError on a
+    CUDA tensor and keeps the callable sweep
+    (ops/neighbors.py::cell_pair_energy_fn, forces by autograd) on the
+    CPU. On a block list the function runs as torch operations over the
+    list's slots (ops/blocks.py::block_pair_energy_fn; the JAX package
+    sweeps block lists in XLA), and a stack of rows runs one row a sweep.
+    The dense path (no neighbor list) takes the function as it is."""
 
     per_particle: Dict[str, torch.Tensor] = None
     exclusions: torch.Tensor = None
@@ -1292,13 +1316,70 @@ class CustomNonbondedForce(_PairForceMixin, Force):
 
         return pair
 
+    def lowered(self, dtype, globals=None, device="cpu"):
+        """The function lowered in `dtype` (ops/pairtrace.py), traced once
+        per (dtype, device, numeric global names) and kept; raises
+        InputError where it cannot be lowered."""
+        from .ops.pairtrace import lower_pair_function, numeric_globals
+
+        key = (dtype, str(device), tuple(numeric_globals(globals)))
+        cache = self.__dict__.setdefault("_lowered_cache", {})
+        if key not in cache:
+            try:
+                cache[key] = lower_pair_function(
+                    self.energy_function, list(self.per_particle), dtype,
+                    globals, device=device)
+            except InputError as e:
+                cache[key] = e
+        got = cache[key]
+        if isinstance(got, InputError):
+            raise got
+        return got
+
+    def _kernel_form(self, globals, x, nbr):
+        """The lowered user form over a cell list; None on a block list
+        (the callable block sweep) and, on the CPU, for a function that
+        cannot be lowered (the callable cell sweep). On a CUDA tensor a
+        function that cannot be lowered raises InputError."""
+        if _blocks(nbr):
+            return None
+        from .ops.pairtrace import user_form
+
+        try:
+            low = self.lowered(x.dtype, globals, x.device)
+        except InputError as e:
+            if x.is_cuda:
+                raise InputError(
+                    f"CustomNonbondedForce on a CUDA cell list: {e}") from e
+            return None
+        return user_form(low, globals, self.r_cut, x.device)
+
     def energy(self, x, box, globals, aux=None):
         return self._nb_energy(x, box, globals, aux, self.r_cut)
 
     def energy_and_forces(self, x, box, globals, aux=None):
         return self._nb_energy_forces(x, box, globals, aux, self.r_cut)
 
-    # a pair function takes no kernel: the rows one after another (Force's)
+    def denergy_dlambda(self, x, box, globals, name, aux=None):
+        """dU/d globals[name] (a missing parameter reads as 1.0): on a
+        cell list where the function lowers, one sweep of the user form
+        with the tangent seeded on that global (zero where the function
+        does not read it); else by autograd (Force's)."""
+        nbr = self._cell(aux, self.r_cut)
+        g = dict(globals or {})
+        if name not in g:
+            g[name] = torch.ones((), dtype=x.dtype, device=x.device)
+        form = None if nbr is None else self._kernel_form(g, x, nbr)
+        if form is None:
+            return super().denergy_dlambda(x, box, globals, name, aux)
+        k = form.lowered.constant_index(name)
+        if k is None:
+            return torch.zeros((), dtype=x.dtype, device=x.device)
+        return _cell_energy(dataclasses.replace(form, dconst=k), x, box,
+                            self._per_particle(g), nbr, self.r_cut)
+
+    # a user form takes one row a launch: the rows one after another
+    # (Force's), each on K1 or K2
     energy_rows = Force.energy_rows
     energy_and_forces_rows = Force.energy_and_forces_rows
 

@@ -19,7 +19,8 @@ launched by ``block_pair_cuda``; on the CPU its plain twin
 ``block_pair_plain``, which writes the home and reaction sums back in
 sorted space and unsorts them once, as the JAX package does. A user pair
 function (CustomNonbondedForce) takes ``block_pair_energy_fn``: the same
-slots as torch operations on any device, forces by autograd.
+slots as torch operations on any device, forces by autograd (on a cell
+list it runs on K1 or K2, lowered by ops/pairtrace.py).
 
 The lists are rebuilt as the cell buckets are (Context rebuilds after every
 outer step, or every K-th under neighbor_update_every with the staleness
@@ -429,8 +430,9 @@ def block_pair_energy_fn(pair_fn, x, box, per_particle, spec, order, cand,
     list, as torch operations on the device of x (the slots and weights of
     block_pair_plain); differentiable in x, so forces come by autograd.
     per_particle holds any (N,) tensors, gathered into pi / pj. The path
-    for user expressions (CustomNonbondedForce), which no hand-written
-    kernel can take, as neighbors.cell_pair_energy_fn is on the cells."""
+    of a user pair function (CustomNonbondedForce) on a block list, as the
+    JAX package sweeps block lists in XLA: K4 takes built-in forms only
+    (K1 and K2 take a lowered user function, ops/pairtrace.py)."""
     from .rv import pair_eval
 
     _vector_box(box)

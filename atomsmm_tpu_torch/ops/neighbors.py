@@ -12,8 +12,11 @@ the production nonbonded path.
     home atom: a long cutoff in a box of a few cells). On the card
     each runs its hand-written CUDA kernel, on the CPU its plain PyTorch
     twin (ops/pair_kernel.py). A user pair function (CustomNonbondedForce)
-    takes the callable sweep, cell_pair_energy_fn: the full stencil's
-    slots as torch operations on any device, forces by autograd.
+    takes the same kernels once traced and lowered (ops/pairtrace.py), as
+    the JAX package's Pallas kernels take any pair function; a function
+    that cannot be lowered takes the callable sweep, cell_pair_energy_fn,
+    on the CPU (the full stencil's slots as torch operations, forces by
+    autograd) and raises on the card.
 
 A (3, 3) triclinic box takes the same stencil topology: the grid and the
 reach are sized from the cell's perpendicular widths and atoms are binned
@@ -735,9 +738,10 @@ def _sweep(spec):
 
 def cell_pair_energy(form, x, box, per_particle, spec, bucket, r_cut,
                      lamb=None):
-    """Pair energy over the cell buckets (the sweep's energy column); (K,)
-    over a stack (x (K, N, 3), `lamb` the rows' softcore lambdas or
-    None)."""
+    """Pair energy over the cell buckets (the sweep's energy column) of a
+    form the kernels take (a built-in PairForm or a lowered UserForm);
+    (K,) over a stack (x (K, N, 3), `lamb` the rows' softcore lambdas or
+    None; built-in forms only)."""
     e, _ = _sweep(spec)(form, x, box, per_particle, spec, bucket, r_cut,
                         with_forces=False, lamb=lamb)
     return e
@@ -771,9 +775,12 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
     come by autograd. `cells` = (c0, c1) sums over the home atoms of those
     cells only (force decomposition, parallel/spatial.py).
 
-    This is the path for user expressions, which no hand-written kernel can
-    take; it evaluates every slot of the stencil, so its cost grows with
-    the whole cell list, however few pairs the function leaves nonzero."""
+    The counterpart of the JAX package's XLA sweep of a pair function: the
+    path of a user function that ops/pairtrace.py cannot lower, on the
+    CPU, and of the spatial mesh's share of one; K1 and K2 take every
+    function that lowers. It evaluates every slot of the stencil, so its
+    cost grows with the whole cell list, however few pairs the function
+    leaves nonzero."""
     from .pair_kernel import _rc2, excluded, home_range
     from .rv import pair_eval
 

@@ -53,6 +53,17 @@ bucket once. Row k of the launch computes what the single-row launch of
 row k computes: K2's bit for bit, K1's to its atomics' last bits. The
 plain twins take the same stack, with the same per-row arithmetic.
 
+Both kernels take a user pair function (CustomNonbondedForce) in place of a
+built-in form, as the Pallas kernels take any ``pair_fn``: a UserForm
+(ops/pairtrace.py) carries the function lowered to a list of operations,
+which the card runs as the generated device code compiled into K1 or K2
+(one library per function, exclusion form and image, built at first use:
+_build.build_user) and the plain twins run as torch operations with the
+same dual rules. Its (N + 1, P) block of per-particle columns (P <= 5, in
+the lowered form's order) takes the place of (charge, sigma, epsilon); its
+runtime constants go as a device array. One row a launch: a user form
+takes no replica axis.
+
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
 the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
@@ -65,21 +76,44 @@ import numpy as np
 import torch
 
 from .neighbors import EXC_OFF
-from .pairfuncs import form_u_dudr2
+from .pairfuncs import PairForm, form_u_dudr2
+from .pairtrace import UserForm
 from .pbc import minimum_image
 
 #: kernel launches so far in this process, one plain integer per kernel
 #: (half_pair = K1, cell_pair = K2, tile_pair = K3, block_pair = K4 in
 #: ops/blocks.py; a launch over K rows counts one); reset by callers
 LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
+#: launches of K1 and K2 compiled with a user form (_user_sweep_cuda),
+#: counted apart from the built-in forms' and reset with them
+USER_LAUNCHES = {"half_pair": 0, "cell_pair": 0}
 
 K1_MAX_CAP = 1024  # K1's cell capacity: one thread a home atom
 _PLAIN_SLOTS = 1 << 21  # pair slots per chunk of the full-stencil plain twin
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, USER_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def kernel_form(pair) -> bool:
+    """Whether `pair` is a form the kernels take (a built-in PairForm or a
+    lowered UserForm), not a pair function for the callable sweeps."""
+    return isinstance(pair, (PairForm, UserForm))
+
+
+def user_columns(form: UserForm, per_particle, n: int, dtype, device):
+    """The (N + 1, P) block of a user form's per-particle columns in its
+    order, row N zero (P >= 1: a function of r alone stages one zero
+    column)."""
+    names = form.lowered.names
+    cols = torch.zeros((n + 1, max(1, len(names))), dtype=dtype,
+                       device=device)
+    for k, name in enumerate(names):
+        cols[:n, k] = per_particle[name]
+    return cols
 
 
 def _rows(x, per_particle, bucket, box, lamb=None):
@@ -108,18 +142,24 @@ def _rows(x, per_particle, bucket, box, lamb=None):
     return False, x, bucket, box, lamb
 
 
-def stage_rows(spec, x, per_particle, bucket):
+def stage_rows(spec, x, per_particle, bucket, names=None):
     """stage over a row axis: x (K, N, 3), bucket (K, ncells, cap), each
     per-particle column (N,) or (K, N); hf (K, ncells, cap, 8), hm
     (K, ncells, cap, 2) and the far exclusion ids (K, ncells, cap, R) or
-    None. Row k is what stage gives for row k alone."""
+    None. Row k is what stage gives for row k alone. `names` (a user
+    form's columns, at most 5) puts those columns at 3, 4, ... in place of
+    charge, sigma, epsilon and the LJ type."""
     k, n = x.shape[0], x.shape[1]
     feats = x.new_zeros((k, n + 1, 8))
     feats[:, :n, :3] = x
-    feats[:, :n, 3] = per_particle["charge"]
-    feats[:, :n, 4] = per_particle["sigma"]
-    feats[:, :n, 5] = per_particle["epsilon"]
-    if "lj_type" in per_particle:
+    if names is not None:
+        for c, name in enumerate(names):
+            feats[:, :n, 3 + c] = per_particle[name]
+    else:
+        feats[:, :n, 3] = per_particle["charge"]
+        feats[:, :n, 4] = per_particle["sigma"]
+        feats[:, :n, 5] = per_particle["epsilon"]
+    if names is None and "lj_type" in per_particle:
         feats[:, :n, 6] = per_particle["lj_type"].to(x.dtype)
     idx = bucket.long()
     rows = torch.arange(k, device=x.device)[:, None, None]
@@ -172,8 +212,10 @@ def excluded(hid, cid, exc_h=None, cols=None):
 
 def pair_table_of(form, per_particle):
     """The (T, T, 4) type-pair table a table form reads, None for
-    Lorentz-Berthelot combining; raises where the form and the
-    per-particle dict disagree."""
+    Lorentz-Berthelot combining and for a user form; raises where the form
+    and the per-particle dict disagree."""
+    if isinstance(form, UserForm):
+        return None
     has = "lj_type" in per_particle
     if form.table != has or has != ("pair_table" in per_particle):
         raise ValueError(
@@ -187,10 +229,18 @@ def _pair_sums(form, rc2, d, valid, home, cand, table=None):
     """Masked (u, 2 du/dr²) of the slots of displacement d, between home
     rows (..., cap_h, 1, 8) and candidate rows (..., 1, cap_c, 8); with a
     type-pair `table` the pair's (sigma, epsilon, A, B) is its row at the
-    home and candidate types (feature column 6)."""
+    home and candidate types (feature column 6); a user form evaluates its
+    lowered operations on the columns 3, 4, ... of both rows."""
     r2 = torch.sum(d * d, dim=-1)
     valid = valid & (r2 < rc2)
     r2m = torch.where(valid, r2, torch.ones_like(r2))
+    if isinstance(form, UserForm):
+        p = len(form.lowered.names)
+        u, dudr2 = form.u_dudr2(r2m, [home[..., 3 + c] for c in range(p)],
+                                [cand[..., 3 + c] for c in range(p)])
+        zero = torch.zeros_like(u)
+        return torch.where(valid, u, zero), torch.where(valid, 2.0 * dudr2,
+                                                        zero)
     qq = home[..., 3] * cand[..., 3]
     if table is None:
         sig = 0.5 * (home[..., 4] + cand[..., 4])
@@ -202,6 +252,12 @@ def _pair_sums(form, rc2, d, valid, home, cand, table=None):
                                 row[..., 2], row[..., 3])
     zero = torch.zeros_like(u)
     return torch.where(valid, u, zero), torch.where(valid, 2.0 * dudr2, zero)
+
+
+def _names(form):
+    """A user form's column names (stage_rows), None for a built-in
+    form."""
+    return form.lowered.names if isinstance(form, UserForm) else None
 
 
 def _row_form(form, lamb, d):
@@ -238,7 +294,8 @@ def half_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
     k, n = x.shape[0], x.shape[1]
     table = pair_table_of(form, per_particle)
-    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket)
+    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket,
+                                  _names(form))
     nbr_half = spec.nbr_cells_half
     _, ncells, cap, _ = hf.shape
     s_half = nbr_half.shape[1]
@@ -312,7 +369,8 @@ def full_pair_plain(x, per_particle, bucket, spec, box, form, r_cut,
     single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
     k, n = x.shape[0], x.shape[1]
     table = pair_table_of(form, per_particle)
-    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket)
+    hf, hm, exc_cols = stage_rows(spec, x, per_particle, bucket,
+                                  _names(form))
     nbr = spec.nbr_cells
     _, ncells, cap, _ = hf.shape
     s = nbr.shape[1]
@@ -442,9 +500,14 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
     configuration share x and the bucket). The softcore lambda of each
     row, `lamb` (K,), goes as a device table, a contiguous tensor on the
     device in the dtype of x; the rest of the parameter block is the
-    host's, shared by the rows."""
+    host's, shared by the rows. A user form goes to _user_sweep_cuda."""
     import ctypes
 
+    if isinstance(form, UserForm):
+        if lamb is not None:
+            raise ValueError(f"{kernel}: a user form takes no rows' lambdas")
+        return _user_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec,
+                                box, form, r_cut, cells)
     single, x, bucket, box, lamb = _rows(x, per_particle, bucket, box, lamb)
     k, n = x.shape[0], x.shape[1]
     _, ncells, cap = bucket.shape
@@ -461,13 +524,7 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
         types = rows_of(per_particle["lj_type"].to(torch.int32))
         ntypes = table.shape[0]
         tables = (("pair_table", table, x.dtype, (ntypes, ntypes, 4)),)
-    bits, cols = spec.excbits, spec.exclusions_far
-    m = 0 if cols is None else cols.shape[1]
-    if bits is None:
-        raise ValueError(f"{kernel}: the spec holds no exclusion table")
-    exc_checks = [("excbits", bits, torch.int32, (n + 1,))]
-    if cols is not None:
-        exc_checks.append(("far exclusions", cols, torch.int32, (n, m)))
+    bits, cols, m, exc_checks = _exclusion_tables(kernel, spec, n)
     tri = int(box.ndim == 3)
     lambs = () if lamb is None else (("lamb", lamb, x.dtype, (k,)),)
     dev = _checked(kernel, ("x", x[0], x.dtype, (n, 3)), *exc_checks,
@@ -498,6 +555,73 @@ def _cell_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     return out[0] if single else out
+
+
+def _exclusion_tables(kernel, spec, n):
+    """The spec's exclusion tables for K1 and K2: (bitmask, far ids or
+    None, their width, their _checked entries); raises where the spec
+    holds no table."""
+    bits, far = spec.excbits, spec.exclusions_far
+    if bits is None:
+        raise ValueError(f"{kernel}: the spec holds no exclusion table")
+    m = 0 if far is None else far.shape[1]
+    checks = [("excbits", bits, torch.int32, (n + 1,))]
+    if far is not None:
+        checks.append(("far exclusions", far, torch.int32, (n, m)))
+    return bits, far, m, checks
+
+
+def _user_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
+                     r_cut, cells=()):
+    """Launch K1 or K2 compiled with a user form (_build.load_user: one
+    library per generated header, exclusion form and image) on PyTorch's
+    current stream; returns the per-atom (N + 1, 4) [fx fy fz e]. One row:
+    x (N, 3). The form's working dtype must be x's; its columns are staged
+    as an (N + 1, P) block (user_columns) and its constants pass as the
+    device array form.consts. Checks its arguments and raises
+    if the build or the launch fails; counts the launch under
+    '<kernel>_user'."""
+    import ctypes
+
+    from .. import _build
+
+    low = form.lowered
+    if x.ndim != 2:
+        raise ValueError(f"{kernel}: a user form sweeps one system a launch "
+                         f"(x (N, 3)), got x of shape {tuple(x.shape)}")
+    if x.dtype != low.dtype:
+        raise ValueError(f"{kernel}: the user form was lowered in "
+                         f"{low.dtype}, x is {x.dtype}")
+    n = x.shape[0]
+    ncells, cap = bucket.shape
+    s = nbr.shape[1]
+    cols = user_columns(form, per_particle, n, x.dtype, x.device)
+    consts = form.consts.to(device=x.device, dtype=x.dtype).contiguous()
+    bits, far, m, exc_checks = _exclusion_tables(kernel, spec, n)
+    tri = int(box.ndim == 2)
+    _checked(kernel, ("x", x, x.dtype, (n, 3)), *exc_checks,
+             ("columns", cols, x.dtype, tuple(cols.shape)),
+             ("constants", consts, x.dtype, (low.n_consts,)),
+             ("bucket", bucket, torch.int32, (ncells, cap)),
+             ("stencil map", nbr, torch.int32, (ncells, s)),
+             ("box", box, x.dtype, (3, 3) if tri else (3,)))
+    out = torch.zeros((n + 1, 4), dtype=x.dtype, device=x.device)
+    if cells and cells[0] == cells[1]:
+        return out
+    scal, flags = _form_block(form, r_cut, x.dtype)
+    fn = _build.load_user(kernel, low.cuda_source(), int(far is not None),
+                          tri)
+    err = fn(x.data_ptr(), cols.data_ptr(), bits.data_ptr(),
+             None if far is None else far.data_ptr(), bucket.data_ptr(),
+             nbr.data_ptr(), box.data_ptr(), ncells, *cells, cap, s, n, m,
+             cols.shape[1], low.n_consts, consts.data_ptr(), form.dconst,
+             ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch on a user form failed: "
+                           f"CUDA error {err}")
+    USER_LAUNCHES[kernel] += 1
+    return out
 
 
 def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,

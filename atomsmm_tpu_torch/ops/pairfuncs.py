@@ -7,11 +7,13 @@ Two families live here:
   combining. The dense O(N²) oracle evaluates them and takes forces by
   autograd.
 * the built-in pair *forms* of the pair kernels, with energy and du/dr²
-  derived by hand (``PairForm`` and ``form_u_dudr2``). A hand kernel cannot
-  trace a Python pair function the way Pallas did, so the CUDA kernels
-  (csrc/pair_forms.cuh) take a form and a few host-computed scalars;
-  ``form_u_dudr2`` is its line-for-line PyTorch transcription, so that a
-  derivation error shows in the CPU tests against the JAX package.
+  derived by hand (``PairForm`` and ``form_u_dudr2``). The production
+  forces' pair terms are these: the CUDA kernels (csrc/pair_forms.cuh)
+  take a form and a few host-computed scalars; ``form_u_dudr2`` is its
+  line-for-line PyTorch transcription, so that a derivation error shows in
+  the CPU tests against the JAX package. A user's pair function
+  (CustomNonbondedForce) reaches K1 and K2 traced instead
+  (ops/pairtrace.py).
 
 Forms (Lorentz-Berthelot combining, k = ONE_4PI_EPS0, and the Coulomb
 kernel c(r) = erfc(alpha r)/r, which is 1/r when alpha = 0):

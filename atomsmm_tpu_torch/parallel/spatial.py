@@ -39,8 +39,8 @@ import torch.distributed as dist
 
 from ..ops import pme
 from ..ops.neighbors import cell_pair_energy_fn
-from ..ops.pair_kernel import full_pair_rows
-from ..ops.pairfuncs import PairForm, virial_form
+from ..ops.pair_kernel import full_pair_rows, kernel_form
+from ..ops.pairfuncs import virial_form
 from .mesh import mesh_group
 
 
@@ -106,12 +106,13 @@ def _fn_gradient(energy_of, x):
 def sharded_cell_pair_energy_forces(pair, x, box, per_particle, spec, bucket,
                                     r_cut, mesh, axis: str = "dp"):
     """(energy, forces (N, 3)): force decomposition of the cell-pair sweep
-    over `mesh[axis]`. `pair` is a built-in PairForm (K2 or its twin over
+    over `mesh[axis]`. `pair` is a form the kernels take, a built-in
+    PairForm or a lowered user form (K2 or its twin over
     the rank's home cells, one all_reduce of the rows: the one-rank
     full-stencil sweep's numbers exactly) or a pair function pair(r, pi,
     pj) (the callable sweep over the rank's home cells, forces by
     autograd, one all_reduce of energy and gradient)."""
-    if isinstance(pair, PairForm):
+    if kernel_form(pair):
         rows = sharded_cell_pair_rows(pair, x, box, per_particle, spec,
                                       bucket, r_cut, mesh, axis)
         return rows[:, 3].sum(), rows[:-1, :3]
@@ -124,7 +125,7 @@ def sharded_cell_pair_energy(pair, x, box, per_particle, spec, bucket, r_cut,
                              mesh, axis: str = "dp"):
     """The energy of sharded_cell_pair_energy_forces, without the forces:
     each rank's share summed, one all_reduce of the scalar."""
-    if isinstance(pair, PairForm):
+    if kernel_form(pair):
         rows = full_pair_rows(pair, x, box, per_particle, spec, bucket,
                               r_cut, False,
                               cells=home_cells(bucket.shape[0], mesh, axis))
@@ -141,7 +142,7 @@ def sharded_cell_pair_virial(pair, x, box, per_particle, spec, bucket, r_cut,
     s = 1: one sweep of the form's virial form (each pair's d . F in the
     energy column), or for a pair function each rank's autograd virial of
     its share and one all_reduce."""
-    if isinstance(pair, PairForm):
+    if kernel_form(pair):
         return sharded_cell_pair_energy_forces(
             virial_form(pair), x, box, per_particle, spec, bucket, r_cut,
             mesh, axis)

@@ -10,7 +10,8 @@ non-zero:
    power limit;
 2. build: compiles csrc/half_pair.cu (K1), csrc/cell_pair.cu (K2),
    csrc/tile_pair.cu (K3) and csrc/block_pair.cu (K4) with nvcc (sm_90a)
-   from the checkout, one nvcc per source, all at once;
+   from the checkout, one nvcc per source, all at once (path (p) builds
+   its user forms of K1 and K2 the same way);
 3. kernels against their plain PyTorch twins on the card. float64 kernel
    vs float64 plain: energy rtol 1e-10, forces atol 1e-9 x max|F| (the
    logic). float32 kernel vs float64 plain on the same f32 inputs: energy
@@ -326,6 +327,32 @@ non-zero:
    |drift| <= 0.1), with K4's launches counted (near 2 and far 1 an outer
    step, 2 a pass, no K1) and the ms per outer step beside the headline's
    of the same call (its ratio logged, no target);
+   path (p): CustomNonbondedForce on K1 and K2 (ops/pairtrace.py traces
+   and lowers the function, _build.build_user compiles it into the
+   kernel). First the cold build of every user-form library the path runs,
+   one nvcc each, all at once (its seconds logged). (p1) the headline's
+   pair energy (switched LJ + reaction field over charge, sigma, epsilon)
+   written in torch operations as a CustomNonbondedForce with the same
+   exclusions, 0.9 nm on the 7^3 far grid (K1), the bonded terms as built,
+   from bench_data/eq_water30k.npz, float32, MTS [4, 1] @ 2 fs + NHC 300 K
+   (the pair force at 2 fs, the bonded terms at 0.5 fs; RESPASystem splits
+   only NonbondedForce): at step 0 the user form's kernel against its
+   float64 twin (float64 1e-10 / 1e-9 max|F|, float32 1e-4) and K1's
+   float32 user form against K1's built-in lj_sw_rf form at one bucket
+   (1e-4 of E and of max|F|); then step(1) and a timed step(100) against
+   the headline's bands, K1's user-form launches counted (1 a step + 1 a
+   pass, no built-in launch) and the callable cell sweep's calls (none);
+   the same run with the built-in NonbondedForce, its ms per step beside;
+   one evaluation by the callable sweep with autograd (the parent's
+   route), timed and held against K1. (p2) Buckingham exp-6 (scaled by a
+   global lambda) + erfc-damped Coulomb (exp, erfc, pow, where, clamp) on
+   the 30k far grid (K1: the bitmask form, the split form with (n2)'s
+   nearest-neighbour table, a sheared (3, 3) cell) and on path (a)'s
+   water-700 far grid (K2: both exclusion forms): each against its float64
+   twin in float64 and float32 for the energy and forces, the virial flag
+   and dU/dlambda, then energy, energy and forces, virial and dU/dlambda
+   through the force at each grid with the launches counted (4 on K1, 4
+   on K2);
 9. timings: each kernel's device time by torch.profiler (CUDA events
    around a launch wrapper read the host's launch rate once a kernel is
    shorter than its launch), everything else by CUDA events: K1, its
@@ -367,13 +394,19 @@ non-zero:
    bounded by the distinct pairs K1 counts on the same state, its sweep
    at most 4 device operations with one K4 launch (else the phase
    fails), and the slots it tested (its own count) logged as a share of
-   the list's.
+   the list's; K1 on (p1)'s user form and on (p2)'s at the 30k far grid
+   beside the built-in form there, K2 on (p2)'s at path (a)'s far grid
+   (device time, wrapper, sweep, plain twin, the lowered form's operations
+   and its bound).
 
 Then one JSON line of kernel results (its launches_by_path counts each
 kernel over each path's run, path_j, path_k, path_m, path_n and path_o
 included; K4's entry carries path (o)'s step time and its ratio to the
 headline's, the list builds, its pack and K4 parts and its device
-operations a sweep; K2's entry carries its time, plain time and bound at (m1)'s
+operations a sweep; K1's and K2's entries carry `user`: the user form's
+time, plain time, bound, launches on (p), float32 error and build
+seconds, K1's also (p1)'s step beside the built-in force's and the
+parent's route; K2's entry carries its time, plain time and bound at (m1)'s
 grids and at (n3)'s, K1's and K2's their split exclusion form's beside
 the bitmask form at (n2)'s grids; with each
 kernel's bound_ms,
@@ -432,6 +465,11 @@ OPS_VIRIAL = 2
 # the 10-12 term of the full half: r^-10 (3), its energy (4) and du/dr^2 (7)
 OPS_COMBINE = 2
 OPS_HBOND = 14
+# a user form (CustomNonbondedForce): the evaluation besides its lowered
+# graph is OPS_EVAL less the charge product and the sigma mean, which the
+# graph holds itself; the graph's own operations and special-function
+# results are counted from its generated code (LoweredPair.counts)
+OPS_USER_EVAL = OPS_EVAL - 1 - OPS_COMBINE
 
 
 def log(msg):
@@ -464,6 +502,21 @@ def to_device(spec, dev):
         if isinstance(getattr(spec, f.name), torch.Tensor)})
 
 
+def is_user(form):
+    """Whether `form` is a user form (ops/pairtrace.py::UserForm)."""
+    return hasattr(form, "lowered")
+
+
+def user_form_in(form, force, dtype, globals, dev):
+    """User form `form` (its flags kept) with `force`'s function lowered
+    in `dtype`."""
+    import dataclasses
+
+    low = force.lowered(dtype, globals, dev)
+    return dataclasses.replace(form, lowered=low,
+                               consts=low.consts_of(globals, dev))
+
+
 def plain_sweep(spec, form, x, box, pp, bucket):
     """The plain twin of the sweep the spec selects, float64, on the
     device of x: (energy, forces, sum of |per-atom energy|)."""
@@ -491,7 +544,8 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     work of the function, each pair once). For a softcore form the work of
     the function is the distinct solute-solvent pairs in range (the
     kernels evaluate every in-range pair and multiply by the cross
-    mask)."""
+    mask). A user form stages no charges: its slots and pairs depend on
+    the positions, the cutoff and the exclusions alone."""
     import torch
 
     from atomsmm_tpu_torch.ops import pair_kernel as pk
@@ -500,6 +554,8 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
 
     half = takes_half_stencil(spec) if half is None else half
     n = x.shape[0]
+    if is_user(form):
+        pp = {k: x.new_ones(n) for k in ("charge", "sigma", "epsilon")}
     hf, hm, cols = pk.stage(spec, x, pp, bucket)
     ncells, cap, _ = hf.shape
     hf_s = torch.cat([hf, hf.new_zeros((1, cap, 8))])
@@ -507,7 +563,8 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     nbr = spec.nbr_cells_half if half else spec.nbr_cells
     nbr = torch.where(nbr >= 0, nbr, ncells).long()
     rc2 = pk._rc2(form.r_cut, x.dtype)
-    near2 = form.n_rc ** 2 if form.has_near else 0.0
+    has_near = not is_user(form) and form.has_near
+    near2 = form.n_rc ** 2 if has_near else 0.0
     chunk = max(1, (1 << 22) // (nbr.shape[1] * cap * cap))
     c = {"slots": 0, "evals": 0, "near": 0, "self": 0, "near_self": 0,
          "cross": 0, "cross_self": 0}
@@ -538,7 +595,7 @@ def sweep_counts(spec, form, x, box, pp, bucket, half=None):
     else:
         c["pairs"], c["near_pairs"] = c["evals"] // 2, c["near"] // 2
         c["cross_pairs"] = c["cross"] // 2
-    if form.softcore:
+    if not is_user(form) and form.softcore:
         c["pairs"] = c["cross_pairs"]
     return c
 
@@ -548,21 +605,28 @@ def bound(form, pairs, near, slots, nbytes):
     above), in ms: {"ms", "by", "ops_ms", "sfu_ms", "bytes_ms",
     "with_slots_ms"} for `pairs` distinct in-range pairs, each evaluated
     once, `near` of them inside the near cutoff, and `nbytes` read once and
-    written once; with_slots_ms adds the `slots` slot tests."""
-    damped = bool(form.alpha)
-    per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0) \
-        + (OPS_VIRIAL if form.virial else 0) \
-        - (OPS_COMBINE if form.table else 0) \
-        + (OPS_HBOND if form.hbond else 0)
-    if form.has_full:
-        per += OPS_FULL["smoothed" if form.smoothed else
-                        "ewald" if form.ewald else "rf"]
-    if form.softcore:
-        per += OPS_SOFTCORE
-    ops = pairs * per + (near * OPS_NEAR if form.has_near else 0)
-    sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0)
-                   + (SFU_SOFTCORE if form.softcore else 0)
-                   - (1 if form.table else 0))
+    written once; with_slots_ms adds the `slots` slot tests. A user form
+    counts OPS_USER_EVAL and its lowered graph's operations and special
+    results (LoweredPair.counts)."""
+    if is_user(form):
+        c = form.lowered.counts()
+        per = OPS_USER_EVAL + c["flops"] + (OPS_VIRIAL if form.virial else 0)
+        ops, sfu = pairs * per, pairs * c["special"]
+    else:
+        damped = bool(form.alpha)
+        per = OPS_EVAL + OPS_COMMON + (OPS_DAMPED if damped else 0) \
+            + (OPS_VIRIAL if form.virial else 0) \
+            - (OPS_COMBINE if form.table else 0) \
+            + (OPS_HBOND if form.hbond else 0)
+        if form.has_full:
+            per += OPS_FULL["smoothed" if form.smoothed else
+                            "ewald" if form.ewald else "rf"]
+        if form.softcore:
+            per += OPS_SOFTCORE
+        ops = pairs * per + (near * OPS_NEAR if form.has_near else 0)
+        sfu = pairs * (SFU_EVAL + (SFU_DAMPED if damped else 0)
+                       + (SFU_SOFTCORE if form.softcore else 0)
+                       - (1 if form.table else 0))
     t = {"ops_ms": ops / PEAK_FP32 * 1e3, "sfu_ms": sfu / PEAK_SFU * 1e3,
          "bytes_ms": nbytes / PEAK_BYTES * 1e3}
     t["ms"] = max(t.values())
@@ -623,6 +687,9 @@ def form_name(form):
     Coulomb kernel is damped (the PME forms)."""
     from atomsmm_tpu_torch.ops import pairfuncs as pf
 
+    if is_user(form):
+        return "user" + ("_virial" if form.virial else "") \
+            + ("_dlambda" if form.dconst >= 0 else "")
     name = {pf.LJ_SW_RF: "lj_sw_rf", pf.NEAR: "near", pf.FAR: "far",
             pf.LJ_SW_EWALD: "lj_sw_ewald", pf.SOFTCORE: "softcore",
             pf.DAMPED_SMOOTHED: "damped_smoothed"}[form.kind]
@@ -671,7 +738,10 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
     and per-particle columns read (lambda). Under the virial flag (each
     pair's -2 r^2 du/dr^2 in the energy column) the summed column is held,
     in both dtypes, to the tolerance of sum |w_i| over the atoms (of the
-    unsplit form's, with the flag, in float32 with `unsplit`)."""
+    unsplit form's, with the flag, in float32 with `unsplit`). A user form
+    (a CustomNonbondedForce's, its flags kept) is lowered in each dtype for
+    the kernel and in float64 for the plain twin, and its launches count
+    in pair_kernel.USER_LAUNCHES."""
     import torch
 
     from atomsmm_tpu_torch.ops import neighbors as nb
@@ -682,25 +752,33 @@ def compare(label, force, spec, x, box, dev, results, terms_scale=False,
     spec = to_device(spec, dev)
     kernel = "half_pair" if nb.takes_half_stencil(spec) else "cell_pair"
     form = force._pair_form(globals) if form is None else form
+    user = is_user(form)
     virial = form.virial
     unsplit_form = None if unsplit is None else unsplit._pair_form()
     if virial and unsplit_form is not None:
         unsplit_form = virial_form(unsplit_form)
     pp64 = {k: v.to(dev, torch.float64)
             for k, v in force._per_particle(globals).items()}
+    plain_form = user_form_in(form, force, torch.float64, globals, dev) \
+        if user else form
     for dtype in (torch.float64, torch.float32):
-        xd, bd = x.to(dev, dtype), box.to(dev, dtype)
+        xd, bd = x.to(dev, dtype).contiguous(), box.to(dev, dtype)
         pp = {k: v.to(dtype) for k, v in pp64.items()}
         bucket, overflow = nb.build_cell_buckets(spec, xd, bd)
         if bool(overflow):
             raise RuntimeError(f"{label}: bucket overflow in the comparison")
-        before = dict(pk.LAUNCHES)
-        e_k, f_k = nb.cell_pair_energy_forces(form, xd, bd, pp, spec, bucket,
-                                              form.r_cut)
+        form_k = user_form_in(form, force, dtype, globals, dev) if user \
+            else form
+        before = (dict(pk.LAUNCHES), dict(pk.USER_LAUNCHES))
+        e_k, f_k = nb.cell_pair_energy_forces(form_k, xd, bd, pp, spec,
+                                              bucket, form.r_cut)
         torch.cuda.synchronize()
-        if pk.LAUNCHES != {**before, kernel: before[kernel] + 1}:
-            raise RuntimeError(f"{label}: the wrapper did not launch {kernel}")
-        e_p, f_p, terms = plain_sweep(spec, form, xd, bd, pp, bucket)
+        now, c = (pk.LAUNCHES, pk.USER_LAUNCHES), int(user)
+        if now[c] != {**before[c], kernel: before[c][kernel] + 1} \
+                or now[1 - c] != before[1 - c]:
+            raise RuntimeError(f"{label}: the wrapper did not launch {kernel}"
+                               f"{' on the user form' if user else ''} once")
+        e_p, f_p, terms = plain_sweep(spec, plain_form, xd, bd, pp, bucket)
         scale = terms if (terms_scale and dtype == torch.float32) or virial \
             else None
         f_scale = None
@@ -1563,12 +1641,15 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     operations (at most
     4, exactly one of them the kernel, else the phase fails; none seen by
     the profiler fails it too), the work it has to do and its bound.
-    `form` replaces the force's own pair form."""
+    `form` replaces the force's own pair form; a user form (of a
+    CustomNonbondedForce, in the dtype of x) stages its column block in
+    each sweep, a zero fill and a copy a column more."""
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
     n = x.shape[0]
     form = force._pair_form() if form is None else form
+    user = is_user(form)
     pp = force._per_particle()
     bucket, _ = nb.build_cell_buckets(spec, x, box)
     if nb.takes_half_stencil(spec):
@@ -1588,32 +1669,44 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     p_ms = time_cuda(lambda: plain(*args), plain_reps)
     k_ms = kernel_device_ms(sweep, kernel)
     # device operations per sweep: the span between two launches of the
-    # kernel among 8 profiled sweeps. The profiler has dropped events at
+    # kernel among 32 profiled sweeps. The profiler has dropped events at
     # the start of its window (all of one sweep, two or three; three reads
-    # in a row kept only 2 of 5 sweeps once, and five reads in a row 7 of
-    # 24 events), so a read with fewer than 3 launches of the kernel is
-    # taken again, up to 10 reads
+    # in a row kept only 2 of 5 sweeps once, and ten reads of 8 sweeps in a
+    # row 7 of 24 events), so the window holds 32 sweeps and a read with
+    # fewer than 3 launches of the kernel is taken again, up to 10 reads
     seen = [name for name, _ in device_kernels(
-        sweep, reps=8, tries=10, enough=lambda ev: sum(
+        sweep, reps=32, tries=10, enough=lambda ev: sum(
             f"{kernel}_kernel" in name for name, _ in ev) >= 3)]
     at = [i for i, name in enumerate(seen) if f"{kernel}_kernel" in name]
     spans = {j - i for i, j in zip(at[1:], at[2:])}
     ops = seen[at[1] + 1:at[2] + 1] if len(at) >= 3 else []
-    if len(at) < 3 or spans != {len(ops)} or not 1 <= len(ops) <= 4:
+    most = 4 + (1 + len(form.lowered.names) if user else 0)
+    if len(at) < 3 or spans != {len(ops)} or not 1 <= len(ops) <= most:
         raise RuntimeError(f"{kernel} sweep {label}: kernel launches at "
-                           f"{at} of {len(seen)} device operations in 8 "
-                           f"sweeps, expected 1 to 4 a sweep with one: "
+                           f"{at} of {len(seen)} device operations in 32 "
+                           f"sweeps, expected 1 to {most} a sweep with one: "
                            f"{seen}")
     c = sweep_counts(spec, form, x, box, pp, bucket)
     # the split form's far ids are read up to a row's first -1 padding
     far = spec.exclusions_far
     far_bytes = 0 if far is None else int((far >= 0).sum()) * 4
-    # a table form reads the types and the (T, T, 4) table, not sigma, eps
-    lj = ((pp["lj_type"], pp["pair_table"]) if form.table
-          else (pp["sigma"], pp["epsilon"]))
+    # a table form reads the types and the (T, T, 4) table, not sigma, eps;
+    # a user form its column block and its constants
+    if user:
+        cols = (pk.user_columns(form, pp, n, x.dtype, x.device), form.consts)
+    else:
+        cols = (pp["charge"],) + ((pp["lj_type"], pp["pair_table"])
+                                  if form.table
+                                  else (pp["sigma"], pp["epsilon"]))
     b = bound(form, c["pairs"], c["near_pairs"], c["slots"], nbytes(
-        x, pp["charge"], *lj, spec.excbits, bucket, nbr, box)
+        x, *cols, spec.excbits, bucket, nbr, box)
         + far_bytes + (n + 1) * 4 * x.element_size())
+    graph = ""
+    if user:
+        k = form.lowered.counts()
+        graph = (f"; the lowered form {len(form.lowered.vals)} values, "
+                 f"{k['flops']} float operations and {k['special']} "
+                 f"special-function results a pair")
     slots_all = spec.ncells * nbr.shape[1] * spec.cell_capacity ** 2
     log(f"timing {kernel} {label} grid {spec.grid} cap "
         f"{spec.cell_capacity}: kernel {k_ms:.4f} ms of device time "
@@ -1627,8 +1720,8 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
         f"{c['evals'] / 1e6:.3f} M in-range evaluations "
         f"({c['evals'] / k_ms / 1e6:.2f} G/s, {c['near'] / 1e6:.3f} M inside "
         f"the near cutoff), {c['pairs'] / 1e6:.3f} M distinct "
-        f"{'solute-solvent ' if form.softcore else ''}pairs ({c['pairs']}) "
-        f"({c['near_pairs'] / 1e6:.3f} M near); bound "
+        f"{'solute-solvent ' if not user and form.softcore else ''}pairs "
+        f"({c['pairs']}) ({c['near_pairs'] / 1e6:.3f} M near){graph}; bound "
         f"{b['ms'] * 1e3:.2f} us by {b['by']} "
         f"(ops {b['ops_ms'] * 1e3:.2f}, SFU {b['sfu_ms'] * 1e3:.2f}, bytes "
         f"{b['bytes_ms'] * 1e3:.2f} us; with the slot tests "
@@ -6502,6 +6595,432 @@ def phase_block_timings(dev, blocks, timings, eq, pme_run, reps=20):
     return out
 
 
+# path (p)'s bands: the headline's (PERF.md section 2)
+P_BANDS = {"T": (280.0, 320.0), "pe": (-14.6, -13.8), "drift": 0.1}
+# (p2)'s Buckingham exp-6 parameters of q-SPC/Fw's oxygen and hydrogen
+# (A kJ/mol, B 1/nm, C kJ nm^6/mol; the O-O repulsion of the LJ oxygen at
+# 0.3 nm, its dispersion 4 eps sigma^6), each atom's drawn 1% about its
+# type's from a seed, the global lambda scaling the exp-6 term, the
+# Coulomb damping alpha and the core radius inside which the energy is a
+# constant
+BUCK_OH = {"A": (3.3e5, 1.0e3), "B": (37.0, 40.0), "C": (2.6e-3, 0.0)}
+BUCK_LAMBDA, BUCK_ALPHA, BUCK_CORE = 0.6, 3.1, 0.08
+
+
+def headline_user_fn(r_cut, r_switch, eps_rf):
+    """The headline's pair energy (NonbondedForce, method 'cutoff': LJ
+    under the quintic switch + the reaction-field Coulomb) written as a
+    CustomNonbondedForce energy function of r over charge, sigma and
+    epsilon, in torch operations."""
+    import torch
+
+    from atomsmm_tpu_torch.units import ONE_4PI_EPS0
+
+    k_rf = (eps_rf - 1.0) / ((2.0 * eps_rf + 1.0) * r_cut ** 3)
+    c_rf = 1.0 / r_cut + k_rf * r_cut ** 2
+    inv_w = 1.0 / (r_cut - r_switch)
+
+    def headline_pair(r, pi, pj, g):
+        sig = 0.5 * (pi["sigma"] + pj["sigma"])
+        eps = torch.sqrt(pi["epsilon"] * pj["epsilon"])
+        t = sig / r
+        t2 = t * t
+        s6 = t2 * t2 * t2
+        xs = torch.clamp((r - r_switch) * inv_w, 0.0, 1.0)
+        sw = 1.0 + xs * xs * xs * (-10.0 + xs * (15.0 - 6.0 * xs))
+        qq = pi["charge"] * pj["charge"]
+        return 4.0 * eps * s6 * (s6 - 1.0) * sw \
+            + ONE_4PI_EPS0 * qq * (1.0 / r + k_rf * r * r - c_rf)
+
+    return headline_pair
+
+
+def buck_user_fn():
+    """Buckingham exp-6, scaled by the global lam, + the erfc-damped
+    Coulomb: exp, erfc, pow, where and clamp, a form no built-in has."""
+    import torch
+
+    from atomsmm_tpu_torch.units import ONE_4PI_EPS0
+
+    def buckingham_pair(r, pi, pj, g):
+        a = torch.sqrt(pi["A"] * pj["A"])
+        b = 0.5 * (pi["B"] + pj["B"])
+        c = torch.sqrt(pi["C"] * pj["C"])
+        rr = torch.clamp(r, min=BUCK_CORE)
+        u6 = a * torch.exp(-b * rr) - c / torch.pow(rr, 6.0)
+        u6 = torch.where(r < BUCK_CORE, 0.0 * u6 + 50.0, u6)
+        return g["lam"] * u6 + ONE_4PI_EPS0 * pi["q"] * pj["q"] * torch.erfc(
+            BUCK_ALPHA * r) / r
+
+    return buckingham_pair
+
+
+def buck_force(system, dev, exclusions=None, seed=13):
+    """A CustomNonbondedForce of buck_user_fn over `system`'s waters (O, H,
+    H a molecule): each atom's A, B, C drawn 1% about its type's
+    (BUCK_OH, numpy seed), its charge as q, float32 on `dev`, cut at the
+    system's nonbonded cutoff."""
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+
+    nbf = system.forces[0]
+    n = nbf.charge.shape[0]
+    rng = np.random.default_rng(seed)
+    is_h = (np.arange(n) % 3) != 0
+    pp = {}
+    for k, (o, h) in BUCK_OH.items():
+        v = np.where(is_h, h, o) * (1.0 + 0.01 * rng.standard_normal(n))
+        pp[k] = torch.as_tensor(v, dtype=torch.float32, device=dev)
+    pp["q"] = nbf.charge.to(dev, torch.float32)
+    return amm.CustomNonbondedForce(
+        per_particle=pp, energy_function=buck_user_fn(),
+        exclusions=nbf.exclusions if exclusions is None else exclusions,
+        r_cut=float(nbf.r_cut))
+
+
+def user_flag_forms(force, globals, dev, flags=("energy", "virial",
+                                                 "dlambda")):
+    """`force`'s user form in float32 under each of `flags`: as it is,
+    with the virial flag, and with its tangent seeded on the global 'lam'
+    (dU/dlambda)."""
+    import dataclasses
+
+    import torch
+
+    from atomsmm_tpu_torch.ops.pairtrace import user_form
+
+    low = force.lowered(torch.float32, globals, dev)
+    form = user_form(low, globals, force.r_cut, dev)
+    extra = {"energy": {}, "virial": {"virial": True},
+             "dlambda": {"dconst": low.constant_index("lam")}}
+    return {flag: dataclasses.replace(form, **extra[flag]) for flag in flags}
+
+
+def user_headline(dev, eq, builtin=False):
+    """(p1)'s system: the 30k water of the headline (water_system(10000,
+    neighbors=True), float32) with its NonbondedForce written as a
+    CustomNonbondedForce of headline_user_fn over charge, sigma and
+    epsilon with the same exclusions and 0.9 nm cutoff (with `builtin` the
+    NonbondedForce itself), in force group 1, the bonded terms in group 0;
+    the cell capacity retuned at the stored state (safety 1.03) on the
+    7^3 far grid, which K1 sweeps."""
+    import dataclasses
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.neighbors import retune_neighbor_specs
+
+    ex, _, ebox = eq
+    system, _, _ = water_system(n_molecules=len(ex) // 3, neighbors=True,
+                                dtype=torch.float32, device=dev)
+    nbf = system.forces[0]
+    if builtin:
+        pair = dataclasses.replace(nbf, group=1)
+    else:
+        pair = amm.CustomNonbondedForce(
+            per_particle={"charge": nbf.charge, "sigma": nbf.sigma,
+                          "epsilon": nbf.epsilon},
+            exclusions=nbf.exclusions, r_cut=float(nbf.r_cut), group=1,
+            energy_function=headline_user_fn(float(nbf.r_cut),
+                                             float(nbf.r_switch),
+                                             float(nbf.eps_rf)))
+    system = dataclasses.replace(system, forces=(pair,) + tuple(
+        dataclasses.replace(f, group=0) for f in system.forces[1:]))
+    return retune_neighbor_specs(system, ex, ebox, safety=1.03)
+
+
+def p1_run(dev, eq, system, steps):
+    """step(1), then a timed step(steps) of `system` under (p1)'s
+    integrator (MTS [4, 1] @ 2 fs + NHC 300 K: the pair force at 2 fs, the
+    bonded terms at 0.5 fs) from the stored state, float32; the launches
+    (LAUNCHES and USER_LAUNCHES) and the callable cell sweep's calls
+    counted from zero over the timed run."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import forces as forces_mod
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f32 = torch.float32
+    ex, ev, ebox = eq
+    dt, loops = 0.002, [4, 1]
+    n = system.num_particles
+    integ = amm.MultipleTimeScaleIntegrator(
+        dt, loops, temperature=300.0, time_scale=0.1,
+        degrees_of_freedom=3 * n - 3)
+    state = amm.make_state(torch.as_tensor(ex, dtype=f32, device=dev),
+                           v=torch.as_tensor(ev, dtype=f32, device=dev),
+                           box=torch.as_tensor(ebox, dtype=f32, device=dev))
+    ctx = amm.Context(system, integ, state)
+    ctx.step(1)
+    torch.cuda.synchronize()
+    e0 = float(ctx.conserved_energy())
+    fn_calls = [0]
+    callable_sweep = forces_mod.cell_pair_energy_fn
+
+    def counted(*args, **kw):
+        fn_calls[0] += 1
+        return callable_sweep(*args, **kw)
+
+    forces_mod.cell_pair_energy_fn = counted
+    try:
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        ctx.step(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**pk.LAUNCHES,
+                    **{f"{k}_user": v for k, v in pk.USER_LAUNCHES.items()}}
+    finally:
+        forces_mod.cell_pair_energy_fn = callable_sweep
+    e1 = float(ctx.conserved_energy())
+    xs, vs = ctx.state.x, ctx.state.v
+    return {"ms": wall / steps * 1e3, "launches": launches,
+            "fn_calls": fn_calls[0], "passes": ctx.last_step_passes,
+            "finite": bool(torch.isfinite(xs).all()
+                           and torch.isfinite(vs).all()),
+            "T": float(ctx.temperature()),
+            "pe": float(ctx.get_state(lite=True).potential_energy) / n,
+            "drift": (e1 - e0) / (n * steps * dt), "dt": dt, "loops": loops,
+            "shape": tuple(xs.shape) == (n, 3) and tuple(vs.shape) == (n, 3)}
+
+
+def phase_user_forms(dev, eq, main, small, steps=100):
+    """Path (p): CustomNonbondedForce on K1 and K2 (the module docstring).
+    (p1) the headline's pair force as a user function through Context;
+    (p2) the Buckingham + erfc function with a global lambda at the 30k
+    far grid (K1: both exclusion forms and a sheared cell) and at path
+    (a)'s water-700 2^3 grid (K2: both exclusion forms), each kernel
+    against its plain twin in every flag, and a few evaluations through
+    the force's entry points with the launches counted."""
+    import dataclasses
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch import _build
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    f32, f64 = torch.float32, torch.float64
+    ex, ev, ebox = eq
+    x = torch.as_tensor(ex, dtype=f32, device=dev).contiguous()
+    box = torch.as_tensor(ebox, dtype=f32, device=dev)
+    g_buck = {"lam": torch.tensor(BUCK_LAMBDA, dtype=f32, device=dev)}
+
+    # the systems and forces of (p1) and (p2)
+    usys = user_headline(dev, eq)
+    user = usys.forces[0]
+    spec = usys.neighbors
+    if not nb.takes_half_stencil(spec):
+        raise RuntimeError("path (p1): expected K1's half-stencil grid")
+    water30k, _, _ = water_system(n_molecules=len(ex) // 3, dtype=f32,
+                                  device=dev)
+    buck30k = buck_force(water30k, dev)
+    table30k = nearest_neighbour_table(ex, ebox, dev)
+    cell = shear_cell(float(ebox[0]))
+    sheared, xs_cell = water_in_cell(water30k, x, float(ebox[0]), cell, 0.9,
+                                     dev)
+    small_x = small["state"].x.detach().contiguous()
+    small_box = small["state"].box.detach()
+    small_spec = small["respa"].neighbors
+    if small_spec.half_stencil:
+        raise RuntimeError("path (p2): expected path (a)'s full-stencil "
+                           "far grid")
+    water700, _, _ = water_system(n_molecules=small_x.shape[0] // 3,
+                                  dtype=f32, device=dev)
+    buck700 = buck_force(water700, dev)
+    table700 = nearest_neighbour_table(small_x.double().cpu().numpy(),
+                                       small_box.double().cpu().numpy(), dev)
+
+    # the cold build of every user-form library (p) runs, one nvcc each,
+    # all at once: (kernel, header, exclusion form, image)
+    jobs = []
+    for dtype in (f32, f64):
+        head = user.lowered(dtype, {}, dev).cuda_source()
+        buck = buck30k.lowered(dtype, g_buck, dev).cuda_source()
+        jobs += [("half_pair", head, 0, 0), ("half_pair", buck, 0, 0),
+                 ("half_pair", buck, 1, 0), ("half_pair", buck, 0, 1),
+                 ("cell_pair", buck, 0, 0), ("cell_pair", buck, 1, 0)]
+    t0 = time.perf_counter()
+    paths = _build.build_user(jobs)
+    build_s = time.perf_counter() - t0
+    log(f"path (p) build: {build_s:.2f} s for {len(paths)} user-form "
+        f"libraries, one nvcc each, all at once (cold: "
+        f"{', '.join(p.name for p in paths)})")
+
+    # (p1) at step 0: the user form's kernel against its plain twin, and
+    # K1 on the user form against K1 on the built-in form at one bucket
+    results = []
+    compare("user path (p1) water30k headline fn", user, spec, x, box, dev,
+            results, form=user_flag_forms(user, {}, dev)["energy"])
+    bucket, _ = nb.build_cell_buckets(spec, x, box)
+    nbf = water30k.forces[0]
+    pp = {k: v.to(dev, f32) for k, v in user.per_particle.items()}
+    e_u, f_u = nb.cell_pair_energy_forces(
+        user._kernel_form({}, x, {"spec": spec, "bucket": bucket}), x, box,
+        pp, spec, bucket, user.r_cut)
+    e_b, f_b = nb.cell_pair_energy_forces(nbf._pair_form(), x, box,
+                                          nbf._per_particle(), spec, bucket,
+                                          nbf.r_cut)
+    results.append(("half_pair",) + judge(
+        "half_pair path (p1) user form vs the built-in lj_sw_rf form at "
+        "one bucket", f32, e_u, f_u, e_b, f_b) + ("user_vs_builtin",))
+
+    # (p1) the run, then the same run with the built-in NonbondedForce
+    run = p1_run(dev, eq, usys, steps)
+    passes = run["passes"]
+    # the pair force once an outer step, once more for the force-cache
+    # refresh of each pass; the bonded terms take no kernel
+    expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
+                "block_pair": 0, "half_pair_user": passes * (steps + 1),
+                "cell_pair_user": 0}
+    builtin = p1_run(dev, eq, user_headline(dev, eq, builtin=True), steps)
+    expected_b = {**expected, "half_pair": passes * (steps + 1),
+                  "half_pair_user": 0}
+    # one evaluation by the parent's route: the callable sweep, forces by
+    # autograd, at the stored state
+    pair_fn = user._pair_fn({})
+
+    def parent():
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            e = nb.cell_pair_energy_fn(pair_fn, xx, box, pp, spec, bucket,
+                                       user.r_cut)
+            (grad,) = torch.autograd.grad(e, xx)
+        return e.detach(), -grad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_parent, f_parent = parent()
+    torch.cuda.synchronize()
+    parent_ms = (time.perf_counter() - t0) * 1e3
+    judge("path (p1) parent's route (callable sweep, autograd) vs the user "
+          "form on K1", f32, e_parent, f_parent, e_u, f_u)
+    del e_parent, f_parent
+    torch.cuda.empty_cache()
+    log(f"path (p1) water30k headline pair force as CustomNonbondedForce on "
+        f"K1 (grid {spec.grid} cap {spec.cell_capacity}) MTS"
+        f"{run['loops']}@{run['dt'] * 1e3:.0f}fs NVT float32: "
+        f"{run['ms']:.3f} ms/step beside {builtin['ms']:.3f} with the "
+        f"built-in NonbondedForce under the same integrator "
+        f"({run['ms'] / builtin['ms']:.3f}x) and the headline's "
+        f"{main['ms_per_step']:.3f} (RESPA [4, 2, 1] @ 4 fs); one "
+        f"evaluation by the parent's route (callable sweep + autograd) "
+        f"{parent_ms:.1f} ms; launches {run['launches']} (expected "
+        f"{expected}, passes {passes}); built-in run launches "
+        f"{builtin['launches']}; callable sweep calls {run['fn_calls']}; "
+        f"T {run['T']:.2f} K; PE/atom {run['pe']:.4f} kJ/mol; drift "
+        f"{run['drift']:.5f} kJ/mol/atom/ps; finite {run['finite']}; "
+        f"built-in run T {builtin['T']:.2f} K, PE/atom "
+        f"{builtin['pe']:.4f}, drift {builtin['drift']:.5f}")
+    require("path (p1)", {
+        "finite": run["finite"] and run["shape"],
+        "launches": run["launches"] == expected,
+        "builtin_launches": builtin["launches"] == expected_b,
+        "callable_sweep": run["fn_calls"] == 0,
+        "temperature": P_BANDS["T"][0] <= run["T"] <= P_BANDS["T"][1],
+        "pe_per_atom": P_BANDS["pe"][0] <= run["pe"] <= P_BANDS["pe"][1],
+        "drift": abs(run["drift"]) <= P_BANDS["drift"],
+    })
+
+    # (p2): the Buckingham form against its plain twin in every flag
+    spec30k = spec
+    cell_spec = sheared.neighbors
+    cases = [
+        ("water30k buckingham bits", buck30k, spec30k, x, box),
+        ("water30k buckingham split", dataclasses.replace(
+            buck30k, exclusions=torch.as_tensor(table30k, device=dev)),
+         with_table(spec30k, table30k), x, box),
+        ("water30k buckingham sheared", buck30k, cell_spec,
+         torch.as_tensor(xs_cell, dtype=f32, device=dev),
+         torch.as_tensor(cell, dtype=f32, device=dev)),
+        ("water700 buckingham bits", buck700, small_spec, small_x,
+         small_box),
+        ("water700 buckingham split", dataclasses.replace(
+            buck700, exclusions=torch.as_tensor(table700, device=dev)),
+         with_table(small_spec, table700), small_x, small_box),
+    ]
+    for label, force, spec_, x_, box_ in cases:
+        for flag, form in user_flag_forms(force, g_buck, dev).items():
+            tag = "" if flag == "energy" else f" {flag}"
+            compare(f"user path (p2) {label}{tag}", force, spec_, x_, box_,
+                    dev, results, terms_scale=flag == "dlambda", form=form,
+                    globals=g_buck)
+    # a few evaluations through the force's entry points, counted: energy,
+    # energy and forces, the virial and dU/dlambda, at the 30k far grid
+    # (K1) and on path (a)'s far grid (K2)
+    pk.reset_launches()
+    for force, spec_, x_, box_ in ((buck30k, spec30k, x, box),
+                                   (buck700, small_spec, small_x,
+                                    small_box)):
+        s = amm.System(masses=torch.ones(x_.shape[0], dtype=f32, device=dev),
+                       forces=(force,), default_box=box_).with_neighbors(
+            spec_)
+        aux = nb.make_aux(s, nb.all_neighbor_extras(s, x_, box_))
+        e = force.energy(x_, box_, g_buck, aux)
+        e2, f2 = force.energy_and_forces(x_, box_, g_buck, aux)
+        w, _ = force.virial(x_, box_, g_buck, aux)
+        dl = force.denergy_dlambda(x_, box_, g_buck, "lam", aux)
+        if not all(bool(torch.isfinite(t).all()) for t in (e, e2, f2, w, dl)):
+            raise RuntimeError("path (p2): a non-finite evaluation")
+    torch.cuda.synchronize()
+    p2_launches = dict(pk.USER_LAUNCHES)
+    require("path (p2)", {"launches": p2_launches == {"half_pair": 4,
+                                                      "cell_pair": 4},
+                          "builtin": pk.LAUNCHES == {k: 0 for k in
+                                                     pk.LAUNCHES}})
+    log(f"path (p2) launches through the force's entry points: "
+        f"{p2_launches} (4 each: energy, energy and forces, virial, "
+        f"dU/dlambda)")
+
+    launches = {"half_pair": run["launches"]["half_pair_user"]
+                + p2_launches["half_pair"],
+                "cell_pair": p2_launches["cell_pair"]}
+    err = {k: max(r[4] for r in results if r[0] == k and r[2] == "float32"
+                  and r[6].startswith("user"))
+           for k in ("half_pair", "cell_pair")}
+    return {"build_s": build_s, "run": run, "builtin": builtin,
+            "parent_ms": parent_ms, "launches": launches,
+            "run_launches": run["launches"], "p2_launches": p2_launches,
+            "max_abs_err": err, "results": results,
+            "shapes": {"k1": (user, spec, x, box, {}),
+                       "k1_buck": (buck30k, spec, x, box, g_buck),
+                       "k2": (buck700, small_spec, small_x, small_box,
+                              g_buck),
+                       "k1_builtin": (nbf, spec, x, box)}}
+
+
+def phase_user_timings(dev, user):
+    """Path (p)'s kernels timed with the others, after every path has run
+    (time_cells): K1 on (p1)'s and (p2)'s user forms at the 30k far grid,
+    beside K1's built-in lj_sw_rf form on the same positions and grid, K2
+    on (p2)'s at path (a)'s far grid."""
+    shapes = user["shapes"]
+    labels = {"k1": "user path (p1) water30k far headline fn",
+              "k1_buck": "user path (p2) water30k far buckingham",
+              "k2": "user path (p2) water700 far buckingham"}
+    out = {}
+    for key, label in labels.items():
+        force, spec, x, box, g = shapes[key]
+        out[key] = time_cells(label, force, spec, x, box,
+                              form=user_flag_forms(force, g, dev,
+                                                   ("energy",))["energy"])
+    out["k1_builtin"] = time_cells("path (p1) water30k far built-in "
+                                   "lj_sw_rf", *shapes["k1_builtin"])
+    log(f"path (p1) K1 on the user form "
+        f"{out['k1']['ms'] / out['k1_builtin']['ms']:.3f}x the built-in "
+        f"form's device time; bounds {out['k1']['bound']['ms'] * 1e3:.2f} "
+        f"and {out['k1_builtin']['bound']['ms'] * 1e3:.2f} us over the same "
+        f"pairs")
+    return out
+
+
 def split_log(name, step_ms, parts, rest_of):
     """Log a step split: each part's ms x its count per step, and the rest
     of the measured step. A part whose name starts with two spaces is a
@@ -6558,6 +7077,7 @@ def main():
     small = phase_small_box(dev)
     tile_launches = phase_tile_path(dev, eq)
     blocks = phase_blocks(dev, eq, main_run, pme_run)
+    user = phase_user_forms(dev, eq, main_run, small)
     ionic = phase_ionic(dev)
     alch = phase_alchemy(dev)
     npt = phase_npt(dev, eq100)
@@ -6598,6 +7118,7 @@ def main():
     timings.update(phase_npt_timings(dev, npt, small, eq, timings))
     timings.update(phase_rigid_timings(dev, g1, g2, g3))
     timings.update(phase_swm4_timings(dev, h1, h2))
+    user["timings"] = phase_user_timings(dev, user)
     phase_step_split(dev, pme_run, "path (c)", [4, 2, 1])
     phase_step_split(dev, ionic, "path (d)", ionic["loops"])
     _, f_move = phase_npt_split(dev, npt, "path (f)")
@@ -6642,6 +7163,7 @@ def main():
         "path_n2_slice": peptide["launches"],
         "path_n3": n3["launches"],
         "path_o": {"block_pair": blocks["launches"]},
+        "path_p1": user["run_launches"],
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -6843,6 +7365,33 @@ def main():
                "path_n1_f_move_ms": n1["f_move_ms"],
                "path_n4_dense_step_ms": n4["dense_ms"],
                "path_n4_cells_step_ms": n4["cells_ms"]})
+    # path (p): K1 and K2 compiled with a user pair function
+    # (CustomNonbondedForce): K1 on (p1)'s headline function at the 30k far
+    # grid (beside the built-in form's time there and (p1)'s run), K2 on
+    # (p2)'s Buckingham function at path (a)'s far grid, float32; launches
+    # on (p): K1 (p1)'s run and (p2)'s evaluations, K2 (p2)'s
+    for entry_, kernel, key, shape in (
+            (k1, "half_pair", "k1", "30k water far grid 7^3, the headline's "
+             "switched LJ + RF as a user function, f32; launches: (p1)'s "
+             "run and (p2)'s evaluations"),
+            (k2, "cell_pair", "k2", "water 700 far grid 2^3 (path (a)'s "
+             "state), Buckingham exp-6 + erfc with lambda, f32; launches: "
+             "(p2)'s evaluations")):
+        t = user["timings"][key]
+        entry_["user"] = {
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"]["ms"], "bound_by": t["bound"]["by"],
+            "launch_ms": t["launch_ms"], "launches": user["launches"][kernel],
+            "max_abs_err": user["max_abs_err"][kernel], "shape": shape,
+            "build_s": user["build_s"], "library_ms": None}
+    t, tb = user["timings"]["k1_buck"], user["timings"]["k1_builtin"]
+    k1["user"].update({
+        "buckingham_ms": t["ms"], "buckingham_plain_ms": t["plain_ms"],
+        "buckingham_bound_ms": t["bound"]["ms"],
+        "builtin_ms": tb["ms"], "builtin_bound_ms": tb["bound"]["ms"],
+        "path_p1_step_ms": user["run"]["ms"],
+        "path_p1_builtin_step_ms": user["builtin"]["ms"],
+        "parent_route_ms": user["parent_ms"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ MODULES = {
     "ops.constraints": 10,
     "ops.drude": 9,
     "ops.pairfuncs": 12,
+    "ops.pairtrace": 8,
     "ops.pbc": 7,
     "ops.pme": 3,
     "parallel.replicas": 6,

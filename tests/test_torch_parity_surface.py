@@ -132,3 +132,62 @@ def test_do_not_port_entries_are_current_and_give_reasons():
         for word in ("TPU", "measured", "faster", "slower", "×", " ms",
                      "worse"):
             assert word not in reason, (key, word)
+
+
+#: modules of the port with no module of the same path in the JAX package,
+#: with what each holds, and the public names each adds to the surface
+PORT_ONLY = {
+    "_build.py": (
+        "builds the CUDA kernels (csrc/) with nvcc at first use and loads "
+        "them with ctypes; the JAX package compiles through XLA and Pallas",
+        {"build", "library_path", "load", "build_user",
+         "user_library_path", "load_user"}),
+    "interop.py": (
+        "moves systems and states between the two packages through numpy, "
+        "for the tests and for users of both",
+        None),
+    "models/peptide.py": (
+        "a peptide-like chain whose exclusions lie far apart in index, the "
+        "input of the split exclusion form's tests and chip_smoke.py",
+        None),
+    "ops/pair_kernel.py": (
+        "the wrappers of the cell-pair kernels K1 and K2 and their plain "
+        "twins; the JAX package's counterpart is ops/pallas_pair.py",
+        None),
+    "ops/pairtrace.py": (
+        "traces and lowers a CustomNonbondedForce's pair function for K1 "
+        "and K2, the counterpart of pallas_pair.py's _hoist_consts and the "
+        "jax.jvp inside its kernels",
+        {"lower_pair_function", "numeric_globals", "LoweredPair",
+         "UserForm", "user_form",
+         "LoweredPair.consts_of", "LoweredPair.constant_index",
+         "LoweredPair.counts", "LoweredPair.evaluate",
+         "LoweredPair.cuda_source", "LoweredPair.n_consts",
+         "UserForm.scalars", "UserForm.flags", "UserForm.u_dudr2"}),
+}
+
+PORT_MODULES = sorted(str(p.relative_to(PORT_PKG))
+                      for p in PORT_PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_every_port_module_mirrors_a_jax_module_or_says_why(module):
+    """A port module has a JAX module of its path, or a PORT_ONLY entry
+    whose reason is given and whose listed names are its public ones."""
+    if (JAX_PKG / module).exists():
+        assert module not in PORT_ONLY, f"{module} mirrors a JAX module"
+        return
+    assert module in PORT_ONLY, f"{module}: no JAX module and no reason"
+    reason, names = PORT_ONLY[module]
+    assert len(reason) > 40, module
+    if names is not None:
+        assert _public(PORT_PKG / module) == names, module
+
+
+def test_port_only_surface_is_registered():
+    """The tracer's entry points and CustomNonbondedForce.lowered are on
+    the port's surface, and every PORT_ONLY module exists."""
+    for module in PORT_ONLY:
+        assert (PORT_PKG / module).exists(), module
+    assert "lower_pair_function" in _public(PORT_PKG / "ops/pairtrace.py")
+    assert "CustomNonbondedForce.lowered" in _public(PORT_PKG / "forces.py")
