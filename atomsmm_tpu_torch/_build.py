@@ -10,11 +10,13 @@ rebuilt and a stale library is never loaded. Nothing here runs at import
 time: the CPU tests import the package without ``nvcc``.
 
 A user pair function (CustomNonbondedForce, lowered by ops/pairtrace.py)
-is compiled into K1 or K2 at its first use by ``build_user``: one library
-per (kernel, generated header, exclusion form, image), from a wrapper
-source that includes the header and the kernel's source, which then
-instantiates its user form alone (entry point ``half_pair_user`` or
-``cell_pair_user``) and none of its built-in ones. Its name hashes the
+is compiled into K1, K2 or K3 at its first use by ``build_user``: one
+library per (kernel, generated header, exclusion form, image), from a
+wrapper source that includes the header and the kernel's source, which
+then instantiates its user form alone (entry point ``half_pair_user``,
+``cell_pair_user`` or ``tile_pair_user``) and none of its built-in ones.
+K3 takes the bitmask and the (3,) box alone, so its library is one per
+(header), built with exclusion form 0 and image 0. Its name hashes the
 kernel's source, every header, the flags, the generated header and the
 instantiation, so a changed function never loads a stale library.
 """
@@ -55,12 +57,16 @@ _SIGNATURES = {
     "block_pair": "ppppppppp" "iiiii" "ppp" "pp" "p",
 }
 
-#: the user entry points (after x: cols, then the built-in entry point's
-#: exclusions, bucket, map, box and sizes, then ncols, nconsts, consts,
-#: dconst, scal, flags, out, stream)
+#: the user entry points (K1 and K2: after x, cols, then the built-in
+#: entry point's exclusions, bucket, map, box and sizes, then ncols,
+#: nconsts, consts, dconst, k_rows and the host array of the rows'
+#: strides, scal, flags, out, stream; K3: the built-in entry point's
+#: arrays and sizes, then ncols, nconsts, consts, dconst, scal, flags,
+#: acc, stream)
 _USER_SIGNATURES = {
-    "half_pair": "ppppppp" "iiiii" "ii" "pi" "ppp" "p",
-    "cell_pair": "ppppppp" "iiiiiii" "ii" "pi" "ppp" "p",  # + c0, c1
+    "half_pair": "ppppppp" "iiiii" "ii" "pi" "ip" "ppp" "p",
+    "cell_pair": "ppppppp" "iiiiiii" "ii" "pi" "ip" "ppp" "p",  # + c0, c1
+    "tile_pair": "pppppp" "iii" "ii" "pi" "ppp" "p",
 }
 
 _LIBS = {}
@@ -163,10 +169,10 @@ def _write_whole(path: Path, text: str):
 
 
 def user_library_path(name: str, header: str, exc: int, tri: int) -> Path:
-    """The library of kernel `name` (half_pair or cell_pair) compiled with
-    the generated user-form header `header` for the exclusion form `exc`
-    (0 bits, 1 split) and the image `tri` (0 the (3,) box, 1 the (3, 3)
-    cell)."""
+    """The library of kernel `name` (half_pair, cell_pair or tile_pair)
+    compiled with the generated user-form header `header` for the
+    exclusion form `exc` (0 bits, 1 split) and the image `tri` (0 the (3,)
+    box, 1 the (3, 3) cell; K3 takes 0 and 0)."""
     key = _digest(name, f"{header} exc={exc} tri={tri}")
     return BUILD_DIR / f"lib{name}_user_{key}.so"
 

@@ -70,6 +70,10 @@
 // (dtype, exclusion form, image), by _build.build_user (the wrapper
 // source defines ATOMSMM_USER_EXC and ATOMSMM_USER_TRI and includes the
 // generated header and this file), with the entry point cell_pair_user.
+// It takes the row axis as the built-in forms do: each row reads its own
+// column block and its own row of a (K, C) table of runtime constants at
+// its strides, so a stack of lambda states of a user function sweeps in
+// one launch, each row bit for bit its single-row launch.
 //
 // The plain PyTorch twin of this file is ops/pair_kernel.py::full_pair_plain.
 
@@ -205,6 +209,10 @@ __global__ void __launch_bounds__(THREADS)
   if (TABLE) types += row * rows.types;
   bucket += row * rows.bucket;
   box += row * rows.box;
+  if constexpr (U::USER) {
+    cols += row * rows.cols;
+    consts += row * rows.consts;
+  }
   out += (size_t)row * (n + 1) * 4;
   const Params<T> p = row_params(p0, rows, row);
   const int t = threadIdx.x;
@@ -581,11 +589,15 @@ extern "C" int cell_pair_f64(const double* x, const double* q,
 #else
 // The entry point of a user form's build (_build.build_user): the
 // generated UserPair in its working type UserPair::T, the exclusion form
-// ATOMSMM_USER_EXC and the image ATOMSMM_USER_TRI, one row, over the home
-// cells [c0, c1) as cell_pair_f32 takes them. `cols` is the (n + 1,
-// ncols) block of the function's per-atom columns, row n zero; `consts`
-// the (nconsts,) runtime constants on the device; `dconst` the constant
-// the dlambda flag seeds. `ncols` and `nconsts` must equal the header's,
+// ATOMSMM_USER_EXC and the image ATOMSMM_USER_TRI, over the home cells
+// [c0, c1) as cell_pair_f32 takes them. `cols` is the (n + 1, ncols)
+// block of the function's per-atom columns, row n zero; `consts` the
+// (nconsts,) runtime constants on the device; `dconst` the constant the
+// dlambda flag seeds. `k_rows` rows run in one launch: `strides` is a
+// host array of five element strides between rows (x, cols, bucket, box,
+// consts; 0 where the rows share the array), so that row k reads row k of
+// a (K, nconsts) table of constants; `out` holds k_rows zeroed (n + 1, 4)
+// slices. `ncols` and `nconsts` must equal the header's,
 // `exc` is null exactly in the bitmask form, and `box` holds the image's
 // (3,) or (3, 3) values. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the build does not take.
@@ -596,16 +608,19 @@ extern "C" int cell_pair_user(const UserPair::T* x, const UserPair::T* cols,
                               int c1, int cap, int s, int n, int m,
                               int ncols, int nconsts,
                               const UserPair::T* consts, int dconst,
+                              int k_rows, const long long* strides,
                               const double* scal, const int* flags,
                               UserPair::T* out, void* stream) {
   using T = UserPair::T;
   constexpr int EXC = ATOMSMM_USER_EXC;
   constexpr bool TRI = ATOMSMM_USER_TRI != 0;
-  const Rows<T> rows{0, 0, 0, 0, 0, 0, 0, nullptr};
+  const Rows<T> rows{strides[0], 0,          0,          0,      0,
+                     strides[2], strides[3], nullptr,    strides[1],
+                     strides[4]};
   const Args<T> a{x,       nullptr, nullptr, nullptr, nullptr, nullptr,
                   excbits, exc,     bucket,  nbr,     box,     ncells,
                   c0,      c1,      cap,     s,       n,       m,
-                  0,       1,       rows,    cols,    consts,  dconst};
+                  0,       k_rows,  rows,    cols,    consts,  dconst};
   if (!args_valid(a, flags) || ncols != UserPair::NCOLS ||
       nconsts != UserPair::NCONSTS || (EXC == EXC_SPLIT) != (exc != nullptr) ||
       (flags[5] && (dconst < 0 || dconst >= nconsts)) || flags[0] ||

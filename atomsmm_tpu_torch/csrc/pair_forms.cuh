@@ -128,11 +128,16 @@ inline Params<T> make_params(const double* scal, const int* flags) {
 // (K,) in the working type, which replaces the host block's lambda row by
 // row. Every other scalar and every flag is the host block's: the rows of
 // a launch share their form. Each row writes its own (n + 1, 4) slice of
-// the output.
+// the output. A user form's rows read their column block and their
+// runtime constants at the row's strides too: row k of a (K, C) table of
+// constants plays the part of a built-in form's row lambda.
 template <typename T>
 struct Rows {
   long long x, q, sig, eps, types, bucket, box;
   const T* lamb;  // (K,) on the device, or null
+  // a user form's (n + 1, P) column block and (C,) runtime constants: the
+  // row's own constants are the built-in forms' row lambda
+  long long cols = 0, consts = 0;
 };
 
 // The host-side checks of a launch's rows: 1..65,535 rows (the grid's y
@@ -141,7 +146,7 @@ template <typename T>
 inline bool rows_valid(int k_rows, const Rows<T>& r) {
   return k_rows >= 1 && k_rows <= 65535 && r.x >= 0 && r.q >= 0 &&
          r.sig >= 0 && r.eps >= 0 && r.types >= 0 && r.bucket >= 0 &&
-         r.box >= 0;
+         r.box >= 0 && r.cols >= 0 && r.consts >= 0;
 }
 
 // Row `row`'s parameter block: p, its lambda read from the table where

@@ -67,6 +67,25 @@
 // whose home block is the sentinel NB (the unused tail of the list) return
 // at once; reactions aimed at the sentinel block are not written.
 //
+// The cutoff is decided as the float64 reference decides it: the slot test
+// takes r2 < rc2_hi, and a hit whose float32 r2 lies within
+// pair_forms.cuh::CUT_BAND of r_cut^2 is kept only where the displacement
+// again in float64 is in range. That displacement is taken from the
+// unshifted staged coordinates of both atoms (fs), the entry's wrap x box
+// added to the candidate's in float64, so the pre-shifted float32
+// candidate of shared memory is not rounded into it twice
+// (within_tile_f64). In float64 every hit is kept.
+//
+// A user pair function (CustomNonbondedForce) takes the form axis U, as in
+// K1 and K2 (pair_forms.cuh::user_pair): the staged atoms carry its
+// P <= 5 columns, fs columns 3 ... 3 + P - 1, in place of (q, sigma,
+// epsilon), each thread reads the runtime constants into registers once,
+// and a hit calls the generated UserPair::eval. Such a kernel is built
+// alone, for one dtype, by _build.build_user: a wrapper source defines
+// ATOMSMM_USER_EXC (not read here: K3 takes the bitmask alone) and
+// includes the generated header and this file, which then gives the entry
+// point tile_pair_user in place of the built-in ones.
+//
 // The plain PyTorch twin of this file is ops/tilepair.py::tile_pair_plain.
 
 #include "hit_queue.cuh"
@@ -94,6 +113,45 @@ struct Par {
   T q, s, e;
 };
 
+// what an atom stages beside its position: a built-in form's Par, or a
+// user form's columns
+template <typename T, class U>
+using ParOf = std::conditional_t<U::USER, Cols<T, U::NCOLS>, Par<T>>;
+
+template <typename T, class U>
+__device__ __forceinline__ ParOf<T, U> load_par(const T* f) {
+  ParOf<T, U> r;
+  if constexpr (U::USER) {
+#pragma unroll
+    for (int kc = 0; kc < U::NCOLS; ++kc) r.c[kc] = f[3 + kc];
+  } else {
+    r = Par<T>{f[3], f[4], f[5]};
+  }
+  return r;
+}
+
+// A hit in the cutoff band decided in float64: home atom `hi` and
+// candidate `ci` (rows of fs) from their unshifted staged coordinates, the
+// candidate's wrap `wh` x box added in float64, against r_cut^2 in
+// float64.
+template <typename T>
+__device__ __noinline__ bool within_tile_f64(double rc2,
+                                             const T* __restrict__ fs,
+                                             const T* __restrict__ box,
+                                             const int* __restrict__ wh,
+                                             size_t hi, size_t ci) {
+  const T* a = fs + hi * 8;
+  const T* c = fs + ci * 8;
+  double d2 = 0.0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double dk =
+        (double)a[k] - ((double)c[k] + (double)wh[k] * (double)box[k]);
+    d2 += dk * dk;
+  }
+  return d2 < rc2;
+}
+
 // acc[row] += (a, b, c, d) by global atomics
 __device__ __forceinline__ void add_row(float* row, float a, float b, float c,
                                         float d) {
@@ -114,30 +172,36 @@ __device__ __forceinline__ T gap(T lo, T hi, T v) {
 }
 
 // dynamic shared memory of a block of b home atoms (the carving in the
-// kernel): at most 34 KB (b = 128, float64)
-template <typename T>
+// kernel): at most 34 KB (b = 128, float64; a user form of five columns
+// 39 KB)
+template <typename T, class U>
 size_t smem_bytes(int b) {
   const int groups = (2 * b + 31) / 32;
-  return (size_t)3 * b * sizeof(Pos<T>) + (size_t)3 * b * sizeof(Par<T>) +
+  return (size_t)3 * b * sizeof(Pos<T>) +
+         (size_t)3 * b * sizeof(ParOf<T, U>) +
          (size_t)(6 * groups + 6 * b + 4 * b) * sizeof(T) +
          (size_t)2 * b * sizeof(unsigned) +
          (size_t)WARPS * hitqueue::DEPTH * sizeof(unsigned short);
 }
 
-//   fs   (NB + 1, B, 8) [x y z q sigma eps 0 0] in sorted block order; the
-//        sentinel block NB and padding slots sit at the poison coordinate
+//   fs   (NB + 1, B, 8) [x y z q sigma eps 0 0] in sorted block order (a
+//        user form: [x y z c_0 ... c_P-1 0 ...]); the sentinel block NB
+//        and padding slots sit at the poison coordinate
 //   ms   (NB + 1, B, 2) [atom id (n = padding), exclusion bits]
 //   hb   (E,) home block, NB = unused entry
 //   cb   (E, 2) candidate blocks, NB = none
 //   wrap (E, 2, 3) integer periodic shift of each candidate half
+//   consts (C,) a user form's runtime constants (U::USER; else null)
 //   acc  (NB + 1, B, 4) [fx fy fz e], zeroed by the caller, added to here
-template <typename T, bool DAMPED>
+template <typename T, bool DAMPED, class U = BuiltIn>
 __global__ void __launch_bounds__(THREADS)
     tile_pair_kernel(const T* __restrict__ fs, const int* __restrict__ ms,
                      const int* __restrict__ hb, const int* __restrict__ cb,
                      const int* __restrict__ wrap, const T* __restrict__ box,
                      int n_entries, int nb, int b, Params<T> p,
+                     const T* __restrict__ consts, int dconst,
                      T* __restrict__ acc) {
+  using PT = ParOf<T, U>;
   // blocks [0, E): entries with a self tile; blocks [E, 2E): the others
   const bool self_pass = blockIdx.x < n_entries;
   const int ent = self_pass ? blockIdx.x : blockIdx.x - n_entries;
@@ -164,8 +228,8 @@ __global__ void __launch_bounds__(THREADS)
   T* ry = rx + b2;
   T* rz = ry + b2;
   T* hs = rz + b2;                                          // [b][4]
-  Par<T>* cpar = reinterpret_cast<Par<T>*>(hs + 4 * b);     // [2b]
-  Par<T>* hpar = cpar + b2;                                 // [b]
+  PT* cpar = reinterpret_cast<PT*>(hs + 4 * b);             // [2b]
+  PT* hpar = cpar + b2;                                     // [b]
   unsigned* hexc = reinterpret_cast<unsigned*>(hpar + b);   // [b]
   unsigned* hreach = hexc + b;                              // [b]
   unsigned short* queues =
@@ -182,7 +246,7 @@ __global__ void __launch_bounds__(THREADS)
     const T* f = fs + src * 8;
     cpos[j] = Pos<T>{f[0] + T(wh[0]) * bx, f[1] + T(wh[1]) * by,
                      f[2] + T(wh[2]) * bz, ms[src * 2]};
-    cpar[j] = Par<T>{f[3], f[4], f[5]};
+    cpar[j] = load_par<T, U>(f);
     rx[j] = T(0);
     ry[j] = T(0);
     rz[j] = T(0);
@@ -196,7 +260,7 @@ __global__ void __launch_bounds__(THREADS)
     yi = f[1];
     zi = f[2];
     hpos[t] = Pos<T>{xi, yi, zi, ms[home * 2]};
-    hpar[t] = Par<T>{f[3], f[4], f[5]};
+    hpar[t] = load_par<T, U>(f);
     hexc[t] = (unsigned)ms[home * 2 + 1];
     hs[4 * t] = T(0);
     hs[4 * t + 1] = T(0);
@@ -249,6 +313,11 @@ __global__ void __launch_bounds__(THREADS)
 
   unsigned short* queue = queues + warp * hitqueue::DEPTH;
   int queued = 0;
+  T cs[U::NCONSTS > 0 ? U::NCONSTS : 1];  // a user form's constants
+  if constexpr (U::USER) {
+#pragma unroll
+    for (int kc = 0; kc < U::NCONSTS; ++kc) cs[kc] = consts[kc];
+  }
 
   // One popped hit per lane (code = home << 8 | candidate, NO_HIT for a lane
   // without one): the pair form, the reaction to the candidate's sums, and
@@ -257,19 +326,32 @@ __global__ void __launch_bounds__(THREADS)
     const bool on = code != NO_HIT;
     const int hh = code >> 8;
     T sx = T(0), sy = T(0), sz = T(0), se = T(0);
-    if (on) {
-      const int j = code & 0xff;
-      const Pos<T> hp = hpos[hh];
-      const Par<T> hq = hpar[hh];
-      const Pos<T> cj = cpos[j];
-      const Par<T> cq = cpar[j];
-      const T dx = hp.x - cj.x;
-      const T dy = hp.y - cj.y;
-      const T dz = hp.z - cj.z;
-      const T r2 = dx * dx + dy * dy + dz * dz;
+    const int j = code & 0xff;
+    const Pos<T> hp = hpos[on ? hh : 0];
+    const Pos<T> cj = cpos[on ? j : 0];
+    const T dx = hp.x - cj.x;
+    const T dy = hp.y - cj.y;
+    const T dz = hp.z - cj.z;
+    const T r2 = dx * dx + dy * dy + dz * dz;
+    // a hit in the cutoff band is decided again in float64; one it drops
+    // adds zeros, and its lane stays in the reduction below
+    bool keep = on;
+    if (on && sizeof(T) != sizeof(double) && r2 >= p.rc2_lo) {
+      const int half = j >= b;
+      keep = within_tile_f64(p.rc2_exact, fs, box, w + 3 * half,
+                             (size_t)h * b + hh,
+                             (size_t)cblk[half] * b + (j - half * b));
+    }
+    if (keep) {
+      const PT hq = hpar[hh];
+      const PT cq = cpar[j];
       T dudr2;
-      pair_form<T, DAMPED>(p, r2, hq.q * cq.q, T(0.5) * (hq.s + cq.s),
-                           sqrt(hq.e * cq.e), se, dudr2);
+      if constexpr (U::USER) {
+        user_pair<U>(p, cs, dconst, r2, hq.c, cq.c, se, dudr2);
+      } else {
+        pair_form<T, DAMPED>(p, r2, hq.q * cq.q, T(0.5) * (hq.s + cq.s),
+                             sqrt(hq.e * cq.e), se, dudr2);
+      }
       const T fm = T(2) * dudr2;
       const T gx = fm * dx, gy = fm * dy, gz = fm * dz;
       sx = -gx;
@@ -325,7 +407,7 @@ __global__ void __launch_bounds__(THREADS)
       const T dy = hp.y - cj.y;
       const T dz = hp.z - cj.z;
       const T r2 = dx * dx + dy * dy + dz * dz;
-      bool hit = (j < b2) & (r2 < p.rc2) &
+      bool hit = (j < b2) & (r2 < p.rc2_hi) &
                  !excluded_by_bits(exc_h, hp.id, cj.id);
       if (self_pass) {
         // in a self tile each pair once: the candidate behind the home atom
@@ -363,10 +445,11 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
+template <typename T, class U = BuiltIn>
 int launch(const T* fs, const int* ms, const int* hb, const int* cb,
            const int* wrap, const T* box, int n_entries, int nb, int b,
-           const double* scal, const int* flags, T* acc, void* stream) {
+           const double* scal, const int* flags, const T* consts,
+           int dconst, T* acc, void* stream) {
   if (b < 1 || b > MAX_B || nb < 1 || n_entries < 0 ||
       n_entries > 0x3fffffff || !flags_valid(flags)) {
     return (int)cudaErrorInvalidValue;
@@ -374,14 +457,18 @@ int launch(const T* fs, const int* ms, const int* hb, const int* cb,
   if (n_entries == 0) return 0;
   const Params<T> p = make_params<T>(scal, flags);
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_bytes<T>(b);
-  if (damped(p)) {
-    tile_pair_kernel<T, true><<<2u * (unsigned)n_entries, THREADS, smem, st>>>(
-        fs, ms, hb, cb, wrap, box, n_entries, nb, b, p, acc);
-  } else {
-    tile_pair_kernel<T, false><<<2u * (unsigned)n_entries, THREADS, smem, st>>>(
-        fs, ms, hb, cb, wrap, box, n_entries, nb, b, p, acc);
+  const size_t smem = smem_bytes<T, U>(b);
+  const unsigned grid = 2u * (unsigned)n_entries;
+  if constexpr (!U::USER) {  // a user form carries its own Coulomb kernel
+    if (damped(p)) {
+      tile_pair_kernel<T, true, U><<<grid, THREADS, smem, st>>>(
+          fs, ms, hb, cb, wrap, box, n_entries, nb, b, p, consts, dconst,
+          acc);
+      return (int)cudaGetLastError();
+    }
   }
+  tile_pair_kernel<T, false, U><<<grid, THREADS, smem, st>>>(
+      fs, ms, hb, cb, wrap, box, n_entries, nb, b, p, consts, dconst, acc);
   return (int)cudaGetLastError();
 }
 
@@ -391,12 +478,13 @@ int launch(const T* fs, const int* ms, const int* hb, const int* cb,
 // arrays (pair_forms.cuh::make_params); 1 <= b <= 128. `acc` must hold
 // zeros (or sums to add to). Returns cudaGetLastError() after the launch
 // (0 on success).
+#ifndef ATOMSMM_USER_EXC
 extern "C" int tile_pair_f32(const float* fs, const int* ms, const int* hb,
                              const int* cb, const int* wrap, const float* box,
                              int n_entries, int nb, int b, const double* scal,
                              const int* flags, float* acc, void* stream) {
   return launch<float>(fs, ms, hb, cb, wrap, box, n_entries, nb, b, scal,
-                       flags, acc, stream);
+                       flags, nullptr, -1, acc, stream);
 }
 
 extern "C" int tile_pair_f64(const double* fs, const int* ms, const int* hb,
@@ -404,5 +492,32 @@ extern "C" int tile_pair_f64(const double* fs, const int* ms, const int* hb,
                              int n_entries, int nb, int b, const double* scal,
                              const int* flags, double* acc, void* stream) {
   return launch<double>(fs, ms, hb, cb, wrap, box, n_entries, nb, b, scal,
-                        flags, acc, stream);
+                        flags, nullptr, -1, acc, stream);
 }
+#else
+// The entry point of a user form's build (_build.build_user): the
+// generated UserPair in its working type UserPair::T. fs carries the
+// function's `ncols` columns at 3 ... 3 + ncols - 1; `consts` the
+// (nconsts,) runtime constants on the device; `dconst` the constant the
+// dlambda flag seeds. `ncols` and `nconsts` must equal the header's, and
+// the flags those a user form takes (the dlambda and virial flags).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the build does not take.
+extern "C" int tile_pair_user(const UserPair::T* fs, const int* ms,
+                              const int* hb, const int* cb, const int* wrap,
+                              const UserPair::T* box, int n_entries, int nb,
+                              int b, int ncols, int nconsts,
+                              const UserPair::T* consts, int dconst,
+                              const double* scal, const int* flags,
+                              UserPair::T* acc, void* stream) {
+  if (ncols != UserPair::NCOLS || ncols > 5 ||
+      nconsts != UserPair::NCONSTS ||
+      (flags[5] && (dconst < 0 || dconst >= nconsts)) || flags[0] ||
+      flags[2] || flags[4] || flags[7]) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch<UserPair::T, UserPair>(fs, ms, hb, cb, wrap, box, n_entries,
+                                       nb, b, scal, flags, consts, dconst,
+                                       acc, stream);
+}
+#endif

@@ -41,6 +41,13 @@ USERFORM_UNARY(u_tanh, tanhf, tanh)
 USERFORM_UNARY(u_sin, sinf, sin)
 USERFORM_UNARY(u_cos, cosf, cos)
 USERFORM_UNARY(u_abs, fabsf, fabs)
+USERFORM_UNARY(u_atan, atanf, atan)
+USERFORM_UNARY(u_asin, asinf, asin)
+USERFORM_UNARY(u_acos, acosf, acos)
+USERFORM_UNARY(u_sinh, sinhf, sinh)
+USERFORM_UNARY(u_cosh, coshf, cosh)
+USERFORM_UNARY(u_expm1, expm1f, expm1)
+USERFORM_UNARY(u_log1p, log1pf, log1p)
 #undef USERFORM_UNARY
 
 __host__ __device__ __forceinline__ float u_pow(float x, float y) {

@@ -91,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -489,8 +490,8 @@ class _PairForceMixin:
 
     neighbor_key = "default"
 
-    #: no built-in form and no cell path: the dense path, on the CPU only
-    #: (NonbondedForce's 10-12 term without a per-type table)
+    #: no built-in form and no cell path: the dense path, on the CPU and on
+    #: the card (NonbondedForce's 10-12 term without a per-type table)
     _dense_only = False
 
     def _cell(self, aux, r_cut):
@@ -520,13 +521,6 @@ class _PairForceMixin:
     def _nb_energy(self, x, box, globals, aux, r_cut):
         nbr = self._cell(aux, r_cut)
         if nbr is None:
-            if self._dense_only and x.is_cuda:
-                raise InputError(
-                    f"{type(self).__name__}: the 10-12 term with atoms of "
-                    "one LJ type that differ in sigma or epsilon has no "
-                    "type-pair table for the kernels; it runs on the dense "
-                    "path of the CPU only (give every atom of a type the "
-                    "same sigma and epsilon, or pass NBFIX tables)")
             pp = {k: v for k, v in self._per_particle(globals).items()
                   if k != "pair_table"}
             return dense_pair_energy(self._pair_fn(globals), x, box, pp,
@@ -596,9 +590,13 @@ class _PairForceMixin:
     def virial(self, x, box, globals, aux=None):
         return self._nb_virial(x, box, globals, aux, self.r_cut)
 
-    def _rows_form(self, globals):
-        """(the built-in form of a sweep over a stack, the rows' softcore
-        lambdas (K,) or None)."""
+    def _rows_form(self, globals, x=None, nbr=None):
+        """(the form the kernels take over a stack x (K, N, 3) on the cell
+        list `nbr`, the rows' softcore lambdas (K,) or None): the built-in
+        form, which reads neither; (None, None) where no kernel form
+        exists."""
+        if not hasattr(self, "_pair_form"):
+            return None, None
         return self._pair_form(globals), None
 
     def _nb_rows(self, x, box, globals, aux, r_cut, with_forces):
@@ -606,14 +604,15 @@ class _PairForceMixin:
         stack from one sweep over every row (per-particle columns (N,) or,
         where a global scales them per row, (K, N)); the pair term of one
         row after another where no kernel takes the stack (the dense path,
-        a pair function, a spatial mesh, a block list: K4 has no row
-        axis)."""
+        a pair function without a kernel form, a spatial mesh, a block
+        list: K4 has no row axis)."""
         nbr = self._cell(aux, r_cut)
-        if nbr is None or not hasattr(self, "_pair_form") \
-                or _spatial() is not None or "cand" in nbr:
+        form = lamb = None
+        if nbr is not None and _spatial() is None and "cand" not in nbr:
+            form, lamb = self._rows_form(globals, x, nbr)
+        if form is None:
             return _in_turn(self._nb_energy_forces if with_forces
                             else self._nb_energy, x, box, globals, aux, r_cut)
-        form, lamb = self._rows_form(globals)
         if lamb is not None:  # the kernels read it in the dtype of x
             lamb = lamb.to(device=x.device, dtype=x.dtype)
         args = (form, x, box, self._per_particle(globals), nbr["spec"],
@@ -1249,7 +1248,7 @@ class SoftcoreLennardJonesForce(_PairForceMixin, Force):
         return pairfuncs.softcore_form(self.r_cut, self.r_switch, lamb,
                                        self.use_switch, dlambda=dlambda)
 
-    def _rows_form(self, globals):
+    def _rows_form(self, globals, x=None, nbr=None):
         lamb = (globals or {}).get(self.lambda_name, 1.0)
         if isinstance(lamb, torch.Tensor) and lamb.ndim == 1:
             # each row's lambda goes to the kernel's device table of the
@@ -1291,13 +1290,22 @@ class CustomNonbondedForce(_PairForceMixin, Force):
     forces, the virial (the form's virial flag) and denergy_dlambda (the
     tangent seeded on the global) all take one sweep, as a built-in form
     does; on the CPU the kernels' plain twins run the same lowered
-    operations. A function that cannot be lowered raises InputError on a
-    CUDA tensor and keeps the callable sweep
-    (ops/neighbors.py::cell_pair_energy_fn, forces by autograd) on the
-    CPU. On a block list the function runs as torch operations over the
-    list's slots (ops/blocks.py::block_pair_energy_fn; the JAX package
-    sweeps block lists in XLA), and a stack of rows runs one row a sweep.
-    The dense path (no neighbor list) takes the function as it is."""
+    operations. A stack of rows (x (K, N, 3), each global a number or a
+    (K,) tensor, a lambda per row) takes one sweep: the rows' constants go
+    as a (K, C) table (pairtrace.LoweredPair.consts_rows), and
+    denergy_dlambda takes a stack the same way. A function that cannot be
+    lowered (an operation outside the list, control flow on a value, a
+    capture of more than one value, more than five columns) runs on the
+    callable cell sweep (ops/neighbors.py::cell_pair_energy_fn, forces by
+    autograd), on the CPU and on the card alike, as the JAX package runs
+    such a function on its XLA sweep: each such sweep counts in
+    pair_kernel.CALLABLE_SWEEPS, and the force warns once with the
+    lowering error. A function that lowers never takes that route: a
+    build or launch that fails raises. On a block list the function runs
+    as torch operations over the list's slots
+    (ops/blocks.py::block_pair_energy_fn; the JAX package sweeps block
+    lists in XLA), and a stack of rows runs one row a sweep. The dense
+    path (no neighbor list) takes the function as it is."""
 
     per_particle: Dict[str, torch.Tensor] = None
     exclusions: torch.Tensor = None
@@ -1336,23 +1344,49 @@ class CustomNonbondedForce(_PairForceMixin, Force):
             raise got
         return got
 
+    def _lowered_or_none(self, dtype, globals, device):
+        """The function lowered (lowered()), or None where it cannot be:
+        the callable sweeps then run it, and the force warns once, naming
+        the lowering error."""
+        try:
+            return self.lowered(dtype, globals, device)
+        except InputError as e:
+            if not self.__dict__.get("_warned_callable"):
+                self.__dict__["_warned_callable"] = True
+                warnings.warn(
+                    f"CustomNonbondedForce: the pair function runs on the "
+                    f"callable cell sweep (torch operations over every slot "
+                    f"of the stencil, forces by autograd), not on the pair "
+                    f"kernels: {e}", RuntimeWarning, stacklevel=4)
+            return None
+
     def _kernel_form(self, globals, x, nbr):
         """The lowered user form over a cell list; None on a block list
-        (the callable block sweep) and, on the CPU, for a function that
-        cannot be lowered (the callable cell sweep). On a CUDA tensor a
-        function that cannot be lowered raises InputError."""
+        (the callable block sweep) and for a function that cannot be
+        lowered (the callable cell sweep, on the CPU and on the card)."""
         if _blocks(nbr):
             return None
         from .ops.pairtrace import user_form
 
-        try:
-            low = self.lowered(x.dtype, globals, x.device)
-        except InputError as e:
-            if x.is_cuda:
-                raise InputError(
-                    f"CustomNonbondedForce on a CUDA cell list: {e}") from e
-            return None
-        return user_form(low, globals, self.r_cut, x.device)
+        low = self._lowered_or_none(x.dtype, globals, x.device)
+        return None if low is None else user_form(low, globals, self.r_cut,
+                                                  x.device)
+
+    def _rows_form(self, globals, x, nbr):
+        """The lowered user form of a stack x (K, N, 3) with its (K, C)
+        table of constants (each global a number or a (K,) tensor), no
+        softcore lambdas; (None, None) on a block list or for a function
+        that cannot be lowered (the rows one after another)."""
+        if _blocks(nbr):
+            return None, None
+        from .ops.pairtrace import UserForm
+
+        low = self._lowered_or_none(x.dtype, globals_row(globals, 0),
+                                    x.device)
+        if low is None:
+            return None, None
+        return UserForm(low, low.consts_rows(globals, x.shape[0], x.device),
+                        float(self.r_cut)), None
 
     def energy(self, x, box, globals, aux=None):
         return self._nb_energy(x, box, globals, aux, self.r_cut)
@@ -1364,24 +1398,34 @@ class CustomNonbondedForce(_PairForceMixin, Force):
         """dU/d globals[name] (a missing parameter reads as 1.0): on a
         cell list where the function lowers, one sweep of the user form
         with the tangent seeded on that global (zero where the function
-        does not read it); else by autograd (Force's)."""
+        does not read it); else by autograd (Force's). Over a stack x
+        (K, N, 3) (globals numbers or (K,) tensors, aux the stack's) it
+        gives the (K,) rows from one sweep of the seeded form over every
+        row, or row by row where no kernel form takes the stack."""
         nbr = self._cell(aux, self.r_cut)
         g = dict(globals or {})
         if name not in g:
             g[name] = torch.ones((), dtype=x.dtype, device=x.device)
-        form = None if nbr is None else self._kernel_form(g, x, nbr)
+        rows = x.ndim == 3
+        form = None
+        if nbr is not None and not (rows and _spatial() is not None):
+            form = (self._rows_form(g, x, nbr)[0] if rows
+                    else self._kernel_form(g, x, nbr))
         if form is None:
+            if rows:
+                return _in_turn(
+                    lambda *a: self.denergy_dlambda(*a[:3], name, a[3]),
+                    x, box, globals, aux)[0]
             return super().denergy_dlambda(x, box, globals, name, aux)
         k = form.lowered.constant_index(name)
         if k is None:
-            return torch.zeros((), dtype=x.dtype, device=x.device)
-        return _cell_energy(dataclasses.replace(form, dconst=k), x, box,
-                            self._per_particle(g), nbr, self.r_cut)
-
-    # a user form takes one row a launch: the rows one after another
-    # (Force's), each on K1 or K2
-    energy_rows = Force.energy_rows
-    energy_and_forces_rows = Force.energy_and_forces_rows
+            return x.new_zeros(x.shape[:-2])
+        form = dataclasses.replace(form, dconst=k)
+        if rows:
+            return cell_pair_energy(form, x, box, self._per_particle(g),
+                                    nbr["spec"], nbr["bucket"], self.r_cut)
+        return _cell_energy(form, x, box, self._per_particle(g), nbr,
+                            self.r_cut)
 
 
 @dataclasses.dataclass

@@ -776,14 +776,16 @@ def cell_pair_energy_fn(pair_fn, x, box, per_particle, spec, bucket, r_cut,
     cells only (force decomposition, parallel/spatial.py).
 
     The counterpart of the JAX package's XLA sweep of a pair function: the
-    path of a user function that ops/pairtrace.py cannot lower, on the
-    CPU, and of the spatial mesh's share of one; K1 and K2 take every
-    function that lowers. It evaluates every slot of the stencil, so its
-    cost grows with the whole cell list, however few pairs the function
-    leaves nonzero."""
-    from .pair_kernel import _rc2, excluded, home_range
+    path of a user function that ops/pairtrace.py cannot lower, on the CPU
+    and on the card, and of the spatial mesh's share of one; K1 and K2
+    take every function that lowers. It evaluates every slot of the
+    stencil, so its cost grows with the whole cell list, however few pairs
+    the function leaves nonzero. Each call counts one in
+    pair_kernel.CALLABLE_SWEEPS."""
+    from .pair_kernel import CALLABLE_SWEEPS, _rc2, excluded, home_range
     from .rv import pair_eval
 
+    CALLABLE_SWEEPS["cell"] += 1
     n = x.shape[0]
     ncells, cap = bucket.shape
     nbr = spec.nbr_cells

@@ -61,8 +61,11 @@ which the card runs as the generated device code compiled into K1 or K2
 _build.build_user) and the plain twins run as torch operations with the
 same dual rules. Its (N + 1, P) block of per-particle columns (P <= 5, in
 the lowered form's order) takes the place of (charge, sigma, epsilon); its
-runtime constants go as a device array. One row a launch: a user form
-takes no replica axis.
+runtime constants go as a device array. A user form takes the replica axis
+as the built-in forms do: over a stack its constants may be a (K, C) table,
+row k the constants of row k (the globals of a lambda state), which the
+kernels read at the row's offset as a built-in form reads its row's
+lambda; the stack's rows then take one launch.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On a CPU tensor it runs the plain twin, which the tests hold against
@@ -84,16 +87,22 @@ from .pbc import minimum_image
 #: (half_pair = K1, cell_pair = K2, tile_pair = K3, block_pair = K4 in
 #: ops/blocks.py; a launch over K rows counts one); reset by callers
 LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0, "block_pair": 0}
-#: launches of K1 and K2 compiled with a user form (_user_sweep_cuda),
-#: counted apart from the built-in forms' and reset with them
-USER_LAUNCHES = {"half_pair": 0, "cell_pair": 0}
+#: launches of K1, K2 and K3 compiled with a user form (_user_sweep_cuda,
+#: tilepair.tile_pair_cuda), counted apart from the built-in forms' and
+#: reset with them (a launch over K rows counts one)
+USER_LAUNCHES = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0}
+#: sweeps of the callable cell sweep (neighbors.cell_pair_energy_fn: a pair
+#: function as torch operations, forces by autograd), the route of a
+#: CustomNonbondedForce whose function does not lower; reset with the
+#: launches
+CALLABLE_SWEEPS = {"cell": 0}
 
 K1_MAX_CAP = 1024  # K1's cell capacity: one thread a home atom
 _PLAIN_SLOTS = 1 << 21  # pair slots per chunk of the full-stencil plain twin
 
 
 def reset_launches():
-    for counts in (LAUNCHES, USER_LAUNCHES):
+    for counts in (LAUNCHES, USER_LAUNCHES, CALLABLE_SWEEPS):
         for k in counts:
             counts[k] = 0
 
@@ -264,7 +273,15 @@ def _row_form(form, lamb, d):
     """`form` with each row's lambda, as a tensor that broadcasts over the
     slots of the displacements d (rows first, a trailing xyz axis), in
     their dtype: the kernels cast a row's lambda to the working type too.
-    The form itself for lamb None."""
+    A user form's (K, C) constants the same way, each constant a tensor
+    that broadcasts over the slots. The form itself for lamb None and a
+    user form's (C,) constants."""
+    if isinstance(form, UserForm):
+        c = form.consts
+        if c.ndim != 2:
+            return form
+        shape = (c.shape[0],) + (1,) * (d.ndim - 2) + (c.shape[1],)
+        return dataclasses.replace(form, consts=c.to(d.dtype).reshape(shape))
     if lamb is None:
         return form
     shape = (lamb.shape[0],) + (1,) * (d.ndim - 2)
@@ -575,53 +592,68 @@ def _user_sweep_cuda(kernel, nbr, x, per_particle, bucket, spec, box, form,
                      r_cut, cells=()):
     """Launch K1 or K2 compiled with a user form (_build.load_user: one
     library per generated header, exclusion form and image) on PyTorch's
-    current stream; returns the per-atom (N + 1, 4) [fx fy fz e]. One row:
-    x (N, 3). The form's working dtype must be x's; its columns are staged
-    as an (N + 1, P) block (user_columns) and its constants pass as the
-    device array form.consts. Checks its arguments and raises
-    if the build or the launch fails; counts the launch under
-    '<kernel>_user'."""
+    current stream; returns the per-atom (N + 1, 4) [fx fy fz e]. The
+    form's working dtype must be x's; its columns are staged as an
+    (N + 1, P) block (user_columns) and its constants pass as the device
+    array form.consts. Over a row axis (x (K, N, 3), as _cell_sweep_cuda
+    takes it) one launch sweeps every row into (K, N + 1, 4): x, the
+    bucket, the box, the column block and the constants pass with their
+    row strides, the constants (C,) shared by the rows or a (K, C) table,
+    row k the constants of row k. Checks its arguments and raises if the
+    build or the launch fails; counts the launch in USER_LAUNCHES."""
     import ctypes
 
     from .. import _build
 
     low = form.lowered
-    if x.ndim != 2:
-        raise ValueError(f"{kernel}: a user form sweeps one system a launch "
-                         f"(x (N, 3)), got x of shape {tuple(x.shape)}")
     if x.dtype != low.dtype:
         raise ValueError(f"{kernel}: the user form was lowered in "
                          f"{low.dtype}, x is {x.dtype}")
-    n = x.shape[0]
-    ncells, cap = bucket.shape
+    single, x, bucket, box, _ = _rows(x, per_particle, bucket, box)
+    k, n = x.shape[0], x.shape[1]
+    _, ncells, cap = bucket.shape
     s = nbr.shape[1]
     cols = user_columns(form, per_particle, n, x.dtype, x.device)
-    consts = form.consts.to(device=x.device, dtype=x.dtype).contiguous()
+    cols = cols.expand(k, *cols.shape)
+    consts = form.consts.to(device=x.device, dtype=x.dtype)
+    if consts.ndim == 1:
+        consts = consts.contiguous().expand(k, low.n_consts)
+    elif single or tuple(consts.shape) != (k, low.n_consts):
+        raise ValueError(f"{kernel}: constants of shape "
+                         f"{tuple(consts.shape)} for {k} rows of "
+                         f"{low.n_consts} constants")
     bits, far, m, exc_checks = _exclusion_tables(kernel, spec, n)
-    tri = int(box.ndim == 2)
-    _checked(kernel, ("x", x, x.dtype, (n, 3)), *exc_checks,
-             ("columns", cols, x.dtype, tuple(cols.shape)),
-             ("constants", consts, x.dtype, (low.n_consts,)),
-             ("bucket", bucket, torch.int32, (ncells, cap)),
-             ("stencil map", nbr, torch.int32, (ncells, s)),
-             ("box", box, x.dtype, (3, 3) if tri else (3,)))
-    out = torch.zeros((n + 1, 4), dtype=x.dtype, device=x.device)
+    tri = int(box.ndim == 3)
+    dev = _checked(kernel, ("x", x[0], x.dtype, (n, 3)), *exc_checks,
+                   ("stencil map", nbr, torch.int32, (ncells, s)))
+    p = cols.shape[-1]
+    strides = (ctypes.c_longlong * 5)(*(
+        _row_stride(kernel, name, t, k, shape, dtype, dev)
+        for name, t, shape, dtype in (
+            ("x", x, (n, 3), x.dtype), ("columns", cols, (n + 1, p), x.dtype),
+            ("bucket", bucket, (ncells, cap), torch.int32),
+            ("box", box, (3, 3) if tri else (3,), x.dtype))),
+        # a form without constants reads none
+        _row_stride(kernel, "constants", consts, k, (low.n_consts,), x.dtype,
+                    dev) if low.n_consts else 0)
+    out = torch.zeros((k, n + 1, 4), dtype=x.dtype, device=dev)
     if cells and cells[0] == cells[1]:
-        return out
+        return out[0] if single else out
     scal, flags = _form_block(form, r_cut, x.dtype)
     fn = _build.load_user(kernel, low.cuda_source(), int(far is not None),
                           tri)
     err = fn(x.data_ptr(), cols.data_ptr(), bits.data_ptr(),
              None if far is None else far.data_ptr(), bucket.data_ptr(),
              nbr.data_ptr(), box.data_ptr(), ncells, *cells, cap, s, n, m,
-             cols.shape[1], low.n_consts, consts.data_ptr(), form.dconst,
+             p, low.n_consts, consts.data_ptr() if low.n_consts else None,
+             form.dconst, k, ctypes.addressof(strides),
              ctypes.addressof(scal), ctypes.addressof(flags), out.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch on a user form failed: "
                            f"CUDA error {err}")
     USER_LAUNCHES[kernel] += 1
-    return out
+    return out[0] if single else out
 
 
 def half_pair_cuda(x, per_particle, bucket, spec, box, form, r_cut,

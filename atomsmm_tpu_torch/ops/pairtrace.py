@@ -67,7 +67,13 @@ TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 # the lowered operations: arithmetic (float), comparisons and logic (bool)
 _UNARY = ("neg", "recip", "exp", "log", "sqrt", "rsqrt", "erfc", "erf",
-          "tanh", "sin", "cos", "abs")
+          "tanh", "sin", "cos", "abs", "atan", "asin", "acos", "sinh",
+          "cosh", "expm1", "log1p")
+# the special functions of the generated text: csrc/user_form.cuh's
+# helpers, each a call of CUDA's math library in both types
+_SPECIAL_FNS = ("exp", "log", "sqrt", "rsqrt", "erfc", "erf", "tanh", "sin",
+                "cos", "pow", "atan", "asin", "acos", "sinh", "cosh", "expm1",
+                "log1p")
 _COMPARE = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
             "ne": "!="}
 _LOGIC = {"and": "&&", "or": "||"}
@@ -77,8 +83,7 @@ _LITERAL = re.compile(r"T\([^()]*\)")
 _ARITH = re.compile(r" [-+*/] ")
 _CMP = re.compile(r"\b\w+ (?:<=|>=|==|!=|<|>) \w+\b")
 _LOGIC_OPS = re.compile(r" && | \|\| |!(?!=)")
-_SPECIAL = re.compile(
-    r"\bu_(?:exp|log|sqrt|rsqrt|erfc|erf|tanh|sin|cos|pow)\(")
+_SPECIAL = re.compile(rf"\bu_(?:{'|'.join(_SPECIAL_FNS)})\(")
 @dataclasses.dataclass(frozen=True)
 class _Val:
     """One value of the lowered list. op: an operation of the list, or a
@@ -234,8 +239,7 @@ WHITELIST = tuple(sorted(
     + ["aten.rsub.Scalar", "aten.rsub.Tensor", "aten.neg.default",
        "aten.reciprocal.default", "aten.pow.Tensor_Scalar",
        "aten.pow.Tensor_Tensor", "aten.pow.Scalar"]
-    + [f"aten.{op}.default" for op in ("exp", "log", "sqrt", "rsqrt", "erfc",
-                                       "erf", "tanh", "sin", "cos", "abs")]
+    + [f"aten.{op}.default" for op in _UNARY[2:]]
     + [f"aten.{op}.{ov}" for op in _COMPARE for ov in ("Tensor", "Scalar")]
     + ["aten.logical_and.default", "aten.logical_or.default",
        "aten.logical_not.default", "aten.bitwise_and.Tensor",
@@ -291,6 +295,24 @@ class LoweredPair:
             else torch.tensor(float(v), dtype=self.dtype, device=device)
             for v in items])
 
+    def consts_rows(self, globals, k: int, device=None) -> torch.Tensor:
+        """The runtime constants of a stack of k rows, (k, n_consts) in the
+        working dtype on `device`: a global given as a (k,) tensor (a
+        lambda per row) fills its column row by row, any other value and
+        the captures are the rows' shared constants."""
+        g = globals or {}
+        cols = []
+        for v in [g[name] for name in self.globals] + list(self.captures):
+            t = torch.as_tensor(v).detach().to(device=device,
+                                               dtype=self.dtype)
+            if t.ndim == 1 and t.shape[0] != k:
+                raise ValueError(f"a global of {t.shape[0]} rows for a "
+                                 f"stack of {k}")
+            cols.append(t.reshape(-1).expand(k))
+        if not cols:
+            return torch.zeros((k, 0), dtype=self.dtype, device=device)
+        return torch.stack(cols, dim=1)
+
     def constant_index(self, name: str) -> Optional[int]:
         """The constant index of global `name`, None where the function
         does not read it."""
@@ -303,8 +325,9 @@ class LoweredPair:
         products, divisions, selections, logic and each distinct
         comparison of a value once (the tangent's repeat of the value's
         comparison is one instruction on the card); and 'special', the
-        results of exp, log, sqrt, rsqrt, erfc, erf, tanh, sin, cos and
-        pow. Not counted, so that the count is at most what the card
+        results of the special functions (_SPECIAL_FNS: exp, log, sqrt,
+        rsqrt, erfc, erf, tanh, sin, cos, pow, atan, asin, acos, sinh,
+        cosh, expm1, log1p). Not counted, so that the count is at most what the card
         executes: a negation (an operand modifier on the card), a product
         by the literal 1 or by r²'s unit tangent (folded by the compiler)
         and a special function's own arithmetic. chip_smoke.py's bound
@@ -353,8 +376,10 @@ class LoweredPair:
                  dconst: Optional[int] = None):
         """(u, du/dr²) by torch operations with the kernels' dual rules, on
         broadcastable r², columns pi / pj (in `names` order) and the
-        runtime constants; with `dconst` the tangent is seeded on constant
-        `dconst` instead, and the second result is du/d(that constant)."""
+        runtime constants, on their last axis (leading axes broadcast with
+        r²: the rows of a stack); with `dconst` the tangent is seeded on
+        constant `dconst` instead, and the second result is du/d(that
+        constant)."""
         seed_r2 = dconst is None
         dep = self._deps(seed_r2)
         dt, dev = r2.dtype, r2.device
@@ -374,7 +399,7 @@ class LoweredPair:
             elif v.op == "pj":
                 y = pj[v.param]
             elif v.op == "const":
-                y = consts[v.param]
+                y = consts[..., v.param]
                 d = (one if v.param == dconst else zero) if not seed_r2 \
                     else None
             elif v.op in ("lit", "blit"):
@@ -547,6 +572,25 @@ def _torch_rule(op, x, dx, zero):
     elif op == "abs":
         y = torch.abs(x[0])
         d = None if dx[0] is None else torch.sign(x[0]) * dx[0]
+    elif op == "atan":
+        y = torch.atan(x[0])
+        d = None if dx[0] is None else dx[0] / (1.0 + x[0] * x[0])
+    elif op in ("asin", "acos"):
+        y = torch.asin(x[0]) if op == "asin" else torch.acos(x[0])
+        d = None if dx[0] is None else dx[0] / torch.sqrt(1.0 - x[0] * x[0])
+        d = -d if op == "acos" and d is not None else d
+    elif op == "sinh":
+        y = torch.sinh(x[0])
+        d = None if dx[0] is None else torch.cosh(x[0]) * dx[0]
+    elif op == "cosh":
+        y = torch.cosh(x[0])
+        d = None if dx[0] is None else torch.sinh(x[0]) * dx[0]
+    elif op == "expm1":
+        y = torch.expm1(x[0])
+        d = None if dx[0] is None else (y + 1.0) * dx[0]
+    elif op == "log1p":
+        y = torch.log1p(x[0])
+        d = None if dx[0] is None else dx[0] / (1.0 + x[0])
     elif op in ("minimum", "maximum"):
         a, b = x
         y = torch.minimum(a, b) if op == "minimum" else torch.maximum(a, b)
@@ -653,6 +697,22 @@ def _c_rule(op, x, dx, name):
         return f"u_cos({a})", None if da is None else f"-u_sin({a}) * {da}"
     if op == "abs":
         return f"u_abs({a})", None if da is None else f"u_sign({a}) * {da}"
+    if op == "atan":
+        return f"u_atan({a})", None if da is None else \
+            f"{da} / (T(1) + {a} * {a})"
+    if op in ("asin", "acos"):
+        d = None if da is None else f"{da} / u_sqrt(T(1) - {a} * {a})"
+        return f"u_{op}({a})", d if d is None or op == "asin" else f"-({d})"
+    if op == "sinh":
+        return f"u_sinh({a})", None if da is None else f"u_cosh({a}) * {da}"
+    if op == "cosh":
+        return f"u_cosh({a})", None if da is None else f"u_sinh({a}) * {da}"
+    if op == "expm1":
+        return f"u_expm1({a})", None if da is None else \
+            f"({name} + T(1)) * {da}"
+    if op == "log1p":
+        return f"u_log1p({a})", None if da is None else \
+            f"{da} / (T(1) + {a})"
     if op in ("minimum", "maximum"):
         lt, gt = ("<", ">") if op == "minimum" else (">", "<")
         d = None if da is None and db is None else (
@@ -819,12 +879,13 @@ def lower_pair_function(fn, names: Sequence[str], dtype, globals=None,
 class UserForm:
     """A lowered pair function as the pair kernels (and their plain twins)
     take it, in place of a built-in PairForm: the lowered list, its runtime
-    constants (n_consts,) on the device, and the flags. `virial`: each
+    constants (n_consts,) on the device (or a stack's (K, n_consts), row k
+    the constants of row k), and the flags. `virial`: each
     pair's -2 r² du/dr² in place of u, the force unchanged; `dconst` >= 0:
     du/d(constant dconst) in place of u and no force (dU/dλ of a global)."""
 
     lowered: LoweredPair
-    consts: torch.Tensor
+    consts: torch.Tensor  # (n_consts,), or (K, n_consts): a stack's rows
     r_cut: float
     virial: bool = False
     dconst: int = -1

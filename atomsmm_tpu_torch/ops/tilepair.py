@@ -22,8 +22,21 @@ K3 runs one thread block per entry: it culls the tile by the bounding boxes
 of its 32-candidate groups, tests what is left with its lanes across the
 candidates, evaluates the hits 32 at a time and adds its home and reaction
 sums to one accumulator with global atomics (csrc/tile_pair.cu says what
-that means for summation order). On a CUDA tensor the wrapper launches it or raises;
-on a CPU tensor it runs the plain twin, ``tile_pair_plain``.
+that means for summation order). A float32 hit within CUT_BAND of the
+cutoff is decided again in float64, as K1, K2 and K4 decide it. On a CUDA
+tensor the wrapper launches it or raises; on a CPU tensor it runs the
+plain twin, ``tile_pair_plain``.
+
+K3 takes a user pair function in place of a built-in form, as the JAX
+package's ``tile_pair_energy_forces(pair_fn, ...)`` traces any pair
+function into its tile kernel: a UserForm (ops/pairtrace.py) stages the
+function's P <= 5 per-particle columns at feature columns 3 ... 3 + P - 1
+in place of (charge, sigma, epsilon); the card runs the generated device
+code compiled into K3 (one library per function and dtype, built at first
+use: _build.build_user) and the plain twin the lowered operations with the
+same dual rules. A function that does not lower raises there: no Context
+path reaches the tile list, and the JAX package's tile kernel has no other
+route for it either.
 """
 from __future__ import annotations
 
@@ -45,6 +58,7 @@ from .pair_kernel import (
     excluded,
 )
 from .pairfuncs import form_u_dudr2
+from .pairtrace import UserForm
 from .pbc import minimum_image
 
 POISON = 1.0e4        # sentinel coordinate [nm]
@@ -97,7 +111,7 @@ def _check_no_table(form=None, per_particle=None):
     path runs them in either package, and their staging has no type
     column. A table form (NBFIX, the 10-12 term) runs on the cell lists
     (K1 and K2)."""
-    if (form is not None and form.table) or (
+    if (form is not None and getattr(form, "table", False)) or (
             per_particle is not None and "lj_type" in per_particle):
         from ..utils import InputError
 
@@ -339,10 +353,13 @@ def update_tile_pairs(spec, extra, x, box, name: str = "default"):
 # --------------------------------------------------------------------------
 
 
-def _stage(spec, x, box, per_particle, excbits, order, xref=None):
+def _stage(spec, x, box, per_particle, excbits, order, xref=None,
+           names=None):
     """Sorted block-major staging: fs (NB+1, B, 8) [x y z q sigma eps 0 0]
     and ms (NB+1, B, 2) int32 [atom id, exclusion bits], the sentinel block
-    NB and padding slots at the poison coordinate.
+    NB and padding slots at the poison coordinate. `names` (a user form's
+    columns, at most 5) puts those columns at 3, 4, ... in place of
+    charge, sigma and epsilon.
 
     Coordinates must live in the same periodic image the tile list was built
     in (the per-entry wrap vectors come from build-time AABB centres).
@@ -353,7 +370,8 @@ def _stage(spec, x, box, per_particle, excbits, order, xref=None):
     across faces, exact for displacements < box/2 (the skin/2 reuse window
     is far tighter). xref=None wraps x directly, valid only at the build
     configuration."""
-    _check_no_table(per_particle=per_particle)
+    _check_no_table(per_particle=None if names is not None
+                    else per_particle)
     n = x.shape[0]
     b = spec.block_size
     nb = spec.n_blocks
@@ -364,9 +382,13 @@ def _stage(spec, x, box, per_particle, excbits, order, xref=None):
         xw = xref_w + minimum_image(x - xref, box)
     feats = x.new_zeros((n + 1, 8))
     feats[:n, :3] = xw
-    feats[:n, 3] = per_particle["charge"]
-    feats[:n, 4] = per_particle["sigma"]
-    feats[:n, 5] = per_particle["epsilon"]
+    if names is not None:
+        for c, name in enumerate(names):
+            feats[:n, 3 + c] = per_particle[name]
+    else:
+        feats[:n, 3] = per_particle["charge"]
+        feats[:n, 4] = per_particle["sigma"]
+        feats[:n, 5] = per_particle["epsilon"]
     feats[n, :3] = POISON
     idx = order.long()
     fs = torch.cat([feats[idx].reshape(nb, b, 8),
@@ -383,7 +405,9 @@ def tile_pair_plain(fs, ms, hb, cb, wrap, box, form, r_cut,
     """Plain PyTorch twin of K3 (the JAX package's ``_tile_xla_eval``):
     the same inputs and the same (NB+1, B, 4) accumulator [fx fy fz e] of
     home sums plus reaction sums, with the kernel's masks, weights and wrap
-    shifts. Entries run `chunk` at a time (default: 2M pair slots)."""
+    shifts. Entries run `chunk` at a time (default: 2M pair slots). A user
+    form evaluates its lowered operations on feature columns 3, 4, ... of
+    both sides."""
     nb1, b, _ = fs.shape
     rc2 = _rc2(r_cut, fs.dtype)
     chunk = chunk or max(1, _PLAIN_SLOTS // (2 * b * b))
@@ -409,10 +433,16 @@ def tile_pair_plain(fs, ms, hb, cb, wrap, box, form, r_cut,
         w_col = w_col.repeat_interleave(b, dim=1)[:, None, :]       # (K, 1, 2B)
         j_col = (~self_half).to(fs.dtype).repeat_interleave(b, dim=1)
         r2m = torch.where(mask, r2, torch.ones_like(r2))
-        qq = home[..., 3] * cand[..., 3]
-        sig = 0.5 * (home[..., 4] + cand[..., 4])
-        eps = torch.sqrt(home[..., 5] * cand[..., 5])
-        u, dudr2 = form_u_dudr2(form, r2m, qq, sig, eps)
+        if isinstance(form, UserForm):
+            p = len(form.lowered.names)
+            u, dudr2 = form.u_dudr2(
+                r2m, [home[..., 3 + c] for c in range(p)],
+                [cand[..., 3 + c] for c in range(p)])
+        else:
+            qq = home[..., 3] * cand[..., 3]
+            sig = 0.5 * (home[..., 4] + cand[..., 4])
+            eps = torch.sqrt(home[..., 5] * cand[..., 5])
+            u, dudr2 = form_u_dudr2(form, r2m, qq, sig, eps)
         zero = torch.zeros_like(u)
         e_row = torch.sum(torch.where(mask, u, zero) * w_col, dim=-1)  # (K, B)
         g = torch.where(mask, 2.0 * dudr2, zero)[..., None] * d
@@ -429,43 +459,71 @@ def tile_pair_cuda(fs, ms, hb, cb, wrap, box, form, r_cut):
     """Launch K3 on PyTorch's current stream; returns the (NB+1, B, 4)
     accumulator [fx fy fz e] allocated (zeroed) here. Checks device,
     dtype, shape and contiguity first and raises if the launch is
-    refused."""
+    refused. A user form launches K3 compiled with it (_build.load_user),
+    its constants the device array form.consts, and counts under
+    USER_LAUNCHES."""
     import ctypes
+
+    from .. import _build
+    from .pair_kernel import USER_LAUNCHES
 
     _check_vector_box(box)
     _check_no_table(form)
     nb1, b, _ = fs.shape
     e = hb.shape[0]
+    user = isinstance(form, UserForm)
+    consts = ()
+    if user:
+        low = form.lowered
+        if fs.dtype != low.dtype:
+            raise ValueError(f"tile_pair: the user form was lowered in "
+                             f"{low.dtype}, fs is {fs.dtype}")
+        c = form.consts.to(device=fs.device, dtype=fs.dtype).contiguous()
+        consts = (("constants", c, fs.dtype, (low.n_consts,)),)
     dev = _checked("tile_pair",
                    ("fs", fs, fs.dtype, (nb1, b, 8)),
                    ("ms", ms, torch.int32, (nb1, b, 2)),
                    ("hb", hb, torch.int32, (e,)),
                    ("cb", cb, torch.int32, (e, 2)),
                    ("wrap", wrap, torch.int32, (e, 2, 3)),
-                   ("box", box, fs.dtype, (3,)))
+                   ("box", box, fs.dtype, (3,)), *consts)
     if not 1 <= b <= 128:
         raise ValueError(f"tile_pair: block size {b} outside the kernel's "
                          "1..128 (one lane per home atom)")
     acc = torch.zeros((nb1, b, 4), dtype=fs.dtype, device=dev)
     scal, flags = _form_block(form, r_cut, fs.dtype)
-    _launch("tile_pair", fs.dtype, fs.data_ptr(), ms.data_ptr(),
-            hb.data_ptr(), cb.data_ptr(), wrap.data_ptr(), box.data_ptr(),
-            e, nb1 - 1, b, ctypes.addressof(scal), ctypes.addressof(flags),
-            acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    head = (fs.data_ptr(), ms.data_ptr(), hb.data_ptr(), cb.data_ptr(),
+            wrap.data_ptr(), box.data_ptr(), e, nb1 - 1, b)
+    tail = (ctypes.addressof(scal), ctypes.addressof(flags), acc.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if not user:
+        _launch("tile_pair", fs.dtype, *head, *tail)
+        return acc
+    fn = _build.load_user("tile_pair", low.cuda_source(), 0, 0)
+    err = fn(*head, max(1, len(low.names)), low.n_consts, c.data_ptr(),
+             form.dconst, *tail)
+    if err != 0:
+        raise RuntimeError(f"tile_pair kernel launch on a user form failed: "
+                           f"CUDA error {err}")
+    USER_LAUNCHES["tile_pair"] += 1
     return acc
 
 
 def tile_pair_energy_forces(form, x, box, per_particle, spec, order, hb,
                             cb, wrap, r_cut, xref=None):
     """(energy, forces (N, 3)) over the flat tile-pair list: K3 for a CUDA
-    tensor, its plain twin for a CPU tensor. `form` is the pair form
-    (ops/pairfuncs.py::PairForm) the kernel evaluates.
+    tensor, its plain twin for a CPU tensor. `form` is the pair form the
+    kernel evaluates: a built-in ops/pairfuncs.py::PairForm, or a
+    UserForm (ops/pairtrace.py::user_form) lowered in the dtype of x,
+    whose columns `per_particle` holds.
 
     Pass `xref` (the positions the list was built at) whenever x may have
     drifted since the build; see _stage for why."""
     n = x.shape[0]
     nb = spec.n_blocks
-    fs, ms = _stage(spec, x, box, per_particle, spec.excbits, order, xref)
+    names = form.lowered.names if isinstance(form, UserForm) else None
+    fs, ms = _stage(spec, x, box, per_particle, spec.excbits, order, xref,
+                    names)
     if x.is_cuda:
         acc = tile_pair_cuda(fs, ms, hb, cb, wrap, box.contiguous(), form,
                              r_cut)

@@ -353,9 +353,35 @@ non-zero:
    and dU/dlambda, then energy, energy and forces, virial and dU/dlambda
    through the force at each grid with the launches counted (4 on K1, 4
    on K2);
-9. timings: each kernel's device time by torch.profiler (CUDA events
-   around a launch wrapper read the host's launch rate once a kernel is
-   shorter than its launch), everything else by CUDA events: K1, its
+   path (p3): path (i)'s 16-row stack (config 3b) with its softcore force
+   written as a CustomNonbondedForce whose function reads the row's
+   lambda_vdw as a global: K1 and K2 (the full stencil of the same grid)
+   compiled with the user form sweep the 16 rows in one launch, the rows'
+   lambdas a (16, C) table of constants, float64 and float32 against the
+   batched float64 twin, each row against its single-row launch (K2 bit
+   for bit, K1 at the float32 tolerance); the user force's rows, energies,
+   forces and dU/dlambda, against the built-in softcore force's in
+   float64; an HREXSampler with the user force runs 5 batched steps with
+   its launches counted (the user form one K1 launch a batched step + 1 a
+   run); the batched launch beside the 16 single-row launches, by CUDA
+   events. Path (p4): K3 compiled with (p1)'s user function on the 30k far
+   tile list, float64 and float32, energy and virial flags, against its
+   float64 twin and against K3's built-in lj_sw_rf form on the same list;
+   both timed. Path (q1): the legacy 10-12 term with atoms of one LJ type
+   that differ (an Amber slice: the peptide-like chain in TIP3P water,
+   amber_system) on the card's dense path, card against CPU in float64,
+   the force and 5 VV steps of the slice. Path (q2): a function of
+   torch.atan lowers and runs on the kernels; one that does not lower
+   (torch.sign) runs on the callable cell sweep on the card, counted in
+   CALLABLE_SWEEPS with one warning, both card against CPU. The cutoff
+   band: K1, K2, K3 and K4 in float32 at mask cutoffs 1e-12 either side
+   of O-O pairs' float64 distances, against their float64 twins;
+9. timings: each kernel's device time by CUDA events: its launch
+   wrapper's calls back to back, queued behind a busy wait of the stream
+   so that the host's launch rate does not enter, less its zero fill (and
+   a user form's column block) timed the same way; K4 and its pack kernel
+   by torch.profiler, which splits them; everything else by CUDA events:
+   K1, its
    whole sweep and its plain twin at the headline's near and far shapes,
    with the sweep's device operations
    counted by torch.profiler (1 to 4, exactly one of them the kernel, else
@@ -412,9 +438,13 @@ the bitmask form at (n2)'s grids; with each
 kernel's bound_ms,
 bound_by, library_ms = null: no single PyTorch call computes these sweeps
 (a cutoff pair sweep over cell buckets, a tile list or a block list);
-ms is the kernel's device time in torch.profiler, launch_ms the time of one
-call of its launch wrapper by CUDA events, both of this run), the
-nvidia-smi line again, and last {"ok": true, "device": {...}}.
+ms is the kernel's device time by CUDA events (K4's by torch.profiler),
+launch_ms the time of one call of its launch wrapper by CUDA events, both
+of this run; K1's and K2's `user_rows` carry (p3)'s batched launch, the 16
+single-row launches of the same rows, the plain twin, the bound and the
+float32 error; K3's `user` (p4)'s user form beside its built-in form on
+the same list), the nvidia-smi line again, and last {"ok": true,
+"device": {...}}.
 """
 import json
 import os
@@ -642,16 +672,18 @@ def nbytes(*tensors):
 
 def device_kernels(fn, reps=1, tries=3, enough=bool):
     """(name, device microseconds) of each device operation (kernel, fill,
-    copy) that `reps` calls of fn run, from torch.profiler. A profile that
-    `enough` refuses (by default one with no device event) is taken again,
-    after a pause of half a second, up to `tries` profiles in all; the last
-    is returned. (A profile of work that launched kernels has come back
-    with no device event at all, or without the events of its first calls,
-    on the card's machine; once five profiles in a row kept only 7 of a
-    sweep read's 24 events.)"""
+    copy) that `reps` calls of fn run, from torch.profiler. The profile
+    runs a warm-up cycle of `reps` calls before the one it records
+    (torch.profiler.schedule(wait=0, warmup=1, active=1)): the tracer is
+    started in the warm-up and the recorded calls find it running (a
+    profile that recorded from its first call lost the events of its first
+    calls, and once five profiles in a row kept only 7 of a sweep read's
+    24 events). A profile that `enough` refuses (by default one with no
+    device event) is taken again, after a pause of half a second, up to
+    `tries` profiles in all; the last is returned."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -659,27 +691,76 @@ def device_kernels(fn, reps=1, tries=3, enough=bool):
         if attempt:
             time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         seen = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
         if enough(seen):
             break
+        log(f"profiler read {attempt + 1} of {tries} refused: {len(seen)} "
+            f"device events")
     return seen
 
 
 def kernel_device_ms(fn, kernel, reps=20):
     """Milliseconds of device time per launch of `kernel` inside fn, from
-    torch.profiler over `reps` calls. Unlike CUDA events around a wrapper
-    this does not grow when the host cannot launch as fast as the kernel
-    runs."""
+    torch.profiler over `reps` calls: for a call of several kernels whose
+    split is wanted (K4 and its pack). A single kernel is timed by CUDA
+    events instead (kernel_event_ms)."""
     mine = [us for name, us in device_kernels(fn, reps)
             if f"{kernel}_kernel" in name]
     if not mine:
         raise RuntimeError(f"torch.profiler saw no {kernel} launch")
     return sum(mine) / len(mine) / 1e3
+
+
+# the card's clock for torch.cuda._sleep's cycles (the H100 SXM's boost
+# clock; a slower clock holds the stream longer)
+SLEEP_HZ = 1.98e9
+
+
+def event_ms(fn, reps=20, hold_ms=30.0):
+    """Device milliseconds of one call of fn: CUDA events around `reps`
+    calls back to back, queued behind a busy wait of the stream
+    (torch.cuda._sleep) that lasts until the host has queued them all, so
+    that the host's launch rate does not enter (the events time the
+    device's work alone, gaps between its operations included). Where the
+    host took longer than the wait to queue the calls, the wait doubles
+    and the read is taken again."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(int(hold_ms * 1e-3 * SLEEP_HZ))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued < 0.5 * hold_ms:
+            break
+        hold_ms *= 2.0
+    return start.elapsed_time(end) / reps
+
+
+def kernel_event_ms(launch, around, reps=20):
+    """Device milliseconds of the kernel that `launch` runs (its wrapper:
+    the kernel and the device operations it stages), by CUDA events
+    (event_ms): the wrapper's time less that of `around`, which runs the
+    wrapper's other device operations alone (the output's zero fill, a
+    user form's column block)."""
+    return event_ms(launch, reps) - event_ms(around, reps)
 
 
 def form_name(form):
@@ -1636,14 +1717,19 @@ def wall_ms(fn, reps=20):
 
 def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
     """K1 or K2 (the kernel the spec selects) at one shape: the kernel's
-    device time inside the sweep (torch.profiler), the launch wrapper, the
-    whole sweep and the plain twin by CUDA events; the sweep's device
+    device time, the launch wrapper, the whole sweep and the plain twin by
+    CUDA events; the sweep's device
     operations (at most
     4, exactly one of them the kernel, else the phase fails; none seen by
     the profiler fails it too), the work it has to do and its bound.
     `form` replaces the force's own pair form; a user form (of a
     CustomNonbondedForce, in the dtype of x) stages its column block in
-    each sweep, a zero fill and a copy a column more."""
+    each sweep, a zero fill and a copy a column more. The kernel's device
+    time is taken by CUDA events (kernel_event_ms: the launch wrapper less
+    its zero fill and column block), the device operations a sweep by
+    torch.profiler."""
+    import torch
+
     from atomsmm_tpu_torch.ops import neighbors as nb
     from atomsmm_tpu_torch.ops import pair_kernel as pk
 
@@ -1667,7 +1753,13 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
 
     sweep_ms = time_cuda(sweep, 20)
     p_ms = time_cuda(lambda: plain(*args), plain_reps)
-    k_ms = kernel_device_ms(sweep, kernel)
+
+    def around():  # the wrapper's device operations besides the kernel
+        torch.zeros((n + 1, 4), dtype=x.dtype, device=x.device)
+        if user:
+            pk.user_columns(form, pp, n, x.dtype, x.device)
+
+    k_ms = kernel_event_ms(lambda: cuda(*args), around)
     # device operations per sweep: the span between two launches of the
     # kernel among 32 profiled sweeps. The profiler has dropped events at
     # the start of its window (all of one sweep, two or three; three reads
@@ -1732,6 +1824,20 @@ def time_cells(label, force, spec, x, box, form=None, plain_reps=3):
             "bound": b, "launches_per_sweep": len(ops)}
 
 
+def tile_kernel_ms(fs, ms, hb, cb, wrap, box, form, reps=20):
+    """K3's device milliseconds on staged inputs, by CUDA events: its
+    launch wrapper less the accumulator's zero fill (kernel_event_ms)."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import tilepair as tp
+
+    return kernel_event_ms(
+        lambda: tp.tile_pair_cuda(fs, ms, hb, cb, wrap, box, form,
+                                  form.r_cut),
+        lambda: torch.zeros((fs.shape[0], fs.shape[1], 4), dtype=fs.dtype,
+                            device=fs.device), reps)
+
+
 def phase_timings(dev, main, small, eq):
     import torch
 
@@ -1764,8 +1870,7 @@ def phase_timings(dev, main, small, eq):
         pp = {k: v.to(dev) for k, v in force._per_particle().items()}
         order, hb, cb, wrap, _ = lst
         fs, ms = tp._stage(spec, x, box, pp, spec.excbits, order)
-        k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
-            fs, ms, hb, cb, wrap, box, form, form.r_cut), "tile_pair")
+        k_ms = tile_kernel_ms(fs, ms, hb, cb, wrap, box, form)
         l_ms = time_cuda(lambda: tp.tile_pair_cuda(
             fs, ms, hb, cb, wrap, box, form, form.r_cut), 20)
         w_ms = time_cuda(lambda: tp.tile_pair_energy_forces(
@@ -1842,8 +1947,7 @@ def phase_pme_timings(dev, pme_run, small, eq):
     pp = {k: v.to(dev) for k, v in force._per_particle().items()}
     order_, hb, cb, wrap, _ = lst
     fs, ms = tp._stage(spec, xt, bt, pp, spec.excbits, order_)
-    k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
-        fs, ms, hb, cb, wrap, bt, form, form.r_cut), "tile_pair")
+    k_ms = tile_kernel_ms(fs, ms, hb, cb, wrap, bt, form)
     p_ms = time_cuda(lambda: tp.tile_pair_plain(
         fs, ms, hb, cb, wrap, bt, form, form.r_cut), 3)
     log(f"timing tile_pair pme far water30k: kernel {k_ms:.4f} ms, plain "
@@ -2841,8 +2945,7 @@ def phase_npt_timings(dev, npt, small, eq, timings):
     pp = {k: v.to(dev) for k, v in force._per_particle().items()}
     order, hb, cb, wrap, _ = lst
     fs, ms = tp._stage(spec, xt, bt, pp, spec.excbits, order)
-    k_ms = kernel_device_ms(lambda: tp.tile_pair_cuda(
-        fs, ms, hb, cb, wrap, bt, form, form.r_cut), "tile_pair")
+    k_ms = tile_kernel_ms(fs, ms, hb, cb, wrap, bt, form)
     p_ms = time_cuda(lambda: tp.tile_pair_plain(
         fs, ms, hb, cb, wrap, bt, form, form.r_cut), 3)
     c = timings[("half_pair", "far")]["counts"]
@@ -3870,34 +3973,45 @@ def phase_kernels_replica(dev, tag, system, xs, boxes, buckets, globals):
                 torch.cuda.synchronize()
                 judge_rows(what, kernel, dtype, out, ref, terms, results,
                            form_name(form))
-                rtol, ftol = ((F64_RTOL, F64_FTOL) if dtype == f64
-                              else (F32_RTOL, F32_FTOL))
-                for r in range(k_rows):
-                    form_r = form if lamb is None else dataclasses.replace(
-                        form, lamb=float(lamb[r]))
-                    one = cuda_fn(xd[r].contiguous(), row_of(ppd, k_rows, r),
-                                  buckets[r].contiguous(), spec,
-                                  bd[r].contiguous(), form_r, form.r_cut)
-                    if kernel == "cell_pair":
-                        same = torch.equal(out[r], one)
-                    else:
-                        e_scale = float(one[:, 3].abs().sum()) if terms \
-                            else abs(float(one[:, 3].sum()))
-                        same = (abs(float(out[r, :, 3].double().sum()
-                                          - one[:, 3].double().sum()))
-                                <= rtol * max(e_scale, 1e-300)
-                                and float((out[r, :-1, :3] - one[:-1, :3])
-                                          .abs().max()) <= ftol * float(
-                                    one[:-1, :3].abs().max()))
-                    if not same:
-                        raise RuntimeError(
-                            f"{kernel} {what} {str(dtype)[6:]}: row {r} of "
-                            f"the batched launch departs from its "
-                            f"single-row launch")
-                log(f"kernel {kernel} {what} {str(dtype)[6:]}: each of the "
-                    f"{k_rows} rows equals its single-row launch "
-                    f"{'bit for bit' if kernel == 'cell_pair' else 'within the tolerances'}")
+                singles = [cuda_fn(
+                    xd[r].contiguous(), row_of(ppd, k_rows, r),
+                    buckets[r].contiguous(), spec, bd[r].contiguous(),
+                    form if lamb is None else dataclasses.replace(
+                        form, lamb=float(lamb[r])), form.r_cut)
+                    for r in range(k_rows)]
+                rows_vs_singles(f"{kernel} {what}", kernel, dtype, out,
+                                singles, terms)
     return results
+
+
+def rows_vs_singles(label, kernel, dtype, out, singles, terms):
+    """Each row of a batched launch's output (K, N + 1, 4) against the
+    single-row launch of that row: K2's bit for bit, K1's at the
+    tolerances of `dtype` (its atomics add in another order from launch to
+    launch), the energy to sum |e_i| with `terms`. Raises on a row that
+    departs; logs the outcome."""
+    import torch
+
+    rtol, ftol = ((F64_RTOL, F64_FTOL) if dtype == torch.float64
+                  else (F32_RTOL, F32_FTOL))
+    for r, one in enumerate(singles):
+        if kernel == "cell_pair":
+            same = torch.equal(out[r], one)
+        else:
+            e_scale = float(one[:, 3].abs().sum()) if terms \
+                else abs(float(one[:, 3].sum()))
+            same = (abs(float(out[r, :, 3].double().sum()
+                              - one[:, 3].double().sum()))
+                    <= rtol * max(e_scale, 1e-300)
+                    and float((out[r, :-1, :3] - one[:-1, :3]).abs().max())
+                    <= ftol * float(one[:-1, :3].abs().max()))
+        if not same:
+            raise RuntimeError(f"{label} {str(dtype)[6:]}: row {r} of the "
+                               "batched launch departs from its single-row "
+                               "launch")
+    log(f"kernel {label} {str(dtype)[6:]}: each of the {len(singles)} rows "
+        f"equals its single-row launch "
+        f"{'bit for bit' if kernel == 'cell_pair' else 'within the tolerances'}")
 
 
 def phase_rows_at_headline(dev, eq, k_rows=2):
@@ -4239,7 +4353,10 @@ def phase_hrex(dev, k_states=16, chunk=25, reps=4, update_every=5):
     timings = time_rows(f"path (i) 16 replicas cap {cap}", run_sys, st.x,
                         st.box, st.extra["nbr_bucket"], g)
     return {"launches": launches, "kernel_checks": kernel_checks,
-            "x0": xw, "box": box, "state_steps_per_s": batch,
+            "x0": xw, "box": box, "lams": lams, "system": run_sys,
+            "update_every": update_every,
+            "stack": (st.x, st.box, st.extra["nbr_bucket"], g),
+            "state_steps_per_s": batch,
             "seq_steps_per_s": seq, "swap_ms": sum(swap_ms) / reps,
             "step_ms": step_ms, "rebuild_ms": rebuild_ms, "split": split,
             "acceptance": acc / att, "t_rows": t_mean, "timings": timings}
@@ -6879,7 +6996,7 @@ def phase_user_forms(dev, eq, main, small, steps=100):
     # refresh of each pass; the bonded terms take no kernel
     expected = {"half_pair": 0, "cell_pair": 0, "tile_pair": 0,
                 "block_pair": 0, "half_pair_user": passes * (steps + 1),
-                "cell_pair_user": 0}
+                "cell_pair_user": 0, "tile_pair_user": 0}
     builtin = p1_run(dev, eq, user_headline(dev, eq, builtin=True), steps)
     expected_b = {**expected, "half_pair": passes * (steps + 1),
                   "half_pair_user": 0}
@@ -6972,7 +7089,8 @@ def phase_user_forms(dev, eq, main, small, steps=100):
     torch.cuda.synchronize()
     p2_launches = dict(pk.USER_LAUNCHES)
     require("path (p2)", {"launches": p2_launches == {"half_pair": 4,
-                                                      "cell_pair": 4},
+                                                      "cell_pair": 4,
+                                                      "tile_pair": 0},
                           "builtin": pk.LAUNCHES == {k: 0 for k in
                                                      pk.LAUNCHES}})
     log(f"path (p2) launches through the force's entry points: "
@@ -7019,6 +7137,645 @@ def phase_user_timings(dev, user):
         f"and {out['k1_builtin']['bound']['ms'] * 1e3:.2f} us over the same "
         f"pairs")
     return out
+
+
+# --- paths (p3), (p4), (q) and the cutoff band on the card ------------------
+
+
+def softcore_user_fn(r_cut, r_switch, name="lambda_vdw"):
+    """The softcore force's pair energy (SoftcoreLennardJonesForce: the
+    Beutler softcore LJ under the quintic switch, times the solute-solvent
+    cross mask) as a CustomNonbondedForce energy function over sigma,
+    epsilon and solute, its lambda read as the global `name`: in a stack,
+    the row's."""
+    import torch
+
+    from atomsmm_tpu_torch.ops import pairfuncs as pf
+    from atomsmm_tpu_torch.ops.switching import switch_quintic
+
+    def softcore_pair(r, pi, pj, g):
+        sig = 0.5 * (pi["sigma"] + pj["sigma"])
+        eps = torch.sqrt(pi["epsilon"] * pj["epsilon"])
+        u = pf.softcore_lj(r, sig, eps, g[name]) \
+            * switch_quintic(r.r, r_switch, r_cut)
+        cross = pi["solute"] + pj["solute"] \
+            - 2.0 * pi["solute"] * pj["solute"]
+        return u * cross
+
+    softcore_pair.takes_rv = True
+    return softcore_pair
+
+
+def softcore_as_user(system):
+    """(the SoftcoreLennardJonesForce of `system`, the CustomNonbondedForce
+    of softcore_user_fn over its atoms: the same columns, exclusions,
+    cutoff and group)."""
+    import atomsmm_tpu_torch as amm
+
+    soft = next(f for f in system.forces
+                if type(f).__name__ == "SoftcoreLennardJonesForce")
+    user = amm.CustomNonbondedForce(
+        per_particle={"sigma": soft.sigma, "epsilon": soft.epsilon,
+                      "solute": soft.solute.to(soft.sigma.dtype)},
+        exclusions=soft.exclusions, r_cut=float(soft.r_cut), group=soft.group,
+        energy_function=softcore_user_fn(float(soft.r_cut),
+                                         float(soft.r_switch),
+                                         soft.lambda_name))
+    return soft, user
+
+
+def phase_user_rows(dev, hrex, steps=5):
+    """Path (p3): config 3b's 16-row stack (path (i): phenol + 1,000
+    waters, 16 lambda states, at the sampler's last state and bucket) with
+    its softcore force written as a CustomNonbondedForce whose function
+    reads the row's lambda_vdw as a global. (1) K1 (half stencil) and K2
+    (the grid's full stencil) compiled with the user form sweep the 16
+    rows in one launch, the rows' lambdas a (16, C) table of constants,
+    float64 and float32 against the batched float64 plain twin
+    (judge_rows, to sum |e_i|), and each row against its single-row launch
+    (K2 bit for bit, K1 within the tolerances); (2) the user force's rows
+    against the built-in softcore force's (the same function) in float64;
+    (3) an HREXSampler on the system with the user force in place of the
+    softcore force runs `steps` batched steps: the user form one K1 launch
+    a batched step + 1 a run, the other two pair forces two built-in K1
+    launches a step + 2, no callable sweep; (4) the batched launch timed
+    beside the 16 single-row launches of the same rows, by CUDA events."""
+    import dataclasses
+
+    import torch
+
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops.pairtrace import UserForm
+    from atomsmm_tpu_torch.parallel import HREXSampler
+
+    run_sys = hrex["system"]
+    xs, boxes, buckets, g = hrex["stack"]
+    k_rows, n = xs.shape[0], xs.shape[1]
+    soft, user = softcore_as_user(run_sys)
+    pp = user.per_particle
+    half = run_sys.neighbors
+    full = dataclasses.replace(half, half_stencil=False)
+    f64, f32 = torch.float64, torch.float32
+    t0 = time.perf_counter()
+    exc = int(half.exclusions_far is not None)
+    _build_user_libs([(k, user.lowered(dt, {"lambda_vdw": 1.0}, dev), exc, 0)
+                      for k in ("half_pair", "cell_pair")
+                      for dt in (f64, f32)])
+    build_s = time.perf_counter() - t0
+    log(f"path (p3) build: 4 user-form libraries (K1, K2 x float64, "
+        f"float32) {build_s:.2f} s")
+
+    def rows_form(dtype, r=None):
+        low = user.lowered(dtype, {"lambda_vdw": 1.0}, dev)
+        c = low.consts_rows(g, k_rows, dev)
+        return UserForm(low, c if r is None else c[r], user.r_cut)
+
+    results, timings, deltas = [], {}, {}
+    for spec, kernel, cuda_fn, plain in (
+            (half, "half_pair", pk.half_pair_cuda, pk.half_pair_plain),
+            (full, "cell_pair", pk.full_pair_cuda, pk.full_pair_plain)):
+        pp64 = {k: v.to(f64) for k, v in pp.items()}
+        before = pk.USER_LAUNCHES[kernel]
+        ref = plain(cast_rows(xs, f64), pp64, buckets, spec,
+                    cast_rows(boxes, f64), rows_form(f64), user.r_cut)
+        for dtype in (f64, f32):
+            xd, bd = cast_rows(xs, dtype), cast_rows(boxes, dtype)
+            ppd = {k: v.to(dtype) for k, v in pp.items()}
+            form = rows_form(dtype)
+            out = cuda_fn(xd, ppd, buckets, spec, bd, form, user.r_cut)
+            torch.cuda.synchronize()
+            judge_rows(f"path (p3) softcore as a user function, {k_rows} "
+                       f"rows", kernel, dtype, out, ref, True, results,
+                       "user_rows")
+            singles = [cuda_fn(xd[r].contiguous(), ppd,
+                               buckets[r].contiguous(), spec,
+                               bd[r].contiguous(), rows_form(dtype, r),
+                               user.r_cut) for r in range(k_rows)]
+            rows_vs_singles(f"{kernel} path (p3) softcore as a user "
+                            "function", kernel, dtype, out, singles, True)
+        deltas[kernel] = pk.USER_LAUNCHES[kernel] - before
+        # the batched launch beside the rows' single-row launches (float32)
+        xd, bd = cast_rows(xs, f32), cast_rows(boxes, f32)
+        ppd = {k: v.to(f32) for k, v in pp.items()}
+        form = rows_form(f32)
+        forms = [rows_form(f32, r) for r in range(k_rows)]
+        args = (xd, ppd, buckets, spec, bd, form, user.r_cut)
+        k_ms = kernel_event_ms(
+            lambda: cuda_fn(*args),
+            lambda: (torch.zeros((k_rows, n + 1, 4), dtype=f32, device=dev),
+                     pk.user_columns(form, ppd, n, f32, dev)))
+        singles_ms = event_ms(lambda: [cuda_fn(
+            xd[r], ppd, buckets[r], spec, bd[r], forms[r], user.r_cut)
+            for r in range(k_rows)], reps=5)
+        p_ms = time_cuda(lambda: plain(*args), 1)
+        pairs = near = slots = 0
+        for r in range(k_rows):
+            c = sweep_counts(spec, form, xd[r], bd[r], ppd, buckets[r])
+            pairs, near, slots = (pairs + c["pairs"], near + c["near_pairs"],
+                                  slots + c["slots"])
+        nbr = spec.nbr_cells_half if kernel == "half_pair" else spec.nbr_cells
+        b = bound(form, pairs, near, slots, nbytes(
+            xd[0], pk.user_columns(form, ppd, n, f32, dev), form.consts,
+            spec.excbits, buckets[0], nbr, bd[0])
+            + k_rows * (n + 1) * 4 * 4)
+        log(f"timing {kernel} path (p3) {k_rows} rows grid {spec.grid} cap "
+            f"{spec.cell_capacity}, the softcore user form, float32 on "
+            f"{smi_line()}: one batched launch {k_ms:.4f} ms (CUDA events, "
+            f"the kernel), the {k_rows} single-row launches of the same rows "
+            f"{singles_ms:.4f} ms (CUDA events, their wrappers back to back; "
+            f"{singles_ms / k_ms:.2f}x); plain float32 twin {p_ms:.3f} ms; "
+            f"{pairs} in-range pairs over the rows; bound "
+            f"{b['ms'] * 1e3:.2f} us by {b['by']} ({b['ms'] / k_ms:.1%} of "
+            f"the bound)")
+        timings[kernel] = {"ms": k_ms, "singles_ms": singles_ms,
+                           "plain_ms": p_ms, "bound": b, "rows": k_rows}
+
+    # the user force's rows against the built-in softcore force's, float64
+    aux = {"default": {"spec": half, "bucket": buckets}}
+    x64, b64 = cast_rows(xs, f64), cast_rows(boxes, f64)
+    g64 = {k: v.to(f64) if isinstance(v, torch.Tensor) else v
+           for k, v in g.items()}
+    soft64 = dataclasses.replace(soft, sigma=soft.sigma.to(f64),
+                                 epsilon=soft.epsilon.to(f64),
+                                 solute=soft.solute.to(f64))
+    user64 = dataclasses.replace(user, per_particle={
+        k: v.to(f64) for k, v in pp.items()})
+    e_u, f_u = user64.energy_and_forces_rows(x64, b64, g64, aux)
+    e_s, f_s = soft64.energy_and_forces_rows(x64, b64, g64, aux)
+    d_u = user64.denergy_dlambda(x64, b64, g64, "lambda_vdw", aux)
+    d_s = torch.stack([soft64.denergy_dlambda(
+        x64[r], b64[r], {k: v[r] if isinstance(v, torch.Tensor) else v
+                         for k, v in g64.items()}, "lambda_vdw",
+        {"default": {"spec": half, "bucket": buckets[r]}})
+        for r in range(k_rows)])
+    e_err = float(((e_u - e_s).abs() / e_s.abs().clamp(min=1.0)).max())
+    f_err = float((f_u - f_s).abs().max() / f_s.abs().max())
+    d_err = float(((d_u - d_s).abs() / d_s.abs().clamp(min=1.0)).max())
+    log(f"path (p3) the user force's {k_rows} rows against the built-in softcore "
+        f"force's, float64 on the card: energies {e_err:.2e} (rel), forces "
+        f"{f_err:.2e} of max|F|, dU/dlambda_vdw {d_err:.2e} (rel; the user "
+        f"form's tangent seeded on the global, one launch over the rows)")
+
+    # the sampler's batched steps with the user force in the system
+    user_sys = dataclasses.replace(run_sys, forces=tuple(
+        user if f is soft else f for f in run_sys.forces))
+    sampler = HREXSampler(user_sys, hrex["x0"], hrex["box"], hrex["lams"],
+                          300.0, dt=0.001, seed=3,
+                          neighbor_update_every=hrex["update_every"])
+    pk.reset_launches()
+    sampler.run(steps)
+    torch.cuda.synchronize()
+    run_launches = {**pk.LAUNCHES,
+                    **{f"{k}_user": v for k, v in pk.USER_LAUNCHES.items()},
+                    "callable_cell": pk.CALLABLE_SWEEPS["cell"]}
+    expected = {"half_pair": 2 * (steps + 1), "cell_pair": 0,
+                "tile_pair": 0, "block_pair": 0,
+                "half_pair_user": steps + 1, "cell_pair_user": 0,
+                "tile_pair_user": 0, "callable_cell": 0}
+    finite = bool(torch.isfinite(sampler.positions()).all())
+    log(f"path (p3) HREXSampler with the softcore force as a user function, "
+        f"{k_rows} rows, {steps} batched steps: launches {run_launches} "
+        f"(expected {expected}); finite {finite}")
+    require("path (p3)", {
+        "kernel launches": deltas == {"half_pair": 2 * (k_rows + 1),
+                                      "cell_pair": 2 * (k_rows + 1)},
+        "user vs built-in": e_err <= F64_RTOL and f_err <= F64_FTOL
+        and d_err <= F64_RTOL,
+        "run launches": run_launches == expected, "finite": finite})
+    return {"results": results, "timings": timings, "build_s": build_s,
+            "launches": run_launches,
+            "max_abs_err": {k: max(r[4] for r in results if r[0] == k
+                                   and r[2] == "float32")
+                            for k in ("half_pair", "cell_pair")}}
+
+
+def _build_user_libs(jobs):
+    """Build the user-form libraries of `jobs` (kernel, lowered form, exc,
+    tri) at once, one nvcc each (_build.build_user)."""
+    from atomsmm_tpu_torch import _build
+
+    _build.build_user([(k, low.cuda_source(), exc, tri)
+                       for k, low, exc, tri in jobs])
+
+
+def phase_tile_user(dev, eq):
+    """Path (p4): K3 compiled with (p1)'s user function (the headline's
+    switched LJ + reaction field over charge, sigma and epsilon) on the 30k
+    far tile list (0.9 nm + 0.1 skin, the far list of path (b)), float64
+    and float32, in its energy and virial flags, against the float64 plain
+    twin on the same inputs; its energy and forces against K3's built-in
+    lj_sw_rf form on the same list (the same function, float64 at the
+    kernel tolerances); then both timed by CUDA events, with the bound of
+    the 30k state's distinct pairs."""
+    import dataclasses
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import tilepair as tp
+    from atomsmm_tpu_torch.ops.pairtrace import user_form
+
+    f64, f32 = torch.float64, torch.float32
+    s, _, _ = water_system(n_molecules=10000, neighbors=True, dtype=f64,
+                           device="cpu")
+    nbf = s.forces[0]
+    rc = float(nbf.r_cut)
+    user = amm.CustomNonbondedForce(
+        per_particle={"charge": nbf.charge.to(dev),
+                      "sigma": nbf.sigma.to(dev),
+                      "epsilon": nbf.epsilon.to(dev)},
+        exclusions=nbf.exclusions.to(dev), r_cut=rc,
+        energy_function=headline_user_fn(rc, float(nbf.r_switch),
+                                         float(nbf.eps_rf)))
+    t0 = time.perf_counter()
+    _build_user_libs([("tile_pair", user.lowered(dt, {}, dev), 0, 0)
+                      for dt in (f64, f32)])
+    build_s = time.perf_counter() - t0
+    builtin = nbf._pair_form()
+    results, out = [], {}
+    pk.reset_launches()
+    for dtype in (f64, f32):
+        x, box, lists = tile_lists(dev, eq, dtype)
+        _, spec, lst, cspec = lists["far"]
+        order, hb, cb, wrap, _ = lst
+        pp = {k: v.to(dtype) for k, v in user.per_particle.items()}
+        for flag in ("energy", "virial"):
+            kw = {"virial": True} if flag == "virial" else {}
+            form = dataclasses.replace(user_form(
+                user.lowered(dtype, {}, dev), {}, rc, dev), **kw)
+            plain = dataclasses.replace(user_form(
+                user.lowered(f64, {}, dev), {}, rc, dev), **kw)
+            e_k, f_k = tp.tile_pair_energy_forces(form, x, box, pp, spec,
+                                                  order, hb, cb, wrap, rc)
+            fs, ms = tp._stage(spec, x.to(f64), box.to(f64),
+                               {k: v.to(f64) for k, v in pp.items()},
+                               spec.excbits, order,
+                               names=plain.lowered.names)
+            acc = tp.tile_pair_plain(fs, ms, hb, cb, wrap, box.to(f64),
+                                     plain, rc)
+            nbk = spec.n_blocks
+            f_p = torch.zeros((x.shape[0] + 1, 3), dtype=f64, device=dev)
+            f_p.index_add_(0, order.long(), acc[:nbk, :, :3].reshape(-1, 3))
+            terms = float(acc[:nbk, :, 3].abs().sum())
+            results.append(("tile_pair",) + judge(
+                f"tile_pair (p4) water30k far list, the headline as a user "
+                f"function{' (virial)' if kw else ''}", dtype, e_k, f_k,
+                acc[:nbk, :, 3].sum(), f_p[:-1],
+                e_scale=terms if kw else None) + (form_name(form),))
+        if dtype == f64:
+            pb = {k: v.to(dtype) for k, v in nbf._per_particle().items()}
+            pb = {k: v.to(dev) for k, v in pb.items()}
+            e_b, f_b = tp.tile_pair_energy_forces(builtin, x, box, pb, spec,
+                                                  order, hb, cb, wrap, rc)
+            e_u, f_u = tp.tile_pair_energy_forces(
+                user_form(user.lowered(f64, {}, dev), {}, rc, dev), x, box,
+                pp, spec, order, hb, cb, wrap, rc)
+            judge("tile_pair (p4) user form vs built-in lj_sw_rf", f64, e_u,
+                  f_u, e_b, f_b)
+            continue
+        # the five launches of the checks above (float64: the two flags and
+        # the built-in comparison; float32: the two flags), then float32
+        # timings of the user form and the built-in form on the list
+        launches = dict(pk.USER_LAUNCHES)
+        require("path (p4)", {"launches": launches == {
+            "half_pair": 0, "cell_pair": 0, "tile_pair": 5}})
+        pb = {k: v.to(dev, f32) for k, v in nbf._per_particle().items()}
+        form = user_form(user.lowered(f32, {}, dev), {}, rc, dev)
+        fs_u, ms_u = tp._stage(spec, x, box, pp, spec.excbits, order,
+                               names=form.lowered.names)
+        fs_b, ms_b = tp._stage(spec, x, box, pb, spec.excbits, order)
+        u_ms = tile_kernel_ms(fs_u, ms_u, hb, cb, wrap, box, form)
+        b_ms = tile_kernel_ms(fs_b, ms_b, hb, cb, wrap, box, builtin)
+        p_ms = time_cuda(lambda: tp.tile_pair_plain(
+            fs_u, ms_u, hb, cb, wrap, box, form, rc), 1)
+        bucket, _ = nb.build_cell_buckets(cspec, x, box)
+        c = sweep_counts(cspec, builtin, x, box, pb, bucket)
+        live = int((hb < spec.n_blocks).sum())
+        slots = live * spec.block_size * 2 * spec.block_size
+        acc = tp.tile_pair_cuda(fs_u, ms_u, hb, cb, wrap, box, form, rc)
+        bu = bound(form, c["pairs"], 0, slots,
+                   nbytes(fs_u, ms_u, hb, cb, wrap, box, acc))
+        bb = bound(builtin, c["pairs"], 0, slots,
+                   nbytes(fs_b, ms_b, hb, cb, wrap, box, acc))
+        log(f"timing tile_pair path (p4) water30k far list ({live} entries), "
+            f"float32 on {smi_line()}: the user form {u_ms:.4f} ms, the "
+            f"built-in lj_sw_rf form {b_ms:.4f} ms on the same list "
+            f"({u_ms / b_ms:.3f}x; CUDA events, the kernel); plain float32 "
+            f"twin {p_ms:.3f} ms; {c['pairs']} distinct pairs; bound user "
+            f"{bu['ms'] * 1e3:.2f} us by {bu['by']} ({bu['ms'] / u_ms:.1%}), "
+            f"built-in {bb['ms'] * 1e3:.2f} us ({bb['ms'] / b_ms:.1%})")
+        out = {"ms": u_ms, "builtin_ms": b_ms, "plain_ms": p_ms,
+               "bound": bu, "builtin_bound": bb}
+    return {"results": results, "timing": out, "build_s": build_s,
+            "launches": launches["tile_pair"],
+            "max_abs_err": max(r[4] for r in results
+                               if r[2] == "float32")}
+
+
+def hbond_slice(device, n_res=4, seed=9):
+    """(q1)'s Amber slice: the peptide-like chain in TIP3P water
+    (models.peptide.peptide_in_water, read by amber_system, cutoff 0.9 nm,
+    reaction field, no NeighborSpec), float64 on `device`, its
+    NonbondedForce given the LJ types of its (sigma, epsilon) rows, the
+    legacy 10-12 term between the water oxygen's type and the chain's
+    hydrogen type (A 7500 kcal A^12, B 2300 kcal A^10), and one chain
+    hydrogen its own sigma, so that atoms of one type differ: no type-pair
+    table holds the term, and the force runs on the dense path. The
+    positions are the file's moved by a draw of 0.005 nm
+    (numpy.random.default_rng(seed))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models.peptide import peptide_in_water
+
+    prm, crd, _ = peptide_in_water(n_res)
+    s, x, box = amm.amber_system(prm, crd, method="cutoff", r_cut=0.9,
+                                 dtype=torch.float64, device=device)
+    k = next(i for i, f in enumerate(s.forces)
+             if type(f).__name__ == "NonbondedForce")
+    nbf = s.forces[k]
+    rows = np.stack([nbf.sigma.cpu().numpy(), nbf.epsilon.cpu().numpy()], 1)
+    _, types = np.unique(rows, axis=0, return_inverse=True)
+    types = types.reshape(-1).astype(np.int32)
+    n_types = int(types.max()) + 1
+    o_type = int(types[int(np.argmax(rows[:, 1]))])      # the water oxygen
+    h_type = int(types[int(np.argmin(np.where(rows[:, 1] > 0, rows[:, 1],
+                                              np.inf)))])
+    a = np.zeros((n_types, n_types))
+    b = np.zeros((n_types, n_types))
+    kcal = 4.184
+    for i, j in ((o_type, h_type), (h_type, o_type)):
+        a[i, j], b[i, j] = 7500.0 * kcal * 1e-12, 2300.0 * kcal * 1e-10
+    sig = nbf.sigma.clone()
+    sig[int(np.nonzero(types == h_type)[0][0])] *= 1.1
+    nbf = dataclasses.replace(
+        nbf, lj_type=torch.as_tensor(types, device=device), sigma=sig,
+        pair_a1012=torch.as_tensor(a, device=device),
+        pair_b1012=torch.as_tensor(b, device=device))
+    if not nbf._dense_only:
+        raise RuntimeError("(q1): the slice's 10-12 term found a table")
+    s = dataclasses.replace(s, forces=s.forces[:k] + (nbf,)
+                            + s.forces[k + 1:])
+    noise = np.random.default_rng(seed).normal(scale=0.005,
+                                               size=tuple(x.shape))
+    return s, x + torch.as_tensor(noise, device=device), box
+
+
+def phase_dense_hbond(dev, steps=5):
+    """(q1): the 10-12 term with atoms of one LJ type that differ, on the
+    card's dense path (hbond_slice): the force's energy and forces, card
+    against CPU in float64 (energy 1e-10, forces 1e-9 x max|F|), then
+    `steps` velocity-Verlet steps of the whole slice at 1 fs, card against
+    CPU (x and v to 1e-9 of their largest entry), with no pair-kernel
+    launch."""
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    out = []
+    pk.reset_launches()
+    for device in ("cpu", dev):
+        s, x, box = hbond_slice(device)
+        nbf = next(f for f in s.forces
+                   if type(f).__name__ == "NonbondedForce")
+        e, f = nbf.energy_and_forces(x, box, {})
+        ctx = amm.Context(s, amm.VelocityVerletIntegrator(0.001),
+                          amm.make_state(x, box=box))
+        ctx.set_velocities(torch.as_tensor(
+            __import__("numpy").random.default_rng(4).normal(
+                scale=0.3, size=tuple(x.shape)), dtype=x.dtype,
+            device=x.device))
+        ctx.step(steps)
+        out.append((e, f, ctx.state.x, ctx.state.v))
+    torch.cuda.synchronize()
+    (e_c, f_c, x_c, v_c), (e_g, f_g, x_g, v_g) = out
+    judge(f"dense (q1) Amber slice, the 10-12 term over mixed types, card "
+          f"vs CPU ({x_c.shape[0]} atoms)", torch.float64, e_g, f_g.cpu(),
+          e_c, f_c)
+    dx = float((x_g.cpu() - x_c).abs().max()) / float(x_c.abs().max())
+    dv = float((v_g.cpu() - v_c).abs().max()) / float(v_c.abs().max())
+    launches = dict(pk.LAUNCHES)
+    log(f"path (q1) {steps} VV steps of the slice on the dense path, card "
+        f"vs CPU: x {dx:.2e}, v {dv:.2e} of the largest entry; pair-kernel "
+        f"launches {launches}")
+    require("path (q1)", {"trajectory": dx <= 1e-9 and dv <= 1e-9,
+                          "no kernel": launches == {k: 0 for k in launches}})
+    return {"atoms": x_c.shape[0], "x_err": dx, "v_err": dv}
+
+
+def phase_callable(dev, n_water=216, r_cut=0.6):
+    """(q2): a user function of torch.atan on a CUDA cell list lowers and
+    runs on the kernels (a user launch, no callable sweep), card against
+    CPU; a function that does not lower (torch.sign) runs on the callable
+    cell sweep on the card, counted in CALLABLE_SWEEPS with one warning
+    and no kernel launch, card against CPU: water 216 at 0.6 nm (a grid
+    too small for half maps, K2), float64, energy 1e-10 and forces
+    1e-9 x max|F|."""
+    import warnings
+
+    import torch
+
+    import atomsmm_tpu_torch as amm
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+
+    def atan_pair(r, pi, pj, g):
+        return pi["q"] * pj["q"] * torch.atan(0.5 / r) / r
+
+    def sign_pair(r, pi, pj, g):
+        return torch.sign(r) * pi["q"] * pj["q"] / r
+
+    report = {}
+    for name, fn in (("atan", atan_pair), ("sign", sign_pair)):
+        out = []
+        for device in ("cpu", dev):
+            s, x, box = water_system(n_molecules=n_water, r_cut=r_cut,
+                                     r_switch=r_cut - 0.1, seed=5,
+                                     dtype=torch.float64, device=device)
+            nbf = s.forces[0]
+            force = amm.CustomNonbondedForce(
+                per_particle={"q": nbf.charge}, exclusions=nbf.exclusions,
+                energy_function=fn, r_cut=r_cut)
+            spec = nb.make_neighbor_spec(box, x.shape[0], r_cut,
+                                         exclusions=nbf.exclusions,
+                                         device=device)
+            sysd = amm.System(masses=s.masses, forces=(force,),
+                              default_box=box).with_neighbors(spec)
+            aux = nb.make_aux(sysd, nb.all_neighbor_extras(sysd, x, box))
+            pk.reset_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                e, f = force.energy_and_forces(x, box, {}, aux)
+                force.energy(x, box, {}, aux)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                counts = {"user": dict(pk.USER_LAUNCHES),
+                          "builtin": dict(pk.LAUNCHES),
+                          "callable": pk.CALLABLE_SWEEPS["cell"],
+                          "warnings": sum("callable cell sweep" in str(w.message)
+                                          for w in caught)}
+            out.append((e, f))
+        (e_c, f_c), (e_g, f_g) = out
+        judge(f"path (q2) {name} function card vs CPU", torch.float64, e_g,
+              f_g.cpu(), e_c, f_c)
+        log(f"path (q2) the {name} function on the card's cell list: user "
+            f"launches {counts['user']}, built-in {counts['builtin']}, "
+            f"callable sweeps {counts['callable']}, warnings "
+            f"{counts['warnings']}")
+        if name == "atan":
+            ok = (sum(counts["user"].values()) == 2
+                  and counts["callable"] == 0 and counts["warnings"] == 0)
+        else:
+            ok = (counts["callable"] == 2 and counts["warnings"] == 1
+                  and not any(counts["user"].values())
+                  and not any(counts["builtin"].values()))
+        require(f"path (q2) {name}", {"route": ok})
+        report[name] = counts
+    return report
+
+
+def band_water(n_molecules, seed=7, n_pairs=4):
+    """(force, x, box, pairs) for the cutoff-band checks: water at 0.9 nm
+    (reaction field, float64 on the CPU), each molecule moved off its
+    lattice site by a draw of up to 0.03 nm a component
+    (numpy.random.default_rng(seed)), the coordinates wrapped into the box
+    and rounded to float32; n_pairs O-O pairs of other molecules at
+    float64 distances between 0.85 and 0.89 nm."""
+    import numpy as np
+    import torch
+
+    from atomsmm_tpu_torch.models import water_system
+    from atomsmm_tpu_torch.ops.pbc import minimum_image
+
+    f32, f64 = torch.float32, torch.float64
+    system, x, box = water_system(n_molecules=n_molecules, r_cut=0.9,
+                                  r_switch=0.8, method="cutoff", seed=5,
+                                  dtype=f64, device="cpu")
+    m = n_molecules
+    shift = np.random.default_rng(seed).uniform(-0.03, 0.03, (m, 1, 3))
+    x = (x.reshape(m, 3, 3) + torch.as_tensor(shift)).reshape(-1, 3)
+    box = box.to(f32).to(f64)
+    x = (x - box * torch.floor(x / box)).to(f32).to(f64)
+    o = torch.arange(0, x.shape[0], 3)
+    d = minimum_image(x[o][:, None] - x[o][None], box).norm(dim=-1)
+    i, j = torch.nonzero(torch.triu((d > 0.85) & (d < 0.89), 1),
+                         as_tuple=True)
+    pairs = [float(d[a, b]) for a, b in zip(i[:n_pairs], j[:n_pairs])]
+    return system.forces[0], x, box, pairs
+
+
+def phase_cutoff_band(dev):
+    """K1, K2, K3 and K4 in float32 at mask cutoffs 1e-12 inside and
+    outside the float64 distance of an O-O pair (band_water: 4 pairs, 8
+    cutoffs each kernel), against their float64 plain twins on the same
+    float32 inputs at the float32 tolerances: the kernels decide a hit
+    within CUT_BAND of r_c^2 in float64, as the reference does. Water 800
+    takes K1's half stencil; water 400 K2's full one, the tile list (K3)
+    and the block list (K4)."""
+    import dataclasses
+
+    import torch
+
+    from atomsmm_tpu_torch.ops import blocks as tb
+    from atomsmm_tpu_torch.ops import neighbors as nb
+    from atomsmm_tpu_torch.ops import pair_kernel as pk
+    from atomsmm_tpu_torch.ops import tilepair as tp
+
+    f32, f64 = torch.float32, torch.float64
+    worst = {}
+    for kernel, m in (("half_pair", 800), ("cell_pair", 400),
+                      ("tile_pair", 400), ("block_pair", 400)):
+        force, x, box, pairs = band_water(m)
+        form = force._pair_form()
+        pp = {k: v.to(dev) for k, v in force._per_particle().items()}
+        x32, b32 = x.to(dev, f32), box.to(dev, f32)
+        pp32 = {k: v.to(f32) for k, v in pp.items()}
+        x64, b64 = x32.double(), b32.double()
+        pp64 = {k: v.to(f64) for k, v in pp32.items()}
+
+        def summed(out):
+            return out[:, 3].sum(), out[:-1, :3]
+
+        if kernel in ("half_pair", "cell_pair"):
+            spec = nb.make_neighbor_spec(box, x.shape[0], 0.9,
+                                         exclusions=force.exclusions,
+                                         occupancy_floor_from=x, device=dev)
+            if kernel == "cell_pair":
+                spec = dataclasses.replace(spec, half_stencil=False)
+            bucket, _ = nb.build_cell_buckets(spec, x32, b32)
+            plain = (pk.half_pair_plain if kernel == "half_pair"
+                     else pk.full_pair_plain)
+
+            def run(r_cut):
+                return nb.cell_pair_energy_forces(form, x32, b32, pp32, spec,
+                                                  bucket, r_cut)
+
+            def ref(r_cut):
+                return summed(plain(x64, pp64, bucket, spec, b64, form,
+                                    r_cut))
+        elif kernel == "tile_pair":
+            spec = tp.make_tilepair_spec(b32, x.shape[0], 0.9,
+                                         exclusions=force.exclusions,
+                                         occupancy_from=x, device=dev)
+            lst = tp.build_tile_pairs(spec, x32, b32)
+            fs, ms = tp._stage(spec, x64, b64, pp64, spec.excbits, lst[0])
+
+            def run(r_cut):
+                return tp.tile_pair_energy_forces(form, x32, b32, pp32, spec,
+                                                  *lst[:4], r_cut)
+
+            def ref(r_cut):
+                acc = tp.tile_pair_plain(fs, ms, *lst[1:4], b64, form, r_cut)
+                f = torch.zeros((x.shape[0] + 1, 3), dtype=f64, device=dev)
+                f.index_add_(0, lst[0].long(),
+                             acc[:spec.n_blocks, :, :3].reshape(-1, 3))
+                return acc[:spec.n_blocks, :, 3].sum(), f[:-1]
+        else:
+            spec = to_device(tb.make_block_spec(
+                box, x.shape[0], 0.9, skin=0.1, exclusions=force.exclusions,
+                occupancy_from=x, device="cpu"), dev)
+            order, cand, _ = tb.build_block_lists(spec, x32, b32)
+
+            def run(r_cut):
+                return tb.block_pair_energy_forces(form, x32, b32, pp32,
+                                                   spec, order, cand, r_cut)
+
+            def ref(r_cut):
+                return summed(tb.block_pair_plain(x64, pp64, order, cand,
+                                                  spec, b64, form, r_cut))
+        err = 0.0
+        for dist in pairs:
+            for side in (1.0, -1.0):
+                r_cut = dist * (1.0 + side * 1e-12)
+                before = pk.LAUNCHES[kernel]
+                e_k, f_k = run(r_cut)
+                torch.cuda.synchronize()
+                if pk.LAUNCHES[kernel] != before + 1:
+                    raise RuntimeError(f"cutoff band: {kernel} not launched")
+                e_p, f_p = ref(r_cut)
+                f_err = float((f_k.double() - f_p).abs().max()) \
+                    / float(f_p.abs().max())
+                e_err = abs(float(e_k) - float(e_p)) / abs(float(e_p))
+                err = max(err, f_err / F32_FTOL, e_err / F32_RTOL)
+                if f_err > F32_FTOL or e_err > F32_RTOL:
+                    raise RuntimeError(
+                        f"cutoff band: {kernel} float32 at r_c {r_cut!r} "
+                        f"(pair at {dist!r} nm): E rel {e_err:.2e}, forces "
+                        f"{f_err:.2e} of max|F|")
+        worst[kernel] = err
+        log(f"cutoff band {kernel} water {m}: {2 * len(pairs)} mask cutoffs "
+            f"1e-12 about an O-O pair's float64 distance, float32 against "
+            f"the float64 twin: worst {err:.3f} of the float32 tolerances")
+    return worst
 
 
 def split_log(name, step_ms, parts, rest_of):
@@ -7125,6 +7882,12 @@ def main():
     phase_npt_split(dev, npt_pme, "path (f) pme")
     n1 = phase_npt_sheared(dev, eq100, npt, f_move["whole attempt"])
     phase_npt_split(dev, n1, "path (n1)")
+    p3 = phase_user_rows(dev, hrex)
+    p4 = phase_tile_user(dev, eq)
+    q1 = phase_dense_hbond(dev)
+    q2 = phase_callable(dev)
+    band = phase_cutoff_band(dev)
+    results += p3["results"] + p4["results"]
 
     def f32_err(kernel, prefix):
         return max(r[4] for r in results if r[0] == kernel
@@ -7164,6 +7927,8 @@ def main():
         "path_n3": n3["launches"],
         "path_o": {"block_pair": blocks["launches"]},
         "path_p1": user["run_launches"],
+        "path_p3": {"half_pair": p3["launches"]["half_pair_user"]},
+        "path_p4": {"tile_pair": p4["launches"]},
     }
 
     def entry(kernel, source, replaces, launches, err, key, shape, pme_key):
@@ -7392,6 +8157,32 @@ def main():
         "path_p1_step_ms": user["run"]["ms"],
         "path_p1_builtin_step_ms": user["builtin"]["ms"],
         "parent_route_ms": user["parent_ms"]})
+    # path (p3): K1 and K2 over (i)'s 16 rows on the softcore force as a
+    # user function, one launch, beside the 16 single-row launches; path
+    # (p4): K3 on (p1)'s user function at the 30k far list beside its
+    # built-in form; (q): the dense 10-12 slice and the callable sweep;
+    # the cutoff band's worst share of the float32 tolerances
+    for entry_, kernel in ((k1, "half_pair"), (k2, "cell_pair")):
+        t = p3["timings"][kernel]
+        entry_["user_rows"] = {
+            "ms": t["ms"], "singles_ms": t["singles_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"]["ms"],
+            "bound_by": t["bound"]["by"], "rows": t["rows"],
+            "max_abs_err": p3["max_abs_err"][kernel],
+            "launches": p3["launches"][f"{kernel}_user"],
+            "build_s": p3["build_s"], "library_ms": None}
+    t = p4["timing"]
+    kernels["kernels"][2]["user"] = {
+        "ms": t["ms"], "builtin_ms": t["builtin_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound"]["ms"],
+        "bound_by": t["bound"]["by"],
+        "builtin_bound_ms": t["builtin_bound"]["ms"],
+        "launches": p4["launches"], "max_abs_err": p4["max_abs_err"],
+        "build_s": p4["build_s"], "library_ms": None}
+    for entry_ in kernels["kernels"]:
+        entry_["cutoff_band_worst"] = band[entry_["name"]]
+    k1.update({"path_q1_atoms": q1["atoms"],
+               "path_q2_callable_sweeps": q2["sign"]["callable"]})
     print(json.dumps(kernels), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

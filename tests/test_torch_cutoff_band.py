@@ -5,9 +5,10 @@ difference, of the image shift and of a staged frame, so a pair within
 that rounding of the cutoff could fall on the other side of it than the
 float64 plain twin, given the same float32 coordinates, puts it. Under
 PME the truncated Ewald force jumps there by more than 1e-4 of the
-largest force (one O-O pair of TIP3P at 0.9 nm: 0.38 kJ/mol/nm). K1, K2
-and K4 decide the slots within pair_forms.cuh::CUT_BAND of the cutoff
-again in float64, from the stored coordinates.
+largest force (one O-O pair of TIP3P at 0.9 nm: 0.38 kJ/mol/nm). K1, K2,
+K3 and K4 decide the slots within pair_forms.cuh::CUT_BAND of the cutoff
+again in float64, from the stored coordinates (K3: the staged unshifted
+coordinates, the entry's wrap x box added in float64).
 
 These cases take O-O pairs of water at their float64 distance d and
 set the mask cutoff to d (1 + 1e-12), the pair in range, or d (1 - 1e-12),
@@ -15,7 +16,11 @@ out of range. Both cutoffs round to one float32 value, so a test made in
 float32 alone gives one answer for both and misses in one of the two; the
 CPU case shows that of the float32 plain twin. The pair form is reaction
 field with its own 0.9 nm cutoff, so the pair's force at the mask cutoff
-is about 10 kJ/mol/nm, far above the tolerance.
+is about 10 kJ/mol/nm, far above the tolerance. The tile list (K3) takes
+the same water with its coordinates wrapped into the box before they are
+rounded to float32, so that its staging moves no coordinate; its float64
+twin is held to the JAX package's tile sweep with the pair within 5e-8 nm
+of the cutoff on either side.
 
     pytest tests/test_torch_cutoff_band.py -q
     pytest tests/test_torch_cutoff_band.py -m cuda -q --noconftest
@@ -30,6 +35,7 @@ from atomsmm_tpu_torch import models as tmodels
 from atomsmm_tpu_torch.ops import blocks as tblocks
 from atomsmm_tpu_torch.ops import neighbors as nb
 from atomsmm_tpu_torch.ops import pair_kernel as pk
+from atomsmm_tpu_torch.ops import tilepair as ttp
 from atomsmm_tpu_torch.ops.pbc import minimum_image
 
 F32, F64 = torch.float32, torch.float64
@@ -170,3 +176,99 @@ def test_k4_cutoff_as_float64_on_card(cuda, side):
         assert _held(float(out[:, 3].double().sum()),
                      out[:-1, :3].double().cpu(), float(ref[:, 3].sum()),
                      ref[:-1, :3].cpu()), (dist, side)
+
+
+# --- the tile list (K3) -----------------------------------------------------
+
+
+def _water_in_box():
+    """_water's system with its coordinates wrapped into [0, L) in float64
+    and then rounded to float32 (held in float64), and its pairs' float64
+    distances at those coordinates."""
+    force, x, box, pairs = _water()
+    x = (x - box * torch.floor(x / box)).to(F32).to(F64)
+    assert bool(((x >= 0) & (x < box)).all())
+    pairs = [(i, j, float(minimum_image(x[i] - x[j], box).norm()))
+             for i, j, _ in pairs]
+    return force, x, box, pairs
+
+
+def _tile_sweep(force, x, box, r_cut, dev, dtype, lists={}):
+    """K3 (its plain twin on the CPU) over the tile list of `force` at the
+    mask cutoff r_cut, on `dev` in `dtype`: (energy, forces) in float64 on
+    the CPU. The list is built once a (device, dtype) and kept in
+    `lists`."""
+    xd, bd = x.to(dev, dtype), box.to(dev, dtype)
+    key = (str(dev), dtype)
+    if key not in lists:
+        spec = ttp.make_tilepair_spec(bd, x.shape[0], 0.9,
+                                      exclusions=force.exclusions,
+                                      occupancy_from=x, device=dev)
+        lists[key] = (spec, ttp.build_tile_pairs(spec, xd, bd))
+    spec, lst = lists[key]
+    assert not bool(lst[4])
+    pp = {k: v.to(dev, dtype) for k, v in force._per_particle().items()}
+    e, f = ttp.tile_pair_energy_forces(force._pair_form(), xd, bd, pp, spec,
+                                       *lst[:4], r_cut)
+    return float(e), f.cpu().double()
+
+
+def test_k3_twin_at_the_cutoff_matches_jax_tile_sweep():
+    """A pair 5e-8 nm inside and outside the cutoff: K3's float64 twin
+    against the JAX package's tile sweep, energy 1e-10 and forces
+    1e-9 x max|F|; the pair's own force parts the two sides by more than
+    1e-4 x max|F|."""
+    import jax.numpy as jnp
+
+    from atomsmm_tpu import models as jmodels
+    from atomsmm_tpu.ops import tilepair as jtp
+
+    force, x, box, pairs = _water_in_box()
+    js, _, _ = jmodels.water_system(n_molecules=400, r_cut=0.9,
+                                    r_switch=0.8, method="cutoff", seed=5)
+    jf = js.forces[0]
+    jx, jb = jnp.asarray(x.numpy()), jnp.asarray(box.numpy())
+    jspec = jtp.make_tilepair_spec(box.numpy(), x.shape[0], 0.9,
+                                   exclusions=np.asarray(jf.exclusions),
+                                   occupancy_from=x.numpy())
+    jlist = jtp.build_tile_pairs(jspec, jx, jb)
+    for _, _, dist in pairs[:2]:
+        got = {}
+        for side, r_cut in (("in", dist + 5e-8), ("out", dist - 5e-8)):
+            je, jfor = jtp.tile_pair_energy_forces(
+                jf._pair_fn({}), jx, jb, jf._per_particle({}), jspec,
+                *jlist[:4], r_cut)
+            te, tfor = _tile_sweep(force, x, box, r_cut, "cpu", F64)
+            jfor = np.asarray(jfor)
+            assert te == pytest.approx(float(je), rel=1e-10)
+            np.testing.assert_allclose(tfor.numpy(), jfor, rtol=0,
+                                       atol=1e-9 * np.abs(jfor).max())
+            got[side] = (te, tfor)
+        assert not _held(*got["in"], *got["out"])
+
+
+def test_float32_k3_twin_misses_one_side():
+    """K3's float32 plain twin, deciding by float32 r^2 alone, disagrees
+    with its float64 twin on one side of every pair."""
+    force, x, box, pairs = _water_in_box()
+    for _, _, dist in pairs:
+        held = []
+        for side in ("in", "out"):
+            r_cut = _mask_cut(dist, side)
+            ref = _tile_sweep(force, x, box, r_cut, "cpu", F64)
+            held.append(_held(*_tile_sweep(force, x, box, r_cut, "cpu",
+                                           F32), *ref))
+        assert sorted(held) == [False, True], (dist, held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["in", "out"])
+def test_k3_cutoff_as_float64_on_card(cuda, side):
+    force, x, box, pairs = _water_in_box()
+    for _, _, dist in pairs:
+        r_cut = _mask_cut(dist, side)
+        before = pk.LAUNCHES["tile_pair"]
+        got = _tile_sweep(force, x, box, r_cut, cuda, F32)
+        assert pk.LAUNCHES["tile_pair"] == before + 1
+        ref = _tile_sweep(force, x, box, r_cut, "cpu", F64)
+        assert _held(*got, *ref), (dist, side)

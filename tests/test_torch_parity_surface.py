@@ -155,12 +155,13 @@ PORT_ONLY = {
         "twins; the JAX package's counterpart is ops/pallas_pair.py",
         None),
     "ops/pairtrace.py": (
-        "traces and lowers a CustomNonbondedForce's pair function for K1 "
-        "and K2, the counterpart of pallas_pair.py's _hoist_consts and the "
-        "jax.jvp inside its kernels",
+        "traces and lowers a CustomNonbondedForce's pair function for K1, "
+        "K2 and K3, the counterpart of pallas_pair.py's and tilepair.py's "
+        "_hoist_consts and the jax.jvp inside their kernels",
         {"lower_pair_function", "numeric_globals", "LoweredPair",
          "UserForm", "user_form",
-         "LoweredPair.consts_of", "LoweredPair.constant_index",
+         "LoweredPair.consts_of", "LoweredPair.consts_rows",
+         "LoweredPair.constant_index",
          "LoweredPair.counts", "LoweredPair.evaluate",
          "LoweredPair.cuda_source", "LoweredPair.n_consts",
          "UserForm.scalars", "UserForm.flags", "UserForm.u_dudr2"}),

@@ -27,7 +27,12 @@ float64 on the CPU against the JAX package, and on the card (marker
   * the 10-12 term without NBFIX tables: A and B by LJ type, sigma and
     epsilon by Lorentz-Berthelot, on the dense path and on the cells (a
     table combined from the types), and, where atoms of one type differ,
-    on the dense path of the CPU only.
+    on the dense path, on the CPU and on the card;
+  * a CustomNonbondedForce whose function does not lower (torch.sign)
+    runs on the callable cell sweep, counted in CALLABLE_SWEEPS with one
+    warning, against the JAX package's cell sweep of the same function
+    (1e-10); a function of torch.atan now lowers and never takes that
+    route.
 
 The JAX package is imported inside the tests that compare with it, so
 that the ``cuda`` cases run on a machine that has PyTorch alone:
@@ -36,8 +41,11 @@ They hold K1 and K2 in the split form against their float64 twins (f64
 1e-10 and 1e-9 x max|F|, f32 1e-4), a described spec without its bitmask
 built on the card by interop, K2 at a capacity above 1,024 through
 the dispatch, the dense path (argon 864 and 27 waters without a cutoff)
-card against CPU to 1e-9, the 10-12 table forms on K1 and K2, and 6 NPT
-steps in a sheared cell card against CPU with the uniforms shared.
+card against CPU to 1e-9, the 10-12 table forms on K1 and K2, the 10-12
+term over atoms of one type that differ on the card's dense path (an Amber
+slice: the peptide-like chain in TIP3P water, card against CPU, 1e-10),
+and 6 NPT steps in a sheared cell card against CPU with the uniforms
+shared.
 """
 import dataclasses
 import functools
@@ -526,6 +534,75 @@ def test_hbond_1012_without_tables_matches_jax(mixed):
         assert form.table and form.hbond
 
 
+# --- a user function that does not lower ----------------------------------------
+
+
+def _route_pair(mod, name):
+    """The user functions of the route tests, from torch or jax.numpy:
+    'sign' multiplies a Coulomb pair by sign(r) = 1 (no lowered
+    operation takes sign), 'atan' screens it by atan(0.5 / r)."""
+    if mod == "torch":
+        sign, atan = torch.sign, torch.atan
+    else:
+        import jax.numpy as jnp
+
+        sign, atan = jnp.sign, jnp.arctan
+    if name == "sign":
+        return lambda r, pi, pj, g: sign(r) * pi["q"] * pj["q"] / r
+    return lambda r, pi, pj, g: pi["q"] * pj["q"] * atan(0.5 / r) / r
+
+
+@pytest.mark.parametrize("name", ["sign", "atan"])
+def test_unlowered_function_takes_the_counted_callable_route(name):
+    """Water 125 at 0.6 nm (K2's grid): a function that does not lower
+    runs on the callable cell sweep, each sweep counted in
+    CALLABLE_SWEEPS, one warning naming the lowering error however many
+    sweeps; a function of atan lowers and takes the kernels' form, no
+    callable sweep and no warning. Both against the JAX package's XLA
+    cell sweep of the same function: energy 1e-10, forces 1e-9 x
+    max|F|."""
+    import warnings
+
+    import jax.numpy as jnp
+    from atomsmm_tpu import models as jmodels
+    from atomsmm_tpu.ops import neighbors as jnb
+
+    from atomsmm_tpu_torch.ops.pairtrace import UserForm
+
+    kw = dict(n_molecules=125, r_cut=0.6, r_switch=0.5, seed=5,
+              neighbors=True)
+    js, jx, jb = jmodels.water_system(**kw)
+    ts, tx, tb = tmodels.water_system(dtype=F64, device="cpu", **kw)
+    nb = ts.forces[0]
+    force = tamm.CustomNonbondedForce(
+        per_particle={"q": nb.charge}, exclusions=nb.exclusions,
+        energy_function=_route_pair("torch", name), r_cut=0.6)
+    system = tamm.System(masses=ts.masses, forces=(force,),
+                         default_box=tb).with_neighbors(ts.neighbors)
+    aux = tnb.make_aux(system, tnb.all_neighbor_extras(system, tx, tb))
+    tpk.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        e, f = force.energy_and_forces(tx, tb, {}, aux)
+        e2 = force.energy(tx, tb, {}, aux)
+        form = force._kernel_form({}, tx, aux["default"])
+    said = [w for w in caught if "callable cell sweep" in str(w.message)]
+    if name == "sign":
+        assert form is None and tpk.CALLABLE_SWEEPS["cell"] == 2
+        assert len(said) == 1 and "aten.sign" in str(said[0].message)
+    else:
+        assert isinstance(form, UserForm) and not said
+        assert tpk.CALLABLE_SWEEPS["cell"] == 0
+    jspec = dataclasses.replace(js.neighbors, backend="xla")
+    jbucket = jnb.neighbor_list_extras(jspec, jx, jb)[jnb.NBR_BUCKET]
+    jfn = _route_pair("jax", name)
+    je, jf = jnb.cell_pair_energy_forces(
+        lambda r, pi, pj: jfn(r, pi, pj, {}), jx, jb,
+        {"q": jnp.asarray(js.forces[0].charge)}, jspec, jbucket, 0.6)
+    _close(e, f, je, jf)
+    assert float(e2) == pytest.approx(float(e), rel=1e-12)
+
+
 # --- on the card ----------------------------------------------------------------
 
 
@@ -642,7 +719,8 @@ def test_dense_path_on_card_equals_cpu(cuda, name):
 def test_hbond_1012_table_forms_on_card(cuda):
     """The combined table of hbond_water's types, at 216 waters (a 3^3
     grid with half maps), on K1 and K2 against the twin; atoms of one type
-    that differ raise on the card."""
+    that differ have no kernel form and run on the card's dense path,
+    card against CPU."""
     kw = dict(n_molecules=216, r_cut=0.45, r_switch=0.4, seed=2)
     ts, tx, tb = tmodels.water_system(dtype=F64, device="cpu", **kw)
     types = (np.arange(tx.shape[0]) % 3 != 0).astype(np.int32)
@@ -663,7 +741,14 @@ def test_hbond_1012_table_forms_on_card(cuda):
     mixed_sig[1] = 0.12
     mixed = dataclasses.replace(tf, sigma=mixed_sig)
     with pytest.raises(InputError, match="10-12"):
-        mixed.energy(tx.to(cuda), tb.to(cuda), {})
+        mixed._pair_form()
+    card = dataclasses.replace(mixed, **{
+        k: getattr(mixed, k).to(cuda) for k in (
+            "charge", "sigma", "epsilon", "exclusions", "lj_type",
+            "pair_a1012", "pair_b1012")})
+    e_g, f_g = card.energy_and_forces(tx.to(cuda), tb.to(cuda), {})
+    e_c, f_c = mixed.energy_and_forces(tx, tb, {})
+    _close(e_g, f_g, float(e_c), f_c.numpy())
 
 
 @pytest.mark.cuda
@@ -689,3 +774,54 @@ def test_barostat_in_a_sheared_cell_on_card_equals_cpu(cuda, method):
     for a, b in ((c.x, g.x), (c.v, g.v), (c.box, g.box)):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
                                    atol=TRAJ_TOL * float(a.abs().max()))
+
+
+def hbond_amber_slice(device, n_res=2):
+    """An Amber slice (the peptide-like chain in TIP3P water,
+    models.peptide.peptide_in_water, read by amber_system at 0.9 nm,
+    reaction field, no NeighborSpec), float64 on `device`, whose
+    NonbondedForce gets the LJ types of its (sigma, epsilon) rows, the
+    10-12 term between the water oxygen's type and the chain hydrogen's
+    (A1012, B1012 of hbond_water's O-H slot) and one chain hydrogen its own
+    sigma: atoms of one type differ, no table holds the term."""
+    from atomsmm_tpu_torch.models.peptide import peptide_in_water
+
+    prm, crd, _ = peptide_in_water(n_res)
+    s, x, box = tamm.amber_system(prm, crd, method="cutoff", r_cut=0.9,
+                                  dtype=F64, device=device)
+    k = next(i for i, f in enumerate(s.forces)
+             if type(f).__name__ == "NonbondedForce")
+    nbf = s.forces[k]
+    rows = np.stack([nbf.sigma.cpu().numpy(), nbf.epsilon.cpu().numpy()], 1)
+    _, types = np.unique(rows, axis=0, return_inverse=True)
+    types = types.reshape(-1).astype(np.int32)
+    o_type = int(types[int(np.argmax(rows[:, 1]))])
+    h_type = int(types[int(np.argmin(np.where(rows[:, 1] > 0, rows[:, 1],
+                                              np.inf)))])
+    t = int(types.max()) + 1
+    a, b = np.zeros((t, t)), np.zeros((t, t))
+    for i, j in ((o_type, h_type), (h_type, o_type)):
+        a[i, j], b[i, j] = A1012[0, 1], B1012[0, 1]
+    sig = nbf.sigma.clone()
+    sig[int(np.nonzero(types == h_type)[0][0])] *= 1.1
+    nbf = dataclasses.replace(
+        nbf, lj_type=torch.as_tensor(types, device=device), sigma=sig,
+        pair_a1012=torch.as_tensor(a, device=device),
+        pair_b1012=torch.as_tensor(b, device=device))
+    return nbf, x, box
+
+
+@pytest.mark.cuda
+def test_hbond_1012_mixed_types_amber_slice_on_card(cuda):
+    """The Amber slice's NonbondedForce with the 10-12 term over atoms of
+    one type that differ: no kernel form, the dense path on the card,
+    card against CPU in float64 (energy 1e-10, forces 1e-9 x max|F|)."""
+    out = []
+    for device in ("cpu", cuda):
+        nbf, x, box = hbond_amber_slice(device)
+        assert nbf._dense_only and nbf._table is None
+        out.append(nbf.energy_and_forces(x, box, {}))
+    (e_c, f_c), (e_g, f_g) = out
+    with pytest.raises(InputError, match="10-12"):
+        nbf._pair_form()
+    _close(e_g, f_g, float(e_c), f_c.numpy())

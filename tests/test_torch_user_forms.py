@@ -205,6 +205,49 @@ def test_lowered_form_matches_jvp(name, dtype):
         assert float((dl - dlr).abs().max()) <= tol * float(dlr.abs().max())
 
 
+#: the elementwise operations lowered since the callable cell sweep took
+#: the functions that miss the list, each at arguments inside its domain
+UNARY_NEW = {"atan": (-3.0, 3.0), "asin": (-0.9, 0.9), "acos": (-0.9, 0.9),
+             "sinh": (-3.0, 3.0), "cosh": (-3.0, 3.0), "expm1": (-3.0, 2.0),
+             "log1p": (-0.5, 4.0)}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("op", sorted(UNARY_NEW))
+def test_new_unary_operations_match_jvp(op, dtype):
+    """atan, asin, acos, sinh, cosh, expm1 and log1p lower (one special
+    result each in the count), and their values and tangents in r² and in
+    a global match torch.func.jvp: float64 at 1e-12, float32 at 1e-5."""
+    dt = getattr(torch, dtype)
+    fun = getattr(torch, op)
+    lo, hi = UNARY_NEW[op]
+
+    def fn(r, pi, pj, g):   # the argument spans the domain over r in (0, 1)
+        return pi["q"] * pj["q"] * g["lam"] * fun(lo + (hi - lo) * r * r)
+
+    g = {"lam": torch.tensor(0.7, dtype=dt)}
+    low = pairtrace.lower_pair_function(fn, ["q"], dt, g)
+    assert f"u_{op}(" in low.cuda_source()
+    n = 1000
+    rng = np.random.default_rng(4)
+    r2 = torch.tensor(rng.uniform(0.0025, 0.9025, n), dtype=dt)
+    q = [torch.tensor(rng.uniform(0.5, 1.5, n), dtype=dt) for _ in range(2)]
+    u, du = low.evaluate(r2, q[:1], q[1:], low.consts_of(g))
+    ci, cj = {"q": q[0]}, {"q": q[1]}
+    ur, dur = torch.func.jvp(
+        lambda s: fn(pairtrace.make_rv(s).r, ci, cj, g), (r2,),
+        (torch.ones_like(r2),))
+    tol = 1e-12 if dt == F64 else 1e-5
+    assert float((u - ur).abs().max()) <= tol * float(ur.abs().max())
+    assert float((du - dur).abs().max()) <= tol * float(dur.abs().max())
+    _, dl = low.evaluate(r2, q[:1], q[1:], low.consts_of(g),
+                         dconst=low.constant_index("lam"))
+    _, dlr = torch.func.jvp(
+        lambda lv: fn(pairtrace.make_rv(r2).r, ci, cj, {"lam": lv}),
+        (g["lam"],), (torch.ones_like(g["lam"]),))
+    assert float((dl - dlr).abs().max()) <= tol * float(dlr.abs().max())
+
+
 def test_runtime_constants_and_literals():
     """A global and a captured 0-d tensor become runtime constants (a new
     value changes the result without a new trace); a float literal is
@@ -240,8 +283,8 @@ def _capture_table():
 
 
 REFUSALS = {
-    "operation": (lambda r, pi, pj, g: torch.atan(r) * pi["q"],
-                  ("q",), "aten.atan"),
+    "operation": (lambda r, pi, pj, g: torch.sign(r) * pi["q"],
+                  ("q",), "aten.sign"),
     "capture": (_capture_table(), ("q",), "shape (3,)"),
     "columns": (lambda r, pi, pj, g: r * 0.0,
                 ("a", "b", "c", "d", "e", "f"), "6 per-particle columns"),
@@ -504,8 +547,8 @@ def test_unlowerable_function_keeps_callable_sweep_on_cpu(pairs):
     (_, _, _), (ts, tx, tb), rc = pairs["k2"]
     base = headline_fn("torch", rc, rc - 0.1)
 
-    def odd(r, pi, pj, g):   # atan(0) = 0: the same energy, not lowerable
-        return base(r, pi, pj, g) + torch.atan(0.0 * r)
+    def odd(r, pi, pj, g):   # sign(r) = 1: the same energy, not lowerable
+        return torch.sign(r) * base(r, pi, pj, g)
 
     nb = ts.forces[0]
     pp = {"charge": nb.charge, "sigma": nb.sigma, "epsilon": nb.epsilon}
@@ -516,7 +559,8 @@ def test_unlowerable_function_keeps_callable_sweep_on_cpu(pairs):
     s = tamm.System(masses=ts.masses, forces=(forces[0],),
                     default_box=tb).with_neighbors(ts.neighbors)
     aux = tnb.make_aux(s, tnb.all_neighbor_extras(s, tx, tb))
-    assert forces[0]._kernel_form({}, tx, aux["default"]) is None
+    with pytest.warns(RuntimeWarning, match="aten.sign"):
+        assert forces[0]._kernel_form({}, tx, aux["default"]) is None
     e0, f0 = forces[0].energy_and_forces(tx, tb, {}, aux)
     e1, f1 = forces[1].energy_and_forces(tx, tb, {}, aux)
     assert float(e0) == pytest.approx(float(e1), rel=1e-10)
@@ -733,7 +777,8 @@ def test_user_form_kernel_matches_twin_on_card(cuda, kernel, dtype, exc,
                                        rtol=0,
                                        atol=ftol * float(fp.abs().max()))
     assert tpk.USER_LAUNCHES == {"half_pair": 3 * half,
-                                 "cell_pair": 3 * (not half)}
+                                 "cell_pair": 3 * (not half),
+                                 "tile_pair": 0}
     assert tpk.LAUNCHES == {k: 0 for k in tpk.LAUNCHES}
 
 
@@ -747,23 +792,36 @@ def spec_cpu(spec):
 
 @pytest.mark.cuda
 def test_unlowerable_function_raises_on_card(cuda):
+    """A function that does not lower runs on a CUDA cell list through the
+    callable cell sweep, counted in CALLABLE_SWEEPS with one warning naming
+    the lowering error, and agrees with the same sweep on the CPU; no user
+    launch."""
     s, x, box = _water("torch", 216, 0.6)
     nb = s.forces[0]
 
     def odd(r, pi, pj, g):
-        return torch.atan(r) * pi["q"] * pj["q"]
+        return torch.sign(r) * pi["q"] * pj["q"] / r
 
-    force = tamm.CustomNonbondedForce(
-        per_particle={"q": nb.charge.to(cuda)},
-        exclusions=nb.exclusions.to(cuda), energy_function=odd, r_cut=0.6)
-    xd, boxd = x.to(cuda), box.to(cuda)
-    spec = tnb.make_neighbor_spec(boxd, x.shape[0], 0.6,
-                                  exclusions=nb.exclusions, device=cuda)
-    sysd = tamm.System(masses=s.masses.to(cuda), forces=(force,),
-                       default_box=boxd).with_neighbors(spec)
-    aux = tnb.make_aux(sysd, tnb.all_neighbor_extras(sysd, xd, boxd))
-    tpk.reset_launches()
-    with pytest.raises(InputError, match="aten.atan"):
-        force.energy_and_forces(xd, boxd, {}, aux)
-    assert tpk.USER_LAUNCHES["cell_pair"] == 0
-    assert math.isfinite(float(force.energy(xd, boxd, {}, None)))
+    out = []
+    for dev in ("cpu", cuda):
+        force = tamm.CustomNonbondedForce(
+            per_particle={"q": nb.charge.to(dev)},
+            exclusions=nb.exclusions.to(dev), energy_function=odd,
+            r_cut=0.6)
+        xd, boxd = x.to(dev), box.to(dev)
+        spec = tnb.make_neighbor_spec(boxd, x.shape[0], 0.6,
+                                      exclusions=nb.exclusions, device=dev)
+        sysd = tamm.System(masses=s.masses.to(dev), forces=(force,),
+                           default_box=boxd).with_neighbors(spec)
+        aux = tnb.make_aux(sysd, tnb.all_neighbor_extras(sysd, xd, boxd))
+        tpk.reset_launches()
+        with pytest.warns(RuntimeWarning, match="aten.sign"):
+            out.append(force.energy_and_forces(xd, boxd, {}, aux))
+        force.energy(xd, boxd, {}, aux)
+        assert tpk.CALLABLE_SWEEPS["cell"] == 2
+        assert tpk.USER_LAUNCHES == {k: 0 for k in tpk.USER_LAUNCHES}
+        assert math.isfinite(float(force.energy(xd, boxd, {}, None)))
+    (e_c, f_c), (e_g, f_g) = out
+    assert float(e_g) == pytest.approx(float(e_c), rel=1e-10)
+    np.testing.assert_allclose(f_g.cpu().numpy(), f_c.numpy(), rtol=0,
+                               atol=1e-9 * float(f_c.abs().max()))
